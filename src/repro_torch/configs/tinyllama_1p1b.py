@@ -1,0 +1,20 @@
+"""tinyllama-1.1b [dense]: 22L d_model=2048 32H (GQA kv=4) d_ff=5632.
+
+Source: arXiv:2401.02385 (the reference's ``configs/tinyllama_1p1b.py``).
+"""
+
+from repro_torch.models.common import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="tinyllama-1.1b",
+        family="dense",
+        n_layers=22,
+        d_model=2048,
+        n_heads=32,
+        n_kv_heads=4,
+        head_dim=64,
+        d_ff=5632,
+        vocab=32000,
+    )

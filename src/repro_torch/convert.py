@@ -1,0 +1,109 @@
+"""The weight bridge: the reference's param trees -> the port's params.
+
+:func:`params_from_numpy` takes JAX ``LMParams`` leaves as numpy arrays --
+either the NamedTuple itself (``jax.tree.map(np.asarray, params)``) or a
+flat dict of the artifact's ``::``-joined paths
+(``blocks::0::attn::wq::w``, as ``checkpoint/store.py`` writes them) --
+and returns the port's :class:`~repro_torch.models.lm.LMParams` on
+``device``. The layouts are the same (stacked ``(n_groups, ...)`` blocks),
+so the bridge only moves bytes: every tensor is bitwise its array.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.lm import LMParams, block_period
+
+SEP = "::"
+
+
+def nest(flat: Mapping) -> dict:
+    """Rebuild nested dicts from ``::``-joined flat keys."""
+    out: dict = {}
+    for key, arr in flat.items():
+        node = out
+        parts = key.split(SEP)
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = arr
+    return out
+
+
+def to_tensor(arr, device) -> torch.Tensor:
+    """One numpy array (bf16 included) as a tensor on ``device``, bitwise."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16, as JAX hands it out
+        t = torch.from_numpy(np.array(arr.view(np.uint16))).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))
+    return t.to(device)
+
+
+def tree_to_torch(tree: Any, device) -> Any:
+    """Every array leaf of a dict/tuple/list tree as a tensor on ``device``."""
+    if isinstance(tree, Mapping):
+        return {k: tree_to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_to_torch(v, device) for v in tree)
+    return to_tensor(tree, device)
+
+
+def _seq(node) -> tuple:
+    """A sequence subtree: kept as is, or rebuilt from '0', '1', ... keys."""
+    if node is None:
+        return ()
+    if isinstance(node, Mapping):
+        return tuple(node[str(i)] for i in range(len(node)))
+    return tuple(node)
+
+
+def lm_params_from_nested(nested: Mapping, device) -> LMParams:
+    """:class:`LMParams` from a nested mapping keyed by its field names
+    (absent ``tail``/``extras``/``final_norm`` subtrees hold no leaves)."""
+    t = lambda node: tree_to_torch(node, device)
+    return LMParams(
+        embed=t(nested["embed"]),
+        blocks=tuple(t(b) for b in _seq(nested["blocks"])),
+        tail=tuple(t(b) for b in _seq(nested.get("tail"))),
+        final_norm=t(nested.get("final_norm", {})),
+        lm_head=t(nested["lm_head"]),
+        extras=t(nested.get("extras", {})),
+        gain_s=to_tensor(nested["gain_s"], device),
+    )
+
+
+def params_from_numpy(
+    tree: Any, cfg: Optional[ModelConfig] = None, device="cuda"
+) -> LMParams:
+    """The reference's LM params (numpy leaves) as the port's, on ``device``.
+
+    ``cfg``, when given, is checked against the tree (family, group count
+    and projection widths) so a tree of another architecture is refused.
+    """
+    dev = resolve_device(device)
+    if hasattr(tree, "_fields"):
+        nested = {f: getattr(tree, f) for f in tree._fields}
+    elif isinstance(tree, Mapping):
+        nested = nest(tree)
+    else:
+        raise TypeError(f"params_from_numpy: unsupported tree {type(tree).__name__}")
+    params = lm_params_from_nested(nested, dev)
+    if cfg is not None:
+        period = block_period(cfg)
+        n_groups = cfg.n_layers // len(period)
+        want = (n_groups, cfg.d_model, cfg.n_heads * cfg.hd)
+        got = tuple(params.blocks[0]["attn"]["wq"]["w"].shape)
+        head = tuple(params.lm_head["w"].shape)
+        if got != want or head != (cfg.d_model, cfg.vocab):
+            raise ValueError(
+                f"params do not match {cfg.name!r}: blocks wq {got} (want "
+                f"{want}), lm_head {head} (want {(cfg.d_model, cfg.vocab)})"
+            )
+    return params

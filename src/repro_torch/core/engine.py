@@ -1,0 +1,472 @@
+"""Program-once / execute-many engine, port of ``repro.core.engine``.
+
+Two phases, as on the AON-CiM accelerator (paper Sec. 5):
+
+  1. **Program phase** (:func:`compile_program`) -- every analog layer's
+     weights are written into PCM once: programming noise is drawn here and
+     frozen; drift and read noise are evaluated at the program's age. This
+     slice ports the unsharded program phase. Draws come from the caller's
+     ``torch.Generator``: the same distributions as the reference, not its
+     threefry bits (bit-identical chips are the RNG-bridge slice's work).
+  2. **Execute phase** (:func:`execute_mvm`) -- DAC-quantized inputs against
+     the programmed effective weights: tiled MVM, per-tile ADC, digital
+     accumulation, GDC ``out_scale``. On a CUDA tensor it always launches
+     the Hopper kernel; on a CPU tensor it runs the plain
+     :func:`tile_matmul_quant`. ``ExecutionPlan.use_kernel``/``interpret``
+     are kept for artifact parity but do not choose the path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import fnmatch
+import functools
+import math
+from typing import Any, Callable, Mapping as MappingT, Optional, Union
+
+import torch
+
+from repro_torch.core import pcm as pcm_lib
+from repro_torch.core import quant as quant_lib
+from repro_torch.core.quant import QuantSpec
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.ref import tile_mvm
+
+Tensor = torch.Tensor
+
+#: AnalogConfig.mode for inference against a compiled CiMProgram.
+PCM_PROGRAMMED = "pcm_programmed"
+
+# per-layer programming events since process start (the program-once
+# contract: serving a compiled chip adds zero)
+_PROGRAM_EVENTS = {"layers": 0}
+
+
+def program_event_count() -> int:
+    """Number of per-layer PCM programming events since process start."""
+    return _PROGRAM_EVENTS["layers"]
+
+
+def record_program_event() -> None:
+    _PROGRAM_EVENTS["layers"] += 1
+
+
+# ---------------------------------------------------------------------------
+# Execution plans
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionPlan:
+    """Static per-layer execution plan for the unified MVM hot path."""
+
+    k: int
+    n: int
+    tile_rows: int
+    tile_cols: int
+    per_tile_adc: bool
+    spec: QuantSpec
+    use_kernel: bool
+    interpret: bool
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_for(cfg, k: int, n: int, b_adc: Optional[int] = None) -> ExecutionPlan:
+    """The (cached) static execution plan of a (K, N) layer; ``b_adc``
+    overrides the config's bitwidth (validated against {4, 6, 8})."""
+    spec = cfg.spec
+    if b_adc is not None and b_adc != spec.b_adc:
+        quant_lib.validate_b_adc(b_adc, "per-layer b_adc override")
+        spec = dataclasses.replace(spec, b_adc=int(b_adc))
+    return ExecutionPlan(
+        k=k, n=n, tile_rows=cfg.tile_rows, tile_cols=cfg.tile_cols,
+        per_tile_adc=cfg.per_tile_adc, spec=spec,
+        use_kernel=cfg.use_kernel, interpret=cfg.interpret,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Per-layer ADC bitwidths: shape-encoded ``b_adc_buf`` leaves, as in the
+# reference (the bitwidth is the buffer's trailing dimension)
+# ---------------------------------------------------------------------------
+
+BitOverrides = Union[MappingT[str, int], tuple]
+
+
+def normalize_b_adc_overrides(overrides: Optional[BitOverrides]) -> tuple:
+    """Normalize overrides to a ((pattern, bits), ...) tuple; validate bits."""
+    if not overrides:
+        return ()
+    items = (
+        tuple(overrides.items())
+        if isinstance(overrides, MappingT)
+        else tuple(tuple(it) for it in overrides)
+    )
+    for pat, bits in items:
+        quant_lib.validate_b_adc(int(bits), f"b_adc override for {pat!r}")
+    return tuple((str(p), int(b)) for p, b in items)
+
+
+def resolve_b_adc(overrides: tuple, path: str, default: int) -> int:
+    """Bitwidth for ``path``: last matching override pattern wins."""
+    bits = default
+    for pat, b in overrides:
+        if path == pat or fnmatch.fnmatchcase(path, pat):
+            bits = b
+    return bits
+
+
+def b_adc_buf(stack: tuple, bits: int, device=None) -> Tensor:
+    """Shape-encoded per-layer bitwidth buffer (values double as a record)."""
+    return torch.full(
+        tuple(stack) + (int(bits),), int(bits), dtype=torch.int8, device=device
+    )
+
+
+def bits_of(buf: Optional[Tensor]) -> Optional[int]:
+    """Bitwidth of a ``b_adc_buf`` leaf (or None when absent)."""
+    return None if buf is None else int(buf.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# Execute phase
+# ---------------------------------------------------------------------------
+
+
+def execute_digital(x: Tensor, w: Tensor) -> Tensor:
+    """Digital baseline MVM (mode == "digital")."""
+    return torch.matmul(x, w.to(x.dtype))
+
+
+def tile_matmul_quant(
+    x: Tensor,
+    w: Tensor,
+    r_adc: Tensor,
+    spec: QuantSpec,
+    tile_rows: int,
+    per_tile_adc: bool,
+    out_scale=1.0,
+) -> Tensor:
+    """Plain execute: per-row-tile ADC quant + tile-serial digital sum.
+
+    x: (..., K), w: (K, N) in x's dtype. Products accumulate in fp32 (an
+    exact widening of bf16 operands), each tile's partial is ADC-quantized,
+    rounded to x's dtype and summed tile by tile; ``out_scale`` (the GDC
+    factor) multiplies the sum. ``tile_matmul_quant.calls`` counts calls.
+    """
+    tile_matmul_quant.calls += 1
+    return tile_mvm(
+        x.float(), w, r_adc, spec.b_adc, tile_rows, per_tile_adc, out_scale,
+        x.dtype,
+    )
+
+
+tile_matmul_quant.calls = 0
+
+
+def execute_mvm(
+    x_q: Tensor,
+    w_eff: Tensor,
+    r_adc: Tensor,
+    plan: ExecutionPlan,
+    *,
+    out_scale=1.0,
+) -> Tensor:
+    """Unified execute-phase MVM: pre-quantized inputs x effective weights.
+
+    A CUDA tensor launches the Hopper kernel (``r_adc`` is passed as is: the
+    ADC quantizer takes |r_adc| itself); a CPU tensor runs the plain
+    :func:`tile_matmul_quant`.
+    """
+    if x_q.device.type == "cuda":
+        return kernel_ops.analog_mvm(
+            x_q, w_eff, r_adc=r_adc, out_scale=out_scale,
+            bits=plan.spec.b_adc, tile_rows=plan.tile_rows,
+            per_tile_adc=plan.per_tile_adc,
+        )
+    if x_q.device.type != "cpu":
+        raise ValueError(f"execute_mvm: unsupported device {x_q.device}")
+    return execute_mvm_plain(x_q, w_eff, r_adc, plan, out_scale=out_scale)
+
+
+def execute_mvm_plain(
+    x_q: Tensor,
+    w_eff: Tensor,
+    r_adc: Tensor,
+    plan: ExecutionPlan,
+    *,
+    out_scale=1.0,
+) -> Tensor:
+    """:func:`execute_mvm` through the plain version on any device (for a
+    check that holds a whole forward on the card against the kernel)."""
+    return tile_matmul_quant(
+        x_q, w_eff, r_adc, plan.spec, plan.tile_rows, plan.per_tile_adc,
+        out_scale,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Program phase (unsharded)
+#
+# Each stack member (one layer of a stacked group) gets a 63-bit seed drawn
+# from the caller's generator; its programming, drift and read draws come
+# from independent streams derived from that seed, the way the reference
+# derives them from the member's threefry key. The seed is kept in the
+# state, so a later age re-evaluation can redraw the same devices.
+# ---------------------------------------------------------------------------
+
+_SEED_MOD = 1 << 63
+_STREAM_STRIDE = 0x9E3779B97F4A7C15  # golden-ratio increment between streams
+_PROG_POS, _PROG_NEG, _DRIFT_POS, _DRIFT_NEG, _READ_POS, _READ_NEG = range(6)
+
+
+def _stream(seed: int, stream: int, device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed((seed + stream * _STREAM_STRIDE) % _SEED_MOD)
+    return gen
+
+
+def _program_2d(w: Tensor, w_min, w_max, cfg: pcm_lib.PCMConfig, seed: int):
+    """Program one (K, N) block: write noise drawn HERE."""
+    dev = w.device
+    # the reference clips in f32 (f32 bounds promote a bf16 weight)
+    w_c = torch.minimum(torch.maximum(w.float(), w_min), w_max)
+    g_pos_t, g_neg_t, w_scale = pcm_lib.weights_to_conductances(w_c)
+    return {
+        "g_pos": pcm_lib.program(_stream(seed, _PROG_POS, dev), g_pos_t, cfg),
+        "g_neg": pcm_lib.program(_stream(seed, _PROG_NEG, dev), g_neg_t, cfg),
+        "q_pos": pcm_lib.read_noise_q(g_pos_t),
+        "q_neg": pcm_lib.read_noise_q(g_neg_t),
+        "gt_sum": pcm_lib.det_sum(g_pos_t + g_neg_t),
+        "w_scale": w_scale,
+    }
+
+
+def _drift_read_2d(state: dict, t, cfg: pcm_lib.PCMConfig, seed: int):
+    """Evaluate programmed conductances at age ``t`` -> (w_eff, gdc)."""
+    g_pos, g_neg = state["g_pos"], state["g_neg"]
+    dev = g_pos.device
+    if cfg.drift:
+        nu_p = pcm_lib.sample_drift_nu(_stream(seed, _DRIFT_POS, dev), g_pos, cfg)
+        nu_n = pcm_lib.sample_drift_nu(_stream(seed, _DRIFT_NEG, dev), g_neg, cfg)
+        g_pos = g_pos * pcm_lib.drift_factor(nu_p, t)
+        g_neg = g_neg * pcm_lib.drift_factor(nu_n, t)
+    if cfg.gdc:
+        # det_sum: the GDC scalar is the same bits under any reduction order
+        gdc = state["gt_sum"] / (pcm_lib.det_sum(g_pos + g_neg) + 1e-12)
+    else:
+        gdc = torch.ones((), dtype=torch.float32, device=dev)
+    if cfg.read_noise:
+        scale_t = pcm_lib.read_noise_scale(t, dev)
+        noise_p = torch.randn(
+            g_pos.shape, generator=_stream(seed, _READ_POS, dev), device=dev
+        )
+        noise_n = torch.randn(
+            g_neg.shape, generator=_stream(seed, _READ_NEG, dev), device=dev
+        )
+        g_pos = (g_pos + g_pos * state["q_pos"] * scale_t * noise_p).clamp(min=0.0)
+        g_neg = (g_neg + g_neg * state["q_neg"] * scale_t * noise_n).clamp(min=0.0)
+    return (g_pos - g_neg) * state["w_scale"], gdc
+
+
+def program_weight(
+    w: Tensor, w_min: Tensor, w_max: Tensor, t_seconds, cfg: pcm_lib.PCMConfig,
+    seeds: list[int],
+):
+    """Program a (stack..., K, N) weight once and evaluate it at t_seconds.
+
+    Every stack member gets its own write-noise draw, weight scale and GDC
+    scalar. Returns (w_eff, out_scale, state); the state holds the per-member
+    ``seed`` beside the conductances. Outputs are preallocated and filled
+    member by member, so the peak is one member's temporaries.
+    """
+    record_program_event()
+    stack = tuple(w.shape[:-2])
+    dev = w.device
+    k, n = w.shape[-2:]
+    n_members = math.prod(stack)
+    w_flat = w.reshape(n_members, k, n)
+    lo = torch.broadcast_to(w_min.float(), stack).reshape(n_members)
+    hi = torch.broadcast_to(w_max.float(), stack).reshape(n_members)
+    full = lambda: torch.empty((n_members, k, n), dtype=torch.float32, device=dev)
+    state = {"g_pos": full(), "g_neg": full(), "q_pos": full(), "q_neg": full()}
+    gt_sum = torch.empty((n_members,), dtype=torch.float32, device=dev)
+    w_scale = torch.empty_like(gt_sum)
+    out_scale = torch.empty_like(gt_sum)
+    w_eff = full()
+    for i, seed in enumerate(seeds):
+        st = _program_2d(w_flat[i], lo[i], hi[i], cfg, seed)
+        for name in ("g_pos", "g_neg", "q_pos", "q_neg"):
+            state[name][i] = st[name]
+        gt_sum[i], w_scale[i] = st["gt_sum"], st["w_scale"]
+        w_eff[i], out_scale[i] = _drift_read_2d(st, t_seconds, cfg, seed)
+    state = {key: v.reshape(stack + (k, n)) for key, v in state.items()}
+    state["gt_sum"] = gt_sum.reshape(stack)
+    state["w_scale"] = w_scale.reshape(stack)
+    state["seed"] = torch.tensor(seeds, dtype=torch.int64, device=dev).reshape(stack)
+    return w_eff.reshape(stack + (k, n)), out_scale.reshape(stack), state
+
+
+def _is_linear_layer(node: dict) -> bool:
+    return isinstance(node.get("w"), Tensor) and "r_adc" in node and "w_clip_buf" in node
+
+
+def _is_expert_bank(node: dict) -> bool:
+    return (
+        all(isinstance(node.get(k), Tensor) for k in ("w1", "w3", "w2"))
+        and "r_adc" in node and "w_clip_buf" in node and "w" not in node
+    )
+
+
+def _walk(tree: Any, fn: Callable[[str, dict], dict], path: str = "") -> Any:
+    """Rebuild ``tree``, applying ``fn(path, node)`` to analog-layer dicts."""
+    if isinstance(tree, dict):
+        if _is_linear_layer(tree):
+            return fn(path, tree)
+        if _is_expert_bank(tree):
+            raise NotImplementedError(
+                f"{path}: MoE expert banks are programmed in a later slice "
+                "(this slice serves the dense family)"
+            )
+        return {k: _walk(v, fn, f"{path}/{k}" if path else k) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):  # NamedTuple (LMParams)
+        return type(tree)(
+            *(_walk(getattr(tree, f), fn, f"{path}/{f}" if path else f)
+              for f in tree._fields)
+        )
+    if isinstance(tree, (tuple, list)):
+        out = [_walk(v, fn, f"{path}/{i}" if path else str(i)) for i, v in enumerate(tree)]
+        return type(tree)(out) if isinstance(tree, tuple) else out
+    return tree
+
+
+@dataclasses.dataclass
+class CiMProgram:
+    """A compiled analog deployment: programmed params + static plans.
+
+    ``params`` mirror the source tree with every analog layer's weights
+    replaced by PCM effective weights plus an ``out_scale_buf`` GDC scalar;
+    they drop into ``models.lm.lm_forward`` with ``cfg`` (mode
+    ``pcm_programmed``). ``state`` holds the frozen programming state per
+    layer path. ``mapping`` is a loaded artifact's physical-array mapping,
+    kept as its raw dict until ``core/crossbar.py`` is ported. Aging a
+    program (``drift_to``) comes with the drift slice.
+    """
+
+    params: Any
+    cfg: Any
+    t_seconds: float
+    state: dict[str, Any]
+    plans: dict[str, ExecutionPlan]
+    mapping: Optional[dict] = None
+    age_history: tuple[float, ...] = ()
+    chip_id: Optional[int] = None
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.plans)
+
+
+def compile_program(
+    params: Any,
+    cfg: Any,
+    generator: torch.Generator,
+    *,
+    t_seconds: Optional[float] = None,
+    with_mapping: bool = False,
+    shardings: Any = None,
+    b_adc_overrides: Optional[BitOverrides] = None,
+    chip_id: Optional[int] = None,
+    device="cuda",
+) -> CiMProgram:
+    """Program phase: walk ``params`` once and build a :class:`CiMProgram`.
+
+    ``cfg`` is an AnalogConfig (its mode is ignored; the program's cfg is
+    the same config in ``pcm_programmed`` mode). ``generator`` draws one
+    seed per programmed layer member; it and ``params`` live on ``device``.
+    ``b_adc_overrides`` maps fnmatch patterns over '/'-joined layer paths to
+    per-layer ADC bits, recorded as shape-encoded ``b_adc_buf`` leaves.
+    """
+    dev = resolve_device(device)
+    if with_mapping:
+        raise NotImplementedError(
+            "with_mapping needs core/crossbar.py, which a later slice ports"
+        )
+    if shardings is not None:
+        raise NotImplementedError(
+            "sharded programming is the distribution slice's work; this "
+            "slice programs one unsharded chip"
+        )
+    if getattr(cfg, "resample_read_noise", False):
+        raise NotImplementedError(
+            "resample_read_noise programs read buffers; it comes with the "
+            "RNG-bridge slice"
+        )
+    if torch.device(generator.device).type != dev.type:
+        raise ValueError(
+            f"generator is on {generator.device}, compile_program on {dev}"
+        )
+    t = float(cfg.t_seconds if t_seconds is None else t_seconds)
+    overrides = normalize_b_adc_overrides(b_adc_overrides)
+    if overrides:
+        quant_lib.validate_b_adc(cfg.b_adc, "cfg.b_adc (with overrides)")
+    state: dict[str, Any] = {}
+    plans: dict[str, ExecutionPlan] = {}
+
+    def program_node(path: str, node: dict) -> dict:
+        w = node["w"]
+        if w.device.type != dev.type:
+            raise ValueError(f"layer {path!r} lives on {w.device}, not {dev}")
+        if w.dim() > 3:
+            raise ValueError(
+                f"layer '{path}': weight shape {tuple(w.shape)} has more than "
+                "one stack dim"
+            )
+        bits = resolve_b_adc(overrides, path, cfg.b_adc)
+        stack = tuple(w.shape[:-2])
+        n_members = math.prod(stack)
+        seeds = torch.randint(
+            0, _SEED_MOD - 1, (n_members,), generator=generator,
+            dtype=torch.int64, device=generator.device,
+        ).tolist()
+        buf = node["w_clip_buf"]
+        w_eff, gdc, st = program_weight(
+            w, buf[..., 0], buf[..., 1], t, cfg.pcm, seeds
+        )
+        new = dict(node)
+        new["w"] = w_eff.to(w.dtype)
+        new["out_scale_buf"] = gdc
+        if bits != cfg.b_adc:
+            new["b_adc_buf"] = b_adc_buf(stack, bits, dev)
+        state[path] = st
+        plans[path] = plan_for(cfg, int(w.shape[-2]), int(w.shape[-1]), b_adc=bits)
+        return new
+
+    programmed = _walk(params, program_node)
+    return CiMProgram(
+        params=programmed,
+        cfg=dataclasses.replace(cfg, mode=PCM_PROGRAMMED, quant_noise_p=1.0),
+        t_seconds=t,
+        state=state,
+        plans=plans,
+        age_history=(t,),
+        chip_id=chip_id,
+    )
+
+
+def cast_weights(params: Any, dtype: torch.dtype) -> Any:
+    """``params`` with every analog layer's weights pre-cast to ``dtype``.
+
+    The execute phase casts weights to the activation dtype on every call
+    (``analog_matmul``); at tinyllama-1.1b width that is a 4 GB f32 -> bf16
+    pass per decode step. The cast is deterministic, so executing one
+    pre-cast copy is bitwise the same. Other leaves are shared, not copied.
+    """
+
+    def cast(_path: str, node: dict) -> dict:
+        new = dict(node)
+        new["w"] = node["w"].to(dtype)
+        return new
+
+    return _walk(params, cast)

@@ -1,0 +1,127 @@
+"""Shared model components, port of ``repro.models.common``: the LM config,
+RMSNorm, embeddings and RoPE. No logical-axis sharding (one card)."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """LM-family configuration; every field of the reference's is kept.
+
+    ``dtype`` is a ``torch.dtype`` (default bfloat16; :meth:`smoke` gives
+    float32), the activation dtype of the whole forward.
+    """
+
+    name: str = "model"
+    family: str = "dense"  # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int = 2
+    d_model: int = 128
+    n_heads: int = 2
+    n_kv_heads: int = 2
+    d_ff: int = 256
+    vocab: int = 256
+    head_dim: int = 0  # 0 -> d_model // n_heads
+    n_experts: int = 0
+    top_k: int = 0
+    moe_every: int = 1
+    shared_expert: bool = False
+    capacity_factor: float = 1.25
+    moe_groups: int = 16
+    moe_dispatch: str = "einsum"
+    ssm_state: int = 0
+    ssm_headdim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    conv_width: int = 4
+    block_pattern: tuple = ()
+    local_window: int = 2048
+    lru_width: int = 0
+    qkv_bias: bool = False
+    nonparametric_ln: bool = False
+    n_codebooks: int = 0
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    frontend: str = "none"
+    num_patches: int = 0
+    attn_chunk_q: int = 512
+    attn_chunk_kv: int = 1024
+    dtype: Any = torch.bfloat16
+    remat: bool = True
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def smoke(self) -> "ModelConfig":
+        """Reduced config of the same family for CPU smoke tests (the
+        reference's ``smoke()`` values)."""
+        return dataclasses.replace(
+            self,
+            n_layers=max(2, len(self.block_pattern) or 2),
+            d_model=64,
+            n_heads=4,
+            n_kv_heads=max(1, min(self.n_kv_heads, 2)),
+            d_ff=128,
+            vocab=256,
+            head_dim=16,
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
+            moe_groups=2,
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_headdim=16,
+            ssm_chunk=16,
+            local_window=32,
+            lru_width=0,
+            num_patches=8 if self.frontend == "vision_patches" else 0,
+            attn_chunk_q=16,
+            attn_chunk_kv=32,
+            dtype=torch.float32,
+            remat=False,
+        )
+
+
+def rmsnorm_init(cfg: ModelConfig, width: int | None = None, *, device) -> dict:
+    if cfg.nonparametric_ln:
+        return {}
+    return {"scale": torch.ones((width or cfg.d_model,), device=device)}
+
+
+def rmsnorm_apply(params: dict, x: Tensor, eps: float = 1e-6) -> Tensor:
+    dtype = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    if "scale" in params:
+        x = x * params["scale"]
+    return x.to(dtype)
+
+
+def embedding_init(gen: torch.Generator, vocab: int, d_model: int) -> dict:
+    t = torch.randn((vocab, d_model), generator=gen, device=gen.device)
+    return {"table": t * 0.02}
+
+
+def embedding_apply(params: dict, tokens: Tensor, dtype) -> Tensor:
+    # gather, then cast: the same values as the reference's cast-then-
+    # gather, without casting the whole table on every call
+    return params["table"][tokens].to(dtype)
+
+
+def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
+    """Rotary embeddings. x: (..., S, H, hd), positions: (..., S)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    exponent = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freqs = torch.pow(torch.full_like(exponent, theta), exponent)
+    angles = positions[..., None].float() * freqs  # (..., S, half)
+    cos = torch.cos(angles)[..., None, :]  # broadcast over heads
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

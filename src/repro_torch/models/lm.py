@@ -1,0 +1,332 @@
+"""The dense LM, port of ``repro.models.lm`` (``family="dense"`` only).
+
+Parameters keep the reference's layout -- :class:`LMParams` with the block
+stack as ``(n_groups, ...)`` tensors -- so a JAX param tree or program
+artifact maps onto it leaf for leaf (``convert.params_from_numpy``,
+``checkpoint.store.load_program``). The forward walks the groups in a
+Python loop (eager; no scan), each group reading views of the stacked
+leaves. Every projection is an analog linear layer: under a compiled
+program's ``pcm_programmed`` config each one is a programmed MVM.
+
+Caches: ``(group caches, tail caches)``. The *stacked* layout holds one
+``(n_groups, ...)`` buffer per leaf; the *list* layout (decode, and the
+serving engine's per-slot cache) holds one :class:`KVCache` per group. KV
+rows are written in place in either layout. Other families raise.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from repro_torch.core.analog import AnalogConfig, AnalogCtx, MvmFn, linear_apply, linear_init
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.common import (
+    ModelConfig,
+    embedding_apply,
+    embedding_init,
+    rmsnorm_apply,
+    rmsnorm_init,
+)
+
+Tensor = torch.Tensor
+
+
+def block_period(cfg: ModelConfig) -> list[str]:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is ported in a later slice; this slice "
+            "runs the dense LM"
+        )
+    return ["attn"]
+
+
+def mlp_init(gen: torch.Generator, cfg: ModelConfig, *, stack: tuple = ()) -> dict:
+    return {
+        "w1": linear_init(gen, cfg.d_model, cfg.d_ff, stack=stack),
+        "w3": linear_init(gen, cfg.d_model, cfg.d_ff, stack=stack),
+        "w2": linear_init(gen, cfg.d_ff, cfg.d_model, stack=stack),
+    }
+
+
+def mlp_apply(params: dict, x: Tensor, ctx: AnalogCtx) -> Tensor:
+    h = torch.nn.functional.silu(linear_apply(params["w1"], x, ctx)) * linear_apply(
+        params["w3"], x, ctx
+    )
+    return linear_apply(params["w2"], h, ctx)
+
+
+def _block_init(gen: torch.Generator, cfg: ModelConfig, *, stack: tuple = ()) -> dict:
+    dev = gen.device
+    norm = lambda: {
+        k: v.expand(tuple(stack) + v.shape).contiguous()
+        for k, v in rmsnorm_init(cfg, device=dev).items()
+    }
+    return {
+        "norm1": norm(),
+        "norm2": norm(),
+        "attn": attn_lib.attn_init(gen, cfg, stack=stack),
+        "ffn": mlp_init(gen, cfg, stack=stack),
+    }
+
+
+def _block_apply(
+    params: dict, x: Tensor, ctx: AnalogCtx, cfg: ModelConfig,
+    positions: Tensor, cache,
+):
+    """One block: norm -> attention -> residual -> norm -> ffn -> residual."""
+    h = rmsnorm_apply(params["norm1"], x, cfg.norm_eps)
+    out, new_cache = attn_lib.attn_apply(
+        params["attn"], h, ctx, cfg, positions=positions, cache=cache
+    )
+    x = x + out
+    h = rmsnorm_apply(params["norm2"], x, cfg.norm_eps)
+    return x + mlp_apply(params["ffn"], h, ctx), new_cache
+
+
+class LMParams(NamedTuple):
+    embed: dict
+    blocks: Any  # tuple over the period of stacked (n_groups, ...) dicts
+    tail: tuple  # leftover (unscanned) block params
+    final_norm: dict
+    lm_head: dict
+    extras: dict
+    gain_s: Tensor  # network-wide ADC gain S (Eq. 5)
+
+
+def _check_cfg(cfg: ModelConfig) -> list[str]:
+    period = block_period(cfg)
+    if cfg.n_codebooks or cfg.frontend != "none":
+        raise NotImplementedError(
+            "multi-codebook heads and feature frontends come with their "
+            "families in a later slice"
+        )
+    return period
+
+
+def lm_init(generator: torch.Generator, cfg: ModelConfig, *, device="cuda") -> LMParams:
+    """Random dense-LM params drawn from ``generator`` (on ``device``).
+
+    The reference's initializers (N(0, d_in^-1/2) projections, N(0, 0.02)
+    embeddings, unit norms, r_adc = 1, clip range [-1, 1], S = 1); the draws
+    follow torch's generator, not JAX's keys.
+    """
+    dev = resolve_device(device)
+    if torch.device(generator.device).type != dev.type:
+        raise ValueError(f"generator is on {generator.device}, lm_init on {dev}")
+    period = _check_cfg(cfg)
+    n_groups = cfg.n_layers // len(period)
+    n_tail = cfg.n_layers - n_groups * len(period)
+    blocks = tuple(_block_init(generator, cfg, stack=(n_groups,)) for _ in period)
+    tail = tuple(_block_init(generator, cfg) for _ in range(n_tail))
+    return LMParams(
+        embed=embedding_init(generator, cfg.vocab, cfg.d_model),
+        blocks=blocks,
+        tail=tail,
+        final_norm=rmsnorm_init(cfg, device=dev),
+        lm_head=linear_init(generator, cfg.d_model, cfg.vocab),
+        extras={},
+        gain_s=torch.ones((), device=dev),
+    )
+
+
+def _index(tree: Any, i: int) -> Any:
+    """Views of member ``i`` of every stacked leaf of ``tree``."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_index(v, i) for v in tree)
+    return tree[i]
+
+
+def _group_view(group_cache, gi: int):
+    """Group ``gi``'s caches of a stacked cache, as views into it."""
+    return tuple(attn_lib.KVCache(c.k[gi], c.v[gi], c.length[gi]) for c in group_cache)
+
+
+def lm_forward(
+    params: LMParams,
+    batch: dict,
+    analog_cfg: AnalogConfig,
+    cfg: ModelConfig,
+    *,
+    cache: Optional[tuple] = None,
+    last_token_only: bool = False,
+    last_index: Optional[Tensor] = None,
+    mvm: Optional[MvmFn] = None,
+):
+    """Forward pass -> (logits, new_cache); runs where ``params`` live.
+
+    ``cache`` is (group caches, tail caches) or None. ``last_token_only``
+    computes only the final position's logits; ``last_index`` ((B,) int,
+    with ``last_token_only``) picks each row's position. ``mvm`` replaces
+    the execute-phase MVM for this call (see ``core.analog.AnalogCtx``).
+    """
+    period = _check_cfg(cfg)
+    if analog_cfg.needs_rng:
+        raise NotImplementedError(
+            f"mode {analog_cfg.mode!r} draws noise per call; this slice "
+            "serves frozen programs (digital, pcm_programmed)"
+        )
+    ctx = AnalogCtx(cfg=analog_cfg, gain_s=params.gain_s, mvm=mvm)
+    h = embedding_apply(params.embed, batch["tokens"], cfg.dtype)
+    b, s, _ = h.shape
+    dev = h.device
+
+    if cache is not None:
+        group_caches, tail_caches = cache
+        start = _cache_length(group_caches, tail_caches)
+    else:
+        group_caches, tail_caches = None, None
+        start = torch.zeros((), dtype=torch.int32, device=dev)
+    steps = torch.arange(s, device=dev)
+    if start.dim():
+        positions = start[:, None] + steps[None, :]  # per-slot: (B, S)
+    else:
+        positions = (start + steps)[None, :]  # (1, S) broadcasts
+
+    n_groups = cfg.n_layers // len(period)
+    stacked = group_caches is not None and not isinstance(group_caches, list)
+    new_groups = []
+    for gi in range(n_groups):
+        gp = _index(params.blocks, gi)
+        if group_caches is None:
+            gc = (None,) * len(period)
+        elif stacked:
+            gc = _group_view(group_caches, gi)
+        else:
+            gc = group_caches[gi]
+        new_gc = []
+        for i in range(len(period)):
+            h, nc = _block_apply(gp[i], h, ctx, cfg, positions, gc[i])
+            new_gc.append(nc)
+        new_groups.append(tuple(new_gc))
+
+    new_tail = []
+    for i, tp in enumerate(params.tail):
+        tc = None if tail_caches is None else tail_caches[i]
+        h, nc = _block_apply(tp, h, ctx, cfg, positions, tc)
+        new_tail.append(nc)
+
+    h = rmsnorm_apply(params.final_norm, h, cfg.norm_eps)
+    if last_token_only:
+        if last_index is not None:
+            idx = last_index.long()[:, None, None].expand(b, 1, h.shape[-1])
+            h = torch.gather(h, 1, idx)
+        else:
+            h = h[:, -1:, :]
+    logits = linear_apply(params.lm_head, h, ctx)
+
+    new_cache = None
+    if cache is not None:
+        if stacked:
+            # k/v rows were written in place into the stacked buffers
+            new_group_caches = tuple(
+                attn_lib.KVCache(
+                    c.k, c.v, torch.stack([g[i].length for g in new_groups])
+                )
+                for i, c in enumerate(group_caches)
+            )
+        else:
+            new_group_caches = new_groups
+        new_cache = (new_group_caches, tuple(new_tail))
+    return logits, new_cache
+
+
+def _cache_length(group_caches, tail_caches) -> Tensor:
+    """The current position: a scalar for rectangle caches, the (B,)
+    vector for a per-slot cache (stacked caches strip the layer axis)."""
+    stacked = not isinstance(group_caches, list)
+    for group in (group_caches if not stacked else [group_caches]):
+        for c in group:
+            if isinstance(c, attn_lib.KVCache):
+                return c.length[0] if stacked else c.length
+    for c in tail_caches:
+        if isinstance(c, attn_lib.KVCache):
+            return c.length
+    raise ValueError("cache holds no attention layer")
+
+
+def init_lm_cache(
+    cfg: ModelConfig,
+    batch: int,
+    s_max: int,
+    dtype,
+    stacked: bool = True,
+    per_slot: bool = False,
+    paged: bool = False,
+    *,
+    device="cuda",
+) -> tuple:
+    """Build the (group caches, tail caches) tuple on ``device``.
+
+    ``stacked=True``: one (n_groups, ...) buffer per leaf. ``stacked=False``:
+    a list of per-group caches (the decode layout). ``per_slot=True``
+    (requires ``stacked=False``): (B,) lengths, one independent request per
+    batch row -- the serving engine's slot cache.
+    """
+    dev = resolve_device(device)
+    if paged:
+        raise NotImplementedError("the paged KV cache comes in a later slice")
+    if per_slot and stacked:
+        raise ValueError(
+            "per_slot caches use the unstacked decode layout (pass stacked=False)"
+        )
+    period = _check_cfg(cfg)
+    n_groups = cfg.n_layers // len(period)
+    n_tail = cfg.n_layers - n_groups * len(period)
+
+    def one(slot_lengths: bool):
+        return attn_lib.init_cache(
+            cfg, batch, s_max, dtype, per_slot=slot_lengths, device=dev
+        )
+
+    if stacked:
+        groups = tuple(
+            attn_lib.KVCache(*(torch.stack([leaf] * n_groups) for leaf in one(False)))
+            for _ in period
+        )
+    else:
+        groups = [tuple(one(per_slot) for _ in period) for _ in range(n_groups)]
+    tail = tuple(one(per_slot) for _ in range(n_tail))
+    return groups, tail
+
+
+def unstack_cache(cache: tuple) -> tuple:
+    """Stacked cache -> the decode list layout (views, no copy)."""
+    groups, tail = cache
+    if isinstance(groups, list):
+        return cache
+    n_groups = groups[0].k.shape[0] if groups else 0
+    return [_group_view(groups, gi) for gi in range(n_groups)], tail
+
+
+def cache_layers(cache: tuple) -> list:
+    """Every layer's :class:`KVCache` of a list-layout cache, in order."""
+    groups, tail = cache
+    return [c for g in list(groups) + [tail] for c in g]
+
+
+def write_cache_slot(cache: tuple, src: tuple, slot: int) -> tuple:
+    """Write a single-request cache into batch row ``slot`` of a slot cache.
+
+    ``src`` is the request's batch=1 cache in the list layout, built with
+    the same ``s_max``. Rows and the slot's length are written in place;
+    the (mutated) ``cache`` is returned.
+    """
+    for dst, s in zip(cache_layers(cache), cache_layers(src), strict=True):
+        dst.k[slot].copy_(s.k[0])
+        dst.v[slot].copy_(s.v[0])
+        dst.length[slot] = s.length
+    return cache
+
+
+def reset_cache_slot(cache: tuple, slot: int) -> tuple:
+    """Zero batch row ``slot`` of a per-slot cache, in place."""
+    for dst in cache_layers(cache):
+        dst.k[slot].zero_()
+        dst.v[slot].zero_()
+        dst.length[slot] = 0
+    return cache

@@ -1,0 +1,32 @@
+"""Admission schedulers, port of ``repro.serving.scheduler``.
+
+Once per step the engine shows the scheduler how many queued requests have
+arrived and how many slots are free; the scheduler answers how many to
+admit (FIFO over arrived requests).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class ContinuousScheduler:
+    """Admit every arrived request a free slot can take, immediately."""
+
+    name: str = "continuous"
+
+    def admit(self, n_arrived: int, n_free: int, n_active: int) -> int:
+        return min(n_arrived, n_free)
+
+
+@dataclasses.dataclass(frozen=True)
+class StaticBatchScheduler:
+    """Wave batching: admit a fresh batch only when all slots are free."""
+
+    name: str = "static"
+
+    def admit(self, n_arrived: int, n_free: int, n_active: int) -> int:
+        if n_active:
+            return 0  # the wave must drain completely first
+        return min(n_arrived, n_free)
