@@ -25,7 +25,19 @@ end the run with a non-zero exit:
    ``ServingEngine``; the launch counters prove the path ran the kernel
    (155 launches per forward) and never the plain version; one decode step
    is then re-run through the plain version and compared;
-5. report: a JSON line ``{"kernels": [...]}`` and, last, the device line
+5. fused kernel vs plain: from one cache state of that trace, the Hopper
+   ``decode_fused`` kernel (one launch per decode step) at full width and
+   depths 1, 2 and 22 (stacks sliced from the same chip), held phase by
+   phase at every layer to its plain ops on its own inputs
+   (``kernels/decode_fused_check.py``) and end to end to phase 4's bound
+   against ``decode_fused_ref``;
+6. fused serving: the same trace through ``ServingConfig(fused_decode=True)``;
+   the counters prove one ``decode_fused`` launch per decode step, 155
+   ``analog_mvm`` launches per prefill and no plain-version call;
+7. one decode step at 8 slots three ways (per-layer eager, per-layer
+   replayed from a CUDA graph, fused kernel): ms per step, device kernels
+   launched, device idle share;
+8. report: a JSON line ``{"kernels": [...]}`` and, last, the device line
    ``{"ok": true, "device": {...}}``.
 
 Everything it measures is also written to ``--out`` (default
@@ -49,6 +61,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
 L2_BYTES = 50 * 2**20
+DEV = "cuda"  # every phase runs on the card
 
 #: tinyllama-1.1b main-path projections: (name, K, N, launches per forward)
 SHAPES = (
@@ -133,14 +146,21 @@ def phase_device(torch):
     return card
 
 
-def phase_build():
+def phase_build() -> tuple:
+    """Build every kernel; print the build time and ptxas's registers,
+    shared memory and spills per kernel entry."""
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    paths = build.build(("analog_mvm",))
+    paths = build.build()
     secs = time.perf_counter() - t0
     log(f"build: {', '.join(p.name for p in paths.values())} in {secs:.2f} s")
-    return secs
+    ptxas = {n: build.ptxas_report(p) for n, p in paths.items()}
+    for n, entries in ptxas.items():
+        for e in entries:
+            kind = "bf16" if "bfloat16" in e["entry"] else "f32"
+            log(f"ptxas {n} ({kind}): {e.get('used', '?')}; {e.get('spills', 'no spill line')}")
+    return secs, ptxas
 
 
 def compare(y_k, y_p, step: float, n_tiles: int, bf16: bool) -> dict:
@@ -343,7 +363,9 @@ def phase_serve(torch, seed: int) -> dict:
     check(launches == res["launches_expected"], "155 kernel launches per forward")
     check(plain_calls == 0, "the main path never ran the plain version")
     res.update(phase_decode_check(torch, served, trace))
-    return res
+    ctx = {"served": served, "trace": trace, "program": program, "params": params,
+           "cfg": cfg, "tokens": {r.rid: r.tokens.tolist() for r in rep.records}}
+    return res, ctx
 
 
 def phase_decode_check(torch, served, trace) -> dict:
@@ -428,6 +450,369 @@ def phase_decode_check(torch, served, trace) -> dict:
     return res
 
 
+# --------------------------------------------------------------- fused decode
+
+
+def plain_calls() -> int:
+    from repro_torch.core import engine
+    from repro_torch.kernels.ref import analog_mvm_ref, decode_fused_ref
+
+    return analog_mvm_ref.calls + engine.tile_matmul_quant.calls + decode_fused_ref.calls
+
+
+def fused_cache_from_trace(torch, served, plan, trace):
+    """The fused slot cache after prefilling the first n_slots requests,
+    and the decode step's input tokens (each prefill's greedy token)."""
+    from repro_torch.kernels import decode_fused as df
+
+    cache = df.init_fused_cache(served.cfg, plan.n_groups, served.n_slots,
+                                served.s_max, served.cfg.dtype, device=DEV)
+    cur = torch.zeros((served.n_slots, 1), dtype=torch.long, device=DEV)
+    for slot, req in enumerate(trace[: served.n_slots]):
+        tok, _, pcache = served.prefill(served.params, served.acfg, req)
+        df.write_fused_slot(cache, pcache, slot)
+        cur[slot, 0] = tok[0]
+    return cache, cur
+
+
+def adc_step(dec, row: int, p: int) -> tuple:
+    """(ADC step x |out_scale|, crossbar tiles) of projection p (7 = lm_head)."""
+    plan = dec.plan.head_plan if p == 7 else dec.plan.proj_plans[p]
+    r_adc, _, os_ = dec.tab[row, 0 if p == 7 else p].tolist()
+    step = (abs(r_adc) + 1e-9) / (2 ** (plan.spec.b_adc - 1) - 1) * abs(os_)
+    span = plan.tile_rows if plan.per_tile_adc and plan.k > plan.tile_rows else plan.k
+    return step, math.ceil(plan.k / span)
+
+
+def first(tree, depth: int):
+    """The first ``depth`` members of every stacked leaf (views)."""
+    if isinstance(tree, dict):
+        return {k: first(v, depth) for k, v in tree.items()}
+    return tree[:depth]
+
+
+def phase_fused_check(torch, ctx) -> dict:
+    """B2 against decode_fused_ref from one cache state of the served trace,
+    at depths 1, 2 and 22 (stacks sliced from the same chip).
+
+    Tolerance, at every depth, in two parts:
+    - phase by phase at every layer (kernels/decode_fused_check.py): the
+      kernel ends after each MVM phase and every phase is recomputed from
+      its own inputs -- residual adds and V rows bitwise, K rows within two
+      bf16 ulps, every DAC and every MVM (wq..w2 and the lm_head) under
+      tests/test_kernels.py's model: within 1.01 x n_tiles steps plus one
+      bf16 ulp, fewer than 1% more than half a step off;
+    - end to end against decode_fused_ref, phase 4's whole-step bound:
+      logits relative L2 < 5%, greedy tokens equal on >= 7 of 8 slots.
+      Past the first MVMs the two sum norms, softmax and attention in
+      different orders; a bf16 neighbour is often the neighbouring DAC
+      code, and each DAC flip moves about 1% of the next MVM's ADC codes,
+      so logit differences cascade with depth."""
+    import dataclasses
+
+    from repro_torch.core import engine
+    from repro_torch.kernels import decode_fused as df
+    from repro_torch.kernels.decode_fused_check import check_phases
+    from repro_torch.kernels.ref import decode_fused_ref
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.common import embedding_apply
+
+    served, cfg = ctx["served"], ctx["cfg"]
+    plan = engine.build_fused_plan(served.program)
+    cache, cur = fused_cache_from_trace(torch, served, plan, ctx["trace"])
+    lens = cache.length.clone()
+    b, d = served.n_slots, cfg.d_model
+    idx = lens.clamp(max=served.s_max - 1).long()
+    rows = torch.arange(b, device=DEV)
+    ulp = lambda v: bf16_ulp(v) if cfg.dtype == torch.bfloat16 else 0.0
+    out = {"lengths": lens.tolist()}
+    failures = []
+    for depth in (1, 2, plan.n_groups):
+        params = served.params._replace(blocks=(first(served.params.blocks[0], depth),))
+        plan_d = dataclasses.replace(plan, n_groups=depth)
+        cfg_d = dataclasses.replace(cfg, n_layers=depth)
+        dec = df.FusedDecoder(params, plan_d, cfg_d, served.acfg, b, served.s_max)
+        t0 = time.perf_counter()
+        phases = check_phases(dec, cur, KVCache(cache.k[:depth], cache.v[:depth], lens))
+        phases_s = time.perf_counter() - t0
+        ck = KVCache(cache.k[:depth].clone(), cache.v[:depth].clone(), lens.clone())
+        cp = KVCache(cache.k[:depth].clone(), cache.v[:depth].clone(), lens.clone())
+        logits_k, out_k = dec.step(cur, ck)
+        head_x_k = dec.xq[0, : b * d].view(b, d).clone()
+        taps = {}
+        h0 = embedding_apply(params.embed, cur, cfg.dtype)
+        logits_p = decode_fused_ref(dec.tab, h0, lens, dec.n1, dec.n2, dec.stacks,
+                                    dec.w_head, dec.fin, cp.k, cp.v, plan=plan_d,
+                                    cfg=cfg_d, taps=taps)
+        torch.cuda.synchronize()
+        lk, lp = logits_k[:, -1].float(), logits_p[:, -1].float()
+        dl = (lk - lp).abs()
+        head_step, _ = adc_step(dec, depth, 7)
+        r = {
+            "logits_rel_l2": ((lk - lp).norm() / lp.norm().clamp(min=1e-30)).item(),
+            "greedy_agree_per_slot": (lk.argmax(-1) == lp.argmax(-1)).tolist(),
+            "logits_max_abs": dl.max().item(),
+            "logits_max_head_adc_steps": (dl / head_step).max().item(),
+            "logits_differing": int((dl > 0).sum().item()),
+            "logits_share_over_half_step": (dl > 0.5 * head_step + ulp(lp)).float().mean().item(),
+            "head_dac_codes_differing": int((head_x_k != taps["head_x_q"][:, 0]).sum().item()),
+            "head_dac_inputs": b * d,
+            "lengths_out_ok": bool(torch.equal(out_k.length, lens + 1)),
+            "finite": bool(lk.isfinite().all().item()),
+            "phases": phases["checks"], "phase_failures": phases["failures"],
+            "phases_s": phases_s,
+        }
+        layer_rows = []
+        for g in range(depth):
+            for side in ("k", "v"):
+                a_ = getattr(ck, side)[g][rows, idx].float()
+                p_ = getattr(cp, side)[g][rows, idx].float()
+                layer_rows.append(((a_ - p_).abs().max().item(),
+                                   int((a_ != p_).sum().item())))
+        r["cache_rows_max_abs"] = max(m for m, _ in layer_rows)
+        r["cache_row_values_differing"] = sum(n for _, n in layer_rows)
+        r["cache_row_values"] = 2 * depth * b * cfg.n_kv_heads * cfg.hd
+        ok = (r["finite"] and r["lengths_out_ok"] and phases["ok"]
+              and r["logits_rel_l2"] < 0.05 and sum(r["greedy_agree_per_slot"]) >= b - 1)
+        r["pass"] = ok
+        out[f"depth_{depth}"] = r
+        log(f"fused vs plain, depth {depth}: logits rel L2 {r['logits_rel_l2']:.3e}, "
+            f"max |d| {r['logits_max_abs']:.4e} ({r['logits_max_head_adc_steps']:.2f} "
+            f"lm_head ADC steps), greedy agree {sum(r['greedy_agree_per_slot'])}/{b} "
+            f"{r['greedy_agree_per_slot']}, logits differing {r['logits_differing']} "
+            f"of {b * cfg.vocab} (share > half a step {r['logits_share_over_half_step']:.2e}), "
+            f"lm_head DAC codes differing {r['head_dac_codes_differing']} of {b * d}, "
+            f"cache rows max |d| {r['cache_rows_max_abs']:.4e} "
+            f"({r['cache_row_values_differing']} of {r['cache_row_values']} values differ)"
+            + ("" if ok else "  FAIL"))
+        log(f"  per phase, {depth} layers on the kernel's own inputs ({phases_s:.1f} s): "
+            + "; ".join(
+                f"{name} {c['differing']}/{c['values']} differ"
+                + (f", max {c['max_steps']:.3f} steps (layer {c['layer']}), share > half "
+                   f"{c['share_over_half_step']:.2e}" if "max_steps" in c else "")
+                + ("" if c["ok"] else " FAIL")
+                for name, c in phases["checks"].items()))
+        if not ok:
+            failures.append(depth)
+        del dec, ck, cp
+    out["grid_blocks"] = df.max_blocks(cfg.dtype, DEV)
+    log(f"fused kernel grid: {out['grid_blocks']} co-resident blocks; B1 at full depth "
+        f"(measured on one H100): rel L2 2.617e-2, 7 of 8")
+    check(not failures, f"fused kernel vs plain out of tolerance at depths {failures}")
+    return out
+
+
+def phase_fused_serve(torch, ctx, per_layer: dict) -> tuple:
+    """The trace again, through ServingConfig(fused_decode=True)."""
+    from repro_torch.core import engine
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.kernels import decode_fused as df
+    from repro_torch.serving import Request, ServingConfig, ServingEngine
+
+    cfg, trace = ctx["cfg"], ctx["trace"]
+    fused = ServingEngine.for_program(
+        ctx["program"], cfg, ServingConfig(n_slots=8, s_max=512, fused_decode=True),
+        ref_params=ctx["params"], device=DEV,
+    )
+    fused.run([Request(rid=-1, prompt=trace[0].prompt[:16], max_new_tokens=4)])
+    torch.cuda.synchronize()
+    events0 = engine.program_event_count()
+    kernel.analog_mvm.launches = 0
+    df.launches = 0
+    from repro_torch.kernels import ref as ref_mod
+    ref_mod.analog_mvm_ref.calls = 0
+    ref_mod.decode_fused_ref.calls = 0
+    engine.tile_matmul_quant.calls = 0
+    rep = fused.run(trace)
+    torch.cuda.synchronize()
+    res = {
+        "requests": rep.n_requests, "generated": rep.n_generated,
+        "decode_steps": rep.n_steps, "prefills": rep.n_requests,
+        "decode_fused_launches": df.launches,
+        "analog_mvm_launches": kernel.analog_mvm.launches,
+        "analog_mvm_expected": LAUNCHES_PER_FORWARD * rep.n_requests,
+        "plain_calls": plain_calls(),
+        "program_events_while_serving": engine.program_event_count() - events0,
+        "tokens_per_s": rep.tokens_per_s,
+        "ms_per_decode_step": rep.t_decode / max(rep.n_steps, 1) * 1e3,
+        "prefill_s": rep.t_prefill, "wall_s": rep.wall,
+        "latency_p50_s": rep.latency_s(50), "latency_p95_s": rep.latency_s(95),
+        "ttft_p50_s": rep.ttft_s(50), "ttft_p95_s": rep.ttft_s(95),
+        "top1_agreement": rep.counters["top1"], "logit_mse": rep.counters["logit_mse"],
+        "occupancy": rep.occupancy,
+        "requests_with_per_layer_tokens": sum(
+            r.tokens.tolist() == ctx["tokens"][r.rid] for r in rep.records),
+    }
+    log(rep.summary())
+    for name, m in (("per-layer", per_layer), ("fused", res)):
+        log(f"serve {name:9s}: {m['tokens_per_s']:.1f} tokens/s, "
+            f"{m['ms_per_decode_step']:.2f} ms/decode step, p50 {m['latency_p50_s']:.3f} s, "
+            f"p95 {m['latency_p95_s']:.3f} s, ttft p50 {m['ttft_p50_s']:.3f} s, "
+            f"p95 {m['ttft_p95_s']:.3f} s, top1_agreement {m['top1_agreement']:.4f}, "
+            f"{m['decode_steps']} decode steps")
+    log(f"fused counters: decode_fused launches {res['decode_fused_launches']} "
+        f"(decode steps {rep.n_steps}), analog_mvm launches {res['analog_mvm_launches']} "
+        f"(expected {res['analog_mvm_expected']} = {LAUNCHES_PER_FORWARD} x "
+        f"{rep.n_requests} prefills), plain calls {res['plain_calls']}, program events "
+        f"{res['program_events_while_serving']}; requests with the per-layer run's tokens "
+        f"{res['requests_with_per_layer_tokens']}/{rep.n_requests}")
+    check(rep.n_requests == len(trace), "every request retires (fused)")
+    check(all(r.n_new == q.max_new_tokens for r, q in
+              zip(sorted(rep.records, key=lambda r: r.rid), trace)),
+          "every request got its budget (fused)")
+    check(res["decode_fused_launches"] == rep.n_steps, "one fused launch per decode step")
+    check(res["analog_mvm_launches"] == res["analog_mvm_expected"],
+          "155 analog_mvm launches per prefill, none in decode")
+    check(res["plain_calls"] == 0, "the fused path never ran a plain version")
+    check(res["program_events_while_serving"] == 0, "no programming events (fused)")
+    return res, fused
+
+
+def wall_ms(torch, fn, n: int) -> float:
+    """Host ms per call of ``fn`` over n calls, ending in a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def profiled(torch, fn) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return profile_summary(prof)
+
+
+def fused_bound(dec, lens) -> tuple:
+    """(bound ms, bound_by) of one fused step: every weight, norm scale and
+    table entry read once, the K/V rows this step's lengths attend to read
+    once (the new row is not re-read), the new rows, the embedded tokens
+    and the logits written or read once, over the HBM rate; the MVM and
+    attention operations over the bf16 peak."""
+    cfg, b, s = dec.cfg, dec.n_slots, dec.s_max
+    esz = dec.w_head.element_size()
+    weights = sum(t.numel() for t in dec.stacks) + dec.w_head.numel()
+    nv = [min(int(n) + 1, s) for n in lens.tolist()]
+    row = cfg.n_kv_heads * cfg.hd
+    kv_read = dec.plan.n_groups * sum(n - 1 for n in nv) * row * 2
+    kv_write = dec.plan.n_groups * b * row * 2
+    small = (dec.tab.numel() + dec.n1.numel() + dec.n2.numel() + dec.fin.numel()) * 4
+    nbytes = ((weights + kv_read + kv_write + b * cfg.d_model + b * cfg.vocab) * esz
+              + small + 2 * b * 4)
+    ops = 2 * b * weights + dec.plan.n_groups * sum(nv) * cfg.n_heads * cfg.hd * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
+def phase_step_timing(torch, ctx, fused_engine) -> dict:
+    """One decode step at 8 slots, ref_check off, three ways: the per-layer
+    B1 path launched eagerly, the same path replayed from a CUDA graph, and
+    the fused kernel. Then the fused kernel alone, its plain version and
+    its bound, for the kernels line."""
+    from repro_torch.kernels import decode_fused as df
+    from repro_torch.kernels.ref import decode_fused_ref
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.common import embedding_apply
+    from repro_torch.models.lm import write_cache_slot
+
+    served, trace = ctx["served"], ctx["trace"]
+    dec = fused_engine.decoder
+    cache_f, cur = fused_cache_from_trace(torch, fused_engine, dec.plan, trace)
+    cache_l = served.new_cache(served.n_slots, per_slot=True)
+    for slot, req in enumerate(trace[: served.n_slots]):
+        cache_l = write_cache_slot(cache_l, served.prefill(served.params, served.acfg, req)[2], slot)
+    lens = cache_f.length.clone()
+    # every timed call restarts from the same lengths (rows are rewritten)
+    eager = lambda: served.decode(served.params, served.acfg, cur, cache_l)
+    fused = lambda: dec.step(cur, KVCache(cache_f.k, cache_f.v, lens))
+    res = {"lengths": lens.tolist()}
+    graph = None
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            eager()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            eager()
+        replay = graph.replay
+        res["graph_captured"] = True
+    except Exception as e:  # recorded: the baseline is then not measured
+        graph = None
+        res["graph_captured"] = False
+        res["graph_error"] = f"{type(e).__name__}: {e}"
+        log(f"per-layer step did not capture in a CUDA graph: {res['graph_error']}")
+        torch.cuda.synchronize()
+    ways = [("per_layer_eager", eager), ("per_layer_graph", replay if graph else None),
+            ("fused", fused)]
+    n = 10
+    readings = {name: [] for name, _ in ways}
+    for name, fn in ways + ways[::-1]:  # a, b, c, c, b, a
+        if fn is not None:
+            readings[name].append(wall_ms(torch, fn, n))
+    for name, fn in ways:
+        if fn is None:
+            res[name] = "not measured (no CUDA graph)"
+            continue
+        prof = profiled(torch, fn)
+        res[name] = {"ms_per_step": min(readings[name]), "ms_readings": readings[name],
+                     "device_kernels": prof["profile_launches"],
+                     "device_busy_ms": prof["profile_device_ms"],
+                     "device_idle_share": prof["profile_idle_share"],
+                     "host_wall_ms_profiled": prof["profile_wall_ms"]}
+        # the profiler slows the host side; against the unprofiled step
+        res[name]["device_idle_share_unprofiled"] = (
+            1 - prof["profile_device_ms"] / res[name]["ms_per_step"]
+            if isinstance(prof["profile_device_ms"], float) else "not measured")
+        r = res[name]
+        log(f"step {name:16s}: {r['ms_per_step']:.4f} ms/step "
+            f"({'/'.join(f'{x:.4f}' for x in r['ms_readings'])}), device kernels "
+            f"{r['device_kernels']}, device busy {r['device_busy_ms']} ms, idle share "
+            f"{r['device_idle_share']} profiled, {r['device_idle_share_unprofiled']} "
+            f"against the unprofiled step")
+    del graph
+    # the kernel alone: CUDA events around n launches on prepared inputs
+    h0 = embedding_apply(dec.params.embed, cur, dec.cfg.dtype).reshape(dec.n_slots, -1).contiguous()
+    kv = KVCache(cache_f.k, cache_f.v, lens)
+    before = df.launches
+
+    def events_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    kernel_ms = [events_ms(lambda: dec._launch(h0, kv, dec.grid), 20) for _ in range(2)]
+    h0p = embedding_apply(dec.params.embed, cur, dec.cfg.dtype)
+    kc, vc = cache_f.k.clone(), cache_f.v.clone()
+    plain_ms = events_ms(lambda: decode_fused_ref(
+        dec.tab, h0p, lens, dec.n1, dec.n2, dec.stacks, dec.w_head, dec.fin, kc, vc,
+        plan=dec.plan, cfg=dec.cfg), 3)
+    df.launches = before  # timing launches are not main-path launches
+    bound, bound_by, nbytes = fused_bound(dec, lens)
+    res["kernel"] = {"ms": min(kernel_ms), "ms_readings": kernel_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
+                     "grid_blocks": dec.grid}
+    log(f"fused kernel alone: {min(kernel_ms):.4f} ms/step ({kernel_ms[0]:.4f}/"
+        f"{kernel_ms[1]:.4f}), plain version {plain_ms:.4f} ms, bound {bound:.4f} ms "
+        f"({bound_by}, {nbytes} bytes), {bound / min(kernel_ms):.1%} of bound, "
+        f"grid {dec.grid} blocks")
+    return res
+
+
 def profile_summary(prof) -> dict:
     """Device time of one profiled decode step from the trace's device
     events (kernels and copies): their busy union, the analog_mvm kernels'
@@ -480,11 +865,15 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
 
     card = phase_device(torch)
-    build_s = phase_build()
+    build_s, ptxas = phase_build()
     gen = torch.Generator("cuda").manual_seed(args.seed)
     accuracy = phase_kernel_vs_plain(torch, gen)
     timing = phase_timing(torch, gen)
-    serve = phase_serve(torch, args.seed)
+    serve, ctx = phase_serve(torch, args.seed)
+    fused_check = phase_fused_check(torch, ctx)
+    fused_serve, fused_engine = phase_fused_serve(torch, ctx, serve)
+    step_timing = phase_step_timing(torch, ctx, fused_engine)
+    fk = step_timing["kernel"]
 
     per_step = lambda key: sum(r[key] * r["per_forward"] for r in timing)
     kernels = {"kernels": [{
@@ -504,10 +893,27 @@ def main(argv=None) -> int:
                "22 x (wq, wk, wv, wo, w1, w3, w2) + lm_head",
         "max_err_adc_steps": accuracy["max_steps"],
         "pass": True,
+    }, {
+        "name": "decode_fused",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_fused.cu",
+        "replaces": "src/repro/kernels/decode_fused.py:139",
+        "launches": fused_serve["decode_fused_launches"],
+        "max_abs_err": max(v["logits_max_abs"] for k, v in fused_check.items()
+                           if k.startswith("depth_")),
+        "ms": fk["ms"],
+        "plain_ms": fk["plain_ms"],
+        "bound_ms": fk["bound_ms"],
+        "bound_by": fk["bound_by"],
+        "library_ms": None,
+        "per": "one tinyllama-1.1b decode step at 8 slots, bf16, one launch; "
+               "max_abs_err over the logits at depths 1, 2 and 22",
+        "pass": True,
     }]}
     out = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-           "build_s": build_s, "kernel_vs_plain": accuracy, "timing": timing,
-           "serve": serve, **kernels, "seconds": time.perf_counter() - t_start}
+           "build_s": build_s, "ptxas": ptxas, "kernel_vs_plain": accuracy, "timing": timing,
+           "serve": serve, "fused_check": fused_check, "fused_serve": fused_serve,
+           "step_timing": step_timing, **kernels, "seconds": time.perf_counter() - t_start}
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(out, indent=1))
     log(f"total {out['seconds']:.1f} s")

@@ -10,11 +10,13 @@ takes an explicit ``device`` (default ``"cuda"``, which raises on a host
 without a card -- pass ``device="cpu"`` for the plain versions); noise comes
 from explicit ``torch.Generator`` objects; execution is eager.
 
-The slice ported so far is program-once, execute-many serving of a dense
-LM on one programmed chip (``core.engine.compile_program`` or
-``checkpoint.store.load_program`` -> ``serving.ServingEngine``), with every
-programmed MVM on a CUDA tensor launching the hand-written Hopper kernel
-``kernels.analog_mvm`` (``csrc/analog_mvm.cu``).
+Ported so far: program-once, execute-many serving of a dense LM on one
+programmed chip (``core.engine.compile_program`` or
+``checkpoint.store.load_program`` -> ``serving.ServingEngine``, CLI
+``launch.serve``), with every programmed MVM on a CUDA tensor launching
+the hand-written Hopper kernel ``kernels.analog_mvm``
+(``csrc/analog_mvm.cu``), or, with ``fused_decode``, every decode step
+one launch of ``kernels.decode_fused`` (``csrc/decode_fused.cu``).
 """
 
 __version__ = "0.1.0"

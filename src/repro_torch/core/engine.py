@@ -14,6 +14,10 @@ Two phases, as on the AON-CiM accelerator (paper Sec. 5):
      the Hopper kernel; on a CPU tensor it runs the plain
      :func:`tile_matmul_quant`. ``ExecutionPlan.use_kernel``/``interpret``
      are kept for artifact parity but do not choose the path.
+
+:func:`build_fused_plan` lowers a compiled program's per-layer plans to the
+static :class:`FusedDecodePlan` that ``kernels.decode_fused`` executes as
+one launch per decode step.
 """
 
 from __future__ import annotations
@@ -470,3 +474,100 @@ def cast_weights(params: Any, dtype: torch.dtype) -> Any:
         return new
 
     return _walk(params, cast)
+
+
+# ---------------------------------------------------------------------------
+# Fused decode plan (the whole decode step as one kernel launch)
+# ---------------------------------------------------------------------------
+
+#: Projection walk-path order of one attention period group, matching the
+#: execution order of ``lm._block_apply``: wq/wk/wv are issued by
+#: attn_apply, wo closes it, then the FFN triple.
+FUSED_PROJS = (
+    "attn/wq", "attn/wk", "attn/wv", "attn/wo",
+    "ffn/w1", "ffn/w3", "ffn/w2",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedDecodePlan:
+    """Static lowering of a whole programmed decode step to ONE launch.
+
+    The paper's AON-CiM accelerator is layer-serial: the entire network
+    walks one physical datapath. The per-layer :class:`ExecutionPlan` table
+    collapses into one plan per projection (every stacked group shares it,
+    so per-layer ``b_adc`` overrides resolve statically) plus the lm_head
+    plan. ``kernels/decode_fused.py`` executes it. The reference's
+    ``interpret`` field has no counterpart: the tensors' device picks the
+    kernel or its plain version.
+    """
+
+    n_groups: int
+    #: one ExecutionPlan per projection, in :data:`FUSED_PROJS` order
+    proj_plans: tuple
+    head_plan: ExecutionPlan
+
+
+def build_fused_plan(program: CiMProgram) -> FusedDecodePlan:
+    """Lower a compiled program's per-layer plans into one FusedDecodePlan.
+
+    Raises ``ValueError`` when the program cannot be statically fused:
+    anything beyond stacked attention+FFN period groups and an lm_head
+    (tail layers, MoE expert banks, recurrent state, biased projections)
+    has no place in the layer-serial walk.
+    """
+    cfg = program.cfg
+    if cfg.use_kernel:
+        raise ValueError(
+            "fused decode replaces the per-layer kernel dispatch; serve "
+            "the program with use_kernel=False"
+        )
+    required = tuple(f"blocks/0/{p}" for p in FUSED_PROJS) + ("lm_head",)
+    have = set(program.plans)
+    extras = {p for p in have if p.startswith("extras/")}
+    missing = sorted(set(required) - have)
+    unfusable = sorted(have - set(required) - extras)
+    if missing or unfusable:
+        raise ValueError(
+            "program's per-layer plans cannot be statically fused into "
+            f"one decode grid: missing={missing} unfusable={unfusable} "
+            "(fused decode supports stacked attention+FFN blocks plus an "
+            "lm_head -- no tail layers, MoE banks, or recurrent state)"
+        )
+    blocks = getattr(program.params, "blocks", None)
+    head = getattr(program.params, "lm_head", None)
+    if not blocks or head is None:
+        raise ValueError(
+            "fused decode needs LM params with stacked period blocks and "
+            "an lm_head"
+        )
+    block = blocks[0]
+    for path in FUSED_PROJS:
+        kind, name = path.split("/")
+        pp = block[kind][name]
+        if "b" in pp:
+            raise ValueError(
+                f"blocks/0/{path} carries a bias; the fused decode grid "
+                "executes bias-free projections only (qkv_bias "
+                "architectures are unsupported)"
+            )
+        if "out_scale_buf" not in pp:
+            raise ValueError(
+                f"blocks/0/{path} has no GDC out_scale_buf -- not a "
+                "compiled program?"
+            )
+    if "out_scale_buf" not in head:
+        raise ValueError("lm_head has no GDC out_scale_buf -- not a "
+                         "compiled program?")
+
+    def _plan(path: str) -> ExecutionPlan:
+        # re-derived from the program's cfg; the stored per-layer bitwidth
+        # is what resolves statically per projection
+        p = program.plans[path]
+        return plan_for(cfg, p.k, p.n, b_adc=p.spec.b_adc)
+
+    return FusedDecodePlan(
+        n_groups=int(block["attn"]["wq"]["w"].shape[0]),
+        proj_plans=tuple(_plan(f"blocks/0/{p}") for p in FUSED_PROJS),
+        head_plan=_plan("lm_head"),
+    )

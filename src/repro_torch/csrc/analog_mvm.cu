@@ -36,77 +36,19 @@
 // and no tensor-core rounding, so fp32 inputs keep full precision and bf16
 // products are exact.
 //
-// Ragged M, N and K edges are masked in the kernel. The kernel allocates
-// nothing and runs on the caller's stream; the launcher returns
-// cudaGetLastError().
+// The staging, weight loads, fp32 tile sums and quantizer live in
+// analog_mvm_core.cuh, shared with decode_fused.cu. Ragged M, N and K edges
+// are masked in the kernel. The kernel allocates nothing and runs on the
+// caller's stream; the launcher returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "analog_mvm_core.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 8;      // rows of x (M) per block, kept as accumulators
-constexpr int kCols = 32;     // output columns (N) per block
-constexpr int kChunk = 1024;  // rows of K staged in shared memory at a time
-
-template <typename T>
-struct Traits;
-
-template <>
-struct Traits<float> {
-  static constexpr int kVec = 4;  // elements per 16-byte load
-  __device__ static float to_f(float v) { return v; }
-  __device__ static float round_trip(float v) { return v; }
-  __device__ static float from_f(float v) { return v; }
-};
-
-template <>
-struct Traits<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  __device__ static float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-  __device__ static float round_trip(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
-  __device__ static __nv_bfloat16 from_f(float v) {
-    return __float2bfloat16_rn(v);
-  }
-};
-
-// Hard symmetric fake-quant; the _rn intrinsics keep the compiler from
-// contracting the final multiply into a following add.
-__device__ __forceinline__ float quant(float v, float r, float step) {
-  v = fminf(fmaxf(v, -r), r);
-  return __fmul_rn(rintf(__fdiv_rn(v, step)), step);
-}
-
-template <typename T>
-__device__ __forceinline__ void load_w(const T* __restrict__ w, int k, int n_cols,
-                                       int ncol, int vec_ok,
-                                       float (&out)[Traits<T>::kVec]) {
-  constexpr int V = Traits<T>::kVec;
-  const T* row = w + static_cast<size_t>(k) * n_cols;
-  if (vec_ok) {
-    // n_cols % V == 0, so a vector is either wholly inside or wholly past N
-    if (ncol < n_cols) {
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(row + ncol));
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int v = 0; v < V; ++v) out[v] = Traits<T>::to_f(e[v]);
-    } else {
-#pragma unroll
-      for (int v = 0; v < V; ++v) out[v] = 0.f;
-    }
-  } else {
-#pragma unroll
-    for (int v = 0; v < V; ++v) {
-      const int n = ncol + v;
-      out[v] = n < n_cols ? Traits<T>::to_f(row[n]) : 0.f;
-    }
-  }
-}
+using amvm::kCols;
+using amvm::kRows;
+using amvm::kThreads;
+using amvm::Traits;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -116,32 +58,17 @@ analog_mvm_kernel(const T* __restrict__ x, const T* __restrict__ w,
                   const float* out_scale_p, float r_dac_h, float r_adc_h,
                   float out_scale_h, int b_dac, int b_adc, int tile_rows,
                   int per_tile_adc, int apply_dac, int vec_ok) {
-  constexpr int V = Traits<T>::kVec;
-  constexpr int CL = kCols / V;       // lanes across the block's columns
-  constexpr int KL = 32 / CL;         // lanes across K within a warp
-  constexpr int KSTEP = kWarps * KL;  // K rows the block covers per step
-
-  __shared__ float xs[kRows][kChunk];
-  __shared__ float red[kWarps][kRows][kCols];
+  __shared__ amvm::TileSmem sm;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int cl = lane % CL;
-  const int kl = lane / CL;
   const int n0 = blockIdx.x * kCols;
   const int m0 = blockIdx.y * kRows;
-  const int ncol = n0 + cl * V;
-  const int kidx = warp * KL + kl;
 
   // ranges come from device scalars when given (no host sync), else host
-  const float r_a = __fadd_rn(fabsf(r_adc_p ? *r_adc_p : r_adc_h), 1e-9f);
-  const float step_a = __fdiv_rn(r_a, static_cast<float>((1 << (b_adc - 1)) - 1));
+  float r_a, step_a;
+  amvm::quant_range(r_adc_p ? *r_adc_p : r_adc_h, b_adc, r_a, step_a);
   float r_d = 0.f, step_d = 1.f;
-  if (apply_dac) {
-    r_d = __fadd_rn(fabsf(r_dac_p ? *r_dac_p : r_dac_h), 1e-9f);
-    step_d = __fdiv_rn(r_d, static_cast<float>((1 << (b_dac - 1)) - 1));
-  }
+  if (apply_dac) amvm::quant_range(r_dac_p ? *r_dac_p : r_dac_h, b_dac, r_d, step_d);
   const float out_scale = out_scale_p ? *out_scale_p : out_scale_h;
 
   const bool multi = per_tile_adc && K > tile_rows;
@@ -154,62 +81,10 @@ analog_mvm_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
   for (int t0 = 0; t0 < K; t0 += span) {
     const int t1 = min(t0 + span, K);
-    float acc[kRows][V];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int v = 0; v < V; ++v) acc[r][v] = 0.f;
-
-    for (int c0 = t0; c0 < t1; c0 += kChunk) {
-      const int clen = min(c0 + kChunk, t1) - c0;
-      __syncthreads();  // the previous chunk (and tile epilogue) is consumed
-      for (int i = tid; i < kRows * clen; i += kThreads) {
-        const int r = i / clen;
-        const int kk = i - r * clen;
-        const int m = m0 + r;
-        float v = 0.f;
-        if (m < M) {
-          v = Traits<T>::to_f(x[static_cast<size_t>(m) * K + c0 + kk]);
-          if (apply_dac) v = quant(v, r_d, step_d);
-        }
-        xs[r][kk] = v;
-      }
-      __syncthreads();
-
-#pragma unroll 4
-      for (int kk = kidx; kk < clen; kk += KSTEP) {
-        float wv[V];
-        load_w<T>(w, c0 + kk, N, ncol, vec_ok, wv);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float xv = xs[r][kk];
-#pragma unroll
-          for (int v = 0; v < V; ++v) acc[r][v] = fmaf(xv, wv[v], acc[r][v]);
-        }
-      }
-    }
-
-    // sum the KL lanes sharing a column (fixed butterfly order), then the
-    // warps (fixed order), giving the tile's fp32 partial
-#pragma unroll
-    for (int off = CL; off < 32; off <<= 1)
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-#pragma unroll
-        for (int v = 0; v < V; ++v)
-          acc[r][v] += __shfl_xor_sync(0xffffffffu, acc[r][v], off);
-    if (kl == 0) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-#pragma unroll
-        for (int v = 0; v < V; ++v) red[warp][r][cl * V + v] = acc[r][v];
-    }
-    __syncthreads();
-    float part = 0.f;
-#pragma unroll
-    for (int wi = 0; wi < kWarps; ++wi) part = __fadd_rn(part, red[wi][orow][ocol]);
+    const float part = amvm::tile_partial<T>(sm, x, w, M, K, N, m0, n0, t0, t1,
+                                             apply_dac, r_d, step_d, vec_ok);
     if (multi) {
-      const float q = Traits<T>::round_trip(quant(part, r_a, step_a));
+      const float q = Traits<T>::round_trip(amvm::quant(part, r_a, step_a));
       yacc = (t0 == 0) ? q : __fadd_rn(yacc, q);
     } else {
       yacc = part;
@@ -218,7 +93,7 @@ analog_mvm_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
   const int m = m0 + orow;
   const int n = n0 + ocol;
-  float out = multi ? yacc : quant(yacc, r_a, step_a);
+  float out = multi ? yacc : amvm::quant(yacc, r_a, step_a);
   out = __fmul_rn(out, out_scale);
   if (m < M && n < N) y[static_cast<size_t>(m) * N + n] = Traits<T>::from_f(out);
 }

@@ -1,13 +1,15 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, loaded through ``ctypes`` (no PyTorch headers, so
+with a plain C interface (the ``csrc/*.cuh`` headers are shared device
+code), loaded through ``ctypes`` (no PyTorch headers, so
 a build takes seconds, not minutes). Libraries land in ``build/repro_torch/``
-at the repository root, named by a hash of the source and the flags: a
-changed source rebuilds, an unchanged one loads. Nothing outside the
+at the repository root, named by a hash of the source, the headers and the
+flags: a changed source or header rebuilds, an unchanged one loads. Nothing outside the
 repository's sources goes in, nothing is downloaded, and a failed build
 raises with the compiler's output. Sources build in parallel, one ``nvcc``
-process each.
+process each. ``ptxas -v``'s report (registers, shared memory, spills of
+each kernel) is kept beside each library as ``<library>.log``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -42,16 +44,25 @@ def _nvcc() -> str:
     )
 
 
+def sources() -> tuple[str, ...]:
+    """Every kernel source, by name (``csrc/<name>.cu``)."""
+    return tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (keyed by source + flags)."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}_{digest[:16]}.so"
+    """Where ``csrc/<name>.cu`` builds to (keyed by source, headers, flags)."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(names=("analog_mvm",)) -> dict[str, Path]:
-    """Compile every missing library of ``names`` in parallel; raise on a
-    failed build. Returns name -> library path."""
+def build(names=None) -> dict[str, Path]:
+    """Compile every missing library of ``names`` (default: every source)
+    in parallel, one ``nvcc`` each; raise on a failed build. Returns name
+    -> library path."""
+    names = sources() if names is None else tuple(names)
     paths = {n: library_path(n) for n in names}
     todo = {n: p for n, p in paths.items() if not p.exists()}
     if not todo:
@@ -71,10 +82,24 @@ def build(names=("analog_mvm",)) -> dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"--- nvcc {n}.cu (exit {proc.returncode}) ---\n{out}")
             continue
+        todo[n].with_suffix(".log").write_text(out)
         os.replace(tmp, todo[n])  # atomic: a reader never sees half a file
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return paths
+
+
+def ptxas_report(path: Path) -> list[dict]:
+    """Per kernel entry of a built library: ptxas's register, shared-memory
+    and spill figures, from the ``.log`` kept beside it."""
+    log = path.with_suffix(".log")
+    entries = []
+    for line in log.read_text().splitlines() if log.exists() else ():
+        if "Compiling entry function" in line:
+            entries.append({"entry": line.split("'")[1]})
+        elif entries and ("spill stores" in line or "Used " in line):
+            entries[-1]["spills" if "spill" in line else "used"] = line.split(":")[-1].strip()
+    return entries
 
 
 def load(name: str) -> ctypes.CDLL:

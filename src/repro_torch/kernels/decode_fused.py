@@ -1,0 +1,388 @@
+"""The whole programmed decode step in one launch, port of
+``repro.kernels.decode_fused``.
+
+Replaces the TPU kernel ``repro/kernels/decode_fused.py::_decode_kernel``
+with the hand-written Hopper kernel ``csrc/decode_fused.cu`` (its header
+holds the design note); ``kernels.ref.decode_fused_ref`` is the plain
+version of the same function.
+
+* The stacked slot cache: :func:`init_fused_cache`, :func:`write_fused_slot`
+  and :func:`reset_fused_slot` -- one ``(L, B, S, kv, hd)`` K/V buffer per
+  side and one ``(B,)`` length vector. Writes happen in place.
+* :func:`fused_decode_step` dispatches by device: a CUDA tensor launches the
+  kernel (a failed launch raises, nothing falls back), a CPU tensor runs
+  the plain version. The module's ``launches`` counts kernel launches and
+  nothing else.
+* :class:`FusedDecoder` holds what one engine reuses every step: the weight
+  stacks, the scalar table, the norm scales, the RoPE frequencies and the
+  kernel's workspace, built once; it also owns the stacked cache's
+  lifecycle (:meth:`FusedDecoder.new_cache`, ``write_slot``,
+  ``reset_slot``), so a serving engine holds one decoder object.
+
+The embedding gather stays outside the kernel, as in the reference.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import engine as engine_lib
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import decode_fused_ref
+from repro_torch.models.attention import KVCache
+from repro_torch.models.common import ModelConfig, embedding_apply
+
+Tensor = torch.Tensor
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_HD = 256  # the kernel keeps one head's q/k/v rows in shared memory
+_MAX_S = 8192  # and one head's scores in its 32 KB staging buffer
+_MAX_D = 256 * 32  # a norm row is held in registers, 32 values a thread
+_FN = None
+
+#: the kernel's phases per layer, in order: norm + DAC of wq/wk/wv, their
+#: MVM, attention, wo, norm + DAC of w1/w3, their MVM, the gate, w2; then
+#: the final norm and the lm_head (``csrc/decode_fused.cu``)
+PHASES_PER_LAYER = 8
+
+#: kernel launches since process start (see the module docstring)
+launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Fused slot cache: one stacked (L, B, S, kv, hd) KV buffer
+# ---------------------------------------------------------------------------
+
+
+def init_fused_cache(
+    cfg: ModelConfig, n_groups: int, batch: int, s_max: int, dtype, *, device
+) -> KVCache:
+    """Stacked per-slot decode cache: k/v (n_groups, B, s_max, kv, hd) and
+    one shared (B,) int32 length vector (every layer of a step advances
+    together)."""
+    shape = (n_groups, batch, s_max, cfg.n_kv_heads, cfg.hd)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        length=torch.zeros((batch,), dtype=torch.int32, device=device),
+    )
+
+
+def write_fused_slot(fused: KVCache, src: tuple, slot: int) -> KVCache:
+    """Write a prefilled request cache into batch row ``slot``, in place.
+
+    ``src`` is the batch=1 prefill cache in the list layout (a list of
+    per-group ``(KVCache,)`` tuples, k/v (1, S, kv, hd), scalar lengths).
+    Rows are restacked along the leading axis: value for value what
+    ``lm.write_cache_slot`` writes into the list-layout slot cache.
+    """
+    groups, _tails = src
+    for g, (c,) in enumerate(groups):
+        fused.k[g, slot].copy_(c.k[0])
+        fused.v[g, slot].copy_(c.v[0])
+    fused.length[slot] = groups[0][0].length
+    return fused
+
+
+def reset_fused_slot(fused: KVCache, slot: int) -> KVCache:
+    """Zero batch row ``slot`` across every layer, in place."""
+    fused.k[:, slot].zero_()
+    fused.v[:, slot].zero_()
+    fused.length[slot] = 0
+    return fused
+
+
+# ---------------------------------------------------------------------------
+# Inputs of one step
+# ---------------------------------------------------------------------------
+
+
+def _resampled_stacks(params, analog_cfg, rng):
+    """The seven effective weight stacks and the lm_head weights.
+
+    Re-drawing read noise per step (``resample_read_noise`` served with an
+    RNG) needs the threefry bridge, which is not ported: it raises, as the
+    per-layer ``core.analog`` does.
+    """
+    if analog_cfg.resample_read_noise and rng is not None:
+        raise NotImplementedError(
+            "per-MVM read-noise resampling (resample_read_noise=True) comes "
+            "with the RNG-bridge slice"
+        )
+    block = params.blocks[0]
+    stacks = []
+    for path in engine_lib.FUSED_PROJS:
+        kind, name = path.split("/")
+        stacks.append(block[kind][name]["w"])
+    return stacks, params.lm_head["w"]
+
+
+def _scalar_table(params, n_groups: int) -> Tensor:
+    """(L+1, 7, 3) f32 table: [r_adc, w_max, gdc out_scale] per (layer,
+    projection); row L col 0 is the lm_head, row L col 1 carries the
+    network-wide ADC gain S."""
+    block = params.blocks[0]
+    head = params.lm_head
+    dev = params.gain_s.device
+    tab = torch.zeros(
+        (n_groups + 1, len(engine_lib.FUSED_PROJS), 3), dtype=torch.float32,
+        device=dev,
+    )
+    for p, path in enumerate(engine_lib.FUSED_PROJS):
+        kind, name = path.split("/")
+        pp = block[kind][name]
+        tab[:n_groups, p, 0] = pp["r_adc"].float()
+        tab[:n_groups, p, 1] = pp["w_clip_buf"][..., 1].float()
+        tab[:n_groups, p, 2] = pp["out_scale_buf"].float()
+    tab[n_groups, 0, 0] = head["r_adc"].float()
+    tab[n_groups, 0, 1] = head["w_clip_buf"][..., 1].float()
+    tab[n_groups, 0, 2] = head["out_scale_buf"].float()
+    tab[n_groups, 1, 0] = params.gain_s.float()
+    return tab
+
+
+def _norm_scales(node: dict, shape: tuple, dev) -> Tensor:
+    scale = node.get("scale")
+    if scale is None:  # nonparametric norm: a unit scale is exact
+        return torch.ones(shape, dtype=torch.float32, device=dev)
+    return scale.float().contiguous()
+
+
+def rope_freqs(hd: int, theta: float, device) -> Tensor:
+    """(hd/2,) f32 RoPE frequencies, computed with ``models.common.rope``'s
+    own ops; the kernel forms each angle as ``float(position) * freq``, as
+    ``rope`` does, and takes its cosine and sine."""
+    half = hd // 2
+    exponent = -torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return torch.pow(torch.full_like(exponent, theta), exponent)
+
+
+class FusedDecoder:
+    """One engine's fused decode step: inputs prepared once, then
+    :meth:`step` per decode step.
+
+    ``params`` are a compiled program's params whose weights are already
+    in the model dtype (``engine.cast_weights``). On a CUDA device the
+    kernel's workspace (residual stream, DAC-quantized inputs, tile
+    partials) is allocated here, once; a step allocates only its logits
+    and length outputs.
+    """
+
+    def __init__(
+        self,
+        params,
+        plan: engine_lib.FusedDecodePlan,
+        cfg: ModelConfig,
+        analog_cfg,
+        n_slots: int,
+        s_max: int,
+        *,
+        rng=None,
+    ):
+        self.params, self.plan, self.cfg = params, plan, cfg
+        self.n_slots, self.s_max = int(n_slots), int(s_max)
+        dev = params.gain_s.device
+        self.device = dev
+        self.stacks, self.w_head = _resampled_stacks(params, analog_cfg, rng)
+        self.stacks = [s.contiguous() for s in self.stacks]
+        self.w_head = self.w_head.contiguous()
+        n_groups = plan.n_groups
+        d = cfg.d_model
+        block = params.blocks[0]
+        self.tab = _scalar_table(params, n_groups)
+        self.n1 = _norm_scales(block["norm1"], (n_groups, d), dev)
+        self.n2 = _norm_scales(block["norm2"], (n_groups, d), dev)
+        self.fin = _norm_scales(params.final_norm, (d,), dev)
+        self.grid = None
+        if dev.type == "cuda":
+            self._init_kernel()
+
+    # -- the kernel's inputs -------------------------------------------------
+
+    def _init_kernel(self) -> None:
+        cfg, plan, dev = self.cfg, self.plan, self.device
+        dtype = cfg.dtype
+        if dtype not in _DTYPES:
+            raise TypeError(f"decode_fused kernel takes float32 or bfloat16, got {dtype}")
+        if cfg.hd > _MAX_HD or cfg.hd % 2 or cfg.n_heads % cfg.n_kv_heads:
+            raise ValueError(
+                f"decode_fused kernel: head_dim {cfg.hd} (even, <= {_MAX_HD}) "
+                f"and {cfg.n_heads} heads over {cfg.n_kv_heads} kv heads"
+            )
+        if self.s_max > _MAX_S or cfg.d_model > _MAX_D:
+            raise ValueError(
+                f"decode_fused kernel: s_max {self.s_max} (<= {_MAX_S}), "
+                f"d_model {cfg.d_model} (<= {_MAX_D})"
+            )
+        for s in self.stacks + [self.w_head]:
+            if s.dtype != dtype or s.device != dev:
+                raise ValueError(
+                    f"decode_fused kernel: weights {s.dtype} on {s.device}, "
+                    f"the step runs {dtype} on {dev} (cast_weights first)"
+                )
+        b, d, f, v = self.n_slots, cfg.d_model, cfg.d_ff, cfg.vocab
+        plans = list(plan.proj_plans) + [plan.head_plan]
+        self.bits = [p.spec.b_adc for p in plans]
+        self.span = [
+            p.tile_rows if (p.per_tile_adc and p.k > p.tile_rows) else p.k
+            for p in plans
+        ]
+        ws = self.stacks + [self.w_head]
+        vec = 16 // torch.empty((), dtype=dtype).element_size()
+        self.vec_ok = [int(p.n % vec == 0 and w.data_ptr() % 16 == 0)
+                       for p, w in zip(plans, ws)]
+        tiles = lambda i: -(-plans[i].k // self.span[i])
+        # one region per projection an MVM phase runs at once (wq/wk/wv)
+        self.part_stride = max(tiles(i) * b * plans[i].n for i in range(8))
+        self.xq_stride = b * max(d, f)
+        self.freqs = rope_freqs(cfg.hd, cfg.rope_theta, dev)
+        self.x = torch.empty((b, d), dtype=dtype, device=dev)
+        self.x1 = torch.empty((b, d), dtype=dtype, device=dev)
+        self.xq = torch.empty((3, self.xq_stride), dtype=dtype, device=dev)
+        self.part = torch.empty((3, self.part_stride), dtype=torch.float32, device=dev)
+        self.grid = max_blocks(dtype, dev)
+
+    def _launch(self, h0: Tensor, cache: KVCache, grid: int, phases: int = 0):
+        """Launch the kernel on ``grid`` blocks; ``phases`` > 0 ends it
+        after that many phases (see :data:`PHASES_PER_LAYER`), leaving the
+        workspace as that phase wrote it."""
+        cfg, b = self.cfg, self.n_slots
+        k, v, lens = cache
+        if (h0.shape != (b, cfg.d_model) or h0.dtype != cfg.dtype
+                or k.shape != (self.plan.n_groups, b, self.s_max, cfg.n_kv_heads, cfg.hd)
+                or k.dtype != cfg.dtype or v.shape != k.shape or v.dtype != k.dtype
+                or lens.shape != (b,) or lens.dtype != torch.int32):
+            raise ValueError(
+                f"decode_fused kernel: h0 {tuple(h0.shape)} {h0.dtype}, cache "
+                f"{tuple(k.shape)} {k.dtype}, lengths {tuple(lens.shape)} "
+                f"{lens.dtype} do not match the decoder's {b} slots x "
+                f"{self.s_max} positions in {cfg.dtype}"
+            )
+        for t in (h0, k, v, lens):
+            if t.device != self.device or not t.is_contiguous():
+                raise ValueError("decode_fused kernel needs contiguous tensors on the decoder's device")
+        logits = torch.empty((b, cfg.vocab), dtype=cfg.dtype, device=self.device)
+        lens_out = torch.empty_like(lens)
+        tensors = [h0, lens, lens_out, self.tab, self.n1, self.n2, self.fin,
+                   *self.stacks, self.w_head, k, v, self.freqs, logits,
+                   self.x, self.x1, self.xq, self.part]
+        ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+        ints = [self.plan.n_groups, b, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                cfg.hd, cfg.d_ff, cfg.vocab, self.s_max, *self.bits, *self.span,
+                *self.vec_ok, self.xq_stride, self.part_stride, int(phases)]
+        iarr = (ctypes.c_int * len(ints))(*ints)
+        farr = (ctypes.c_float * 2)(cfg.norm_eps, cfg.hd**-0.5)
+        fn, _, err_str = _fn()
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream(self.device).cuda_stream
+            rc = fn(ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(iarr, ctypes.c_void_p),
+                    ctypes.cast(farr, ctypes.c_void_p), _DTYPES[cfg.dtype], grid, stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"decode_fused kernel launch failed: {err_str(rc).decode()} "
+                f"(grid {grid}, {b} slots, {self.plan.n_groups} layers, "
+                f"dtype {cfg.dtype})"
+            )
+        global launches
+        launches += 1
+        return logits, lens_out
+
+    # -- the slot cache ----------------------------------------------------------
+
+    def new_cache(self) -> KVCache:
+        """An empty stacked slot cache for this decoder's slots."""
+        return init_fused_cache(self.cfg, self.plan.n_groups, self.n_slots,
+                                self.s_max, self.cfg.dtype, device=self.device)
+
+    @staticmethod
+    def write_slot(cache: KVCache, src: tuple, slot: int) -> KVCache:
+        return write_fused_slot(cache, src, slot)
+
+    @staticmethod
+    def reset_slot(cache: KVCache, slot: int) -> KVCache:
+        return reset_fused_slot(cache, slot)
+
+    @staticmethod
+    def kv_bytes(cache: KVCache) -> int:
+        return cache.k.nbytes + cache.v.nbytes
+
+    # -- one step --------------------------------------------------------------
+
+    def step(self, tok: Tensor, cache: KVCache):
+        """One decode step -> (logits (B, 1, V), cache with every length + 1).
+
+        ``tok``: (B, 1) int. The K/V rows are written into ``cache`` in
+        place; the returned cache shares its buffers. The kernel runs on
+        every block the card holds at once.
+        """
+        h0 = embedding_apply(self.params.embed, tok.long(), self.cfg.dtype)
+        b = h0.shape[0]
+        if h0.device.type == "cuda":
+            logits, lens_out = self._launch(h0.reshape(b, -1).contiguous(), cache, self.grid)
+            return logits[:, None, :], KVCache(cache.k, cache.v, lens_out)
+        if h0.device.type != "cpu":
+            raise ValueError(f"fused_decode_step: unsupported device {h0.device}")
+        logits = decode_fused_ref(
+            self.tab, h0, cache.length, self.n1, self.n2, self.stacks,
+            self.w_head, self.fin, cache.k, cache.v, plan=self.plan, cfg=self.cfg,
+        )
+        return logits, KVCache(cache.k, cache.v, cache.length + 1)
+
+
+def fused_decode_step(
+    params,
+    tok: Tensor,
+    cache: KVCache,
+    plan: engine_lib.FusedDecodePlan,
+    model_cfg: ModelConfig,
+    analog_cfg,
+    *,
+    rng=None,
+):
+    """One decode step for the whole programmed model.
+
+    ``tok``: (B, 1) int; ``cache``: the :func:`init_fused_cache` layout.
+    Returns ``(logits (B, 1, V), cache)`` with every slot's length advanced
+    by one; the K/V rows are written in place. Builds its inputs on every
+    call: a serving loop keeps one :class:`FusedDecoder` instead.
+    """
+    b, s_max = int(cache.k.shape[1]), int(cache.k.shape[2])
+    dec = FusedDecoder(params, plan, model_cfg, analog_cfg, b, s_max, rng=rng)
+    return dec.step(tok, cache)
+
+
+# ---------------------------------------------------------------------------
+# The library
+# ---------------------------------------------------------------------------
+
+
+def _fn():
+    global _FN
+    if _FN is None:
+        lib = build.load("decode_fused")
+        fn = lib.decode_fused_launch
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        mb = lib.decode_fused_max_blocks
+        mb.argtypes = [ctypes.c_int, ctypes.c_int]
+        mb.restype = ctypes.c_int
+        lib.decode_fused_error_string.argtypes = [ctypes.c_int]
+        lib.decode_fused_error_string.restype = ctypes.c_char_p
+        _FN = (fn, mb, lib.decode_fused_error_string)
+    return _FN
+
+
+def max_blocks(dtype: torch.dtype, device) -> int:
+    """Blocks of the kernel the card holds at once: the largest grid a
+    cooperative launch accepts."""
+    dev = torch.device(device)
+    _, mb, err_str = _fn()
+    n = mb(_DTYPES[dtype], dev.index if dev.index is not None else torch.cuda.current_device())
+    if n <= 0:
+        raise RuntimeError(f"decode_fused occupancy query failed: {err_str(-n).decode()}")
+    return n
+
+

@@ -15,8 +15,14 @@ independent, so a request's tokens equal serving it alone.
 
 With ``ref_params`` the engine also decodes a digital full-precision
 reference in lockstep, teacher-forced on the served tokens, and counts
-greedy top-1 agreement and logit MSE against it. Paged caches, fused
-decode, meshes and drift policies come in later slices and raise here.
+greedy top-1 agreement and logit MSE against it.
+
+With ``ServingConfig(fused_decode=True)`` the main cache is the stacked
+``(L, B, S, kv, hd)`` layout of ``kernels.decode_fused`` and each decode
+step of the programmed chip is ONE launch of the fused kernel on a card
+(its plain version on the CPU); prefill stays per layer, and the digital
+reference keeps the per-slot layout and the unfused forward. Paged caches,
+meshes and drift policies come in later slices and raise here.
 """
 
 from __future__ import annotations
@@ -33,8 +39,10 @@ from repro_torch.core import engine as engine_mod
 from repro_torch.core.analog import AnalogConfig
 from repro_torch.core.engine import CiMProgram
 from repro_torch.device import resolve_device
+from repro_torch.kernels import decode_fused
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.lm import (
+    block_period,
     cache_layers,
     init_lm_cache,
     lm_forward,
@@ -48,8 +56,27 @@ from repro_torch.serving.scheduler import ContinuousScheduler
 Tensor = torch.Tensor
 
 
-def _kv_cache_bytes(cache) -> int:
-    return sum(c.k.nbytes + c.v.nbytes for c in cache_layers(cache))
+class _LayerDecoder:
+    """The served model's per-layer decode over the per-slot list cache:
+    the counterpart of ``decode_fused.FusedDecoder``, with the same methods,
+    so an engine holds one decoder and never branches on the cache layout."""
+
+    def __init__(self, eng: "ServingEngine"):
+        self.eng = eng
+
+    def new_cache(self) -> tuple:
+        return self.eng.new_cache(self.eng.n_slots, per_slot=True)
+
+    write_slot = staticmethod(write_cache_slot)
+    reset_slot = staticmethod(reset_cache_slot)
+
+    @staticmethod
+    def kv_bytes(cache) -> int:
+        return sum(c.k.nbytes + c.v.nbytes for c in cache_layers(cache))
+
+    def step(self, tok: Tensor, cache):
+        eng = self.eng
+        return lm_forward(eng.params, {"tokens": tok.long()}, eng.acfg, eng.cfg, cache=cache)
 
 
 @dataclasses.dataclass
@@ -196,6 +223,27 @@ class ServingEngine:
         )
         self._digital = AnalogConfig()
 
+        self.decoder: Any = _LayerDecoder(self)
+        if config.fused_decode:
+            if program is None:
+                raise ValueError(
+                    "fused_decode executes a compiled CiMProgram's per-"
+                    "layer plans as one launch; pass program= (or use "
+                    "ServingEngine.for_program)"
+                )
+            if block_period(model_cfg) != ["attn"]:
+                raise NotImplementedError(
+                    "fused decode supports the dense attention+FFN layer "
+                    f"walk; family {model_cfg.family!r} has recurrent or "
+                    "MoE blocks"
+                )
+            # raises ValueError when the artifact's plans can't be
+            # statically fused (tail layers, biases, missing GDC scalars)
+            self.decoder = decode_fused.FusedDecoder(
+                self.params, engine_mod.build_fused_plan(program), model_cfg,
+                analog_cfg, self.n_slots, self.s_max,
+            )
+
     @classmethod
     def for_program(
         cls,
@@ -236,6 +284,13 @@ class ServingEngine:
         logits, cache = lm_forward(
             params, {"tokens": tok.long()}, acfg, self.cfg, cache=cache
         )
+        last = logits[:, -1]
+        return last.argmax(dim=-1).to(torch.int32), last, cache
+
+    def decode_main(self, tok: Tensor, cache):
+        """One decode step of the served model over all slots, through its
+        decoder (one fused launch with ``fused_decode``, else per layer)."""
+        logits, cache = self.decoder.step(tok, cache)
         last = logits[:, -1]
         return last.argmax(dim=-1).to(torch.int32), last, cache
 
@@ -316,8 +371,8 @@ class EngineRun:
         self.max_steps = max_steps
 
         self.queue: deque[Request] = deque()
-        self.cache = engine.new_cache(engine.n_slots, per_slot=True)
-        self.peak_kv_bytes = _kv_cache_bytes(self.cache)
+        self.cache = engine.decoder.new_cache()
+        self.peak_kv_bytes = engine.decoder.kv_bytes(self.cache)
         self.ref_cache = (
             engine.new_cache(engine.n_slots, per_slot=True) if engine._ref else None
         )
@@ -379,7 +434,7 @@ class EngineRun:
         eng = self.eng
         t0 = self.now_fn()
         tok0, logits0, pcache = eng.prefill(eng.params, eng.acfg, req)
-        self.cache = write_cache_slot(self.cache, pcache, slot)
+        self.cache = eng.decoder.write_slot(self.cache, pcache, slot)
         self.cur[slot, 0] = tok0[0]
         first = [int(tok0[0])]  # repro-lint: disable=RL004 -- one sync per ADMISSION: the first token must reach the host record
         if eng._ref:
@@ -403,7 +458,7 @@ class EngineRun:
         guard. The step's tokens (and counters) reach the host in ONE read."""
         eng = self.eng
         t0 = self.now_fn()
-        nxt, logits, self.cache = eng.decode(eng.params, eng.acfg, self.cur, self.cache)
+        nxt, logits, self.cache = eng.decode_main(self.cur, self.cache)
         if eng._ref:
             _, r_logits, self.ref_cache = eng.decode(
                 eng.ref_params, eng._digital, self.cur, self.ref_cache
@@ -448,7 +503,7 @@ class EngineRun:
             finished_by=by,
         )
         self.records.append(rec)
-        self.cache = reset_cache_slot(self.cache, i)
+        self.cache = self.eng.decoder.reset_slot(self.cache, i)
         if self.eng._ref:
             self.ref_cache = reset_cache_slot(self.ref_cache, i)
         self.slots[i] = None
