@@ -22,9 +22,10 @@ end the run with a non-zero exit:
 4. the slice at full width: tinyllama-1.1b at its published widths with
    random weights from ``--seed``, programmed on the card (t = 24 h, all
    noise on) and serving a Poisson trace of 16 requests through
-   ``ServingEngine``; the launch counters prove the path ran the kernel
-   (155 launches per forward) and never the plain version; one decode step
-   is then re-run through the plain version and compared;
+   ``ServingEngine``; the launch counters prove the path ran the kernels
+   (155 B1 launches per forward, 22 B3 per prefill) and never a plain
+   version; one decode step is then re-run through the plain version and
+   compared;
 5. fused kernel vs plain: from one cache state of that trace, the Hopper
    ``decode_fused`` kernel (one launch per decode step) at full width and
    depths 1, 2 and 22 (stacks sliced from the same chip), held phase by
@@ -37,8 +38,27 @@ end the run with a non-zero exit:
 7. one decode step at 8 slots three ways (per-layer eager, per-layer
    replayed from a CUDA graph, fused kernel): ms per step, device kernels
    launched, device idle share;
-8. report: a JSON line ``{"kernels": [...]}`` and, last, the device line
+8. prefill attention vs plain: the Hopper ``flash_attention`` (kernel B3)
+   against ``flash_attention_ref`` at tinyllama-1.1b's heads and every
+   shape the serving phases give it (each prompt length of the trace at
+   one row, as the per-request prefills run it, and the paged engine's
+   (rows, bucket) shapes) plus the 2048-token context, bf16 and f32,
+   causal and full; real rows bitwise independent of right-padding;
+   kernel, plain version, SDPA (yardstick only) and bound times; after
+   phase 9, every shape the serving phases launched must have been
+   checked here;
+9. paged serving: the same trace through ``ServingConfig(paged=True,
+   page_size=16, prefill_batch=4)`` and ``BucketedScheduler``; the counters
+   prove 22 B3 launches per prefill (bucketed and digital), 155 B1 launches
+   per bucketed prefill call and decode step, and no plain-version call;
+   one prefill call profiled for B3's share of its device time; one
+   decode step at 8 slots (no lockstep) per layer over the rectangular and
+   over the paged cache, timed in turns and profiled;
+10. report: a JSON line ``{"kernels": [...]}`` and, last, the device line
    ``{"ok": true, "device": {...}}``.
+
+Phases 4, 6 and 9 prefill through B3 (every prefill forward, the chip's
+and the digital lockstep's, runs it once per layer).
 
 Everything it measures is also written to ``--out`` (default
 ``build/chip_smoke.json``).
@@ -72,6 +92,14 @@ SHAPES = (
     ("lm_head", 2048, 32000, 1),
 )
 LAUNCHES_PER_FORWARD = sum(c for *_, c in SHAPES)  # 155
+#: kernel B3 runs once per layer of a prefill forward (tinyllama-1.1b)
+FA_LAUNCHES_PER_PREFILL = 22
+#: tinyllama-1.1b attention: heads, KV heads, head dim, the config's chunks
+FA_HEADS = dict(h=32, kv=4, d=64, q_chunk=512, kv_chunk=1024)
+#: phase 9's engine: paged KV with bucketed prefill
+PAGED = dict(n_slots=8, s_max=512, paged=True, page_size=16, prefill_batch=4)
+#: the model's published context, checked beside the served shapes
+FA_CONTEXT = 2048
 
 
 class SmokeFailure(RuntimeError):
@@ -286,7 +314,7 @@ def phase_serve(torch, seed: int) -> dict:
     from repro_torch.core import engine
     from repro_torch.core.analog import AnalogConfig
     from repro_torch.kernels import analog_mvm as kernel
-    from repro_torch.kernels.ref import analog_mvm_ref
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.lm import lm_init
     from repro_torch.serving import Request, ServingConfig, ServingEngine, poisson_trace
 
@@ -322,28 +350,26 @@ def phase_serve(torch, seed: int) -> dict:
     torch.cuda.synchronize()
 
     events0 = engine.program_event_count()
-    kernel.analog_mvm.launches = 0
-    analog_mvm_ref.calls = 0
-    engine.tile_matmul_quant.calls = 0
+    reset_counts()
     rep = served.run(trace)
     torch.cuda.synchronize()
     launches = kernel.analog_mvm.launches
-    plain_calls = analog_mvm_ref.calls + engine.tile_matmul_quant.calls
+    fa_launches = fa.flash_attention.launches
+    n_plain = plain_calls()
     events = engine.program_event_count() - events0
 
     forwards = rep.n_requests + rep.n_steps  # one prefill per admission
+    # every prefill, the chip's and the digital lockstep's, runs B3 per layer
+    fa_expected = FA_LAUNCHES_PER_PREFILL * 2 * rep.n_requests
     res = {
         "requests": rep.n_requests, "generated": rep.n_generated,
-        "decode_steps": rep.n_steps, "prefills": rep.n_requests,
+        "prefills": rep.n_requests,
         "launches": launches, "launches_expected": LAUNCHES_PER_FORWARD * forwards,
-        "plain_calls": plain_calls, "program_events_while_serving": events,
-        "tokens_per_s": rep.tokens_per_s,
-        "ms_per_decode_step": rep.t_decode / max(rep.n_steps, 1) * 1e3,
-        "prefill_s": rep.t_prefill, "wall_s": rep.wall,
-        "latency_p50_s": rep.latency_s(50), "latency_p95_s": rep.latency_s(95),
-        "ttft_p50_s": rep.ttft_s(50), "ttft_p95_s": rep.ttft_s(95),
-        "top1_agreement": rep.counters["top1"], "logit_mse": rep.counters["logit_mse"],
-        "occupancy": rep.occupancy, "init_s": t_init, "program_s": t_program,
+        "flash_attention_launches": fa_launches,
+        "flash_attention_expected": fa_expected,
+        "plain_calls": n_plain, "program_events_while_serving": events,
+        **serve_metrics(rep), "init_s": t_init, "program_s": t_program,
+        "kv_bytes": rep.peak_kv_bytes, "n_prefill_traces": rep.n_prefill_traces,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     log(rep.summary())
@@ -354,14 +380,17 @@ def phase_serve(torch, seed: int) -> dict:
         f"p95 {res['ttft_p95_s']:.3f} s, top1_agreement {res['top1_agreement']:.4f}")
     log(f"counters: analog_mvm launches {launches} (expected "
         f"{res['launches_expected']} = {LAUNCHES_PER_FORWARD} x {forwards} forwards), "
-        f"plain calls {plain_calls}, program events {events}")
+        f"flash_attention launches {fa_launches} (expected {fa_expected} = "
+        f"{FA_LAUNCHES_PER_PREFILL} x {2 * rep.n_requests} prefills, chip and digital), "
+        f"plain calls {n_plain}, program events {events}")
     check(rep.n_requests == len(trace), "every request retires")
     check(all(r.n_new == q.max_new_tokens for r, q in
               zip(sorted(rep.records, key=lambda r: r.rid), trace)),
           "every request got its budget")
     check(events == 0, "no programming events while serving")
     check(launches == res["launches_expected"], "155 kernel launches per forward")
-    check(plain_calls == 0, "the main path never ran the plain version")
+    check(fa_launches == fa_expected, "22 flash_attention launches per prefill")
+    check(n_plain == 0, "the main path never ran the plain version")
     res.update(phase_decode_check(torch, served, trace))
     ctx = {"served": served, "trace": trace, "program": program, "params": params,
            "cfg": cfg, "tokens": {r.rid: r.tokens.tolist() for r in rep.records}}
@@ -454,10 +483,25 @@ def phase_decode_check(torch, served, trace) -> dict:
 
 
 def plain_calls() -> int:
+    """Calls of every kernel's plain version since the last reset_counts."""
     from repro_torch.core import engine
-    from repro_torch.kernels.ref import analog_mvm_ref, decode_fused_ref
+    from repro_torch.kernels import ref
 
-    return analog_mvm_ref.calls + engine.tile_matmul_quant.calls + decode_fused_ref.calls
+    return (ref.analog_mvm_ref.calls + engine.tile_matmul_quant.calls
+            + ref.decode_fused_ref.calls + ref.flash_attention_ref.calls)
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count and every plain version's call count to 0."""
+    from repro_torch.core import engine
+    from repro_torch.kernels import analog_mvm, decode_fused, flash_attention, ref
+
+    analog_mvm.analog_mvm.launches = 0
+    decode_fused.launches = 0
+    flash_attention.flash_attention.launches = 0
+    for fn in (ref.analog_mvm_ref, engine.tile_matmul_quant, ref.decode_fused_ref,
+               ref.flash_attention_ref):
+        fn.calls = 0
 
 
 def fused_cache_from_trace(torch, served, plan, trace):
@@ -607,6 +651,7 @@ def phase_fused_serve(torch, ctx, per_layer: dict) -> tuple:
     from repro_torch.core import engine
     from repro_torch.kernels import analog_mvm as kernel
     from repro_torch.kernels import decode_fused as df
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.serving import Request, ServingConfig, ServingEngine
 
     cfg, trace = ctx["cfg"], ctx["trace"]
@@ -617,29 +662,20 @@ def phase_fused_serve(torch, ctx, per_layer: dict) -> tuple:
     fused.run([Request(rid=-1, prompt=trace[0].prompt[:16], max_new_tokens=4)])
     torch.cuda.synchronize()
     events0 = engine.program_event_count()
-    kernel.analog_mvm.launches = 0
-    df.launches = 0
-    from repro_torch.kernels import ref as ref_mod
-    ref_mod.analog_mvm_ref.calls = 0
-    ref_mod.decode_fused_ref.calls = 0
-    engine.tile_matmul_quant.calls = 0
+    reset_counts()
     rep = fused.run(trace)
     torch.cuda.synchronize()
     res = {
         "requests": rep.n_requests, "generated": rep.n_generated,
-        "decode_steps": rep.n_steps, "prefills": rep.n_requests,
+        "prefills": rep.n_requests,
         "decode_fused_launches": df.launches,
         "analog_mvm_launches": kernel.analog_mvm.launches,
         "analog_mvm_expected": LAUNCHES_PER_FORWARD * rep.n_requests,
+        "flash_attention_launches": fa.flash_attention.launches,
+        "flash_attention_expected": FA_LAUNCHES_PER_PREFILL * 2 * rep.n_requests,
         "plain_calls": plain_calls(),
         "program_events_while_serving": engine.program_event_count() - events0,
-        "tokens_per_s": rep.tokens_per_s,
-        "ms_per_decode_step": rep.t_decode / max(rep.n_steps, 1) * 1e3,
-        "prefill_s": rep.t_prefill, "wall_s": rep.wall,
-        "latency_p50_s": rep.latency_s(50), "latency_p95_s": rep.latency_s(95),
-        "ttft_p50_s": rep.ttft_s(50), "ttft_p95_s": rep.ttft_s(95),
-        "top1_agreement": rep.counters["top1"], "logit_mse": rep.counters["logit_mse"],
-        "occupancy": rep.occupancy,
+        **serve_metrics(rep),
         "requests_with_per_layer_tokens": sum(
             r.tokens.tolist() == ctx["tokens"][r.rid] for r in rep.records),
     }
@@ -653,7 +689,9 @@ def phase_fused_serve(torch, ctx, per_layer: dict) -> tuple:
     log(f"fused counters: decode_fused launches {res['decode_fused_launches']} "
         f"(decode steps {rep.n_steps}), analog_mvm launches {res['analog_mvm_launches']} "
         f"(expected {res['analog_mvm_expected']} = {LAUNCHES_PER_FORWARD} x "
-        f"{rep.n_requests} prefills), plain calls {res['plain_calls']}, program events "
+        f"{rep.n_requests} prefills), flash_attention launches "
+        f"{res['flash_attention_launches']} (expected {res['flash_attention_expected']}), "
+        f"plain calls {res['plain_calls']}, program events "
         f"{res['program_events_while_serving']}; requests with the per-layer run's tokens "
         f"{res['requests_with_per_layer_tokens']}/{rep.n_requests}")
     check(rep.n_requests == len(trace), "every request retires (fused)")
@@ -663,6 +701,8 @@ def phase_fused_serve(torch, ctx, per_layer: dict) -> tuple:
     check(res["decode_fused_launches"] == rep.n_steps, "one fused launch per decode step")
     check(res["analog_mvm_launches"] == res["analog_mvm_expected"],
           "155 analog_mvm launches per prefill, none in decode")
+    check(res["flash_attention_launches"] == res["flash_attention_expected"],
+          "22 flash_attention launches per prefill (fused)")
     check(res["plain_calls"] == 0, "the fused path never ran a plain version")
     check(res["program_events_while_serving"] == 0, "no programming events (fused)")
     return res, fused
@@ -679,14 +719,30 @@ def wall_ms(torch, fn, n: int) -> float:
     return (time.perf_counter() - t0) / n * 1e3
 
 
-def profiled(torch, fn) -> dict:
+SERVE_METRICS = ("tokens_per_s", "ms_per_decode_step", "prefill_s", "wall_s",
+                 "latency_p50_s", "latency_p95_s", "ttft_p50_s", "ttft_p95_s",
+                 "top1_agreement", "logit_mse", "occupancy", "decode_steps")
+
+
+def serve_metrics(rep) -> dict:
+    """The end-to-end serving metrics of one ServeReport (SERVE_METRICS)."""
+    return {"tokens_per_s": rep.tokens_per_s,
+            "ms_per_decode_step": rep.t_decode / max(rep.n_steps, 1) * 1e3,
+            "prefill_s": rep.t_prefill, "wall_s": rep.wall,
+            "latency_p50_s": rep.latency_s(50), "latency_p95_s": rep.latency_s(95),
+            "ttft_p50_s": rep.ttft_s(50), "ttft_p95_s": rep.ttft_s(95),
+            "top1_agreement": rep.counters["top1"], "logit_mse": rep.counters["logit_mse"],
+            "occupancy": rep.occupancy, "decode_steps": rep.n_steps}
+
+
+def profiled(torch, fn, kernel: str = "analog_mvm") -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return profile_summary(prof)
+    return profile_summary(prof, kernel)
 
 
 def fused_bound(dec, lens) -> tuple:
@@ -813,11 +869,319 @@ def phase_step_timing(torch, ctx, fused_engine) -> dict:
     return res
 
 
-def profile_summary(prof) -> dict:
-    """Device time of one profiled decode step from the trace's device
-    events (kernels and copies): their busy union, the analog_mvm kernels'
-    share, the host wall of the step and the device's idle share of it.
-    'not measured' when the profiler recorded no device activity."""
+# --------------------------------------------------------------- prefill attention
+
+
+def fa_bound(rows: int, s: int, h: int, kv: int, d: int) -> tuple:
+    """(bound ms, bound_by) of one bf16 causal B3 launch: q, k, v read once
+    and o written once over the HBM rate, or the QK^T and PV operations the
+    causal mask leaves (2 x 2 x D per (row, key) pair it keeps) over the
+    bf16 tensor-core peak, whichever is larger."""
+    nbytes = rows * s * (2 * h + 2 * kv) * d * 2
+    ops = 4 * rows * h * d * (s * (s + 1) // 2)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def fa_served_shapes(trace) -> list:
+    """(rows, S) of every B3 launch the serving phases make: each prompt
+    length at one row (the per-request prefills of phases 4, 6 and 9's
+    digital lockstep, and the 16-token warm-up) and the paged engine's
+    (rows, bucket) shapes (phase 9's bucketed prefill)."""
+    from repro_torch.serving.paging import default_buckets, prefill_rows
+
+    exact = {(1, int(r.prompt.size)) for r in trace} | {(1, 16)}
+    rows = prefill_rows(default_buckets(PAGED["s_max"]), PAGED["prefill_batch"])
+    return sorted(exact | {(pb, b) for b, pb in rows.items()}, key=lambda x: (x[1], x[0]))
+
+
+def record_fa_shapes() -> set:
+    """Record the (rows, S, dtype) of every prefill-attention launch made by
+    the model from here on (``chunked_attention``'s call of the kernel
+    wrapper); the wrapper and its launch count are left as they are."""
+    from repro_torch.models import attention
+
+    seen: set = set()
+    kernel = attention.flash_attention
+
+    def recorded(q, k, v, **kw):
+        seen.add((q.shape[0], q.shape[1], str(q.dtype).split(".")[-1]))
+        return kernel(q, k, v, **kw)
+
+    attention.flash_attention = recorded
+    return seen
+
+
+def phase_flash_attention(torch, gen, shapes: list) -> dict:
+    """Kernel B3 against its plain version at tinyllama-1.1b's heads over
+    ``shapes`` (rows, S), bf16 and f32, causal and full; the right-padding
+    check; and, per shape in bf16 causal (the prefill's case), the kernel,
+    the plain version, SDPA (yardstick only) and the bound.
+
+    Tolerance: f32 max |d| <= 1e-5 * max |o|; bf16 at most one output ulp
+    (near zero, ulp(|o|) + 1e-5 * max |o|) with under 1% of outputs
+    differing. Padding: a prompt at its exact length and right-padded (pad
+    rows x 100) to every larger bucket gives bitwise the same real rows."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    c = FA_HEADS
+    chunks = dict(q_chunk=c["q_chunk"], kv_chunk=c["kv_chunk"])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    launches0 = fa.flash_attention.launches
+    cases, failures, rows_out = [], [], []
+    for rows, s in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn((rows, s, n, c["d"]), generator=gen, device=DEV).to(dtype)
+                       for n in (c["h"], c["kv"], c["kv"]))
+            for causal in (True, False):
+                o_k = fa.flash_attention(q, k, v, causal=causal, **chunks)
+                o_p = flash_attention_ref(q, k, v, causal, **chunks)
+                ok_, op_ = o_k.float(), o_p.float()
+                dd = (ok_ - op_).abs()
+                scale = op_.abs().max().item()
+                ulp = bf16_ulp(op_)
+                r = {"rows": rows, "S": s, "dtype": str(dtype).split(".")[-1],
+                     "causal": causal, "max_abs": dd.max().item(), "max_abs_o": scale,
+                     "max_ulps": (dd / ulp).max().item() if dtype == torch.bfloat16 else None,
+                     "over_one_ulp": int((dd > ulp).sum().item()),
+                     "differing": int((dd > 0).sum().item()), "elements": dd.numel(),
+                     "finite": bool(ok_.isfinite().all().item())}
+                if dtype == torch.float32:
+                    r["ok"] = r["finite"] and r["max_abs"] <= 1e-5 * scale
+                else:
+                    r["ok"] = (r["finite"] and bool((dd <= ulp + 1e-5 * scale).all().item())
+                               and r["differing"] / r["elements"] < 0.01)
+                cases.append(r)
+                if not r["ok"]:
+                    failures.append(r)
+            if dtype != torch.bfloat16:
+                continue
+            # timing, bf16 causal: kernel, plain, SDPA, kernel
+            qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            n_iter = 20 if s <= 512 else 5
+            run_k = lambda i: fa.flash_attention(q, k, v, causal=True, **chunks)
+            ms_k1 = time_ms(run_k, n_iter)
+            ms_p = time_ms(lambda i: flash_attention_ref(q, k, v, True, **chunks), max(2, n_iter // 4))
+            ms_l = time_ms(lambda i: sdpa(qh, kh, vh, is_causal=True, enable_gqa=True), n_iter)
+            ms_k2 = time_ms(run_k, n_iter)
+            bound, bound_by = fa_bound(rows, s, c["h"], c["kv"], c["d"])
+            row = {"rows": rows, "S": s, "ms": min(ms_k1, ms_k2), "ms_readings": [ms_k1, ms_k2],
+                   "plain_ms": ms_p, "library_ms": ms_l, "bound_ms": bound, "bound_by": bound_by}
+            row["bound_share"] = bound / row["ms"]
+            rows_out.append(row)
+            log(f"B3 time rows={rows} S={s:4d} bf16 causal: kernel {row['ms']:.4f} ms "
+                f"({ms_k1:.4f}/{ms_k2:.4f}), plain {ms_p:.4f} ms, SDPA {ms_l:.4f} ms, bound "
+                f"{bound:.4f} ms ({bound_by}, {row['bound_share']:.1%} of bound; kernel/SDPA "
+                f"{row['ms'] / ms_l:.1f}x)")
+    torch.cuda.synchronize()
+    worst_bf16 = max(r["max_ulps"] for r in cases if r["max_ulps"] is not None)
+    worst_f32 = max(r["max_abs"] / r["max_abs_o"] for r in cases if r["dtype"] == "float32")
+    log(f"B3 vs plain: {len(cases)} cases, bf16 worst {worst_bf16:.3f} ulps, "
+        f"{sum(r['over_one_ulp'] for r in cases)} outputs over one ulp (all near zero, "
+        f"within the f32 bound), worst share differing "
+        f"{max(r['differing'] / r['elements'] for r in cases if r['dtype'] == 'bfloat16'):.2e}; "
+        f"f32 worst max|d|/max|o| {worst_f32:.2e}")
+    for f in failures[:10]:
+        log(f"  FAIL {f}")
+
+    # right-padding: exact length vs every larger bucket, real rows bitwise
+    pad = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for length in (1, 17, 100, 250, 300, 1000):
+            q, k, v = (torch.randn((1, length, n, c["d"]), generator=gen, device=DEV).to(dtype)
+                       for n in (c["h"], c["kv"], c["kv"]))
+            exact = fa.flash_attention(q, k, v, causal=True, **chunks)
+            for bucket in (32, 64, 128, 256, 512, 1024, 2048):
+                if bucket <= length:
+                    continue
+                padded = [torch.cat([x, 100 * torch.randn((1, bucket - length, *x.shape[2:]),
+                                                          generator=gen, device=DEV).to(dtype)],
+                                    dim=1).contiguous() for x in (q, k, v)]
+                out = fa.flash_attention(*padded, causal=True, **chunks)
+                pad.append({"dtype": str(dtype).split(".")[-1], "length": length,
+                            "bucket": bucket, "equal": bool(torch.equal(out[:, :length], exact))})
+    n_eq = sum(p["equal"] for p in pad)
+    log(f"B3 right-padding: {n_eq} of {len(pad)} (length, bucket) pairs bitwise equal")
+    fa.flash_attention.launches = launches0  # check launches are not main-path launches
+    check(not failures, f"{len(failures)} B3 cases out of tolerance")
+    check(n_eq == len(pad), "B3 real rows bitwise independent of right-padding")
+    return {"shapes": list(shapes), "cases": cases, "timing": rows_out, "padding": pad,
+            "max_abs_bf16": max(r["max_abs"] for r in cases if r["dtype"] == "bfloat16"),
+            "worst_bf16_ulps": worst_bf16, "worst_f32_rel": worst_f32}
+
+
+def phase_paged_serve(torch, ctx, per_layer: dict) -> dict:
+    """The trace again through the paged cache with bucketed prefill:
+    ServingConfig(n_slots=8, s_max=512, paged=True, page_size=16,
+    prefill_batch=4), BucketedScheduler, digital lockstep on. The counters
+    prove B3 and B1 ran every prefill call and decode step and no plain
+    version ran; one profiled prefill call gives B3's share of its device
+    time; the exact-length and bucketed prefill of the same prompts are
+    compared (reported, not gated); one decode step at 8 slots, no digital
+    lockstep, over the rectangular slot cache (phase 4's engine) and over the
+    paged cache, timed in turns (a, b, b, a) and profiled."""
+    import numpy as np
+
+    from repro_torch.core import engine
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serving import BucketedScheduler, Request, ServingConfig, ServingEngine
+    from repro_torch.serving.paging import bucket_for
+
+    cfg, trace = ctx["cfg"], ctx["trace"]
+    paged = ServingEngine.for_program(
+        ctx["program"], cfg,
+        ServingConfig(**PAGED),
+        ref_params=ctx["params"], device=DEV,
+    )
+    calls = []
+    prefill_bucket = paged.prefill_bucket
+
+    def counted(toks, last_idx):
+        calls.append(tuple(toks.shape))
+        return prefill_bucket(toks, last_idx)
+
+    paged.prefill_bucket = counted
+    paged.run([Request(rid=-1, prompt=trace[0].prompt[:16], max_new_tokens=4)],
+              scheduler=BucketedScheduler())
+    torch.cuda.synchronize()
+    # host time drifts over a long process: the paged run is compared with
+    # the rectangular engine served in turns around it (rect, paged, paged,
+    # rect), not only with phase 4's run
+    rect_before = serve_metrics(ctx["served"].run(trace))
+    calls.clear()
+    events0 = engine.program_event_count()
+    reset_counts()
+    rep = paged.run(trace, scheduler=BucketedScheduler())
+    torch.cuda.synchronize()
+    n_calls = len(calls)
+    res = {
+        "requests": rep.n_requests, "generated": rep.n_generated,
+        "prefill_calls": n_calls,
+        "prefill_shapes": sorted(set(calls)),
+        "n_prefill_traces": rep.n_prefill_traces, "buckets": list(paged.prefill_buckets),
+        "peak_pages_in_use": rep.peak_pages_in_use, "page_bytes_all_layers":
+            2 * cfg.n_layers * 16 * cfg.n_kv_heads * cfg.hd * cfg.dtype.itemsize,
+        "kv_bytes": rep.peak_kv_bytes, "rect_kv_bytes": per_layer["kv_bytes"],
+        "flash_attention_launches": fa.flash_attention.launches,
+        "flash_attention_expected": FA_LAUNCHES_PER_PREFILL * (n_calls + rep.n_requests),
+        "analog_mvm_launches": kernel.analog_mvm.launches,
+        "analog_mvm_expected": LAUNCHES_PER_FORWARD * (n_calls + rep.n_steps),
+        "plain_calls": plain_calls(),
+        "program_events_while_serving": engine.program_event_count() - events0,
+        **serve_metrics(rep),
+        "requests_with_per_layer_tokens": sum(
+            r.tokens.tolist() == ctx["tokens"][r.rid] for r in rep.records),
+    }
+    res["kv_bytes_at_peak_pages"] = res["peak_pages_in_use"] * res["page_bytes_all_layers"]
+    log(rep.summary())
+    turns = {"rect": [rect_before], "paged": [res]}
+    turns["paged"].append(serve_metrics(paged.run(trace, scheduler=BucketedScheduler())))
+    turns["rect"].append(serve_metrics(ctx["served"].run(trace)))
+    res["in_turns"] = {k: [{n: m[n] for n in SERVE_METRICS} for m in v]
+                       for k, v in turns.items()}
+    for name, m in [("per-layer", per_layer)] + [
+            (f"{k} {i}", m) for k in ("rect", "paged") for i, m in enumerate(turns[k])]:
+        log(f"serve {name:9s}: {m['tokens_per_s']:.1f} tokens/s, "
+            f"{m['ms_per_decode_step']:.2f} ms/decode step, p50 {m['latency_p50_s']:.3f} s, "
+            f"p95 {m['latency_p95_s']:.3f} s, ttft p50 {m['ttft_p50_s']:.3f} s, "
+            f"p95 {m['ttft_p95_s']:.3f} s, top1_agreement {m['top1_agreement']:.4f}, "
+            f"{m['decode_steps']} decode steps")
+    log(f"paged: {n_calls} bucketed prefill calls over shapes {res['prefill_shapes']}, "
+        f"prefill traces {rep.n_prefill_traces} (buckets {len(paged.prefill_buckets)}), "
+        f"peak pages {rep.peak_pages_in_use} ({res['kv_bytes_at_peak_pages']} B of KV in use "
+        f"at the peak; pool {res['kv_bytes']} B; rectangle {res['rect_kv_bytes']} B)")
+    log(f"paged counters: flash_attention launches {res['flash_attention_launches']} (expected "
+        f"{res['flash_attention_expected']} = {FA_LAUNCHES_PER_PREFILL} x ({n_calls} bucketed + "
+        f"{rep.n_requests} digital prefills)), analog_mvm launches {res['analog_mvm_launches']} "
+        f"(expected {res['analog_mvm_expected']} = {LAUNCHES_PER_FORWARD} x ({n_calls} + "
+        f"{rep.n_steps} decode steps)), plain calls {res['plain_calls']}, program events "
+        f"{res['program_events_while_serving']}; requests with the per-layer run's tokens "
+        f"{res['requests_with_per_layer_tokens']}/{rep.n_requests}")
+    check(rep.n_requests == len(trace), "every request retires (paged)")
+    check(all(r.n_new == q.max_new_tokens for r, q in
+              zip(sorted(rep.records, key=lambda r: r.rid), trace)),
+          "every request got its budget (paged)")
+    check(rep.n_prefill_traces <= len(paged.prefill_buckets), "prefill shapes <= buckets")
+    check(res["flash_attention_launches"] == res["flash_attention_expected"],
+          "22 flash_attention launches per prefill (paged)")
+    check(res["analog_mvm_launches"] == res["analog_mvm_expected"],
+          "155 analog_mvm launches per bucketed prefill and decode step")
+    check(res["plain_calls"] == 0, "the paged path never ran a plain version")
+    check(res["program_events_while_serving"] == 0, "no programming events (paged)")
+
+    # exact-length vs bucketed prefill of the same prompts (dummy rows as the
+    # engine fills them): the logits of the real row, reported
+    same = []
+    for req in trace[:4]:
+        n = int(req.prompt.size)
+        sb = bucket_for(n, paged.prefill_buckets)
+        pb = paged._pb_of[sb]
+        toks = np.tile(np.pad(req.prompt, (0, sb - n)), (pb, 1))
+        _, l_b, _ = prefill_bucket(torch.as_tensor(toks, device=DEV),
+                                   torch.full((pb,), n - 1, device=DEV))
+        _, l_e, _ = paged.prefill(paged.params, paged.acfg, req)
+        d = (l_b[0].float() - l_e[0].float()).abs().max().item()
+        same.append({"length": n, "bucket": sb, "rows": pb,
+                     "bitwise": bool(torch.equal(l_b[0], l_e[0])), "max_abs": d})
+    res["exact_vs_bucketed_prefill"] = same
+    log(f"exact-length vs bucketed prefill logits: "
+        + "; ".join(f"{x['length']}->{x['bucket']}x{x['rows']} "
+                    f"{'bitwise' if x['bitwise'] else 'max |d| %.3e' % x['max_abs']}"
+                    for x in same))
+
+    # one full-width prefill call profiled: B3's share of its device time
+    shares = {}
+    for sb in (32, 256):
+        pb = paged._pb_of[sb]
+        toks = torch.as_tensor(np.tile(trace[0].prompt[:1], (pb, sb)), device=DEV)
+        last = torch.full((pb,), sb - 1, device=DEV)
+        prefill_bucket(toks, last)
+        torch.cuda.synchronize()
+        prof = profiled(torch, lambda: prefill_bucket(toks, last), "flash_attention")
+        shares[f"{pb}x{sb}"] = prof
+        log(f"profile (one bucketed prefill call, {pb} x {sb}): device busy "
+            f"{prof['profile_device_ms']} ms, flash_attention kernels {prof['profile_kernel_ms']} "
+            f"ms, host wall {prof['profile_wall_ms']} ms, device kernels "
+            f"{prof['profile_launches']}, idle share {prof['profile_idle_share']}")
+    res["prefill_profile"] = shares
+
+    def step_of(eng, scheduler):
+        run = eng.start_run(scheduler=scheduler)
+        run.submit([Request(rid=r.rid, prompt=r.prompt, max_new_tokens=r.max_new_tokens)
+                    for r in trace[: eng.n_slots]])
+        run.admit_arrived()
+        # every timed call rewrites the same rows (the returned cache is dropped)
+        return lambda: eng.decode_main(run.cur, run.cache)
+
+    ways = [("rect", step_of(ctx["served"], None)), ("paged", step_of(paged, BucketedScheduler()))]
+    readings = {name: [] for name, _ in ways}
+    for name, fn in ways + ways[::-1]:
+        readings[name].append(wall_ms(torch, fn, 10))
+    steps = {}
+    for name, fn in ways:
+        prof = profiled(torch, fn)
+        steps[name] = {"ms_per_step": min(readings[name]), "ms_readings": readings[name],
+                       "device_kernels": prof["profile_launches"],
+                       "device_busy_ms": prof["profile_device_ms"],
+                       "device_idle_share": prof["profile_idle_share"]}
+        log(f"decode step {name:5s} (per layer, no lockstep): {steps[name]['ms_per_step']:.4f} "
+            f"ms/step ({'/'.join(f'{x:.4f}' for x in readings[name])}), device kernels "
+            f"{prof['profile_launches']}, device busy {prof['profile_device_ms']} ms, idle "
+            f"share {prof['profile_idle_share']} profiled")
+    res["decode_step"] = steps
+    return res
+
+
+
+def profile_summary(prof, kernel: str = "analog_mvm") -> dict:
+    """Device time of one profiled step from the trace's device events
+    (kernels and copies): their busy union, the time of the kernels whose
+    name holds ``kernel``, the host wall of the step and the device's idle
+    share of it. 'not measured' when the profiler recorded no device
+    activity."""
     events = prof.events()
     dev = [e for e in events if str(e.device_type).endswith("CUDA")]
     host = [e for e in events if str(e.device_type).endswith("CPU")]
@@ -834,7 +1198,7 @@ def profile_summary(prof) -> dict:
         else:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
-    mvm = sum(e.time_range.end - e.time_range.start for e in dev if "analog_mvm" in e.name)
+    mvm = sum(e.time_range.end - e.time_range.start for e in dev if kernel in e.name)
     wall = max(e.time_range.end for e in host) - min(e.time_range.start for e in host)
     return {"profile_device_ms": round(busy / 1e3, 4),
             "profile_kernel_ms": round(mvm / 1e3, 4),
@@ -869,11 +1233,23 @@ def main(argv=None) -> int:
     gen = torch.Generator("cuda").manual_seed(args.seed)
     accuracy = phase_kernel_vs_plain(torch, gen)
     timing = phase_timing(torch, gen)
+    fa_launched = record_fa_shapes()
     serve, ctx = phase_serve(torch, args.seed)
     fused_check = phase_fused_check(torch, ctx)
     fused_serve, fused_engine = phase_fused_serve(torch, ctx, serve)
     step_timing = phase_step_timing(torch, ctx, fused_engine)
     fk = step_timing["kernel"]
+    del fused_engine
+    flash = phase_flash_attention(
+        torch, gen, fa_served_shapes(ctx["trace"]) + [(1, FA_CONTEXT)])
+    paged_serve = phase_paged_serve(torch, ctx, serve)
+    checked = {(r["rows"], r["S"], r["dtype"]) for r in flash["cases"]}
+    unchecked = sorted(fa_launched - checked)
+    log(f"B3 shapes launched by the serving phases (rows, S, dtype): {sorted(fa_launched)}; "
+        f"not checked in phase 8: {unchecked or 'none'}")
+    check(not unchecked, f"B3 launched at shapes phase 8 never checked: {unchecked}")
+    # B3 per prefill call: 22 launches at the largest bucket this trace uses
+    fa_t = next(r for r in flash["timing"] if (r["rows"], r["S"]) == (1, 256))
 
     per_step = lambda key: sum(r[key] * r["per_forward"] for r in timing)
     kernels = {"kernels": [{
@@ -909,11 +1285,30 @@ def main(argv=None) -> int:
         "per": "one tinyllama-1.1b decode step at 8 slots, bf16, one launch; "
                "max_abs_err over the logits at depths 1, 2 and 22",
         "pass": True,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:34",
+        "launches": paged_serve["flash_attention_launches"],
+        "max_abs_err": max(r["max_abs"] for r in flash["cases"]),
+        "ms": FA_LAUNCHES_PER_PREFILL * fa_t["ms"],
+        "plain_ms": FA_LAUNCHES_PER_PREFILL * fa_t["plain_ms"],
+        "bound_ms": FA_LAUNCHES_PER_PREFILL * fa_t["bound_ms"],
+        "bound_by": fa_t["bound_by"],
+        "library_ms": FA_LAUNCHES_PER_PREFILL * fa_t["library_ms"],
+        "per": "one tinyllama-1.1b bucketed prefill call at bucket 256, 1 row, bf16, "
+               "causal: 22 launches (library: scaled_dot_product_attention, is_causal, "
+               "enable_gqa); launches from the paged serving run; max_abs_err over "
+               "every checked shape, both dtypes, causal and full",
+        "max_err_bf16_ulps": flash["worst_bf16_ulps"],
+        "pass": True,
     }]}
     out = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
            "build_s": build_s, "ptxas": ptxas, "kernel_vs_plain": accuracy, "timing": timing,
            "serve": serve, "fused_check": fused_check, "fused_serve": fused_serve,
-           "step_timing": step_timing, **kernels, "seconds": time.perf_counter() - t_start}
+           "step_timing": step_timing, "flash_attention": flash, "paged_serve": paged_serve,
+           **kernels, "seconds": time.perf_counter() - t_start}
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(out, indent=1))
     log(f"total {out['seconds']:.1f} s")

@@ -1,0 +1,116 @@
+"""Wrapper of the Hopper prefill-attention kernel (``csrc/flash_attention.cu``).
+
+Replaces the TPU kernel ``repro/kernels/flash_attention.py::_kernel``. The
+CUDA source holds the design note (what it computes, its bound, what the
+design does about it); the plain PyTorch version of the same function is
+``kernels.ref.flash_attention_ref``.
+
+:func:`flash_attention` runs the plain version on a CPU tensor and the
+kernel on a CUDA tensor -- a failed build or launch raises, nothing falls
+back. On the card it checks device, dtype, shape and contiguity, allocates
+the output, launches on the current stream, raises on a launch error, and
+adds one to ``flash_attention.launches`` per launch (and nowhere else), so a
+run can show that its path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import flash_attention_ref
+
+Tensor = torch.Tensor
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: head dims the kernel is instantiated for
+HEAD_DIMS = (16, 32, 64, 128)
+_MAX_GRID_YZ = 65535
+_FN = None
+
+
+def _fn():
+    global _FN
+    if _FN is None:
+        lib = build.load("flash_attention")
+        fn = lib.flash_attention_launch
+        fn.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
+            + [ctypes.c_int, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        _FN = (fn, lib.flash_attention_error_string)
+    return _FN
+
+
+def flash_attention(
+    q: Tensor,
+    k: Tensor,
+    v: Tensor,
+    *,
+    causal: bool = True,
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+) -> Tensor:
+    """Attention forward: q (B, S, H, D), k and v (B, S, Kv, D) -> (B, S, H, D)
+    in q's dtype; query head h reads KV head ``h // (H / Kv)``.
+
+    ``q_chunk`` and ``kv_chunk`` are the model's attention chunks
+    (``ModelConfig.attn_chunk_q`` / ``attn_chunk_kv``): the plain version
+    runs at them, and the kernel updates its online softmax at the same
+    ``kv_chunk`` boundaries, so both round p at the same points.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(
+            f"flash_attention kernel needs q, k and v on one CUDA device, got "
+            f"{q.device}, {k.device} and {v.device}"
+        )
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"flash_attention kernel takes float32 or bfloat16 q, k and v of "
+            f"one dtype, got {q.dtype}, {k.dtype} and {v.dtype}"
+        )
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"flash_attention kernel needs q (B, S, H, D) and k, v (B, S, Kv, "
+            f"D), got {tuple(q.shape)}, {tuple(k.shape)} and {tuple(v.shape)}"
+        )
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    if k.shape[:2] != (b, s) or k.shape[3] != d or h % kv:
+        raise ValueError(
+            f"flash_attention kernel: q {tuple(q.shape)} and k {tuple(k.shape)} "
+            "need one batch, one sequence, one head dim and H a multiple of Kv"
+        )
+    if d not in HEAD_DIMS or min(b, s) < 1 or max(b, h) > _MAX_GRID_YZ or kv_chunk < 1:
+        raise ValueError(
+            f"flash_attention kernel: unsupported B={b} S={s} H={h} D={d} "
+            f"kv_chunk={kv_chunk} (D in {HEAD_DIMS})"
+        )
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention kernel needs contiguous q, k and v")
+    o = torch.empty_like(q)
+    fn, err_str = _fn()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h, kv,
+            d, int(causal), int(kv_chunk), d**-0.5, _DTYPES[q.dtype], stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"flash_attention kernel launch failed: {err_str(rc).decode()} "
+            f"(B={b} S={s} H={h} Kv={kv} D={d} dtype={q.dtype})"
+        )
+    flash_attention.launches += 1
+    return o
+
+
+#: kernel launches since process start (see module docstring)
+flash_attention.launches = 0

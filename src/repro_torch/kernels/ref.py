@@ -17,7 +17,10 @@ fp32 with no intermediate rounding, so bf16 differs by rounding there (its
 own tests allow 15% bf16 mismatches for this).
 
 ``analog_mvm_ref.calls`` counts calls, so a run can show that its main path
-never took the plain version on the card.
+never took the plain version on the card. The module also holds the plain
+versions of the other kernels: :func:`decode_fused_ref` (the fused decode
+step) and :func:`flash_attention_ref` (the prefill attention), each with
+its own ``calls`` counter.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ import torch
 from repro_torch.core.quant import fake_quant
 
 Tensor = torch.Tensor
+
+NEG_INF = -1e30
 
 
 def tile_mvm(
@@ -172,3 +177,78 @@ def decode_fused_ref(
 
 #: calls since process start
 decode_fused_ref.calls = 0
+
+
+def flash_attention_ref(
+    q: Tensor,
+    k: Tensor,
+    v: Tensor,
+    causal: bool = True,
+    *,
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+    q_offset: int = 0,
+) -> Tensor:
+    """Plain version of the prefill-attention kernel (``csrc/flash_attention.cu``):
+    online-softmax attention over (q_chunk, kv_chunk) blocks, the port of the
+    reference's ``models.attention.chunked_attention`` (the chunks default
+    to ``ModelConfig``'s).
+
+    q: (B, Sq, H, D); k, v: (B, Sk, Kv, D); query head h reads KV head
+    ``h // (H / Kv)``. Returns (B, Sq, H, D) in q's dtype. Scores are f32
+    products scaled by D^-0.5 after QK^T; masked positions are ``NEG_INF``
+    and add exact zeros; p is cast to v's dtype before PV; m, l and acc
+    stay f32; the output is ``acc / max(l, 1e-30)``. ``kv_chunk`` is never
+    clamped to the sequence, so the outputs at real positions are bitwise
+    independent of right-padding.
+    """
+    flash_attention_ref.calls += 1
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = d**-0.5
+    q_chunk = min(q_chunk, sq)
+    sq_p = -(-sq // q_chunk) * q_chunk
+    sk_p = -(-sk // kv_chunk) * kv_chunk
+    if sq_p != sq:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, sq_p - sq))
+    if sk_p != sk:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, sk_p - sk))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, sk_p - sk))
+    kvh = k.shape[2]
+    g = h // kvh
+    dev = q.device
+    q_pos_base = torch.arange(q_chunk, device=dev)
+    k_pos_base = torch.arange(kv_chunk, device=dev)
+    outs = []
+    for qi in range(sq_p // q_chunk):
+        qc = q[:, qi * q_chunk:(qi + 1) * q_chunk]
+        qg = qc.reshape(b, q_chunk, kvh, g, d).float()
+        q_pos = q_offset + qi * q_chunk + q_pos_base
+        m = torch.full((b, kvh, g, q_chunk), NEG_INF, device=dev)
+        l = torch.zeros((b, kvh, g, q_chunk), device=dev)
+        acc = torch.zeros((b, kvh, g, q_chunk, d), device=dev)
+        for ki in range(sk_p // kv_chunk):
+            kc = k[:, ki * kv_chunk:(ki + 1) * kv_chunk]
+            vc = v[:, ki * kv_chunk:(ki + 1) * kv_chunk]
+            # (B, Kv, G, qc, kc) f32
+            s = torch.einsum("bqkgd,bskd->bkgqs", qg, kc.float()) * scale
+            k_pos = ki * kv_chunk + k_pos_base
+            mask = (k_pos[None, :] < sk).expand(q_chunk, kv_chunk)
+            if causal:
+                mask = mask & (q_pos[:, None] >= k_pos[None, :])
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqs,bskd->bkgqd", p.to(vc.dtype).float(), vc.float()
+            )
+            m = m_new
+        out = acc / l[..., None].clamp(min=1e-30)  # (B, Kv, G, qc, D)
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, q_chunk, h, d).to(q.dtype))
+    return torch.cat(outs, dim=1)[:, :sq]
+
+
+#: calls since process start
+flash_attention_ref.calls = 0

@@ -1,7 +1,7 @@
 """Serving launcher of the port, the subset of ``repro.launch.serve`` that is
 ported so far.
 
-``python -m repro_torch.launch.serve --analog --request-trace 16 [--fused-decode]``
+``python -m repro_torch.launch.serve --analog --request-trace 16 [--fused-decode | --kv-page-size 16]``
 
 Serves the reduced (smoke) config of ``--arch`` through
 ``repro_torch.serving.ServingEngine`` on ``--device`` (default ``cuda``;
@@ -18,16 +18,20 @@ from ``--seed``; t = ``--t-hours``, ADC at ``--b-adc`` bits) and serves it;
 ``--load-program DIR`` serves a saved cim-program artifact instead (for
 example one written by the reference CLI's ``--save-program``), at its own
 age. ``--fused-decode`` runs every decode step of the chip as one launch of
-the fused kernel. Analog serving also reports greedy top-1 agreement and
+the fused kernel. ``--kv-page-size P`` serves the trace over the paged KV
+cache (pools of P-token pages, ``--kv-pages`` of them) with bucketed
+prefill (``--prefill-buckets``) and length-sorted admission; it prints
+``mode=bucketed`` and ``prefill_traces=``, and the same tokens as the run
+without it. Analog serving also reports greedy top-1 agreement and
 logit MSE against the digital model built from ``--seed``
 (``--no-ref-check`` skips it); for an artifact programmed from other
 weights those counters compare two different models.
 
 Weights, the rectangle prompts and the trace come from ``--seed``: the
 trace from ``numpy.random.default_rng(seed + 7)``, so the reference CLI
-served the same requests prints the same tokens. Paging, fleets, meshes,
-drift schedules and ``--save-program`` are not ported yet, and their flags
-do not exist here.
+served the same requests prints the same tokens. Fleets, meshes, drift
+schedules and ``--save-program`` are not ported yet, and their flags do not
+exist here.
 """
 
 from __future__ import annotations
@@ -48,7 +52,13 @@ from repro_torch.core.analog import AnalogConfig
 from repro_torch.core.quant import SUPPORTED_B_ADC
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
-from repro_torch.serving import Request, ServingConfig, ServingEngine, poisson_trace
+from repro_torch.serving import (
+    BucketedScheduler,
+    Request,
+    ServingConfig,
+    ServingEngine,
+    poisson_trace,
+)
 
 
 def trace_prompt_buckets(prompt_len: int) -> tuple[int, ...]:
@@ -82,6 +92,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="skip the digital-reference accuracy counters")
 
     g = ap.add_argument_group(
+        "paging", "paged KV cache + bucketed prefill (over --request-trace)")
+    g.add_argument("--kv-page-size", type=int, default=None, metavar="P",
+                   help="paged KV cache: serve --request-trace over a "
+                        "shared pool of P-token pages per layer instead "
+                        "of per-slot s_max rectangles; prompts prefill "
+                        "right-padded to a bucket grid (one prefill shape "
+                        "per bucket) and admission is length-sorted")
+    g.add_argument("--kv-pages", type=int, default=None, metavar="N",
+                   help="page-pool size for --kv-page-size (default: the "
+                        "rectangle-equivalent slots*ceil(s_max/P)+1; pass "
+                        "less to serve long prompts at flat memory)")
+    g.add_argument("--prefill-buckets", default=None, metavar="SPEC",
+                   help="comma list of prefill pad lengths for "
+                        "--kv-page-size (default: geometric 32*2^k grid "
+                        "up to s_max)")
+
+    g = ap.add_argument_group(
         "analog program", "program-once PCM deployment and its artifact")
     g.add_argument("--analog", action="store_true",
                    help="serve through the PCM deployment (program-once)")
@@ -113,10 +140,26 @@ def validate_args(ap: argparse.ArgumentParser, args) -> None:
                      "rectangle path")
     if args.arrival_rate is not None and args.request_trace is None:
         ap.error("--arrival-rate paces a --request-trace (pass both)")
+    if args.kv_page_size is not None and args.request_trace is None:
+        ap.error("--kv-page-size is the paged request-level path "
+                 "(pass --request-trace)")
+    if args.kv_page_size is not None and args.kv_page_size < 1:
+        ap.error("--kv-page-size must be >= 1")
+    if args.kv_page_size is not None:
+        family = configs.get_smoke(args.arch).family
+        if family in ("ssm", "hybrid"):
+            ap.error(f"--kv-page-size pages attention KV caches; the "
+                     f"{family} family ({args.arch}) carries position-free "
+                     "recurrent state that right-padded bucketed prefill "
+                     "would corrupt")
     if args.fused_decode:
         if not (args.analog or args.load_program):
             ap.error("--fused-decode executes a compiled chip's per-layer "
                      "plans as one grid (add --analog or --load-program)")
+        if args.kv_page_size is not None:
+            ap.error("--fused-decode owns one stacked slot cache; it does "
+                     "not compose with the paged KV cache "
+                     "(--kv-page-size)")
         fused_cfg = configs.get_smoke(args.arch)
         if fused_cfg.family in ("ssm", "hybrid", "moe"):
             ap.error(f"--fused-decode fuses the dense attention+FFN layer "
@@ -127,6 +170,19 @@ def validate_args(ap: argparse.ArgumentParser, args) -> None:
             ap.error(f"--fused-decode executes bias-free projections; "
                      f"{args.arch} programs qkv biases the fused grid "
                      "cannot apply")
+    if args.kv_pages is not None and args.kv_page_size is None:
+        ap.error("--kv-pages sizes the --kv-page-size pool (pass both)")
+    if args.prefill_buckets is not None and args.kv_page_size is None:
+        ap.error("--prefill-buckets shapes --kv-page-size prefill "
+                 "(pass both)")
+    if args.prefill_buckets is not None:
+        try:
+            buckets = [int(x) for x in args.prefill_buckets.split(",") if x]
+        except ValueError:
+            ap.error(f"bad --prefill-buckets {args.prefill_buckets!r} "
+                     "(want a comma list of integers)")
+        if not buckets or min(buckets) < 1:
+            ap.error("--prefill-buckets needs positive lengths")
 
 
 def main(argv: Optional[list[str]] = None) -> None:
@@ -185,9 +241,18 @@ def main(argv: Optional[list[str]] = None) -> None:
     ref_check = analog and not args.no_ref_check
     served = ServingEngine(
         cfg, acfg, params,
-        ServingConfig(n_slots=b, s_max=s + args.tokens,
-                      ref_check=not args.no_ref_check,
-                      fused_decode=args.fused_decode),
+        ServingConfig(
+            n_slots=b, s_max=s + args.tokens,
+            paged=args.kv_page_size is not None,
+            page_size=args.kv_page_size if args.kv_page_size is not None else 16,
+            n_pages=args.kv_pages,
+            prefill_buckets=(
+                tuple(int(x) for x in args.prefill_buckets.split(",") if x)
+                if args.prefill_buckets else None
+            ),
+            ref_check=not args.no_ref_check,
+            fused_decode=args.fused_decode,
+        ),
         program=program, ref_params=ref_params if ref_check else None,
         device=dev,
     )
@@ -205,7 +270,9 @@ def main(argv: Optional[list[str]] = None) -> None:
             prompt_lens=trace_prompt_buckets(s),
             new_tokens=(max(1, min(8, args.tokens)), args.tokens),
         )
-        report = served.run(trace)
+        report = served.run(
+            trace, scheduler=BucketedScheduler() if args.kv_page_size else None
+        )
         print(report.summary())
         if ref_check:
             print(f"accuracy_vs_digital_ref: {fmt_counters(report)}")

@@ -1,11 +1,14 @@
-"""Attention, port of ``repro.models.attention`` (dense, non-paged branches).
+"""Attention, port of ``repro.models.attention`` (dense branches).
 
 GQA projections are analog layers (``core.analog.linear_apply``); the QK^T
 and AV products have two dynamic operands, run on the digital datapath and
-stay plain torch here, as the reference left them to XLA outside any Pallas
-kernel. Two paths: the chunked online-softmax prefill (shape-stable kv
-chunks, so real positions are bitwise independent of right-padding) and
-one-token decode against a KV cache with scalar or per-slot (B,) lengths.
+stay plain torch here in decode, as the reference left them to XLA outside
+any Pallas kernel. Two paths: the chunked online-softmax prefill (shape-stable
+kv chunks, so real positions are bitwise independent of right-padding; on
+the card the prefill-attention kernel) and one-token decode against a KV
+cache with scalar or per-slot (B,) lengths, or against the paged cache
+(:class:`PagedKVCache`: a shared page pool read through per-slot page
+tables).
 
 KV writes update the cache buffers in place (``index_copy_``/``index_put_``)
 instead of copying the whole multi-layer cache every step; the returned
@@ -19,11 +22,11 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core.analog import AnalogCtx, linear_apply, linear_init
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ref import NEG_INF, flash_attention_ref
 from repro_torch.models.common import ModelConfig, rope
 
 Tensor = torch.Tensor
-
-NEG_INF = -1e30
 
 
 class KVCache(NamedTuple):
@@ -78,51 +81,18 @@ def chunked_attention(
 
     q: (B, Sq, H, D); k, v: (B, Sk, Kv, D). ``kv_chunk`` is never clamped to
     the sequence: a short sequence pads up to one full chunk, and padded or
-    masked positions contribute exact zeros, as in the reference.
+    masked positions contribute exact zeros, as in the reference, so real
+    positions are bitwise independent of right-padding. The dense prefill's
+    case (causal, ``q_offset == 0``, Sq == Sk) goes to the prefill-attention
+    kernel (``kernels.flash_attention``: the Hopper kernel on a CUDA tensor,
+    its plain version on the CPU); every other case runs the plain version
+    (``kernels.ref.flash_attention_ref``).
     """
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    scale = d**-0.5
-    q_chunk = min(q_chunk, sq)
-    sq_p = -(-sq // q_chunk) * q_chunk
-    sk_p = -(-sk // kv_chunk) * kv_chunk
-    if sq_p != sq:
-        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, sq_p - sq))
-    if sk_p != sk:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, sk_p - sk))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, sk_p - sk))
-    kvh = k.shape[2]
-    g = h // kvh
-    dev = q.device
-    q_pos_base = torch.arange(q_chunk, device=dev)
-    k_pos_base = torch.arange(kv_chunk, device=dev)
-    outs = []
-    for qi in range(sq_p // q_chunk):
-        qc = q[:, qi * q_chunk:(qi + 1) * q_chunk]
-        q_pos = q_offset + qi * q_chunk + q_pos_base
-        m = torch.full((b, kvh, g, q_chunk), NEG_INF, device=dev)
-        l = torch.zeros((b, kvh, g, q_chunk), device=dev)
-        acc = torch.zeros((b, kvh, g, q_chunk, d), device=dev)
-        for ki in range(sk_p // kv_chunk):
-            kc = k[:, ki * kv_chunk:(ki + 1) * kv_chunk]
-            vc = v[:, ki * kv_chunk:(ki + 1) * kv_chunk]
-            s = _gqa_scores(qc, kc) * scale  # (B, Kv, G, qc, kc) f32
-            k_pos = ki * kv_chunk + k_pos_base
-            mask = (k_pos[None, :] < sk).expand(q_chunk, kv_chunk)
-            if causal:
-                mask = mask & (q_pos[:, None] >= k_pos[None, :])
-            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            alpha = torch.exp(m - m_new)
-            p = torch.exp(s - m_new[..., None])
-            l = l * alpha + p.sum(dim=-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bkgqs,bskd->bkgqd", p.to(vc.dtype).float(), vc.float()
-            )
-            m = m_new
-        out = acc / l[..., None].clamp(min=1e-30)  # (B, Kv, G, qc, D)
-        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, q_chunk, h, d).to(q.dtype))
-    return torch.cat(outs, dim=1)[:, :sq]
+    if causal and q_offset == 0 and q.shape[1] == k.shape[1]:
+        return flash_attention(q, k, v, causal=True, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    return flash_attention_ref(
+        q, k, v, causal, q_chunk=q_chunk, kv_chunk=kv_chunk, q_offset=q_offset
+    )
 
 
 def decode_attention(q: Tensor, cache: KVCache) -> Tensor:
@@ -141,6 +111,76 @@ def decode_attention(q: Tensor, cache: KVCache) -> Tensor:
     return _gqa_values(p, cache.v).to(q.dtype)
 
 
+class PagedKVCache(NamedTuple):
+    """Paged KV cache: a pool of fixed-size pages shared by every request
+    slot, plus a per-slot page table.
+
+    A slot holds ``ceil(length / page_size)`` pages, so resident KV memory
+    tracks usage, not provisioning. Page 0 is the reserved scratch page:
+    never allocated, unused table entries point at it, and retired slots
+    write their dead decode tokens into it.
+    """
+
+    k: Tensor  # (n_pages, page_size, n_kv, hd) -- pool shared by all slots
+    v: Tensor  # (n_pages, page_size, n_kv, hd)
+    table: Tensor  # (B, pages_per_slot) int32 page ids; 0 = scratch page
+    length: Tensor  # (B,) int32 tokens written per slot
+    #: the slot's virtual capacity: the gathered decode view is sliced to
+    #: exactly the rectangle an equivalent slot cache has (reduction shapes
+    #: match)
+    s_max: int
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[1]
+
+
+def init_paged_cache(
+    cfg: ModelConfig,
+    batch: int,
+    s_max: int,
+    dtype,
+    *,
+    page_size: int,
+    n_pages: int,
+    device,
+) -> PagedKVCache:
+    """One layer's page pool and per-slot tables (one page-id space for all
+    layers: the serving allocator hands out ids valid in every pool)."""
+    if page_size < 1:
+        raise ValueError(f"page_size must be >= 1, got {page_size}")
+    pages_per_slot = -(-s_max // page_size)
+    if n_pages < 2:
+        raise ValueError(
+            f"n_pages={n_pages}: need the scratch page plus at least one "
+            "usable page"
+        )
+    # n_pages may be far below batch * pages_per_slot (s_max is virtual);
+    # the serving engine's admission reservations keep usage in the pool
+    shape = (n_pages, page_size, cfg.n_kv_heads, cfg.hd)
+    return PagedKVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        table=torch.zeros((batch, pages_per_slot), dtype=torch.int32, device=device),
+        length=torch.zeros((batch,), dtype=torch.int32, device=device),
+        s_max=int(s_max),
+    )
+
+
+def paged_view(cache: PagedKVCache) -> KVCache:
+    """Gather the pool through the page tables into a (B, s_max) slot-cache
+    view: data movement only, sliced to the virtual capacity, so attention
+    over it is bitwise attention over a rectangular slot cache holding the
+    same tokens. Positions past a slot's length read scratch or stale rows
+    and are masked to exact-zero probability by :func:`decode_attention`."""
+    b, pages_per_slot = cache.table.shape
+    ps = cache.page_size
+    tab = cache.table.long()
+    k = cache.k[tab].reshape(b, pages_per_slot * ps, *cache.k.shape[2:])
+    v = cache.v[tab].reshape(b, pages_per_slot * ps, *cache.v.shape[2:])
+    return KVCache(k[:, : cache.s_max], v[:, : cache.s_max], cache.length)
+
+
 def attn_apply(
     params: dict,
     x: Tensor,
@@ -153,6 +193,11 @@ def attn_apply(
 ) -> tuple[Tensor, Optional[KVCache]]:
     """Full attention block. x: (B, S, M). Returns (out, updated_cache)."""
     if window is not None:
+        if isinstance(cache, PagedKVCache):
+            raise NotImplementedError(
+                "local-window attention keeps its bounded rolling buffer; "
+                "paging applies to global-attention caches only"
+            )
         raise NotImplementedError(
             "local-window attention (hybrid family) comes in a later slice"
         )
@@ -163,6 +208,31 @@ def attn_apply(
     v = linear_apply(params["wv"], x, ctx).reshape(b, s, nkv, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+
+    if isinstance(cache, PagedKVCache):
+        if s != 1:
+            raise NotImplementedError(
+                "paged caches are decode-only: prefill into a rectangular "
+                "cache and scatter it into pages "
+                "(models.lm.write_cache_slot_paged)"
+            )
+        # write this token's K/V row at (page, offset) of each slot's
+        # position, then attend over the gathered view: the values a
+        # rectangular slot cache would hold, so the same attention bits
+        ps = cache.page_size
+        entry = (cache.length // ps).clamp(max=cache.table.shape[1] - 1).long()
+        rows = torch.arange(b, device=x.device)
+        # out-of-range entries of retired slots clip onto their table's last
+        # entry, which is 0 (scratch) once the slot is freed
+        page = cache.table[rows, entry].long()
+        off = (cache.length % ps).long()
+        cache.k.index_put_((page, off), k[:, 0].to(cache.k.dtype))
+        cache.v.index_put_((page, off), v[:, 0].to(cache.v.dtype))
+        new_cache = PagedKVCache(
+            cache.k, cache.v, cache.table, cache.length + 1, cache.s_max
+        )
+        out = decode_attention(q, paged_view(new_cache)).reshape(b, s, nh * hd)
+        return linear_apply(params["wo"], out, ctx), new_cache
 
     new_cache = None
     if cache is not None and s == 1:

@@ -10,8 +10,10 @@ program's ``pcm_programmed`` config each one is a programmed MVM.
 
 Caches: ``(group caches, tail caches)``. The *stacked* layout holds one
 ``(n_groups, ...)`` buffer per leaf; the *list* layout (decode, and the
-serving engine's per-slot cache) holds one :class:`KVCache` per group. KV
-rows are written in place in either layout. Other families raise.
+serving engine's per-slot cache) holds one :class:`KVCache` per group, or
+one :class:`PagedKVCache` per group in the paged layout (page pools shared
+by every slot, one page-id space across layers). KV rows are written in
+place in every layout. Other families raise.
 """
 
 from __future__ import annotations
@@ -239,14 +241,28 @@ def _cache_length(group_caches, tail_caches) -> Tensor:
     """The current position: a scalar for rectangle caches, the (B,)
     vector for a per-slot cache (stacked caches strip the layer axis)."""
     stacked = not isinstance(group_caches, list)
+    kinds = (attn_lib.KVCache, attn_lib.PagedKVCache)
     for group in (group_caches if not stacked else [group_caches]):
         for c in group:
-            if isinstance(c, attn_lib.KVCache):
+            if isinstance(c, kinds):
                 return c.length[0] if stacked else c.length
     for c in tail_caches:
-        if isinstance(c, attn_lib.KVCache):
+        if isinstance(c, kinds):
             return c.length
     raise ValueError("cache holds no attention layer")
+
+
+def check_pageable(cfg: ModelConfig) -> None:
+    """Raise unless every cache of ``cfg`` is an attention KV cache, the only
+    kind the paged layout holds."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise ValueError(
+            "paged serving supports attention-cache families only "
+            f"(family={cfg.family!r} has recurrent blocks): SSM/RG-LRU "
+            "recurrent state is position-free, so the right-padded "
+            "bucketed prefill that paging relies on would fold pad "
+            "tokens into it"
+        )
 
 
 def init_lm_cache(
@@ -257,6 +273,8 @@ def init_lm_cache(
     stacked: bool = True,
     per_slot: bool = False,
     paged: bool = False,
+    page_size: int = 16,
+    n_pages: Optional[int] = None,
     *,
     device="cuda",
 ) -> tuple:
@@ -265,20 +283,37 @@ def init_lm_cache(
     ``stacked=True``: one (n_groups, ...) buffer per leaf. ``stacked=False``:
     a list of per-group caches (the decode layout). ``per_slot=True``
     (requires ``stacked=False``): (B,) lengths, one independent request per
-    batch row -- the serving engine's slot cache.
+    batch row -- the serving engine's slot cache. ``paged=True`` (requires
+    ``stacked=False``): every attention leaf is a :class:`PagedKVCache` of
+    ``n_pages`` pages of ``page_size`` tokens (default: enough for ``batch``
+    full slots plus the scratch page 0) with ``s_max`` the per-slot virtual
+    capacity; slots are admitted and retired through
+    :func:`write_cache_slot_paged` / :func:`free_cache_slot_paged` with page
+    ids from the serving engine's allocator.
     """
     dev = resolve_device(device)
-    if paged:
-        raise NotImplementedError("the paged KV cache comes in a later slice")
     if per_slot and stacked:
         raise ValueError(
             "per_slot caches use the unstacked decode layout (pass stacked=False)"
         )
+    if paged:
+        if stacked:
+            raise ValueError(
+                "paged caches use the unstacked decode layout (pass stacked=False)"
+            )
+        check_pageable(cfg)
+        if n_pages is None:
+            n_pages = batch * (-(-s_max // page_size)) + 1
     period = _check_cfg(cfg)
     n_groups = cfg.n_layers // len(period)
     n_tail = cfg.n_layers - n_groups * len(period)
 
     def one(slot_lengths: bool):
+        if paged:
+            return attn_lib.init_paged_cache(
+                cfg, batch, s_max, dtype, page_size=page_size,
+                n_pages=n_pages, device=dev,
+            )
         return attn_lib.init_cache(
             cfg, batch, s_max, dtype, per_slot=slot_lengths, device=dev
         )
@@ -304,7 +339,8 @@ def unstack_cache(cache: tuple) -> tuple:
 
 
 def cache_layers(cache: tuple) -> list:
-    """Every layer's :class:`KVCache` of a list-layout cache, in order."""
+    """Every layer's cache (:class:`KVCache` or :class:`PagedKVCache`) of a
+    list-layout cache, in order."""
     groups, tail = cache
     return [c for g in list(groups) + [tail] for c in g]
 
@@ -328,5 +364,71 @@ def reset_cache_slot(cache: tuple, slot: int) -> tuple:
     for dst in cache_layers(cache):
         dst.k[slot].zero_()
         dst.v[slot].zero_()
+        dst.length[slot] = 0
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Paged-cache slot helpers (serving paged mode). The engine owns ONE paged
+# decode cache; admission scatters a request's rectangular prefill cache
+# into its pages, growth appends a page id to the slot's table, retirement
+# zeroes the slot's pages, table row and length so the ids can be reissued.
+# All update the pools and tables in place.
+# ---------------------------------------------------------------------------
+
+
+def write_cache_slot_paged(
+    cache: tuple, src: tuple, slot: int, row: int, pages, length: int
+) -> tuple:
+    """Scatter one request's prefill cache into slot ``slot``'s pages.
+
+    ``src`` is a rectangular prefill cache in the list layout with
+    ``S_bucket`` rows per leaf; ``row`` picks the request's batch row (a
+    bucketed prefill batches several same-bucket requests). ``pages`` is a
+    (ceil(S_bucket / page_size),) vector of page ids; entries past the
+    request's ``ceil(length / page_size)`` real pages are 0, so pad rows of a
+    short prompt land in the scratch page. ``length`` is the request's true
+    token count; decode masks everything past it. Returns ``cache``.
+    """
+    for dst, s in zip(cache_layers(cache), cache_layers(src), strict=True):
+        ps = dst.page_size
+        pv = torch.as_tensor(pages, dtype=torch.long, device=dst.k.device)
+        nbp = pv.shape[0]
+        for pool, rows in ((dst.k, s.k), (dst.v, s.v)):
+            rows = rows[row].to(pool.dtype)  # (S_bucket, kv, hd)
+            pad = nbp * ps - rows.shape[0]
+            if pad:
+                rows = torch.nn.functional.pad(rows, (0, 0, 0, 0, 0, pad))
+            # repeated 0 entries all write the scratch page; which one lands
+            # there does not matter (it is never read unmasked)
+            pool.index_put_((pv,), rows.reshape(nbp, ps, *rows.shape[1:]))
+        dst.table[slot].zero_()
+        dst.table[slot, :nbp] = pv.to(dst.table.dtype)
+        dst.length[slot] = length
+    return cache
+
+
+def append_cache_page(cache: tuple, slot: int, entry: int, page: int) -> tuple:
+    """Grow slot ``slot`` by one page: table[slot, entry] = page, all layers.
+    The page's stale rows are never read (positions past the slot's length
+    are masked), so it is not zeroed."""
+    for dst in cache_layers(cache):
+        dst.table[slot, entry] = page
+    return cache
+
+
+def free_cache_slot_paged(cache: tuple, slot: int, pages) -> tuple:
+    """Retire slot ``slot``: zero its pages, table row and length.
+
+    ``pages`` is the slot's page ids, padded with 0s (re-zeroing the scratch
+    page is harmless). Zeroing the rows gives a newly admitted request the
+    state a solo run would see, and leaves every other slot's pages bitwise
+    untouched. Returns ``cache``.
+    """
+    for dst in cache_layers(cache):
+        pv = torch.as_tensor(pages, dtype=torch.long, device=dst.k.device)
+        dst.k[pv] = 0
+        dst.v[pv] = 0
+        dst.table[slot].zero_()
         dst.length[slot] = 0
     return cache

@@ -1,12 +1,18 @@
 """repro_torch.serving -- continuous-batching serving over one programmed chip.
 
-Counterpart of ``repro.serving`` for the non-paged, non-fused, single-chip
-path: :class:`ServingConfig`, :class:`Request`/:func:`poisson_trace`, the
-continuous and static schedulers, and :class:`ServingEngine` with its
-:class:`EngineRun` stepping surface and :class:`ServeReport`.
+Counterpart of ``repro.serving`` for the single-chip path:
+:class:`ServingConfig`, :class:`Request`/:func:`poisson_trace`, the
+continuous, static and bucketed schedulers, the paged KV cache's
+:class:`PageAllocator` and prefill buckets, and :class:`ServingEngine` with
+its :class:`EngineRun` stepping surface and :class:`ServeReport`.
 """
 
 from repro_torch.serving.config import ServingConfig  # noqa: F401
 from repro_torch.serving.engine import EngineRun, ServeReport, ServingEngine  # noqa: F401
+from repro_torch.serving.paging import PageAllocator, bucket_for, default_buckets  # noqa: F401
 from repro_torch.serving.requests import Request, RequestRecord, poisson_trace  # noqa: F401
-from repro_torch.serving.scheduler import ContinuousScheduler, StaticBatchScheduler  # noqa: F401
+from repro_torch.serving.scheduler import (  # noqa: F401
+    BucketedScheduler,
+    ContinuousScheduler,
+    StaticBatchScheduler,
+)

@@ -17,17 +17,27 @@ With ``ref_params`` the engine also decodes a digital full-precision
 reference in lockstep, teacher-forced on the served tokens, and counts
 greedy top-1 agreement and logit MSE against it.
 
+With ``ServingConfig(paged=True)`` the main cache is the paged layout
+(``models.attention.PagedKVCache``): per-layer page pools shared by every
+slot, pages handed out by a :class:`~repro_torch.serving.paging.PageAllocator`
+(a request's worst case is reserved at admission, pages are appended as it
+grows and freed at retirement). Prefill is bucketed: prompts are
+right-padded to the bucket grid and same-bucket admissions share one
+``(rows, bucket)`` prefill call, whose prefill attention is shape-stable,
+so paged serving gives the rectangular engine's tokens.
+
 With ``ServingConfig(fused_decode=True)`` the main cache is the stacked
 ``(L, B, S, kv, hd)`` layout of ``kernels.decode_fused`` and each decode
 step of the programmed chip is ONE launch of the fused kernel on a card
 (its plain version on the CPU); prefill stays per layer, and the digital
-reference keeps the per-slot layout and the unfused forward. Paged caches,
-meshes and drift policies come in later slices and raise here.
+reference keeps the per-slot layout and the unfused forward. Meshes and
+drift policies come in later slices and raise here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from collections import deque
 from typing import Any, Optional
 
@@ -42,14 +52,25 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import decode_fused
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.lm import (
+    append_cache_page,
     block_period,
     cache_layers,
+    check_pageable,
+    free_cache_slot_paged,
     init_lm_cache,
     lm_forward,
     reset_cache_slot,
     write_cache_slot,
+    write_cache_slot_paged,
 )
 from repro_torch.serving.config import ServingConfig
+from repro_torch.serving.paging import (
+    PageAllocator,
+    bucket_for,
+    default_buckets,
+    pages_for,
+    prefill_rows,
+)
 from repro_torch.serving.requests import Request, RequestRecord
 from repro_torch.serving.scheduler import ContinuousScheduler
 
@@ -57,9 +78,10 @@ Tensor = torch.Tensor
 
 
 class _LayerDecoder:
-    """The served model's per-layer decode over the per-slot list cache:
-    the counterpart of ``decode_fused.FusedDecoder``, with the same methods,
-    so an engine holds one decoder and never branches on the cache layout."""
+    """The served model's per-layer decode over the per-slot list cache (or
+    over the paged cache, which the same forward reads): the counterpart of
+    ``decode_fused.FusedDecoder``, with the same methods, so an engine holds
+    one decoder and never branches on the cache layout."""
 
     def __init__(self, eng: "ServingEngine"):
         self.eng = eng
@@ -87,6 +109,141 @@ class _Slot:
     admit_t: float
 
 
+class _SlotRectangles:
+    """How a rectangular (or fused) run holds its slots: each slot owns its
+    ``s_max`` rectangle of the decoder's cache, so admission never waits
+    for memory. The counterpart of :class:`_PagePool`, with its methods."""
+
+    room = math.inf
+    peak_in_use = 0
+
+    def __init__(self, eng: "ServingEngine"):
+        self.decoder = eng.decoder
+
+    def new_cache(self) -> tuple:
+        return self.decoder.new_cache()
+
+    def check(self, req: Request) -> None:
+        pass
+
+    def worst_case(self, req: Request) -> int:
+        return 0
+
+    def write(self, cache, pcache, slot: int, row: int, req: Request):
+        return self.decoder.write_slot(cache, pcache, slot)
+
+    def grow(self, cache, slots: list):
+        return cache
+
+    def release(self, cache, slot: int):
+        return self.decoder.reset_slot(cache, slot)
+
+    def check_drained(self) -> None:
+        pass
+
+
+class _PagePool:
+    """How a paged run holds its slots: one paged cache, its free list, the
+    pages each slot owns and the pages reserved for their growth.
+
+    Admission reserves a request's WORST-CASE page count (prompt + full
+    budget) and allocates its prompt's pages; decode appends a page when a
+    slot's next write crosses a page boundary, out of that reservation, so
+    a request that got in can never run the pool dry mid-decode. Release
+    zeroes the slot's pages and returns them with the unused reservation.
+    """
+
+    def __init__(self, eng: "ServingEngine"):
+        self.eng = eng
+        self.page_size = eng.page_size
+        self.allocator = PageAllocator(eng.n_pages)
+        self.reserved = 0  # pages reserved by live slots, not yet allocated
+        self.owned: dict[int, list[int]] = {}  # slot -> page ids, in order
+        self.reserve: dict[int, int] = {}  # slot -> its part of `reserved`
+
+    def new_cache(self) -> tuple:
+        eng = self.eng
+        return init_lm_cache(
+            eng.cfg, eng.n_slots, eng.s_max, eng.cfg.dtype, stacked=False,
+            paged=True, page_size=self.page_size, n_pages=eng.n_pages,
+            device=eng.device,
+        )
+
+    @property
+    def room(self) -> int:
+        """Pages neither allocated nor reserved: what admission may claim."""
+        return self.allocator.n_free - self.reserved
+
+    @property
+    def peak_in_use(self) -> int:
+        return self.allocator.peak_in_use
+
+    def worst_case(self, req: Request) -> int:
+        return pages_for(req.prompt.size + req.max_new_tokens, self.page_size)
+
+    def check(self, req: Request) -> None:
+        """Refuse at submission what could never be admitted."""
+        if req.features:
+            raise NotImplementedError(
+                f"request {req.rid}: feature-fed prefill is not "
+                "supported in paged mode (bucketed prefill pads "
+                "token prompts)"
+            )
+        need = self.worst_case(req)
+        if need > self.allocator.n_pages - 1:
+            raise ValueError(
+                f"request {req.rid}: worst case needs {need} pages "
+                f"of {self.page_size} but the pool has only "
+                f"{self.allocator.n_pages - 1} usable -- it could never be "
+                "admitted"
+            )
+
+    def write(self, cache, pcache, slot: int, row: int, req: Request):
+        """Scatter row ``row`` of a bucketed prefill cache into the slot's
+        newly allocated pages and reserve the rest of its worst case."""
+        n_prompt = int(req.prompt.size)
+        n_real = pages_for(n_prompt, self.page_size)
+        pages = self.allocator.alloc(n_real)
+        left = self.worst_case(req) - n_real
+        self.owned[slot], self.reserve[slot] = pages, left
+        self.reserved += left
+        s_bucket = cache_layers(pcache)[0].k.shape[1]
+        pvec = np.zeros((pages_for(s_bucket, self.page_size),), np.int64)
+        pvec[:n_real] = pages
+        return write_cache_slot_paged(cache, pcache, slot, row, pvec, n_prompt)
+
+    def grow(self, cache, slots: list):
+        """Give every live slot whose next write starts a page that page."""
+        for i, st in enumerate(slots):
+            if st is None:
+                continue
+            entry = (int(st.req.prompt.size) + len(st.tokens) - 1) // self.page_size
+            if entry >= len(self.owned[i]):
+                (page,) = self.allocator.alloc(1)
+                self.reserved -= 1
+                self.reserve[i] -= 1
+                self.owned[i].append(page)
+                cache = append_cache_page(cache, i, entry, page)
+        return cache
+
+    def release(self, cache, slot: int):
+        pages = self.owned.pop(slot)
+        pvec = np.zeros((self.eng.pages_per_slot,), np.int64)
+        pvec[: len(pages)] = pages
+        cache = free_cache_slot_paged(cache, slot, pvec)
+        self.allocator.free(pages)
+        self.reserved -= self.reserve.pop(slot)
+        return cache
+
+    def check_drained(self) -> None:
+        if self.allocator.n_in_use or self.reserved:
+            raise RuntimeError(
+                f"page leak: {self.allocator.n_in_use} pages still "
+                f"allocated and {self.reserved} still reserved after every "
+                "request retired -- admit/retire must conserve the free list"
+            )
+
+
 @dataclasses.dataclass
 class ServeReport:
     """Everything a serving run produced: outputs, counters, and metrics."""
@@ -101,7 +258,15 @@ class ServeReport:
     wall: float
     counters: Optional[dict]  # {"top1", "logit_mse", "decisions"} or None
     program_events_delta: int  # programming events while serving: always 0
+    #: distinct prefill shapes this ENGINE has run so far; bucketed prefill
+    #: bounds it by the bucket count, exact-length prefill grows it with
+    #: every distinct prompt length
+    n_prefill_traces: int = 0
+    #: resident K/V bytes of the decode cache: the slot rectangles, or the
+    #: page pools in paged mode (allocated up front, so resident == peak)
     peak_kv_bytes: int = 0
+    #: paged mode: the allocator's high-water mark (pages), else 0
+    peak_pages_in_use: int = 0
 
     @property
     def n_requests(self) -> int:
@@ -152,6 +317,7 @@ class ServeReport:
             f"p50_ms={self.latency_s(50) * 1e3:.0f} "
             f"p95_ms={self.latency_s(95) * 1e3:.0f} "
             f"p95_ttft_ms={self.ttft_s(95) * 1e3:.0f} "
+            f"prefill_traces={self.n_prefill_traces} "
             f"kv_mib={self.peak_kv_bytes / 2**20:.1f} "
             f"program_events_delta={self.program_events_delta}"
         )
@@ -171,6 +337,13 @@ class ServingEngine:
     and ``ref_params`` must live on ``device``. Analog weights are executed
     from a copy pre-cast to the model dtype (``engine.cast_weights``:
     bitwise the reference's per-call cast).
+
+    ``config.paged`` switches the slot cache to the paged layout with
+    bucketed prefill: prompts are right-padded to ``prefill_buckets``
+    (default: a geometric 32*2^k grid up to ``s_max``), and ``prefill_batch``
+    sets the rows of a prefill call at the SMALLEST bucket, fewer at larger
+    buckets (a constant prefill token budget), so each bucket has exactly one
+    ``(rows, bucket)`` shape.
     """
 
     def __init__(
@@ -222,6 +395,40 @@ class ServingEngine:
             if self._ref else None
         )
         self._digital = AnalogConfig()
+        #: distinct prefill shapes run by this engine
+        self._prefill_shapes: set = set()
+
+        self.paged = bool(config.paged)
+        if self.paged:
+            if model_cfg.frontend in ("audio_frames", "vision_patches"):
+                raise NotImplementedError(
+                    "bucketed prefill pads token prompts; feature-fed "
+                    f"frontends ({model_cfg.frontend!r}) are not supported "
+                    "in paged mode"
+                )
+            check_pageable(model_cfg)
+            self.page_size = int(config.page_size)
+            self.pages_per_slot = pages_for(self.s_max, self.page_size)
+            self.n_pages = int(
+                config.n_pages if config.n_pages is not None
+                else self.n_slots * self.pages_per_slot + 1
+            )
+            buckets = (
+                tuple(config.prefill_buckets) if config.prefill_buckets
+                else default_buckets(self.s_max)
+            )
+            self.prefill_buckets = tuple(
+                sorted({min(int(b), self.s_max) for b in buckets} | {self.s_max})
+            )
+            if min(self.prefill_buckets) < 1:
+                raise ValueError(
+                    f"prefill buckets must be >= 1: {self.prefill_buckets}"
+                )
+            # the reference batches prefill rows only where they are
+            # independent (no per-request rng, no MoE capacity routing);
+            # both are refused above or unported here
+            self.prefill_batch = int(config.prefill_batch)
+            self._pb_of = prefill_rows(self.prefill_buckets, self.prefill_batch)
 
         self.decoder: Any = _LayerDecoder(self)
         if config.fused_decode:
@@ -268,6 +475,21 @@ class ServingEngine:
         if req.features:
             raise NotImplementedError("feature-fed prefill comes with its families")
         return torch.as_tensor(req.prompt, device=self.device)[None, :].long()
+
+    def prefill_bucket(self, toks: Tensor, last_idx: Tensor):
+        """Bucketed prefill of the served model: ``toks`` (PB, S_bucket)
+        right-padded prompts, ``last_idx`` (PB,) each row's last real
+        position -> (tokens (PB,), logits (PB, V), rectangular list cache)."""
+        pb, sb = toks.shape
+        cache = init_lm_cache(
+            self.cfg, pb, sb, self.cfg.dtype, stacked=False, device=self.device
+        )
+        logits, cache = lm_forward(
+            self.params, {"tokens": toks.long()}, self.acfg, self.cfg,
+            cache=cache, last_token_only=True, last_index=last_idx,
+        )
+        last = logits[:, -1]
+        return last.argmax(dim=-1).to(torch.int32), last, cache
 
     def prefill(self, params, acfg, req: Request):
         """Prefill one request alone -> (token (1,), logits (1, V), cache)."""
@@ -371,7 +593,8 @@ class EngineRun:
         self.max_steps = max_steps
 
         self.queue: deque[Request] = deque()
-        self.cache = engine.decoder.new_cache()
+        self.pool = _PagePool(engine) if engine.paged else _SlotRectangles(engine)
+        self.cache = self.pool.new_cache()
         self.peak_kv_bytes = engine.decoder.kv_bytes(self.cache)
         self.ref_cache = (
             engine.new_cache(engine.n_slots, per_slot=True) if engine._ref else None
@@ -401,13 +624,15 @@ class EngineRun:
 
     def submit(self, requests: list[Request]) -> None:
         """Validate and enqueue requests (arrival-sorted, FIFO within ties)."""
+        eng = self.eng
         for r in requests:
-            if r.prompt.size + r.max_new_tokens > self.eng.s_max:
+            if r.prompt.size + r.max_new_tokens > eng.s_max:
                 raise ValueError(
                     f"request {r.rid}: prompt ({r.prompt.size}) + budget "
                     f"({r.max_new_tokens}) exceeds the engine's s_max="
-                    f"{self.eng.s_max}"
+                    f"{eng.s_max}"
                 )
+            self.pool.check(r)
         merged = list(self.queue) + list(requests)
         merged.sort(key=lambda r: r.arrival_t)
         self.queue = deque(merged)
@@ -418,7 +643,11 @@ class EngineRun:
         self.sleep_fn(max(min(wait, 0.01), 1e-4))
 
     def admit_arrived(self) -> None:
-        """Move arrived requests into free slots (scheduler-gated), FIFO."""
+        """Move arrived requests into free slots (scheduler-gated). The
+        queue is arrival-sorted, so the arrived requests are its prefix; a
+        scheduler's ``order`` hook picks WHICH of them enter (default:
+        FIFO). In paged mode each admission reserves its worst-case pages
+        and admission stops at the first request the pool cannot reserve."""
         eng = self.eng
         now = self.now_fn() - self.t_start
         n_arrived = sum(1 for r in self.queue if r.arrival_t <= now)
@@ -426,15 +655,32 @@ class EngineRun:
         n_admit = self.scheduler.admit(n_arrived, len(free), eng.n_slots - len(free))
         # a scheduler cannot over-admit
         n_admit = min(n_admit, n_arrived, len(free))
-        admitted = [self.queue.popleft() for _ in range(n_admit)]
-        for req in admitted:
-            self._admit(req, free.pop(0))
+        arrived = [self.queue[j] for j in range(n_arrived)]
+        order_fn = getattr(self.scheduler, "order", None)
+        perm = list(order_fn(arrived)) if order_fn else list(range(n_arrived))
+        admitted: list[tuple[Request, int]] = []  # (request, queue index)
+        pending = 0  # pages claimed by this round's earlier admissions
+        for j in perm[:n_admit]:
+            req = arrived[j]
+            need = self.pool.worst_case(req)
+            if self.pool.room - pending < need:
+                break  # head-of-line blocking: stop rather than starve a long request
+            pending += need
+            admitted.append((req, j))
+        for j in sorted((j for _, j in admitted), reverse=True):
+            del self.queue[j]
+        if eng.paged:
+            self._admit_paged([r for r, _ in admitted], free)
+        else:
+            for req, _ in admitted:
+                self._admit(req, free.pop(0))
 
     def _admit(self, req: Request, slot: int) -> None:
         eng = self.eng
         t0 = self.now_fn()
+        eng._prefill_shapes.add((1, int(req.prompt.size)))
         tok0, logits0, pcache = eng.prefill(eng.params, eng.acfg, req)
-        self.cache = eng.decoder.write_slot(self.cache, pcache, slot)
+        self.cache = self.pool.write(self.cache, pcache, slot, 0, req)
         self.cur[slot, 0] = tok0[0]
         first = [int(tok0[0])]  # repro-lint: disable=RL004 -- one sync per ADMISSION: the first token must reach the host record
         if eng._ref:
@@ -444,6 +690,54 @@ class EngineRun:
         self.t_prefill += self.now_fn() - t0
         self.slots[slot] = _Slot(req, first, self.steps, self.now_fn() - self.t_start)
         self.maybe_retire(slot)
+
+    def _admit_paged(self, reqs: list[Request], free: list[int]) -> None:
+        """Prefill consecutive same-bucket admissions together in one padded
+        ``(rows, bucket)`` call (dummy rows repeat row 0), then scatter each
+        request's rows into its newly allocated pages."""
+        eng = self.eng
+        k0 = 0
+        while k0 < len(reqs):
+            sb = bucket_for(int(reqs[k0].prompt.size), eng.prefill_buckets)
+            pb = eng._pb_of[sb]
+            chunk = [reqs[k0]]
+            while (
+                len(chunk) < pb
+                and k0 + len(chunk) < len(reqs)
+                and bucket_for(int(reqs[k0 + len(chunk)].prompt.size),
+                               eng.prefill_buckets) == sb
+            ):
+                chunk.append(reqs[k0 + len(chunk)])
+            k0 += len(chunk)
+            toks = np.zeros((pb, sb), np.int32)
+            lens = np.ones((pb,), np.int32)
+            for j, req in enumerate(chunk):
+                toks[j, : req.prompt.size] = req.prompt
+                lens[j] = req.prompt.size
+            for j in range(len(chunk), pb):
+                toks[j] = toks[0]  # dummy rows repeat row 0
+                lens[j] = lens[0]
+            t0 = self.now_fn()
+            eng._prefill_shapes.add((pb, sb))
+            tokv, logitsv, pcache = eng.prefill_bucket(
+                torch.as_tensor(toks, device=eng.device),
+                torch.as_tensor(lens - 1, device=eng.device),
+            )
+            # repro-lint: disable=RL004 -- one sync per bucketed prefill CALL: the first tokens must reach the host records
+            first = tokv.cpu().tolist()
+            for j, req in enumerate(chunk):
+                slot = free.pop(0)
+                self.cache = self.pool.write(self.cache, pcache, slot, j, req)
+                self.cur[slot, 0] = tokv[j]
+                if eng._ref:
+                    _, r_logits, r_pcache = eng.prefill(eng.ref_params, eng._digital, req)
+                    self.ref_cache = write_cache_slot(self.ref_cache, r_pcache, slot)
+                    self._count_decision(logitsv[j : j + 1], r_logits)
+                self.slots[slot] = _Slot(
+                    req, [first[j]], self.steps, self.now_fn() - self.t_start
+                )
+                self.maybe_retire(slot)
+            self.t_prefill += self.now_fn() - t0
 
     def _count_decision(self, a_logits: Tensor, r_logits: Tensor) -> None:
         a, e = self.eng.count(a_logits, r_logits)
@@ -457,6 +751,7 @@ class EngineRun:
         """One decode step over all slots, then retirement and the runaway
         guard. The step's tokens (and counters) reach the host in ONE read."""
         eng = self.eng
+        self.cache = self.pool.grow(self.cache, self.slots)
         t0 = self.now_fn()
         nxt, logits, self.cache = eng.decode_main(self.cur, self.cache)
         if eng._ref:
@@ -503,7 +798,7 @@ class EngineRun:
             finished_by=by,
         )
         self.records.append(rec)
-        self.cache = self.eng.decoder.reset_slot(self.cache, i)
+        self.cache = self.pool.release(self.cache, i)
         if self.eng._ref:
             self.ref_cache = reset_cache_slot(self.ref_cache, i)
         self.slots[i] = None
@@ -525,6 +820,7 @@ class EngineRun:
                 f"serving run recorded {delta} programming events -- the "
                 "programmed chip must never be rewritten by serving itself"
             )
+        self.pool.check_drained()
         counters = None
         if eng._ref:
             counters = {
@@ -543,5 +839,7 @@ class EngineRun:
             wall=wall,
             counters=counters,
             program_events_delta=delta,
+            n_prefill_traces=len(eng._prefill_shapes),
             peak_kv_bytes=self.peak_kv_bytes,
+            peak_pages_in_use=self.pool.peak_in_use,
         )
