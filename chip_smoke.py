@@ -13,18 +13,25 @@ end the run with a non-zero exit:
 1. device: require CUDA, print the card's name and power limit, TF32 off;
 2. build: compile the kernels from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, in parallel) and print the build time;
-3. kernel vs plain: the Hopper ``analog_mvm`` against ``analog_mvm_ref``
-   at tinyllama-1.1b's projection shapes, M in {1, 8, 128}, b_adc in
-   {4, 6, 8}, f32 and bf16, per-tile ADC both ways, DAC both ways, under
-   ``tests/test_kernels.py``'s tolerance model; time kernel, plain version
-   and ``torch.matmul`` (yardstick only) at M = 8 bf16 beside the
-   weight-byte bound;
+3. kernel vs plain: the Hopper ``analog_mvm`` (B1) against
+   ``analog_mvm_ref`` at tinyllama-1.1b's projection shapes and every M
+   the serving phases launch it at (``b1_served_ms``: 1, 2, 4, 8, 16, 32,
+   64, 128, 256), b_adc in {4, 6, 8}, f32 and bf16, per-tile ADC both
+   ways, DAC both ways, through the design ``analog_mvm`` picks (and, for
+   bf16 without the DAC, the CUDA-core design too), under
+   ``tests/test_kernels.py``'s tolerance model, the worst error per
+   design; the tensor-core rows bitwise independent of M, padding rows and
+   design; time the kernel, its plain version, ``torch.matmul`` (yardstick
+   only) and the CUDA-core design at M = 8 and the prefill Ms, bf16,
+   beside the bound; after phase 9, every B1 launch of the serving phases
+   must have had its (M, K, N, dtype, design, options) checked here;
 4. the slice at full width: tinyllama-1.1b at its published widths with
    random weights from ``--seed``, programmed on the card (t = 24 h, all
    noise on) and serving a Poisson trace of 16 requests through
    ``ServingEngine``; the launch counters prove the path ran the kernels
-   (155 B1 launches per forward, 22 B3 per prefill) and never a plain
-   version; one decode step is then re-run through the plain version and
+   (155 B1 launches per forward, decode through B1's decode design and
+   prefill through its prefill design; 22 B3 per prefill) and never a
+   plain version; one decode step is then re-run through the plain version and
    compared;
 5. fused kernel vs plain: from one cache state of that trace, the Hopper
    ``decode_fused`` kernel (one launch per decode step) at full width and
@@ -100,6 +107,10 @@ FA_HEADS = dict(h=32, kv=4, d=64, q_chunk=512, kv_chunk=1024)
 PAGED = dict(n_slots=8, s_max=512, paged=True, page_size=16, prefill_batch=4)
 #: the model's published context, checked beside the served shapes
 FA_CONTEXT = 2048
+#: prompt lengths of the served trace (phases 4, 6 and 9)
+PROMPT_LENS = (16, 32, 64, 128, 256)
+#: slots of a decode step (the M of every decode-step B1 launch)
+SLOTS = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -206,7 +217,34 @@ def compare(y_k, y_p, step: float, n_tiles: int, bf16: bool) -> dict:
             "elements": d.numel(), "ok": ok}
 
 
-def phase_kernel_vs_plain(torch, gen) -> dict:
+def b1_served_ms() -> tuple:
+    """The M of every B1 launch the serving phases make: a decode step at
+    ``SLOTS`` rows; a prefill of one prompt at its exact length (the
+    per-request prefills and the 16-token warm-up) runs its layer
+    projections at M = length and its lm_head at M = 1 (the last token); a
+    bucketed prefill at (rows, bucket) runs them at rows x bucket and at
+    rows."""
+    from repro_torch.serving.paging import default_buckets, prefill_rows
+
+    ms = {SLOTS, 1, *PROMPT_LENS}
+    for b, pb in prefill_rows(default_buckets(PAGED["s_max"]), PAGED["prefill_batch"]).items():
+        if b <= max(PROMPT_LENS):
+            ms |= {pb * b, pb}
+    return tuple(sorted(ms))
+
+
+def b1_key(m: int, k: int, n: int, dtype, design: str) -> tuple:
+    """What a B1 launch is checked and recorded by."""
+    return (m, k, n, str(dtype).split(".")[-1], design)
+
+
+def phase_kernel_vs_plain(torch, gen, ms: tuple) -> dict:
+    """B1 against its plain version at every projection shape and every M of
+    ``ms``, b_adc 4/6/8, f32 and bf16, per-tile ADC both ways, DAC both ways,
+    through the design ``analog_mvm`` picks for the case and, where that is
+    a tensor-core design, through the CUDA-core design on the same inputs
+    (the kernel bf16 ran on before them); the worst error per design; then
+    the row-stability check of the tensor-core designs (``row_stability``)."""
     from repro_torch.kernels import analog_mvm as kernel
     from repro_torch.kernels.ref import analog_mvm_ref
 
@@ -214,12 +252,12 @@ def phase_kernel_vs_plain(torch, gen) -> dict:
     r_adc = torch.tensor(1.5, device=dev)
     r_dac = torch.tensor(3.0, device=dev)
     out_scale = torch.tensor(0.97, device=dev)
-    worst = {"max_abs": 0.0, "max_steps": 0.0, "frac_half_step": 0.0,
-             "flips": 0, "elements": 0, "cases": 0}
-    failures = []
+    by_design = {d: {"max_abs": 0.0, "max_steps": 0.0, "frac_half_step": 0.0, "flips": 0,
+                     "elements": 0, "cases": 0} for d in kernel.DESIGNS}
+    checked, failures = set(), []
     for name, k, n, _ in SHAPES:
         w32 = torch.randn((k, n), generator=gen, device=dev) * k**-0.5
-        for m in (1, 8, 128):
+        for m in ms:
             x32 = torch.randn((m, k), generator=gen, device=dev)
             for dtype in (torch.float32, torch.bfloat16):
                 x, w = x32.to(dtype), w32.to(dtype)
@@ -228,46 +266,122 @@ def phase_kernel_vs_plain(torch, gen) -> dict:
                     for per_tile in (True, False):
                         n_tiles = math.ceil(k / 1024) if per_tile else 1
                         for dac in (True, False):
-                            kw = dict(r_adc=r_adc, out_scale=out_scale,
-                                      tile_rows=1024, per_tile_adc=per_tile)
-                            y_k = kernel.analog_mvm(
-                                x, w, r_dac=r_dac if dac else None, b_adc=bits, **kw
-                            )
+                            kw = dict(r_dac=r_dac if dac else None, b_adc=bits, r_adc=r_adc,
+                                      out_scale=out_scale, tile_rows=1024,
+                                      per_tile_adc=per_tile)
                             y_p = analog_mvm_ref(
                                 x, w, r_dac, r_adc, out_scale, b_dac=bits + 1,
                                 b_adc=bits, tile_rows=1024, per_tile_adc=per_tile,
                                 apply_dac=dac,
                             )
-                            check(y_k.dtype == dtype and y_k.shape == (m, n),
-                                  f"{name}: kernel output {y_k.dtype} {tuple(y_k.shape)}")
-                            r = compare(y_k, y_p, step, n_tiles, dtype == torch.bfloat16)
-                            worst["cases"] += 1
-                            worst["flips"] += r["flips"]
-                            worst["elements"] += r["elements"]
-                            for key in ("max_abs", "max_steps", "frac_half_step"):
-                                worst[key] = max(worst[key], r[key])
-                            if not r["ok"]:
-                                failures.append((name, m, str(dtype), bits, per_tile, dac, r))
+                            auto = kernel.select_design(dtype, m, k, n, per_tile_adc=per_tile,
+                                                        apply_dac=dac)
+                            for design in dict.fromkeys((auto, "gemv")):
+                                y_k = (kernel.analog_mvm(x, w, **kw) if design == auto
+                                       else kernel._launch(design, x, w, **kw))
+                                check(y_k.dtype == dtype and y_k.shape == (m, n),
+                                      f"{name}: kernel output {y_k.dtype} {tuple(y_k.shape)}")
+                                r = compare(y_k, y_p, step, n_tiles, dtype == torch.bfloat16)
+                                worst = by_design[design]
+                                worst["cases"] += 1
+                                worst["flips"] += r["flips"]
+                                worst["elements"] += r["elements"]
+                                for key in ("max_abs", "max_steps", "frac_half_step"):
+                                    worst[key] = max(worst[key], r[key])
+                                checked.add(b1_key(m, k, n, dtype, design)
+                                            + (1024, per_tile, dac))
+                                if not r["ok"]:
+                                    failures.append((name, m, str(dtype), design, bits,
+                                                     per_tile, dac, r))
     torch.cuda.synchronize()
-    log(f"kernel vs plain: {worst['cases']} cases, max |d| {worst['max_abs']:.3e} "
-        f"({worst['max_steps']:.3f} ADC steps), worst share > half a step "
-        f"{worst['frac_half_step']:.2e}, flips {worst['flips']} of {worst['elements']}")
+    cases = sum(v["cases"] for v in by_design.values())
+    log(f"kernel vs plain: {cases} cases, M in {list(ms)}")
+    for d, v in by_design.items():
+        log(f"  {d:7s}: {v['cases']} cases, max |d| {v['max_abs']:.3e} ({v['max_steps']:.3f} "
+            f"ADC steps), worst share > half a step {v['frac_half_step']:.2e}, flips "
+            f"{v['flips']} of {v['elements']}")
     for f in failures[:10]:
         log(f"  FAIL {f}")
     check(not failures, f"{len(failures)} kernel-vs-plain cases out of tolerance")
-    return worst
+    return {"cases": cases, "ms": list(ms), "by_design": by_design,
+            "checked": sorted(checked), "row_stability": row_stability(torch, gen, kernel)}
 
 
-def phase_timing(torch, gen) -> list[dict]:
-    """Per shape at M = 8 bf16 (the decode shape): kernel, plain version
-    and torch.matmul, each cycling through enough weight copies to keep the
-    weights out of L2 (decode reads every weight once per step), timed by
-    CUDA-graph replay (``time_ms``)."""
+def row_stability(torch, gen, kernel) -> dict:
+    """The tensor-core designs' rows against M and padding, bitwise, at
+    every projection shape: the first rows of a 256-row call (prefill
+    design; itself held against the plain version) against the same rows
+    alone (the decode design up to 16 rows, else the prefill design) and
+    right-padded with junk rows to 300 (prefill design)."""
+    from repro_torch.kernels.ref import analog_mvm_ref
+
+    dev = "cuda"
+    kw = dict(r_adc=torch.tensor(1.5, device=dev), out_scale=torch.tensor(0.97, device=dev),
+              b_adc=8)
+    step = (1.5 + 1e-9) / 127 * 0.97
+    pairs, unequal, full_worst = 0, [], 0.0
+    for name, k, n, _ in SHAPES:
+        x = torch.randn((256, k), generator=gen, device=dev).bfloat16()
+        w = (torch.randn((k, n), generator=gen, device=dev) * k**-0.5).bfloat16()
+        full = kernel.analog_mvm(x, w, **kw)
+        r = compare(full, analog_mvm_ref(x, w, None, kw["r_adc"], kw["out_scale"], b_adc=8,
+                                         apply_dac=False),
+                    step, math.ceil(k / 1024), True)
+        check(r["ok"], f"B1 row stability: the 256-row call at {name} against the plain "
+                       f"version: {r}")
+        full_worst = max(full_worst, r["max_steps"])
+        for rows in (1, 2, 4, 8, 16, 32, 64, 100, 128, 129):
+            junk = 100 * torch.randn((300 - rows, k), generator=gen, device=dev).bfloat16()
+            alone = kernel.analog_mvm(x[:rows].contiguous(), w, **kw)
+            padded = kernel.analog_mvm(torch.cat([x[:rows], junk]), w, **kw)[:rows]
+            for what, y in (("alone", alone), ("padded", padded)):
+                pairs += 1
+                if not torch.equal(y, full[:rows]):
+                    unequal.append((name, rows, what))
+    torch.cuda.synchronize()
+    log(f"B1 row stability: {pairs - len(unequal)} of {pairs} (shape, rows, way) bitwise "
+        f"equal to the rows of a 256-row prefill-design call (that call within the "
+        f"tolerance of the plain version, worst {full_worst:.3f} ADC steps)"
+        + (f"; unequal {unequal}" if unequal else ""))
+    check(not unequal, "B1 rows bitwise independent of M, padding and design")
+    return {"pairs": pairs, "unequal": unequal, "full_call_max_steps": full_worst}
+
+
+def mvm_bound(m: int, k: int, n: int, esz: int = 2) -> dict:
+    """The least time of one (M, K) x (K, N) programmed MVM on the card: x
+    and w read once and y written once over the HBM rate, or its 2 M K N
+    operations over the bf16 tensor-core peak, whichever is larger."""
+    nbytes = (k * n + m * k + m * n) * esz
+    flops = 2 * m * k * n
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bytes": nbytes, "flops": flops,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def prefill_ms() -> tuple:
+    """The M (rows x tokens) of every prefill B1 call that sets phase 9's
+    pace: one 256-token prompt, and each (rows x bucket) of the paged
+    engine's buckets up to the trace's longest prompt (256)."""
+    from repro_torch.serving.paging import default_buckets, prefill_rows
+
+    rows = prefill_rows(default_buckets(PAGED["s_max"]), PAGED["prefill_batch"])
+    return tuple(sorted({256} | {pb * b for b, pb in rows.items() if b <= 256}))
+
+
+def phase_timing(torch, gen, ms: tuple) -> list[dict]:
+    """Per projection shape and per M of ``ms`` (8, the decode shape, then
+    the prefill Ms), bf16: the kernel (the design ``analog_mvm`` picks), its
+    plain version, torch.matmul and the CUDA-core design (``"gemv"``, the
+    kernel every bf16 call launched before the tensor-core designs), each
+    cycling through enough weight copies to keep the weights out of L2
+    (every forward reads every weight once), timed by CUDA-graph replay
+    (``time_ms``) in turns (kernel, plain, library, CUDA-core, kernel),
+    beside the bound (``mvm_bound``)."""
     from repro_torch.core import engine
     from repro_torch.core.quant import QuantSpec
     from repro_torch.kernels import analog_mvm as kernel
 
-    dev, m = "cuda", 8
+    dev = "cuda"
     r_adc = torch.tensor(1.5, device=dev)
     out_scale = torch.tensor(0.97, device=dev)
     spec = QuantSpec(b_adc=8)
@@ -277,34 +391,53 @@ def phase_timing(torch, gen) -> list[dict]:
         copies = max(2, min(256, math.ceil(4 * L2_BYTES / wbytes)))
         ws = [(torch.randn((k, n), generator=gen, device=dev) * k**-0.5).to(torch.bfloat16)
               for _ in range(copies)]
-        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-        n_iter = max(copies, 40)
-        run_k = lambda i: kernel.analog_mvm(x, ws[i % copies], r_adc=r_adc,
-                                            out_scale=out_scale, b_adc=8)
-        run_p = lambda i: engine.tile_matmul_quant(x, ws[i % copies], r_adc, spec,
-                                                   1024, True, out_scale)
-        run_l = lambda i: torch.matmul(x, ws[i % copies])
-        # kernel, plain, library, kernel: two kernel readings, one call
-        ms_k1 = time_ms(run_k, n_iter)
-        ms_p = time_ms(run_p, n_iter)
-        ms_l = time_ms(run_l, n_iter)
-        ms_k2 = time_ms(run_k, n_iter)
-        bytes_moved = wbytes + m * k * 2 + m * n * 2
-        flops = 2 * m * k * n
-        bound = max(bytes_moved / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-        row = {"shape": name, "M": m, "K": k, "N": n, "per_forward": per_fwd,
-               "ms": min(ms_k1, ms_k2), "ms_readings": [ms_k1, ms_k2],
-               "plain_ms": ms_p, "library_ms": ms_l, "bound_ms": bound,
-               "bound_by": "bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / BF16_FLOPS
-               else "operations",
-               "weight_copies": copies}
-        row["bound_share"] = bound / row["ms"]
-        rows.append(row)
-        log(f"time {name:8s} M={m} K={k} N={n}: kernel {row['ms']:.4f} ms "
-            f"({ms_k1:.4f}/{ms_k2:.4f}), plain {ms_p:.4f} ms, torch.matmul "
-            f"{ms_l:.4f} ms, bound {bound:.4f} ms ({row['bound_share']:.1%} of bound)")
+        for m in ms:
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            n_iter = max(copies, 40 if m <= 8 else 10)
+            run_k = lambda i: kernel.analog_mvm(x, ws[i % copies], r_adc=r_adc,
+                                                out_scale=out_scale, b_adc=8)
+            run_p = lambda i: engine.tile_matmul_quant(x, ws[i % copies], r_adc, spec,
+                                                       1024, True, out_scale)
+            run_l = lambda i: torch.matmul(x, ws[i % copies])
+            run_c = lambda i: kernel._launch("gemv", x, ws[i % copies], r_adc=r_adc,
+                                             out_scale=out_scale, b_adc=8)
+            # kernel, plain, library, CUDA-core, kernel: two kernel readings
+            ms_k1 = time_ms(run_k, n_iter)
+            ms_p = time_ms(run_p, n_iter)
+            ms_l = time_ms(run_l, n_iter)
+            ms_c = time_ms(run_c, n_iter)
+            ms_k2 = time_ms(run_k, n_iter)
+            bound = mvm_bound(m, k, n)
+            row = {"shape": name, "M": m, "K": k, "N": n, "per_forward": per_fwd,
+                   "kind": "decode" if m <= 8 else "prefill",
+                   "design": kernel.select_design(x.dtype, m, k, n),
+                   "ms": min(ms_k1, ms_k2), "ms_readings": [ms_k1, ms_k2],
+                   "plain_ms": ms_p, "library_ms": ms_l, "cuda_core_ms": ms_c,
+                   "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+                   "weight_copies": copies}
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            rows.append(row)
+            log(f"time {name:8s} M={m} K={k} N={n} ({row['design']}): kernel {row['ms']:.4f} "
+                f"ms ({ms_k1:.4f}/{ms_k2:.4f}), plain {ms_p:.4f} ms, torch.matmul "
+                f"{ms_l:.4f} ms, CUDA-core design {ms_c:.4f} ms, bound {row['bound_ms']:.4f} "
+                f"ms ({row['bound_by']}, {row['bound_share']:.1%} of bound; kernel/matmul "
+                f"{row['ms'] / ms_l:.2f}x)")
         del ws
+    for m in ms:
+        part = forward_rows(rows, m)
+        tot = {key: sum(r[key] * r["per_forward"] for r in part)
+               for key in ("ms", "plain_ms", "library_ms", "cuda_core_ms", "bound_ms")}
+        log(f"time per forward ({sum(r['per_forward'] for r in part)} launches) at M={m}: kernel {tot['ms']:.4f} ms, plain "
+            f"{tot['plain_ms']:.4f} ms, torch.matmul {tot['library_ms']:.4f} ms, CUDA-core "
+            f"design {tot['cuda_core_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
     return rows
+
+
+def forward_rows(rows: list, m: int) -> list:
+    """The timing rows of one forward at M = m: a decode step (M = 8) runs
+    all 155 projections at M; a prefill runs the 154 layer projections at M
+    and its lm_head at the rows' count (not timed here)."""
+    return [r for r in rows if r["M"] == m and (m <= 8 or r["shape"] != "lm_head")]
 
 
 def phase_serve(torch, seed: int) -> dict:
@@ -344,7 +477,7 @@ def phase_serve(torch, seed: int) -> dict:
     )
     rng = np.random.default_rng(seed)
     trace = poisson_trace(rng, 16, vocab=cfg.vocab, rate=50.0,
-                          prompt_lens=(16, 32, 64, 128, 256), new_tokens=(16, 64))
+                          prompt_lens=PROMPT_LENS, new_tokens=(16, 64))
     # warm-up (CUDA context, cuBLAS handles, first launches): not measured
     served.run([Request(rid=-1, prompt=trace[0].prompt[:16], max_new_tokens=4)])
     torch.cuda.synchronize()
@@ -354,6 +487,7 @@ def phase_serve(torch, seed: int) -> dict:
     rep = served.run(trace)
     torch.cuda.synchronize()
     launches = kernel.analog_mvm.launches
+    designs = dict(kernel.analog_mvm.design_launches)
     fa_launches = fa.flash_attention.launches
     n_plain = plain_calls()
     events = engine.program_event_count() - events0
@@ -365,6 +499,8 @@ def phase_serve(torch, seed: int) -> dict:
         "requests": rep.n_requests, "generated": rep.n_generated,
         "prefills": rep.n_requests,
         "launches": launches, "launches_expected": LAUNCHES_PER_FORWARD * forwards,
+        "design_launches": designs,
+        "design_launches_expected": b1_designs([(1, q.prompt.size) for q in trace], rep.n_steps),
         "flash_attention_launches": fa_launches,
         "flash_attention_expected": fa_expected,
         "plain_calls": n_plain, "program_events_while_serving": events,
@@ -383,12 +519,17 @@ def phase_serve(torch, seed: int) -> dict:
         f"flash_attention launches {fa_launches} (expected {fa_expected} = "
         f"{FA_LAUNCHES_PER_PREFILL} x {2 * rep.n_requests} prefills, chip and digital), "
         f"plain calls {n_plain}, program events {events}")
+    log(f"B1 launches by design: {designs} (expected {res['design_launches_expected']}: "
+        f"decode steps and prompts of <= {kernel.DECODE_MAX_M} tokens through the decode "
+        f"design, longer prefills through the prefill design)")
     check(rep.n_requests == len(trace), "every request retires")
     check(all(r.n_new == q.max_new_tokens for r, q in
               zip(sorted(rep.records, key=lambda r: r.rid), trace)),
           "every request got its budget")
     check(events == 0, "no programming events while serving")
     check(launches == res["launches_expected"], "155 kernel launches per forward")
+    check(designs == res["design_launches_expected"],
+          "B1: prefill through the prefill design, decode through the decode design")
     check(fa_launches == fa_expected, "22 flash_attention launches per prefill")
     check(n_plain == 0, "the main path never ran the plain version")
     res.update(phase_decode_check(torch, served, trace))
@@ -482,6 +623,23 @@ def phase_decode_check(torch, served, trace) -> dict:
 # --------------------------------------------------------------- fused decode
 
 
+def b1_designs(prefills: list, decode_steps: int) -> dict:
+    """B1 launches per design expected from prefill forwards of these
+    (rows, tokens) and decode steps at 8 slots, each launch through the
+    design ``select_design`` picks for its M: a prefill runs its 154 layer
+    projections at M = rows x tokens and the lm_head at M = rows (the last
+    token's logits only); a decode step runs all 155 at M = 8."""
+    from repro_torch.kernels import analog_mvm as kernel
+
+    out = dict.fromkeys(kernel.DESIGNS, 0)
+    design = lambda m: "decode" if m <= kernel.DECODE_MAX_M else "prefill"
+    for rows, tokens in prefills:
+        out[design(rows * tokens)] += LAUNCHES_PER_FORWARD - 1
+        out[design(rows)] += 1
+    out[design(8)] += LAUNCHES_PER_FORWARD * decode_steps
+    return out
+
+
 def plain_calls() -> int:
     """Calls of every kernel's plain version since the last reset_counts."""
     from repro_torch.core import engine
@@ -492,11 +650,13 @@ def plain_calls() -> int:
 
 
 def reset_counts() -> None:
-    """Every kernel's launch count and every plain version's call count to 0."""
+    """Every kernel's launch count (B1's per design too) and every plain
+    version's call count to 0."""
     from repro_torch.core import engine
     from repro_torch.kernels import analog_mvm, decode_fused, flash_attention, ref
 
     analog_mvm.analog_mvm.launches = 0
+    analog_mvm.analog_mvm.design_launches = dict.fromkeys(analog_mvm.DESIGNS, 0)
     decode_fused.launches = 0
     flash_attention.flash_attention.launches = 0
     for fn in (ref.analog_mvm_ref, engine.tile_matmul_quant, ref.decode_fused_ref,
@@ -671,6 +831,8 @@ def phase_fused_serve(torch, ctx, per_layer: dict) -> tuple:
         "decode_fused_launches": df.launches,
         "analog_mvm_launches": kernel.analog_mvm.launches,
         "analog_mvm_expected": LAUNCHES_PER_FORWARD * rep.n_requests,
+        "analog_mvm_design_launches": dict(kernel.analog_mvm.design_launches),
+        "analog_mvm_design_expected": b1_designs([(1, q.prompt.size) for q in trace], 0),
         "flash_attention_launches": fa.flash_attention.launches,
         "flash_attention_expected": FA_LAUNCHES_PER_PREFILL * 2 * rep.n_requests,
         "plain_calls": plain_calls(),
@@ -701,6 +863,8 @@ def phase_fused_serve(torch, ctx, per_layer: dict) -> tuple:
     check(res["decode_fused_launches"] == rep.n_steps, "one fused launch per decode step")
     check(res["analog_mvm_launches"] == res["analog_mvm_expected"],
           "155 analog_mvm launches per prefill, none in decode")
+    check(res["analog_mvm_design_launches"] == res["analog_mvm_design_expected"],
+          "B1 designs by prefill length (fused)")
     check(res["flash_attention_launches"] == res["flash_attention_expected"],
           "22 flash_attention launches per prefill (fused)")
     check(res["plain_calls"] == 0, "the fused path never ran a plain version")
@@ -913,6 +1077,30 @@ def record_fa_shapes() -> set:
     return seen
 
 
+def record_b1_shapes() -> set:
+    """Record the ``b1_key`` of every programmed-MVM launch made through the
+    model's entry (``kernels.ops.analog_mvm``, which ``execute_mvm`` calls)
+    from here on; the wrapper and its launch counts are left as they are."""
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.kernels import ops
+
+    seen: set = set()
+    entry = ops.analog_mvm
+
+    def recorded(x, w, **kw):
+        m, k, n = x.numel() // x.shape[-1], w.shape[0], w.shape[1]
+        design = kernel.select_design(
+            x.dtype, m, k, n, tile_rows=kw.get("tile_rows", 1024),
+            per_tile_adc=kw.get("per_tile_adc", True), apply_dac=kw.get("r_dac") is not None)
+        seen.add(b1_key(m, k, n, x.dtype, design)
+                 + (kw.get("tile_rows", 1024), kw.get("per_tile_adc", True),
+                    kw.get("r_dac") is not None))
+        return entry(x, w, **kw)
+
+    ops.analog_mvm = recorded
+    return seen
+
+
 def phase_flash_attention(torch, gen, shapes: list) -> dict:
     """Kernel B3 against its plain version at tinyllama-1.1b's heads over
     ``shapes`` (rows, S), bf16 and f32, causal and full; the right-padding
@@ -1069,6 +1257,8 @@ def phase_paged_serve(torch, ctx, per_layer: dict) -> dict:
         "flash_attention_expected": FA_LAUNCHES_PER_PREFILL * (n_calls + rep.n_requests),
         "analog_mvm_launches": kernel.analog_mvm.launches,
         "analog_mvm_expected": LAUNCHES_PER_FORWARD * (n_calls + rep.n_steps),
+        "analog_mvm_design_launches": dict(kernel.analog_mvm.design_launches),
+        "analog_mvm_design_expected": b1_designs(calls, rep.n_steps),
         "plain_calls": plain_calls(),
         "program_events_while_serving": engine.program_event_count() - events0,
         **serve_metrics(rep),
@@ -1097,7 +1287,8 @@ def phase_paged_serve(torch, ctx, per_layer: dict) -> dict:
         f"{res['flash_attention_expected']} = {FA_LAUNCHES_PER_PREFILL} x ({n_calls} bucketed + "
         f"{rep.n_requests} digital prefills)), analog_mvm launches {res['analog_mvm_launches']} "
         f"(expected {res['analog_mvm_expected']} = {LAUNCHES_PER_FORWARD} x ({n_calls} + "
-        f"{rep.n_steps} decode steps)), plain calls {res['plain_calls']}, program events "
+        f"{rep.n_steps} decode steps); by design {res['analog_mvm_design_launches']}), "
+        f"plain calls {res['plain_calls']}, program events "
         f"{res['program_events_while_serving']}; requests with the per-layer run's tokens "
         f"{res['requests_with_per_layer_tokens']}/{rep.n_requests}")
     check(rep.n_requests == len(trace), "every request retires (paged)")
@@ -1109,6 +1300,8 @@ def phase_paged_serve(torch, ctx, per_layer: dict) -> dict:
           "22 flash_attention launches per prefill (paged)")
     check(res["analog_mvm_launches"] == res["analog_mvm_expected"],
           "155 analog_mvm launches per bucketed prefill and decode step")
+    check(res["analog_mvm_design_launches"] == res["analog_mvm_design_expected"],
+          "B1: bucketed prefill through the prefill design, decode through the decode design")
     check(res["plain_calls"] == 0, "the paged path never ran a plain version")
     check(res["program_events_while_serving"] == 0, "no programming events (paged)")
 
@@ -1144,7 +1337,7 @@ def phase_paged_serve(torch, ctx, per_layer: dict) -> dict:
         shares[f"{pb}x{sb}"] = prof
         log(f"profile (one bucketed prefill call, {pb} x {sb}): device busy "
             f"{prof['profile_device_ms']} ms, flash_attention kernels {prof['profile_kernel_ms']} "
-            f"ms, host wall {prof['profile_wall_ms']} ms, device kernels "
+            f"ms, analog_mvm kernels {prof['profile_mvm_ms']} ms, host wall {prof['profile_wall_ms']} ms, device kernels "
             f"{prof['profile_launches']}, idle share {prof['profile_idle_share']}")
     res["prefill_profile"] = shares
 
@@ -1188,7 +1381,7 @@ def profile_summary(prof, kernel: str = "analog_mvm") -> dict:
     if not dev or not host:
         return {k: "not measured" for k in (
             "profile_device_ms", "profile_kernel_ms", "profile_wall_ms",
-            "profile_launches", "profile_idle_share")}
+            "profile_launches", "profile_idle_share", "profile_mvm_ms")}
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, e in spans[1:]:
@@ -1199,9 +1392,11 @@ def profile_summary(prof, kernel: str = "analog_mvm") -> dict:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     mvm = sum(e.time_range.end - e.time_range.start for e in dev if kernel in e.name)
+    b1 = sum(e.time_range.end - e.time_range.start for e in dev if "analog_mvm" in e.name)
     wall = max(e.time_range.end for e in host) - min(e.time_range.start for e in host)
     return {"profile_device_ms": round(busy / 1e3, 4),
             "profile_kernel_ms": round(mvm / 1e3, 4),
+            "profile_mvm_ms": round(b1 / 1e3, 4),
             "profile_wall_ms": round(wall / 1e3, 4),
             "profile_launches": len(dev),
             "profile_idle_share": round(1 - busy / max(wall, 1e-9), 4)}
@@ -1231,9 +1426,11 @@ def main(argv=None) -> int:
     card = phase_device(torch)
     build_s, ptxas = phase_build()
     gen = torch.Generator("cuda").manual_seed(args.seed)
-    accuracy = phase_kernel_vs_plain(torch, gen)
-    timing = phase_timing(torch, gen)
+    accuracy = phase_kernel_vs_plain(torch, gen, tuple(sorted({*b1_served_ms(),
+                                                              *prefill_ms()})))
+    timing = phase_timing(torch, gen, (SLOTS, *prefill_ms()))
     fa_launched = record_fa_shapes()
+    b1_launched = record_b1_shapes()
     serve, ctx = phase_serve(torch, args.seed)
     fused_check = phase_fused_check(torch, ctx)
     fused_serve, fused_engine = phase_fused_serve(torch, ctx, serve)
@@ -1248,28 +1445,47 @@ def main(argv=None) -> int:
     log(f"B3 shapes launched by the serving phases (rows, S, dtype): {sorted(fa_launched)}; "
         f"not checked in phase 8: {unchecked or 'none'}")
     check(not unchecked, f"B3 launched at shapes phase 8 never checked: {unchecked}")
+    b1_unchecked = sorted(b1_launched - set(accuracy["checked"]))
+    log(f"B1 launches of the serving phases: {len(b1_launched)} (M, K, N, dtype, design, "
+        f"tile_rows, per_tile_adc, dac) keys at M in "
+        f"{sorted({key[0] for key in b1_launched})}; not checked in phase 3: "
+        f"{b1_unchecked or 'none'}")
+    check(not b1_unchecked, f"B1 launched at shapes phase 3 never checked: {b1_unchecked}")
     # B3 per prefill call: 22 launches at the largest bucket this trace uses
     fa_t = next(r for r in flash["timing"] if (r["rows"], r["S"]) == (1, 256))
+    check(all(r["design"] == ("decode" if r["M"] <= SLOTS else "prefill") for r in timing),
+          "B1 timed at 8 rows through the decode design and at prefill Ms through the prefill "
+          "design")
 
-    per_step = lambda key: sum(r[key] * r["per_forward"] for r in timing)
-    kernels = {"kernels": [{
-        "name": "analog_mvm",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/analog_mvm.cu",
-        "replaces": "src/repro/kernels/analog_mvm.py:41",
-        "launches": serve["launches"],
-        "max_abs_err": accuracy["max_abs"],
-        "ms": per_step("ms"),
-        "plain_ms": per_step("plain_ms"),
-        "bound_ms": per_step("bound_ms"),
-        "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in timing)
-                     else "operations"),
-        "library_ms": per_step("library_ms"),
-        "per": "one tinyllama-1.1b decode step at 8 slots, bf16: "
-               "22 x (wq, wk, wv, wo, w1, w3, w2) + lm_head",
-        "max_err_adc_steps": accuracy["max_steps"],
-        "pass": True,
-    }, {
+    def b1_entry(design: str, m: int, per: str) -> dict:
+        part = forward_rows(timing, m)
+        total = lambda key: sum(r[key] * r["per_forward"] for r in part)
+        return {
+            "name": f"analog_mvm.{design}",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/analog_mvm_tc.cu",
+            "replaces": "src/repro/kernels/analog_mvm.py:41",
+            "launches": serve["design_launches"][design],
+            "max_abs_err": accuracy["by_design"][design]["max_abs"],
+            "ms": total("ms"),
+            "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
+            "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in part)
+                         else "operations"),
+            "library_ms": total("library_ms"),
+            "cuda_core_ms": total("cuda_core_ms"),
+            "per": per,
+            "max_err_adc_steps": accuracy["by_design"][design]["max_steps"],
+            "pass": all(r["design"] == design for r in part),
+        }
+
+    kernels = {"kernels": [b1_entry(
+        "decode", 8, "one tinyllama-1.1b decode step at 8 slots, bf16: 22 x (wq, wk, wv, "
+        "wo, w1, w3, w2) + lm_head; launches from the per-layer serving run; cuda_core_ms: "
+        "the CUDA-core design (analog_mvm.cu) on the same inputs"), b1_entry(
+        "prefill", 256, "one tinyllama-1.1b prefill forward of 256 tokens (M = 256), bf16: "
+        "the 154 layer projections (its lm_head runs at M = 1, through the decode design); "
+        "launches from the per-layer serving run; cuda_core_ms as above"), {
         "name": "decode_fused",
         "route": "cuda",
         "source": "src/repro_torch/csrc/decode_fused.cu",

@@ -1,8 +1,24 @@
-"""Wrapper of the Hopper analog-MVM kernel (``csrc/analog_mvm.cu``).
+"""Wrapper of the Hopper analog-MVM kernels (``csrc/analog_mvm.cu``,
+``csrc/analog_mvm_tc.cu``).
 
-Replaces the TPU kernel ``repro/kernels/analog_mvm.py::_kernel``. The CUDA
-source holds the design note (what it computes, its bound, what the design
-does about it); the plain PyTorch version of the same function is
+Replaces the TPU kernel ``repro/kernels/analog_mvm.py::_kernel``. Three
+hand-written designs compute the one function; :func:`select_design` picks
+one from the dtype, M and the options, as a choice of design (each is a
+kernel, none a fallback):
+
+* ``"decode"`` -- bf16, M <= :data:`DECODE_MAX_M`: tensor cores, split K
+  into 128-row sub-chunks over several hundred blocks, fixed-order sum of
+  the partials (``analog_mvm_tc.cu``; :func:`split_plan` sizes the grid);
+* ``"prefill"`` -- bf16, larger M: a tensor-core tiled GEMM with the ADC at
+  every crossbar boundary in its epilogue (``analog_mvm_tc.cu``);
+* ``"gemv"`` -- fp32 (TF32 would move ADC codes), the DAC applied in the
+  kernel, or shapes the tensor-core designs do not take: the CUDA-core
+  kernel of ``analog_mvm.cu``.
+
+The two tensor-core designs share their per-element arithmetic, so a row's
+bits depend neither on M nor on which of them ran. The CUDA sources hold
+the design notes (what they compute, their bounds, what the designs do
+about them); the plain PyTorch version of the same function is
 ``kernels.ref.analog_mvm_ref``.
 
 :func:`analog_mvm` takes CUDA tensors only -- there is no CPU fallback here;
@@ -10,12 +26,16 @@ does about it); the plain PyTorch version of the same function is
 device, dtype, shape and contiguity, allocates the output, launches on the
 current stream, raises on a launch error, and adds one to
 ``analog_mvm.launches`` per launch (and nowhere else), so a run can show
-that its path went through the kernel.
+that its path went through the kernel; ``analog_mvm.design_launches``
+counts the same launches by design.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import itertools
+from dataclasses import dataclass
 from typing import Optional, Union
 
 import torch
@@ -28,6 +48,18 @@ Scalar = Union[Tensor, float]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_M = 65535 * 8  # grid.y limit times the block's rows
 _FN = None
+_TC_FN = None
+#: the three designs, by name
+DESIGNS = ("gemv", "decode", "prefill")
+#: largest M the decode design takes (one 16-row mma tile)
+DECODE_MAX_M = 16
+#: rows of K per sub-chunk: one fp32 mma chain from zero in both
+#: tensor-core designs (``kSub`` in ``csrc/analog_mvm_tc.cu``)
+SUB_ROWS = 128
+#: blocks both tensor-core designs aim to put in flight (two per SM of an H100)
+MIN_BLOCKS = 2 * 132
+#: the prefill design's output tile: rows of M, columns of N per block
+PREFILL_TILE = (128, 64)
 
 
 def _fn():
@@ -44,6 +76,136 @@ def _fn():
         lib.analog_mvm_error_string.restype = ctypes.c_char_p
         _FN = (fn, lib.analog_mvm_error_string)
     return _FN
+
+
+def _tc_fn():
+    global _TC_FN
+    if _TC_FN is None:
+        lib = build.load("analog_mvm_tc")
+        pre = lib.analog_mvm_tc_prefill
+        dec = lib.analog_mvm_tc_decode
+        pre.argtypes = dec.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_uint64] + [ctypes.c_int] * 3
+            + [ctypes.c_void_p] * 2 + [ctypes.c_float] * 2 + [ctypes.c_int] * 4
+            + [ctypes.c_void_p]
+        )
+        pre.restype = dec.restype = ctypes.c_int
+        lib.analog_mvm_tc_error_string.argtypes = [ctypes.c_int]
+        lib.analog_mvm_tc_error_string.restype = ctypes.c_char_p
+        _TC_FN = (pre, dec, lib.analog_mvm_tc_error_string)
+    return _TC_FN
+
+
+def tc_shape_ok(k: int, n: int, tile_rows: int, per_tile_adc: bool) -> bool:
+    """Whether the tensor-core designs take this shape: 16-byte rows of x and
+    w (K and N multiples of 8) and crossbar tiles made of whole sub-chunks."""
+    multi = per_tile_adc and k > tile_rows
+    return k % 8 == 0 and n % 8 == 0 and not (multi and tile_rows % SUB_ROWS)
+
+
+def select_design(dtype: torch.dtype, m: int, k: int, n: int, *, tile_rows: int = 1024,
+                  per_tile_adc: bool = True, apply_dac: bool = False) -> str:
+    """The design :func:`analog_mvm` launches for these operands (see the
+    module docstring): ``"decode"`` or ``"prefill"`` for bf16 without the DAC
+    at shapes :func:`tc_shape_ok` takes, split at :data:`DECODE_MAX_M`;
+    ``"gemv"`` otherwise."""
+    if dtype != torch.bfloat16 or apply_dac or not tc_shape_ok(k, n, tile_rows, per_tile_adc):
+        return "gemv"
+    return "decode" if m <= DECODE_MAX_M else "prefill"
+
+
+@dataclass(frozen=True)
+class SplitPlan:
+    """The decode design's grid for one (M, K, N): ``warps`` of 16 columns
+    per block, ``strips`` column strips x ``n_sub`` sub-chunks of K =
+    ``blocks``; the fp32 partials take ``workspace_bytes``, followed in the
+    call's workspace by ``flags`` 64-bit arrival flags (one per block);
+    ``span`` rows of K go to each ADC conversion."""
+
+    warps: int
+    strips: int
+    n_sub: int
+    blocks: int
+    workspace_bytes: int
+    span: int
+
+    @property
+    def flags(self) -> int:
+        return self.blocks
+
+    @property
+    def tile_of_sub(self) -> tuple:
+        """The crossbar tile of each sub-chunk, in the order the last block
+        of a strip sums them (sub-chunk 0, 1, ...; the ADC after each
+        tile's last)."""
+        return tuple(c * SUB_ROWS // self.span for c in range(self.n_sub))
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(m: int, k: int, n: int, tile_rows: int = 1024,
+               per_tile_adc: bool = True) -> SplitPlan:
+    """The widest strips (4, 2 or 1 warps) that still put
+    :data:`MIN_BLOCKS` blocks in flight, else one warp per strip."""
+    n_sub = -(-k // SUB_ROWS)
+    warps = next((wp for wp in (4, 2) if -(-n // (16 * wp)) * n_sub >= MIN_BLOCKS), 1)
+    strips = -(-n // (16 * warps))
+    span = tile_rows if per_tile_adc and k > tile_rows else k
+    return SplitPlan(warps=warps, strips=strips, n_sub=n_sub, blocks=strips * n_sub,
+                     workspace_bytes=n_sub * m * n * 4, span=span)
+
+
+@dataclass(frozen=True)
+class PrefillPlan:
+    """The prefill design's grid for one (M, K, N): ``row_tiles`` x
+    ``col_tiles`` output tiles of :data:`PREFILL_TILE`, each split into
+    ``splits`` blocks, one per crossbar tile of K (1: one block walks all
+    of K); the quantized tile partials take ``workspace_bytes``, followed
+    in the call's workspace by ``flags`` 64-bit arrival flags (one per block
+    when split, else none)."""
+
+    row_tiles: int
+    col_tiles: int
+    splits: int
+    blocks: int
+    workspace_bytes: int
+
+    @property
+    def flags(self) -> int:
+        return self.blocks if self.splits > 1 else 0
+
+
+@functools.lru_cache(maxsize=None)
+def prefill_plan(m: int, k: int, n: int, tile_rows: int = 1024,
+                 per_tile_adc: bool = True) -> PrefillPlan:
+    """Split K at its crossbar tiles (each split's partial is then
+    ADC-complete, summed in tile order by the last block of the output
+    tile) when the output tiles alone put fewer than :data:`MIN_BLOCKS`
+    blocks in flight; with one ADC conversion over all of K, never."""
+    rows, cols = -(-m // PREFILL_TILE[0]), -(-n // PREFILL_TILE[1])
+    multi = per_tile_adc and k > tile_rows
+    splits = -(-k // tile_rows) if multi and rows * cols < MIN_BLOCKS else 1
+    return PrefillPlan(row_tiles=rows, col_tiles=cols, splits=splits,
+                       blocks=rows * cols * splits,
+                       workspace_bytes=splits * m * n * 4 if splits > 1 else 0)
+
+
+_CALLS = itertools.count(1)
+
+
+def _tag() -> int:
+    """A 64-bit tag, distinct for each tensor-core launch of this process
+    (an odd multiplier is a bijection modulo 2^64), spread over the bits so
+    that stale bytes of a reused workspace do not spell it (see
+    ``last_to_finish`` in ``csrc/analog_mvm_tc.cu``)."""
+    return (next(_CALLS) * 0x9E3779B97F4A7C15) & (2**64 - 1)
+
+
+def workspace_words(plan) -> tuple:
+    """(float32 words of the call's workspace, word offset of its flags):
+    the partials, then the 64-bit arrival flags from the next 8-byte
+    boundary."""
+    off = -(-plan.workspace_bytes // 8) * 2
+    return off + 2 * plan.flags, off
 
 
 def _scalar(v: Optional[Scalar], name: str, device) -> tuple:
@@ -73,8 +235,16 @@ def analog_mvm(
     per_tile_adc: bool = True,
 ) -> Tensor:
     """One programmed MVM on the card: x (M, K) x w (K, N) -> (M, N) in
-    x's dtype. ``r_dac=None`` skips the DAC (x already quantized, as the
-    serving path passes it); the DAC has ``b_adc + 1`` bits."""
+    x's dtype, through the design :func:`select_design` picks. ``r_dac=None``
+    skips the DAC (x already quantized, as the serving path passes it); the
+    DAC has ``b_adc + 1`` bits."""
+    _check_operands(x, w, b_adc, tile_rows)
+    design = select_design(x.dtype, x.shape[0], x.shape[1], w.shape[1], tile_rows=tile_rows,
+                           per_tile_adc=per_tile_adc, apply_dac=r_dac is not None)
+    return _run(design, x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc)
+
+
+def _check_operands(x: Tensor, w: Tensor, b_adc: int, tile_rows: int) -> None:
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(
             f"analog_mvm kernel needs x and w on one CUDA device, got "
@@ -98,6 +268,45 @@ def analog_mvm(
         raise ValueError(f"analog_mvm kernel: unsupported shape M={m} K={k} N={n}")
     if not 2 <= b_adc <= 16 or tile_rows < 1:
         raise ValueError(f"analog_mvm kernel: b_adc={b_adc} tile_rows={tile_rows}")
+
+
+def _launch(design: str, x: Tensor, w: Tensor, *, r_adc: Scalar, r_dac: Optional[Scalar] = None,
+            out_scale: Scalar = 1.0, b_adc: int = 8, tile_rows: int = 1024,
+            per_tile_adc: bool = True) -> Tensor:
+    """:func:`analog_mvm` through a given design, for the checks only: they
+    hold a design ``select_design`` does not pick for these operands (the
+    CUDA-core design on bf16) against the others. Refuses a design that
+    cannot take the operands."""
+    _check_operands(x, w, b_adc, tile_rows)
+    m, k = x.shape
+    n = w.shape[1]
+    tc_ok = select_design(x.dtype, m, k, n, tile_rows=tile_rows, per_tile_adc=per_tile_adc,
+                          apply_dac=r_dac is not None) != "gemv"
+    if design not in DESIGNS or (design != "gemv" and not tc_ok) or (
+            design == "decode" and m > DECODE_MAX_M):
+        raise ValueError(
+            f"analog_mvm kernel: design {design!r} does not take M={m} K={k} N={n} "
+            f"dtype={x.dtype} tile_rows={tile_rows} dac={r_dac is not None}"
+        )
+    return _run(design, x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc)
+
+
+def _run(design, x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc) -> Tensor:
+    """Launch ``design`` (operands and design already checked); the one
+    place that counts launches."""
+    if design == "gemv":
+        y = _launch_gemv(x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc)
+    else:
+        y = _launch_tc(design, x, w, r_adc, out_scale, b_adc, tile_rows, per_tile_adc)
+    analog_mvm.launches += 1
+    analog_mvm.design_launches[design] += 1
+    return y
+
+
+def _launch_gemv(x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc) -> Tensor:
+    """Launch the CUDA-core design (operands already checked)."""
+    m, k = x.shape
+    n = w.shape[1]
     rd_p, rd_h, rd_keep = _scalar(r_dac, "r_dac", x.device)
     ra_p, ra_h, ra_keep = _scalar(r_adc, "r_adc", x.device)
     os_p, os_h, os_keep = _scalar(out_scale, "out_scale", x.device)
@@ -119,9 +328,47 @@ def analog_mvm(
             f"(M={m} K={k} N={n} dtype={x.dtype})"
         )
     del rd_keep, ra_keep, os_keep  # freed after the launch was enqueued
-    analog_mvm.launches += 1
+    return y
+
+
+def _launch_tc(design, x, w, r_adc, out_scale, b_adc, tile_rows, per_tile_adc) -> Tensor:
+    """Launch a tensor-core design (operands already checked). Its
+    workspace -- the fp32 partials, then the arrival flags, raised with
+    this call's :func:`_tag` so they need no zeroing -- is the call's own:
+    calls on different streams, or in different graphs, share nothing."""
+    m, k = x.shape
+    n = w.shape[1]
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("analog_mvm tensor-core kernels need 16-byte aligned x and w")
+    ra_p, ra_h, ra_keep = _scalar(r_adc, "r_adc", x.device)
+    os_p, os_h, os_keep = _scalar(out_scale, "out_scale", x.device)
+    multi = int(per_tile_adc and k > tile_rows)
+    span = tile_rows if multi else k
+    plan = (prefill_plan if design == "prefill" else split_plan)(m, k, n, tile_rows,
+                                                                  per_tile_adc)
+    words, off = workspace_words(plan)
+    work = torch.empty(words, dtype=torch.float32, device=x.device)
+    flags, tag = work.data_ptr() + 4 * off, _tag()
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    pre, dec, err_str = _tc_fn()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if design == "prefill":
+            rc = pre(x.data_ptr(), w.data_ptr(), y.data_ptr(), work.data_ptr(), flags,
+                     tag, m, k, n, ra_p, os_p, ra_h, os_h, b_adc, span, multi, plan.splits, stream)
+        else:
+            rc = dec(x.data_ptr(), w.data_ptr(), y.data_ptr(), work.data_ptr(), flags,
+                     tag, m, k, n, ra_p, os_p, ra_h, os_h, b_adc, span, multi, plan.warps, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"analog_mvm {design} kernel launch failed: {err_str(rc).decode()} "
+            f"(M={m} K={k} N={n} dtype={x.dtype})"
+        )
+    del ra_keep, os_keep  # freed after the launch was enqueued
     return y
 
 
 #: kernel launches since process start (see module docstring)
 analog_mvm.launches = 0
+#: the same launches by design
+analog_mvm.design_launches = dict.fromkeys(DESIGNS, 0)

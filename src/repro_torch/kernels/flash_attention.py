@@ -1,7 +1,8 @@
 """Wrapper of the Hopper prefill-attention kernel (``csrc/flash_attention.cu``).
 
-Replaces the TPU kernel ``repro/kernels/flash_attention.py::_kernel``. The
-CUDA source holds the design note (what it computes, its bound, what the
+Replaces the TPU kernel ``repro/kernels/flash_attention.py::_kernel``: bf16
+runs on a tensor-core kernel, fp32 on a CUDA-core one (no TF32). The CUDA
+source holds the design notes (what it computes, its bound, what the
 design does about it); the plain PyTorch version of the same function is
 ``kernels.ref.flash_attention_ref``.
 
@@ -95,6 +96,9 @@ def flash_attention(
         )
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel needs contiguous q, k and v")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        # the tensor-core kernel moves rows in 16-byte copies
+        raise ValueError("flash_attention bf16 kernel needs 16-byte aligned q, k and v")
     o = torch.empty_like(q)
     fn, err_str = _fn()
     with torch.cuda.device(q.device):

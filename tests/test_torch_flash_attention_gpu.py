@@ -77,6 +77,8 @@ def test_kernel_matches_plain_tinyllama(cuda, rows, s, dtype, causal):
     (2, 77, 4, 2, 16, (16, 32)),   # the smoke config: a chunk inside a tile
     (1, 300, 8, 2, 128, (512, 128)),
     (3, 100, 6, 3, 32, (64, 64)),
+    (1, 130, 32, 2, 64, (512, 1024)),  # 16 query heads per KV head
+    (2, 70, 6, 2, 32, (64, 96)),       # 3 per KV head, a chunk off the 64-key tile
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_other_shapes(cuda, b, s, h, kv, d, chunks, dtype):
@@ -156,3 +158,41 @@ def test_failed_launch_raises(cuda, monkeypatch):
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
                            k, v, q_chunk=16, kv_chunk=32)
+
+
+def test_misaligned_bf16_operands_raise(cuda):
+    """The bf16 kernel moves rows in 16-byte copies: a contiguous view that
+    starts off a 16-byte boundary is refused before the launch."""
+    from repro_torch.kernels import flash_attention as fa
+
+    c = TINYLLAMA
+    gen = torch.Generator("cuda").manual_seed(0)
+    q, k, v = _qkv(gen, 1, 64, c["h"], c["kv"], c["d"], torch.bfloat16, cuda)
+    shifted = torch.empty(k.numel() + 1, dtype=k.dtype, device=cuda)[1:].view(k.shape)
+    shifted.copy_(k)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    launches = fa.flash_attention.launches
+    for args in ((q, shifted, v), (q, k, shifted)):
+        with pytest.raises(ValueError, match="aligned"):
+            fa.flash_attention(*args, q_chunk=c["q_chunk"], kv_chunk=c["kv_chunk"])
+    assert fa.flash_attention.launches == launches
+    o = fa.flash_attention(q, k, v, q_chunk=c["q_chunk"], kv_chunk=c["kv_chunk"])
+    assert o.data_ptr() % 16 == 0
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+@pytest.mark.parametrize("rows,s", SHAPES)
+def test_bf16_matches_plain_on_more_seeds(cuda, seed, rows, s):
+    """The bf16 tensor-core kernel on inputs from other seeds than the
+    tests above, causal and full, under the same bound."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    c = TINYLLAMA
+    gen = torch.Generator("cuda").manual_seed(1000 * seed + rows * s)
+    q, k, v = _qkv(gen, rows, s, c["h"], c["kv"], c["d"], torch.bfloat16, cuda)
+    for causal in (True, False):
+        o_k = fa.flash_attention(q, k, v, causal=causal, q_chunk=c["q_chunk"],
+                                 kv_chunk=c["kv_chunk"])
+        o_p = flash_attention_ref(q, k, v, causal, q_chunk=c["q_chunk"], kv_chunk=c["kv_chunk"])
+        _check(o_k, o_p)

@@ -1,4 +1,7 @@
-"""The Hopper analog-MVM kernel against its plain version, on the card.
+"""The Hopper analog-MVM kernels against their plain version, on the card:
+the design ``analog_mvm`` picks for each case (the bf16 cases without the
+DAC at M <= 16 run the tensor-core decode design), the tensor-core prefill
+design at prefill shapes, and its rows bitwise across M, padding and design.
 
 Marked ``gpu``: each test skips on a host without a CUDA device (the kernel
 has no interpret mode). On the card: ``PYTHONPATH=src python -m pytest -m gpu
@@ -88,3 +91,122 @@ def test_kernel_wrapper_refuses_bad_inputs(cuda):
         kernel.analog_mvm(x, w.t(), r_adc=1.0)  # non-contiguous, wrong K
     with pytest.raises(ValueError):
         kernel.analog_mvm(x[:, :32], w, r_adc=1.0)
+
+
+#: prefill shapes of the tensor-core design: (M, K, N), M >= 128, a ragged
+#: M, a ragged last crossbar tile (K = 5632) and an N off the 64-column tile
+PREFILL_SHAPES = [(128, 2048, 2048), (256, 5632, 2048), (200, 2048, 256),
+                  (131, 1024, 520), (256, 2048, 5632)]
+
+
+@pytest.mark.parametrize("m,k,n", PREFILL_SHAPES)
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("per_tile", [True, False])
+def test_prefill_design_matches_plain(cuda, m, k, n, bits, per_tile):
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.kernels.ref import analog_mvm_ref
+
+    gen = torch.Generator("cuda").manual_seed(m * k + n + bits)
+    x = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    w = (torch.randn((k, n), generator=gen, device=cuda) * k**-0.5).bfloat16()
+    r_adc = torch.tensor(2.0, device=cuda)
+    assert kernel.select_design(x.dtype, m, k, n, per_tile_adc=per_tile) == "prefill"
+    before = kernel.analog_mvm.design_launches["prefill"]
+    y_k = kernel.analog_mvm(x, w, r_adc=r_adc, out_scale=0.9, b_adc=bits,
+                            per_tile_adc=per_tile)
+    torch.cuda.synchronize()
+    assert kernel.analog_mvm.design_launches["prefill"] == before + 1
+    y_p = analog_mvm_ref(x, w, None, r_adc, 0.9, b_adc=bits, per_tile_adc=per_tile,
+                         apply_dac=False)
+    assert y_k.dtype == torch.bfloat16 and y_k.shape == (m, n)
+    step = (2.0 + 1e-9) / (2 ** (bits - 1) - 1) * 0.9
+    _check(y_k, y_p, step, math.ceil(k / 1024) if per_tile else 1, True)
+
+
+@pytest.mark.parametrize("k,n", [(2048, 256), (5632, 2048), (2048, 5632), (1000, 520)])
+def test_rows_bitwise_independent_of_m_and_design(cuda, k, n):
+    """A row's bits depend neither on M, nor on the padding rows beside it,
+    nor on which tensor-core design ran it."""
+    from repro_torch.kernels import analog_mvm as kernel
+
+    gen = torch.Generator("cuda").manual_seed(k + n)
+    x = torch.randn((256, k), generator=gen, device=cuda).bfloat16()
+    w = (torch.randn((k, n), generator=gen, device=cuda) * k**-0.5).bfloat16()
+    kw = dict(r_adc=torch.tensor(2.0, device=cuda), out_scale=0.9, b_adc=8)
+    full = kernel.analog_mvm(x, w, **kw)  # the prefill design
+    for rows in (1, 8, 16, 100, 129):  # alone: the decode design up to 16 rows
+        padded = torch.cat([x[:rows], 100 * torch.randn((300 - rows, k), generator=gen,
+                                                        device=cuda).bfloat16()])
+        assert torch.equal(kernel.analog_mvm(x[:rows].contiguous(), w, **kw), full[:rows]), rows
+        assert torch.equal(kernel.analog_mvm(padded, w, **kw)[:rows], full[:rows]), rows
+
+
+def test_design_selection_and_refusals(cuda):
+    from repro_torch.kernels import analog_mvm as kernel
+
+    x = torch.randn((32, 64), device=cuda).bfloat16()
+    w = torch.randn((64, 40), device=cuda).bfloat16()
+    before = dict(kernel.analog_mvm.design_launches)
+    kernel.analog_mvm(x[:16].contiguous(), w, r_adc=1.0)
+    kernel.analog_mvm(x, w, r_adc=1.0)
+    kernel.analog_mvm(x, w, r_adc=1.0, r_dac=2.0)
+    kernel.analog_mvm(x.float(), w.float(), r_adc=1.0)
+    after = dict(kernel.analog_mvm.design_launches)
+    assert {d: after[d] - before[d] for d in after} == {"decode": 1, "prefill": 1, "gemv": 2}
+    with pytest.raises(ValueError, match="design"):
+        kernel._launch("decode", x, w, r_adc=1.0)  # M = 32 > 16
+    with pytest.raises(ValueError, match="design"):
+        kernel._launch("prefill", x.float(), w.float(), r_adc=1.0)
+    assert kernel.analog_mvm.design_launches == after
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 5632, 2048), (256, 5632, 2048)])
+def test_split_designs_on_overlapping_streams(cuda, m, k, n):
+    """Split calls running at once on two streams give the bits of the same
+    calls one after the other: each call sums its partials through its own
+    arrival flags."""
+    from repro_torch.kernels import analog_mvm as kernel
+
+    gen = torch.Generator("cuda").manual_seed(m + k)
+    xs = [torch.randn((m, k), generator=gen, device=cuda).bfloat16() for _ in range(2)]
+    w = (torch.randn((k, n), generator=gen, device=cuda) * k**-0.5).bfloat16()
+    kw = dict(r_adc=torch.tensor(2.0, device=cuda), out_scale=0.9, b_adc=8)
+    serial = [kernel.analog_mvm(x, w, **kw) for x in xs]
+    streams = [torch.cuda.Stream() for _ in xs]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(20):
+        for i, (x, s) in enumerate(zip(xs, streams)):
+            with torch.cuda.stream(s):
+                outs[i].append(kernel.analog_mvm(x, w, **kw))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(y, serial[i]) for y in outs[i]), i
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 5632, 2048), (256, 5632, 2048)])
+def test_split_designs_in_cuda_graph_replays(cuda, m, k, n):
+    """A split call captured in a CUDA graph (its workspace and tag fixed at
+    capture) gives the eager call's bits on every replay, also with other
+    split calls between the replays reusing freed workspace."""
+    from repro_torch.kernels import analog_mvm as kernel
+
+    gen = torch.Generator("cuda").manual_seed(m + n)
+    x = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    w = (torch.randn((k, n), generator=gen, device=cuda) * k**-0.5).bfloat16()
+    kw = dict(r_adc=torch.tensor(2.0, device=cuda), out_scale=0.9, b_adc=8)
+    eager = kernel.analog_mvm(x, w, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernel.analog_mvm(x, w, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = kernel.analog_mvm(x, w, **kw)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, eager)
+        kernel.analog_mvm(x[: m // 2 or 1].contiguous(), w, **kw)
