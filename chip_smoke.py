@@ -35,16 +35,22 @@ end the run with a non-zero exit:
    compared;
 5. fused kernel vs plain: from one cache state of that trace, the Hopper
    ``decode_fused`` kernel (one launch per decode step) at full width and
-   depths 1, 2 and 22 (stacks sliced from the same chip), held phase by
-   phase at every layer to its plain ops on its own inputs
-   (``kernels/decode_fused_check.py``) and end to end to phase 4's bound
-   against ``decode_fused_ref``;
+   depths 1, 2 and 22 (stacks sliced from the same chip), every bf16
+   projection on its tensor-core MVM item, held phase by phase at every
+   layer to its plain ops on its own inputs -- each MVM bitwise B1's
+   decode design on the kernel's own DAC codes
+   (``kernels/decode_fused_check.py``) -- and end to end to phase 4's
+   bound against ``decode_fused_ref``;
 6. fused serving: the same trace through ``ServingConfig(fused_decode=True)``;
    the counters prove one ``decode_fused`` launch per decode step, 155
    ``analog_mvm`` launches per prefill and no plain-version call;
 7. one decode step at 8 slots three ways (per-layer eager, per-layer
    replayed from a CUDA graph, fused kernel): ms per step, device kernels
-   launched, device idle share;
+   launched, device idle share; then the fused kernel alone by CUDA events
+   -- with ``--b2-parent DIR`` in turns with a parent's ``decode_fused.cu``
+   built from DIR (parent, change, change, parent) -- and where its time
+   goes: each phase kind of layer 1, the final row, the lm_head and the
+   logits, by launches ended after n phases (``b2_phase_ms``);
 8. prefill attention vs plain: the Hopper ``flash_attention`` (kernel B3)
    against ``flash_attention_ref`` at tinyllama-1.1b's heads and every
    shape the serving phases give it (each prompt length of the trace at
@@ -75,6 +81,7 @@ Without a card, or outside a checkout, it prints no result and exits 2.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -716,7 +723,7 @@ def phase_fused_check(torch, ctx) -> dict:
 
     from repro_torch.core import engine
     from repro_torch.kernels import decode_fused as df
-    from repro_torch.kernels.decode_fused_check import check_phases
+    from repro_torch.kernels.decode_fused_check import NAMES, check_phases
     from repro_torch.kernels.ref import decode_fused_ref
     from repro_torch.models.attention import KVCache
     from repro_torch.models.common import embedding_apply
@@ -736,6 +743,8 @@ def phase_fused_check(torch, ctx) -> dict:
         plan_d = dataclasses.replace(plan, n_groups=depth)
         cfg_d = dataclasses.replace(cfg, n_layers=depth)
         dec = df.FusedDecoder(params, plan_d, cfg_d, served.acfg, b, served.s_max)
+        check(dec.items == ("tensor_core",) * 8,
+              f"every bf16 tinyllama-1.1b projection runs B2's tensor-core item: {dec.items}")
         t0 = time.perf_counter()
         phases = check_phases(dec, cur, KVCache(cache.k[:depth], cache.v[:depth], lens))
         phases_s = time.perf_counter() - t0
@@ -798,10 +807,17 @@ def phase_fused_check(torch, ctx) -> dict:
                 for name, c in phases["checks"].items()))
         if not ok:
             failures.append(depth)
+        out["grid_blocks"] = dec.grid
+        out["items"] = dict(zip(NAMES, dec.items))
+        out["items_per_phase"] = df.phase_items(
+            dec.items, list(plan_d.proj_plans) + [plan_d.head_plan], b, dec.span)
+        out["layout"] = dataclasses.asdict(dec.layout)
+        out["attn_heads"], out["row_slices"] = dec.attn_heads, dec.row_slices
         del dec, ck, cp
-    out["grid_blocks"] = df.max_blocks(cfg.dtype, DEV)
-    log(f"fused kernel grid: {out['grid_blocks']} co-resident blocks; B1 at full depth "
-        f"(measured on one H100): rel L2 2.617e-2, 7 of 8")
+    log(f"fused kernel grid: {out['grid_blocks']} co-resident blocks, MVM items "
+        f"{out['items']}, items per phase {out['items_per_phase']}, layout {out['layout']}, "
+        f"query heads per attention item {out['attn_heads']}, blocks per slot in a row phase "
+        f"{out['row_slices']}; B1 at full depth (measured on one H100): rel L2 2.617e-2, 7 of 8")
     check(not failures, f"fused kernel vs plain out of tolerance at depths {failures}")
     return out
 
@@ -930,11 +946,13 @@ def fused_bound(dec, lens) -> tuple:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes
 
 
-def phase_step_timing(torch, ctx, fused_engine) -> dict:
+def phase_step_timing(torch, ctx, fused_engine, parent=None) -> dict:
     """One decode step at 8 slots, ref_check off, three ways: the per-layer
     B1 path launched eagerly, the same path replayed from a CUDA graph, and
-    the fused kernel. Then the fused kernel alone, its plain version and
-    its bound, for the kernels line."""
+    the fused kernel. Then the fused kernel alone (in turns with the
+    parent's B2 when ``parent`` holds its library), its plain version, its
+    bound and the per-phase breakdown (``b2_phase_ms``) of each, for the
+    kernels line."""
     from repro_torch.kernels import decode_fused as df
     from repro_torch.kernels.ref import decode_fused_ref
     from repro_torch.models.attention import KVCache
@@ -1003,34 +1021,162 @@ def phase_step_timing(torch, ctx, fused_engine) -> dict:
     kv = KVCache(cache_f.k, cache_f.v, lens)
     before = df.launches
 
-    def events_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
-    kernel_ms = [events_ms(lambda: dec._launch(h0, kv, dec.grid), 20) for _ in range(2)]
+    # in turns with the parent's kernel where one was built: parent, change,
+    # change, parent (the change alone: two readings)
+    ways = [("change", None, dec.grid)]
+    if parent is not None:
+        ways.insert(0, ("parent", parent, parent_grid(parent, dec)))
+    readings = {name: [] for name, *_ in ways}
+    for name, lib, grid in ways + ways[::-1]:
+        with b2_library(lib):
+            readings[name].append(events_ms(torch, lambda: dec._launch(h0, kv, grid), 20))
+    kernel_ms = readings["change"]
     h0p = embedding_apply(dec.params.embed, cur, dec.cfg.dtype)
     kc, vc = cache_f.k.clone(), cache_f.v.clone()
-    plain_ms = events_ms(lambda: decode_fused_ref(
+    plain_ms = events_ms(torch, lambda: decode_fused_ref(
         dec.tab, h0p, lens, dec.n1, dec.n2, dec.stacks, dec.w_head, dec.fin, kc, vc,
         plan=dec.plan, cfg=dec.cfg), 3)
+    breakdown = {name: b2_phase_ms(torch, dec, h0, kv, lib, grid) for name, lib, grid in ways}
     df.launches = before  # timing launches are not main-path launches
     bound, bound_by, nbytes = fused_bound(dec, lens)
     res["kernel"] = {"ms": min(kernel_ms), "ms_readings": kernel_ms, "plain_ms": plain_ms,
                      "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
-                     "grid_blocks": dec.grid}
+                     "grid_blocks": dec.grid, "phase_ms": breakdown["change"]}
     log(f"fused kernel alone: {min(kernel_ms):.4f} ms/step ({kernel_ms[0]:.4f}/"
         f"{kernel_ms[1]:.4f}), plain version {plain_ms:.4f} ms, bound {bound:.4f} ms "
         f"({bound_by}, {nbytes} bytes), {bound / min(kernel_ms):.1%} of bound, "
         f"grid {dec.grid} blocks")
+    if parent is not None:
+        p_ms = readings["parent"]
+        res["parent_kernel"] = {"ms": min(p_ms), "ms_readings": p_ms,
+                                "grid_blocks": ways[0][2], "phase_ms": breakdown["parent"]}
+        log(f"fused kernel in turns (parent, change, change, parent): "
+            f"{p_ms[0]:.4f} / {kernel_ms[0]:.4f} / {kernel_ms[1]:.4f} / {p_ms[1]:.4f} ms; "
+            f"change / parent {min(kernel_ms) / min(p_ms):.3f}")
+    for name, b in breakdown.items():
+        log(f"B2 per phase ({name}, layer 1, ms incl. its barrier; {b['barriers_per_step']} "
+            f"barriers per step): " + ", ".join(f"{k} {v:.4f}" for k, v in b["phase_ms"].items())
+            + f"; layer 0 {b['layer0_ms']:.4f}, layer 1 {b['layer1_ms']:.4f}, "
+            f"mvm share of layer 1 {b['mvm_share']:.1%}, whole step {b['step_ms']:.4f}")
     return res
+
+
+def events_ms(torch, fn, reps: int) -> float:
+    """Device ms per call of ``fn`` over ``reps`` back-to-back calls, by
+    CUDA events, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+#: B2's phases in one layer, in launch order (``csrc/decode_fused.cu``)
+B2_PHASE_KINDS = ("row_qkv", "mvm_qkv", "attn", "mvm_wo", "row_w13", "mvm_w13", "gate",
+                  "mvm_w2")
+
+
+def b2_phase_ms(torch, dec, h0, kv, lib, grid, reps: int = 30) -> dict:
+    """Where one B2 step's time goes. The launch ends after n phases
+    (``FusedDecoder._launch(..., phases=n)``) for n = 1..16 (layers 0 and
+    1), 8 L, 8 L + 1, 8 L + 2 and the whole step, each timed by CUDA
+    events over ``reps`` launches, three sweeps, the least kept. Layer 1's
+    differences give each phase kind's ms, its closing grid barrier
+    included; then the final row, the lm_head and the logits write."""
+    from repro_torch.kernels import decode_fused as df
+
+    per, n_layers = df.PHASES_PER_LAYER, dec.plan.n_groups
+    ends = [*range(1, 2 * per + 1), per * n_layers, per * n_layers + 1,
+            per * n_layers + 2, 0]
+    t = {n: [] for n in ends}
+    with b2_library(lib):
+        for _ in range(3):
+            for n in ends:
+                t[n].append(events_ms(torch, lambda: dec._launch(h0, kv, grid, n), reps))
+    res = b2_breakdown({n: min(v) for n, v in t.items()}, n_layers, per)
+    res["ends_ms"] = {str(n): v for n, v in t.items()}
+    return res
+
+
+def b2_breakdown(best: dict, n_layers: int, per: int) -> dict:
+    """``b2_phase_ms``'s table from the least ms of a launch ended after n
+    phases (``best[n]``; ``best[0]`` the whole step): layer 1's phase kinds
+    by difference, then the final row, the lm_head and the logits write."""
+    phase_ms = {k: best[per + i + 1] - best[per + i] for i, k in enumerate(B2_PHASE_KINDS)}
+    phase_ms["row_final"] = best[per * n_layers + 1] - best[per * n_layers]
+    phase_ms["mvm_lm_head"] = best[per * n_layers + 2] - best[per * n_layers + 1]
+    phase_ms["logits"] = best[0] - best[per * n_layers + 2]
+    layer1 = best[2 * per] - best[per]
+    return {"phase_ms": phase_ms, "barriers_per_step": per * n_layers + 2,
+            "layer0_ms": best[per], "layer1_ms": layer1, "step_ms": best[0],
+            "mvm_share": sum(phase_ms[k] for k in B2_PHASE_KINDS if k.startswith("mvm"))
+            / layer1}
+
+
+def build_parent_b2(src_dir: Path):
+    """Start ``nvcc`` on a parent's ``decode_fused.cu`` (with its headers
+    beside it) into ``build/repro_torch/``, with the port's own flags;
+    returns a function that waits for it and loads the library as
+    ``kernels.decode_fused._fn`` does."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    out = build.BUILD_DIR / "decode_fused_parent.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o", str(out),
+                             str(src_dir / "decode_fused.cu")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish():
+        log_text, _ = proc.communicate()
+        check(proc.returncode == 0, f"parent B2 build failed:\n{log_text}")
+        lib = ctypes.CDLL(str(out))
+        fn, mb = lib.decode_fused_launch, lib.decode_fused_max_blocks
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        mb.argtypes = [ctypes.c_int, ctypes.c_int]
+        mb.restype = ctypes.c_int
+        lib.decode_fused_error_string.argtypes = [ctypes.c_int]
+        lib.decode_fused_error_string.restype = ctypes.c_char_p
+        return fn, mb, lib.decode_fused_error_string
+
+    return finish
+
+
+@contextlib.contextmanager
+def b2_library(lib):
+    """Within the block, ``kernels.decode_fused`` launches through ``lib``
+    (a parent's library from :func:`build_parent_b2`; None: its own). The
+    parent reads the prefix of the launch arguments it knows."""
+    from repro_torch.kernels import decode_fused as df
+
+    saved = df._fn()
+    if lib is not None:
+        df._FN = lib
+    try:
+        yield
+    finally:
+        df._FN = saved
+
+
+def parent_grid(lib, dec) -> int:
+    """Blocks of the parent's kernel the card holds at once."""
+    import torch
+
+    from repro_torch.kernels import decode_fused as df
+
+    dev = dec.device
+    n = lib[1](df._DTYPES[dec.cfg.dtype],
+               dev.index if dev.index is not None else torch.cuda.current_device())
+    check(n > 0, f"parent B2 occupancy query failed ({n})")
+    return n
 
 
 # --------------------------------------------------------------- prefill attention
@@ -1407,6 +1553,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "chip_smoke.json",
                     help="where the full JSON record goes")
+    ap.add_argument("--b2-parent", type=Path, default=None,
+                    help="a directory holding a parent's decode_fused.cu and its headers: "
+                         "phase 7 times that B2 in turns with this one")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1424,7 +1573,9 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
 
     card = phase_device(torch)
+    parent_b2 = build_parent_b2(args.b2_parent) if args.b2_parent else None
     build_s, ptxas = phase_build()
+    parent_b2 = parent_b2() if parent_b2 else None
     gen = torch.Generator("cuda").manual_seed(args.seed)
     accuracy = phase_kernel_vs_plain(torch, gen, tuple(sorted({*b1_served_ms(),
                                                               *prefill_ms()})))
@@ -1434,7 +1585,7 @@ def main(argv=None) -> int:
     serve, ctx = phase_serve(torch, args.seed)
     fused_check = phase_fused_check(torch, ctx)
     fused_serve, fused_engine = phase_fused_serve(torch, ctx, serve)
-    step_timing = phase_step_timing(torch, ctx, fused_engine)
+    step_timing = phase_step_timing(torch, ctx, fused_engine, parent_b2)
     fk = step_timing["kernel"]
     del fused_engine
     flash = phase_flash_attention(
@@ -1499,7 +1650,13 @@ def main(argv=None) -> int:
         "bound_by": fk["bound_by"],
         "library_ms": None,
         "per": "one tinyllama-1.1b decode step at 8 slots, bf16, one launch; "
-               "max_abs_err over the logits at depths 1, 2 and 22",
+               "max_abs_err over the logits at depths 1, 2 and 22; mvm_items: the MVM work "
+               "item of each projection; phase_ms: layer 1's phases (each with its closing "
+               "grid barrier), the final row, the lm_head and the logits",
+        "mvm_items": fused_check["items"],
+        "phase_ms": fk["phase_ms"]["phase_ms"],
+        "barriers_per_step": fk["phase_ms"]["barriers_per_step"],
+        "parent_ms": step_timing.get("parent_kernel", {}).get("ms"),
         "pass": True,
     }, {
         "name": "flash_attention",

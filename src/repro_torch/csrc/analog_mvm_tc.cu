@@ -22,6 +22,11 @@
 // (bf16)(quant(p_0) * out_scale) with no intermediate rounding. The
 // quantizer is analog_mvm_core.cuh's (round half to even, _rn intrinsics).
 //
+// The PTX helpers, the ADC epilogue and the decode design's sub-chunk chain
+// live in analog_mvm_tc_core.cuh, which B2's tensor-core MVM item
+// (decode_fused.cu) includes too: the two compute each element with the
+// same instructions in the same order, so they cannot drift apart.
+//
 // Why sub-chunks: the decode design must put several hundred blocks in
 // flight, so it splits K below the crossbar tile; the prefill design splits
 // its fp32 chain at the same 128-row boundaries. Every output element then
@@ -75,68 +80,22 @@
 #include <stdint.h>
 
 #include "analog_mvm_core.cuh"
+#include "analog_mvm_tc_core.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-constexpr int kSub = 128;  // K rows per sub-chunk (one fp32 mma chain)
-
-// ------------------------------------------------------------ PTX helpers
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; a false predicate writes 16 zero bytes
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool pred) {
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// the ADC epilogue of one output element, shared by both designs
-struct Adc {
-  float r, step, out_scale;
-  int multi;
-  __device__ __forceinline__ float tile_q(float tile) const {
-    return amvm::Traits<bf16>::round_trip(amvm::quant(tile, r, step));
-  }
-  __device__ __forceinline__ float finish(float y, float tile) const {
-    return __fmul_rn(multi ? y : amvm::quant(tile, r, step), out_scale);
-  }
-};
+using amvm_tc::Adc;
+using amvm_tc::cp_async16;
+using amvm_tc::cp_async_commit;
+using amvm_tc::cp_async_wait;
+using amvm_tc::kSub;
+using amvm_tc::ldsm_x4;
+using amvm_tc::ldsm_x4_t;
+using amvm_tc::make_adc;
+using amvm_tc::mma_bf16;
+using amvm_tc::smem_u32;
+using amvm_tc::swz;
 
 // four consecutive outputs (8-byte aligned) as bf16
 __device__ __forceinline__ void store4(bf16* dst, float a, float b, float c, float d) {
@@ -145,16 +104,6 @@ __device__ __forceinline__ void store4(bf16* dst, float a, float b, float c, flo
   packed.x = *reinterpret_cast<const uint32_t*>(&lo);
   packed.y = *reinterpret_cast<const uint32_t*>(&hi);
   *reinterpret_cast<uint2*>(dst) = packed;
-}
-
-__device__ __forceinline__ Adc make_adc(const float* r_adc_p, const float* out_scale_p,
-                                        float r_adc_h, float out_scale_h, int b_adc,
-                                        int multi) {
-  Adc a;
-  amvm::quant_range(r_adc_p ? *r_adc_p : r_adc_h, b_adc, a.r, a.step);
-  a.out_scale = out_scale_p ? *out_scale_p : out_scale_h;
-  a.multi = multi;
-  return a;
 }
 
 // ------------------------------------------------------------ prefill design
@@ -166,12 +115,6 @@ constexpr int kAChunks = kBM * 8, kBChunks = kBK * 8;  // 16-byte chunks per sta
 constexpr int kStageBytes = (kAChunks + kBChunks) * 16;
 constexpr int kPrefillSmem = kStages * kStageBytes;
 static_assert(kAChunks % kPThreads == 0 && kBChunks % kPThreads == 0, "whole copies per thread");
-
-// rows of 8 16-byte chunks; chunk c of row r at (c ^ (r & 7)): the 8 rows
-// an ldmatrix reads at one column land in 8 different bank groups
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return row * 8 + (chunk ^ (row & 7));
-}
 
 // The sum of a strip's or tile's split partials, in split order, by the last
 // block to finish it: every block stores its values to part[z][m][n], then
@@ -449,20 +392,16 @@ analog_mvm_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   cp_async_wait<0>();
   __syncthreads();
 
+  // the warp's two 8-column groups share each A fragment
   float acc[2][4];
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < kSub / 16; ++kk) {
-    if (c0 + kk * 16 >= c1) break;  // only k16 steps that hold a real row
-    uint32_t a[4], b[4];
-    ldsm_x4(xs_s + xsw(lane & 15, kk * 2 + (lane >> 4)) * 16, a);
-    ldsm_x4_t(ws_s + wsw(kk * 16 + (lane & 15), warp * 2 + (lane >> 4)) * 16, b);
-    mma_bf16(acc[0], a, b[0], b[1]);
-    mma_bf16(acc[1], a, b[2], b[3]);
-  }
+  amvm_tc::sub_chain<2>(
+      acc, (c1 - c0 + 15) / 16,
+      [&](int kk, uint32_t (&a)[4]) {
+        ldsm_x4(xs_s + xsw(lane & 15, kk * 2 + (lane >> 4)) * 16, a);
+      },
+      [&](int kk, uint32_t (&b)[4]) {
+        ldsm_x4_t(ws_s + wsw(kk * 16 + (lane & 15), warp * 2 + (lane >> 4)) * 16, b);
+      });
 
   // this sub-chunk's fp32 partials of the real rows: part[c][m][n]
 #pragma unroll

@@ -18,6 +18,13 @@ version of the same function.
   kernel's workspace, built once; it also owns the stacked cache's
   lifecycle (:meth:`FusedDecoder.new_cache`, ``write_slot``,
   ``reset_slot``), so a serving engine holds one decoder object.
+* :func:`mvm_items` chooses each projection's MVM work item (the
+  tensor-core item for bf16 shapes ``analog_mvm.tc_shape_ok`` takes, the
+  CUDA-core item otherwise); :func:`fused_layout` sizes the kernel's
+  dynamic shared memory (the weight ring, staged x, the work area),
+  :func:`row_slices` and :func:`attn_heads` its row and attention items,
+  and :func:`item_table` deals every MVM phase's items to the blocks once
+  (:func:`phase_items` counts them).
 
 The embedding gather stays outside the kernel, as in the reference.
 """
@@ -25,11 +32,14 @@ The embedding gather stays outside the kernel, as in the reference.
 from __future__ import annotations
 
 import ctypes
+import math
+from dataclasses import dataclass
 
 import torch
 
 from repro_torch.core import engine as engine_lib
 from repro_torch.kernels import build
+from repro_torch.kernels.analog_mvm import SUB_ROWS, tc_shape_ok
 from repro_torch.kernels.ref import decode_fused_ref
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import ModelConfig, embedding_apply
@@ -49,6 +59,194 @@ PHASES_PER_LAYER = 8
 
 #: kernel launches since process start (see the module docstring)
 launches = 0
+
+#: the MVM work items (``csrc/decode_fused.cu``): output columns and slots
+#: of the tensor-core item (8 warps x 8 columns, one 16-row mma tile) and of
+#: the CUDA-core item (``analog_mvm_core.cuh``)
+TC_STRIP, TC_ROWS = 64, 16
+CC_STRIP, CC_ROWS = 32, 8
+#: one stage of the weight ring: a 128-row sub-chunk of an item's 64
+#: columns (128-byte rows, one TMA box); the ring starts at a 1024-byte
+#: boundary, so it takes RING_ALIGN more bytes
+SLOT_BYTES = SUB_ROWS * TC_STRIP * 2
+RING_ALIGN = 1024
+MAX_STAGES = 16
+#: x columns a tensor-core item stages at once, and one staged row's bytes
+X_PIECE = 1024
+X_ROW_BYTES = X_PIECE * 2 + 16
+#: the CUDA-core item's shared memory (``amvm::TileSmem``)
+CC_SMEM = (8 * 1024 + 8 * 8 * 32) * 4
+#: query heads of one KV head per attention pass at most (``kMaxPass``: a
+#: register accumulator each; more unrolled code ran slower), and the
+#: shared memory a pass's q rows and scores aim to stay within
+MAX_PASS = 2
+PASS_SMEM = 32 * 1024
+#: threads of a block (``amvm::kThreads``)
+THREADS = 256
+#: an H100 SM's shared memory, the per-block reservation, and an upper
+#: bound on the kernel's static shared memory
+SM_SMEM, BLOCK_RESERVED, STATIC_SMEM = 228 * 1024, 1024, 4096
+
+
+def mvm_items(plans, weights, dtype) -> tuple:
+    """Each projection's MVM work item, in ``FUSED_PROJS`` order then the
+    lm_head: ``"tensor_core"`` for bf16 at shapes the tensor-core designs
+    take (``analog_mvm.tc_shape_ok``) with 16-byte aligned weights,
+    ``"cuda_core"`` otherwise -- a choice made here, once, never at a failed
+    launch."""
+    return tuple(
+        "tensor_core" if (dtype == torch.bfloat16
+                          and tc_shape_ok(p.k, p.n, p.tile_rows, p.per_tile_adc)
+                          and w.data_ptr() % 16 == 0) else "cuda_core"
+        for p, w in zip(plans, weights))
+
+
+@dataclass(frozen=True)
+class FusedLayout:
+    """The kernel's launch layout: the item of each projection, the weight
+    ring's ``stages``, the rows of staged x, the most query heads an
+    attention pass holds and the dynamic shared memory (the ring at 0,
+    staged x at ``smem_x``, the work area that the row, attention and MVM
+    phases take in turn at ``smem_work``; ``smem_bytes`` in all)."""
+
+    items: tuple
+    stages: int
+    x_rows: int
+    heads_per_pass: int
+    smem_x: int
+    smem_work: int
+    smem_bytes: int
+
+    @property
+    def tc(self) -> tuple:
+        return tuple(int(i == "tensor_core") for i in self.items)
+
+
+def fused_layout(items, cfg: ModelConfig, n_slots: int, s_max: int) -> FusedLayout:
+    """Size the shared memory of one persistent block per SM (a crossbar
+    tile's 8 stages fit its ring at once): staged x and the work area
+    first, then as many ring stages as fit (at most
+    :data:`MAX_STAGES`); when a projection runs the tensor-core item, at
+    least the 8 stages of one piece of staged x (its warps take 8
+    sub-chunks at once). The work area holds a row phase's residual row, an
+    attention pass's q rows, scores and AV sums (16 bytes of dims a
+    thread), the tensor-core item's 8 chains of a piece, and, when a
+    projection runs it, the CUDA-core item's tiles."""
+    any_tc = "tensor_core" in items
+    g = cfg.n_heads // cfg.n_kv_heads
+    hp = min(g, MAX_PASS, max(1, PASS_SMEM // ((s_max + cfg.hd) * 4)))
+    vec = 16 // torch.empty((), dtype=cfg.dtype).element_size()
+    work = max(hp * (s_max + cfg.hd) * 4 + THREADS * vec * 4, cfg.d_model * 4)
+    if "cuda_core" in items:
+        work = max(work, CC_SMEM)
+    x_rows = (8 if n_slots <= 8 else 16) if any_tc else 0
+    xs = x_rows * X_ROW_BYTES
+    group = X_PIECE // SUB_ROWS  # sub-chunks a tensor-core item runs at once
+    work = max(work, group * x_rows * TC_STRIP * 4)
+    budget = SM_SMEM - BLOCK_RESERVED - STATIC_SMEM
+    stages = (min(MAX_STAGES, (budget - xs - work - RING_ALIGN) // SLOT_BYTES)
+              if any_tc else 0)
+    if any_tc and stages < group:
+        raise ValueError(
+            f"decode_fused kernel: {group} weight-ring stages do not fit beside {xs} bytes "
+            f"of x and {work} of work area"
+        )
+    ring = stages * SLOT_BYTES + (RING_ALIGN if any_tc else 0)
+    return FusedLayout(items=tuple(items), stages=stages, x_rows=x_rows or 8,
+                       heads_per_pass=hp, smem_x=ring, smem_work=ring + xs,
+                       smem_bytes=ring + xs + work)
+
+
+#: the projections of each MVM phase kind, in the order their items are
+#: dealt (index 7 = the lm_head)
+PHASE_PROJS = {"qkv": (0, 1, 2), "wo": (3,), "w13": (4, 5), "w2": (6,), "lm_head": (7,)}
+#: the last row of a block's item list (its MVM phase)
+END = 0xFFFF
+
+
+def _item_grid(items, plans, n_slots: int, span, i: int) -> tuple:
+    """(strips, tiles, slot blocks) of projection i's items."""
+    tc = items[i] == "tensor_core"
+    cols, rows = (TC_STRIP, TC_ROWS) if tc else (CC_STRIP, CC_ROWS)
+    p = plans[i]
+    return -(-p.n // cols), -(-p.k // span[i]), -(-n_slots // rows)
+
+
+def phase_items(items, plans, n_slots: int, span) -> dict:
+    """Work items of each MVM phase kind (``qkv``, ``wo``, ``w13``, ``w2``,
+    ``lm_head``): per projection, strips x crossbar tiles x slot blocks of
+    its item."""
+    return {kind: sum(math.prod(_item_grid(items, plans, n_slots, span, i)) for i in projs)
+            for kind, projs in PHASE_PROJS.items()}
+
+
+def item_table(items, plans, n_slots: int, span, n_layers: int, grid: int) -> torch.Tensor:
+    """Every block's MVM work items over one step, in the order the kernel
+    runs them: (grid, T, 4) int32. MVM phase mp (4 per layer -- qkv, wo,
+    w13, w2 -- then the lm_head) numbers its items projection by projection
+    (strip fastest, then crossbar tile, then slot block) and deals item
+    ``it`` to block ``it % grid``. A row is [first output column, first row
+    of K, p | j << 3 | tc << 5 | slot block << 6, mp | tile << 16] (j: the
+    projection's place in its phase); each block's list ends in a row whose
+    mp is :data:`END`. The kernel's producer walks it ahead of its
+    consumers, so neither decodes an item on the card."""
+    kinds = list(PHASE_PROJS.items())
+    phases = [kinds[mp % 4] for mp in range(4 * n_layers)] + [kinds[4]]
+    rows_per = []
+    for _, projs in phases:
+        parts = []
+        for j, i in enumerate(projs):
+            strips, tiles, rbs = _item_grid(items, plans, n_slots, span, i)
+            local = torch.arange(strips * tiles * rbs)
+            tc = int(items[i] == "tensor_core")
+            cols = TC_STRIP if tc else CC_STRIP
+            parts.append(torch.stack([
+                local % strips * cols, local // strips % tiles * span[i],
+                i | j << 3 | tc << 5 | (local // (strips * tiles)) << 6,
+                local // strips % tiles << 16], 1))
+        rows_per.append(torch.cat(parts))
+    counts = torch.zeros(grid, dtype=torch.long)
+    for r in rows_per:
+        counts += torch.bincount(torch.arange(len(r)) % grid, minlength=grid)[:grid]
+    table = torch.zeros((grid, int(counts.max()) + 1, 4), dtype=torch.int32)
+    table[..., 3] = END
+    fill = torch.zeros(grid, dtype=torch.long)
+    for mp, r in enumerate(rows_per):
+        it = torch.arange(len(r))
+        blk = it % grid
+        r = r.clone()
+        r[:, 3] |= mp
+        table[blk, fill[blk] + it // grid] = r.to(torch.int32)
+        fill += torch.bincount(blk, minlength=grid)[:grid]
+    return table
+
+
+def spans(plans) -> list:
+    """Rows of K per ADC conversion of each projection: the crossbar tile
+    when the per-tile ADC splits K, else all of K."""
+    return [p.tile_rows if (p.per_tile_adc and p.k > p.tile_rows) else p.k for p in plans]
+
+
+def workspace_strides(plans, n_slots: int, cfg: ModelConfig) -> tuple:
+    """(xq_stride, part_stride): elements of one DAC-quantized input region
+    ((B, K) of the widest K) and of one partial region ((tile, B, N) of the
+    largest projection); an MVM phase uses up to three of each (wq/wk/wv)."""
+    span = spans(plans)
+    part = max(-(-p.k // s) * n_slots * p.n for p, s in zip(plans, span))
+    return n_slots * max(cfg.d_model, cfg.d_ff), part
+
+
+def attn_heads(most: int, n_slots: int, n_heads: int, grid: int) -> int:
+    """Query heads per attention item: as few as give every block of the
+    grid an item (the items are (slot, KV head, pass of heads)), at most
+    what the work area holds."""
+    return min(most, max(1, -(-n_slots * n_heads // grid)))
+
+
+def row_slices(grid: int, n_slots: int, d_model: int) -> int:
+    """Blocks per slot in a row phase: as many as the grid holds, at most
+    one per 256 columns (one column a thread)."""
+    return max(1, min(grid // n_slots, -(-d_model // 256)))
 
 
 # ---------------------------------------------------------------------------
@@ -166,8 +364,8 @@ class FusedDecoder:
     ``params`` are a compiled program's params whose weights are already
     in the model dtype (``engine.cast_weights``). On a CUDA device the
     kernel's workspace (residual stream, DAC-quantized inputs, tile
-    partials) is allocated here, once; a step allocates only its logits
-    and length outputs.
+    partials), its launch layout and each block's item list are built
+    here, once; a step allocates only its logits and length outputs.
     """
 
     def __init__(
@@ -195,6 +393,9 @@ class FusedDecoder:
         self.n1 = _norm_scales(block["norm1"], (n_groups, d), dev)
         self.n2 = _norm_scales(block["norm2"], (n_groups, d), dev)
         self.fin = _norm_scales(params.final_norm, (d,), dev)
+        #: each projection's MVM work item on the card (:func:`mvm_items`)
+        self.items = mvm_items(list(plan.proj_plans) + [plan.head_plan],
+                               self.stacks + [self.w_head], cfg.dtype)
         self.grid = None
         if dev.type == "cuda":
             self._init_kernel()
@@ -222,27 +423,26 @@ class FusedDecoder:
                     f"decode_fused kernel: weights {s.dtype} on {s.device}, "
                     f"the step runs {dtype} on {dev} (cast_weights first)"
                 )
-        b, d, f, v = self.n_slots, cfg.d_model, cfg.d_ff, cfg.vocab
+        b, d = self.n_slots, cfg.d_model
         plans = list(plan.proj_plans) + [plan.head_plan]
         self.bits = [p.spec.b_adc for p in plans]
-        self.span = [
-            p.tile_rows if (p.per_tile_adc and p.k > p.tile_rows) else p.k
-            for p in plans
-        ]
+        self.span = spans(plans)
         ws = self.stacks + [self.w_head]
         vec = 16 // torch.empty((), dtype=dtype).element_size()
         self.vec_ok = [int(p.n % vec == 0 and w.data_ptr() % 16 == 0)
                        for p, w in zip(plans, ws)]
-        tiles = lambda i: -(-plans[i].k // self.span[i])
-        # one region per projection an MVM phase runs at once (wq/wk/wv)
-        self.part_stride = max(tiles(i) * b * plans[i].n for i in range(8))
-        self.xq_stride = b * max(d, f)
+        self.layout = fused_layout(self.items, cfg, b, self.s_max)
+        self.xq_stride, self.part_stride = workspace_strides(plans, b, cfg)
         self.freqs = rope_freqs(cfg.hd, cfg.rope_theta, dev)
         self.x = torch.empty((b, d), dtype=dtype, device=dev)
         self.x1 = torch.empty((b, d), dtype=dtype, device=dev)
         self.xq = torch.empty((3, self.xq_stride), dtype=dtype, device=dev)
         self.part = torch.empty((3, self.part_stride), dtype=torch.float32, device=dev)
-        self.grid = max_blocks(dtype, dev)
+        self.grid = max_blocks(dtype, dev, self.layout.smem_bytes)
+        self.row_slices = row_slices(self.grid, b, d)
+        self.attn_heads = attn_heads(self.layout.heads_per_pass, b, cfg.n_heads, self.grid)
+        self.item_rows = item_table(self.items, plans, b, self.span, plan.n_groups,
+                                    self.grid).to(dev)
 
     def _launch(self, h0: Tensor, cache: KVCache, grid: int, phases: int = 0):
         """Launch the kernel on ``grid`` blocks; ``phases`` > 0 ends it
@@ -267,11 +467,14 @@ class FusedDecoder:
         lens_out = torch.empty_like(lens)
         tensors = [h0, lens, lens_out, self.tab, self.n1, self.n2, self.fin,
                    *self.stacks, self.w_head, k, v, self.freqs, logits,
-                   self.x, self.x1, self.xq, self.part]
+                   self.x, self.x1, self.xq, self.part, self.item_rows]
         ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+        lay = self.layout
         ints = [self.plan.n_groups, b, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                 cfg.hd, cfg.d_ff, cfg.vocab, self.s_max, *self.bits, *self.span,
-                *self.vec_ok, self.xq_stride, self.part_stride, int(phases)]
+                *self.vec_ok, self.xq_stride, self.part_stride, int(phases),
+                *lay.tc, lay.stages, lay.x_rows, self.attn_heads, self.row_slices,
+                lay.smem_x, lay.smem_work, lay.smem_bytes, self.item_rows.shape[1]]
         iarr = (ctypes.c_int * len(ints))(*ints)
         farr = (ctypes.c_float * 2)(cfg.norm_eps, cfg.hd**-0.5)
         fn, _, err_str = _fn()
@@ -367,7 +570,7 @@ def _fn():
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         mb = lib.decode_fused_max_blocks
-        mb.argtypes = [ctypes.c_int, ctypes.c_int]
+        mb.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
         mb.restype = ctypes.c_int
         lib.decode_fused_error_string.argtypes = [ctypes.c_int]
         lib.decode_fused_error_string.restype = ctypes.c_char_p
@@ -375,12 +578,14 @@ def _fn():
     return _FN
 
 
-def max_blocks(dtype: torch.dtype, device) -> int:
-    """Blocks of the kernel the card holds at once: the largest grid a
-    cooperative launch accepts."""
+def max_blocks(dtype: torch.dtype, device, smem_bytes: int) -> int:
+    """Blocks of the kernel the card holds at once with ``smem_bytes`` of
+    dynamic shared memory each: the largest grid a cooperative launch
+    accepts."""
     dev = torch.device(device)
     _, mb, err_str = _fn()
-    n = mb(_DTYPES[dtype], dev.index if dev.index is not None else torch.cuda.current_device())
+    n = mb(_DTYPES[dtype], dev.index if dev.index is not None else torch.cuda.current_device(),
+           int(smem_bytes))
     if n <= 0:
         raise RuntimeError(f"decode_fused occupancy query failed: {err_str(-n).decode()}")
     return n

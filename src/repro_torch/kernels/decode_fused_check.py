@@ -20,10 +20,16 @@ with the port's plain ops:
   output before wo, the gate before w2): ``tests/test_kernels.py``'s model
   at one tile -- every value within 1.01 DAC steps plus one ulp, fewer than
   1% more than half a step off;
-* ``mvm_<projection>``: the same model for the MVM given the kernel's DAC
-  codes -- within 1.01 x n_tiles ADC steps (times |out_scale|) plus one
-  ulp, fewer than 1% more than half a step off; as phase 3 of
-  ``chip_smoke.py`` holds the per-layer kernel;
+* ``mvm_<projection>``, for a projection that runs the tensor-core item
+  (``FusedDecoder.items``): bitwise B1's decode design
+  (``analog_mvm._launch("decode", ...)``, :func:`b1_decode`) on the
+  kernel's own DAC codes and the same r_adc, out_scale, bits and tiles --
+  the two run the same instructions per element
+  (``csrc/analog_mvm_tc_core.cuh``);
+* ``mvm_<projection>``, for a CUDA-core item: the model above for the MVM
+  given the kernel's DAC codes -- within 1.01 x n_tiles ADC steps (times
+  |out_scale|) plus one ulp, fewer than 1% more than half a step off; as
+  phase 3 of ``chip_smoke.py`` holds the per-layer kernel;
 * ``logits``: bitwise the lm_head phase's output.
 
 It needs a card (the kernel has no CPU mode).
@@ -65,6 +71,17 @@ def adc_model(got: Tensor, want: Tensor, step, tiles: int, dtype) -> dict:
     return {"max_steps": float((d / step).max()), "share_over_half_step": share,
             "differing": int((d > 0).sum()), "values": d.numel(),
             "ok": ok and bool(g.isfinite().all())}
+
+
+def b1_decode(x_q: Tensor, w: Tensor, r_adc: Tensor, out_scale: Tensor, pplan) -> Tensor:
+    """B1's decode design (``csrc/analog_mvm_tc.cu``) on these operands,
+    through the checks-only ``analog_mvm._launch``: what a tensor-core MVM
+    item of the fused kernel must equal bit for bit."""
+    from repro_torch.kernels import analog_mvm
+
+    return analog_mvm._launch("decode", x_q, w, r_adc=r_adc, out_scale=out_scale,
+                              b_adc=pplan.spec.b_adc, tile_rows=pplan.tile_rows,
+                              per_tile_adc=pplan.per_tile_adc)
 
 
 def exact(got: Tensor, want: Tensor) -> dict:
@@ -126,12 +143,16 @@ class _Phases:
         return adc_model(self.xq(snap, slot, p), want.reshape(self.b, -1), step, 1, self.dtype)
 
     def mvm(self, snap, slot: int, l: int, p: int) -> tuple[dict, Tensor]:
-        """Projection p on the kernel's own DAC codes, against its partials."""
+        """Projection p on the kernel's own DAC codes, against its partials:
+        bitwise B1's decode design for a tensor-core item, the tolerance
+        model for a CUDA-core one."""
         pp, s = self.plan(p), self.scalars(l, p)
         w = self.dec.w_head if p == HEAD else self.dec.stacks[p][l]
+        got = self.combine(snap, slot, l, p)
+        if self.dec.items[p] == "tensor_core":
+            return exact(got, b1_decode(self.xq(snap, slot, p), w, s[0], s[2], pp)), got
         want = engine.tile_matmul_quant(self.xq(snap, slot, p), w, s[0], pp.spec,
                                         pp.tile_rows, pp.per_tile_adc, s[2]).to(self.dtype)
-        got = self.combine(snap, slot, l, p)
         step = (abs(float(s[0])) + 1e-9) / (2 ** (pp.spec.b_adc - 1) - 1) * abs(float(s[2]))
         return adc_model(got, want, step, self.tiles(p), self.dtype), got
 

@@ -9,6 +9,12 @@ rows in the stacked cache), from the port's plain ops. The check must pass
 on it at every layer, and must name the layer and the check of a fault
 placed at layer 2 or later -- the depth where the end-to-end comparison
 alone cannot tell a fault from the drift of ADC code flips.
+
+A projection that runs the tensor-core item is held bitwise to B1's decode
+design (``decode_fused_check.b1_decode``, a card only); here that is the
+same plain tile partials the emulation writes (``_b1_emulated``), so a
+fault of one output ulp in such an item -- which the tolerance model of
+the CUDA-core items would pass -- must be named at its layer.
 """
 
 import dataclasses
@@ -30,10 +36,49 @@ from repro_torch.models.common import rmsnorm_apply, rope
 N_LAYERS = 3
 
 
+def _tile_partials(x_q, w, r_adc, pplan, tiles, dtype):
+    """(tiles, M, N) quantized tile partials, as the kernel's items write
+    them: the ADC per crossbar tile, rounded to the dtype over several."""
+    x = x_q.float()
+    span = pplan.tile_rows if tiles > 1 else pplan.k
+    parts = []
+    for i in range(tiles):
+        y = fake_quant(x[:, i * span:(i + 1) * span] @ w[i * span:(i + 1) * span].float(),
+                       r_adc, pplan.spec.b_adc)
+        parts.append(y.to(dtype).float() if tiles > 1 else y)
+    return torch.stack(parts)
+
+
+def _sum_tiles(part, out_scale, dtype):
+    y = part[0]
+    for i in range(1, len(part)):
+        y = y + part[i]
+    return (y * out_scale).to(dtype)
+
+
+def _b1_emulated(x_q, w, r_adc, out_scale, pplan):
+    """Stand-in of B1's decode design on the CPU: the emulated kernel's own
+    partials, summed as ``combine`` sums them."""
+    span = pplan.tile_rows if pplan.per_tile_adc and pplan.k > pplan.tile_rows else pplan.k
+    tiles = -(-pplan.k // span)
+    return _sum_tiles(_tile_partials(x_q, w, r_adc, pplan, tiles, x_q.dtype), out_scale,
+                      x_q.dtype)
+
+
+def _one_ulp(part, out_scale, dtype) -> float:
+    """The change of part[0, 0, 0] that moves output [0, 0] to the next
+    value of ``dtype`` away from zero: a fault of one output ulp."""
+    out = _sum_tiles(part[:, :1, :1], out_scale, dtype)
+    up = (out.view(torch.int16) + 1).view(dtype).float()
+    y = float(part[:, 0, 0].sum())
+    return (float(up) - y * float(out_scale)) / float(out_scale)
+
+
 class Emulated:
     """``FusedDecoder._launch`` on the CPU: the kernel's phases, in its
     order and workspace layout; ``fault`` = (layer, projection, delta)
-    adds ``delta`` to one output of that MVM's first tile partial."""
+    adds ``delta`` to one output of that MVM's first tile partial
+    (``"ulp"``: the delta that moves that output by one ulp)."""
 
     def __init__(self, dec, fault=None):
         cfg, b = dec.cfg, dec.n_slots
@@ -57,17 +102,12 @@ class Emulated:
         for slot, p in enumerate(projs):
             pp, s = ph.plan(p), ph.scalars(l, p)
             w = dec.w_head if p == chk.HEAD else dec.stacks[p][l]
-            x = ph.xq(dec, slot, p).float()
-            t = ph.tiles(p)
-            span = pp.tile_rows if t > 1 else pp.k
-            parts = []
-            for i in range(t):
-                y = fake_quant(x[:, i * span:(i + 1) * span] @ w[i * span:(i + 1) * span].float(),
-                               s[0], pp.spec.b_adc)
-                parts.append(y.to(dec.cfg.dtype).float() if t > 1 else y)
-            part = torch.stack(parts)
+            part = _tile_partials(ph.xq(dec, slot, p), w, s[0], pp, ph.tiles(p), dec.cfg.dtype)
             if self.fault is not None and self.fault[:2] == (l, p):
-                part[0, 0, 0] += self.fault[2]
+                delta = self.fault[2]
+                if delta == "ulp":
+                    delta = _one_ulp(part, s[2], dec.cfg.dtype)
+                part[0, 0, 0] += delta
             dec.part[slot, : part.numel()] = part.reshape(-1)
 
     def combine(self, slot, l, p):
@@ -122,12 +162,12 @@ class Emulated:
         self.dac(att.reshape(b, nh * hd), l, chk.WO, 0)
 
 
-def _decoder(dtype, seed=0):
+def _decoder(dtype, seed=0, tile_rows=32):
     cfg = dataclasses.replace(get_smoke("tinyllama-1.1b"), dtype=dtype, n_layers=N_LAYERS)
     gen = torch.Generator().manual_seed(seed)
     params = lm.lm_init(gen, cfg, device="cpu")
     program = engine.compile_program(
-        params, AnalogConfig(tile_rows=32).infer(b_adc=6),
+        params, AnalogConfig(tile_rows=tile_rows).infer(b_adc=6),
         torch.Generator().manual_seed(seed + 1), device="cpu",
     )
     params = engine.cast_weights(program.params, dtype)
@@ -180,3 +220,34 @@ def test_phase_check_names_a_fault_past_layer_one(layer, proj, check, monkeypatc
     assert not res["ok"]
     assert (layer, check) in res["failures"]
     assert all(l >= layer for l, _ in res["failures"])
+
+
+def test_tensor_core_items_are_held_bitwise(monkeypatch):
+    """bf16 at one crossbar tile: every projection runs the tensor-core item,
+    and each MVM reading is the exact comparison, not the model."""
+    dec, cache, cur = _decoder(torch.bfloat16, tile_rows=1024)
+    assert dec.items == ("tensor_core",) * 8
+    monkeypatch.setattr(dec, "_launch", Emulated(dec), raising=False)
+    monkeypatch.setattr(chk, "b1_decode", _b1_emulated)
+    res = chk.check_phases(dec, cur, cache)
+    assert res["ok"], res["failures"]
+    for name in chk.NAMES:
+        c = res["checks"][f"mvm_{name}"]
+        assert "max_steps" not in c and c["differing"] == 0
+
+
+@pytest.mark.parametrize("layer, proj, check", [
+    (2, chk.WK, "mvm_wk"),
+    (2, chk.W1, "mvm_w1"),
+    (N_LAYERS, chk.HEAD, "mvm_lm_head"),
+])
+def test_one_ulp_fault_in_a_tensor_core_item_is_named_at_its_layer(layer, proj, check,
+                                                                   monkeypatch):
+    dec, cache, cur = _decoder(torch.bfloat16, tile_rows=1024)
+    monkeypatch.setattr(dec, "_launch", Emulated(dec, (layer, proj, "ulp")), raising=False)
+    monkeypatch.setattr(chk, "b1_decode", _b1_emulated)
+    res = chk.check_phases(dec, cur, cache)
+    assert not res["ok"]
+    assert (layer, check) in res["failures"]
+    assert all(l >= layer for l, _ in res["failures"])
+    assert res["checks"][check]["differing"] >= 1

@@ -11,8 +11,9 @@ Tolerance, in two parts:
 * phase by phase, at every layer: ``kernels.decode_fused_check`` ends the
   kernel after each MVM phase and recomputes every phase from the
   kernel's own inputs -- residual adds and V rows bitwise, K rows within
-  two ulps, every DAC and every MVM under ``tests/test_kernels.py``'s
-  model (see that module);
+  two ulps, every DAC under ``tests/test_kernels.py``'s model, every MVM
+  of a tensor-core item bitwise B1's decode design on the kernel's own
+  DAC codes, every other MVM under the same model (see that module);
 * end to end, against ``decode_fused_ref`` from the same cache: past the
   first MVMs the two sum norms, softmax and attention in different orders,
   and in bf16 a neighbouring activation is often the neighbouring DAC
@@ -88,7 +89,7 @@ def _setup(cuda, cfg, n_slots, s_max, prompt_lens, seed):
 
 def _kernel_vs_plain(dec, cache, cur):
     from repro_torch.kernels import decode_fused as df
-    from repro_torch.kernels.decode_fused_check import check_phases
+    from repro_torch.kernels.decode_fused_check import NAMES, check_phases
     from repro_torch.kernels.ref import decode_fused_ref
     from repro_torch.models.common import embedding_apply
 
@@ -96,6 +97,11 @@ def _kernel_vs_plain(dec, cache, cur):
     print({k: {kk: v[kk] for kk in ("differing", "values", "max_steps") if kk in v}
            for k, v in res["checks"].items()})
     assert res["ok"], res["failures"]
+    for p, item in enumerate(dec.items):  # tensor-core items: bitwise B1, no model
+        c = res["checks"][f"mvm_{NAMES[p]}"]
+        assert ("max_steps" not in c) == (item == "tensor_core")
+        if item == "tensor_core":
+            assert c["differing"] == 0
     cache_p = type(cache)(*(t.clone() for t in cache))
     lens = cache.length.clone()
     before = df.launches
@@ -135,6 +141,8 @@ def test_fused_kernel_phases_at_full_width_three_layers(cuda):
     cfg = dataclasses.replace(get("tinyllama-1.1b"), n_layers=3)
     dec, cache, cur = _setup(cuda, cfg, 8, 512, (16, 32, 64, 128, 256, 300, 40, 511),
                              seed=4)
+    # every bf16 projection on the tensor cores, each MVM bitwise B1's decode design
+    assert dec.items == ("tensor_core",) * 8
     _kernel_vs_plain(dec, cache, cur)
 
 
