@@ -67,8 +67,37 @@ end the run with a non-zero exit:
    one prefill call profiled for B3's share of its device time; one
    decode step at 8 slots (no lockstep) per layer over the rectangular and
    over the paged cache, timed in turns and profiled;
-10. report: a JSON line ``{"kernels": [...]}`` and, last, the device line
+10. row kernels vs plain: RMSNorm, RoPE, decode attention and the silu
+   gate of the per-layer decode (``kernels/decode_rows.py``, B2's
+   per-element code from ``csrc/decode_rows_core.cuh``) against today's
+   PyTorch ops at the decode step's shapes, within their rounding model
+   (1 bf16 ulp, 2 for attention), timed beside the bound and the library
+   call where there is one; phase 4 counts their launches per decode
+   forward (chip and digital lockstep);
+11. drift lifecycle at full width: phase 4's chip aged to 25 s, then the
+   trace under a ``DriftPolicy`` (25 s -> 1 h -> 1 d) with one refresh,
+   per layer and fused: programming events only from the refresh, the
+   implied device ages, the same tokens both ways, the aging and refresh
+   seconds and ms per decode step; then B2 on the aged chip, one step
+   bitwise the per-layer step;
+12. resampled read noise: one full-width decode step with every read draw
+   fresh (read buffers for phase 4's chip), per layer and fused, timed and
+   bitwise equal; the trace at depth 2 with resampling (the full depth
+   would redraw 2 G weights a step and outrun the time limit), per layer
+   and fused: the same tokens;
+13. report: a JSON line ``{"kernels": [...]}`` and, last, the device line
    ``{"ok": true, "device": {...}}``.
+
+The RNG bridge (``repro_torch.prng``): phase 4 draws the weights and
+programs the chip through it (the normal draws on the card's kernel
+``csrc/prng.cu``) and prints the program seconds beside the parent's
+``torch.Generator`` figure; right after phase 4, the bridge on the card =
+the bridge on the CPU: layer 0's wk state, programmed again on the CPU
+from its key, bitwise the card's, and drifted to 30 days on both, bitwise;
+2^22 normals card == CPU. Phase 5 holds B2's K rows and every DAC code
+bitwise to the per-layer decode's ops on the card (the row kernels and
+the DAC), at depths 1, 2 and 22; phase 6 fails unless fused serving keeps
+every request's per-layer tokens.
 
 Phases 4, 6 and 9 prefill through B3 (every prefill forward, the chip's
 and the digital lockstep's, runs it once per layer).
@@ -82,8 +111,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -94,6 +125,13 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
+FP32_OPS = 67e12  # float32 outside the tensor cores, H100 SXM
+#: arithmetic operations of one normal draw in csrc/prng.cu, counted from
+#: the source (an FMA as 2): threefry2x32's 20 rounds, key injections and
+#: the counter split, 124 integer operations; the uniform, 4; log1p's two
+#: branches (both evaluated), 77; erf_inv's polynomial, selects and the
+#: final scalings, 41
+PRNG_OPS_PER_DRAW = 124 + 4 + 77 + 41
 L2_BYTES = 50 * 2**20
 DEV = "cuda"  # every phase runs on the card
 
@@ -118,6 +156,35 @@ FA_CONTEXT = 2048
 PROMPT_LENS = (16, 32, 64, 128, 256)
 #: slots of a decode step (the M of every decode-step B1 launch)
 SLOTS = 8
+#: phase 4's program phase before the RNG bridge, with torch.Generator
+#: draws: that chip_smoke.py's runs on an H100 80GB HBM3 at 700 W
+PARENT_PROGRAM_S = "0.69-0.85"
+#: the drift lifecycle's wall ages (phase 11): 25 s, 1 h, 1 d
+LIFECYCLE_AGES = (25.0, 3600.0, 86400.0)
+#: the row kernels' plain versions (kernels/decode_rows.py)
+ROW_PLAINS = lambda dr: (dr.norm_plain, dr.rope_plain, dr.attention_plain, dr.gate_plain)
+
+
+#: where the row kernels' functions live in the reference (XLA ops there)
+ROW_REPLACES = {
+    "norm": "src/repro/models/common.py:160 (rmsnorm_apply, XLA ops; not a TPU kernel)",
+    "rope": "src/repro/models/common.py:177 (rope, XLA ops; not a TPU kernel)",
+    "attn": "src/repro/models/attention.py:185 (decode_attention, XLA ops; not a TPU kernel)",
+    "gate": "src/repro/models/lm.py:80 (mlp_apply's silu gate, XLA ops; not a TPU kernel)",
+}
+ROW_PER = {
+    "norm": "RMSNorm of 8 x 2048; library: F.rms_norm",
+    "rope": "q (8, 32, 64) and k (8, 4, 64) rows; library: none",
+    "attn": "8 slots x 32 heads against a 512-row cache at random lengths; library: SDPA "
+            "with a length mask and enable_gqa",
+    "gate": "silu(u) * g over 8 x 5632; library: none (two calls)",
+}
+
+
+def rows_per_forward(cfg) -> dict:
+    """Row-kernel launches of one per-layer decode forward."""
+    n = cfg.n_layers
+    return {"norm": 2 * n + 1, "rope": n, "attn": n, "gate": n}
 
 
 class SmokeFailure(RuntimeError):
@@ -450,40 +517,45 @@ def forward_rows(rows: list, m: int) -> list:
 def phase_serve(torch, seed: int) -> dict:
     import numpy as np
 
+    from repro_torch import prng
     from repro_torch.configs import get
     from repro_torch.core import engine
     from repro_torch.core.analog import AnalogConfig
     from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.kernels import decode_rows as dr
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.lm import lm_init
     from repro_torch.serving import Request, ServingConfig, ServingEngine, poisson_trace
 
     cfg = get("tinyllama-1.1b")
     check(cfg.dtype == torch.bfloat16, "tinyllama-1.1b serves in bf16")
+    reset_counts()
     t0 = time.perf_counter()
-    params = lm_init(torch.Generator("cuda").manual_seed(seed), cfg, device="cuda")
+    params = lm_init(prng.PRNGKey(seed), cfg, device="cuda")
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     t0 = time.perf_counter()
     program = engine.compile_program(
-        params, AnalogConfig().infer(b_adc=8),
-        torch.Generator("cuda").manual_seed(seed + 1), device="cuda",
+        params, AnalogConfig().infer(b_adc=8), prng.PRNGKey(seed + 1), device="cuda",
     )
     torch.cuda.synchronize()
     t_program = time.perf_counter() - t0
+    prng_launches = prng.launches
     n_weights = sum(int(st["g_pos"].numel()) for st in program.state.values())
     log(f"program: {program.n_layers} layer stacks, {n_weights} weights, "
-        f"t={program.t_seconds:.0f} s, init {t_init:.2f} s, program {t_program:.2f} s, "
+        f"t={program.t_seconds:.0f} s, init {t_init:.2f} s, program {t_program:.2f} s "
+        f"through the RNG bridge ({prng_launches} normal-draw kernel launches, init and "
+        f"program; the parent's torch.Generator draws took {PARENT_PROGRAM_S} s), "
         f"memory {torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    check(prng_launches > 0, "the program phase drew through the bridge's kernel")
     check(program.n_layers == 8, "7 stacked projections + lm_head")
     check(n_weights == 1_034_420_224, f"projection weights {n_weights}")
 
     served = ServingEngine.for_program(
         program, cfg, ServingConfig(n_slots=8, s_max=512), ref_params=params,
-        device="cuda",
+        src_params=params, device="cuda",
     )
-    rng = np.random.default_rng(seed)
-    trace = poisson_trace(rng, 16, vocab=cfg.vocab, rate=50.0,
+    trace = poisson_trace(prng.PRNGKey(seed + 7), 16, vocab=cfg.vocab, rate=50.0,
                           prompt_lens=PROMPT_LENS, new_tokens=(16, 64))
     # warm-up (CUDA context, cuBLAS handles, first launches): not measured
     served.run([Request(rid=-1, prompt=trace[0].prompt[:16], max_new_tokens=4)])
@@ -496,8 +568,13 @@ def phase_serve(torch, seed: int) -> dict:
     launches = kernel.analog_mvm.launches
     designs = dict(kernel.analog_mvm.design_launches)
     fa_launches = fa.flash_attention.launches
+    row_launches = dict(dr.launches)
     n_plain = plain_calls()
     events = engine.program_event_count() - events0
+    # every decode forward (the chip's and the digital lockstep's) runs the
+    # row kernels: 2 norms a layer and the final one, and per layer RoPE,
+    # attention and the gate
+    rows_expected = {k: v * 2 * rep.n_steps for k, v in rows_per_forward(cfg).items()}
 
     forwards = rep.n_requests + rep.n_steps  # one prefill per admission
     # every prefill, the chip's and the digital lockstep's, runs B3 per layer
@@ -511,6 +588,8 @@ def phase_serve(torch, seed: int) -> dict:
         "flash_attention_launches": fa_launches,
         "flash_attention_expected": fa_expected,
         "plain_calls": n_plain, "program_events_while_serving": events,
+        "row_launches": row_launches, "row_launches_expected": rows_expected,
+        "prng_launches": prng_launches, "parent_program_s": PARENT_PROGRAM_S,
         **serve_metrics(rep), "init_s": t_init, "program_s": t_program,
         "kv_bytes": rep.peak_kv_bytes, "n_prefill_traces": rep.n_prefill_traces,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -538,10 +617,13 @@ def phase_serve(torch, seed: int) -> dict:
     check(designs == res["design_launches_expected"],
           "B1: prefill through the prefill design, decode through the decode design")
     check(fa_launches == fa_expected, "22 flash_attention launches per prefill")
+    log(f"row kernels (decode_rows): {row_launches} (expected {rows_expected}: per decode "
+        f"forward, chip and digital)")
+    check(row_launches == rows_expected, "the per-layer decode ran the row kernels")
     check(n_plain == 0, "the main path never ran the plain version")
     res.update(phase_decode_check(torch, served, trace))
     ctx = {"served": served, "trace": trace, "program": program, "params": params,
-           "cfg": cfg, "tokens": {r.rid: r.tokens.tolist() for r in rep.records}}
+           "cfg": cfg, "seed": seed, "tokens": {r.rid: r.tokens.tolist() for r in rep.records}}
     return res, ctx
 
 
@@ -650,24 +732,30 @@ def b1_designs(prefills: list, decode_steps: int) -> dict:
 def plain_calls() -> int:
     """Calls of every kernel's plain version since the last reset_counts."""
     from repro_torch.core import engine
+    from repro_torch.kernels import decode_rows as dr
     from repro_torch.kernels import ref
 
     return (ref.analog_mvm_ref.calls + engine.tile_matmul_quant.calls
-            + ref.decode_fused_ref.calls + ref.flash_attention_ref.calls)
+            + ref.decode_fused_ref.calls + ref.flash_attention_ref.calls
+            + sum(f.calls for f in ROW_PLAINS(dr)))
 
 
 def reset_counts() -> None:
     """Every kernel's launch count (B1's per design too) and every plain
     version's call count to 0."""
+    from repro_torch import prng
     from repro_torch.core import engine
     from repro_torch.kernels import analog_mvm, decode_fused, flash_attention, ref
+    from repro_torch.kernels import decode_rows as dr
 
     analog_mvm.analog_mvm.launches = 0
     analog_mvm.analog_mvm.design_launches = dict.fromkeys(analog_mvm.DESIGNS, 0)
     decode_fused.launches = 0
     flash_attention.flash_attention.launches = 0
+    dr.launches.update(dict.fromkeys(dr.launches, 0))
+    prng.launches = 0
     for fn in (ref.analog_mvm_ref, engine.tile_matmul_quant, ref.decode_fused_ref,
-               ref.flash_attention_ref):
+               ref.flash_attention_ref, *ROW_PLAINS(dr)):
         fn.calls = 0
 
 
@@ -709,10 +797,9 @@ def phase_fused_check(torch, ctx) -> dict:
     Tolerance, at every depth, in two parts:
     - phase by phase at every layer (kernels/decode_fused_check.py): the
       kernel ends after each MVM phase and every phase is recomputed from
-      its own inputs -- residual adds and V rows bitwise, K rows within two
-      bf16 ulps, every DAC and every MVM (wq..w2 and the lm_head) under
-      tests/test_kernels.py's model: within 1.01 x n_tiles steps plus one
-      bf16 ulp, fewer than 1% more than half a step off;
+      its own inputs with the per-layer decode's ops on the card (the row
+      kernels, the DAC, B1's decode design) -- residual adds, K and V rows
+      and every DAC code bitwise, every tensor-core MVM bitwise B1's;
     - end to end against decode_fused_ref, phase 4's whole-step bound:
       logits relative L2 < 5%, greedy tokens equal on >= 7 of 8 slots.
       Past the first MVMs the two sum norms, softmax and attention in
@@ -782,6 +869,14 @@ def phase_fused_check(torch, ctx) -> dict:
                 p_ = getattr(cp, side)[g][rows, idx].float()
                 layer_rows.append(((a_ - p_).abs().max().item(),
                                    int((a_ != p_).sum().item())))
+        r["dac_codes_differing_per_layer_path"] = phases["checks"]["dac"]["differing"]
+        r["k_row_values_differing_per_layer_path"] = phases["checks"]["k_row"]["differing"]
+        # the same readings against the plain torch ops (independent of the
+        # device code B2 and the row kernels share): DAC codes under the ADC
+        # model, K rows within 2 ulps
+        r["dac_codes_differing_plain_ops"] = phases["checks"]["dac_plain"]["differing"]
+        r["dac_plain_max_steps"] = phases["checks"]["dac_plain"]["max_steps"]
+        r["k_row_values_differing_plain_ops"] = phases["checks"]["k_row_plain"]["differing"]
         r["cache_rows_max_abs"] = max(m for m, _ in layer_rows)
         r["cache_row_values_differing"] = sum(n for _, n in layer_rows)
         r["cache_row_values"] = 2 * depth * b * cfg.n_kv_heads * cfg.hd
@@ -885,6 +980,8 @@ def phase_fused_serve(torch, ctx, per_layer: dict) -> tuple:
           "22 flash_attention launches per prefill (fused)")
     check(res["plain_calls"] == 0, "the fused path never ran a plain version")
     check(res["program_events_while_serving"] == 0, "no programming events (fused)")
+    check(res["requests_with_per_layer_tokens"] == rep.n_requests,
+          "fused serving keeps every request's per-layer tokens")
     return res, fused
 
 
@@ -1373,9 +1470,9 @@ def phase_paged_serve(torch, ctx, per_layer: dict) -> dict:
     calls = []
     prefill_bucket = paged.prefill_bucket
 
-    def counted(toks, last_idx):
+    def counted(toks, last_idx, rng=None):
         calls.append(tuple(toks.shape))
-        return prefill_bucket(toks, last_idx)
+        return prefill_bucket(toks, last_idx, rng)
 
     paged.prefill_bucket = counted
     paged.run([Request(rid=-1, prompt=trace[0].prompt[:16], max_new_tokens=4)],
@@ -1515,6 +1612,410 @@ def phase_paged_serve(torch, ctx, per_layer: dict) -> dict:
 
 
 
+# --------------------------------------------------------------- slice 6
+
+
+def phase_rows(torch, gen) -> dict:
+    """The row kernels (kernels/decode_rows.py) against their plain versions
+    at the decode step's shapes (8 slots, tinyllama-1.1b, bf16, a 512-row
+    slot cache), within the plain versions' rounding model: the kernels
+    take B2's reduction orders, so a value may sit one bf16 ulp from the
+    plain value (norm: torch's mean and rsqrt; attention: torch's score,
+    softmax and AV orders, up to two); then kernel, plain version and,
+    where one PyTorch call computes the same function, that call, timed
+    by CUDA-graph replay, beside the bytes bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_rows as dr
+
+    b, d, h, kv, hd, s, f = SLOTS, 2048, 32, 4, 64, 512, 5632
+    bf = torch.bfloat16
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=DEV)
+    x = randn(b, 1, d).to(bf)
+    scale = 1 + 0.1 * randn(d)
+    q, k = randn(b, 1, h, hd).to(bf), randn(b, 1, kv, hd).to(bf)
+    pos = torch.randint(0, s - 1, (b,), generator=gen, device=DEV, dtype=torch.int32)
+    kc, vc = randn(b, s, kv, hd).to(bf), randn(b, s, kv, hd).to(bf)
+    lens = pos + 1
+    u, g = randn(b, 1, f).to(bf), randn(b, 1, f).to(bf)
+    eps = 1e-5
+    q_r, _ = dr.rope(q, k, pos, 10000.0)
+    mask = (torch.arange(s, device=DEV)[None, :] < lens[:, None])[:, None, None, :]
+    qt, kt, vt = q_r.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+    att_bytes = sum(int(n) for n in lens.tolist()) * kv * hd * 2 * 2
+    cases = {
+        "norm": (lambda: dr.norm(x, scale, eps), lambda: dr.norm_plain(x, scale, eps),
+                 lambda: F.rms_norm(x, (d,), scale.to(bf), eps), 2 * x.numel() * 2 + d * 4, 1),
+        "rope": (lambda: dr.rope(q, k, pos, 10000.0), lambda: dr.rope_plain(q, k, pos, 10000.0),
+                 None, 2 * (q.numel() + k.numel()) * 2 + b * 4, 1),
+        "attn": (lambda: dr.attention(q_r, kc, vc, lens),
+                 lambda: dr.attention_plain(q_r, kc, vc, lens),
+                 lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                        enable_gqa=True),
+                 att_bytes + 2 * q.numel() * 2 + b * 4, 2),
+        "gate": (lambda: dr.gate(u, g), lambda: dr.gate_plain(u, g), None,
+                 3 * u.numel() * 2, 1),
+    }
+    out = {}
+    for name, (kern, plain, lib, nbytes, tol_ulps) in cases.items():
+        yk, yp = kern(), plain()
+        yk = torch.cat([t.reshape(-1) for t in yk]) if isinstance(yk, tuple) else yk.reshape(-1)
+        yp = torch.cat([t.reshape(-1) for t in yp]) if isinstance(yp, tuple) else yp.reshape(-1)
+        dd = (yk.float() - yp.float()).abs()
+        ulps = (dd / bf16_ulp(yp)).max().item()
+        r = {"max_abs_err": dd.max().item(), "max_bf16_ulps": ulps,
+             "differing": int((dd > 0).sum().item()), "values": dd.numel(),
+             "ms": time_ms(lambda i: kern(), 50), "plain_ms": time_ms(lambda i: plain(), 50),
+             "library_ms": time_ms(lambda i: lib(), 50) if lib else None,
+             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+             "tolerance_bf16_ulps": tol_ulps}
+        r["pass"] = ulps <= tol_ulps and bool(yk.float().isfinite().all().item())
+        out[name] = r
+        log(f"row kernel {name}: max |d| {r['max_abs_err']:.3e} ({ulps:.2f} bf16 ulps, "
+            f"{r['differing']} of {r['values']} differ; tolerance {tol_ulps}), "
+            f"{r['ms'] * 1e3:.1f} us (plain {r['plain_ms'] * 1e3:.1f} us, library "
+            f"{'-' if lib is None else f'{r['library_ms'] * 1e3:.1f} us'}, bound "
+            f"{r['bound_ms'] * 1e3:.2f} us)" + ("" if r["pass"] else "  FAIL"))
+    check(all(r["pass"] for r in out.values()), "row kernels within their plain versions' model")
+    return out
+
+
+def phase_bridge(torch, ctx) -> dict:
+    """Bridge on the card = bridge on the CPU: layer 0's wk of the chip
+    programmed in phase 4 (member 0 of the stack, its key from the chip's
+    state) is programmed again on the CPU through the plain bridge, and the
+    CPU's state must be the card's, bit for bit; then both drift it to 30
+    days and the effective weights and GDC scalar must agree bit for bit."""
+    from repro_torch import prng
+    from repro_torch.core import engine
+
+    program, params = ctx["program"], ctx["params"]
+    pcm = program.cfg.pcm
+    st = program.state["blocks/0/attn/wk"]
+    node = params.blocks[0]["attn"]["wk"]
+    key = st["key"][0]
+    w = node["w"][0]
+    lo, hi = node["w_clip_buf"][0, 0].float(), node["w_clip_buf"][0, 1].float()
+    t0 = time.perf_counter()
+    cpu = engine._program_2d(key.cpu(), w.cpu(), lo.cpu(), hi.cpu(), pcm)
+    cpu_s = time.perf_counter() - t0
+    card = {name: st[name][0] for name in ("g_pos", "g_neg", "q_pos", "q_neg", "gt_sum",
+                                            "w_scale", "key")}
+    res = {"state": {name: bool(torch.equal(cpu[name], card[name].cpu())) for name in card},
+           "cpu_program_s": cpu_s, "shape": list(w.shape)}
+    t30 = 30 * 86400.0
+    t0 = time.perf_counter()
+    w_cpu, gdc_cpu = engine._drift_read_2d(cpu, t30, pcm)
+    cpu_drift_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w_card, gdc_card = engine._drift_read_2d(card, t30, pcm)
+    torch.cuda.synchronize()
+    res.update(drift_w_eff=bool(torch.equal(w_cpu, w_card.cpu())),
+               drift_gdc=bool(torch.equal(gdc_cpu, gdc_card.cpu())),
+               cpu_drift_s=cpu_drift_s, card_drift_ms=(time.perf_counter() - t0) * 1e3)
+    n = 1 << 22
+    a = prng.normal(prng.PRNGKey(ctx["seed"] + 5).to(DEV), (n,))
+    res["normal_card_equals_cpu"] = bool(torch.equal(a.cpu(), prng.normal(
+        prng.PRNGKey(ctx["seed"] + 5), (n,))))
+    shape = (2048, 5632)
+    k = prng.PRNGKey(ctx["seed"] + 6).to(DEV)
+    buf = torch.empty(shape, dtype=torch.float32, device=DEV)
+    k1, k2 = prng.PRNGKey(ctx["seed"] + 6).tolist()
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    # the kernel alone (the wrapper reads the key's words back to the host),
+    # and the plain version's PyTorch ops on the card, by CUDA events
+    res["normal_ms_11.5M"] = events_ms(
+        torch, lambda: prng._FN.prng_normal(k1, k2, buf.data_ptr(), buf.numel(), 1, stream()), 20)
+    res["normal_plain_ms_11.5M"] = events_ms(
+        torch, lambda: prng.erf_inv(prng.uniform(k, shape, prng._NORMAL_LO, 1.0)) * prng.SQRT2, 2)
+    # bytes: 4 written per draw; operations: PRNG_OPS_PER_DRAW, over the
+    # card's fp32 rate (integer operations counted at the same rate)
+    res["normal_bound_by"] = "operations"
+    res["normal_bound_ms_11.5M"] = max(buf.numel() * 4 / HBM_BYTES_PER_S,
+                                       buf.numel() * PRNG_OPS_PER_DRAW / FP32_OPS) * 1e3
+    check(buf.numel() * PRNG_OPS_PER_DRAW / FP32_OPS > buf.numel() * 4 / HBM_BYTES_PER_S,
+          "the normal draw is operation-bound")
+    log(f"bridge: layer 0 wk member 0 {tuple(w.shape)}, CPU state == card state "
+        f"{res['state']}; drifted to 30 d: w_eff equal {res['drift_w_eff']}, GDC equal "
+        f"{res['drift_gdc']} (CPU {cpu_s:.2f} s program + {cpu_drift_s:.2f} s drift, card "
+        f"{res['card_drift_ms']:.1f} ms drift); 2^22 normals card == CPU "
+        f"{res['normal_card_equals_cpu']}; one 2048 x 5632 normal draw on the card "
+        f"{res['normal_ms_11.5M']:.3f} ms (plain version on the card "
+        f"{res['normal_plain_ms_11.5M']:.2f} ms, bound "
+        f"{res['normal_bound_ms_11.5M']:.4f} ms, {res['normal_bound_by']})")
+    check(all(res["state"].values()) and res["drift_w_eff"] and res["drift_gdc"]
+          and res["normal_card_equals_cpu"], "the bridge draws the same bits on the card")
+    return res
+
+
+def _lifecycle_run(torch, ctx, fused: bool) -> tuple:
+    """One drift-lifecycle run of the trace on a virtual clock: phase 4's
+    chip aged to the schedule's first age, then DriftPolicy over
+    LIFECYCLE_AGES (an age every third of the steps) and one refresh right
+    after the first aging; returns (report, engine, timings: each aging,
+    the refresh and each decode step of the chip, synchronized). Only the
+    engine holds the aged chip, so each aging and the refresh free the chip
+    they replace."""
+    from repro_torch import clock, prng
+    from repro_torch.core import engine
+    from repro_torch.core.engine import DriftSchedule
+    from repro_torch.serving import DriftPolicy, ServingConfig, ServingEngine
+
+    cfg, trace = ctx["cfg"], ctx["trace"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    program25 = engine.age_program(ctx["program"], LIFECYCLE_AGES[0])
+    torch.cuda.synchronize()
+    first_age_s = time.perf_counter() - t0
+    eng = ServingEngine.for_program(
+        program25, cfg, ServingConfig(n_slots=SLOTS, s_max=512, fused_decode=fused),
+        ref_params=ctx["params"], src_params=ctx["params"], rng=prng.PRNGKey(ctx["seed"] + 3),
+        device=DEV,
+    )
+    del program25
+    times = {"age_s": [first_age_s], "refresh_s": [], "step_s": []}
+
+    def timed(fn, key):
+        def wrapper(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            times[key].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    eng.age_to = timed(eng.age_to, "age_s")
+    eng.refresh = timed(eng.refresh, "refresh_s")
+    eng.decode_main = timed(eng.decode_main, "step_s")
+    est = sum(r.max_new_tokens for r in trace) // SLOTS
+    policy = DriftPolicy(DriftSchedule(LIFECYCLE_AGES), every_steps=max(1, est // 3))
+    events0 = engine.program_event_count()
+    reset_counts()
+    # a virtual clock: admission, and so the step at which each request sees
+    # each age, depends on the step count alone, the same per layer and
+    # fused (on the host's clock the slower path admits at other steps)
+    run = eng.start_run(drift_policy=policy, clock=clock.VirtualClock())
+    run.submit(trace)
+    refreshed = False
+    while run.has_work:
+        run.admit_arrived()
+        if run.n_active == 0:
+            if not run.queue:
+                break
+            run.idle_wait()
+            continue
+        run.decode_step()
+        if not refreshed and run.age_events:
+            run.refresh_chip(prng.fold_in(eng.rng, 7_000_000 + run.steps))
+            refreshed = True
+    rep = run.finish()
+    torch.cuda.synchronize()
+    times["events"] = engine.program_event_count() - events0
+    return rep, eng, times
+
+
+def phase_drift_lifecycle(torch, ctx) -> dict:
+    """Phase 4's trace at full width under a DriftPolicy (25 s -> 1 h -> 1 d)
+    with one refresh, per layer and fused: zero programming events outside
+    the refresh, the ages and device ages the policy implies, the same
+    tokens both ways; then B2 serves the aged chip: one step from the
+    trace's cache state is bitwise the per-layer step on the same chip."""
+    from repro_torch.core import engine
+    from repro_torch.kernels import decode_fused as df
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.lm import lm_forward
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"memory_gib_before": torch.cuda.memory_allocated() / 2**30}
+    log(f"drift lifecycle: {out['memory_gib_before']:.1f} GiB allocated before it")
+    reports = {}
+    for fused in (False, True):
+        name = "fused" if fused else "per_layer"
+        rep, eng, times = _lifecycle_run(torch, ctx, fused)
+        ages = [(e["t_wall"], e["t_device"]) for e in rep.age_events if e["kind"] == "age"]
+        r = {"ms_per_decode_step": 1e3 * sum(times["step_s"]) / max(len(times["step_s"]), 1),
+             "decode_steps": rep.n_steps, "requests": rep.n_requests,
+             "age_events": rep.age_events, "reprograms": rep.reprograms,
+             "program_events": times["events"],
+             "program_events_delta": rep.program_events_delta,
+             "age_s": times["age_s"], "refresh_s": times["refresh_s"],
+             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "decode_fused_launches": df.launches, "plain_calls": plain_calls(),
+             "top1_agreement": rep.counters["top1"]}
+        r["pass"] = (rep.reprograms == 1 and rep.program_events_delta == 0
+                     and times["events"] == len(eng.program.plans)
+                     and ages == [(3600.0, 3600.0), (86400.0, 86400.0 - 3600.0)]
+                     and r["plain_calls"] == 0
+                     and (not fused or df.launches == rep.n_steps))
+        out[name] = r
+        reports[name] = rep
+        log(f"drift lifecycle {name}: {rep.n_steps} decode steps at "
+            f"{r['ms_per_decode_step']:.2f} ms/step (the chip's eager decode, no lockstep), ages "
+            f"(wall, device) {ages}, aging (to 25 s, then the policy's) "
+            f"{[round(t, 2) for t in times['age_s']]} s, refresh "
+            f"{[round(t, 2) for t in times['refresh_s']]} s, reprograms {rep.reprograms}, "
+            f"programming events {times['events']} (the refresh's), delta "
+            f"{rep.program_events_delta}, top1 {r['top1_agreement']:.4f}"
+            + ("" if r["pass"] else "  FAIL"))
+        if fused:
+            # B2 on the aged and refreshed chip vs the per-layer step on it
+            plan = engine.build_fused_plan(eng.program)
+            fcache, cur = fused_cache_from_trace(torch, eng, plan, ctx["trace"])
+            lcache = ([(KVCache(fcache.k[g].clone(), fcache.v[g].clone(),
+                                fcache.length.clone()),) for g in range(plan.n_groups)], ())
+            lf, fc = eng.decoder.step(cur, KVCache(fcache.k.clone(), fcache.v.clone(),
+                                                   fcache.length.clone()))
+            lp, lc = lm_forward(eng.params, {"tokens": cur}, eng.acfg, eng.cfg, cache=lcache)
+            torch.cuda.synchronize()
+            pk = torch.stack([g[0].k for g in lc[0]])
+            out["aged_step_logits_equal"] = bool(torch.equal(lf, lp))
+            out["aged_step_k_equal"] = bool(torch.equal(fc.k, pk))
+            out["aged_chip_t_seconds"] = eng.program.t_seconds
+            log(f"B2 on the aged chip (t = {eng.program.t_seconds:.0f} s): one step bitwise "
+                f"the per-layer step: logits {out['aged_step_logits_equal']}, K cache "
+                f"{out['aged_step_k_equal']}")
+        # the engine and its decoder refer to each other: collect the
+        # cycle so the chip it holds leaves the card before the next run
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    tok = lambda rep: {r.rid: r.tokens.tolist() for r in rep.records}
+    out["requests_same_tokens"] = sum(
+        tok(reports["fused"])[rid] == t for rid, t in tok(reports["per_layer"]).items())
+    log(f"drift lifecycle: requests with the same tokens per layer and fused "
+        f"{out['requests_same_tokens']}/{len(ctx['trace'])}")
+    check(out["per_layer"]["pass"] and out["fused"]["pass"], "drift lifecycle")
+    check(out["aged_step_logits_equal"] and out["aged_step_k_equal"],
+          "B2 serves the aged chip bitwise the per-layer step")
+    check(out["requests_same_tokens"] == len(ctx["trace"]),
+          "per-layer and fused lifecycles serve the same tokens")
+    return out
+
+
+def phase_resample(torch, ctx) -> dict:
+    """Per-MVM read-noise resampling. At full width, one decode step at 8
+    slots with every projection's read noise drawn afresh (read buffers
+    built for phase 4's chip), per layer and fused, timed, the two steps
+    bitwise equal; then, at depth 2 (the whole trace at full depth would
+    redraw 2 G weights per step and outrun the run's time limit), the
+    trace served per layer and fused with resampling on a virtual clock:
+    the same tokens."""
+    import dataclasses
+
+    from repro_torch import clock, prng
+    from repro_torch.core import engine
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.kernels import decode_fused as df
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.lm import lm_forward
+    from repro_torch.serving import ServingConfig, ServingEngine
+
+    program, cfg, trace = ctx["program"], ctx["cfg"], ctx["trace"]
+    pcm = program.cfg.pcm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params_rs = engine._walk(program.params, lambda path, node: {
+        **node, "read_buf": engine.read_buffers(program.state[path], program.t_seconds, pcm)})
+    torch.cuda.synchronize()
+    read_buf_s = time.perf_counter() - t0
+    acfg = dataclasses.replace(program.cfg, resample_read_noise=True)
+    program_rs = dataclasses.replace(program, params=params_rs, cfg=acfg)
+    w = engine.cast_weights(params_rs, cfg.dtype)
+    plan = engine.build_fused_plan(program_rs)
+    served = ctx["served"]
+    fcache, cur = fused_cache_from_trace(torch, served, plan, trace)
+    dec = df.FusedDecoder(w, plan, cfg, acfg, SLOTS, 512)
+    key = prng.fold_in(prng.PRNGKey(ctx["seed"] + 3), 0)
+    res = {"read_buffers_s": read_buf_s}
+    lcache = lambda: ([(KVCache(fcache.k[g].clone(), fcache.v[g].clone(),
+                                fcache.length.clone()),) for g in range(plan.n_groups)], ())
+    fclone = lambda: KVCache(fcache.k.clone(), fcache.v.clone(), fcache.length.clone())
+    logits = {}
+    for name in ("per_layer", "fused", "per_layer_frozen"):
+        caches = [lcache() if name != "fused" else fclone() for _ in range(3)]
+        times = []
+        for c in caches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "fused":
+                lg, _ = dec.step(cur, c, key)
+            else:
+                lg, _ = lm_forward(w, {"tokens": cur}, acfg, cfg, cache=c,
+                                   rng=None if name == "per_layer_frozen" else key)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        logits[name] = lg
+        res[f"{name}_step_ms"] = min(times)
+    res["full_width_steps_equal"] = bool(torch.equal(logits["per_layer"], logits["fused"]))
+    res["resampled_differs_from_frozen"] = bool(not torch.equal(logits["per_layer"],
+                                                                logits["per_layer_frozen"]))
+    log(f"resampled read noise, full width, one step at 8 slots: per layer "
+        f"{res['per_layer_step_ms']:.1f} ms, fused {res['fused_step_ms']:.1f} ms (the same "
+        f"step with the frozen draw, per layer: {res['per_layer_frozen_step_ms']:.1f} ms; "
+        f"read buffers built in {read_buf_s:.2f} s); per layer == fused "
+        f"{res['full_width_steps_equal']}, differs from the frozen chip "
+        f"{res['resampled_differs_from_frozen']}")
+    del dec, w, params_rs, program_rs, fcache
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the trace at depth 2, resampling every MVM of every step
+    depth = 2
+    params2 = ctx["params"]._replace(blocks=(first(ctx["params"].blocks[0], depth),))
+    cfg2 = dataclasses.replace(cfg, n_layers=depth)
+    prog2 = engine.compile_program(params2, AnalogConfig(resample_read_noise=True).infer(
+        b_adc=8), prng.PRNGKey(ctx["seed"] + 1), device=DEV)
+    toks = {}
+    for fused in (False, True):
+        eng = ServingEngine.for_program(
+            prog2, cfg2, ServingConfig(n_slots=SLOTS, s_max=512, fused_decode=fused),
+            rng=prng.PRNGKey(ctx["seed"] + 3), device=DEV)
+        events0 = engine.program_event_count()
+        reset_counts()
+        # a virtual clock: each step's key is fold_in(rng, step), so the
+        # tokens depend on the step a request is admitted at (as in phase 11)
+        steps_s = []
+        decode_main = eng.decode_main
+
+        def timed_step(*a):
+            t0 = time.perf_counter()
+            out = decode_main(*a)
+            torch.cuda.synchronize()
+            steps_s.append(time.perf_counter() - t0)
+            return out
+
+        eng.decode_main = timed_step
+        rep = eng.run(trace, clock=clock.VirtualClock())
+        torch.cuda.synchronize()
+        name = "fused" if fused else "per_layer"
+        res[f"depth2_{name}"] = {
+            "ms_per_decode_step": 1e3 * sum(steps_s) / max(len(steps_s), 1),
+            "decode_steps": rep.n_steps, "program_events": engine.program_event_count() - events0,
+            "decode_fused_launches": df.launches, "normal_launches": prng.launches}
+        toks[name] = {r.rid: r.tokens.tolist() for r in rep.records}
+        del eng
+        gc.collect()
+    res["depth2_requests_same_tokens"] = sum(toks["fused"][rid] == t
+                                             for rid, t in toks["per_layer"].items())
+    log(f"resampled read noise, depth {depth}, the trace: per layer "
+        f"{res['depth2_per_layer']['ms_per_decode_step']:.2f} ms/step, fused "
+        f"{res['depth2_fused']['ms_per_decode_step']:.2f} ms/step "
+        f"({res['depth2_fused']['decode_fused_launches']} fused launches, "
+        f"{res['depth2_fused']['normal_launches']} normal draws); requests with the same "
+        f"tokens {res['depth2_requests_same_tokens']}/{len(trace)}")
+    check(res["full_width_steps_equal"] and res["resampled_differs_from_frozen"],
+          "a resampled step: per layer == fused, and a fresh draw")
+    check(res["depth2_requests_same_tokens"] == len(trace)
+          and res["depth2_per_layer"]["program_events"] == 0
+          and res["depth2_fused"]["program_events"] == 0
+          and res["depth2_fused"]["decode_fused_launches"] == res["depth2_fused"]["decode_steps"],
+          "resampled serving: the same tokens per layer and fused, no programming")
+    return res
+
+
+
 def profile_summary(prof, kernel: str = "analog_mvm") -> dict:
     """Device time of one profiled step from the trace's device events
     (kernels and copies): their busy union, the time of the kernels whose
@@ -1557,6 +2058,9 @@ def main(argv=None) -> int:
                     help="a directory holding a parent's decode_fused.cu and its headers: "
                          "phase 7 times that B2 in turns with this one")
     args = ap.parse_args(argv)
+    # the drift lifecycle and resampling phases hold a second full-width
+    # chip beside phase 4's: let the allocator grow segments in place
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     try:
         import torch
     except ImportError:
@@ -1583,6 +2087,7 @@ def main(argv=None) -> int:
     fa_launched = record_fa_shapes()
     b1_launched = record_b1_shapes()
     serve, ctx = phase_serve(torch, args.seed)
+    bridge = phase_bridge(torch, ctx)
     fused_check = phase_fused_check(torch, ctx)
     fused_serve, fused_engine = phase_fused_serve(torch, ctx, serve)
     step_timing = phase_step_timing(torch, ctx, fused_engine, parent_b2)
@@ -1591,6 +2096,9 @@ def main(argv=None) -> int:
     flash = phase_flash_attention(
         torch, gen, fa_served_shapes(ctx["trace"]) + [(1, FA_CONTEXT)])
     paged_serve = phase_paged_serve(torch, ctx, serve)
+    rows = phase_rows(torch, gen)
+    lifecycle = phase_drift_lifecycle(torch, ctx)
+    resample = phase_resample(torch, ctx)
     checked = {(r["rows"], r["S"], r["dtype"]) for r in flash["cases"]}
     unchecked = sorted(fa_launched - checked)
     log(f"B3 shapes launched by the serving phases (rows, S, dtype): {sorted(fa_launched)}; "
@@ -1676,11 +2184,41 @@ def main(argv=None) -> int:
                "every checked shape, both dtypes, causal and full",
         "max_err_bf16_ulps": flash["worst_bf16_ulps"],
         "pass": True,
+    }] + [{
+        "name": f"decode_rows.{name}",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_rows.cu",
+        "replaces": ROW_REPLACES[name],
+        "launches": serve["row_launches"][name],
+        "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "per": f"one launch at the decode step's shapes (8 slots, bf16); launches from the "
+               f"per-layer serving run (chip and digital lockstep); {ROW_PER[name]}",
+        "max_err_bf16_ulps": r["max_bf16_ulps"],
+        "pass": r["pass"],
+    } for name, r in rows.items()] + [{
+        "name": "prng.normal",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/prng.cu",
+        "replaces": "src/repro/core/pcm.py:131 (jax.random.normal, XLA ops; not a TPU kernel)",
+        "launches": serve["prng_launches"],
+        "max_abs_err": 0.0 if bridge["normal_card_equals_cpu"] else None,
+        "ms": bridge["normal_ms_11.5M"],
+        "plain_ms": bridge["normal_plain_ms_11.5M"],
+        "bound_ms": bridge["normal_bound_ms_11.5M"],
+        "bound_by": bridge["normal_bound_by"],
+        "library_ms": None,
+        "per": "one 2048 x 5632 draw (a w1 member's programming noise); launches: phase 4's "
+               "lm_init and program phase; max_abs_err: 2^22 draws on the card against the "
+               "CPU plain version (bitwise); library: none computes jax.random.normal's bits",
+        "pass": bridge["normal_card_equals_cpu"],
     }]}
     out = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
            "build_s": build_s, "ptxas": ptxas, "kernel_vs_plain": accuracy, "timing": timing,
            "serve": serve, "fused_check": fused_check, "fused_serve": fused_serve,
            "step_timing": step_timing, "flash_attention": flash, "paged_serve": paged_serve,
+           "bridge": bridge, "rows": rows, "drift_lifecycle": lifecycle, "resample": resample,
            **kernels, "seconds": time.perf_counter() - t_start}
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(out, indent=1))

@@ -1,5 +1,6 @@
-"""Programmed-chip artifacts: the cim-program v1 reader, port of the
-``load_program`` half of ``repro.checkpoint.store``.
+"""Programmed-chip artifacts: the cim-program v1 format, port of the
+program half of ``repro.checkpoint.store`` (``save_program``,
+``load_program``).
 
 Layout (written by the reference's ``save_program``)::
 
@@ -11,17 +12,22 @@ Layout (written by the reference's ``save_program``)::
       COMMIT       # written last: presence marks a complete artifact
 
 A loaded program serves bitwise the chip that was saved: every array is
-moved to ``device`` unchanged. ``mapping`` stays the raw dict until
-``core/crossbar.py`` is ported. Writing artifacts (``save_program``) comes
-with the program-phase slice.
+moved to ``device`` unchanged (state keys, uint32 in the file, become the
+port's int64 key words). ``save_program`` writes what the reference's
+``load_program`` reads, array for array. ``mapping`` stays the raw dict
+until ``core/crossbar.py`` is ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import shutil
+from typing import Any
 
 import numpy as np
+import torch
 
 from repro_torch import convert
 from repro_torch.core import engine as engine_lib
@@ -35,14 +41,114 @@ PROGRAM_VERSION = 1
 _LM_FIELDS = frozenset({"embed", "blocks", "lm_head", "gain_s"})
 
 _nest = convert.nest
+_KEY_LEAF = "key"  # state leaves holding threefry keys (uint32 in the file)
 
 
-def load_program(path: str, *, device="cuda") -> engine_lib.CiMProgram:
+def _flatten(tree: Any, prefix: str = "") -> dict[str, Any]:
+    """'::'-joined path -> leaf, as the reference's tree flattening names
+    them (NamedTuple fields, dict keys, sequence indices)."""
+    join = lambda k: f"{prefix}{convert.SEP}{k}" if prefix else str(k)
+    if hasattr(tree, "_fields"):
+        items = [(f, getattr(tree, f)) for f in tree._fields]
+    elif isinstance(tree, dict):
+        items = list(tree.items())
+    elif isinstance(tree, (tuple, list)):
+        items = list(enumerate(tree))
+    else:
+        return {prefix: tree}
+    out: dict[str, Any] = {}
+    for k, v in items:
+        out.update(_flatten(v, join(k)))
+    return out
+
+
+def _to_numpy(t: torch.Tensor, *, key: bool = False) -> np.ndarray:
+    t = t.detach().cpu()
+    if key:
+        return t.numpy().astype(np.uint32)
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # numpy's bfloat16, as the reference writes it
+
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def save_program(path: str, program: engine_lib.CiMProgram) -> str:
+    """Atomically persist a compiled CiMProgram (cim-program v1); returns
+    the final path. The reference's ``load_program`` reads it back bitwise."""
+    if program.mapping is not None:
+        raise NotImplementedError(
+            "a program with a physical-array mapping is saved once "
+            "core/crossbar.py is ported (queue A item 10)"
+        )
+    tmp = path + ".tmp"
+    os.makedirs(tmp, exist_ok=True)
+    arrays = {f"params{convert.SEP}{k}": _to_numpy(v)
+              for k, v in _flatten(program.params).items()}
+    arrays.update({
+        f"state{convert.SEP}{k}": _to_numpy(v, key=k.rsplit(convert.SEP, 1)[-1] == _KEY_LEAF)
+        for k, v in _flatten(program.state).items()
+    })
+    np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+    meta = {
+        "format": PROGRAM_FORMAT,
+        "version": PROGRAM_VERSION,
+        "t_seconds": program.t_seconds,
+        "age_history": [float(t) for t in program.age_history],
+        "chip_id": program.chip_id,
+        "cfg": dataclasses.asdict(program.cfg),
+        "plans": {p: [plan.k, plan.n, plan.spec.b_adc]
+                  for p, plan in program.plans.items()},
+        "mapping": None,
+    }
+    with open(os.path.join(tmp, "meta.json"), "w") as f:
+        json.dump(meta, f)
+    with open(os.path.join(tmp, "COMMIT"), "w") as f:
+        f.write("ok")
+    # no window without a committed artifact: move the old one aside,
+    # swing the new one into place, then drop the old one
+    old = path + ".old"
+    if os.path.exists(old):
+        shutil.rmtree(old)
+    if os.path.exists(path):
+        os.replace(path, old)
+    os.replace(tmp, path)
+    if os.path.exists(old):
+        shutil.rmtree(old)
+    return path
+
+
+def _check_fits(path: str, flat_params: dict, params_like: Any) -> None:
+    """Refuse an artifact that does not cover ``params_like``: a template
+    leaf absent from it, or one whose shape differs at the same rank (the
+    reference's check and message)."""
+    template = {k: tuple(v.shape) for k, v in _flatten(params_like).items()}
+    missing = sorted(set(template) - set(flat_params))
+    wrong_shape = sorted(
+        k for k, shape in template.items()
+        if k in flat_params
+        and flat_params[k].ndim == len(shape)
+        and flat_params[k].shape != shape
+    )
+    if missing or wrong_shape:
+        raise ValueError(
+            f"program artifact at {path} does not match the model: "
+            f"{len(missing)} template leaves absent "
+            f"(first few: {missing[:3]}), {len(wrong_shape)} with "
+            f"mismatched shapes (first few: "
+            f"{[(k, flat_params[k].shape, template[k]) for k in wrong_shape[:3]]}) "
+            "-- was it saved from a different architecture/config?"
+        )
+
+
+def load_program(path: str, *, params_like: Any = None, device="cuda") -> engine_lib.CiMProgram:
     """Load a cim-program v1 artifact onto ``device``.
 
     Refuses an artifact without ``COMMIT``, of another format, or of a newer
-    version, and malformed or unsupported per-layer plans. LM artifacts come
-    back as :class:`~repro_torch.models.lm.LMParams`, others as nested dicts.
+    version, and malformed or unsupported per-layer plans; with
+    ``params_like`` (the model's param tree, e.g. from ``lm_init``) also
+    one that does not fit the model. LM artifacts come back as
+    :class:`~repro_torch.models.lm.LMParams`, others as nested dicts.
     """
     dev = resolve_device(device)
     if not os.path.exists(os.path.join(path, "COMMIT")):
@@ -63,6 +169,11 @@ def load_program(path: str, *, device="cuda") -> engine_lib.CiMProgram:
             head, rest = k.split(convert.SEP, 1)
             (flat_params if head == "params" else flat_state)[rest] = data[k]
 
+    if params_like is not None:
+        _check_fits(path, flat_params, params_like)
+    for k in flat_state:
+        if k.rsplit(convert.SEP, 1)[-1] == _KEY_LEAF:
+            flat_state[k] = flat_state[k].astype(np.int64)
     cfg_d = dict(meta["cfg"])
     cfg = AnalogConfig(**{**cfg_d, "pcm": pcm_lib.PCMConfig(**cfg_d["pcm"])})
     nested = _nest(flat_params)

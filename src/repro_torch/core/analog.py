@@ -1,8 +1,8 @@
 """AnalogLinear: the analog-CiM-deployable layer, port of ``repro.core.analog``.
 
 Every stationary-weight matmul goes through :func:`analog_matmul`, a plan
-dispatcher over the execute phase (:mod:`repro_torch.core.engine`). This
-slice ports the two serving modes:
+dispatcher over the execute phase (:mod:`repro_torch.core.engine`). The
+ported modes:
 
   * ``digital``        -- plain matmul (the full-precision reference).
   * ``pcm_programmed`` -- execute phase of a compiled ``CiMProgram``: the
@@ -11,10 +11,19 @@ slice ports the two serving modes:
                            quantizes the input, then ``engine.execute_mvm``
                            runs the tiled MVM with per-tile ADC and the GDC
                            epilogue -- on a CUDA tensor through the Hopper
-                           kernel ``kernels.analog_mvm``.
+                           kernel ``kernels.analog_mvm``. A program
+                           compiled with ``resample_read_noise`` and served
+                           with a key redraws each layer's read noise per
+                           MVM from its ``read_buf``.
+  * ``pcm_infer``      -- per-call simulation: every MVM programs, drifts
+                           and reads its layer afresh from the call's key
+                           (``pcm.simulate_weights``), for statistical
+                           accuracy sweeps, not serving.
 
-``analog_train`` and ``pcm_infer`` raise ``NotImplementedError``: they come
-with the training and per-call-simulation slices.
+Keys are the RNG bridge's threefry keys (``repro_torch.prng``);
+:meth:`AnalogCtx.next_key` folds the layer counter in as the reference
+does, so a keyed forward draws the reference's noise. ``analog_train``
+raises ``NotImplementedError``: it comes with the training slice.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch import prng
 from repro_torch.core import engine as engine_lib
 from repro_torch.core import pcm as pcm_lib
 from repro_torch.core import quant as quant_lib
@@ -83,14 +93,23 @@ MvmFn = Callable[..., Tensor]
 class AnalogCtx:
     """Per-call context threaded through the model.
 
-    ``mvm`` replaces :func:`engine.execute_mvm` for this call when set --
+    ``key`` is the call's threefry key: each analog layer that draws noise
+    takes :meth:`next_key`. ``mvm`` replaces :func:`engine.execute_mvm` for this call when set --
     a check that drives a whole forward through the plain
     ``engine.execute_mvm_plain`` on the card uses it; serving leaves it None.
     """
 
     cfg: AnalogConfig
     gain_s: Tensor  # the single network-wide ADC gain S (Eq. 5)
+    key: Optional[Tensor] = None  # base key of the call's draws (None: none)
+    layer_counter: int = 0  # folded into each draw's key
     mvm: Optional[MvmFn] = None
+
+    def next_key(self) -> Optional[Tensor]:
+        if self.key is None:
+            return None
+        self.layer_counter += 1
+        return prng.fold_in(self.key, self.layer_counter)
 
 
 def analog_matmul(
@@ -103,60 +122,69 @@ def analog_matmul(
     ctx: AnalogCtx,
     out_scale: Optional[Tensor] = None,
     b_adc: Optional[int] = None,
+    read_buf: Optional[dict] = None,
 ) -> Tensor:
-    """The framework-wide analog-aware matmul. x: (..., K), w: (K, N)."""
+    """The framework-wide analog-aware matmul. x: (..., K), w: (K, N).
+
+    ``read_buf`` is the layer's pre-read conductance buffer: with
+    ``cfg.resample_read_noise`` and a key in ``ctx`` the frozen read draw
+    is replaced by a fresh one per MVM; without a key the frozen weights
+    execute bitwise as before.
+    """
     cfg = ctx.cfg
     if cfg.mode == DIGITAL:
         return engine_lib.execute_digital(x, w)
-    if cfg.mode != PCM_PROGRAMMED:
+    if cfg.mode not in (PCM_PROGRAMMED, PCM_INFER):
         raise NotImplementedError(
             f"analog mode {cfg.mode!r} is not ported yet: the training "
-            "(analog_train) and per-call simulation (pcm_infer) slices come "
-            "later; this slice serves digital and pcm_programmed"
-        )
-    if cfg.resample_read_noise:
-        raise NotImplementedError(
-            "per-MVM read-noise resampling (resample_read_noise=True) comes "
-            "with the RNG-bridge slice"
+            "slice (analog_train) comes later"
         )
     plan = engine_lib.plan_for(cfg, int(w.shape[-2]), int(w.shape[-1]), b_adc)
     out_dtype = x.dtype
+    scale = 1.0 if out_scale is None else out_scale
+    w_exec = w
+    if cfg.mode == PCM_PROGRAMMED:
+        if read_buf is not None and cfg.resample_read_noise:
+            r_key = ctx.next_key()
+            if r_key is not None:
+                w_exec = engine_lib.resample_read(r_key, read_buf).to(w.dtype)
+    else:
+        w_key = ctx.next_key()
+        if w_key is None:
+            raise ValueError("pcm_infer requires a key in the AnalogCtx")
+        engine_lib.record_program_event()  # per-call reprogramming
+        w_c = torch.minimum(torch.maximum(w, w_min), w_max)
+        w_exec, scale = pcm_lib.simulate_weights(w_key, w_c.float(), cfg.t_seconds, cfg.pcm)
     x_q = quant_lib.dac_quantize(x, r_adc, ctx.gain_s, w_max, plan.spec)
     x_q = x_q.to(out_dtype)
-    scale = 1.0 if out_scale is None else out_scale
     mvm = ctx.mvm or engine_lib.execute_mvm
     # a no-op when the weights were pre-cast to the activation dtype
     # (engine.cast_weights): the cast is deterministic, so keeping one
     # pre-cast copy is bitwise the reference's per-call cast
-    return mvm(x_q, w.to(x_q.dtype), r_adc, plan, out_scale=scale).to(out_dtype)
+    return mvm(x_q, w_exec.to(x_q.dtype), r_adc, plan, out_scale=scale).to(out_dtype)
 
 
 def linear_init(
-    gen: torch.Generator,
+    key: Tensor,
     d_in: int,
     d_out: int,
     *,
-    stack: tuple = (),
     use_bias: bool = False,
     dtype=torch.float32,
     scale: Optional[float] = None,
 ) -> dict:
-    """Analog linear params; ``stack`` prepends independent-layer dims."""
-    dev = gen.device
+    """Analog linear params drawn from ``key`` (on the key's device), as the
+    reference draws them: N(0, 1) * d_in^-1/2, r_adc = 1, clip [-1, 1]."""
+    dev = key.device
+    w_key = prng.split(key)[0]
     s = scale if scale is not None else d_in**-0.5
-    w = torch.randn(
-        tuple(stack) + (d_in, d_out), generator=gen, dtype=torch.float32,
-        device=dev,
-    )
     params = {
-        "w": (w * s).to(dtype),
-        "r_adc": torch.ones(tuple(stack), dtype=torch.float32, device=dev),
-        "w_clip_buf": torch.tensor([-1.0, 1.0], device=dev).expand(
-            tuple(stack) + (2,)
-        ).contiguous(),
+        "w": (prng.normal(w_key, (d_in, d_out)) * s).to(dtype),
+        "r_adc": torch.ones((), dtype=torch.float32, device=dev),
+        "w_clip_buf": torch.tensor([-1.0, 1.0], dtype=torch.float32, device=dev),
     }
     if use_bias:
-        params["b"] = torch.zeros(tuple(stack) + (d_out,), dtype=dtype, device=dev)
+        params["b"] = torch.zeros((d_out,), dtype=dtype, device=dev)
     return params
 
 
@@ -170,6 +198,7 @@ def linear_apply(params: dict, x: Tensor, ctx: AnalogCtx) -> Tensor:
         ctx=ctx,
         out_scale=params.get("out_scale_buf"),
         b_adc=engine_lib.bits_of(params.get("b_adc_buf")),
+        read_buf=params.get("read_buf"),
     )
     if "b" in params:
         # bias is applied in the digital domain, after the ADC

@@ -4,10 +4,11 @@ Two phases, as on the AON-CiM accelerator (paper Sec. 5):
 
   1. **Program phase** (:func:`compile_program`) -- every analog layer's
      weights are written into PCM once: programming noise is drawn here and
-     frozen; drift and read noise are evaluated at the program's age. This
-     slice ports the unsharded program phase. Draws come from the caller's
-     ``torch.Generator``: the same distributions as the reference, not its
-     threefry bits (bit-identical chips are the RNG-bridge slice's work).
+     frozen; drift and read noise are evaluated at the program's age. The
+     unsharded program phase draws through the RNG bridge
+     (``repro_torch.prng``) with the reference's keys, so the same key
+     programs the reference's chip bit for bit. :meth:`CiMProgram.drift_to`
+     and :func:`age_program` re-evaluate the same devices at a later age.
   2. **Execute phase** (:func:`execute_mvm`) -- DAC-quantized inputs against
      the programmed effective weights: tiled MVM, per-tile ADC, digital
      accumulation, GDC ``out_scale``. On a CUDA tensor it always launches
@@ -30,6 +31,7 @@ from typing import Any, Callable, Mapping as MappingT, Optional, Union
 
 import torch
 
+from repro_torch import prng
 from repro_torch.core import pcm as pcm_lib
 from repro_torch.core import quant as quant_lib
 from repro_torch.core.quant import QuantSpec
@@ -211,85 +213,158 @@ def execute_mvm_plain(
 
 
 # ---------------------------------------------------------------------------
-# Program phase (unsharded)
+# Program phase (unsharded), keyed as the reference
 #
-# Each stack member (one layer of a stacked group) gets a 63-bit seed drawn
-# from the caller's generator; its programming, drift and read draws come
-# from independent streams derived from that seed, the way the reference
-# derives them from the member's threefry key. The seed is kept in the
-# state, so a later age re-evaluation can redraw the same devices.
+# Each stack member (one layer of a stacked group) gets its own threefry key,
+# ``split(layer key, n_members)``; its programming draws come from
+# ``split(member key)`` and its drift and read draws from
+# ``split(member key, 4)``. The member key is kept in the state, so a later
+# age re-evaluation redraws the same devices.
 # ---------------------------------------------------------------------------
 
-_SEED_MOD = 1 << 63
-_STREAM_STRIDE = 0x9E3779B97F4A7C15  # golden-ratio increment between streams
-_PROG_POS, _PROG_NEG, _DRIFT_POS, _DRIFT_NEG, _READ_POS, _READ_NEG = range(6)
 
-
-def _stream(seed: int, stream: int, device) -> torch.Generator:
-    gen = torch.Generator(device=device)
-    gen.manual_seed((seed + stream * _STREAM_STRIDE) % _SEED_MOD)
-    return gen
-
-
-def _program_2d(w: Tensor, w_min, w_max, cfg: pcm_lib.PCMConfig, seed: int):
+def _program_2d(key: Tensor, w: Tensor, w_min, w_max, cfg: pcm_lib.PCMConfig) -> dict:
     """Program one (K, N) block: write noise drawn HERE."""
-    dev = w.device
     # the reference clips in f32 (f32 bounds promote a bf16 weight)
     w_c = torch.minimum(torch.maximum(w.float(), w_min), w_max)
     g_pos_t, g_neg_t, w_scale = pcm_lib.weights_to_conductances(w_c)
+    k_pp, k_pn = prng.split(key)
     return {
-        "g_pos": pcm_lib.program(_stream(seed, _PROG_POS, dev), g_pos_t, cfg),
-        "g_neg": pcm_lib.program(_stream(seed, _PROG_NEG, dev), g_neg_t, cfg),
+        "g_pos": pcm_lib.program(k_pp, g_pos_t, cfg),
+        "g_neg": pcm_lib.program(k_pn, g_neg_t, cfg),
         "q_pos": pcm_lib.read_noise_q(g_pos_t),
         "q_neg": pcm_lib.read_noise_q(g_neg_t),
         "gt_sum": pcm_lib.det_sum(g_pos_t + g_neg_t),
         "w_scale": w_scale,
+        "key": key,
     }
 
 
-def _drift_read_2d(state: dict, t, cfg: pcm_lib.PCMConfig, seed: int):
+def _drift_factors(state: dict, t, cfg: pcm_lib.PCMConfig):
+    """Per-device drift factors of the block at age ``t`` (None: no drift)."""
+    if not cfg.drift:
+        return None, None
+    k_dp, k_dn = prng.split(state["key"], 4)[:2]
+    f_p = pcm_lib.drift_factor(pcm_lib.sample_drift_nu(k_dp, state["g_pos"].shape, cfg), t)
+    f_n = pcm_lib.drift_factor(pcm_lib.sample_drift_nu(k_dn, state["g_neg"].shape, cfg), t)
+    return f_p, f_n
+
+
+def _drifted(state: dict, t, cfg: pcm_lib.PCMConfig) -> tuple[Tensor, Tensor]:
+    """The block's conductances drifted to age ``t`` (no read draw)."""
+    f_p, f_n = _drift_factors(state, t, cfg)
+    if f_p is None:
+        return state["g_pos"], state["g_neg"]
+    return state["g_pos"] * f_p, state["g_neg"] * f_n
+
+
+def _drift_read_2d(state: dict, t, cfg: pcm_lib.PCMConfig):
     """Evaluate programmed conductances at age ``t`` -> (w_eff, gdc)."""
+    k_rp, k_rn = prng.split(state["key"], 4)[2:]
+    f_p, f_n = _drift_factors(state, t, cfg)
     g_pos, g_neg = state["g_pos"], state["g_neg"]
     dev = g_pos.device
-    if cfg.drift:
-        nu_p = pcm_lib.sample_drift_nu(_stream(seed, _DRIFT_POS, dev), g_pos, cfg)
-        nu_n = pcm_lib.sample_drift_nu(_stream(seed, _DRIFT_NEG, dev), g_neg, cfg)
-        g_pos = g_pos * pcm_lib.drift_factor(nu_p, t)
-        g_neg = g_neg * pcm_lib.drift_factor(nu_n, t)
     if cfg.gdc:
-        # det_sum: the GDC scalar is the same bits under any reduction order
-        gdc = state["gt_sum"] / (pcm_lib.det_sum(g_pos + g_neg) + 1e-12)
+        # the reference's compiler fuses the first drift product into the
+        # pair sum it feeds; det_sum makes the scalar order-free
+        g_sum = (g_pos + g_neg if f_p is None
+                 else prng.fma(g_pos, f_p, g_neg * f_n))
+        gdc = state["gt_sum"] / (pcm_lib.det_sum(g_sum) + prng._f32(1e-12))
     else:
         gdc = torch.ones((), dtype=torch.float32, device=dev)
+    if f_p is not None:
+        g_pos, g_neg = g_pos * f_p, g_neg * f_n
     if cfg.read_noise:
         scale_t = pcm_lib.read_noise_scale(t, dev)
-        noise_p = torch.randn(
-            g_pos.shape, generator=_stream(seed, _READ_POS, dev), device=dev
-        )
-        noise_n = torch.randn(
-            g_neg.shape, generator=_stream(seed, _READ_NEG, dev), device=dev
-        )
-        g_pos = (g_pos + g_pos * state["q_pos"] * scale_t * noise_p).clamp(min=0.0)
-        g_neg = (g_neg + g_neg * state["q_neg"] * scale_t * noise_n).clamp(min=0.0)
+        g_pos = prng.fma(g_pos * state["q_pos"] * scale_t,
+                         prng.normal(k_rp, g_pos.shape), g_pos).clamp(min=0.0)
+        g_neg = prng.fma(g_neg * state["q_neg"] * scale_t,
+                         prng.normal(k_rn, g_neg.shape), g_neg).clamp(min=0.0)
     return (g_pos - g_neg) * state["w_scale"], gdc
 
 
+def _read_buffers_2d(state: dict, t, cfg: pcm_lib.PCMConfig) -> dict:
+    """Pre-read execute-time buffers for per-MVM read-noise resampling: the
+    drifted conductances before any read draw, the per-device read-noise
+    sigmas at ``t`` and the weight scale (see :func:`resample_read`)."""
+    g_pos, g_neg = _drifted(state, t, cfg)
+    if cfg.read_noise:
+        scale_t = pcm_lib.read_noise_scale(t, g_pos.device)
+        sigma_pos = g_pos * state["q_pos"] * scale_t
+        sigma_neg = g_neg * state["q_neg"] * scale_t
+    else:
+        sigma_pos, sigma_neg = torch.zeros_like(g_pos), torch.zeros_like(g_neg)
+    return {"g_pos": g_pos, "g_neg": g_neg, "sigma_pos": sigma_pos,
+            "sigma_neg": sigma_neg, "w_scale": state["w_scale"]}
+
+
+def resample_read(key: Tensor, buf: dict) -> Tensor:
+    """One fresh per-MVM read-noise draw -> effective weights.
+
+    ``buf`` is a per-layer ``read_buf`` (possibly with leading stack dims;
+    one draw covers the whole stack, as in the reference).
+    """
+    k_p, k_n = prng.split(key.to(buf["g_pos"].device))
+    g_pos = prng.fma(buf["sigma_pos"], prng.normal(k_p, buf["g_pos"].shape),
+                     buf["g_pos"]).clamp(min=0.0)
+    g_neg = prng.fma(buf["sigma_neg"], prng.normal(k_n, buf["g_neg"].shape),
+                     buf["g_neg"]).clamp(min=0.0)
+    w_scale = buf["w_scale"]
+    return (g_pos - g_neg) * w_scale.reshape(w_scale.shape + (1, 1))
+
+
+def _members(state: dict) -> int:
+    return math.prod(state["g_pos"].shape[:-2])
+
+
+def _member(state: dict, i: int) -> dict:
+    stack = state["g_pos"].shape[:-2]
+    flat = {k: v.reshape((-1,) + tuple(v.shape[len(stack):])) for k, v in state.items()}
+    return {k: v[i] for k, v in flat.items()}
+
+
+def drift_state(state: dict, t_seconds, cfg: pcm_lib.PCMConfig):
+    """(w_eff, out_scale) of a programmed (stack..., K, N) state re-evaluated
+    at ``t_seconds``, member by member (the peak is one member's
+    temporaries)."""
+    stack = tuple(state["g_pos"].shape[:-2])
+    k, n = state["g_pos"].shape[-2:]
+    dev = state["g_pos"].device
+    m = _members(state)
+    w_eff = torch.empty((m, k, n), dtype=torch.float32, device=dev)
+    gdc = torch.empty((m,), dtype=torch.float32, device=dev)
+    for i in range(m):
+        w_eff[i], gdc[i] = _drift_read_2d(_member(state, i), t_seconds, cfg)
+    return w_eff.reshape(stack + (k, n)), gdc.reshape(stack)
+
+
+def read_buffers(state: dict, t_seconds, cfg: pcm_lib.PCMConfig) -> dict:
+    """Per-MVM read-noise buffers of a programmed state at ``t_seconds``
+    (:func:`_read_buffers_2d` per member, stacked)."""
+    stack = tuple(state["g_pos"].shape[:-2])
+    bufs = [_read_buffers_2d(_member(state, i), t_seconds, cfg)
+            for i in range(_members(state))]
+    return {k: torch.stack([b[k] for b in bufs]).reshape(stack + tuple(bufs[0][k].shape))
+            for k in bufs[0]}
+
+
 def program_weight(
-    w: Tensor, w_min: Tensor, w_max: Tensor, t_seconds, cfg: pcm_lib.PCMConfig,
-    seeds: list[int],
+    key: Tensor, w: Tensor, w_min: Tensor, w_max: Tensor, t_seconds,
+    cfg: pcm_lib.PCMConfig,
 ):
     """Program a (stack..., K, N) weight once and evaluate it at t_seconds.
 
-    Every stack member gets its own write-noise draw, weight scale and GDC
-    scalar. Returns (w_eff, out_scale, state); the state holds the per-member
-    ``seed`` beside the conductances. Outputs are preallocated and filled
-    member by member, so the peak is one member's temporaries.
+    Every stack member gets its own key (``split(key, n_members)``), write-
+    noise draw, weight scale and GDC scalar. Returns (w_eff, out_scale,
+    state). Outputs are preallocated and filled member by member, so the
+    peak is one member's temporaries.
     """
     record_program_event()
     stack = tuple(w.shape[:-2])
     dev = w.device
     k, n = w.shape[-2:]
     n_members = math.prod(stack)
+    keys = prng.split(key.to(dev), n_members)
     w_flat = w.reshape(n_members, k, n)
     lo = torch.broadcast_to(w_min.float(), stack).reshape(n_members)
     hi = torch.broadcast_to(w_max.float(), stack).reshape(n_members)
@@ -299,16 +374,16 @@ def program_weight(
     w_scale = torch.empty_like(gt_sum)
     out_scale = torch.empty_like(gt_sum)
     w_eff = full()
-    for i, seed in enumerate(seeds):
-        st = _program_2d(w_flat[i], lo[i], hi[i], cfg, seed)
+    for i in range(n_members):
+        st = _program_2d(keys[i], w_flat[i], lo[i], hi[i], cfg)
         for name in ("g_pos", "g_neg", "q_pos", "q_neg"):
             state[name][i] = st[name]
         gt_sum[i], w_scale[i] = st["gt_sum"], st["w_scale"]
-        w_eff[i], out_scale[i] = _drift_read_2d(st, t_seconds, cfg, seed)
-    state = {key: v.reshape(stack + (k, n)) for key, v in state.items()}
+        w_eff[i], out_scale[i] = _drift_read_2d(st, t_seconds, cfg)
+    state = {key_: v.reshape(stack + (k, n)) for key_, v in state.items()}
     state["gt_sum"] = gt_sum.reshape(stack)
     state["w_scale"] = w_scale.reshape(stack)
-    state["seed"] = torch.tensor(seeds, dtype=torch.int64, device=dev).reshape(stack)
+    state["key"] = keys.reshape(stack + (2,))
     return w_eff.reshape(stack + (k, n)), out_scale.reshape(stack), state
 
 
@@ -345,17 +420,125 @@ def _walk(tree: Any, fn: Callable[[str, dict], dict], path: str = "") -> Any:
     return tree
 
 
+# ---------------------------------------------------------------------------
+# Drift lifecycle: schedules of chip ages and the aging entry point
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DriftSchedule:
+    """A monotone sequence of chip ages (seconds) to serve a program at."""
+
+    times: tuple[float, ...]
+
+    def __post_init__(self):
+        ts = tuple(float(t) for t in self.times)
+        if not ts:
+            raise ValueError("DriftSchedule needs at least one age")
+        if not all(math.isfinite(t) for t in ts):
+            raise ValueError(f"DriftSchedule ages must be finite: {ts}")
+        if any(b <= a for a, b in zip(ts, ts[1:])):
+            raise ValueError(f"DriftSchedule ages must be strictly increasing: {ts}")
+        if ts[0] < pcm_lib.T_C:
+            raise ValueError(
+                f"DriftSchedule ages must be >= t_c = {pcm_lib.T_C}s (the "
+                f"drift law's programming reference age): {ts}"
+            )
+        object.__setattr__(self, "times", ts)
+
+    def __iter__(self):
+        return iter(self.times)
+
+    def __len__(self) -> int:
+        return len(self.times)
+
+    @property
+    def labels(self) -> tuple[str, ...]:
+        return tuple(pcm_lib.format_age(t) for t in self.times)
+
+    @classmethod
+    def fig7(cls) -> "DriftSchedule":
+        """The paper's Fig. 7 ages: 25s, 1h, 1d, 1mo, 1y."""
+        return cls(tuple(pcm_lib.FIG7_TIMES.values()))
+
+    @classmethod
+    def log_spaced(cls, t_start: float, t_end: float, n: int) -> "DriftSchedule":
+        """``n`` log-spaced ages in [max(t_start, t_c), t_end]."""
+        return cls(pcm_lib.log_spaced_times(t_start, t_end, n))
+
+    @classmethod
+    def parse(cls, text: str) -> "DriftSchedule":
+        """Parse a CLI schedule: 'fig7' or a comma list of seconds."""
+        text = text.strip()
+        if text.lower() == "fig7":
+            return cls.fig7()
+        try:
+            times = tuple(float(x) for x in text.split(",") if x.strip())
+        except ValueError as e:
+            raise ValueError(
+                f"bad drift schedule {text!r}: want 'fig7' or a comma "
+                "list of seconds, e.g. '25,3600,86400'"
+            ) from e
+        return cls(times)
+
+
+def plan_bit_overrides(program: "CiMProgram") -> dict[str, int]:
+    """The per-layer ``b_adc_overrides`` a program was compiled with, read
+    back from its plans (a refresh reprograms the same bitwidths). As in the
+    reference, a parent path whose three w1/w3/w2 children share a bitwidth
+    is added too (an expert bank's own pattern; harmless for a dense FFN)."""
+    default = program.cfg.b_adc
+    out = {p: plan.spec.b_adc for p, plan in program.plans.items()
+           if plan.spec.b_adc != default}
+    families = ("w1", "w3", "w2")
+    for p, bits in list(out.items()):
+        head, _, fam = p.rpartition("/")
+        if head and fam in families and head not in program.plans:
+            if all(out.get(f"{head}/{f}") == bits for f in families):
+                out[head] = bits
+    return out
+
+
+def device_age(t_wall: float, refresh_wall: Optional[float]) -> float:
+    """Device age of a chip at wall (deployment) age ``t_wall``: a chip last
+    rewritten at wall age ``refresh_wall`` restarted its drift clock then
+    (floored at t_c); never refreshed, it is ``t_wall`` old."""
+    if refresh_wall is None:
+        return float(t_wall)
+    return max(float(t_wall) - float(refresh_wall), pcm_lib.T_C)
+
+
+def age_program(program: "CiMProgram", t_seconds: float) -> "CiMProgram":
+    """Advance a programmed chip to age ``t_seconds`` -- never reprograms.
+
+    Re-evaluates the same devices (:meth:`CiMProgram.drift_to`) and appends
+    the age to ``age_history``; raises if aging recorded a programming event.
+    """
+    before = program_event_count()
+    aged = program.drift_to(t_seconds)
+    after = program_event_count()
+    if after != before:
+        raise RuntimeError(
+            f"age_program reprogrammed the chip ({after - before} "
+            "programming events during drift_to) -- drift must only "
+            "re-evaluate the frozen devices"
+        )
+    return dataclasses.replace(aged, age_history=program.age_history + (float(t_seconds),))
+
+
 @dataclasses.dataclass
 class CiMProgram:
     """A compiled analog deployment: programmed params + static plans.
 
     ``params`` mirror the source tree with every analog layer's weights
-    replaced by PCM effective weights plus an ``out_scale_buf`` GDC scalar;
-    they drop into ``models.lm.lm_forward`` with ``cfg`` (mode
+    replaced by PCM effective weights plus an ``out_scale_buf`` GDC scalar
+    (and a ``read_buf`` when compiled with ``resample_read_noise``); they
+    drop into ``models.lm.lm_forward`` with ``cfg`` (mode
     ``pcm_programmed``). ``state`` holds the frozen programming state per
-    layer path. ``mapping`` is a loaded artifact's physical-array mapping,
-    kept as its raw dict until ``core/crossbar.py`` is ported. Aging a
-    program (``drift_to``) comes with the drift slice.
+    layer path, with each member's threefry key, so :meth:`drift_to`
+    re-evaluates the same devices. ``mapping`` is a loaded artifact's
+    physical-array mapping, kept as its raw dict until ``core/crossbar.py``
+    is ported.
     """
 
     params: Any
@@ -371,13 +554,33 @@ class CiMProgram:
     def n_layers(self) -> int:
         return len(self.plans)
 
+    def drift_to(self, t_seconds: float) -> "CiMProgram":
+        """Same programmed conductances, re-evaluated at ``t_seconds``: only
+        drift and read noise change, never the programming noise."""
+        pcm_cfg = self.cfg.pcm
+
+        def reprogram(path: str, node: dict) -> dict:
+            st = self.state[path]
+            new = dict(node)
+            w_eff, gdc = drift_state(st, t_seconds, pcm_cfg)
+            new["w"] = w_eff.to(node["w"].dtype)
+            new["out_scale_buf"] = gdc
+            if "read_buf" in node:
+                new["read_buf"] = read_buffers(st, t_seconds, pcm_cfg)
+            return new
+
+        return dataclasses.replace(
+            self, params=_walk(self.params, reprogram), t_seconds=float(t_seconds)
+        )
+
 
 def compile_program(
     params: Any,
     cfg: Any,
-    generator: torch.Generator,
+    key: Tensor,
     *,
     t_seconds: Optional[float] = None,
+    transforms: Optional[dict] = None,
     with_mapping: bool = False,
     shardings: Any = None,
     b_adc_overrides: Optional[BitOverrides] = None,
@@ -387,36 +590,39 @@ def compile_program(
     """Program phase: walk ``params`` once and build a :class:`CiMProgram`.
 
     ``cfg`` is an AnalogConfig (its mode is ignored; the program's cfg is
-    the same config in ``pcm_programmed`` mode). ``generator`` draws one
-    seed per programmed layer member; it and ``params`` live on ``device``.
-    ``b_adc_overrides`` maps fnmatch patterns over '/'-joined layer paths to
-    per-layer ADC bits, recorded as shape-encoded ``b_adc_buf`` leaves.
+    the same config in ``pcm_programmed`` mode). ``key`` is a threefry key
+    (``prng.PRNGKey``): layer ``n`` of the walk programs from
+    ``fold_in(key, n)``, as in the reference, so the same key gives the
+    reference's chip. ``params`` live on ``device``. ``b_adc_overrides``
+    maps fnmatch patterns over '/'-joined layer paths to per-layer ADC bits,
+    recorded as shape-encoded ``b_adc_buf`` leaves. With
+    ``cfg.resample_read_noise`` every layer also carries its ``read_buf``.
     """
     dev = resolve_device(device)
+    if transforms:
+        raise NotImplementedError(
+            "transforms flatten conv kernels to crossbar blocks; they come "
+            "with the paper's CNN path (queue A item 10)"
+        )
     if with_mapping:
         raise NotImplementedError(
-            "with_mapping needs core/crossbar.py, which a later slice ports"
+            "with_mapping needs core/crossbar.py, which the CNN-path slice "
+            "ports (queue A item 10)"
         )
     if shardings is not None:
         raise NotImplementedError(
-            "sharded programming is the distribution slice's work; this "
-            "slice programs one unsharded chip"
-        )
-    if getattr(cfg, "resample_read_noise", False):
-        raise NotImplementedError(
-            "resample_read_noise programs read buffers; it comes with the "
-            "RNG-bridge slice"
-        )
-    if torch.device(generator.device).type != dev.type:
-        raise ValueError(
-            f"generator is on {generator.device}, compile_program on {dev}"
+            "sharded programming is the distribution slice's work (queue A "
+            "item 13); this slice programs one unsharded chip"
         )
     t = float(cfg.t_seconds if t_seconds is None else t_seconds)
     overrides = normalize_b_adc_overrides(b_adc_overrides)
     if overrides:
         quant_lib.validate_b_adc(cfg.b_adc, "cfg.b_adc (with overrides)")
+    want_read_buf = bool(getattr(cfg, "resample_read_noise", False))
+    key = key.to(dev)
     state: dict[str, Any] = {}
     plans: dict[str, ExecutionPlan] = {}
+    counter = [0]
 
     def program_node(path: str, node: dict) -> dict:
         w = node["w"]
@@ -427,22 +633,20 @@ def compile_program(
                 f"layer '{path}': weight shape {tuple(w.shape)} has more than "
                 "one stack dim"
             )
+        counter[0] += 1
         bits = resolve_b_adc(overrides, path, cfg.b_adc)
         stack = tuple(w.shape[:-2])
-        n_members = math.prod(stack)
-        seeds = torch.randint(
-            0, _SEED_MOD - 1, (n_members,), generator=generator,
-            dtype=torch.int64, device=generator.device,
-        ).tolist()
         buf = node["w_clip_buf"]
         w_eff, gdc, st = program_weight(
-            w, buf[..., 0], buf[..., 1], t, cfg.pcm, seeds
+            prng.fold_in(key, counter[0]), w, buf[..., 0], buf[..., 1], t, cfg.pcm
         )
         new = dict(node)
         new["w"] = w_eff.to(w.dtype)
         new["out_scale_buf"] = gdc
         if bits != cfg.b_adc:
             new["b_adc_buf"] = b_adc_buf(stack, bits, dev)
+        if want_read_buf:
+            new["read_buf"] = read_buffers(st, t, cfg.pcm)
         state[path] = st
         plans[path] = plan_for(cfg, int(w.shape[-2]), int(w.shape[-1]), b_adc=bits)
         return new

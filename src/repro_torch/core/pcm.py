@@ -1,9 +1,11 @@
 """Calibrated PCM statistical model (paper Sec. 6.1), port of ``repro.core.pcm``.
 
-The deterministic half (conductance mapping, noise sigmas, drift law, read-
-noise scale, ``det_sum``) computes what the reference computes; ``det_sum``
-is bitwise. Noise draws take an explicit ``torch.Generator``: they follow
-the reference's distributions but not its threefry bits.
+Bitwise the reference on the CPU: noise draws take a threefry key and draw
+through the RNG bridge (``repro_torch.prng``), the drift law and the read-
+noise coefficient use the bridge's ``powf``, its ``log`` and correctly
+rounded ``sqrt``, and every multiply-add the reference's compiled code
+fuses is one exact FMA here (``prng.fma``). ``det_sum`` sums on a fixed-
+point grid, so it is the same bits under any reduction order.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ import dataclasses
 import math
 
 import torch
+
+from repro_torch import prng
 
 Tensor = torch.Tensor
 
@@ -82,51 +86,89 @@ def weights_to_conductances(w: Tensor) -> tuple[Tensor, Tensor, Tensor]:
 
 def programming_noise_sigma(g_frac: Tensor, g_max: float = G_MAX_US) -> Tensor:
     """sigma_P in fraction-of-G_max units for target fraction g_frac."""
-    sigma_us = (-1.1731 * g_frac**2 + 1.9650 * g_frac + 0.2635).clamp(min=0.0)
-    return sigma_us / g_max
+    g = g_frac.float()
+    quad = prng.fma(torch.full_like(g, prng._f32(1.9650)), g, (g * g) * prng._f32(-1.1731))
+    sigma_us = (quad + prng._f32(0.2635)).clamp(min=0.0)
+    # the reference's compiler divides by a constant as a multiply by its
+    # f32 reciprocal
+    return sigma_us * _recip(g_max)
 
 
-def _normal(gen: torch.Generator, like: Tensor) -> Tensor:
-    return torch.randn(
-        like.shape, generator=gen, dtype=torch.float32, device=like.device
-    )
-
-
-def program(
-    gen: torch.Generator, g_target: Tensor, cfg: PCMConfig = PCMConfig()
-) -> Tensor:
+def program(key: Tensor, g_target: Tensor, cfg: PCMConfig = PCMConfig()) -> Tensor:
     """Apply programming (write) noise to target conductance fractions."""
     if not cfg.programming_noise:
         return g_target
     sigma = programming_noise_sigma(g_target, cfg.g_max)
-    g = g_target + sigma * _normal(gen, g_target)
+    g = prng.fma(sigma, prng.normal(key, g_target.shape), g_target)
     return g.clamp(0.0, 1.2)
 
 
-def sample_drift_nu(
-    gen: torch.Generator, like: Tensor, cfg: PCMConfig = PCMConfig()
-) -> Tensor:
+def sample_drift_nu(key: Tensor, shape, cfg: PCMConfig = PCMConfig()) -> Tensor:
     """Per-device drift exponent nu ~ N(mean, std), truncated at 0."""
-    nu = cfg.drift_nu_mean + cfg.drift_nu_std * _normal(gen, like)
+    # std * (e * sqrt2) compiles to e * (std * sqrt2), one FMA with the mean
+    e = prng.normal_erf_inv(key, shape)
+    scale = prng._f32(cfg.drift_nu_std) * torch.tensor(prng.SQRT2, device=e.device)
+    nu = prng.fma(e, scale.expand(e.shape), cfg.drift_nu_mean)
     return nu.clamp(min=0.0)
+
+
+def _recip(c: float) -> float:
+    """The f32 reciprocal of the f32 constant ``c``."""
+    return float(1.0 / torch.tensor(c, dtype=torch.float32))
+
+
+def _age(t_seconds, device) -> Tensor:
+    return torch.as_tensor(t_seconds, dtype=torch.float32, device=device)
 
 
 def drift_factor(nu: Tensor, t_seconds) -> Tensor:
     """Multiplicative drift law (t/t_c)^-nu, defined for t >= t_c."""
-    t = torch.as_tensor(t_seconds, dtype=torch.float32, device=nu.device)
+    t = _age(t_seconds, nu.device)
     t = torch.maximum(t, torch.full_like(t, T_C))
-    return (t / T_C) ** (-nu)
+    return prng.powf(t * _recip(T_C), -nu)
+
+
+def drift(key: Tensor, g_prog: Tensor, t_seconds, cfg: PCMConfig = PCMConfig()) -> Tensor:
+    """Conductance drift G_D = G_P (t/t_c)^-nu with per-device nu."""
+    if not cfg.drift:
+        return g_prog
+    nu = sample_drift_nu(key, g_prog.shape, cfg)
+    return g_prog * drift_factor(nu, t_seconds)
 
 
 def read_noise_q(g_target: Tensor) -> Tensor:
     """Device 1/f noise coefficient Q(G_T) = min(0.0088/g^0.65, 0.2)."""
-    return (0.0088 / g_target.clamp(min=1e-9) ** 0.65).clamp(max=0.2)
+    g = g_target.float().clamp(min=prng._f32(1e-9))
+    # the reference's compiler rewrites a / x**c as a * x**-c
+    q = prng._f32(0.0088) * prng.powf(g, torch.tensor(-0.65, device=g.device))
+    return q.clamp(max=0.2)
 
 
 def read_noise_scale(t_seconds, device=None) -> Tensor:
     """Time growth of the 1/f read noise: sqrt(log((t + t_r)/t_r))."""
-    t = torch.as_tensor(t_seconds, dtype=torch.float32, device=device)
-    return torch.sqrt(torch.log((t + T_READ) / T_READ))
+    t = _age(t_seconds, device)
+    t_r = prng._f32(T_READ)
+    return prng.sqrt(prng.log((t + t_r) * _recip(T_READ)))
+
+
+def read_noise_sigma(g_drifted: Tensor, g_target: Tensor, t_seconds) -> Tensor:
+    """Instantaneous 1/f read-noise sigma at time t (fractions of G_max)."""
+    return g_drifted * read_noise_q(g_target) * read_noise_scale(t_seconds, g_drifted.device)
+
+
+def read(key: Tensor, g_drifted: Tensor, g_target: Tensor, t_seconds,
+         cfg: PCMConfig = PCMConfig()) -> Tensor:
+    """Sample effective conductances at MVM time (adds 1/f read noise)."""
+    if not cfg.read_noise:
+        return g_drifted
+    sigma = read_noise_sigma(g_drifted, g_target, t_seconds)
+    g = prng.fma(sigma, prng.normal(key, g_drifted.shape), g_drifted)
+    return g.clamp(min=0.0)
+
+
+def gdc_scale(g_target: Tensor, g_now: Tensor) -> Tensor:
+    """Global drift compensation factor: sum(G_T)/sum(G_now) (one scalar)."""
+    return det_sum(g_target) / (det_sum(g_now) + prng._f32(1e-12))
 
 
 DET_SUM_SCALE = float(1 << 20)  # fixed-point grid for deterministic sums
@@ -147,3 +189,23 @@ def det_sum(g: Tensor) -> Tensor:
         limb_sum = ((v >> shift) & 0xF).sum()
         total = total + limb_sum.to(torch.float32) * float(2**shift)
     return total / DET_SUM_SCALE
+
+
+def simulate_weights(key: Tensor, w: Tensor, t_seconds, cfg: PCMConfig = PCMConfig()):
+    """Full device chain: W -> (program -> drift -> read) -> (w_eff, gdc).
+
+    ``gdc`` is the layer's global-drift-compensation scalar, applied to the
+    MVM output digitally.
+    """
+    t = _age(t_seconds, w.device)
+    g_pos_t, g_neg_t, w_scale = weights_to_conductances(w)
+    k_pp, k_pn, k_dp, k_dn, k_rp, k_rn = prng.split(key, 6)
+    g_pos = drift(k_dp, program(k_pp, g_pos_t, cfg), t, cfg)
+    g_neg = drift(k_dn, program(k_pn, g_neg_t, cfg), t, cfg)
+    if cfg.gdc:
+        scale = gdc_scale(g_pos_t + g_neg_t, g_pos + g_neg)
+    else:
+        scale = torch.ones((), dtype=torch.float32, device=w.device)
+    g_pos = read(k_rp, g_pos, g_pos_t, t, cfg)
+    g_neg = read(k_rn, g_neg, g_neg_t, t, cfg)
+    return ((g_pos - g_neg) * w_scale).to(w.dtype), scale

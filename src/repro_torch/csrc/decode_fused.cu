@@ -118,6 +118,7 @@
 
 #include "analog_mvm_core.cuh"
 #include "analog_mvm_tc_core.cuh"
+#include "decode_rows_core.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -144,7 +145,7 @@ constexpr int kSlotBytes = kSub * kStrip * 2;    // one stage: a sub-chunk of K,
 constexpr int kXPiece = 1024;                // x columns staged at once
 constexpr int kXRow = kXPiece * 2 + 16;      // bytes of a staged x row, padded
 constexpr int kMaxStages = 16;
-constexpr int kMaxPass = 2;  // attention: query heads per pass (each one a register accumulator)
+using drows::kMaxPass;  // attention: query heads per pass
 
 template <typename T>
 struct Args {
@@ -295,18 +296,6 @@ __device__ __forceinline__ float combine(const Args<T>& a, int region, int p,
       if (t0 + u < tiles) y = t0 + u == 0 ? v[u] : __fadd_rn(y, v[u]);
   }
   return Traits<T>::round_trip(__fmul_rn(y, scalars(a, l, p)[2]));
-}
-
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float t = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) t = __fadd_rn(t, scratch[w]);
-  __syncthreads();
-  return t;
 }
 
 // ---------------------------------------------------------------- work items
@@ -549,7 +538,6 @@ template <typename T>
 __device__ void row_phase(const Args<T>& a, float* scratch, float* xv, int l, int from,
                           const float* scale, int n_proj, const int* projs,
                           int dac_layer) {
-  constexpr int kBatch = 2;  // elements a thread loads before it uses them
   float rq[3], sq[3];
   for (int j = 0; j < n_proj; ++j) dac_range(a, dac_layer, projs[j], rq[j], sq[j]);
   const int width = (a.D + a.row_slices - 1) / a.row_slices;
@@ -557,80 +545,28 @@ __device__ void row_phase(const Args<T>& a, float* scratch, float* xv, int l, in
     const int b = it / a.row_slices;
     const int lo = it % a.row_slices * width, hi = min(lo + width, a.D);
     const size_t row = static_cast<size_t>(b) * a.D;
-    float ss = 0.f;
-    #pragma unroll 1
-    for (int i0 = threadIdx.x; i0 < a.D; i0 += kThreads * kBatch) {
-      float v[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int i = i0 + u * kThreads;
-        v[u] = 0.f;
-        if (i >= a.D) continue;
-        if (from == 0) {
-          v[u] = Traits<T>::to_f(a.h0[row + i]);
-        } else if (from == 1) {
-          const float y = combine(a, 0, W2, l - 1, a.D, b, i);
-          v[u] = Traits<T>::round_trip(__fadd_rn(Traits<T>::to_f(a.x1[row + i]), y));
-        } else {
-          const float y = combine(a, 0, WO, l, a.D, b, i);
-          v[u] = Traits<T>::round_trip(__fadd_rn(Traits<T>::to_f(a.x[row + i]), y));
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int i = i0 + u * kThreads;
-        if (i >= a.D) continue;
-        xv[i] = v[u];
-        ss = fmaf(v[u], v[u], ss);
-      }
-    }
-    const float total = block_sum(ss, scratch);  // its barrier also publishes xv
-    const float rinv = rsqrtf(__fadd_rn(__fdiv_rn(total, static_cast<float>(a.D)), a.eps));
+    // the norm's statistics in decode_rows_core.cuh's order (its barrier
+    // also publishes xv)
+    const float rinv = drows::norm_stats(
+        [&](int i) {
+          if (from == 0) return Traits<T>::to_f(a.h0[row + i]);
+          const float y = from == 1 ? combine(a, 0, W2, l - 1, a.D, b, i)
+                                    : combine(a, 0, WO, l, a.D, b, i);
+          const T* res = from == 1 ? a.x1 : a.x;
+          return Traits<T>::round_trip(__fadd_rn(Traits<T>::to_f(res[row + i]), y));
+        },
+        xv, a.D, a.eps, scratch);
     T* res = from == 2 ? a.x1 : a.x;
     #pragma unroll 1
     for (int i = lo + threadIdx.x; i < hi; i += kThreads) {
       res[row + i] = Traits<T>::from_f(xv[i]);
-      const float h = Traits<T>::round_trip(__fmul_rn(__fmul_rn(xv[i], rinv), scale[i]));
+      const float h = drows::normed<T>(xv[i], rinv, scale[i]);
       for (int j = 0; j < n_proj; ++j)
         a.xq[static_cast<size_t>(j) * a.xq_stride + row + i] =
             Traits<T>::from_f(amvm::quant(h, rq[j], sq[j]));
     }
     __syncthreads();  // xv is rewritten by the next item
   }
-}
-
-// rotate `rows` head rows in place: [x1 c - x2 s, x2 c + x1 s], as models.rope
-template <typename T>
-__device__ __forceinline__ void rope_rows(const Args<T>& a, float* v, int rows, int pos) {
-  const int half = a.HD / 2;
-  for (int i = threadIdx.x; i < rows * half; i += kThreads) {
-    float* r = v + i / half * a.HD;
-    const int d = i % half;
-    const float ang = __fmul_rn(static_cast<float>(pos), a.freqs[d]);
-    const float c = cosf(ang), s = sinf(ang);
-    const float x1 = r[d], x2 = r[d + half];
-    r[d] = Traits<T>::round_trip(__fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, s)));
-    r[d + half] = Traits<T>::round_trip(__fadd_rn(__fmul_rn(x2, c), __fmul_rn(x1, s)));
-  }
-}
-
-// elements d0 .. d0 + V - 1 of a cache row (zeros past HD): one 16-byte
-// load when `vec` (the row's chunks are aligned), the new row from shared
-// memory (`fresh`)
-template <typename T>
-__device__ __forceinline__ void load_row(const T* row, int d0, int HD, bool vec, bool fresh,
-                                         const float* fresh_row, float (&out)[Traits<T>::kVec]) {
-  constexpr int V = Traits<T>::kVec;
-  if (vec && !fresh) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(row + d0);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int v = 0; v < V; ++v) out[v] = Traits<T>::to_f(e[v]);
-    return;
-  }
-#pragma unroll
-  for (int v = 0; v < V; ++v)
-    out[v] = d0 + v >= HD ? 0.f : fresh ? fresh_row[d0 + v] : Traits<T>::to_f(row[d0 + v]);
 }
 
 // Per (slot, KV head, pass of heads_per_pass query heads): the KV head's
@@ -643,13 +579,11 @@ __device__ void attn_phase(const Args<T>& a, float (*vec)[kMaxHd], float* work, 
   const int G = a.H / a.KV, HD = a.HD, hp = a.heads_per_pass;
   const int qn = a.H * HD, kvn = a.KV * HD;
   const bool vec_kv = HD % V == 0 && kvn % V == 0;  // 16-byte K row loads
-  const int chunks = (HD + V - 1) / V;  // V-wide chunks of a head row
   float* qs = work;
   float* sc = qs + hp * HD;
   float* red = sc + hp * a.S;  // AV sums per position group: <= kThreads x V
   float* ks = vec[0];
   float* vs = vec[1];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float r_o, step_o;
   dac_range(a, l, WO, r_o, step_o);
   const int passes = (G + hp - 1) / hp;
@@ -671,8 +605,8 @@ __device__ void attn_phase(const Args<T>& a, float (*vec)[kMaxHd], float* work, 
         qs[i - 2 * HD] = combine(a, 0, WQ, l, qn, b, q0 + i - 2 * HD);
     }
     __syncthreads();
-    rope_rows(a, ks, 1, len);
-    rope_rows(a, qs, nh, len);
+    drows::rope_rows<T>(ks, 1, len, HD, a.freqs);
+    drows::rope_rows<T>(qs, nh, len, HD, a.freqs);
     __syncthreads();
     const size_t base = ((static_cast<size_t>(l) * a.B + b) * a.S) * kvn + kvh * HD;
     if (h0 == 0) {  // the first pass's item writes the KV head's new row
@@ -681,87 +615,14 @@ __device__ void attn_phase(const Args<T>& a, float (*vec)[kMaxHd], float* work, 
         a.vc[base + static_cast<size_t>(idx) * kvn + d] = Traits<T>::from_f(vs[d]);
       }
     }
-    {
-      // scores: a thread per position, every head of the pass from one read
-      // of its K row (the new row from shared memory)
-      #pragma unroll 1
-      for (int pos = threadIdx.x; pos < nv; pos += kThreads) {
-        const T* krow = a.kc + base + static_cast<size_t>(pos) * kvn;
-        float acc[kMaxPass];
-#pragma unroll
-        for (int hh = 0; hh < kMaxPass; ++hh) acc[hh] = 0.f;
-        for (int d0 = 0; d0 < HD; d0 += V) {
-          float kv[V];
-          load_row(krow, d0, HD, vec_kv, pos == idx, ks, kv);
-#pragma unroll
-          for (int v = 0; v < V; ++v) {
-            if (d0 + v >= HD) break;
-#pragma unroll
-            for (int hh = 0; hh < kMaxPass; ++hh)
-              if (hh < nh) acc[hh] = fmaf(qs[hh * HD + d0 + v], kv[v], acc[hh]);
-          }
-        }
-#pragma unroll
-        for (int hh = 0; hh < kMaxPass; ++hh)
-          if (hh < nh) sc[hh * a.S + pos] = __fmul_rn(acc[hh], a.attn_scale);
-      }
-      __syncthreads();
-      // softmax, a warp per head; p rounds to T
-      for (int hh = warp; hh < nh; hh += kWarps) {
-        float* s = sc + hh * a.S;
-        float m = __int_as_float(0xff800000);  // -inf
-        #pragma unroll 1
-        for (int pos = lane; pos < nv; pos += 32) m = fmaxf(m, s[pos]);
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-        float sum = 0.f;
-        #pragma unroll 1
-        for (int pos = lane; pos < nv; pos += 32) {
-          const float e = expf(__fsub_rn(s[pos], m));
-          s[pos] = e;
-          sum = __fadd_rn(sum, e);
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-        for (int pos = lane; pos < nv; pos += 32)
-          s[pos] = Traits<T>::round_trip(__fdiv_rn(s[pos], sum));
-      }
-      __syncthreads();
-      // AV: a thread per (position group, head, V-wide chunk of dims), each
-      // group's positions in order; then the groups summed in order
-      const int units = nh * chunks, per = min(units, kThreads), groups = kThreads / per;
-      const int g = threadIdx.x / per;
-      for (int u = threadIdx.x % per; g < groups && u < units; u += per) {
-        const float* p = sc + u / chunks * a.S;
-        const int d0 = u % chunks * V;
-        float acc[V];
-#pragma unroll
-        for (int v = 0; v < V; ++v) acc[v] = 0.f;
-#pragma unroll 2
-        for (int pos = g; pos < nv; pos += groups) {
-          float vv[V];
-          load_row(a.vc + base + static_cast<size_t>(pos) * kvn, d0, HD, vec_kv, pos == idx,
-                   vs, vv);
-          const float pp = p[pos];
-#pragma unroll
-          for (int v = 0; v < V; ++v) acc[v] = fmaf(pp, vv[v], acc[v]);
-        }
-        float* r = red + (static_cast<size_t>(g) * nh + u / chunks) * HD + d0;
-#pragma unroll
-        for (int v = 0; v < V; ++v)
-          if (d0 + v < HD) r[v] = acc[v];
-      }
-      __syncthreads();
-      for (int i = threadIdx.x; i < nh * HD; i += kThreads) {
-        float o = red[i];
-        #pragma unroll 1
-        for (int gi = 1; gi < groups; ++gi) o = __fadd_rn(o, red[gi * nh * HD + i]);
-        o = Traits<T>::round_trip(o);
-        a.xq[static_cast<size_t>(b) * qn + q0 + i] = Traits<T>::from_f(amvm::quant(o, r_o, step_o));
-      }
-      __syncthreads();  // q rows, scores and sums are reused by the next pass
-    }
+    // scores, softmax and the AV product (decode_rows_core.cuh), then the
+    // DAC of wo; attend's closing barrier frees the q rows, scores and sums
+    // for the next pass
+    drows::attend<T>(a.kc + base, a.vc + base, kvn, HD, a.S, nv, idx, vec_kv, ks, vs, qs, nh,
+                     sc, red, a.attn_scale, [&](int i, float o) {
+                       a.xq[static_cast<size_t>(b) * qn + q0 + i] =
+                           Traits<T>::from_f(amvm::quant(o, r_o, step_o));
+                     });
   }
 }
 
@@ -793,9 +654,7 @@ __device__ void gate_phase(const Args<T>& a, int l) {
     const int b = i / a.F, j = i % a.F;
     const float u = combine(a, 0, W1, l, a.F, b, j);
     const float g = combine(a, 1, W3, l, a.F, b, j);
-    const float s = Traits<T>::round_trip(__fdiv_rn(u, __fadd_rn(1.f, expf(-u))));
-    const float h = Traits<T>::round_trip(__fmul_rn(s, g));
-    a.xq[i] = Traits<T>::from_f(amvm::quant(h, r, step));
+    a.xq[i] = Traits<T>::from_f(amvm::quant(drows::gate<T>(u, g), r, step));
   }
 }
 

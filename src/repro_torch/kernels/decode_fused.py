@@ -15,7 +15,9 @@ version of the same function.
   nothing else.
 * :class:`FusedDecoder` holds what one engine reuses every step: the weight
   stacks, the scalar table, the norm scales, the RoPE frequencies and the
-  kernel's workspace, built once; it also owns the stacked cache's
+  kernel's workspace; :meth:`FusedDecoder.set_params` follows a chip that
+  was aged or refreshed, and a program that resamples read noise draws its
+  stacks afresh every step. It also owns the stacked cache's
   lifecycle (:meth:`FusedDecoder.new_cache`, ``write_slot``,
   ``reset_slot``), so a serving engine holds one decoder object.
 * :func:`mvm_items` chooses each projection's MVM work item (the
@@ -37,9 +39,11 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch import prng
 from repro_torch.core import engine as engine_lib
 from repro_torch.kernels import build
 from repro_torch.kernels.analog_mvm import SUB_ROWS, tc_shape_ok
+from repro_torch.kernels.decode_rows import MAX_PASS, PASS_SMEM, attn_heads, rope_freqs, sm_count
 from repro_torch.kernels.ref import decode_fused_ref
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import ModelConfig, embedding_apply
@@ -76,11 +80,6 @@ X_PIECE = 1024
 X_ROW_BYTES = X_PIECE * 2 + 16
 #: the CUDA-core item's shared memory (``amvm::TileSmem``)
 CC_SMEM = (8 * 1024 + 8 * 8 * 32) * 4
-#: query heads of one KV head per attention pass at most (``kMaxPass``: a
-#: register accumulator each; more unrolled code ran slower), and the
-#: shared memory a pass's q rows and scores aim to stay within
-MAX_PASS = 2
-PASS_SMEM = 32 * 1024
 #: threads of a block (``amvm::kThreads``)
 THREADS = 256
 #: an H100 SM's shared memory, the per-block reservation, and an upper
@@ -236,13 +235,6 @@ def workspace_strides(plans, n_slots: int, cfg: ModelConfig) -> tuple:
     return n_slots * max(cfg.d_model, cfg.d_ff), part
 
 
-def attn_heads(most: int, n_slots: int, n_heads: int, grid: int) -> int:
-    """Query heads per attention item: as few as give every block of the
-    grid an item (the items are (slot, KV head, pass of heads)), at most
-    what the work area holds."""
-    return min(most, max(1, -(-n_slots * n_heads // grid)))
-
-
 def row_slices(grid: int, n_slots: int, d_model: int) -> int:
     """Blocks per slot in a row phase: as many as the grid holds, at most
     one per 256 columns (one column a thread)."""
@@ -298,23 +290,42 @@ def reset_fused_slot(fused: KVCache, slot: int) -> KVCache:
 
 
 def _resampled_stacks(params, analog_cfg, rng):
-    """The seven effective weight stacks and the lm_head weights.
+    """The seven effective weight stacks and the lm_head weights, with a
+    fresh read-noise draw when the program resamples and ``rng`` is given.
 
-    Re-drawing read noise per step (``resample_read_noise`` served with an
-    RNG) needs the threefry bridge, which is not ported: it raises, as the
-    per-layer ``core.analog`` does.
+    The keys mirror ``AnalogCtx.next_key`` of the per-layer path: the
+    counter advances once per projection carrying a ``read_buf`` (wq, wk,
+    wv, wo, w1, w3, w2 under the group key ``fold_in(rng, g)``); the
+    lm_head is counter 1 under ``rng`` itself.
     """
-    if analog_cfg.resample_read_noise and rng is not None:
-        raise NotImplementedError(
-            "per-MVM read-noise resampling (resample_read_noise=True) comes "
-            "with the RNG-bridge slice"
-        )
     block = params.blocks[0]
+    head = params.lm_head
+    resample = analog_cfg.resample_read_noise and rng is not None
+    if resample:
+        rng = rng.to(params.gain_s.device)
+    n_groups = int(block["attn"]["wq"]["w"].shape[0])
+    group_keys = [prng.fold_in(rng, g) for g in range(n_groups)] if resample else []
     stacks = []
+    counter = 0
     for path in engine_lib.FUSED_PROJS:
         kind, name = path.split("/")
-        stacks.append(block[kind][name]["w"])
-    return stacks, params.lm_head["w"]
+        pp = block[kind][name]
+        if analog_cfg.resample_read_noise and "read_buf" in pp:
+            counter += 1
+        if resample and "read_buf" in pp:
+            stacks.append(torch.stack([
+                engine_lib.resample_read(
+                    prng.fold_in(group_keys[g], counter),
+                    {k: v[g] for k, v in pp["read_buf"].items()})
+                for g in range(n_groups)
+            ]).to(pp["w"].dtype))
+        else:
+            stacks.append(pp["w"])
+    if resample and "read_buf" in head:
+        w_head = engine_lib.resample_read(prng.fold_in(rng, 1), head["read_buf"]).to(head["w"].dtype)
+    else:
+        w_head = head["w"]
+    return stacks, w_head
 
 
 def _scalar_table(params, n_groups: int) -> Tensor:
@@ -348,15 +359,6 @@ def _norm_scales(node: dict, shape: tuple, dev) -> Tensor:
     return scale.float().contiguous()
 
 
-def rope_freqs(hd: int, theta: float, device) -> Tensor:
-    """(hd/2,) f32 RoPE frequencies, computed with ``models.common.rope``'s
-    own ops; the kernel forms each angle as ``float(position) * freq``, as
-    ``rope`` does, and takes its cosine and sine."""
-    half = hd // 2
-    exponent = -torch.arange(0, half, dtype=torch.float32, device=device) / half
-    return torch.pow(torch.full_like(exponent, theta), exponent)
-
-
 class FusedDecoder:
     """One engine's fused decode step: inputs prepared once, then
     :meth:`step` per decode step.
@@ -379,26 +381,42 @@ class FusedDecoder:
         *,
         rng=None,
     ):
-        self.params, self.plan, self.cfg = params, plan, cfg
+        self.plan, self.cfg, self.analog_cfg = plan, cfg, analog_cfg
         self.n_slots, self.s_max = int(n_slots), int(s_max)
-        dev = params.gain_s.device
-        self.device = dev
-        self.stacks, self.w_head = _resampled_stacks(params, analog_cfg, rng)
-        self.stacks = [s.contiguous() for s in self.stacks]
-        self.w_head = self.w_head.contiguous()
-        n_groups = plan.n_groups
-        d = cfg.d_model
+        self.device = params.gain_s.device
+        self.grid = None
+        self.set_params(params, rng)
+        #: each projection's MVM work item on the card (:func:`mvm_items`)
+        self.items = mvm_items(list(plan.proj_plans) + [plan.head_plan],
+                               self.stacks + [self.w_head], cfg.dtype)
+        if self.device.type == "cuda":
+            self._init_kernel()
+
+    def set_params(self, params, rng=None) -> None:
+        """Take the chip's current params (an aged or refreshed chip has new
+        weights and GDC scalars, same shapes): the weight stacks, the
+        lm_head, the scalar table and the norm scales are rebuilt, and so is
+        what the kernel derives from their pointers."""
+        self.params = params
+        self._set_weights(*_resampled_stacks(params, self.analog_cfg, rng))
+        n_groups, d, dev = self.plan.n_groups, self.cfg.d_model, self.device
         block = params.blocks[0]
         self.tab = _scalar_table(params, n_groups)
         self.n1 = _norm_scales(block["norm1"], (n_groups, d), dev)
         self.n2 = _norm_scales(block["norm2"], (n_groups, d), dev)
         self.fin = _norm_scales(params.final_norm, (d,), dev)
-        #: each projection's MVM work item on the card (:func:`mvm_items`)
-        self.items = mvm_items(list(plan.proj_plans) + [plan.head_plan],
-                               self.stacks + [self.w_head], cfg.dtype)
-        self.grid = None
-        if dev.type == "cuda":
-            self._init_kernel()
+
+    def _set_weights(self, stacks, w_head) -> None:
+        self.stacks = [w.contiguous() for w in stacks]
+        self.w_head = w_head.contiguous()
+        if self.grid is not None:
+            self.vec_ok = self._vec_ok()
+
+    def _vec_ok(self) -> list[int]:
+        plans = list(self.plan.proj_plans) + [self.plan.head_plan]
+        vec = 16 // torch.empty((), dtype=self.cfg.dtype).element_size()
+        return [int(p.n % vec == 0 and w.data_ptr() % 16 == 0)
+                for p, w in zip(plans, self.stacks + [self.w_head])]
 
     # -- the kernel's inputs -------------------------------------------------
 
@@ -427,10 +445,7 @@ class FusedDecoder:
         plans = list(plan.proj_plans) + [plan.head_plan]
         self.bits = [p.spec.b_adc for p in plans]
         self.span = spans(plans)
-        ws = self.stacks + [self.w_head]
-        vec = 16 // torch.empty((), dtype=dtype).element_size()
-        self.vec_ok = [int(p.n % vec == 0 and w.data_ptr() % 16 == 0)
-                       for p, w in zip(plans, ws)]
+        self.vec_ok = self._vec_ok()
         self.layout = fused_layout(self.items, cfg, b, self.s_max)
         self.xq_stride, self.part_stride = workspace_strides(plans, b, cfg)
         self.freqs = rope_freqs(cfg.hd, cfg.rope_theta, dev)
@@ -440,7 +455,11 @@ class FusedDecoder:
         self.part = torch.empty((3, self.part_stride), dtype=torch.float32, device=dev)
         self.grid = max_blocks(dtype, dev, self.layout.smem_bytes)
         self.row_slices = row_slices(self.grid, b, d)
-        self.attn_heads = attn_heads(self.layout.heads_per_pass, b, cfg.n_heads, self.grid)
+        # sized by the card's SM count, not this grid: the per-layer decode's
+        # attention kernel (kernels/decode_rows.py) takes the same passes, so
+        # their AV sums agree bit for bit
+        self.attn_heads = attn_heads(self.layout.heads_per_pass, b, cfg.n_heads,
+                                     sm_count(dev))
         self.item_rows = item_table(self.items, plans, b, self.span, plan.n_groups,
                                     self.grid).to(dev)
 
@@ -513,13 +532,16 @@ class FusedDecoder:
 
     # -- one step --------------------------------------------------------------
 
-    def step(self, tok: Tensor, cache: KVCache):
+    def step(self, tok: Tensor, cache: KVCache, rng=None):
         """One decode step -> (logits (B, 1, V), cache with every length + 1).
 
         ``tok``: (B, 1) int. The K/V rows are written into ``cache`` in
         place; the returned cache shares its buffers. The kernel runs on
-        every block the card holds at once.
+        every block the card holds at once. With ``rng`` and a program that
+        resamples read noise, this step's weight stacks are drawn afresh.
         """
+        if rng is not None and self.analog_cfg.resample_read_noise:
+            self._set_weights(*_resampled_stacks(self.params, self.analog_cfg, rng))
         h0 = embedding_apply(self.params.embed, tok.long(), self.cfg.dtype)
         b = h0.shape[0]
         if h0.device.type == "cuda":

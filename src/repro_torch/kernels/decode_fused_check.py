@@ -9,17 +9,23 @@ each MVM phase of each layer (``FusedDecoder._launch(..., phases=n)``),
 reads its workspace -- the residual stream, the DAC-quantized inputs of the
 phase's projections, their quantized tile partials -- and the K/V rows it
 wrote, and recomputes each phase from what the kernel itself had as input,
-with the port's plain ops:
+with the per-layer decode's own ops -- on a card its row kernels
+(``kernels.decode_rows``: norm, RoPE, attention, gate, B2's per-element
+code) and its DAC -- and, since those kernels share B2's device code
+(``csrc/decode_rows_core.cuh``), also with the plain torch ops
+(``rmsnorm_apply``, ``rope``, ``decode_attention``, ``silu * g``):
 
 * ``residual`` (the adds after wo and w2, the embedded tokens at layer 0)
   and ``v_row`` (the written V row): bitwise, the same IEEE operations;
-* ``k_row`` (the written K row, RoPE of the wk output): within two ulps of
-  the activation dtype at the magnitude of the rotated pair, for the
-  device's cos/sin against torch's;
+* ``k_row`` (the written K row, RoPE of the wk output): bitwise;
+  ``k_row_plain``: within two ulps of the activation dtype at the
+  magnitude of the rotated pair of ``models.common.rope`` (the device's
+  cos/sin against torch's);
 * ``dac`` (the norm before wq/wk/wv, w1/w3 and the lm_head, the attention
-  output before wo, the gate before w2): ``tests/test_kernels.py``'s model
-  at one tile -- every value within 1.01 DAC steps plus one ulp, fewer than
-  1% more than half a step off;
+  output before wo, the gate before w2): every DAC code bitwise;
+  ``dac_plain``: against the DAC of the plain ops' values,
+  ``tests/test_kernels.py``'s model at one tile -- every value within 1.01
+  DAC steps plus one ulp, fewer than 1% more than half a step off;
 * ``mvm_<projection>``, for a projection that runs the tensor-core item
   (``FusedDecoder.items``): bitwise B1's decode design
   (``analog_mvm._launch("decode", ...)``, :func:`b1_decode`) on the
@@ -43,6 +49,7 @@ import torch
 
 from repro_torch.core import engine
 from repro_torch.core.quant import dac_quantize, dac_range
+from repro_torch.kernels import decode_rows
 from repro_torch.kernels.decode_fused import PHASES_PER_LAYER, FusedDecoder
 from repro_torch.models.attention import KVCache, decode_attention
 from repro_torch.models.common import embedding_apply, rmsnorm_apply, rope
@@ -134,13 +141,18 @@ class _Phases:
             y = y + pr[i]
         return (y * self.scalars(l, p)[2]).to(self.dtype)
 
-    def dac(self, snap, slot: int, h: Tensor, l: int, p: int) -> dict:
-        """The kernel's DAC codes of projection p against the DAC of h."""
+    def dac(self, snap, slot: int, h: Tensor, l: int, p: int, *, plain=False) -> dict:
+        """The kernel's DAC codes of projection p against the DAC of h:
+        bitwise for the per-layer decode's h, under the ADC model at one
+        tile for the plain ops' h."""
         s, spec = self.scalars(l, p), self.plan(p).spec
         want = dac_quantize(h, s[0], self.gain_s, s[1], spec).to(self.dtype)
+        got, want = self.xq(snap, slot, p), want.reshape(self.b, -1)
+        if not plain:
+            return exact(got, want)
         step = float((dac_range(s[0], self.gain_s, s[1]).abs() + 1e-9)
                      / (2 ** (spec.b_dac - 1) - 1))
-        return adc_model(self.xq(snap, slot, p), want.reshape(self.b, -1), step, 1, self.dtype)
+        return adc_model(got, want, step, 1, self.dtype)
 
     def mvm(self, snap, slot: int, l: int, p: int) -> tuple[dict, Tensor]:
         """Projection p on the kernel's own DAC codes, against its partials:
@@ -180,10 +192,14 @@ def check_phases(dec: FusedDecoder, tok: Tensor, cache: KVCache) -> dict:
     def add(name: str, layer: int, r: dict) -> None:
         readings.setdefault(name, []).append(dict(r, layer=layer))
 
-    def norm_dac(snap, x, scale, l, projs):
-        h = rmsnorm_apply({"scale": scale}, x, cfg.norm_eps)
+    def dacs(snap, h, h_plain, l, projs):
         for slot, p in enumerate(projs):
             add("dac", l, ph.dac(snap, slot, h, l, p))
+            add("dac_plain", l, ph.dac(snap, slot, h_plain, l, p, plain=True))
+
+    def norm_dac(snap, x, scale, l, projs):
+        dacs(snap, decode_rows.norm(x, scale, cfg.norm_eps),
+             rmsnorm_apply({"scale": scale}, x, cfg.norm_eps), l, projs)
 
     def mvms(snap, l, projs):
         outs = []
@@ -202,25 +218,28 @@ def check_phases(dec: FusedDecoder, tok: Tensor, cache: KVCache) -> dict:
         norm_dac(a, a.x, dec.n1[l], l, (WQ, WK, WV))
         q, k, v = mvms(a, l, (WQ, WK, WV))
         s = ph.run(base + 4)  # attention, then the wo MVM
-        k = k.view(b, 1, nkv, hd)
-        k_rot = rope(k, pos, cfg.rope_theta)[:, 0]
-        mag = k[:, 0].float().abs()
+        q_rot, k_rot = decode_rows.rope(q.view(b, 1, nh, hd), k.view(b, 1, nkv, hd), lens,
+                                        cfg.rope_theta)
+        add("k_row", l, exact(s.kc[l][rows, idx], k_rot[:, 0]))
+        k4 = k.view(b, 1, nkv, hd)
+        mag = k4[:, 0].float().abs()
         mag = (mag[..., : hd // 2] + mag[..., hd // 2:]).repeat(1, 1, 2)
-        dk = (s.kc[l][rows, idx].float() - k_rot.float()).abs()
-        add("k_row", l, {"differing": int((dk > 0).sum()), "values": dk.numel(),
-                         "ok": bool((dk <= 2 * ulp(mag, dtype)).all())})
+        dk = (s.kc[l][rows, idx].float() - rope(k4, pos, cfg.rope_theta)[:, 0].float()).abs()
+        add("k_row_plain", l, {"differing": int((dk > 0).sum()), "values": dk.numel(),
+                               "ok": bool((dk <= 2 * ulp(mag, dtype)).all())})
         add("v_row", l, exact(s.vc[l][rows, idx], v.view(b, nkv, hd)))
-        q_rot = rope(q.view(b, 1, nh, hd), pos, cfg.rope_theta)
-        att = decode_attention(q_rot, KVCache(s.kc[l], s.vc[l], lens + 1))
-        add("dac", l, ph.dac(s, 0, att.reshape(b, nh * hd), l, WO))
+        att = decode_rows.attention(q_rot, s.kc[l], s.vc[l], lens + 1)
+        att_plain = decode_attention(rope(q.view(b, 1, nh, hd), pos, cfg.rope_theta),
+                                     KVCache(s.kc[l], s.vc[l], lens + 1))
+        dacs(s, att.reshape(b, nh * hd), att_plain.reshape(b, nh * hd), l, (WO,))
         (y_wo,) = mvms(s, l, (WO,))
         c = ph.run(base + 6)  # norm + DAC, then the w1/w3 MVM
         add("residual", l, exact(c.x1, (a.x.float() + y_wo.float()).to(dtype)))
         norm_dac(c, c.x1, dec.n2[l], l, (W1, W3))
         u, g = mvms(c, l, (W1, W3))
         e = ph.run(base + 8)  # the gate, then the w2 MVM
-        gate = torch.nn.functional.silu(u) * g
-        add("dac", l, ph.dac(e, 0, gate.reshape(b, f), l, W2))
+        dacs(e, decode_rows.gate(u, g).reshape(b, f),
+             (torch.nn.functional.silu(u) * g).reshape(b, f), l, (W2,))
         (y_w2,) = mvms(e, l, (W2,))
         x1 = c.x1
         del a, s, c, e

@@ -13,25 +13,34 @@ Serves the reduced (smoke) config of ``--arch`` through
   scheduler over ``--batch`` slots, all queued at t = 0 or spaced by Poisson
   arrivals at ``--arrival-rate`` requests/s.
 
-``--analog`` programs the PCM chip once (``engine.compile_program``, draws
-from ``--seed``; t = ``--t-hours``, ADC at ``--b-adc`` bits) and serves it;
-``--load-program DIR`` serves a saved cim-program artifact instead (for
-example one written by the reference CLI's ``--save-program``), at its own
-age. ``--fused-decode`` runs every decode step of the chip as one launch of
-the fused kernel. ``--kv-page-size P`` serves the trace over the paged KV
-cache (pools of P-token pages, ``--kv-pages`` of them) with bucketed
-prefill (``--prefill-buckets``) and length-sorted admission; it prints
-``mode=bucketed`` and ``prefill_traces=``, and the same tokens as the run
-without it. Analog serving also reports greedy top-1 agreement and
-logit MSE against the digital model built from ``--seed``
-(``--no-ref-check`` skips it); for an artifact programmed from other
-weights those counters compare two different models.
+``--analog`` programs the PCM chip once (``steps.program_for_serving``;
+t = ``--t-hours``, ADC at ``--b-adc`` bits, per-layer bits from
+``--b-adc-overrides``) and serves it; ``--load-program DIR`` serves a saved
+cim-program artifact instead (refused if it does not fit the model), aged
+to ``--t-hours`` when it is younger. ``--save-program DIR`` writes the chip
+(after serving, when it aged en route). ``--resample-read-noise`` redraws
+the read noise per MVM. ``--fused-decode`` runs every decode step of the
+chip as one launch of the fused kernel. ``--kv-page-size P`` serves the
+trace over the paged KV cache (pools of P-token pages, ``--kv-pages`` of
+them) with bucketed prefill (``--prefill-buckets``) and length-sorted
+admission; it prints ``mode=bucketed`` and ``prefill_traces=``, and the
+same tokens as the run without it.
 
-Weights, the rectangle prompts and the trace come from ``--seed``: the
-trace from ``numpy.random.default_rng(seed + 7)``, so the reference CLI
-served the same requests prints the same tokens. Fleets, meshes, drift
-schedules and ``--save-program`` are not ported yet, and their flags do not
-exist here.
+Drift lifecycle: ``--drift-schedule 25,3600,86400`` (or ``fig7``) serves
+ONE chip at every age of the schedule, aging it in place (zero programming
+events); ``--refresh-below X`` reprograms it from the source weights when
+top-1 agreement drops below X. With ``--request-trace`` the schedule is a
+``serving.DriftPolicy``: the chip ages between decode steps of one run, and
+``drift_age``/``drift_event`` lines report it.
+
+Analog serving also reports greedy top-1 agreement and logit MSE against
+the digital model (``--no-ref-check`` skips it). Every draw comes from the
+RNG bridge with the reference CLI's keys offset by ``--seed``: weights,
+rectangle prompts and the engine's key from ``split(PRNGKey(seed), 3)``,
+the chip from ``PRNGKey(seed + 42)``, the trace from ``PRNGKey(seed + 7)``,
+refresh ``n`` from ``fold_in(PRNGKey(seed + 43), n)``. At ``--seed 0`` a
+run prints the reference CLI's tokens. Fleets and meshes are not ported
+yet, and their flags do not exist here.
 """
 
 from __future__ import annotations
@@ -41,24 +50,42 @@ import sys
 import time
 from typing import Optional
 
-import numpy as np
-import torch
-
-from repro_torch import configs
+from repro_torch import configs, prng
 from repro_torch.checkpoint import store
 from repro_torch.core import engine
 from repro_torch.core import pcm as pcm_lib
 from repro_torch.core.analog import AnalogConfig
+from repro_torch.core.engine import DriftSchedule
 from repro_torch.core.quant import SUPPORTED_B_ADC
 from repro_torch.device import resolve_device
+from repro_torch.launch import steps
 from repro_torch.models import lm
 from repro_torch.serving import (
     BucketedScheduler,
+    ChipClock,
+    DriftPolicy,
     Request,
     ServingConfig,
     ServingEngine,
     poisson_trace,
 )
+
+
+def parse_b_adc_overrides(text: str) -> dict:
+    """Parse 'pattern=bits,pattern=bits' into an overrides dict."""
+    out = {}
+    for item in text.split(","):
+        item = item.strip()
+        if not item:
+            continue
+        pat, sep, bits = item.partition("=")
+        if not sep or not bits.strip().isdigit():
+            raise ValueError(
+                f"bad --b-adc-overrides entry {item!r} "
+                "(want pattern=bits with integer bits)"
+            )
+        out[pat.strip()] = int(bits)
+    return out
 
 
 def trace_prompt_buckets(prompt_len: int) -> tuple[int, ...]:
@@ -122,14 +149,52 @@ def build_parser() -> argparse.ArgumentParser:
                    help="execute the whole programmed decode step as ONE "
                         "launch of the fused Hopper kernel (its plain "
                         "version on --device cpu)")
+    g.add_argument("--b-adc-overrides", default=None, metavar="SPEC",
+                   help="mixed-precision: comma list of pattern=bits over "
+                        "layer paths, e.g. 'lm_head=8,blocks/*=4'")
+    g.add_argument("--resample-read-noise", action="store_true",
+                   help="resample PCM 1/f read noise per MVM from stored "
+                        "pre-read conductances (default: frozen draw, "
+                        "bit-exact executes)")
+    g.add_argument("--save-program", default=None, metavar="DIR",
+                   help="persist the programmed chip artifact")
     g.add_argument("--load-program", default=None, metavar="DIR",
                    help="serve a saved chip draw (implies --analog)")
+
+    g = ap.add_argument_group("drift", "drift-lifecycle serving over one chip")
+    g.add_argument("--drift-schedule", default=None, metavar="SPEC",
+                   help="age ONE programmed chip across these ages (comma "
+                        "list of seconds, or 'fig7') and re-emit the "
+                        "accuracy counters at each age; overrides --t-hours")
+    g.add_argument("--refresh-below", type=float, default=None, metavar="X",
+                   help="reprogram the chip from the source weights when "
+                        "top-1 agreement at an age of the --drift-schedule "
+                        "drops below X")
     return ap
 
 
 def validate_args(ap: argparse.ArgumentParser, args) -> None:
     """Reject mutually-inconsistent flag combinations with clear errors
     (the reference's rules for the flags ported here)."""
+    if args.save_program and not (args.analog or args.load_program):
+        ap.error("--save-program needs a compiled program (add --analog)")
+    if args.b_adc_overrides and args.load_program:
+        ap.error("--b-adc-overrides applies at program-compile time "
+                 "(use with --analog, not --per-call/--load-program)")
+    if args.b_adc_overrides and not args.analog:
+        ap.error("--b-adc-overrides needs --analog")
+    if args.resample_read_noise and not (args.analog or args.load_program):
+        ap.error("--resample-read-noise needs a compiled program "
+                 "(--analog or --load-program, without --per-call)")
+    if args.drift_schedule and not (args.analog or args.load_program):
+        ap.error("--drift-schedule needs a compiled program "
+                 "(--analog or --load-program)")
+    if args.refresh_below is not None and not args.drift_schedule:
+        ap.error("--refresh-below is the --drift-schedule refresh policy "
+                 "(pass both)")
+    if args.refresh_below is not None and args.no_ref_check:
+        ap.error("--refresh-below triggers on the top-1 agreement counter "
+                 "(drop --no-ref-check)")
     if args.request_trace is not None and args.request_trace < 1:
         ap.error("--request-trace needs at least one request")
     if args.request_trace is not None:
@@ -183,6 +248,11 @@ def validate_args(ap: argparse.ArgumentParser, args) -> None:
                      "(want a comma list of integers)")
         if not buckets or min(buckets) < 1:
             ap.error("--prefill-buckets needs positive lengths")
+    if args.refresh_below is not None and args.load_program:
+        print("warning: --refresh-below with --load-program reprograms "
+              "from this process's deterministic source weights; if the "
+              "artifact was programmed from different weights, a refresh "
+              "will rewrite a different model", file=sys.stderr)
 
 
 def main(argv: Optional[list[str]] = None) -> None:
@@ -193,33 +263,53 @@ def main(argv: Optional[list[str]] = None) -> None:
         dev = resolve_device(args.device)
     except (RuntimeError, ValueError) as e:
         ap.error(str(e))
+    schedule = None
+    if args.drift_schedule:
+        try:
+            schedule = DriftSchedule.parse(args.drift_schedule)
+        except ValueError as e:
+            ap.error(str(e))
+    overrides = None
+    if args.b_adc_overrides:
+        try:
+            overrides = parse_b_adc_overrides(args.b_adc_overrides)
+        except ValueError as e:
+            ap.error(str(e))
     b_adc = 8 if args.b_adc is None else args.b_adc
     cfg = configs.get_smoke(args.arch)
     analog = args.analog or args.load_program is not None
-    t0_seconds = args.t_hours * 3600.0
+    t0_seconds = schedule.times[0] if schedule is not None else args.t_hours * 3600.0
     acfg = AnalogConfig()
     if analog:
-        acfg = AnalogConfig().infer(b_adc=b_adc, t_seconds=t0_seconds)
+        acfg = AnalogConfig().infer(b_adc=b_adc, t_seconds=t0_seconds,
+                                    resample_read_noise=args.resample_read_noise)
 
-    params = lm.lm_init(torch.Generator(dev).manual_seed(args.seed), cfg, device=dev)
-    ref_params = params
+    # one consumer per subkey: weight init, rectangle prompts, engine rng
+    k_init, k_data, k_rng = prng.split(prng.PRNGKey(args.seed), 3)
+    params = lm.lm_init(k_init, cfg, device=dev)
+    # the digital reference of the accuracy counters, and the source the
+    # refresh policy reprograms the chip from
+    src_params = ref_params = params
     program = None
     if args.load_program is not None:
         t0 = time.time()
-        program = store.load_program(args.load_program, device=dev)
+        program = store.load_program(args.load_program, params_like=params, device=dev)
         if args.b_adc is not None and program.cfg.b_adc != args.b_adc:
             ap.error(
                 f"--b-adc {args.b_adc} does not match the loaded artifact "
                 f"(compiled at b_adc={program.cfg.b_adc}); bitwidths are "
                 "baked into a program's quant plans at compile time"
             )
-        if program.t_seconds != t0_seconds:
+        if args.resample_read_noise and not program.cfg.resample_read_noise:
             ap.error(
-                f"--t-hours {args.t_hours} asks for an age of "
-                f"{pcm_lib.format_age(t0_seconds)}, the artifact is at "
-                f"{pcm_lib.format_age(program.t_seconds)}: aging a loaded "
-                "chip comes with the drift slice"
+                "--resample-read-noise: the loaded artifact carries no "
+                "read buffers (compile it with --analog "
+                "--resample-read-noise --save-program)"
             )
+        if program.t_seconds != t0_seconds:
+            # the same chip, advanced to the requested age (recorded in its
+            # age_history for a later --save-program)
+            program = engine.age_program(program, t0_seconds)
         print(f"loaded programmed chip ({program.n_layers} layers, "
               f"b_adc={program.cfg.b_adc}, "
               f"t={pcm_lib.format_age(program.t_seconds)}, "
@@ -227,15 +317,20 @@ def main(argv: Optional[list[str]] = None) -> None:
               f"in {time.time()-t0:.2f}s from {args.load_program}")
     elif analog:
         t0 = time.time()
-        program = engine.compile_program(
-            params, acfg, torch.Generator(dev).manual_seed(args.seed + 42),
-            device=dev,
+        program = steps.program_for_serving(
+            params, acfg, prng.PRNGKey(args.seed + 42), b_adc_overrides=overrides,
         )
+        mixed = f" with {len(overrides)} bitwidth overrides" if overrides else ""
         print(f"programmed {program.n_layers} analog layers once "
-              f"in {time.time()-t0:.2f}s (b_adc={b_adc}, "
+              f"in {time.time()-t0:.2f}s (b_adc={b_adc}{mixed}, "
               f"t={pcm_lib.format_age(t0_seconds)})")
     if program is not None:
         params, acfg = program.params, program.cfg
+        # schedule and trace runs save AFTER serving (the chip may age en
+        # route); everything else saves the compiled or loaded chip
+        if args.save_program and schedule is None and args.request_trace is None:
+            print(f"saved programmed chip artifact to "
+                  f"{store.save_program(args.save_program, program)}")
 
     b, s = args.batch, args.prompt_len
     ref_check = analog and not args.no_ref_check
@@ -254,8 +349,12 @@ def main(argv: Optional[list[str]] = None) -> None:
             fused_decode=args.fused_decode,
         ),
         program=program, ref_params=ref_params if ref_check else None,
-        device=dev,
+        src_params=src_params, rng=k_rng, device=dev,
     )
+
+    def fmt_timing(m):
+        per_tok = m.t_decode / max(m.n_steps, 1) * 1e3
+        return f"prefill={m.t_prefill*1e3:.1f}ms decode={per_tok:.2f}ms/token"
 
     def fmt_counters(m):
         c = m.counters
@@ -263,33 +362,96 @@ def main(argv: Optional[list[str]] = None) -> None:
                 f"logit_mse={c['logit_mse']:.6e} "
                 f"decisions={c['decisions']}")
 
+    def print_pass(m):
+        print(f"arch={cfg.name} analog={analog} mode={acfg.mode} "
+              f"b_adc={acfg.b_adc} {fmt_timing(m)}")
+        if ref_check:
+            print(f"accuracy_vs_digital_ref: {fmt_counters(m)}")
+
     if args.request_trace is not None:
         trace = poisson_trace(
-            np.random.default_rng(args.seed + 7), args.request_trace,
+            prng.PRNGKey(args.seed + 7), args.request_trace,
             vocab=cfg.vocab, rate=args.arrival_rate,
             prompt_lens=trace_prompt_buckets(s),
             new_tokens=(max(1, min(8, args.tokens)), args.tokens),
         )
+        policy = None
+        if schedule is not None:
+            est_steps = sum(r.max_new_tokens for r in trace) // max(b, 1)
+            policy = DriftPolicy(
+                schedule, every_steps=max(1, est_steps // max(len(schedule), 1)),
+                refresh_below=args.refresh_below,
+            )
         report = served.run(
-            trace, scheduler=BucketedScheduler() if args.kv_page_size else None
+            trace, scheduler=BucketedScheduler() if args.kv_page_size else None,
+            drift_policy=policy,
         )
+        for ev in report.age_events:
+            if ev["kind"] == "age":
+                print(f"drift_age step={ev['step']} t={ev['t_wall']:.0f}s "
+                      f"({pcm_lib.format_age(ev['t_device'])} device age)")
+            else:
+                print(f"drift_event step={ev['step']} reprogram: "
+                      f"top1_agreement={ev['top1']:.4f} < "
+                      f"refresh_below={args.refresh_below}")
         print(report.summary())
         if ref_check:
             print(f"accuracy_vs_digital_ref: {fmt_counters(report)}")
+        if args.save_program and program is not None:
+            print(f"saved programmed chip artifact to "
+                  f"{store.save_program(args.save_program, served.program)}")
         longest = max(report.records, key=lambda r: r.n_new)
         print("generated token ids (longest request):",
               longest.tokens[: min(16, longest.n_new)].tolist())
         return
 
-    toks = np.random.default_rng(args.seed + 1).integers(0, cfg.vocab, size=(b, s))
-    m = served.run([Request(rid=i, prompt=toks[i], max_new_tokens=args.tokens)
-                    for i in range(b)])
-    per_tok = m.t_decode / max(m.n_steps, 1) * 1e3
-    print(f"arch={cfg.name} analog={analog} mode={acfg.mode} "
-          f"b_adc={acfg.b_adc} prefill={m.t_prefill*1e3:.1f}ms "
-          f"decode={per_tok:.2f}ms/token")
-    if ref_check:
-        print(f"accuracy_vs_digital_ref: {fmt_counters(m)}")
+    def rectangle_requests():
+        toks = prng.randint(k_data, (b, s), 0, cfg.vocab).numpy()
+        return [Request(rid=i, prompt=toks[i], max_new_tokens=args.tokens)
+                for i in range(b)]
+
+    if schedule is None:
+        m = served.run(rectangle_requests())
+        print_pass(m)
+    else:
+        # ONE chip ages in place across the schedule; the program-event
+        # counter shows no reprogramming unless the refresh policy fires
+        print(f"drift_schedule: ages={','.join(schedule.labels)}"
+              + (f" refresh_below={args.refresh_below}"
+                 if args.refresh_below is not None else ""))
+        events0 = engine.program_event_count()
+        chip = ChipClock(served, schedule.times[0], args.refresh_below)
+        reprograms = 0
+        m = None
+        for i, t_age in enumerate(schedule):
+            if i > 0:
+                chip.age_to(t_age)
+            line = f"drift_age t={t_age:.0f}s ({pcm_lib.format_age(t_age)})"
+            if chip.refresh_wall is not None:
+                line += f" chip_age={pcm_lib.format_age(served.program.t_seconds)}"
+            m = served.run(rectangle_requests())
+            line += f": {fmt_timing(m)}"
+            if ref_check:
+                line += " " + fmt_counters(m)
+            print(line)
+            if chip.wants_refresh(m.counters["top1"]):
+                reprograms += 1
+                print(f"drift_event t={t_age:.0f}s reprogram: "
+                      f"top1_agreement={m.counters['top1']:.4f} < "
+                      f"refresh_below={args.refresh_below}; rewriting chip "
+                      f"from stored weights (chip age resets to "
+                      f"{pcm_lib.format_age(pcm_lib.T_C)})")
+                chip.refresh(prng.fold_in(prng.PRNGKey(args.seed + 43), reprograms))
+        delta = engine.program_event_count() - events0
+        print(f"drift_lifecycle: ages={len(schedule)} "
+              f"reprograms={reprograms} program_events_delta={delta} "
+              f"final_age={pcm_lib.format_age(served.program.t_seconds)}")
+        if args.save_program:
+            path = store.save_program(args.save_program, served.program)
+            hist = ",".join(pcm_lib.format_age(t) for t in served.program.age_history)
+            print(f"saved programmed chip artifact at final age "
+                  f"(age_history={hist}) to {path}")
+        print_pass(m)
     seq0 = m.tokens_of(0)
     print("generated token ids (first sequence):",
           seq0[: min(16, seq0.size)].tolist())

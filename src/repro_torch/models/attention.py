@@ -21,7 +21,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import prng
 from repro_torch.core.analog import AnalogCtx, linear_apply, linear_init
+from repro_torch.kernels import decode_rows
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ref import NEG_INF, flash_attention_ref
 from repro_torch.models.common import ModelConfig, rope
@@ -37,14 +39,14 @@ class KVCache(NamedTuple):
     length: Tensor
 
 
-def attn_init(gen: torch.Generator, cfg: ModelConfig, *, stack: tuple = ()) -> dict:
+def attn_init(key: Tensor, cfg: ModelConfig) -> dict:
+    kq, kk, kv, ko = prng.split(key, 4)
     hd, nh, nkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    kw = dict(stack=stack, use_bias=cfg.qkv_bias)
     return {
-        "wq": linear_init(gen, cfg.d_model, nh * hd, **kw),
-        "wk": linear_init(gen, cfg.d_model, nkv * hd, **kw),
-        "wv": linear_init(gen, cfg.d_model, nkv * hd, **kw),
-        "wo": linear_init(gen, nh * hd, cfg.d_model, stack=stack),
+        "wq": linear_init(kq, cfg.d_model, nh * hd, use_bias=cfg.qkv_bias),
+        "wk": linear_init(kk, cfg.d_model, nkv * hd, use_bias=cfg.qkv_bias),
+        "wv": linear_init(kv, cfg.d_model, nkv * hd, use_bias=cfg.qkv_bias),
+        "wo": linear_init(ko, nh * hd, cfg.d_model),
     }
 
 
@@ -206,8 +208,15 @@ def attn_apply(
     q = linear_apply(params["wq"], x, ctx).reshape(b, s, nh, hd)
     k = linear_apply(params["wk"], x, ctx).reshape(b, s, nkv, hd)
     v = linear_apply(params["wv"], x, ctx).reshape(b, s, nkv, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    # one token per slot against a cache on a card: RoPE and attention run
+    # the fused decode kernel's row code (kernels.decode_rows), so the
+    # per-layer step's K rows and outputs are B2's bit for bit
+    row_kernels = cache is not None and s == 1 and x.device.type == "cuda"
+    if row_kernels:
+        q, k = decode_rows.rope(q, k, positions[:, 0].expand(b), cfg.rope_theta)
+    else:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
 
     if isinstance(cache, PagedKVCache):
         if s != 1:
@@ -231,7 +240,9 @@ def attn_apply(
         new_cache = PagedKVCache(
             cache.k, cache.v, cache.table, cache.length + 1, cache.s_max
         )
-        out = decode_attention(q, paged_view(new_cache)).reshape(b, s, nh * hd)
+        view = paged_view(new_cache)
+        out = (decode_rows.attention(q, view.k, view.v, view.length) if row_kernels
+               else decode_attention(q, view)).reshape(b, s, nh * hd)
         return linear_apply(params["wo"], out, ctx), new_cache
 
     new_cache = None
@@ -248,7 +259,8 @@ def attn_apply(
             cache.k.index_copy_(1, idx.reshape(1), k.to(cache.k.dtype))
             cache.v.index_copy_(1, idx.reshape(1), v.to(cache.v.dtype))
         new_cache = KVCache(cache.k, cache.v, cache.length + 1)
-        out = decode_attention(q, new_cache)
+        out = (decode_rows.attention(q, cache.k, cache.v, new_cache.length) if row_kernels
+               else decode_attention(q, new_cache))
     else:
         if cache is not None:
             if cache.length.dim():

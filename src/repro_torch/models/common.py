@@ -8,6 +8,8 @@ from typing import Any
 
 import torch
 
+from repro_torch import prng
+
 Tensor = torch.Tensor
 
 
@@ -102,9 +104,9 @@ def rmsnorm_apply(params: dict, x: Tensor, eps: float = 1e-6) -> Tensor:
     return x.to(dtype)
 
 
-def embedding_init(gen: torch.Generator, vocab: int, d_model: int) -> dict:
-    t = torch.randn((vocab, d_model), generator=gen, device=gen.device)
-    return {"table": t * 0.02}
+def embedding_init(key: Tensor, vocab: int, d_model: int) -> dict:
+    """N(0, 0.02) embedding table drawn from ``key`` (the reference's draw)."""
+    return {"table": prng.normal(key, (vocab, d_model)) * 0.02}
 
 
 def embedding_apply(params: dict, tokens: Tensor, dtype) -> Tensor:

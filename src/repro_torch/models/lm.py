@@ -22,8 +22,10 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from repro_torch import prng
 from repro_torch.core.analog import AnalogConfig, AnalogCtx, MvmFn, linear_apply, linear_init
 from repro_torch.device import resolve_device
+from repro_torch.kernels import decode_rows
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import (
     ModelConfig,
@@ -45,33 +47,54 @@ def block_period(cfg: ModelConfig) -> list[str]:
     return ["attn"]
 
 
-def mlp_init(gen: torch.Generator, cfg: ModelConfig, *, stack: tuple = ()) -> dict:
+def mlp_init(key: Tensor, cfg: ModelConfig) -> dict:
+    k1, k2, k3 = prng.split(key, 3)
     return {
-        "w1": linear_init(gen, cfg.d_model, cfg.d_ff, stack=stack),
-        "w3": linear_init(gen, cfg.d_model, cfg.d_ff, stack=stack),
-        "w2": linear_init(gen, cfg.d_ff, cfg.d_model, stack=stack),
+        "w1": linear_init(k1, cfg.d_model, cfg.d_ff),
+        "w3": linear_init(k3, cfg.d_model, cfg.d_ff),
+        "w2": linear_init(k2, cfg.d_ff, cfg.d_model),
     }
 
 
-def mlp_apply(params: dict, x: Tensor, ctx: AnalogCtx) -> Tensor:
-    h = torch.nn.functional.silu(linear_apply(params["w1"], x, ctx)) * linear_apply(
-        params["w3"], x, ctx
-    )
+def _rows(x: Tensor, cache) -> bool:
+    """One token per slot against a cache on a card: the decode step, whose
+    norms, RoPE, attention and gate run B2's row code
+    (``kernels.decode_rows``)."""
+    return cache is not None and x.shape[1] == 1 and x.device.type == "cuda"
+
+
+def _norm(params: dict, x: Tensor, eps: float, rows: bool) -> Tensor:
+    if rows:
+        return decode_rows.norm(x, params.get("scale"), eps)
+    return rmsnorm_apply(params, x, eps)
+
+
+def mlp_apply(params: dict, x: Tensor, ctx: AnalogCtx, *, rows: bool = False) -> Tensor:
+    u = linear_apply(params["w1"], x, ctx)
+    g = linear_apply(params["w3"], x, ctx)
+    h = decode_rows.gate(u, g) if rows else torch.nn.functional.silu(u) * g
     return linear_apply(params["w2"], h, ctx)
 
 
-def _block_init(gen: torch.Generator, cfg: ModelConfig, *, stack: tuple = ()) -> dict:
-    dev = gen.device
-    norm = lambda: {
-        k: v.expand(tuple(stack) + v.shape).contiguous()
-        for k, v in rmsnorm_init(cfg, device=dev).items()
-    }
+def _block_init(key: Tensor, cfg: ModelConfig) -> dict:
+    km, kf = prng.split(key, 4)[:2]
     return {
-        "norm1": norm(),
-        "norm2": norm(),
-        "attn": attn_lib.attn_init(gen, cfg, stack=stack),
-        "ffn": mlp_init(gen, cfg, stack=stack),
+        "norm1": rmsnorm_init(cfg, device=key.device),
+        "norm2": rmsnorm_init(cfg, device=key.device),
+        "attn": attn_lib.attn_init(km, cfg),
+        "ffn": mlp_init(kf, cfg),
     }
+
+
+def _stack(trees: list) -> Any:
+    """Stack same-structured dicts of tensors along a new leading axis.
+
+    Keys come out sorted, as the reference's ``vmap`` over the group init
+    returns them: the program phase's layer keys follow this walk order.
+    """
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in sorted(trees[0])}
+    return torch.stack(trees)
 
 
 def _block_apply(
@@ -79,13 +102,14 @@ def _block_apply(
     positions: Tensor, cache,
 ):
     """One block: norm -> attention -> residual -> norm -> ffn -> residual."""
-    h = rmsnorm_apply(params["norm1"], x, cfg.norm_eps)
+    rows = _rows(x, cache)
+    h = _norm(params["norm1"], x, cfg.norm_eps, rows)
     out, new_cache = attn_lib.attn_apply(
         params["attn"], h, ctx, cfg, positions=positions, cache=cache
     )
     x = x + out
-    h = rmsnorm_apply(params["norm2"], x, cfg.norm_eps)
-    return x + mlp_apply(params["ffn"], h, ctx), new_cache
+    h = _norm(params["norm2"], x, cfg.norm_eps, rows)
+    return x + mlp_apply(params["ffn"], h, ctx, rows=rows), new_cache
 
 
 class LMParams(NamedTuple):
@@ -108,27 +132,32 @@ def _check_cfg(cfg: ModelConfig) -> list[str]:
     return period
 
 
-def lm_init(generator: torch.Generator, cfg: ModelConfig, *, device="cuda") -> LMParams:
-    """Random dense-LM params drawn from ``generator`` (on ``device``).
+def lm_init(key: Tensor, cfg: ModelConfig, *, device="cuda") -> LMParams:
+    """Random dense-LM params drawn from the threefry ``key`` on ``device``.
 
-    The reference's initializers (N(0, d_in^-1/2) projections, N(0, 0.02)
-    embeddings, unit norms, r_adc = 1, clip range [-1, 1], S = 1); the draws
-    follow torch's generator, not JAX's keys.
+    The reference's initializers and key tree (N(0, d_in^-1/2) projections,
+    N(0, 0.02) embeddings, unit norms, r_adc = 1, clip range [-1, 1],
+    S = 1), drawn through the RNG bridge: the same key gives the
+    reference's weights.
     """
     dev = resolve_device(device)
-    if torch.device(generator.device).type != dev.type:
-        raise ValueError(f"generator is on {generator.device}, lm_init on {dev}")
+    key = key.to(dev)
     period = _check_cfg(cfg)
     n_groups = cfg.n_layers // len(period)
     n_tail = cfg.n_layers - n_groups * len(period)
-    blocks = tuple(_block_init(generator, cfg, stack=(n_groups,)) for _ in period)
-    tail = tuple(_block_init(generator, cfg) for _ in range(n_tail))
+    k_embed, k_blocks, k_tail, k_head, _k_extra = prng.split(key, 5)
+    groups = []
+    for gk in prng.split(k_blocks, n_groups):
+        keys = prng.split(gk, len(period))
+        groups.append([_block_init(keys[i], cfg) for i in range(len(period))])
+    blocks = tuple(_stack([g[i] for g in groups]) for i in range(len(period)))
+    tail = tuple(_block_init(prng.fold_in(k_tail, i), cfg) for i in range(n_tail))
     return LMParams(
-        embed=embedding_init(generator, cfg.vocab, cfg.d_model),
+        embed=embedding_init(k_embed, cfg.vocab, cfg.d_model),
         blocks=blocks,
         tail=tail,
         final_norm=rmsnorm_init(cfg, device=dev),
-        lm_head=linear_init(generator, cfg.d_model, cfg.vocab),
+        lm_head=linear_init(k_head, cfg.d_model, cfg.vocab),
         extras={},
         gain_s=torch.ones((), device=dev),
     )
@@ -154,6 +183,7 @@ def lm_forward(
     analog_cfg: AnalogConfig,
     cfg: ModelConfig,
     *,
+    rng: Optional[Tensor] = None,
     cache: Optional[tuple] = None,
     last_token_only: bool = False,
     last_index: Optional[Tensor] = None,
@@ -161,18 +191,21 @@ def lm_forward(
 ):
     """Forward pass -> (logits, new_cache); runs where ``params`` live.
 
-    ``cache`` is (group caches, tail caches) or None. ``last_token_only``
-    computes only the final position's logits; ``last_index`` ((B,) int,
-    with ``last_token_only``) picks each row's position. ``mvm`` replaces
-    the execute-phase MVM for this call (see ``core.analog.AnalogCtx``).
+    ``rng`` is the call's threefry key for per-call noise (``pcm_infer``,
+    or a program compiled with ``resample_read_noise``): group ``g`` draws
+    under ``fold_in(rng, g)``, tail layer ``i`` under ``fold_in(rng,
+    10_000 + i)`` and the lm_head under ``rng`` itself, as in the
+    reference. ``cache`` is (group caches, tail caches) or None.
+    ``last_token_only`` computes only the final position's logits;
+    ``last_index`` ((B,) int, with ``last_token_only``) picks each row's
+    position. ``mvm`` replaces the execute-phase MVM for this call (see
+    ``core.analog.AnalogCtx``).
     """
     period = _check_cfg(cfg)
-    if analog_cfg.needs_rng:
-        raise NotImplementedError(
-            f"mode {analog_cfg.mode!r} draws noise per call; this slice "
-            "serves frozen programs (digital, pcm_programmed)"
-        )
-    ctx = AnalogCtx(cfg=analog_cfg, gain_s=params.gain_s, mvm=mvm)
+    if rng is not None:  # draws land where the params live
+        rng = rng.to(params.gain_s.device)
+    sub = lambda i: None if rng is None else prng.fold_in(rng, i)
+    ctx = AnalogCtx(cfg=analog_cfg, gain_s=params.gain_s, key=rng, mvm=mvm)
     h = embedding_apply(params.embed, batch["tokens"], cfg.dtype)
     b, s, _ = h.shape
     dev = h.device
@@ -200,19 +233,21 @@ def lm_forward(
             gc = _group_view(group_caches, gi)
         else:
             gc = group_caches[gi]
+        ctx_g = AnalogCtx(cfg=analog_cfg, gain_s=params.gain_s, key=sub(gi), mvm=mvm)
         new_gc = []
         for i in range(len(period)):
-            h, nc = _block_apply(gp[i], h, ctx, cfg, positions, gc[i])
+            h, nc = _block_apply(gp[i], h, ctx_g, cfg, positions, gc[i])
             new_gc.append(nc)
         new_groups.append(tuple(new_gc))
 
     new_tail = []
     for i, tp in enumerate(params.tail):
         tc = None if tail_caches is None else tail_caches[i]
-        h, nc = _block_apply(tp, h, ctx, cfg, positions, tc)
+        ctx_t = AnalogCtx(cfg=analog_cfg, gain_s=params.gain_s, key=sub(10_000 + i), mvm=mvm)
+        h, nc = _block_apply(tp, h, ctx_t, cfg, positions, tc)
         new_tail.append(nc)
 
-    h = rmsnorm_apply(params.final_norm, h, cfg.norm_eps)
+    h = _norm(params.final_norm, h, cfg.norm_eps, _rows(h, cache))
     if last_token_only:
         if last_index is not None:
             idx = last_index.long()[:, None, None].expand(b, 1, h.shape[-1])

@@ -3,12 +3,38 @@
 The fields ported so far: slot count, per-slot capacity, the paged KV
 cache and bucketed prefill, whether the digital-reference counters run, and
 fused decode. The fleet settings arrive with their slice.
+:class:`DriftPolicy` (the reference keeps it in ``serving/engine.py``) ages
+the served chip on a decode-step cadence.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+from repro_torch.core.engine import DriftSchedule
+
+
+@dataclasses.dataclass(frozen=True)
+class DriftPolicy:
+    """Age the served chip on a decode-step cadence inside ``run``.
+
+    Every ``every_steps`` decode steps the engine advances the chip to the
+    next age of ``schedule`` (the program is compiled at the schedule's
+    first age). Ages are wall deployment times: after a refresh the device
+    age is ``max(t_wall - t_refresh_wall, t_c)``. ``refresh_below``: when
+    the top-1 agreement vs the digital reference over the segment since the
+    last tick drops below it, the chip is reprogrammed from the engine's
+    source weights before the next age applies.
+    """
+
+    schedule: DriftSchedule
+    every_steps: int
+    refresh_below: Optional[float] = None
+
+    def __post_init__(self):
+        if self.every_steps < 1:
+            raise ValueError("DriftPolicy.every_steps must be >= 1")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -30,8 +30,16 @@ With ``ServingConfig(fused_decode=True)`` the main cache is the stacked
 ``(L, B, S, kv, hd)`` layout of ``kernels.decode_fused`` and each decode
 step of the programmed chip is ONE launch of the fused kernel on a card
 (its plain version on the CPU); prefill stays per layer, and the digital
-reference keeps the per-slot layout and the unfused forward. Meshes and
-drift policies come in later slices and raise here.
+reference keeps the per-slot layout and the unfused forward.
+
+The chip can change under a live engine: :meth:`ServingEngine.age_to`
+re-evaluates it at a later age (zero programming events),
+:meth:`ServingEngine.refresh` rewrites it from the source weights, and a
+:class:`~repro_torch.serving.config.DriftPolicy` does both between decode
+steps of one run. Per-call keys follow the reference: a request's prefill
+draws under ``fold_in(rng, 1_000_000 + rid)``, decode step ``n`` under
+``fold_in(rng, n)``, a refresh at step ``n`` under ``fold_in(rng,
+7_000_000 + n)``. Meshes come in a later slice and raise here.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch import clock as clock_lib
+from repro_torch import prng
 from repro_torch.core import engine as engine_mod
 from repro_torch.core.analog import AnalogConfig
 from repro_torch.core.engine import CiMProgram
@@ -63,7 +72,7 @@ from repro_torch.models.lm import (
     write_cache_slot,
     write_cache_slot_paged,
 )
-from repro_torch.serving.config import ServingConfig
+from repro_torch.serving.config import DriftPolicy, ServingConfig
 from repro_torch.serving.paging import (
     PageAllocator,
     bucket_for,
@@ -96,9 +105,13 @@ class _LayerDecoder:
     def kv_bytes(cache) -> int:
         return sum(c.k.nbytes + c.v.nbytes for c in cache_layers(cache))
 
-    def step(self, tok: Tensor, cache):
+    def step(self, tok: Tensor, cache, rng=None):
         eng = self.eng
-        return lm_forward(eng.params, {"tokens": tok.long()}, eng.acfg, eng.cfg, cache=cache)
+        return lm_forward(eng.params, {"tokens": tok.long()}, eng.acfg, eng.cfg,
+                          rng=rng, cache=cache)
+
+    def set_params(self, params) -> None:
+        pass  # the forward reads ``eng.params`` every step
 
 
 @dataclasses.dataclass
@@ -257,7 +270,9 @@ class ServeReport:
     t_decode: float
     wall: float
     counters: Optional[dict]  # {"top1", "logit_mse", "decisions"} or None
-    program_events_delta: int  # programming events while serving: always 0
+    age_events: list[dict]
+    reprograms: int
+    program_events_delta: int  # beyond what refreshes account for: always 0
     #: distinct prefill shapes this ENGINE has run so far; bucketed prefill
     #: bounds it by the bucket count, exact-length prefill grows it with
     #: every distinct prompt length
@@ -319,6 +334,7 @@ class ServeReport:
             f"p95_ttft_ms={self.ttft_s(95) * 1e3:.0f} "
             f"prefill_traces={self.n_prefill_traces} "
             f"kv_mib={self.peak_kv_bytes / 2**20:.1f} "
+            f"reprograms={self.reprograms} "
             f"program_events_delta={self.program_events_delta}"
         )
         if self.counters is not None:
@@ -336,7 +352,9 @@ class ServingEngine:
     device=...)``; for a compiled chip use :meth:`for_program`. ``params``
     and ``ref_params`` must live on ``device``. Analog weights are executed
     from a copy pre-cast to the model dtype (``engine.cast_weights``:
-    bitwise the reference's per-call cast).
+    bitwise the reference's per-call cast). ``src_params`` is the refresh
+    policy's reprogramming source; ``rng`` (a threefry key, default
+    ``PRNGKey(0)``) keys the per-call draws of a config that needs them.
 
     ``config.paged`` switches the slot cache to the paged layout with
     bucketed prefill: prompts are right-padded to ``prefill_buckets``
@@ -355,7 +373,9 @@ class ServingEngine:
         *,
         program: Optional[CiMProgram] = None,
         ref_params: Any = None,
+        src_params: Any = None,
         mesh: Any = None,
+        rng: Optional[Tensor] = None,
         device="cuda",
     ):
         if config is None:
@@ -370,13 +390,9 @@ class ServingEngine:
             raise NotImplementedError(
                 "request-level serving drives a single token stream"
             )
-        if analog_cfg.needs_rng:
-            raise NotImplementedError(
-                f"mode {analog_cfg.mode!r} draws noise per call; this slice "
-                "serves frozen programs"
-            )
         self.device = resolve_device(device)
-        for name, tree in (("params", params), ("ref_params", ref_params)):
+        for name, tree in (("params", params), ("ref_params", ref_params),
+                           ("src_params", src_params)):
             if tree is not None and tree.gain_s.device.type != self.device.type:
                 raise ValueError(
                     f"{name} live on {tree.gain_s.device}, the engine on "
@@ -386,6 +402,9 @@ class ServingEngine:
         self.acfg = analog_cfg
         self.params = engine_mod.cast_weights(params, model_cfg.dtype)
         self.program = program
+        self.src_params = src_params
+        self.rng = (prng.PRNGKey(0) if rng is None else rng).to(self.device)
+        self.reprograms = 0
         self.config = config
         self.n_slots = int(config.n_slots)
         self.s_max = int(config.s_max)
@@ -427,7 +446,9 @@ class ServingEngine:
             # the reference batches prefill rows only where they are
             # independent (no per-request rng, no MoE capacity routing);
             # both are refused above or unported here
-            self.prefill_batch = int(config.prefill_batch)
+            # per-request keys couple a prefill batch's rows to its
+            # composition: solo prefill keeps paged == rectangular
+            self.prefill_batch = 1 if analog_cfg.needs_rng else int(config.prefill_batch)
             self._pb_of = prefill_rows(self.prefill_buckets, self.prefill_batch)
 
         self.decoder: Any = _LayerDecoder(self)
@@ -450,6 +471,36 @@ class ServingEngine:
                 self.params, engine_mod.build_fused_plan(program), model_cfg,
                 analog_cfg, self.n_slots, self.s_max,
             )
+
+    # -- chip lifecycle -------------------------------------------------------
+
+    def set_program(self, program: CiMProgram) -> None:
+        """Serve a new evaluation of the chip (an aged or refreshed one):
+        the pre-cast weights and the decoder's inputs follow it."""
+        self.program = program
+        self.acfg = program.cfg
+        self.params = engine_mod.cast_weights(program.params, self.cfg.dtype)
+        self.decoder.set_params(self.params)
+
+    def age_to(self, t_seconds: float) -> None:
+        """Age the served chip in place (zero programming events, asserted
+        by ``engine.age_program``)."""
+        if self.program is None:
+            raise RuntimeError("no compiled program to age (digital engine)")
+        if float(t_seconds) != self.program.t_seconds:
+            self.set_program(engine_mod.age_program(self.program, t_seconds))
+
+    def refresh(self, key: Tensor) -> int:
+        """Reprogram the chip from the source weights; returns the
+        programming events consumed (the run's allowance)."""
+        from repro_torch.launch import steps
+
+        if self.program is None or self.src_params is None:
+            raise RuntimeError("refresh needs a compiled program and src_params")
+        before = engine_mod.program_event_count()
+        self.set_program(steps.refresh_program(self.program, self.src_params, key))
+        self.reprograms += 1
+        return engine_mod.program_event_count() - before
 
     @classmethod
     def for_program(
@@ -476,7 +527,11 @@ class ServingEngine:
             raise NotImplementedError("feature-fed prefill comes with its families")
         return torch.as_tensor(req.prompt, device=self.device)[None, :].long()
 
-    def prefill_bucket(self, toks: Tensor, last_idx: Tensor):
+    def call_key(self, i: int) -> Optional[Tensor]:
+        """``fold_in(rng, i)`` when the config draws per call, else None."""
+        return prng.fold_in(self.rng, i) if self.acfg.needs_rng else None
+
+    def prefill_bucket(self, toks: Tensor, last_idx: Tensor, rng=None):
         """Bucketed prefill of the served model: ``toks`` (PB, S_bucket)
         right-padded prompts, ``last_idx`` (PB,) each row's last real
         position -> (tokens (PB,), logits (PB, V), rectangular list cache)."""
@@ -485,18 +540,21 @@ class ServingEngine:
             self.cfg, pb, sb, self.cfg.dtype, stacked=False, device=self.device
         )
         logits, cache = lm_forward(
-            self.params, {"tokens": toks.long()}, self.acfg, self.cfg,
+            self.params, {"tokens": toks.long()}, self.acfg, self.cfg, rng=rng,
             cache=cache, last_token_only=True, last_index=last_idx,
         )
         last = logits[:, -1]
         return last.argmax(dim=-1).to(torch.int32), last, cache
 
-    def prefill(self, params, acfg, req: Request):
-        """Prefill one request alone -> (token (1,), logits (1, V), cache)."""
+    def prefill(self, params, acfg, req: Request, rng=None):
+        """Prefill one request alone -> (token (1,), logits (1, V), cache).
+
+        Prefill keeps its torch ops on a card: the fused kernel (B2) has no
+        prefill counterpart, and its attention is B3."""
         cache = self.new_cache(1, per_slot=False)
         logits, cache = lm_forward(
             params, {"tokens": self._prefill_tokens(req)}, acfg, self.cfg,
-            cache=cache, last_token_only=True,
+            rng=rng, cache=cache, last_token_only=True,
         )
         last = logits[:, -1]
         return last.argmax(dim=-1).to(torch.int32), last, cache
@@ -509,10 +567,10 @@ class ServingEngine:
         last = logits[:, -1]
         return last.argmax(dim=-1).to(torch.int32), last, cache
 
-    def decode_main(self, tok: Tensor, cache):
+    def decode_main(self, tok: Tensor, cache, rng=None):
         """One decode step of the served model over all slots, through its
         decoder (one fused launch with ``fused_decode``, else per layer)."""
-        logits, cache = self.decoder.step(tok, cache)
+        logits, cache = self.decoder.step(tok, cache, rng)
         last = logits[:, -1]
         return last.argmax(dim=-1).to(torch.int32), last, cache
 
@@ -535,15 +593,11 @@ class ServingEngine:
     ) -> "EngineRun":
         """Open a fresh :class:`EngineRun` (fresh slot caches). Time enters
         only through ``clock`` (default: the system clock)."""
-        if drift_policy is not None:
-            raise NotImplementedError(
-                "drift policies (aging the chip while serving) come with the "
-                "drift slice"
-            )
         clk = clock or clock_lib.SYSTEM
         return EngineRun(
             self,
             scheduler=scheduler or ContinuousScheduler(),
+            drift_policy=drift_policy,
             now_fn=clk.now,
             sleep_fn=clk.sleep,
             max_steps=max_steps,
@@ -554,11 +608,13 @@ class ServingEngine:
         requests: list[Request],
         *,
         scheduler: Any = None,
+        drift_policy: Optional[DriftPolicy] = None,
         clock: Optional[clock_lib.Clock] = None,
         max_steps: Optional[int] = None,
     ) -> ServeReport:
         """Serve ``requests`` to completion and return the run's report."""
-        run = self.start_run(scheduler=scheduler, clock=clock, max_steps=max_steps)
+        run = self.start_run(scheduler=scheduler, drift_policy=drift_policy,
+                             clock=clock, max_steps=max_steps)
         run.submit(requests)
         while run.has_work:
             run.admit_arrived()
@@ -569,6 +625,38 @@ class ServingEngine:
                 continue
             run.decode_step()
         return run.finish()
+
+
+class ChipClock:
+    """The drift lifecycle of one served chip, the one place its policy
+    lives (the engine's ``DriftPolicy`` ticks and the CLI's schedule both
+    use it): wall (deployment) ages map to device ages, which restart at a
+    refresh (``engine.device_age``), and a refresh is due when agreement
+    with the digital reference falls below ``refresh_below``."""
+
+    def __init__(self, engine: ServingEngine, t_wall: Optional[float],
+                 refresh_below: Optional[float] = None):
+        self.engine = engine
+        self.refresh_below = refresh_below
+        self.wall = t_wall  # wall age the chip was last aged to
+        self.refresh_wall: Optional[float] = None  # wall age of the last refresh
+
+    def age_to(self, t_wall: float) -> float:
+        """Age the chip to wall age ``t_wall``; returns its device age."""
+        self.wall = t_wall
+        dev = engine_mod.device_age(t_wall, self.refresh_wall)
+        self.engine.age_to(dev)
+        return dev
+
+    def wants_refresh(self, top1: float) -> bool:
+        return self.refresh_below is not None and top1 < self.refresh_below
+
+    def refresh(self, key: Tensor) -> int:
+        """Rewrite the chip from its source weights at the current wall age;
+        returns the programming events consumed."""
+        consumed = self.engine.refresh(key)
+        self.refresh_wall = self.wall
+        return consumed
 
 
 class EngineRun:
@@ -582,12 +670,16 @@ class EngineRun:
         engine: ServingEngine,
         *,
         scheduler: Any,
+        drift_policy: Optional[DriftPolicy] = None,
         now_fn,
         sleep_fn,
         max_steps: Optional[int],
     ):
+        if drift_policy is not None and engine.program is None:
+            raise ValueError("a drift policy ages a compiled program (program=)")
         self.eng = engine
         self.scheduler = scheduler
+        self.drift_policy = drift_policy
         self.now_fn = now_fn
         self.sleep_fn = sleep_fn
         self.max_steps = max_steps
@@ -612,6 +704,18 @@ class EngineRun:
         self.t_prefill = 0.0
         self.t_decode = 0.0
         self.events0 = engine_mod.program_event_count()
+        self.allowed_events = 0
+        self.reprograms0 = engine.reprograms
+        self.age_events: list[dict] = []
+        # drift-policy state: the program is compiled at the schedule's
+        # first age
+        self.pol_idx = 1
+        self.chip = ChipClock(
+            engine, drift_policy.schedule.times[0] if drift_policy else None,
+            drift_policy.refresh_below if drift_policy else None,
+        )
+        self.seg_agree = 0.0
+        self.seg_dec = 0
         self.t_start = now_fn()
 
     @property
@@ -679,7 +783,8 @@ class EngineRun:
         eng = self.eng
         t0 = self.now_fn()
         eng._prefill_shapes.add((1, int(req.prompt.size)))
-        tok0, logits0, pcache = eng.prefill(eng.params, eng.acfg, req)
+        tok0, logits0, pcache = eng.prefill(
+            eng.params, eng.acfg, req, eng.call_key(1_000_000 + req.rid))
         self.cache = self.pool.write(self.cache, pcache, slot, 0, req)
         self.cur[slot, 0] = tok0[0]
         first = [int(tok0[0])]  # repro-lint: disable=RL004 -- one sync per ADMISSION: the first token must reach the host record
@@ -722,6 +827,7 @@ class EngineRun:
             tokv, logitsv, pcache = eng.prefill_bucket(
                 torch.as_tensor(toks, device=eng.device),
                 torch.as_tensor(lens - 1, device=eng.device),
+                eng.call_key(1_000_000 + chunk[0].rid),
             )
             # repro-lint: disable=RL004 -- one sync per bucketed prefill CALL: the first tokens must reach the host records
             first = tokv.cpu().tolist()
@@ -746,6 +852,8 @@ class EngineRun:
         self.agree_sum += agree
         self.err_sum += err
         self.decisions += 1
+        self.seg_agree += agree
+        self.seg_dec += 1
 
     def decode_step(self) -> None:
         """One decode step over all slots, then retirement and the runaway
@@ -753,7 +861,8 @@ class EngineRun:
         eng = self.eng
         self.cache = self.pool.grow(self.cache, self.slots)
         t0 = self.now_fn()
-        nxt, logits, self.cache = eng.decode_main(self.cur, self.cache)
+        nxt, logits, self.cache = eng.decode_main(
+            self.cur, self.cache, eng.call_key(self.steps))
         if eng._ref:
             _, r_logits, self.ref_cache = eng.decode(
                 eng.ref_params, eng._digital, self.cur, self.ref_cache
@@ -774,15 +883,50 @@ class EngineRun:
                 self.agree_sum += float(host[1, i])
                 self.err_sum += float(host[2, i])
                 self.decisions += 1
+                self.seg_agree += float(host[1, i])
+                self.seg_dec += 1
         self.cur = nxt[:, None]
         for i in active:
             self.maybe_retire(i)
+        self._drift_tick()
         if self.max_steps is not None and self.steps >= self.max_steps:
             raise RuntimeError(
                 f"serving run exceeded max_steps={self.max_steps} with "
                 f"{self.n_active} live slots and {len(self.queue)} queued "
                 "requests"
             )
+
+    def _drift_tick(self) -> None:
+        """Every ``every_steps`` steps: refresh the chip if the segment's
+        agreement fell below ``refresh_below``, then age it to the
+        schedule's next wall age."""
+        policy = self.drift_policy
+        if policy is None or self.steps % policy.every_steps != 0:
+            return
+        eng = self.eng
+        if (eng._ref and self.seg_dec > 0
+                and self.chip.wants_refresh(self.seg_agree / self.seg_dec)):
+            self.refresh_chip(prng.fold_in(eng.rng, 7_000_000 + self.steps),
+                              top1=self.seg_agree / self.seg_dec)
+        self.seg_agree, self.seg_dec = 0.0, 0
+        if self.pol_idx < len(policy.schedule.times):
+            t_wall = policy.schedule.times[self.pol_idx]
+            self.pol_idx += 1
+            dev = self.chip.age_to(t_wall)
+            self.age_events.append(
+                {"kind": "age", "step": self.steps, "t_wall": t_wall, "t_device": dev}
+            )
+
+    def refresh_chip(self, key: Tensor, top1: Optional[float] = None) -> int:
+        """Reprogram this run's chip and add its programming events to the
+        run's allowance (the zero-delta check still holds)."""
+        consumed = self.chip.refresh(key)
+        self.allowed_events += consumed
+        self.age_events.append({
+            "kind": "reprogram", "step": self.steps, "top1": top1,
+            "t_device": self.eng.program.t_seconds,
+        })
+        return consumed
 
     def retire(self, i: int, st: _Slot, by: str) -> None:
         rec = RequestRecord(
@@ -815,9 +959,10 @@ class EngineRun:
         eng = self.eng
         wall = self.now_fn() - self.t_start
         delta = engine_mod.program_event_count() - self.events0
-        if eng.program is not None and delta:
+        if eng.program is not None and delta != self.allowed_events:
             raise RuntimeError(
-                f"serving run recorded {delta} programming events -- the "
+                f"serving run recorded {delta} programming events but "
+                f"refreshes account for {self.allowed_events} -- the "
                 "programmed chip must never be rewritten by serving itself"
             )
         self.pool.check_drained()
@@ -838,7 +983,9 @@ class EngineRun:
             t_decode=self.t_decode,
             wall=wall,
             counters=counters,
-            program_events_delta=delta,
+            age_events=self.age_events,
+            reprograms=eng.reprograms - self.reprograms0,
+            program_events_delta=delta - self.allowed_events,
             n_prefill_traces=len(eng._prefill_shapes),
             peak_kv_bytes=self.peak_kv_bytes,
             peak_pages_in_use=self.pool.peak_in_use,

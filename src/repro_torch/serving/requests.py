@@ -3,8 +3,8 @@
 A :class:`Request` is what a client submits (prompt, token budget, optional
 EOS, arrival time relative to the run's start); the engine fills in a
 :class:`RequestRecord` when it retires. :func:`poisson_trace` builds the
-synthetic workload from a ``numpy.random.Generator`` -- the port's and the
-reference's engines can serve the very same ``Request`` objects.
+synthetic workload from a threefry key through the RNG bridge: the same key
+gives the reference's trace.
 """
 
 from __future__ import annotations
@@ -13,6 +13,9 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
+
+from repro_torch import prng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,7 +71,7 @@ class RequestRecord:
 
 
 def poisson_trace(
-    rng: np.random.Generator,
+    key: torch.Tensor,
     n: int,
     *,
     vocab: int,
@@ -77,23 +80,26 @@ def poisson_trace(
     new_tokens: tuple[int, int] = (8, 128),
     eos_id: Optional[int] = None,
 ) -> list[Request]:
-    """Variable-length request trace with Poisson arrivals.
+    """Variable-length request trace with Poisson arrivals, drawn from the
+    threefry ``key`` as the reference draws it.
 
     ``rate=None`` (or <= 0) queues every request at t=0. Prompt lengths are
     drawn from ``prompt_lens``, tokens uniform over the vocabulary, budgets
     uniform in the inclusive ``new_tokens`` range.
     """
-    lens = rng.choice(np.asarray(prompt_lens), size=n)
-    budgets = rng.integers(new_tokens[0], new_tokens[1] + 1, size=n)
+    k_len, k_tok, k_new, k_arr = prng.split(key.cpu(), 4)
+    lens = prng.choice(k_len, torch.tensor(prompt_lens), (n,)).numpy()
+    budgets = prng.randint(k_new, (n,), new_tokens[0], new_tokens[1] + 1).numpy()
     if rate and rate > 0:
-        arrivals = np.cumsum(rng.exponential(1.0 / float(rate), size=n))
+        gaps = prng.exponential(k_arr, (n,)).numpy() / float(rate)
+        arrivals = np.cumsum(gaps)
         arrivals[0] = 0.0  # the first request starts the clock
     else:
         arrivals = np.zeros(n)
     return [
         Request(
             rid=i,
-            prompt=rng.integers(0, vocab, size=int(lens[i])),
+            prompt=prng.randint(prng.fold_in(k_tok, i), (int(lens[i]),), 0, vocab).numpy(),
             max_new_tokens=int(budgets[i]),
             eos_id=eos_id,
             arrival_t=float(arrivals[i]),

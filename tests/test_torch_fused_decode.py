@@ -37,6 +37,7 @@ from repro.kernels import decode_fused as jdf
 from repro.models import lm as jlm
 from repro_torch import clock as tclock
 from repro_torch import convert
+from repro_torch import prng
 from repro_torch import serving as tserving
 from repro_torch.checkpoint import store as tstore
 from repro_torch.configs import get_smoke as t_get_smoke
@@ -48,8 +49,11 @@ from repro_torch.kernels.ref import decode_fused_ref
 from repro_torch.models import lm as tlm
 from repro_torch.models.attention import KVCache
 
+from test_torch_traces import numpy_trace
+
 S = 16
 S_MAX = 48
+
 
 
 @pytest.fixture(scope="module")
@@ -150,13 +154,18 @@ def test_fused_engine_guards(setup):
         )
     fplan = tengine.build_fused_plan(s["tprog"])
     resample = dataclasses.replace(s["tprog"].cfg, resample_read_noise=True)
-    with pytest.raises(NotImplementedError, match="RNG-bridge"):
+    # a key with a resampling config but no read buffers serves the frozen
+    # weights: the same logits as the step without a key
+    steps = [
         tdf.fused_decode_step(
             s["tprog"].params, torch.zeros((1, 1), dtype=torch.long),
             tdf.init_fused_cache(s["tcfg"], fplan.n_groups, 1, S, s["tcfg"].dtype,
                                  device="cpu"),
-            fplan, s["tcfg"], resample, rng=torch.Generator(),
-        )
+            fplan, s["tcfg"], acfg, rng=rng,
+        )[0]
+        for acfg, rng in ((resample, prng.PRNGKey(0)), (s["tprog"].cfg, None))
+    ]
+    assert torch.equal(*steps)
 
 
 # ------------------------------------------- (b, c) cache helpers and table
@@ -244,10 +253,10 @@ def _port_walk(program, cfg, prompts, cur, n_steps, cache_s):
 ], ids=["b4", "b6", "b8", "mixed"])
 def test_decode_fused_ref_bitwise_the_per_layer_decode(dtype, b_adc, overrides):
     cfg = dataclasses.replace(t_get_smoke("tinyllama-1.1b"), dtype=dtype)
-    params = tlm.lm_init(torch.Generator().manual_seed(b_adc), cfg, device="cpu")
+    params = tlm.lm_init(prng.PRNGKey(b_adc), cfg, device="cpu")
     program = tengine.compile_program(
         params, TAnalogConfig(tile_rows=32).infer(b_adc=b_adc),
-        torch.Generator().manual_seed(1), b_adc_overrides=overrides, device="cpu",
+        prng.PRNGKey(1), b_adc_overrides=overrides, device="cpu",
     )
     fplan = tengine.build_fused_plan(program)
     if overrides:
@@ -306,8 +315,8 @@ def test_decode_fused_ref_matches_reference_fused_and_unfused(setup):
 
 def test_fused_engine_serves_the_reference_tokens(setup):
     s = setup
-    trace = tserving.poisson_trace(
-        np.random.default_rng(5), 5, vocab=s["tcfg"].vocab, rate=400.0,
+    trace = numpy_trace(
+        5, 5, vocab=s["tcfg"].vocab, rate=400.0,
         prompt_lens=(4, 8, 12), new_tokens=(3, 8),
     )
     jtrace = [jserving.Request(rid=r.rid, prompt=r.prompt,

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import prng
 from repro_torch.configs import get_smoke
 from repro_torch.core import engine
 from repro_torch.core.analog import AnalogConfig
@@ -164,11 +165,10 @@ class Emulated:
 
 def _decoder(dtype, seed=0, tile_rows=32):
     cfg = dataclasses.replace(get_smoke("tinyllama-1.1b"), dtype=dtype, n_layers=N_LAYERS)
-    gen = torch.Generator().manual_seed(seed)
-    params = lm.lm_init(gen, cfg, device="cpu")
+    params = lm.lm_init(prng.PRNGKey(seed), cfg, device="cpu")
     program = engine.compile_program(
         params, AnalogConfig(tile_rows=tile_rows).infer(b_adc=6),
-        torch.Generator().manual_seed(seed + 1), device="cpu",
+        prng.PRNGKey(seed + 1), device="cpu",
     )
     params = engine.cast_weights(program.params, dtype)
     plan = engine.build_fused_plan(program)
@@ -196,10 +196,10 @@ def test_phase_check_passes_on_the_kernels_phases(dtype, monkeypatch):
     assert torch.equal(cache.k, before)  # every phase ran on a copy
     c = res["checks"]
     assert c["residual"]["n"] == 2 * N_LAYERS + 1
-    assert c["dac"]["n"] == 7 * N_LAYERS + 1
+    assert c["dac"]["n"] == c["dac_plain"]["n"] == 7 * N_LAYERS + 1
     for name in chk.NAMES:
         assert c[f"mvm_{name}"]["n"] == (1 if name == "lm_head" else N_LAYERS)
-    assert c["k_row"]["n"] == c["v_row"]["n"] == N_LAYERS
+    assert c["k_row"]["n"] == c["k_row_plain"]["n"] == c["v_row"]["n"] == N_LAYERS
     assert c["logits"]["ok"] and c["lengths"]["ok"]
 
 
@@ -220,6 +220,26 @@ def test_phase_check_names_a_fault_past_layer_one(layer, proj, check, monkeypatc
     assert not res["ok"]
     assert (layer, check) in res["failures"]
     assert all(l >= layer for l, _ in res["failures"])
+
+
+def test_a_fault_the_kernel_shares_with_the_row_kernels_is_caught_by_the_plain_ops(
+        monkeypatch):
+    """B2 and the per-layer decode's row kernels share their device code, so
+    a fault there passes the bitwise readings; the plain-op readings catch
+    it. Here both compute a norm 5% too large."""
+    def faulty(x, scale, eps, norm=rmsnorm_apply):
+        return (norm({"scale": scale}, x, eps).float() * 1.05).to(x.dtype)
+
+    dec, cache, cur = _decoder(torch.float32)
+    monkeypatch.setitem(globals(), "rmsnorm_apply",
+                        lambda p, x, eps: faulty(x, p["scale"], eps))
+    monkeypatch.setattr(dec, "_launch", Emulated(dec), raising=False)
+    monkeypatch.setattr(chk.decode_rows, "norm", faulty)
+    res = chk.check_phases(dec, cur, cache)
+    assert not res["ok"]
+    assert res["checks"]["dac"]["ok"] and res["checks"]["dac"]["differing"] == 0
+    assert not res["checks"]["dac_plain"]["ok"]
+    assert (0, "dac_plain") in res["failures"]
 
 
 def test_tensor_core_items_are_held_bitwise(monkeypatch):

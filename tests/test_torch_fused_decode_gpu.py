@@ -61,15 +61,16 @@ def _check(dec, logits_k, logits_p):
 
 
 def _setup(cuda, cfg, n_slots, s_max, prompt_lens, seed):
+    from repro_torch import prng
     from repro_torch.core import engine
     from repro_torch.core.analog import AnalogConfig
     from repro_torch.kernels import decode_fused as df
     from repro_torch.models import lm
 
-    params = lm.lm_init(torch.Generator("cuda").manual_seed(seed), cfg, device=cuda)
+    params = lm.lm_init(prng.PRNGKey(seed), cfg, device=cuda)
     program = engine.compile_program(
         params, AnalogConfig(tile_rows=32 if cfg.d_model < 1024 else 1024).infer(b_adc=8),
-        torch.Generator("cuda").manual_seed(seed + 1), device=cuda,
+        prng.PRNGKey(seed + 1), device=cuda,
     )
     params = engine.cast_weights(program.params, cfg.dtype)
     plan = engine.build_fused_plan(program)

@@ -253,14 +253,15 @@ def test_b2_breakdown_by_difference():
 
 def test_decoder_records_the_item_choice_on_the_cpu():
     """The plain version runs here; the item choice is made all the same."""
+    from repro_torch import prng
     from repro_torch.core import engine
     from repro_torch.core.analog import AnalogConfig
     from repro_torch.models import lm
 
     cfg = dataclasses.replace(get_smoke("tinyllama-1.1b"), dtype=torch.bfloat16, n_layers=1)
-    params = lm.lm_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    params = lm.lm_init(prng.PRNGKey(0), cfg, device="cpu")
     program = engine.compile_program(params, AnalogConfig().infer(b_adc=8),
-                                     torch.Generator().manual_seed(1), device="cpu")
+                                     prng.PRNGKey(1), device="cpu")
     dec = df.FusedDecoder(engine.cast_weights(program.params, cfg.dtype),
                           engine.build_fused_plan(program), cfg, program.cfg, 2, 16)
     assert dec.items == ("tensor_core",) * 8 and dec.grid is None

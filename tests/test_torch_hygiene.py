@@ -69,7 +69,7 @@ def test_every_port_module_imports_without_jax_or_reference():
 def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
-    from repro_torch import convert
+    from repro_torch import convert, prng
     from repro_torch.checkpoint import store
     from repro_torch.configs import get_smoke
     from repro_torch.core import engine
@@ -78,12 +78,12 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
     from repro_torch.serving import ServingConfig, ServingEngine
 
     cfg = get_smoke("tinyllama-1.1b")
-    gen = torch.Generator().manual_seed(0)
-    params = lm.lm_init(gen, cfg, device="cpu")
+    key = prng.PRNGKey(0)
+    params = lm.lm_init(key, cfg, device="cpu")
     calls = [
-        lambda: lm.lm_init(gen, cfg),
+        lambda: lm.lm_init(key, cfg),
         lambda: lm.init_lm_cache(cfg, 1, 8, cfg.dtype),
-        lambda: engine.compile_program(params, AnalogConfig().infer(), gen),
+        lambda: engine.compile_program(params, AnalogConfig().infer(), key),
         lambda: store.load_program(str(tmp_path)),
         lambda: convert.params_from_numpy({"gain_s": np.ones(())}),
         lambda: ServingEngine(cfg, AnalogConfig(), params,

@@ -24,6 +24,7 @@ from repro.core import pcm as jpcm
 from repro.core.analog import AnalogConfig as JAnalogConfig
 from repro.models import lm as jlm
 from repro_torch import convert
+from repro_torch import prng
 from repro_torch.checkpoint import store as tstore
 from repro_torch.configs import get_smoke as t_get_smoke
 from repro_torch.core import engine as tengine
@@ -146,7 +147,7 @@ def test_compile_program_noise_off_matches_reference(setup):
     before = tengine.program_event_count()
     tprog = tengine.compile_program(
         s["tparams"], TAnalogConfig(tile_rows=32, pcm=tpcm.PCMConfig(**off)).infer(),
-        torch.Generator().manual_seed(2), b_adc_overrides={"blocks/*/ffn/*": 6},
+        prng.PRNGKey(2), b_adc_overrides={"blocks/*/ffn/*": 6},
         device="cpu",
     )
     assert tengine.program_event_count() - before == len(jprog.plans) == 8
@@ -171,13 +172,11 @@ def test_compile_program_noise_off_matches_reference(setup):
 
 
 def test_compile_program_noise_on_follows_the_model(setup):
-    """Programming noise is drawn from the port's generator: its std over
+    """Programming noise is drawn through the RNG bridge: its std over
     devices well inside the [0, 1.2] clip is sigma_P within 10%."""
     s = setup
     cfg = TAnalogConfig(tile_rows=32).infer(b_adc=8)
-    prog = tengine.compile_program(
-        s["tparams"], cfg, torch.Generator().manual_seed(0), device="cpu"
-    )
+    prog = tengine.compile_program(s["tparams"], cfg, prng.PRNGKey(0), device="cpu")
     z = []
     for path, st in prog.state.items():
         blk = s["tparams"].lm_head if path == "lm_head" else s["tparams"].blocks[0][
@@ -192,12 +191,11 @@ def test_compile_program_noise_on_follows_the_model(setup):
     z = torch.cat(z)
     assert z.numel() > 2000
     assert abs(float(z.std()) - 1.0) < 0.10
-    # the program is served as is: the same generator seed gives the same chip
-    again = tengine.compile_program(
-        s["tparams"], cfg, torch.Generator().manual_seed(0), device="cpu"
-    )
+    # the program is served as is: the same key gives the same chip
+    again = tengine.compile_program(s["tparams"], cfg, prng.PRNGKey(0), device="cpu")
     assert torch.equal(again.params.lm_head["w"], prog.params.lm_head["w"])
-    assert prog.state["lm_head"]["seed"].dtype == torch.int64
+    key = prog.state["lm_head"]["key"]
+    assert key.dtype == torch.int64 and key.shape == (2,)
 
 
 def test_last_index_picks_each_rows_position(setup):

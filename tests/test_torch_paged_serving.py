@@ -46,12 +46,15 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import attention as tattn
 from repro_torch.models import lm as tlm
 
+from test_torch_traces import numpy_trace
+
 S_MAX = 48
 
 
 def _jreq(r):
     return jserving.Request(rid=r.rid, prompt=r.prompt, max_new_tokens=r.max_new_tokens,
                             arrival_t=r.arrival_t)
+
 
 
 @pytest.fixture(scope="module")
@@ -64,8 +67,8 @@ def setup(tmp_path_factory):
     )
     path = str(tmp_path_factory.mktemp("chip") / "prog")
     jstore.save_program(path, jprog)
-    trace = tserving.poisson_trace(
-        np.random.default_rng(1), 7, vocab=tcfg.vocab, rate=400.0,
+    trace = numpy_trace(
+        1, 7, vocab=tcfg.vocab, rate=400.0,
         prompt_lens=(4, 9, 16, 23, 33), new_tokens=(3, 10),
     )
     tprog = tstore.load_program(path, device="cpu")
@@ -108,8 +111,8 @@ def test_paged_long_prompts_flat_memory(setup):
     pool smaller than the rectangular cache, bitwise as served alone."""
     s = setup
     s_virt, n_pages = 384, 26  # 25 usable pages * 16 = 400 rows vs 2 * 384
-    trace = tserving.poisson_trace(
-        np.random.default_rng(2), 4, vocab=s["tcfg"].vocab,
+    trace = numpy_trace(
+        2, 4, vocab=s["tcfg"].vocab,
         prompt_lens=(16, 150, 300), new_tokens=(3, 6),
     )
     rep = _paged(s, n_slots=2, s_max=s_virt, page_size=16, n_pages=n_pages,

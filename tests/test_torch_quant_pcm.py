@@ -17,6 +17,7 @@ import torch
 
 from repro.core import pcm as jpcm
 from repro.core import quant as jquant
+from repro_torch import prng
 from repro_torch.core import pcm as tpcm
 from repro_torch.core import quant as tquant
 
@@ -121,16 +122,15 @@ def test_pcm_deterministic_model_within_1e6():
 
 
 def test_pcm_noise_draws_follow_the_model():
-    gen = torch.Generator().manual_seed(0)
-    like = torch.zeros(200_000)
-    nu = tpcm.sample_drift_nu(gen, like)
+    k_nu, k_prog = prng.split(prng.PRNGKey(0))
+    nu = tpcm.sample_drift_nu(k_nu, (200_000,))
     assert abs(float(nu.mean()) - 0.06) < 1e-3
     assert abs(float(nu.std()) - 0.02) / 0.02 < 0.05
     assert float(nu.min()) >= 0.0
     g_t = torch.full((200_000,), 0.5)
-    g = tpcm.program(gen, g_t)
+    g = tpcm.program(k_prog, g_t)
     sigma = float(tpcm.programming_noise_sigma(torch.tensor(0.5)))
     assert abs(float((g - g_t).std()) - sigma) / sigma < 0.05
     assert float(g.min()) >= 0.0 and float(g.max()) <= 1.2
     off = tpcm.PCMConfig(programming_noise=False)
-    assert tpcm.program(gen, g_t, off) is g_t
+    assert tpcm.program(k_prog, g_t, off) is g_t

@@ -4,11 +4,11 @@
   flags the port has.
 * On the CPU, a ``--load-program --request-trace 3`` run prints the same
   tokens with and without ``--fused-decode``, and the same tokens as the
-  reference CLI serving the same artifact and the same requests (the
-  reference CLI draws its trace from a JAX key; here it is handed the
-  port's numpy trace, so both serve identical requests).
+  reference CLI serving the same artifact: both draw the trace from
+  ``PRNGKey(7)``, the port through its RNG bridge.
 """
 
+import os
 import re
 import sys
 
@@ -16,7 +16,6 @@ import jax
 import numpy as np
 import pytest
 
-from repro import serving as jserving
 from repro.checkpoint import store as jstore
 from repro.configs import get_smoke as j_get_smoke
 from repro.core import engine as jengine
@@ -24,7 +23,6 @@ from repro.core.analog import AnalogConfig as JAnalogConfig
 from repro.launch import serve as jserve
 from repro.models import lm as jlm
 from repro_torch.launch import serve as tserve
-from repro_torch.serving import poisson_trace as t_poisson_trace
 
 SHAPE = ["--batch", "2", "--prompt-len", "8", "--tokens", "6"]
 
@@ -80,17 +78,24 @@ def test_cli_tokens_fused_unfused_and_reference(artifact, capsys, monkeypatch):
         tserve.main(["--device", "cpu", *argv, *extra])
         runs.append(_summary_and_tokens(capsys.readouterr().out))
     assert runs[0] == runs[1]
-
-    def same_trace(_key, n, **kw):
-        return [jserving.Request(rid=r.rid, prompt=r.prompt,
-                                 max_new_tokens=r.max_new_tokens,
-                                 arrival_t=r.arrival_t)
-                for r in t_poisson_trace(np.random.default_rng(7), n, **kw)]
-
-    monkeypatch.setattr(jserve, "poisson_trace", same_trace)
     monkeypatch.setattr(sys, "argv", ["serve", *argv])
     jserve.main()
     assert _summary_and_tokens(capsys.readouterr().out) == runs[0]
+
+
+def _other_model(artifact: str) -> str:
+    """The artifact with one programmed leaf cut to another width: a chip
+    of another model."""
+    import shutil
+
+    path = artifact + "_other"
+    if not os.path.exists(path):
+        shutil.copytree(artifact, path)
+        with np.load(os.path.join(artifact, "arrays.npz")) as data:
+            arrays = dict(data)
+        arrays["params::lm_head::w"] = arrays["params::lm_head::w"][:, :7]
+        np.savez(os.path.join(path, "arrays.npz"), **arrays)
+    return path
 
 
 def test_cli_refuses_what_it_cannot_serve(artifact, capsys):
@@ -98,7 +103,9 @@ def test_cli_refuses_what_it_cannot_serve(artifact, capsys):
         tserve.main(["--device", "cpu", "--load-program", artifact, "--b-adc", "8"])
     assert "does not match the loaded artifact" in capsys.readouterr().err
     with pytest.raises(SystemExit):
-        tserve.main(["--device", "cpu", "--load-program", artifact, "--t-hours", "1"])
-    assert "drift slice" in capsys.readouterr().err
+        tserve.main(["--device", "cpu", "--load-program", artifact, "--resample-read-noise"])
+    assert "carries no read buffers" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="does not match the model"):
+        tserve.main(["--device", "cpu", "--load-program", _other_model(artifact)])
     with pytest.raises(SystemExit):
         tserve.main(["--device", "cpu", "--kv-page-size", "8"])
