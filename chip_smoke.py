@@ -64,9 +64,11 @@ end the run with a non-zero exit:
    page_size=16, prefill_batch=4)`` and ``BucketedScheduler``; the counters
    prove 22 B3 launches per prefill (bucketed and digital), 155 B1 launches
    per bucketed prefill call and decode step, and no plain-version call;
-   one prefill call profiled for B3's share of its device time; one
-   decode step at 8 slots (no lockstep) per layer over the rectangular and
-   over the paged cache, timed in turns and profiled;
+   one prefill call profiled for B3's share of its device time; the trace
+   served rectangular and paged in turns on a chip of phase 4's first
+   SHALLOW_DEPTH layers; one decode step at 8 slots (no lockstep) per
+   layer over the rectangular and over the paged cache, timed in turns and
+   profiled;
 10. row kernels vs plain: RMSNorm, RoPE, decode attention and the silu
    gate of the per-layer decode (``kernels/decode_rows.py``, B2's
    per-element code from ``csrc/decode_rows_core.cuh``) against today's
@@ -74,18 +76,35 @@ end the run with a non-zero exit:
    (1 bf16 ulp, 2 for attention), timed beside the bound and the library
    call where there is one; phase 4 counts their launches per decode
    forward (chip and digital lockstep);
-11. drift lifecycle at full width: phase 4's chip aged to 25 s, then the
-   trace under a ``DriftPolicy`` (25 s -> 1 h -> 1 d) with one refresh,
-   per layer and fused: programming events only from the refresh, the
-   implied device ages, the same tokens both ways, the aging and refresh
-   seconds and ms per decode step; then B2 on the aged chip, one step
-   bitwise the per-layer step;
+11. drift lifecycle at full width and depth SHALLOW_DEPTH (2; a chip of
+   phase 4's first layers, programmed as phase 4's was): the chip aged to
+   25 s, then the trace under a ``DriftPolicy`` (25 s -> 1 h -> 1 d) with
+   one refresh, per layer and fused: programming events only from the
+   refresh, the implied device ages, the same tokens both ways, the aging
+   and refresh seconds and ms per decode step; then B2 on the aged chip,
+   one step bitwise the per-layer step; phase 4's whole chip aged once,
+   timed;
 12. resampled read noise: one full-width decode step with every read draw
    fresh (read buffers for phase 4's chip), per layer and fused, timed and
-   bitwise equal; the trace at depth 2 with resampling (the full depth
-   would redraw 2 G weights a step and outrun the time limit), per layer
-   and fused: the same tokens;
-13. report: a JSON line ``{"kernels": [...]}`` and, last, the device line
+   bitwise equal; the trace at depth RESAMPLE_DEPTH (1) with resampling
+   (the full depth would redraw 2 G weights a step and outrun the time
+   limit; depth 1 since the fleet phase joined the run), per layer and
+   fused: the same tokens;
+13. fleet and async serving at full width (``phase_fleet``): 3 replicas of
+   phase 4's chip behind ``FleetRouter`` (sharing its tensors), the
+   digital lockstep on, phase 4's trace. A storm on a virtual clock drains
+   chip 0 mid-flight and reprograms it: every request retires once with its
+   budget, live requests migrate and their remainders are bitwise what the
+   destination chip serves from the continuation alone, the reprogrammed
+   chip is the CPU bridge's draw from its key, launches are exactly the
+   work's. Then ``AsyncFleetRouter`` deterministic (virtual clock) and
+   threaded (a worker thread and a CUDA stream per chip), in turns: the
+   same tokens, exact launch counts under threads, tokens/s, latency,
+   TTFT, idle share and peak memory of each, and the threaded speedup. The
+   B1 and B3 shapes the continuations' prefills launched are then checked
+   as phases 3 and 8 check theirs;
+14. report: a JSON line ``{"kernels": [...]}`` (launches from the serving
+   phases and the fleet) and, last, the device line
    ``{"ok": true, "device": {...}}``.
 
 The RNG bridge (``repro_torch.prng``): phase 4 draws the weights and
@@ -156,6 +175,21 @@ FA_CONTEXT = 2048
 PROMPT_LENS = (16, 32, 64, 128, 256)
 #: slots of a decode step (the M of every decode-step B1 launch)
 SLOTS = 8
+#: phase 12's trace with every read noise redrawn per MVM runs at this
+#: depth (the full depth would redraw 2 G weights a step)
+RESAMPLE_DEPTH = 1
+#: phase 9's rectangular and paged serves in turns and phase 11's drift
+#: lifecycle run on a chip of phase 4's first SHALLOW_DEPTH layers (at the
+#: full depth they took a third of the run once the fleet phase joined it)
+SHALLOW_DEPTH = 2
+#: the fleet phase (13): 3 replicas of phase 4's chip, 4 ticks down per
+#: reprogram; chip 0 is drained at FLEET_DRAIN_TICK, where it holds live
+#: requests (routing on a virtual clock follows arrivals and budgets, not
+#: tokens: the trace at smoke width drains 2 live requests there)
+FLEET = dict(n_chips=3, refresh_steps=4)
+FLEET_DRAIN_TICK = 15
+#: the profiled window of each async run: (seconds into the run, length)
+FLEET_WINDOW_S = (2.0, 0.3)
 #: phase 4's program phase before the RNG bridge, with torch.Generator
 #: draws: that chip_smoke.py's runs on an H100 80GB HBM3 at 700 W
 PARENT_PROGRAM_S = "0.69-0.85"
@@ -320,53 +354,23 @@ def phase_kernel_vs_plain(torch, gen, ms: tuple) -> dict:
     (the kernel bf16 ran on before them); the worst error per design; then
     the row-stability check of the tensor-core designs (``row_stability``)."""
     from repro_torch.kernels import analog_mvm as kernel
-    from repro_torch.kernels.ref import analog_mvm_ref
 
-    dev = "cuda"
-    r_adc = torch.tensor(1.5, device=dev)
-    r_dac = torch.tensor(3.0, device=dev)
-    out_scale = torch.tensor(0.97, device=dev)
     by_design = {d: {"max_abs": 0.0, "max_steps": 0.0, "frac_half_step": 0.0, "flips": 0,
                      "elements": 0, "cases": 0} for d in kernel.DESIGNS}
     checked, failures = set(), []
     for name, k, n, _ in SHAPES:
-        w32 = torch.randn((k, n), generator=gen, device=dev) * k**-0.5
+        w32 = torch.randn((k, n), generator=gen, device=DEV) * k**-0.5
         for m in ms:
-            x32 = torch.randn((m, k), generator=gen, device=dev)
+            x32 = torch.randn((m, k), generator=gen, device=DEV)
             for dtype in (torch.float32, torch.bfloat16):
                 x, w = x32.to(dtype), w32.to(dtype)
-                for bits in (4, 6, 8):
-                    step = (1.5 + 1e-9) / (2 ** (bits - 1) - 1) * 0.97
-                    for per_tile in (True, False):
-                        n_tiles = math.ceil(k / 1024) if per_tile else 1
-                        for dac in (True, False):
-                            kw = dict(r_dac=r_dac if dac else None, b_adc=bits, r_adc=r_adc,
-                                      out_scale=out_scale, tile_rows=1024,
-                                      per_tile_adc=per_tile)
-                            y_p = analog_mvm_ref(
-                                x, w, r_dac, r_adc, out_scale, b_dac=bits + 1,
-                                b_adc=bits, tile_rows=1024, per_tile_adc=per_tile,
-                                apply_dac=dac,
-                            )
-                            auto = kernel.select_design(dtype, m, k, n, per_tile_adc=per_tile,
-                                                        apply_dac=dac)
-                            for design in dict.fromkeys((auto, "gemv")):
-                                y_k = (kernel.analog_mvm(x, w, **kw) if design == auto
-                                       else kernel._launch(design, x, w, **kw))
-                                check(y_k.dtype == dtype and y_k.shape == (m, n),
-                                      f"{name}: kernel output {y_k.dtype} {tuple(y_k.shape)}")
-                                r = compare(y_k, y_p, step, n_tiles, dtype == torch.bfloat16)
-                                worst = by_design[design]
-                                worst["cases"] += 1
-                                worst["flips"] += r["flips"]
-                                worst["elements"] += r["elements"]
-                                for key in ("max_abs", "max_steps", "frac_half_step"):
-                                    worst[key] = max(worst[key], r[key])
-                                checked.add(b1_key(m, k, n, dtype, design)
-                                            + (1024, per_tile, dac))
-                                if not r["ok"]:
-                                    failures.append((name, m, str(dtype), design, bits,
-                                                     per_tile, dac, r))
+                for per_tile in (True, False):
+                    for dac in (True, False):
+                        auto = kernel.select_design(dtype, m, k, n, per_tile_adc=per_tile,
+                                                    apply_dac=dac)
+                        for design in dict.fromkeys((auto, "gemv")):
+                            b1_cases(torch, name, x, w, design, per_tile, dac, by_design,
+                                     checked, failures)
     torch.cuda.synchronize()
     cases = sum(v["cases"] for v in by_design.values())
     log(f"kernel vs plain: {cases} cases, M in {list(ms)}")
@@ -379,6 +383,66 @@ def phase_kernel_vs_plain(torch, gen, ms: tuple) -> dict:
     check(not failures, f"{len(failures)} kernel-vs-plain cases out of tolerance")
     return {"cases": cases, "ms": list(ms), "by_design": by_design,
             "checked": sorted(checked), "row_stability": row_stability(torch, gen, kernel)}
+
+
+def b1_cases(torch, name, x, w, design, per_tile, dac, by_design, checked, failures) -> None:
+    """B1 through ``design`` against its plain version on x (M, K) and w
+    (K, N) at b_adc 4, 6 and 8 under ``compare``'s tolerance model: the
+    worst error goes into ``by_design``, the case's ``b1_key`` and options
+    into ``checked``, a case out of tolerance into ``failures``."""
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.kernels.ref import analog_mvm_ref
+
+    r_adc = torch.tensor(1.5, device=DEV)
+    r_dac = torch.tensor(3.0, device=DEV)
+    out_scale = torch.tensor(0.97, device=DEV)
+    (m, k), n, dtype = x.shape, w.shape[1], x.dtype
+    auto = kernel.select_design(dtype, m, k, n, per_tile_adc=per_tile, apply_dac=dac)
+    n_tiles = math.ceil(k / 1024) if per_tile else 1
+    for bits in (4, 6, 8):
+        step = (1.5 + 1e-9) / (2 ** (bits - 1) - 1) * 0.97
+        kw = dict(r_dac=r_dac if dac else None, b_adc=bits, r_adc=r_adc,
+                  out_scale=out_scale, tile_rows=1024, per_tile_adc=per_tile)
+        y_p = analog_mvm_ref(x, w, r_dac, r_adc, out_scale, b_dac=bits + 1, b_adc=bits,
+                             tile_rows=1024, per_tile_adc=per_tile, apply_dac=dac)
+        y_k = (kernel.analog_mvm(x, w, **kw) if design == auto
+               else kernel._launch(design, x, w, **kw))
+        check(y_k.dtype == dtype and y_k.shape == (m, n),
+              f"{name}: kernel output {y_k.dtype} {tuple(y_k.shape)}")
+        r = compare(y_k, y_p, step, n_tiles, dtype == torch.bfloat16)
+        worst = by_design[design]
+        worst["cases"] += 1
+        worst["flips"] += r["flips"]
+        worst["elements"] += r["elements"]
+        for key in ("max_abs", "max_steps", "frac_half_step"):
+            worst[key] = max(worst[key], r[key])
+        checked.add(b1_key(m, k, n, dtype, design) + (1024, per_tile, dac))
+        if not r["ok"]:
+            failures.append((name, m, str(dtype), design, bits, per_tile, dac, r))
+
+
+def check_launched_b1(torch, gen, keys: list, accuracy: dict) -> dict:
+    """Phase 3's comparison, at the same tolerance, for B1 keys a serving
+    phase launched that phase 3 did not check (the fleet's migrated
+    continuations re-prefill at prompt + prefix tokens, an M no other
+    phase serves); merged into phase 3's record."""
+    failures = []
+    checked = set(map(tuple, accuracy["checked"]))
+    for key in keys:
+        m, k, n, dtype, design, tile_rows, per_tile, dac = key
+        check(tile_rows == 1024, f"B1 launched at tile_rows {tile_rows}")
+        dt = getattr(torch, dtype)
+        x = torch.randn((m, k), generator=gen, device=DEV).to(dt)
+        w = (torch.randn((k, n), generator=gen, device=DEV) * k**-0.5).to(dt)
+        b1_cases(torch, f"{k}x{n}", x, w, design, per_tile, dac, accuracy["by_design"],
+                 checked, failures)
+    torch.cuda.synchronize()
+    accuracy["checked"] = sorted(checked)
+    accuracy["cases"] += 3 * len(keys)
+    log(f"kernel vs plain, the keys the serving phases launched that phase 3 had not "
+        f"checked ({len(keys)}): {sorted(keys)}; out of tolerance: {failures or 'none'}")
+    check(not failures, f"{len(failures)} launched B1 cases out of tolerance")
+    return {"keys": sorted(keys), "failures": len(failures)}
 
 
 def row_stability(torch, gen, kernel) -> dict:
@@ -788,6 +852,25 @@ def first(tree, depth: int):
     if isinstance(tree, dict):
         return {k: first(v, depth) for k, v in tree.items()}
     return tree[:depth]
+
+
+def shallow_chip(torch, ctx) -> tuple:
+    """(params, cfg, program): phase 4's weights cut to their first
+    SHALLOW_DEPTH layers and programmed as phase 4's chip was (b_adc = 8,
+    t = 1 d, its key), made once and kept in ``ctx["shallow"]``."""
+    import dataclasses
+
+    from repro_torch import prng
+    from repro_torch.core import engine
+
+    if "shallow" not in ctx:
+        params = ctx["params"]._replace(blocks=(first(ctx["params"].blocks[0], SHALLOW_DEPTH),))
+        cfg = dataclasses.replace(ctx["cfg"], n_layers=SHALLOW_DEPTH)
+        program = engine.compile_program(params, ctx["program"].cfg,
+                                         prng.PRNGKey(ctx["seed"] + 1), device=DEV)
+        torch.cuda.synchronize()
+        ctx["shallow"] = (params, cfg, program)
+    return ctx["shallow"]
 
 
 def phase_fused_check(torch, ctx) -> dict:
@@ -1364,29 +1447,7 @@ def phase_flash_attention(torch, gen, shapes: list) -> dict:
     cases, failures, rows_out = [], [], []
     for rows, s in shapes:
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = (torch.randn((rows, s, n, c["d"]), generator=gen, device=DEV).to(dtype)
-                       for n in (c["h"], c["kv"], c["kv"]))
-            for causal in (True, False):
-                o_k = fa.flash_attention(q, k, v, causal=causal, **chunks)
-                o_p = flash_attention_ref(q, k, v, causal, **chunks)
-                ok_, op_ = o_k.float(), o_p.float()
-                dd = (ok_ - op_).abs()
-                scale = op_.abs().max().item()
-                ulp = bf16_ulp(op_)
-                r = {"rows": rows, "S": s, "dtype": str(dtype).split(".")[-1],
-                     "causal": causal, "max_abs": dd.max().item(), "max_abs_o": scale,
-                     "max_ulps": (dd / ulp).max().item() if dtype == torch.bfloat16 else None,
-                     "over_one_ulp": int((dd > ulp).sum().item()),
-                     "differing": int((dd > 0).sum().item()), "elements": dd.numel(),
-                     "finite": bool(ok_.isfinite().all().item())}
-                if dtype == torch.float32:
-                    r["ok"] = r["finite"] and r["max_abs"] <= 1e-5 * scale
-                else:
-                    r["ok"] = (r["finite"] and bool((dd <= ulp + 1e-5 * scale).all().item())
-                               and r["differing"] / r["elements"] < 0.01)
-                cases.append(r)
-                if not r["ok"]:
-                    failures.append(r)
+            q, k, v = fa_cases(torch, gen, rows, s, dtype, cases, failures)
             if dtype != torch.bfloat16:
                 continue
             # timing, bf16 causal: kernel, plain, SDPA, kernel
@@ -1443,14 +1504,73 @@ def phase_flash_attention(torch, gen, shapes: list) -> dict:
             "worst_bf16_ulps": worst_bf16, "worst_f32_rel": worst_f32}
 
 
+def fa_cases(torch, gen, rows: int, s: int, dtype, cases: list, failures: list) -> tuple:
+    """B3 against its plain version on random (rows, S) operands at
+    tinyllama-1.1b's heads, causal and full, under phase 8's tolerance:
+    each case into ``cases``, a case out of tolerance into ``failures``;
+    returns the operands (q, k, v)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    c = FA_HEADS
+    chunks = dict(q_chunk=c["q_chunk"], kv_chunk=c["kv_chunk"])
+    q, k, v = (torch.randn((rows, s, n, c["d"]), generator=gen, device=DEV).to(dtype)
+               for n in (c["h"], c["kv"], c["kv"]))
+    for causal in (True, False):
+        o_k = fa.flash_attention(q, k, v, causal=causal, **chunks)
+        o_p = flash_attention_ref(q, k, v, causal, **chunks)
+        ok_, op_ = o_k.float(), o_p.float()
+        dd = (ok_ - op_).abs()
+        scale = op_.abs().max().item()
+        ulp = bf16_ulp(op_)
+        r = {"rows": rows, "S": s, "dtype": str(dtype).split(".")[-1],
+             "causal": causal, "max_abs": dd.max().item(), "max_abs_o": scale,
+             "max_ulps": (dd / ulp).max().item() if dtype == torch.bfloat16 else None,
+             "over_one_ulp": int((dd > ulp).sum().item()),
+             "differing": int((dd > 0).sum().item()), "elements": dd.numel(),
+             "finite": bool(ok_.isfinite().all().item())}
+        if dtype == torch.float32:
+            r["ok"] = r["finite"] and r["max_abs"] <= 1e-5 * scale
+        else:
+            r["ok"] = (r["finite"] and bool((dd <= ulp + 1e-5 * scale).all().item())
+                       and r["differing"] / r["elements"] < 0.01)
+        cases.append(r)
+        if not r["ok"]:
+            failures.append(r)
+    return q, k, v
+
+
+def check_launched_fa(torch, gen, shapes: list, flash: dict) -> dict:
+    """Phase 8's comparison, at the same tolerance, for (rows, S, dtype)
+    shapes a serving phase launched B3 at that phase 8 did not check (a
+    migrated continuation prefills prompt + prefix tokens); merged into
+    phase 8's record."""
+    from repro_torch.kernels import flash_attention as fa
+
+    launches0 = fa.flash_attention.launches
+    failures = []
+    for rows, s, dtype in shapes:
+        fa_cases(torch, gen, rows, s, getattr(torch, dtype), flash["cases"], failures)
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = launches0  # check launches are not main-path launches
+    flash["worst_bf16_ulps"] = max(r["max_ulps"] for r in flash["cases"]
+                                   if r["max_ulps"] is not None)
+    log(f"B3 vs plain at the shapes the serving phases launched that phase 8 had not checked "
+        f"({len(shapes)}): {sorted(shapes)}; out of tolerance: {failures or 'none'}")
+    check(not failures, f"{len(failures)} launched B3 cases out of tolerance")
+    return {"shapes": sorted(shapes), "failures": len(failures)}
+
+
 def phase_paged_serve(torch, ctx, per_layer: dict) -> dict:
     """The trace again through the paged cache with bucketed prefill:
     ServingConfig(n_slots=8, s_max=512, paged=True, page_size=16,
     prefill_batch=4), BucketedScheduler, digital lockstep on. The counters
     prove B3 and B1 ran every prefill call and decode step and no plain
     version ran; one profiled prefill call gives B3's share of its device
-    time; the exact-length and bucketed prefill of the same prompts are
-    compared (reported, not gated); one decode step at 8 slots, no digital
+    time; the trace served rectangular and paged in turns (rect, paged,
+    paged, rect) on the SHALLOW_DEPTH chip; the exact-length and bucketed
+    prefill of the same prompts are compared (reported, not gated); one
+    decode step at 8 slots, no digital
     lockstep, over the rectangular slot cache (phase 4's engine) and over the
     paged cache, timed in turns (a, b, b, a) and profiled."""
     import numpy as np
@@ -1478,10 +1598,6 @@ def phase_paged_serve(torch, ctx, per_layer: dict) -> dict:
     paged.run([Request(rid=-1, prompt=trace[0].prompt[:16], max_new_tokens=4)],
               scheduler=BucketedScheduler())
     torch.cuda.synchronize()
-    # host time drifts over a long process: the paged run is compared with
-    # the rectangular engine served in turns around it (rect, paged, paged,
-    # rect), not only with phase 4's run
-    rect_before = serve_metrics(ctx["served"].run(trace))
     calls.clear()
     events0 = engine.program_event_count()
     reset_counts()
@@ -1510,13 +1626,30 @@ def phase_paged_serve(torch, ctx, per_layer: dict) -> dict:
     }
     res["kv_bytes_at_peak_pages"] = res["peak_pages_in_use"] * res["page_bytes_all_layers"]
     log(rep.summary())
-    turns = {"rect": [rect_before], "paged": [res]}
-    turns["paged"].append(serve_metrics(paged.run(trace, scheduler=BucketedScheduler())))
-    turns["rect"].append(serve_metrics(ctx["served"].run(trace)))
+    # host time drifts over a long process: rectangular and paged serving
+    # are compared in turns (rect, paged, paged, rect), on a chip of the
+    # first SHALLOW_DEPTH layers
+    sparams, scfg, sprog = shallow_chip(torch, ctx)
+    shallow = {"rect": (ServingEngine.for_program(
+                   sprog, scfg, ServingConfig(n_slots=SLOTS, s_max=512), ref_params=sparams,
+                   device=DEV), None),
+               "paged": (ServingEngine.for_program(
+                   sprog, scfg, ServingConfig(**PAGED), ref_params=sparams, device=DEV),
+                   BucketedScheduler)}
+    for eng, sched in shallow.values():  # warm-up, not measured
+        eng.run([Request(rid=-1, prompt=trace[0].prompt[:16], max_new_tokens=4)],
+                scheduler=sched and sched())
+    turns = {"rect": [], "paged": []}
+    for k in ("rect", "paged", "paged", "rect"):
+        eng, sched = shallow[k]
+        turns[k].append(serve_metrics(eng.run(trace, scheduler=sched and sched())))
+    del shallow
     res["in_turns"] = {k: [{n: m[n] for n in SERVE_METRICS} for m in v]
                        for k, v in turns.items()}
-    for name, m in [("per-layer", per_layer)] + [
-            (f"{k} {i}", m) for k in ("rect", "paged") for i, m in enumerate(turns[k])]:
+    res["in_turns_depth"] = SHALLOW_DEPTH
+    for name, m in [("per-layer", per_layer), ("paged", res)] + [
+            (f"{k} {i} d{SHALLOW_DEPTH}", m) for k in ("rect", "paged")
+            for i, m in enumerate(turns[k])]:
         log(f"serve {name:9s}: {m['tokens_per_s']:.1f} tokens/s, "
             f"{m['ms_per_decode_step']:.2f} ms/decode step, p50 {m['latency_p50_s']:.3f} s, "
             f"p95 {m['latency_p95_s']:.3f} s, ttft p50 {m['ttft_p50_s']:.3f} s, "
@@ -1750,8 +1883,8 @@ def phase_bridge(torch, ctx) -> dict:
 
 
 def _lifecycle_run(torch, ctx, fused: bool) -> tuple:
-    """One drift-lifecycle run of the trace on a virtual clock: phase 4's
-    chip aged to the schedule's first age, then DriftPolicy over
+    """One drift-lifecycle run of the trace on a virtual clock: the
+    SHALLOW_DEPTH chip aged to the schedule's first age, then DriftPolicy over
     LIFECYCLE_AGES (an age every third of the steps) and one refresh right
     after the first aging; returns (report, engine, timings: each aging,
     the refresh and each decode step of the chip, synchronized). Only the
@@ -1762,15 +1895,16 @@ def _lifecycle_run(torch, ctx, fused: bool) -> tuple:
     from repro_torch.core.engine import DriftSchedule
     from repro_torch.serving import DriftPolicy, ServingConfig, ServingEngine
 
-    cfg, trace = ctx["cfg"], ctx["trace"]
+    params, cfg, program = shallow_chip(torch, ctx)
+    trace = ctx["trace"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    program25 = engine.age_program(ctx["program"], LIFECYCLE_AGES[0])
+    program25 = engine.age_program(program, LIFECYCLE_AGES[0])
     torch.cuda.synchronize()
     first_age_s = time.perf_counter() - t0
     eng = ServingEngine.for_program(
         program25, cfg, ServingConfig(n_slots=SLOTS, s_max=512, fused_decode=fused),
-        ref_params=ctx["params"], src_params=ctx["params"], rng=prng.PRNGKey(ctx["seed"] + 3),
+        ref_params=params, src_params=params, rng=prng.PRNGKey(ctx["seed"] + 3),
         device=DEV,
     )
     del program25
@@ -1817,11 +1951,13 @@ def _lifecycle_run(torch, ctx, fused: bool) -> tuple:
 
 
 def phase_drift_lifecycle(torch, ctx) -> dict:
-    """Phase 4's trace at full width under a DriftPolicy (25 s -> 1 h -> 1 d)
-    with one refresh, per layer and fused: zero programming events outside
-    the refresh, the ages and device ages the policy implies, the same
-    tokens both ways; then B2 serves the aged chip: one step from the
-    trace's cache state is bitwise the per-layer step on the same chip."""
+    """Phase 4's trace at full width on the SHALLOW_DEPTH chip under a
+    DriftPolicy (25 s -> 1 h -> 1 d) with one refresh, per layer and fused:
+    zero programming events outside the refresh, the ages and device ages
+    the policy implies, the same tokens both ways; then B2 serves the aged
+    chip: one step from the trace's cache state is bitwise the per-layer
+    step on the same chip. Phase 4's whole chip is aged once, timed (the
+    fleet phase times a whole chip's refresh)."""
     from repro_torch.core import engine
     from repro_torch.kernels import decode_fused as df
     from repro_torch.models.attention import KVCache
@@ -1829,8 +1965,19 @@ def phase_drift_lifecycle(torch, ctx) -> dict:
 
     gc.collect()
     torch.cuda.empty_cache()
-    out = {"memory_gib_before": torch.cuda.memory_allocated() / 2**30}
+    out = {"memory_gib_before": torch.cuda.memory_allocated() / 2**30,
+           "depth": SHALLOW_DEPTH}
     log(f"drift lifecycle: {out['memory_gib_before']:.1f} GiB allocated before it")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    aged = engine.age_program(ctx["program"], LIFECYCLE_AGES[0])
+    torch.cuda.synchronize()
+    out["full_depth_age_s"] = time.perf_counter() - t0
+    del aged
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"drift lifecycle: phase 4's whole chip aged to {LIFECYCLE_AGES[0]:.0f} s in "
+        f"{out['full_depth_age_s']:.2f} s; the lifecycle runs at depth {SHALLOW_DEPTH}")
     reports = {}
     for fused in (False, True):
         name = "fused" if fused else "per_layer"
@@ -1892,6 +2039,7 @@ def phase_drift_lifecycle(torch, ctx) -> dict:
           "B2 serves the aged chip bitwise the per-layer step")
     check(out["requests_same_tokens"] == len(ctx["trace"]),
           "per-layer and fused lifecycles serve the same tokens")
+    del ctx["shallow"]  # its last phase
     return out
 
 
@@ -1899,10 +2047,10 @@ def phase_resample(torch, ctx) -> dict:
     """Per-MVM read-noise resampling. At full width, one decode step at 8
     slots with every projection's read noise drawn afresh (read buffers
     built for phase 4's chip), per layer and fused, timed, the two steps
-    bitwise equal; then, at depth 2 (the whole trace at full depth would
-    redraw 2 G weights per step and outrun the run's time limit), the
-    trace served per layer and fused with resampling on a virtual clock:
-    the same tokens."""
+    bitwise equal; then, at depth RESAMPLE_DEPTH (the whole trace at full
+    depth would redraw 2 G weights per step and outrun the run's time
+    limit), the trace served per layer and fused with resampling on a
+    virtual clock: the same tokens."""
     import dataclasses
 
     from repro_torch import clock, prng
@@ -1961,8 +2109,9 @@ def phase_resample(torch, ctx) -> dict:
     del dec, w, params_rs, program_rs, fcache
     gc.collect()
     torch.cuda.empty_cache()
-    # the trace at depth 2, resampling every MVM of every step
-    depth = 2
+    # the trace at a cut depth, resampling every MVM of every step
+    depth = RESAMPLE_DEPTH
+    res["trace_depth"] = depth
     params2 = ctx["params"]._replace(blocks=(first(ctx["params"].blocks[0], depth),))
     cfg2 = dataclasses.replace(cfg, n_layers=depth)
     prog2 = engine.compile_program(params2, AnalogConfig(resample_read_noise=True).infer(
@@ -1990,30 +2139,410 @@ def phase_resample(torch, ctx) -> dict:
         rep = eng.run(trace, clock=clock.VirtualClock())
         torch.cuda.synchronize()
         name = "fused" if fused else "per_layer"
-        res[f"depth2_{name}"] = {
+        res[f"trace_{name}"] = {
             "ms_per_decode_step": 1e3 * sum(steps_s) / max(len(steps_s), 1),
             "decode_steps": rep.n_steps, "program_events": engine.program_event_count() - events0,
             "decode_fused_launches": df.launches, "normal_launches": prng.launches}
         toks[name] = {r.rid: r.tokens.tolist() for r in rep.records}
         del eng
         gc.collect()
-    res["depth2_requests_same_tokens"] = sum(toks["fused"][rid] == t
+    res["trace_requests_same_tokens"] = sum(toks["fused"][rid] == t
                                              for rid, t in toks["per_layer"].items())
     log(f"resampled read noise, depth {depth}, the trace: per layer "
-        f"{res['depth2_per_layer']['ms_per_decode_step']:.2f} ms/step, fused "
-        f"{res['depth2_fused']['ms_per_decode_step']:.2f} ms/step "
-        f"({res['depth2_fused']['decode_fused_launches']} fused launches, "
-        f"{res['depth2_fused']['normal_launches']} normal draws); requests with the same "
-        f"tokens {res['depth2_requests_same_tokens']}/{len(trace)}")
+        f"{res['trace_per_layer']['ms_per_decode_step']:.2f} ms/step, fused "
+        f"{res['trace_fused']['ms_per_decode_step']:.2f} ms/step "
+        f"({res['trace_fused']['decode_fused_launches']} fused launches, "
+        f"{res['trace_fused']['normal_launches']} normal draws); requests with the same "
+        f"tokens {res['trace_requests_same_tokens']}/{len(trace)}")
     check(res["full_width_steps_equal"] and res["resampled_differs_from_frozen"],
           "a resampled step: per layer == fused, and a fresh draw")
-    check(res["depth2_requests_same_tokens"] == len(trace)
-          and res["depth2_per_layer"]["program_events"] == 0
-          and res["depth2_fused"]["program_events"] == 0
-          and res["depth2_fused"]["decode_fused_launches"] == res["depth2_fused"]["decode_steps"],
+    check(res["trace_requests_same_tokens"] == len(trace)
+          and res["trace_per_layer"]["program_events"] == 0
+          and res["trace_fused"]["program_events"] == 0
+          and res["trace_fused"]["decode_fused_launches"] == res["trace_fused"]["decode_steps"],
           "resampled serving: the same tokens per layer and fused, no programming")
     return res
 
+
+
+# --------------------------------------------------------------- fleet
+
+
+def read_counts() -> dict:
+    """Every launch count of the fleet's path since the last reset_counts:
+    B1 by design, B3, the row kernels, the normal draw and B2."""
+    from repro_torch import prng
+    from repro_torch.kernels import analog_mvm, decode_fused, flash_attention
+    from repro_torch.kernels import decode_rows as dr
+
+    return {"b1_designs": dict(analog_mvm.analog_mvm.design_launches),
+            "b3": flash_attention.flash_attention.launches, "rows": dict(dr.launches),
+            "prng": prng.launches, "b2": decode_fused.launches}
+
+
+def fleet_expected(rep, trace, cfg, refresh_draws: int) -> dict:
+    """The launches a fleet run's work makes one at a time (``read_counts``'s
+    keys): every admission prefills once on its chip (layer projections at
+    M = its prompt's length, lm_head at M = 1) and once digitally (B3 per
+    layer both times); an admission is a chip's retired record, or a
+    request drained live from its first chip (its continuation's prompt is
+    longer than the request's); every decode step runs the 155 projections
+    at M = 8 and the row kernels of a forward, chip and digital lockstep;
+    every reprogram draws ``refresh_draws`` normals."""
+    from repro_torch.kernels import analog_mvm as kernel
+
+    design = lambda m: "decode" if m <= kernel.DECODE_MAX_M else "prefill"
+    prompts = [r.n_prompt for chip in rep.per_chip for r in chip.records]
+    for rec in rep.records:
+        if rec.migrations:
+            dest = next(r for r in rep.per_chip[rec.chips[-1]].records if r.rid == rec.rid)
+            if dest.n_prompt > rec.n_prompt:
+                prompts.append(rec.n_prompt)
+    steps = sum(chip.n_steps for chip in rep.per_chip)
+    designs = dict.fromkeys(kernel.DESIGNS, 0)
+    for n in prompts:
+        designs[design(n)] += LAUNCHES_PER_FORWARD - 1
+        designs[design(1)] += 1
+    designs[design(SLOTS)] += LAUNCHES_PER_FORWARD * steps
+    return {"b1_designs": designs, "b3": 2 * FA_LAUNCHES_PER_PREFILL * len(prompts),
+            "rows": {k: 2 * v * steps for k, v in rows_per_forward(cfg).items()},
+            "prng": refresh_draws * rep.reprograms, "b2": 0}
+
+
+def refresh_draws(torch, ctx) -> int:
+    """Normal-draw launches of one full-width reprogram: one layer member's
+    programming and evaluation on the card, times the chip's members (a
+    check's launches, not the main path's: the count is restored)."""
+    from repro_torch import prng
+    from repro_torch.core import engine
+    from repro_torch.core import pcm as pcm_lib
+
+    program, params = ctx["program"], ctx["params"]
+    node = params.blocks[0]["attn"]["wk"]
+    before = prng.launches
+    st = engine._program_2d(prng.PRNGKey(0).to(DEV), node["w"][0], node["w_clip_buf"][0, 0],
+                            node["w_clip_buf"][0, 1], program.cfg.pcm)
+    engine._drift_read_2d(st, pcm_lib.T_C, program.cfg.pcm)
+    per_member = prng.launches - before
+    prng.launches = before
+    members = sum(int(v["g_pos"].shape[0]) if v["g_pos"].dim() == 3 else 1
+                  for v in program.state.values())
+    return per_member * members
+
+
+def refreshed_chip_check(torch, router, rep, params, cfg) -> dict:
+    """The refreshed chip is the CPU bridge's draw: its reprogram key,
+    ``fold_in(fold_in(router.rng, 8_000_000 + tick), chip)``, walked to
+    layer 0's wk (``fold_in`` by walk position, ``split`` by member) and
+    programmed and evaluated at t_c on the CPU, bitwise the card's state,
+    effective weights and GDC scalar of member 0."""
+    from repro_torch import prng
+    from repro_torch.core import engine
+
+    ev = next(e for e in rep.events if e["kind"] == "reprogram")
+    chip = router.engines[ev["chip"]].program
+    path = "blocks/0/attn/wk"
+    st, node = chip.state[path], params.blocks[0]["attn"]["wk"]
+    key = prng.fold_in(prng.fold_in(router.rng, 8_000_000 + ev["tick"]), ev["chip"])
+    k0 = prng.split(prng.fold_in(key, list(chip.state).index(path) + 1), st["g_pos"].shape[0])[0]
+    pcm = chip.cfg.pcm
+    cpu = engine._program_2d(k0, node["w"][0].cpu(), node["w_clip_buf"][0, 0].float().cpu(),
+                             node["w_clip_buf"][0, 1].float().cpu(), pcm)
+    w_cpu, gdc_cpu = engine._drift_read_2d(cpu, chip.t_seconds, pcm)
+    served = chip.params.blocks[0]["attn"]["wk"]
+    res = {name: bool(torch.equal(cpu[name], st[name][0].cpu()))
+           for name in ("g_pos", "g_neg", "q_pos", "q_neg", "gt_sum", "w_scale", "key")}
+    res["w_eff"] = bool(torch.equal(w_cpu.to(served["w"].dtype), served["w"][0].cpu()))
+    res["gdc"] = bool(torch.equal(gdc_cpu, served["out_scale_buf"][0].cpu()))
+    res["t_seconds"] = chip.t_seconds
+    return res
+
+
+def profiled_window(torch, fn, start_s: float, window_s: float) -> tuple:
+    """Run ``fn`` on a thread of its own (the fleet's threads hang off it)
+    and profile the card for ``window_s`` seconds from ``start_s`` into the
+    run: the device's idle share over the window is 1 - (union of every
+    stream's device activity within it) / its length. Returns (fn's result,
+    idle share or "not measured" when the run ended first or the profiler
+    saw no device activity)."""
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    out, err, done = {}, [], threading.Event()
+
+    def target():
+        try:
+            out["result"] = fn()
+        except BaseException as e:  # re-raised on the calling thread below
+            err.append(e)
+        finally:
+            done.set()
+
+    th = threading.Thread(target=target)
+    th.start()
+    idle = "not measured"
+    if not done.wait(start_s):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("fleet_window"):
+                ended = done.wait(window_s)
+        if not ended:
+            events = prof.events()
+            win = next(e for e in events if e.name == "fleet_window")
+            lo, hi = win.time_range.start, win.time_range.end
+            dev = [e for e in events if str(e.device_type).endswith("CUDA")]
+            spans = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi))
+                           for e in dev if e.time_range.end > lo and e.time_range.start < hi)
+            log(f"fleet: profiled window {(hi - lo) / 1e3:.1f} ms, device events {len(dev)}, "
+                f"{len(spans)} of them in the window")
+            if spans:
+                busy, cur_s, cur_e = 0.0, *spans[0]
+                for a, b in spans[1:]:
+                    if a > cur_e:
+                        busy += cur_e - cur_s
+                        cur_s, cur_e = a, b
+                    else:
+                        cur_e = max(cur_e, b)
+                busy += cur_e - cur_s
+                idle = round(1 - busy / max(hi - lo, 1e-9), 4)
+    th.join()
+    if err:
+        raise err[0]
+    return out["result"], idle
+
+
+def phase_fleet(torch, ctx) -> dict:
+    """Fleet and async serving at full width: 3 replicas of phase 4's chip
+    (``FleetRouter.from_program``: they share its tensors) behind one
+    router, engines as phase 4's with the digital lockstep, the trace of
+    phase 4.
+
+    (a) Storm, deterministic on a virtual clock: chip 0 is drained at
+    FLEET_DRAIN_TICK with live requests, which migrate to its siblings,
+    and reprogrammed after ``refresh_steps`` ticks. Gates: every request
+    retires once with its budget; >= 1 in-flight migration; one reprogram
+    and its programming events only; each migrated remainder bitwise what
+    an engine of the fleet's config over the destination chip serves from
+    the continuation alone (the fleet's slot count: the attention kernel's
+    head passes, and so its sums, follow it); the refreshed chip bitwise
+    the CPU bridge's draw from its key; launches exactly the work's
+    (``fleet_expected``); no plain version.
+    (b) The trace without a refresh through ``AsyncFleetRouter``,
+    deterministic on a virtual clock and threaded (one worker thread and
+    one CUDA stream per chip) on the host's clock, in turns (det, thr, thr,
+    det): every request's tokens equal across the four, launches exactly
+    each run's work (no count lost under threads); tokens/s, latency, TTFT,
+    wall, the device's idle share over a profiled window and peak memory
+    of each.
+    (c) The launch counts by kernel, printed and recorded."""
+    import numpy as np
+
+    from repro_torch import clock, prng
+    from repro_torch.core import engine
+    from repro_torch.core import pcm as pcm_lib
+    from repro_torch.serving import (AsyncFleetRouter, FleetConfig, FleetRouter, Request,
+                                     ServingConfig, ServingEngine)
+
+    cfg, trace, program, params = ctx["cfg"], ctx["trace"], ctx["program"], ctx["params"]
+    # the lockstep's weights already in the model's dtype (the first
+    # engine's cast), so the replicas share them too
+    ref_params = ctx["served"].ref_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    scfg = ServingConfig(n_slots=SLOTS, s_max=512)
+    fcfg = FleetConfig(**FLEET)
+    draws = refresh_draws(torch, ctx)
+    budget = {r.rid: r.max_new_tokens for r in trace}
+
+    def build(cls):
+        router = cls.from_program(program, cfg, scfg, fcfg, ref_params=ref_params,
+                                  src_params=params, rng=prng.PRNGKey(ctx["seed"] + 9))
+        ptrs = lambda e: (e.params.blocks[0]["attn"]["wq"]["w"].data_ptr(),
+                          e.ref_params.blocks[0]["attn"]["wq"]["w"].data_ptr(),
+                          e.program.state["blocks/0/attn/wq"]["g_pos"].data_ptr())
+        check(len({ptrs(e) for e in router.engines}) == 1
+              and ptrs(router.engines[0])[1:] == ptrs(ctx["served"])[1:],
+              "the replicas share the chip's state, its cast weights and the lockstep's")
+        return router
+
+    def conserved(rep) -> bool:
+        return (len(rep.records) == len(trace) and {r.rid for r in rep.records} == set(budget)
+                and all(r.n_new == budget[r.rid] for r in rep.records))
+
+    # (a) the storm; chip 0's refresh reads the card's memory around itself
+    router = build(FleetRouter)
+    gib = lambda b: b / 2**30
+    mem = {"before_phase": gib(mem0)}
+
+    def measured(refresh):
+        # only the engine refers to the wrapper, so its chip goes with it
+        def measured_refresh(key):
+            torch.cuda.synchronize()
+            mem["peak_before_refresh"] = gib(torch.cuda.max_memory_allocated())
+            mem["at_refresh"] = gib(torch.cuda.memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = refresh(key)
+            torch.cuda.synchronize()
+            mem["refresh_s"] = time.perf_counter() - t0
+            mem["refresh_peak"] = gib(torch.cuda.max_memory_allocated())
+            mem["after_refresh"] = gib(torch.cuda.memory_allocated())
+            return out
+        return measured_refresh
+
+    router.engines[0].refresh = measured(router.engines[0].refresh)
+    events0 = engine.program_event_count()
+    reset_counts()
+    t0 = time.perf_counter()
+    rep = router.run(trace, force_refresh={FLEET_DRAIN_TICK: 0}, clock=clock.VirtualClock(),
+                     max_ticks=10_000)
+    torch.cuda.synchronize()
+    storm_s = time.perf_counter() - t0
+    mem["storm_peak"] = max(mem["peak_before_refresh"], gib(torch.cuda.max_memory_allocated()))
+    mem["after_storm"] = gib(torch.cuda.memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    counts, n_plain = read_counts(), plain_calls()
+    events = engine.program_event_count() - events0
+    expected = fleet_expected(rep, trace, cfg, draws)
+    by_rid = {r.rid: r for r in trace}
+    migrated = [r for r in rep.records if r.migrations]
+    live = []  # (record, destination chip, its record there, prefix length)
+    for rec in migrated:
+        dest = next(r for r in rep.per_chip[rec.chips[-1]].records if r.rid == rec.rid)
+        if dest.n_prompt > rec.n_prompt:
+            live.append((rec, rec.chips[-1], dest, dest.n_prompt - rec.n_prompt))
+    oracles, solos = [], {}
+    t0 = time.perf_counter()
+    for rec, chip, dest, k in live:
+        if chip not in solos:  # over the destination's chip and its cast weights
+            dst = router.engines[chip].program
+            solos[chip] = ServingEngine(cfg, dst.cfg, router.engines[chip].params, scfg,
+                                        program=dst, device=DEV)
+        req = by_rid[rec.rid]
+        cont = Request(rid=900_000 + rec.rid, max_new_tokens=req.max_new_tokens - k,
+                       prompt=np.concatenate([req.prompt, rec.tokens[:k].astype(np.int32)]))
+        alone = solos[chip].run([cont]).tokens_of(cont.rid)
+        oracles.append({"rid": rec.rid, "chips": list(rec.chips), "prefix": k,
+                        "remainder": len(alone),
+                        "equal": bool(np.array_equal(alone, dest.tokens))
+                        and bool(np.array_equal(rec.tokens[k:], dest.tokens))})
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    mem["oracle_peak"] = gib(torch.cuda.max_memory_allocated())
+    mem["after_oracles"] = gib(torch.cuda.memory_allocated())
+    bridge = refreshed_chip_check(torch, router, rep, params, cfg)
+    refreshed = router.engines[0]
+    storm = {"wall_s": storm_s, "virtual_wall_s": rep.wall, "ticks": rep.n_ticks,
+             "summary": rep.summary(), "events": rep.events, "windows": rep.windows,
+             "min_window_agreement": rep.min_window_agreement,
+             "min_down_window_agreement": rep.min_down_window_agreement,
+             "top1_agreement": rep.counters["top1"], "migrated": rep.n_migrated,
+             "in_flight_migrations": len(live), "oracles": oracles, "oracle_s": oracle_s,
+             "refreshed_chip_vs_cpu_bridge": bridge, "program_events": events,
+             "launches": counts, "launches_expected": expected, "plain_calls": n_plain,
+             "tokens_per_s": rep.n_generated / storm_s, "decode_steps":
+             [c.n_steps for c in rep.per_chip], "memory_gib": mem,
+             "peak_memory_gib": max(mem["storm_peak"], mem["oracle_peak"])}
+    log(f"fleet: storm {rep.summary()}")
+    log(f"fleet: storm wall {storm_s:.1f} s ({rep.n_generated / storm_s:.1f} tokens/s on the "
+        f"host's clock), decode steps per chip {storm['decode_steps']}, events {rep.events}, "
+        f"in-flight migrations {len(live)}, oracles {oracles} ({oracle_s:.1f} s), refreshed "
+        f"chip vs CPU bridge {bridge}, programming events {events}, peak memory "
+        f"{storm['peak_memory_gib']:.1f} GiB")
+    log("fleet: storm memory (GiB allocated): " + ", ".join(
+        f"{k} {v:.2f}" if k != "refresh_s" else f"refresh {v:.2f} s" for k, v in mem.items()))
+    log(f"fleet: storm launches {counts} (expected {expected}), plain calls {n_plain}")
+    check(conserved(rep), "fleet storm: every request retires once with its full budget")
+    check(len(live) >= 1, "fleet storm: at least one in-flight migration")
+    check(rep.reprograms == 1 and refreshed.reprograms == 1 and rep.program_events_delta == 0
+          and events == program.n_layers and [e["kind"] for e in rep.events]
+          == ["drain", "reprogram"] and all(e["chip"] == 0 for e in rep.events)
+          and refreshed.program.t_seconds == pcm_lib.T_C and refreshed.program.chip_id == 0,
+          "fleet storm: chip 0 drained and reprogrammed once; programming events only from it")
+    check(all(o["equal"] for o in oracles), "fleet storm: every migrated remainder bitwise "
+          "the destination chip's serving of the continuation alone")
+    check(all(v for k, v in bridge.items() if k != "t_seconds"),
+          "fleet storm: the refreshed chip is the CPU bridge's draw")
+    check(counts == expected, "fleet storm: launches exactly the work's")
+    check(n_plain == 0, "fleet storm: no plain-version call")
+    del router, solos, refreshed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) deterministic against threaded, in turns
+    router = build(AsyncFleetRouter)
+    runs, tokens = [], []
+    for mode in ("deterministic", "threaded", "threaded", "deterministic"):
+        det = mode == "deterministic"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        rep, idle = profiled_window(
+            torch, lambda: router.serve(trace, deterministic=det,
+                                        clock=clock.VirtualClock() if det else None),
+            *FLEET_WINDOW_S)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, n_plain = read_counts(), plain_calls()
+        expected = fleet_expected(rep, trace, cfg, draws)
+        run = {"mode": mode, "wall_s": wall, "tokens_per_s": rep.n_generated / wall,
+               "clock": "virtual" if det else "host",
+               "latency_p50_s": rep.latency_s(50), "latency_p95_s": rep.latency_s(95),
+               "ttft_p50_s": rep.ttft_s(50), "ttft_p95_s": rep.ttft_s(95),
+               "idle_share_window": idle, "peak_memory_gib": torch.cuda.max_memory_allocated()
+               / 2**30, "ticks": rep.n_ticks, "decode_steps": [c.n_steps for c in rep.per_chip],
+               "chips_per_request": [list(r.chips) for r in rep.records],
+               "top1_agreement": rep.counters["top1"], "launches": counts,
+               "launches_expected": expected, "plain_calls": n_plain,
+               "conserved": conserved(rep), "program_events_delta": rep.program_events_delta}
+        runs.append(run)
+        tokens.append({r.rid: r.tokens.tolist() for r in rep.records})
+        log(f"fleet: {mode} wall {wall:.2f} s, {run['tokens_per_s']:.1f} tokens/s, latency "
+            f"p50 {run['latency_p50_s']:.3f} / p95 {run['latency_p95_s']:.3f} s and TTFT p50 "
+            f"{run['ttft_p50_s']:.3f} / p95 {run['ttft_p95_s']:.3f} s ({run['clock']} clock), "
+            f"idle share {idle} (window {FLEET_WINDOW_S}), peak memory "
+            f"{run['peak_memory_gib']:.1f} GiB, decode steps per chip {run['decode_steps']}, "
+            f"launches {counts} (expected {expected})")
+        check(run["conserved"] and rep.program_events_delta == 0 and rep.reprograms == 0,
+              f"fleet {mode}: every request retires once with its budget, no programming")
+        check(counts == expected, f"fleet {mode}: launches exactly the run's work")
+        check(n_plain == 0, f"fleet {mode}: no plain-version call")
+    same = sum(all(t[rid] == tokens[0][rid] for t in tokens) for rid in budget)
+    det_s = [r["wall_s"] for r in runs if r["mode"] == "deterministic"]
+    thr_s = [r["wall_s"] for r in runs if r["mode"] == "threaded"]
+    speedup = (sum(det_s) / len(det_s)) / (sum(thr_s) / len(thr_s))
+    log(f"fleet: threaded == deterministic tokens for {same} of {len(budget)} requests; "
+        f"threaded speedup {speedup:.3f}x (mean deterministic {sum(det_s) / 2:.2f} s over "
+        f"mean threaded {sum(thr_s) / 2:.2f} s, host's clock)")
+    check(same == len(budget), "fleet: threaded tokens == deterministic tokens")
+    del router
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = {"b1_designs": {}, "b3": 0, "rows": {}, "prng": 0}
+    for c in [storm["launches"]] + [r["launches"] for r in runs]:
+        for k in ("b1_designs", "rows"):
+            for name, v in c[k].items():
+                total[k][name] = total[k].get(name, 0) + v
+        total["b3"] += c["b3"]
+        total["prng"] += c["prng"]
+    res = {"config": {"n_chips": fcfg.n_chips, "refresh_steps": fcfg.refresh_steps,
+                      "drain_tick": FLEET_DRAIN_TICK, "slots": SLOTS, "s_max": 512,
+                      "requests": len(trace), "window_s": list(FLEET_WINDOW_S)},
+           "refresh_draws": draws, "storm": storm, "runs": runs,
+           "requests_same_tokens": same, "threaded_speedup": speedup, "launches": total,
+           "memory_before_gib": mem0 / 2**30,
+           "peak_memory_gib": max([storm["peak_memory_gib"]]
+                                  + [r["peak_memory_gib"] for r in runs])}
+    log(f"fleet: launches over the phase {total}; peak memory {res['peak_memory_gib']:.1f} GiB "
+        f"(phase 4's chip and the rest held before it: {mem0 / 2**30:.1f} GiB)")
+    check(all(total["b1_designs"][d] for d in ("decode", "prefill")) and total["b3"]
+          and all(total["rows"].values()) and total["prng"],
+          "fleet: the path launched B1 (both designs), B3, every row kernel and the normal draw")
+    return res
 
 
 def profile_summary(prof, kernel: str = "analog_mvm") -> dict:
@@ -2075,36 +2604,64 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(SRC))
     t_start = time.perf_counter()
+    phase_s = {}  # seconds of each phase, in order
+
+    def lap(name: str) -> None:
+        phase_s[name] = time.perf_counter() - t_start - sum(phase_s.values())
 
     card = phase_device(torch)
     parent_b2 = build_parent_b2(args.b2_parent) if args.b2_parent else None
     build_s, ptxas = phase_build()
     parent_b2 = parent_b2() if parent_b2 else None
+    lap("1-2 device, build")
     gen = torch.Generator("cuda").manual_seed(args.seed)
     accuracy = phase_kernel_vs_plain(torch, gen, tuple(sorted({*b1_served_ms(),
                                                               *prefill_ms()})))
     timing = phase_timing(torch, gen, (SLOTS, *prefill_ms()))
+    lap("3 B1 vs plain, timing")
     fa_launched = record_fa_shapes()
     b1_launched = record_b1_shapes()
     serve, ctx = phase_serve(torch, args.seed)
+    lap("4 serve")
     bridge = phase_bridge(torch, ctx)
+    lap("bridge")
     fused_check = phase_fused_check(torch, ctx)
+    lap("5 B2 vs plain")
     fused_serve, fused_engine = phase_fused_serve(torch, ctx, serve)
+    lap("6 fused serve")
     step_timing = phase_step_timing(torch, ctx, fused_engine, parent_b2)
     fk = step_timing["kernel"]
     del fused_engine
+    lap("7 step timing")
     flash = phase_flash_attention(
         torch, gen, fa_served_shapes(ctx["trace"]) + [(1, FA_CONTEXT)])
+    lap("8 B3 vs plain")
     paged_serve = phase_paged_serve(torch, ctx, serve)
+    lap("9 paged serve")
     rows = phase_rows(torch, gen)
+    lap("10 row kernels")
     lifecycle = phase_drift_lifecycle(torch, ctx)
+    lap("11 drift lifecycle")
     resample = phase_resample(torch, ctx)
+    lap("12 resample")
+    fa_before, b1_before = set(fa_launched), set(b1_launched)
+    fleet = phase_fleet(torch, ctx)
+    # a migrated continuation prefills at prompt + prefix tokens: B1 and B3
+    # shapes no earlier phase served, checked now as phases 3 and 8 check
+    # (only the fleet phase's: an earlier phase's unchecked shape still fails)
+    fleet["b3_checked_after"] = check_launched_fa(torch, gen, sorted(
+        fa_launched - fa_before - {(r["rows"], r["S"], r["dtype"]) for r in flash["cases"]}),
+        flash)
+    fleet["b1_checked_after"] = check_launched_b1(torch, gen, sorted(
+        b1_launched - b1_before - set(map(tuple, accuracy["checked"]))), accuracy)
+    lap("13 fleet")
+    log(f"seconds per phase: { {k: round(v, 1) for k, v in phase_s.items()} }")
     checked = {(r["rows"], r["S"], r["dtype"]) for r in flash["cases"]}
     unchecked = sorted(fa_launched - checked)
     log(f"B3 shapes launched by the serving phases (rows, S, dtype): {sorted(fa_launched)}; "
-        f"not checked in phase 8: {unchecked or 'none'}")
+        f"not checked in phases 8 and 13: {unchecked or 'none'}")
     check(not unchecked, f"B3 launched at shapes phase 8 never checked: {unchecked}")
-    b1_unchecked = sorted(b1_launched - set(accuracy["checked"]))
+    b1_unchecked = sorted(b1_launched - set(map(tuple, accuracy["checked"])))
     log(f"B1 launches of the serving phases: {len(b1_launched)} (M, K, N, dtype, design, "
         f"tile_rows, per_tile_adc, dac) keys at M in "
         f"{sorted({key[0] for key in b1_launched})}; not checked in phase 3: "
@@ -2124,7 +2681,8 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "src/repro_torch/csrc/analog_mvm_tc.cu",
             "replaces": "src/repro/kernels/analog_mvm.py:41",
-            "launches": serve["design_launches"][design],
+            "launches": serve["design_launches"][design]
+            + fleet["launches"]["b1_designs"][design],
             "max_abs_err": accuracy["by_design"][design]["max_abs"],
             "ms": total("ms"),
             "plain_ms": total("plain_ms"),
@@ -2140,11 +2698,12 @@ def main(argv=None) -> int:
 
     kernels = {"kernels": [b1_entry(
         "decode", 8, "one tinyllama-1.1b decode step at 8 slots, bf16: 22 x (wq, wk, wv, "
-        "wo, w1, w3, w2) + lm_head; launches from the per-layer serving run; cuda_core_ms: "
+        "wo, w1, w3, w2) + lm_head; launches from the per-layer serving run and the fleet "
+        "phase; cuda_core_ms: "
         "the CUDA-core design (analog_mvm.cu) on the same inputs"), b1_entry(
         "prefill", 256, "one tinyllama-1.1b prefill forward of 256 tokens (M = 256), bf16: "
         "the 154 layer projections (its lm_head runs at M = 1, through the decode design); "
-        "launches from the per-layer serving run; cuda_core_ms as above"), {
+        "launches from the per-layer serving run and the fleet phase; cuda_core_ms as above"), {
         "name": "decode_fused",
         "route": "cuda",
         "source": "src/repro_torch/csrc/decode_fused.cu",
@@ -2171,7 +2730,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:34",
-        "launches": paged_serve["flash_attention_launches"],
+        "launches": paged_serve["flash_attention_launches"] + fleet["launches"]["b3"],
         "max_abs_err": max(r["max_abs"] for r in flash["cases"]),
         "ms": FA_LAUNCHES_PER_PREFILL * fa_t["ms"],
         "plain_ms": FA_LAUNCHES_PER_PREFILL * fa_t["plain_ms"],
@@ -2180,7 +2739,8 @@ def main(argv=None) -> int:
         "library_ms": FA_LAUNCHES_PER_PREFILL * fa_t["library_ms"],
         "per": "one tinyllama-1.1b bucketed prefill call at bucket 256, 1 row, bf16, "
                "causal: 22 launches (library: scaled_dot_product_attention, is_causal, "
-               "enable_gqa); launches from the paged serving run; max_abs_err over "
+               "enable_gqa); launches from the paged serving run and the fleet phase; "
+               "max_abs_err over "
                "every checked shape, both dtypes, causal and full",
         "max_err_bf16_ulps": flash["worst_bf16_ulps"],
         "pass": True,
@@ -2189,12 +2749,13 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/decode_rows.cu",
         "replaces": ROW_REPLACES[name],
-        "launches": serve["row_launches"][name],
+        "launches": serve["row_launches"][name] + fleet["launches"]["rows"][name],
         "max_abs_err": r["max_abs_err"],
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "per": f"one launch at the decode step's shapes (8 slots, bf16); launches from the "
-               f"per-layer serving run (chip and digital lockstep); {ROW_PER[name]}",
+               f"per-layer serving run and the fleet phase (chip and digital lockstep); "
+               f"{ROW_PER[name]}",
         "max_err_bf16_ulps": r["max_bf16_ulps"],
         "pass": r["pass"],
     } for name, r in rows.items()] + [{
@@ -2202,7 +2763,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/prng.cu",
         "replaces": "src/repro/core/pcm.py:131 (jax.random.normal, XLA ops; not a TPU kernel)",
-        "launches": serve["prng_launches"],
+        "launches": serve["prng_launches"] + fleet["launches"]["prng"],
         "max_abs_err": 0.0 if bridge["normal_card_equals_cpu"] else None,
         "ms": bridge["normal_ms_11.5M"],
         "plain_ms": bridge["normal_plain_ms_11.5M"],
@@ -2210,7 +2771,7 @@ def main(argv=None) -> int:
         "bound_by": bridge["normal_bound_by"],
         "library_ms": None,
         "per": "one 2048 x 5632 draw (a w1 member's programming noise); launches: phase 4's "
-               "lm_init and program phase; max_abs_err: 2^22 draws on the card against the "
+               "lm_init and program phase, and the fleet phase's reprogram; max_abs_err: 2^22 draws on the card against the "
                "CPU plain version (bitwise); library: none computes jax.random.normal's bits",
         "pass": bridge["normal_card_equals_cpu"],
     }]}
@@ -2219,7 +2780,8 @@ def main(argv=None) -> int:
            "serve": serve, "fused_check": fused_check, "fused_serve": fused_serve,
            "step_timing": step_timing, "flash_attention": flash, "paged_serve": paged_serve,
            "bridge": bridge, "rows": rows, "drift_lifecycle": lifecycle, "resample": resample,
-           **kernels, "seconds": time.perf_counter() - t_start}
+           "fleet": fleet, **kernels, "phase_s": phase_s,
+           "seconds": time.perf_counter() - t_start}
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(out, indent=1))
     log(f"total {out['seconds']:.1f} s")

@@ -27,6 +27,7 @@ import dataclasses
 import fnmatch
 import functools
 import math
+import threading
 from typing import Any, Callable, Mapping as MappingT, Optional, Union
 
 import torch
@@ -45,8 +46,10 @@ Tensor = torch.Tensor
 PCM_PROGRAMMED = "pcm_programmed"
 
 # per-layer programming events since process start (the program-once
-# contract: serving a compiled chip adds zero)
+# contract: serving a compiled chip adds zero); a fleet refreshes its chips
+# from worker threads, so the count is bumped under a lock
 _PROGRAM_EVENTS = {"layers": 0}
+_PROGRAM_EVENTS_LOCK = threading.Lock()
 
 
 def program_event_count() -> int:
@@ -55,7 +58,8 @@ def program_event_count() -> int:
 
 
 def record_program_event() -> None:
-    _PROGRAM_EVENTS["layers"] += 1
+    with _PROGRAM_EVENTS_LOCK:
+        _PROGRAM_EVENTS["layers"] += 1
 
 
 # ---------------------------------------------------------------------------

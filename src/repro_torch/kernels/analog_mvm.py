@@ -64,35 +64,37 @@ PREFILL_TILE = (128, 64)
 
 def _fn():
     global _FN
-    if _FN is None:
-        lib = build.load("analog_mvm")
-        fn = lib.analog_mvm_launch
-        fn.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
-            + [ctypes.c_float] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-        lib.analog_mvm_error_string.argtypes = [ctypes.c_int]
-        lib.analog_mvm_error_string.restype = ctypes.c_char_p
-        _FN = (fn, lib.analog_mvm_error_string)
+    with build.LOCK:
+        if _FN is None:
+            lib = build.load("analog_mvm")
+            fn = lib.analog_mvm_launch
+            fn.argtypes = (
+                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+                + [ctypes.c_float] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            )
+            fn.restype = ctypes.c_int
+            lib.analog_mvm_error_string.argtypes = [ctypes.c_int]
+            lib.analog_mvm_error_string.restype = ctypes.c_char_p
+            _FN = (fn, lib.analog_mvm_error_string)
     return _FN
 
 
 def _tc_fn():
     global _TC_FN
-    if _TC_FN is None:
-        lib = build.load("analog_mvm_tc")
-        pre = lib.analog_mvm_tc_prefill
-        dec = lib.analog_mvm_tc_decode
-        pre.argtypes = dec.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_uint64] + [ctypes.c_int] * 3
-            + [ctypes.c_void_p] * 2 + [ctypes.c_float] * 2 + [ctypes.c_int] * 4
-            + [ctypes.c_void_p]
-        )
-        pre.restype = dec.restype = ctypes.c_int
-        lib.analog_mvm_tc_error_string.argtypes = [ctypes.c_int]
-        lib.analog_mvm_tc_error_string.restype = ctypes.c_char_p
-        _TC_FN = (pre, dec, lib.analog_mvm_tc_error_string)
+    with build.LOCK:
+        if _TC_FN is None:
+            lib = build.load("analog_mvm_tc")
+            pre = lib.analog_mvm_tc_prefill
+            dec = lib.analog_mvm_tc_decode
+            pre.argtypes = dec.argtypes = (
+                [ctypes.c_void_p] * 5 + [ctypes.c_uint64] + [ctypes.c_int] * 3
+                + [ctypes.c_void_p] * 2 + [ctypes.c_float] * 2 + [ctypes.c_int] * 4
+                + [ctypes.c_void_p]
+            )
+            pre.restype = dec.restype = ctypes.c_int
+            lib.analog_mvm_tc_error_string.argtypes = [ctypes.c_int]
+            lib.analog_mvm_tc_error_string.restype = ctypes.c_char_p
+            _TC_FN = (pre, dec, lib.analog_mvm_tc_error_string)
     return _TC_FN
 
 
@@ -298,8 +300,8 @@ def _run(design, x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc) 
         y = _launch_gemv(x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc)
     else:
         y = _launch_tc(design, x, w, r_adc, out_scale, b_adc, tile_rows, per_tile_adc)
-    analog_mvm.launches += 1
-    analog_mvm.design_launches[design] += 1
+    build.bump(analog_mvm, "launches")
+    build.bump(analog_mvm, "design_launches", design)
     return y
 
 

@@ -10,6 +10,11 @@ repository's sources goes in, nothing is downloaded, and a failed build
 raises with the compiler's output. Sources build in parallel, one ``nvcc``
 process each. ``ptxas -v``'s report (registers, shared memory, spills of
 each kernel) is kept beside each library as ``<library>.log``.
+
+Fleet workers launch from several threads (one CUDA stream each): every
+first load of a library and every launch count goes through :data:`LOCK`
+(:func:`load`, :func:`bump`), so each library is built and loaded once and
+no count is lost.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -29,6 +35,8 @@ NVCC_FLAGS = (
 )
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+#: guards library loads (and the wrappers' lazy bindings) and launch counts
+LOCK = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -103,9 +111,21 @@ def ptxas_report(path: Path) -> list[dict]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build((name,))[name]))
-        _LOADED[name] = lib
-    return lib
+    """The loaded library of ``csrc/<name>.cu``, built first if needed
+    (once, whichever thread asks first)."""
+    with LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build((name,))[name]))
+            _LOADED[name] = lib
+        return lib
+
+
+def bump(owner, name: str, key=None) -> None:
+    """Add one launch to ``owner.<name>`` (or to ``owner.<name>[key]``)
+    under :data:`LOCK`: ``+=`` on shared state is not atomic across threads."""
+    with LOCK:
+        if key is None:
+            setattr(owner, name, getattr(owner, name) + 1)
+        else:
+            getattr(owner, name)[key] += 1

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import sys
 from dataclasses import dataclass
 
 import torch
@@ -507,8 +508,7 @@ class FusedDecoder:
                 f"(grid {grid}, {b} slots, {self.plan.n_groups} layers, "
                 f"dtype {cfg.dtype})"
             )
-        global launches
-        launches += 1
+        build.bump(sys.modules[__name__], "launches")
         return logits, lens_out
 
     # -- the slot cache ----------------------------------------------------------
@@ -585,18 +585,19 @@ def fused_decode_step(
 
 def _fn():
     global _FN
-    if _FN is None:
-        lib = build.load("decode_fused")
-        fn = lib.decode_fused_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        mb = lib.decode_fused_max_blocks
-        mb.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-        mb.restype = ctypes.c_int
-        lib.decode_fused_error_string.argtypes = [ctypes.c_int]
-        lib.decode_fused_error_string.restype = ctypes.c_char_p
-        _FN = (fn, mb, lib.decode_fused_error_string)
+    with build.LOCK:
+        if _FN is None:
+            lib = build.load("decode_fused")
+            fn = lib.decode_fused_launch
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            mb = lib.decode_fused_max_blocks
+            mb.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+            mb.restype = ctypes.c_int
+            lib.decode_fused_error_string.argtypes = [ctypes.c_int]
+            lib.decode_fused_error_string.restype = ctypes.c_char_p
+            _FN = (fn, mb, lib.decode_fused_error_string)
     return _FN
 
 

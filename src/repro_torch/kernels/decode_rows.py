@@ -22,6 +22,7 @@ counterpart.
 from __future__ import annotations
 
 import ctypes
+import sys
 from typing import Optional
 
 import torch
@@ -44,24 +45,25 @@ _FN = None
 
 def _fn():
     global _FN
-    if _FN is None:
-        lib = build.load("decode_rows")
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        sigs = {
-            "decode_rows_norm": [P, P, P, I, I, F, I, P],
-            "decode_rows_rope": [P, P, P, P, I, I, I, I, I, P],
-            "decode_rows_attn": [P, P, P, P, P, I, I, I, I, I, I, I, F, I, P],
-            "decode_rows_gate": [P, P, P, I, I, P],
-        }
-        fns = {}
-        for name, argtypes in sigs.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            fns[name.split("_")[-1]] = fn
-        lib.decode_rows_error_string.argtypes = [ctypes.c_int]
-        lib.decode_rows_error_string.restype = ctypes.c_char_p
-        _FN = (fns, lib.decode_rows_error_string)
+    with build.LOCK:
+        if _FN is None:
+            lib = build.load("decode_rows")
+            P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            sigs = {
+                "decode_rows_norm": [P, P, P, I, I, F, I, P],
+                "decode_rows_rope": [P, P, P, P, I, I, I, I, I, P],
+                "decode_rows_attn": [P, P, P, P, P, I, I, I, I, I, I, I, F, I, P],
+                "decode_rows_gate": [P, P, P, I, I, P],
+            }
+            fns = {}
+            for name, argtypes in sigs.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                fns[name.split("_")[-1]] = fn
+            lib.decode_rows_error_string.argtypes = [ctypes.c_int]
+            lib.decode_rows_error_string.restype = ctypes.c_char_p
+            _FN = (fns, lib.decode_rows_error_string)
     return _FN
 
 
@@ -70,7 +72,7 @@ def _launch(name: str, *args) -> None:
     rc = fns[name](*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode_rows {name} kernel launch failed: {err(rc).decode()}")
-    launches[name] += 1
+    build.bump(sys.modules[__name__], "launches", name)
 
 
 def _check(name: str, *tensors: Tensor) -> int:

@@ -34,17 +34,18 @@ _FN = None
 
 def _fn():
     global _FN
-    if _FN is None:
-        lib = build.load("flash_attention")
-        fn = lib.flash_attention_launch
-        fn.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
-            + [ctypes.c_int, ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-        _FN = (fn, lib.flash_attention_error_string)
+    with build.LOCK:
+        if _FN is None:
+            lib = build.load("flash_attention")
+            fn = lib.flash_attention_launch
+            fn.argtypes = (
+                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
+                + [ctypes.c_int, ctypes.c_void_p]
+            )
+            fn.restype = ctypes.c_int
+            lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+            lib.flash_attention_error_string.restype = ctypes.c_char_p
+            _FN = (fn, lib.flash_attention_error_string)
     return _FN
 
 
@@ -112,7 +113,7 @@ def flash_attention(
             f"flash_attention kernel launch failed: {err_str(rc).decode()} "
             f"(B={b} S={s} H={h} Kv={kv} D={d} dtype={q.dtype})"
         )
-    flash_attention.launches += 1
+    build.bump(flash_attention, "launches")
     return o
 
 

@@ -33,14 +33,24 @@ top-1 agreement drops below X. With ``--request-trace`` the schedule is a
 ``serving.DriftPolicy``: the chip ages between decode steps of one run, and
 ``drift_age``/``drift_event`` lines report it.
 
+Fleet serving: ``--fleet N`` spreads the ``--request-trace`` across N
+chips behind a ``serving.FleetRouter``: N independent draws (chip ``c``
+from ``fold_in(PRNGKey(seed + 42), c)``), or N replicas of a
+``--load-program`` artifact sharing its tensors. ``--agreement-slo X``
+dispatches to the least-loaded chip whose recent top-1 agreement clears X.
+``--fleet 1`` serves through the single-engine path, as if ``--fleet`` were
+not given. ``--async`` serves the fleet through the threaded front end (one
+worker thread, and on a card one CUDA stream, per chip; admission bounded
+by ``--queue-cap``) and prints an ``async fleet:`` line.
+
 Analog serving also reports greedy top-1 agreement and logit MSE against
 the digital model (``--no-ref-check`` skips it). Every draw comes from the
 RNG bridge with the reference CLI's keys offset by ``--seed``: weights,
 rectangle prompts and the engine's key from ``split(PRNGKey(seed), 3)``,
 the chip from ``PRNGKey(seed + 42)``, the trace from ``PRNGKey(seed + 7)``,
 refresh ``n`` from ``fold_in(PRNGKey(seed + 43), n)``. At ``--seed 0`` a
-run prints the reference CLI's tokens. Fleets and meshes are not ported
-yet, and their flags do not exist here.
+run prints the reference CLI's tokens. Meshes are not ported yet, and
+their flags do not exist here.
 """
 
 from __future__ import annotations
@@ -61,9 +71,13 @@ from repro_torch.device import resolve_device
 from repro_torch.launch import steps
 from repro_torch.models import lm
 from repro_torch.serving import (
+    AsyncConfig,
+    AsyncFleetRouter,
     BucketedScheduler,
     ChipClock,
     DriftPolicy,
+    FleetConfig,
+    FleetRouter,
     Request,
     ServingConfig,
     ServingEngine,
@@ -170,6 +184,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="reprogram the chip from the source weights when "
                         "top-1 agreement at an age of the --drift-schedule "
                         "drops below X")
+
+    g = ap.add_argument_group("fleet", "N programmed chips behind one router")
+    g.add_argument("--fleet", type=int, default=None, metavar="N",
+                   help="serve the --request-trace across N independent "
+                        "chip draws (or N replicas of a --load-program "
+                        "artifact) behind serving.FleetRouter; --fleet 1 "
+                        "is the single-engine path")
+    g.add_argument("--agreement-slo", type=float, default=None, metavar="X",
+                   help="fleet SLO: dispatch to the least-loaded chip "
+                        "whose recent top-1 agreement clears X, and record "
+                        "the worst aggregate-agreement window")
+    g.add_argument("--async", dest="use_async", action="store_true",
+                   help="serve the fleet through the threaded front end "
+                        "(one worker thread, and on a card one CUDA "
+                        "stream, per chip) instead of the synchronous "
+                        "tick loop")
+    g.add_argument("--queue-cap", type=int, default=None, metavar="N",
+                   help="async backpressure: cap on fleet-wide queued "
+                        "work; submissions block at the cap (default 64)")
     return ap
 
 
@@ -225,6 +258,9 @@ def validate_args(ap: argparse.ArgumentParser, args) -> None:
             ap.error("--fused-decode owns one stacked slot cache; it does "
                      "not compose with the paged KV cache "
                      "(--kv-page-size)")
+        if args.fleet is not None and args.fleet > 1:
+            ap.error("--fused-decode is not threaded through the fleet "
+                     "path (serve one chip)")
         fused_cfg = configs.get_smoke(args.arch)
         if fused_cfg.family in ("ssm", "hybrid", "moe"):
             ap.error(f"--fused-decode fuses the dense attention+FFN layer "
@@ -248,11 +284,92 @@ def validate_args(ap: argparse.ArgumentParser, args) -> None:
                      "(want a comma list of integers)")
         if not buckets or min(buckets) < 1:
             ap.error("--prefill-buckets needs positive lengths")
+    if args.fleet is not None and args.fleet < 1:
+        ap.error("--fleet needs at least one chip")
+    if args.fleet is not None and args.request_trace is None:
+        ap.error("--fleet spreads a request trace across chips "
+                 "(pass --request-trace)")
+    if args.fleet is not None and args.fleet > 1:
+        if not (args.analog or args.load_program):
+            ap.error("--fleet programs N independent chip draws "
+                     "(add --analog, or --load-program for replicas)")
+        if args.drift_schedule:
+            ap.error("--drift-schedule is the single-chip lifecycle path; "
+                     "fleet chips age on their own clocks")
+        if args.save_program:
+            ap.error("--save-program persists ONE chip; a fleet is N "
+                     "draws (save a single-chip run, then --fleet with "
+                     "--load-program for replicas)")
+    if args.use_async and (args.fleet is None or args.fleet < 2):
+        ap.error("--async drives the fleet front end (pass --fleet >= 2)")
+    if args.queue_cap is not None:
+        if not args.use_async:
+            ap.error("--queue-cap configures the --async admission queue "
+                     "(pass --async)")
+        if args.queue_cap < 1:
+            ap.error("--queue-cap needs at least one slot")
+    if args.agreement_slo is not None:
+        if args.fleet is None or args.fleet < 2:
+            ap.error("--agreement-slo gates fleet dispatch "
+                     "(pass --fleet >= 2)")
+        if args.no_ref_check:
+            ap.error("--agreement-slo compares against the digital "
+                     "reference (drop --no-ref-check)")
+        if not (0.0 <= args.agreement_slo <= 1.0):
+            ap.error("--agreement-slo is a top-1-agreement fraction "
+                     "in [0, 1]")
     if args.refresh_below is not None and args.load_program:
         print("warning: --refresh-below with --load-program reprograms "
               "from this process's deterministic source weights; if the "
               "artifact was programmed from different weights, a refresh "
               "will rewrite a different model", file=sys.stderr)
+
+
+def serve_fleet(args, fleet_n, trace, program, params, acfg, cfg, serving_cfg,
+                ref_params, src_params, overrides, b_adc, t0_seconds) -> None:
+    """The trace across ``fleet_n`` chips behind the router (see
+    ``serving/fleet.py`` for dispatch, drain and refresh)."""
+    fleet_cfg = FleetConfig(n_chips=fleet_n, agreement_slo=args.agreement_slo)
+    router_cls = AsyncFleetRouter if args.use_async else FleetRouter
+    key = prng.PRNGKey(args.seed + 42)
+    t0 = time.time()
+    if program is not None:
+        router = router_cls.from_program(
+            program, cfg, serving_cfg, fleet_cfg,
+            ref_params=ref_params, src_params=src_params, rng=key,
+        )
+        print(f"fleet: {fleet_n} replicas of the loaded chip draw "
+              f"in {time.time()-t0:.2f}s")
+    else:
+        router = router_cls.build(
+            params, acfg, cfg, serving_cfg, fleet_cfg, key=key,
+            ref_params=ref_params, src_params=src_params,
+            b_adc_overrides=overrides,
+        )
+        print(f"programmed {fleet_n} independent chip draws in "
+              f"{time.time()-t0:.2f}s (b_adc={b_adc}, "
+              f"t={pcm_lib.format_age(t0_seconds)})")
+    sched = BucketedScheduler() if args.kv_page_size else None
+    if args.use_async:
+        # the classmethods construct with the default AsyncConfig; the
+        # queue cap is the only knob the CLI exposes
+        router.async_cfg = AsyncConfig(queue_cap=args.queue_cap or 64)
+        t1 = time.time()
+        freport = router.serve(trace, scheduler=sched)
+        print(f"async fleet: workers={fleet_n} "
+              f"queue_cap={router.async_cfg.queue_cap} "
+              f"wall={time.time()-t1:.2f}s "
+              f"tokens_per_s={freport.tokens_per_s:.1f}")
+    else:
+        freport = router.run(trace, scheduler=sched)
+    print(freport.summary())
+    if ref_params is not None:
+        c = freport.counters
+        print(f"accuracy_vs_digital_ref: top1_agreement={c['top1']:.4f} "
+              f"decisions={c['decisions']}")
+    longest = max(freport.records, key=lambda r: r.n_new)
+    print("generated token ids (longest request):",
+          longest.tokens[: min(16, longest.n_new)].tolist())
 
 
 def main(argv: Optional[list[str]] = None) -> None:
@@ -278,6 +395,8 @@ def main(argv: Optional[list[str]] = None) -> None:
     b_adc = 8 if args.b_adc is None else args.b_adc
     cfg = configs.get_smoke(args.arch)
     analog = args.analog or args.load_program is not None
+    # --fleet 1 serves through the single-engine path: one chip needs no router
+    fleet_n = args.fleet if args.fleet is not None and args.fleet > 1 else None
     t0_seconds = schedule.times[0] if schedule is not None else args.t_hours * 3600.0
     acfg = AnalogConfig()
     if analog:
@@ -315,7 +434,8 @@ def main(argv: Optional[list[str]] = None) -> None:
               f"t={pcm_lib.format_age(program.t_seconds)}, "
               f"age_history={len(program.age_history)} entries) "
               f"in {time.time()-t0:.2f}s from {args.load_program}")
-    elif analog:
+    elif analog and fleet_n is None:
+        # (a fleet without --load-program programs its N draws itself)
         t0 = time.time()
         program = steps.program_for_serving(
             params, acfg, prng.PRNGKey(args.seed + 42), b_adc_overrides=overrides,
@@ -334,23 +454,25 @@ def main(argv: Optional[list[str]] = None) -> None:
 
     b, s = args.batch, args.prompt_len
     ref_check = analog and not args.no_ref_check
-    served = ServingEngine(
-        cfg, acfg, params,
-        ServingConfig(
-            n_slots=b, s_max=s + args.tokens,
-            paged=args.kv_page_size is not None,
-            page_size=args.kv_page_size if args.kv_page_size is not None else 16,
-            n_pages=args.kv_pages,
-            prefill_buckets=(
-                tuple(int(x) for x in args.prefill_buckets.split(",") if x)
-                if args.prefill_buckets else None
-            ),
-            ref_check=not args.no_ref_check,
-            fused_decode=args.fused_decode,
+    serving_cfg = ServingConfig(
+        n_slots=b, s_max=s + args.tokens,
+        paged=args.kv_page_size is not None,
+        page_size=args.kv_page_size if args.kv_page_size is not None else 16,
+        n_pages=args.kv_pages,
+        prefill_buckets=(
+            tuple(int(x) for x in args.prefill_buckets.split(",") if x)
+            if args.prefill_buckets else None
         ),
-        program=program, ref_params=ref_params if ref_check else None,
-        src_params=src_params, rng=k_rng, device=dev,
+        ref_check=not args.no_ref_check,
+        fused_decode=args.fused_decode,
     )
+    served = None
+    if fleet_n is None:
+        served = ServingEngine(
+            cfg, acfg, params, serving_cfg,
+            program=program, ref_params=ref_params if ref_check else None,
+            src_params=src_params, rng=k_rng, device=dev,
+        )
 
     def fmt_timing(m):
         per_tok = m.t_decode / max(m.n_steps, 1) * 1e3
@@ -375,6 +497,11 @@ def main(argv: Optional[list[str]] = None) -> None:
             prompt_lens=trace_prompt_buckets(s),
             new_tokens=(max(1, min(8, args.tokens)), args.tokens),
         )
+        if fleet_n is not None:
+            serve_fleet(args, fleet_n, trace, program, params, acfg, cfg, serving_cfg,
+                        ref_params if ref_check else None, src_params, overrides, b_adc,
+                        t0_seconds)
+            return
         policy = None
         if schedule is not None:
             est_steps = sum(r.max_new_tokens for r in trace) // max(b, 1)

@@ -32,6 +32,7 @@ read-noise coefficient.
 from __future__ import annotations
 
 import math
+import sys
 from typing import Sequence, Union
 
 import torch
@@ -277,19 +278,20 @@ _FN = None
 def _normal_kernel(key: Tensor, shape: tuple, scaled: bool) -> Tensor:
     """A draw on the card by ``csrc/prng.cu``: the same operations as the
     plain version below, bit for bit."""
-    global _FN, launches
+    global _FN
     import ctypes
 
-    if _FN is None:
-        from repro_torch.kernels import build
+    from repro_torch.kernels import build
 
-        lib = build.load("prng")
-        lib.prng_normal.argtypes = [ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
-                                    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-        lib.prng_normal.restype = ctypes.c_int
-        lib.prng_error_string.argtypes = [ctypes.c_int]
-        lib.prng_error_string.restype = ctypes.c_char_p
-        _FN = lib
+    with build.LOCK:
+        if _FN is None:
+            lib = build.load("prng")
+            lib.prng_normal.argtypes = [ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
+                                        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+            lib.prng_normal.restype = ctypes.c_int
+            lib.prng_error_string.argtypes = [ctypes.c_int]
+            lib.prng_error_string.restype = ctypes.c_char_p
+            _FN = lib
     k1, k2 = (int(v) for v in _check_key(key))
     out = torch.empty(shape, dtype=torch.float32, device=key.device)
     with torch.cuda.device(key.device):
@@ -297,7 +299,7 @@ def _normal_kernel(key: Tensor, shape: tuple, scaled: bool) -> Tensor:
                              torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"prng normal kernel launch failed: {_FN.prng_error_string(rc).decode()}")
-    launches += 1
+    build.bump(sys.modules[__name__], "launches")
     return out
 
 

@@ -590,9 +590,22 @@ class ServingEngine:
         drift_policy: Any = None,
         clock: Optional[clock_lib.Clock] = None,
         max_steps: Optional[int] = None,
+        track_events: bool = True,
+        on_token=None,
+        on_retire=None,
     ) -> "EngineRun":
         """Open a fresh :class:`EngineRun` (fresh slot caches). Time enters
-        only through ``clock`` (default: the system clock)."""
+        only through ``clock`` (default: the system clock).
+        ``track_events=False`` leaves the
+        program-event accounting to an outer owner (the fleet router owns
+        it fleet-wide: engines share the process-wide counter, so a run's
+        own delta would see a sibling chip's refresh).
+
+        ``on_token(rid, token)`` fires for every token as it reaches the
+        host -- the first at admission, then one per decode step -- and
+        ``on_retire(record)`` when a request retires. Both run inline on
+        the thread stepping the run; they must be cheap and must not call
+        back into the run."""
         clk = clock or clock_lib.SYSTEM
         return EngineRun(
             self,
@@ -601,6 +614,9 @@ class ServingEngine:
             now_fn=clk.now,
             sleep_fn=clk.sleep,
             max_steps=max_steps,
+            track_events=track_events,
+            on_token=on_token,
+            on_retire=on_retire,
         )
 
     def run(
@@ -662,7 +678,8 @@ class ChipClock:
 class EngineRun:
     """One serving run's state plus its stepping surface.
 
-    Not internally synchronized: exactly one caller steps a run.
+    Not internally synchronized: exactly one caller steps a run (in a
+    fleet, the chip's owning worker).
     """
 
     def __init__(
@@ -674,6 +691,9 @@ class EngineRun:
         now_fn,
         sleep_fn,
         max_steps: Optional[int],
+        track_events: bool = True,
+        on_token=None,
+        on_retire=None,
     ):
         if drift_policy is not None and engine.program is None:
             raise ValueError("a drift policy ages a compiled program (program=)")
@@ -683,6 +703,9 @@ class EngineRun:
         self.now_fn = now_fn
         self.sleep_fn = sleep_fn
         self.max_steps = max_steps
+        self.track_events = track_events
+        self.on_token = on_token
+        self.on_retire = on_retire
 
         self.queue: deque[Request] = deque()
         self.pool = _PagePool(engine) if engine.paged else _SlotRectangles(engine)
@@ -726,8 +749,20 @@ class EngineRun:
     def has_work(self) -> bool:
         return bool(self.queue) or any(s is not None for s in self.slots)
 
+    @property
+    def elapsed(self) -> float:
+        """Seconds since the run started (on the run's clock)."""
+        return self.now_fn() - self.t_start
+
+    def live(self) -> list[tuple[int, Request, list[int]]]:
+        """Snapshot of the live slots: ``(slot, request, tokens so far)``."""
+        return [(i, st.req, list(st.tokens)) for i, st in enumerate(self.slots)
+                if st is not None]
+
     def submit(self, requests: list[Request]) -> None:
-        """Validate and enqueue requests (arrival-sorted, FIFO within ties)."""
+        """Validate and enqueue requests (arrival-sorted, FIFO within ties);
+        mid-run submission is fine -- the fleet router feeds migrated
+        continuations this way."""
         eng = self.eng
         for r in requests:
             if r.prompt.size + r.max_new_tokens > eng.s_max:
@@ -794,6 +829,8 @@ class EngineRun:
             self._count_decision(logits0, r_logits)
         self.t_prefill += self.now_fn() - t0
         self.slots[slot] = _Slot(req, first, self.steps, self.now_fn() - self.t_start)
+        if self.on_token is not None:
+            self.on_token(req.rid, first[0])
         self.maybe_retire(slot)
 
     def _admit_paged(self, reqs: list[Request], free: list[int]) -> None:
@@ -842,6 +879,8 @@ class EngineRun:
                 self.slots[slot] = _Slot(
                     req, [first[j]], self.steps, self.now_fn() - self.t_start
                 )
+                if self.on_token is not None:
+                    self.on_token(req.rid, first[j])
                 self.maybe_retire(slot)
             self.t_prefill += self.now_fn() - t0
 
@@ -879,6 +918,8 @@ class EngineRun:
         self.slot_steps += len(active)
         for i in active:
             self.slots[i].tokens.append(int(host[0, i]))
+            if self.on_token is not None:
+                self.on_token(self.slots[i].req.rid, self.slots[i].tokens[-1])
             if eng._ref:
                 self.agree_sum += float(host[1, i])
                 self.err_sum += float(host[2, i])
@@ -929,6 +970,8 @@ class EngineRun:
         return consumed
 
     def retire(self, i: int, st: _Slot, by: str) -> None:
+        # a migrated continuation carries its first chip's first-token time,
+        # so ttft_s spans every chip the request touched
         rec = RequestRecord(
             rid=st.req.rid,
             slot=i,
@@ -942,6 +985,22 @@ class EngineRun:
             finished_by=by,
         )
         self.records.append(rec)
+        self._release_slot(i)
+        if self.on_retire is not None:
+            self.on_retire(rec)
+
+    def evict(self, i: int) -> tuple[Request, list[int]]:
+        """Remove a LIVE slot without recording a retirement: the fleet
+        router's drain path. The request and its tokens so far come back
+        for a continuation on a sibling chip; the slot and its pages are
+        freed as at retirement, so the run's conservation holds."""
+        st = self.slots[i]
+        if st is None:
+            raise ValueError(f"slot {i} holds no live request")
+        self._release_slot(i)
+        return st.req, list(st.tokens)
+
+    def _release_slot(self, i: int) -> None:
         self.cache = self.pool.release(self.cache, i)
         if self.eng._ref:
             self.ref_cache = reset_cache_slot(self.ref_cache, i)
@@ -959,7 +1018,7 @@ class EngineRun:
         eng = self.eng
         wall = self.now_fn() - self.t_start
         delta = engine_mod.program_event_count() - self.events0
-        if eng.program is not None and delta != self.allowed_events:
+        if self.track_events and eng.program is not None and delta != self.allowed_events:
             raise RuntimeError(
                 f"serving run recorded {delta} programming events but "
                 f"refreshes account for {self.allowed_events} -- the "
@@ -985,7 +1044,7 @@ class EngineRun:
             counters=counters,
             age_events=self.age_events,
             reprograms=eng.reprograms - self.reprograms0,
-            program_events_delta=delta - self.allowed_events,
+            program_events_delta=delta - self.allowed_events if self.track_events else 0,
             n_prefill_traces=len(eng._prefill_shapes),
             peak_kv_bytes=self.peak_kv_bytes,
             peak_pages_in_use=self.pool.peak_in_use,
