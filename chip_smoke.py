@@ -5,8 +5,9 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 
     python3 chip_smoke.py [--seed 0]
 
-It drives the port's main path -- program-once, execute-many serving of a
-dense LM on one programmed chip -- and checks every hand-written kernel on
+It drives the port's main paths -- program-once, execute-many serving of a
+dense LM on one programmed chip, and the paper's CNNs programmed and served
+through B1 -- and checks every hand-written kernel on
 that path against its plain PyTorch version, in phases that either pass or
 end the run with a non-zero exit:
 
@@ -48,9 +49,10 @@ end the run with a non-zero exit:
    replayed from a CUDA graph, fused kernel): ms per step, device kernels
    launched, device idle share; then the fused kernel alone by CUDA events
    -- with ``--b2-parent DIR`` in turns with a parent's ``decode_fused.cu``
-   built from DIR (parent, change, change, parent) -- and where its time
-   goes: each phase kind of layer 1, the final row, the lm_head and the
-   logits, by launches ended after n phases (``b2_phase_ms``);
+   built from DIR (parent, change, change, parent), at 8 slots and, on a
+   1-slot decoder over the same chip, at 1 -- and where its time goes:
+   each phase kind of layer 1, the final row, the lm_head and the logits,
+   by launches ended after n phases (``b2_phase_ms``);
 8. prefill attention vs plain: the Hopper ``flash_attention`` (kernel B3)
    against ``flash_attention_ref`` at tinyllama-1.1b's heads and every
    shape the serving phases give it (each prompt length of the trace at
@@ -75,7 +77,10 @@ end the run with a non-zero exit:
    PyTorch ops at the decode step's shapes, within their rounding model
    (1 bf16 ulp, 2 for attention), timed beside the bound and the library
    call where there is one; phase 4 counts their launches per decode
-   forward (chip and digital lockstep);
+   forward (chip and digital lockstep); with ``--b2-parent DIR`` the
+   attention kernel also in turns with the parent's ``decode_rows.cu`` at
+   1 slot (``s_max`` 256 and 512) and 8 slots (512), where a pass holds
+   one head and two (``c3_attn_turns``);
 11. drift lifecycle at full width and depth SHALLOW_DEPTH (2; a chip of
    phase 4's first layers, programmed as phase 4's was): the chip aged to
    25 s, then the trace under a ``DriftPolicy`` (25 s -> 1 h -> 1 d) with
@@ -94,8 +99,9 @@ end the run with a non-zero exit:
    phase 4's chip behind ``FleetRouter`` (sharing its tensors), the
    digital lockstep on, phase 4's trace. A storm on a virtual clock drains
    chip 0 mid-flight and reprograms it: every request retires once with its
-   budget, live requests migrate and their remainders are bitwise what the
-   destination chip serves from the continuation alone, the reprogrammed
+   budget, live requests migrate and their remainders are bitwise what a
+   1-slot engine over the destination chip serves from the continuation
+   alone, the reprogrammed
    chip is the CPU bridge's draw from its key, launches are exactly the
    work's. Then ``AsyncFleetRouter`` deterministic (virtual clock) and
    threaded (a worker thread and a CUDA stream per chip), in turns: the
@@ -103,8 +109,20 @@ end the run with a non-zero exit:
    TTFT, idle share and peak memory of each, and the threaded speedup. The
    B1 and B3 shapes the continuations' prefills launched are then checked
    as phases 3 and 8 check theirs;
-14. report: a JSON line ``{"kernels": [...]}`` (launches from the serving
-   phases and the fleet) and, last, the device line
+14. the paper's CNNs at full width (``phase_cnn``): AnalogNet-KWS and
+   AnalogNet-VWW from ``cnn_init(--seed)``, programmed on the card through
+   their crossbar transforms with their mappings (b_adc 8, t = 25 s), each
+   chip bitwise the CPU bridge's; served through ``cnn_apply`` (every conv
+   and the FC one fp32 B1 launch through the ``gemv`` design) as an
+   always-on stream of single-image calls and one sweep batch
+   (``CNN_TRAFFIC``: KWS 32 and 256, VWW 16 and 64), each layer's ADC
+   outputs and the logits held against the plain version on the card;
+   aged to 24 h (no programming event) and at b_adc 4, the sweep again;
+   ms per inference, B1's launches and device share, the mappings'
+   utilization; B1 checked at every shape launched and timed per forward
+   beside the plain version, torch.matmul and the bound;
+15. report: a JSON line ``{"kernels": [...]}`` (launches from the serving
+   phases, the fleet and the CNNs) and, last, the device line
    ``{"ok": true, "device": {...}}``.
 
 The RNG bridge (``repro_torch.prng``): phase 4 draws the weights and
@@ -134,6 +152,7 @@ import gc
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -195,6 +214,13 @@ FLEET_WINDOW_S = (2.0, 0.3)
 PARENT_PROGRAM_S = "0.69-0.85"
 #: the drift lifecycle's wall ages (phase 11): 25 s, 1 h, 1 d
 LIFECYCLE_AGES = (25.0, 3600.0, 86400.0)
+#: the CNN phase (14): each of the paper's own models at its published
+#: widths, with its always-on stream of single-image calls and one sweep batch
+CNN_TRAFFIC = (("analognet-kws", 32, 256), ("analognet-vww", 16, 64))
+#: warm calls of the sweep batch timed after its cold first call
+CNN_SWEEP_REPS = 5
+#: the CNN chips are programmed at t = 25 s and aged to 24 h
+CNN_AGES = (25.0, 86400.0)
 #: the row kernels' plain versions (kernels/decode_rows.py)
 ROW_PLAINS = lambda dr: (dr.norm_plain, dr.rope_plain, dr.attention_plain, dr.gate_plain)
 
@@ -355,8 +381,7 @@ def phase_kernel_vs_plain(torch, gen, ms: tuple) -> dict:
     the row-stability check of the tensor-core designs (``row_stability``)."""
     from repro_torch.kernels import analog_mvm as kernel
 
-    by_design = {d: {"max_abs": 0.0, "max_steps": 0.0, "frac_half_step": 0.0, "flips": 0,
-                     "elements": 0, "cases": 0} for d in kernel.DESIGNS}
+    by_design = b1_by_design()
     checked, failures = set(), []
     for name, k, n, _ in SHAPES:
         w32 = torch.randn((k, n), generator=gen, device=DEV) * k**-0.5
@@ -383,6 +408,14 @@ def phase_kernel_vs_plain(torch, gen, ms: tuple) -> dict:
     check(not failures, f"{len(failures)} kernel-vs-plain cases out of tolerance")
     return {"cases": cases, "ms": list(ms), "by_design": by_design,
             "checked": sorted(checked), "row_stability": row_stability(torch, gen, kernel)}
+
+
+def b1_by_design() -> dict:
+    """An empty record of B1's worst errors per design, for ``b1_cases``."""
+    from repro_torch.kernels import analog_mvm as kernel
+
+    return {d: {"max_abs": 0.0, "max_steps": 0.0, "frac_half_step": 0.0, "flips": 0,
+                "elements": 0, "cases": 0} for d in kernel.DESIGNS}
 
 
 def b1_cases(torch, name, x, w, design, per_tile, dac, by_design, checked, failures) -> None:
@@ -421,11 +454,13 @@ def b1_cases(torch, name, x, w, design, per_tile, dac, by_design, checked, failu
             failures.append((name, m, str(dtype), design, bits, per_tile, dac, r))
 
 
-def check_launched_b1(torch, gen, keys: list, accuracy: dict) -> dict:
+def check_launched_b1(torch, gen, keys: list, accuracy: dict, by_design=None) -> dict:
     """Phase 3's comparison, at the same tolerance, for B1 keys a serving
     phase launched that phase 3 did not check (the fleet's migrated
     continuations re-prefill at prompt + prefix tokens, an M no other
-    phase serves); merged into phase 3's record."""
+    phase serves; the CNNs' fp32 shapes); the keys merged into phase 3's
+    record, the worst errors into ``by_design`` (phase 3's by default)."""
+    by_design = accuracy["by_design"] if by_design is None else by_design
     failures = []
     checked = set(map(tuple, accuracy["checked"]))
     for key in keys:
@@ -434,13 +469,14 @@ def check_launched_b1(torch, gen, keys: list, accuracy: dict) -> dict:
         dt = getattr(torch, dtype)
         x = torch.randn((m, k), generator=gen, device=DEV).to(dt)
         w = (torch.randn((k, n), generator=gen, device=DEV) * k**-0.5).to(dt)
-        b1_cases(torch, f"{k}x{n}", x, w, design, per_tile, dac, accuracy["by_design"],
-                 checked, failures)
+        b1_cases(torch, f"{k}x{n}", x, w, design, per_tile, dac, by_design, checked, failures)
     torch.cuda.synchronize()
     accuracy["checked"] = sorted(checked)
     accuracy["cases"] += 3 * len(keys)
     log(f"kernel vs plain, the keys the serving phases launched that phase 3 had not "
-        f"checked ({len(keys)}): {sorted(keys)}; out of tolerance: {failures or 'none'}")
+        f"checked ({len(keys)}): {sorted(keys)}; worst per design used "
+        f"{ {d: v for d, v in by_design.items() if v['cases']} }; out of tolerance: "
+        f"{failures or 'none'}")
     check(not failures, f"{len(failures)} launched B1 cases out of tolerance")
     return {"keys": sorted(keys), "failures": len(failures)}
 
@@ -485,13 +521,15 @@ def row_stability(torch, gen, kernel) -> dict:
     return {"pairs": pairs, "unequal": unequal, "full_call_max_steps": full_worst}
 
 
-def mvm_bound(m: int, k: int, n: int, esz: int = 2) -> dict:
+def mvm_bound(m: int, k: int, n: int, esz: int = 2, peak: float = BF16_FLOPS) -> dict:
     """The least time of one (M, K) x (K, N) programmed MVM on the card: x
     and w read once and y written once over the HBM rate, or its 2 M K N
-    operations over the bf16 tensor-core peak, whichever is larger."""
+    operations over ``peak`` (the bf16 tensor-core peak; fp32, which must
+    not round through TF32, takes the CUDA cores' FP32_OPS), whichever is
+    larger."""
     nbytes = (k * n + m * k + m * n) * esz
     flops = 2 * m * k * n
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bytes": nbytes, "flops": flops,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -1233,11 +1271,50 @@ def phase_step_timing(torch, ctx, fused_engine, parent=None) -> dict:
         log(f"fused kernel in turns (parent, change, change, parent): "
             f"{p_ms[0]:.4f} / {kernel_ms[0]:.4f} / {kernel_ms[1]:.4f} / {p_ms[1]:.4f} ms; "
             f"change / parent {min(kernel_ms) / min(p_ms):.3f}")
+        res["one_slot"] = b2_one_slot_turns(torch, dec, parent)
     for name, b in breakdown.items():
         log(f"B2 per phase ({name}, layer 1, ms incl. its barrier; {b['barriers_per_step']} "
             f"barriers per step): " + ", ".join(f"{k} {v:.4f}" for k, v in b["phase_ms"].items())
             + f"; layer 0 {b['layer0_ms']:.4f}, layer 1 {b['layer1_ms']:.4f}, "
             f"mvm share of layer 1 {b['mvm_share']:.1%}, whole step {b['step_ms']:.4f}")
+    return res
+
+
+def b2_one_slot_turns(torch, dec, parent) -> dict:
+    """One B2 step at 1 slot on ``dec``'s chip and ``s_max`` (a pass of one
+    head: the AV grouping sized for full passes leaves half its threads
+    idle), by CUDA events in turns with the parent's kernel (parent,
+    change, change, parent), over a random cache at lengths of half to
+    all of ``s_max``."""
+    from repro_torch.kernels import decode_fused as df
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.common import embedding_apply
+
+    before, cfg = df.launches, dec.cfg
+    one = df.FusedDecoder(dec.params, dec.plan, cfg, dec.analog_cfg, 1, dec.s_max)
+    g = torch.Generator("cuda").manual_seed(1)
+    shape = (cfg.n_layers, 1, dec.s_max, cfg.n_kv_heads, cfg.hd)
+    kv = KVCache(torch.randn(shape, generator=g, device=DEV).to(cfg.dtype),
+                 torch.randn(shape, generator=g, device=DEV).to(cfg.dtype),
+                 torch.randint(dec.s_max // 2, dec.s_max - 1, (1,), generator=g, device=DEV,
+                               dtype=torch.int32))
+    tok = torch.randint(0, cfg.vocab, (1, 1), generator=g, device=DEV)
+    h0 = embedding_apply(one.params.embed, tok, cfg.dtype).reshape(1, -1).contiguous()
+    ways = {"parent": (parent, parent_grid(parent, one)), "change": (None, one.grid)}
+    readings = {"parent": [], "change": []}
+    for name in ("parent", "change", "change", "parent"):
+        lib, grid = ways[name]
+        with b2_library(lib):
+            readings[name].append(events_ms(torch, lambda: one._launch(h0, kv, grid), 20))
+    df.launches = before  # timing launches are not main-path launches
+    res = {"s_max": dec.s_max, "attn_heads": one.attn_heads, "readings_ms": readings,
+           "parent_ms": min(readings["parent"]), "change_ms": min(readings["change"])}
+    res["cost_us"] = (res["change_ms"] - res["parent_ms"]) * 1e3
+    log(f"fused kernel at 1 slot, s_max {dec.s_max} ({one.attn_heads} head(s) an attention "
+        f"item), in turns: " + " / ".join(f"{x:.4f}" for x in (
+            readings["parent"][0], *readings["change"], readings["parent"][1]))
+        + f" ms; change - parent {res['cost_us']:+.2f} us a step")
+    del one, kv
     return res
 
 
@@ -1298,34 +1375,44 @@ def b2_breakdown(best: dict, n_layers: int, per: int) -> dict:
             / layer1}
 
 
-def build_parent_b2(src_dir: Path):
-    """Start ``nvcc`` on a parent's ``decode_fused.cu`` (with its headers
-    beside it) into ``build/repro_torch/``, with the port's own flags;
-    returns a function that waits for it and loads the library as
-    ``kernels.decode_fused._fn`` does."""
+def build_parent(src_dir: Path):
+    """Start ``nvcc`` on a parent's ``decode_fused.cu`` and ``decode_rows.cu``
+    (with their headers beside them) into ``build/repro_torch/``, with the
+    port's own flags; returns a function that waits for both and loads
+    them as ``kernels.decode_fused._fn`` and ``kernels.decode_rows._fn``
+    do: ``{"b2": B2's function table, "rows": the attention row kernel's}``."""
     import ctypes
 
     from repro_torch.kernels import build
 
-    out = build.BUILD_DIR / "decode_fused_parent.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o", str(out),
-                             str(src_dir / "decode_fused.cu")],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    procs = {}
+    for name in ("decode_fused", "decode_rows"):
+        out = build.BUILD_DIR / f"{name}_parent.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        procs[name] = out, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(out), str(src_dir / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
     def finish():
-        log_text, _ = proc.communicate()
-        check(proc.returncode == 0, f"parent B2 build failed:\n{log_text}")
-        lib = ctypes.CDLL(str(out))
+        libs = {}
+        for name, (out, proc) in procs.items():
+            log_text, _ = proc.communicate()
+            check(proc.returncode == 0, f"parent {name} build failed:\n{log_text}")
+            libs[name] = lib = ctypes.CDLL(str(out))
+            getattr(lib, f"{name}_error_string").argtypes = [ctypes.c_int]
+            getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib = libs["decode_fused"]
         fn, mb = lib.decode_fused_launch, lib.decode_fused_max_blocks
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        mb.argtypes = [ctypes.c_int, ctypes.c_int]
-        mb.restype = ctypes.c_int
-        lib.decode_fused_error_string.argtypes = [ctypes.c_int]
-        lib.decode_fused_error_string.restype = ctypes.c_char_p
-        return fn, mb, lib.decode_fused_error_string
+        fn.argtypes = [P, P, P, I, I, P]
+        fn.restype = I
+        mb.argtypes = [I, I, I]
+        mb.restype = I
+        attn = libs["decode_rows"].decode_rows_attn
+        attn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, F, I, P]
+        attn.restype = I
+        return {"b2": (fn, mb, lib.decode_fused_error_string),
+                "rows": ({"attn": attn}, libs["decode_rows"].decode_rows_error_string)}
 
     return finish
 
@@ -1333,7 +1420,7 @@ def build_parent_b2(src_dir: Path):
 @contextlib.contextmanager
 def b2_library(lib):
     """Within the block, ``kernels.decode_fused`` launches through ``lib``
-    (a parent's library from :func:`build_parent_b2`; None: its own). The
+    (a parent's library from :func:`build_parent`; None: its own). The
     parent reads the prefix of the launch arguments it knows."""
     from repro_torch.kernels import decode_fused as df
 
@@ -1354,7 +1441,8 @@ def parent_grid(lib, dec) -> int:
 
     dev = dec.device
     n = lib[1](df._DTYPES[dec.cfg.dtype],
-               dev.index if dev.index is not None else torch.cuda.current_device())
+               dev.index if dev.index is not None else torch.cuda.current_device(),
+               dec.layout.smem_bytes)
     check(n > 0, f"parent B2 occupancy query failed ({n})")
     return n
 
@@ -1748,7 +1836,7 @@ def phase_paged_serve(torch, ctx, per_layer: dict) -> dict:
 # --------------------------------------------------------------- slice 6
 
 
-def phase_rows(torch, gen) -> dict:
+def phase_rows(torch, gen, parent=None) -> dict:
     """The row kernels (kernels/decode_rows.py) against their plain versions
     at the decode step's shapes (8 slots, tinyllama-1.1b, bf16, a 512-row
     slot cache), within the plain versions' rounding model: the kernels
@@ -1756,7 +1844,8 @@ def phase_rows(torch, gen) -> dict:
     plain value (norm: torch's mean and rsqrt; attention: torch's score,
     softmax and AV orders, up to two); then kernel, plain version and,
     where one PyTorch call computes the same function, that call, timed
-    by CUDA-graph replay, beside the bytes bound."""
+    by CUDA-graph replay, beside the bytes bound; with ``parent`` (the
+    parent's attention kernel, :func:`build_parent`) ``c3_attn_turns``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_rows as dr
@@ -1810,7 +1899,48 @@ def phase_rows(torch, gen) -> dict:
             f"{'-' if lib is None else f'{r['library_ms'] * 1e3:.1f} us'}, bound "
             f"{r['bound_ms'] * 1e3:.2f} us)" + ("" if r["pass"] else "  FAIL"))
     check(all(r["pass"] for r in out.values()), "row kernels within their plain versions' model")
+    if parent is not None:
+        out["attn"]["c3_turns"] = c3_attn_turns(torch, gen, parent)
     return out
+
+
+def c3_attn_turns(torch, gen, parent) -> list:
+    """The attention row kernel against the parent's, by CUDA-graph replay
+    in turns (parent, change, change, parent), at tinyllama-1.1b's heads,
+    bf16: 1 slot at ``s_max`` 256 and 512 (passes of one head, whose AV
+    grouping C3 changed) and 8 slots at 512 (passes of two, unchanged), at
+    random lengths of half to all of ``s_max``; whether the two kernels'
+    outputs are equal is recorded."""
+    from repro_torch.kernels import decode_rows as dr
+
+    h, kv, hd = FA_HEADS["h"], FA_HEADS["kv"], FA_HEADS["d"]
+    own, rows = dr._fn(), []
+    for slots, s_max in ((1, 256), (1, 512), (SLOTS, 512)):
+        q = torch.randn((slots, 1, h, hd), generator=gen, device=DEV).bfloat16()
+        k = torch.randn((slots, s_max, kv, hd), generator=gen, device=DEV).bfloat16()
+        v = torch.randn((slots, s_max, kv, hd), generator=gen, device=DEV).bfloat16()
+        lens = torch.randint(s_max // 2, s_max, (slots,), generator=gen, device=DEV,
+                             dtype=torch.int32)
+        readings, outs = {"parent": [], "change": []}, {}
+        for name in ("parent", "change", "change", "parent"):
+            dr._FN = parent if name == "parent" else own
+            try:
+                readings[name].append(time_ms(lambda i: dr.attention(q, k, v, lens), 200) * 1e3)
+                outs[name] = dr.attention(q, k, v, lens)
+            finally:
+                dr._FN = own
+        r = {"slots": slots, "s_max": s_max,
+             "heads_per_pass": dr.heads_per_pass(h, kv, hd, slots, s_max, dr.sm_count(DEV)),
+             "parent_us": min(readings["parent"]), "change_us": min(readings["change"]),
+             "readings_us": readings,
+             "outputs_equal": bool(torch.equal(outs["parent"], outs["change"]))}
+        r["cost_us"] = r["change_us"] - r["parent_us"]
+        rows.append(r)
+        log(f"row kernel attn at {slots} slot(s), s_max {s_max} ({r['heads_per_pass']} head(s) "
+            f"a pass), in turns with the parent's: parent {r['parent_us']:.2f} us, change "
+            f"{r['change_us']:.2f} us, cost {r['cost_us']:+.2f} us a launch; outputs equal "
+            f"{r['outputs_equal']}")
+    return rows
 
 
 def phase_bridge(torch, ctx) -> dict:
@@ -2322,9 +2452,9 @@ def phase_fleet(torch, ctx) -> dict:
     and reprogrammed after ``refresh_steps`` ticks. Gates: every request
     retires once with its budget; >= 1 in-flight migration; one reprogram
     and its programming events only; each migrated remainder bitwise what
-    an engine of the fleet's config over the destination chip serves from
-    the continuation alone (the fleet's slot count: the attention kernel's
-    head passes, and so its sums, follow it); the refreshed chip bitwise
+    a 1-slot engine over the destination chip serves from the continuation
+    alone (the reference's oracle: a head's attention sums do not depend on
+    the slot count or s_max); the refreshed chip bitwise
     the CPU bridge's draw from its key; launches exactly the work's
     (``fleet_expected``); no plain version.
     (b) The trace without a refresh through ``AsyncFleetRouter``,
@@ -2419,7 +2549,8 @@ def phase_fleet(torch, ctx) -> dict:
     for rec, chip, dest, k in live:
         if chip not in solos:  # over the destination's chip and its cast weights
             dst = router.engines[chip].program
-            solos[chip] = ServingEngine(cfg, dst.cfg, router.engines[chip].params, scfg,
+            solos[chip] = ServingEngine(cfg, dst.cfg, router.engines[chip].params,
+                                        ServingConfig(n_slots=1, s_max=scfg.s_max),
                                         program=dst, device=DEV)
         req = by_rid[rec.rid]
         cont = Request(rid=900_000 + rec.rid, max_new_tokens=req.max_new_tokens - k,
@@ -2545,6 +2676,321 @@ def phase_fleet(torch, ctx) -> dict:
     return res
 
 
+# --------------------------------------------------------------- slice 8: the CNNs
+
+
+def cnn_step(layer: dict, bits: int) -> float:
+    """One ADC step of a programmed CNN layer's output (its GDC scale in)."""
+    return ((abs(float(layer["r_adc"])) + 1e-9) / (2 ** (bits - 1) - 1)
+            * float(layer["out_scale_buf"]))
+
+
+def cnn_forward_check(torch, prog, cfg, x) -> dict:
+    """One programmed forward of ``x`` through B1 against the same forward
+    through the plain version on the card (``AnalogCtx.mvm`` =
+    ``engine.execute_mvm_plain``): every layer's ADC outputs, each layer fed
+    the plain chain's input, under ``compare``'s tolerance model (worst ADC
+    steps, worst share of outputs more than half a step off); then the
+    whole forward's logits: rel L2, max |diff| in the FC's ADC steps, argmax
+    agreement, and whether every disagreement is a tie (the plain logits'
+    top two within the row's own |diff|)."""
+    from repro_torch.core import engine
+    from repro_torch.core.analog import AnalogCtx, analog_matmul
+    from repro_torch.models import analognet as an
+
+    p, bits = prog.params, prog.cfg.b_adc
+    ctx_k = AnalogCtx(cfg=prog.cfg, gain_s=p["gain_s"])
+    ctx_p = AnalogCtx(cfg=prog.cfg, gain_s=p["gain_s"], mvm=engine.execute_mvm_plain)
+    layers, h = {}, x
+    for spec in cfg.convs:
+        y_k = an.conv_apply(p[spec.name], h, spec, ctx_k, relu=False)
+        y_p = an.conv_apply(p[spec.name], h, spec, ctx_p, relu=False)
+        layers[spec.name] = compare(y_k, y_p, cnn_step(p[spec.name], bits), 1, False)
+        h = torch.relu(y_p)
+    fc, pooled = p["fc"], h.mean(dim=(1, 2))
+    kw = dict(r_adc=fc["r_adc"], w_min=fc["w_clip_buf"][0], w_max=fc["w_clip_buf"][1],
+              out_scale=fc["out_scale_buf"])
+    layers["fc"] = compare(analog_matmul(pooled, fc["w"], ctx=ctx_k, **kw),
+                           analog_matmul(pooled, fc["w"], ctx=ctx_p, **kw),
+                           cnn_step(fc, bits), 1, False)
+    logits = an.cnn_apply(p, x, prog.cfg, cfg)
+    plain = an.cnn_apply(p, x, prog.cfg, cfg, mvm=engine.execute_mvm_plain)
+    d = (logits - plain).abs()
+    top_k, top_p = logits.argmax(-1), plain.argmax(-1)
+    gap = plain.gather(1, top_p[:, None])[:, 0] - plain.gather(1, top_k[:, None])[:, 0]
+    ties_ok = bool(((top_k == top_p) | (gap <= d.max(dim=1).values)).all())
+    out = {"layers_ok": all(r["ok"] for r in layers.values()),
+           "worst_adc_steps": max(r["max_steps"] for r in layers.values()),
+           "worst_share_half_step": max(r["frac_half_step"] for r in layers.values()),
+           "logits_rel_l2": float((logits - plain).norm() / plain.norm().clamp(min=1e-30)),
+           "logits_max_fc_steps": float(d.max()) / cnn_step(fc, bits),
+           "argmax_agreement": float((top_k == top_p).float().mean()),
+           "argmax_differs_only_at_ties": ties_ok,
+           "finite": bool(logits.isfinite().all()), "shape": list(logits.shape)}
+    out["ok"] = (out["layers_ok"] and ties_ok and out["finite"]
+                 and out["logits_max_fc_steps"] <= 4.0)
+    return out
+
+
+def cnn_serve(torch, prog, cfg, stream, sweep) -> dict:
+    """The phase's traffic on one chip, counted: the always-on stream, one
+    image per ``cnn_apply`` call, then the sweep batch: one cold call (the
+    first at the sweep's shapes, which allocates its im2col buffers) and
+    ``CNN_SWEEP_REPS`` warm calls. Each call is timed on the host clock to
+    its synchronize: the stream's median ms per inference, the sweep's cold
+    call and its median warm call; B1's launches by design and the plain
+    versions' calls of this run only."""
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.models import analognet as an
+
+    def timed(x) -> float:
+        t0 = time.perf_counter()
+        an.cnn_apply(prog.params, x, prog.cfg, cfg)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    torch.cuda.synchronize()
+    reset_counts()
+    stream_ms = [timed(stream[i:i + 1]) for i in range(stream.shape[0])]
+    cold_ms = timed(sweep)
+    warm_ms = [timed(sweep) for _ in range(CNN_SWEEP_REPS)]
+    sweep_ms = statistics.median(warm_ms)
+    return {"stream_ms_per_inference": statistics.median(stream_ms), "stream_ms": stream_ms,
+            "sweep_cold_ms": cold_ms, "sweep_ms_readings": warm_ms, "sweep_ms": sweep_ms,
+            "sweep_ms_per_inference": sweep_ms / sweep.shape[0],
+            "calls": stream.shape[0] + 1 + CNN_SWEEP_REPS,
+            "b1_designs": dict(kernel.analog_mvm.design_launches), "plain_calls": plain_calls()}
+
+
+def cnn_timing(torch, gen, cfg, batches) -> dict:
+    """B1 at every programmed-MVM shape of one forward of ``cfg`` at each
+    batch, fp32 (TF32 off): the kernel, its plain version and torch.matmul,
+    timed by CUDA-graph replay in turns (kernel, plain, library, kernel),
+    summed over the forward beside the bound (``mvm_bound`` at fp32 over
+    the CUDA cores' peak). The weights stay in L2 as in serving (the whole
+    model is ~1.3 MB)."""
+    from repro_torch.core import engine
+    from repro_torch.core.quant import QuantSpec
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.models.analognet import mvm_shapes
+
+    r_adc = torch.tensor(1.5, device=DEV)
+    out_scale = torch.tensor(0.97, device=DEV)
+    spec = QuantSpec(b_adc=8)
+    out = {}
+    for batch in batches:
+        rows = []
+        for name, m, k, n in mvm_shapes(cfg, batch):
+            x = torch.randn((m, k), generator=gen, device=DEV)
+            w = torch.randn((k, n), generator=gen, device=DEV) * k**-0.5
+            n_iter = 20
+            run_k = lambda i: kernel.analog_mvm(x, w, r_adc=r_adc, out_scale=out_scale, b_adc=8)
+            run_p = lambda i: engine.tile_matmul_quant(x, w, r_adc, spec, 1024, True, out_scale)
+            run_l = lambda i: torch.matmul(x, w)
+            ms_k1, ms_p, ms_l, ms_k2 = (time_ms(run_k, n_iter), time_ms(run_p, n_iter),
+                                        time_ms(run_l, n_iter), time_ms(run_k, n_iter))
+            bound = mvm_bound(m, k, n, esz=4, peak=FP32_OPS)
+            rows.append({"layer": name, "M": m, "K": k, "N": n, "ms": min(ms_k1, ms_k2),
+                         "ms_readings": [ms_k1, ms_k2], "plain_ms": ms_p, "library_ms": ms_l,
+                         "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+                         "flops": bound["flops"], "bytes": bound["bytes"]})
+        tot = {key: sum(r[key] for r in rows) for key in ("ms", "plain_ms", "library_ms",
+                                                          "bound_ms", "flops", "bytes")}
+        t_ops, t_bytes = tot["flops"] / FP32_OPS, tot["bytes"] / HBM_BYTES_PER_S
+        tot["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        tot["launches"] = len(rows)
+        out[batch] = {"per_forward": tot, "layers": rows}
+        log(f"cnn: B1 {cfg.name} at {batch} image(s), one forward ({len(rows)} launches, fp32 "
+            f"gemv): kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, torch.matmul "
+            f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms ({tot['bound_by']}, "
+            f"{tot['bound_ms'] / tot['ms']:.1%} of bound); per layer (ms kernel/bound): "
+            + ", ".join(f"{r['layer']} {r['ms']:.4f}/{r['bound_ms']:.4f}" for r in rows))
+    return out
+
+
+def phase_cnn(torch, gen, seed: int, accuracy: dict, launched: set) -> dict:
+    """The paper's CNN path at full width (the models its headline numbers
+    come from): AnalogNet-KWS and AnalogNet-VWW (``configs.get``), weights
+    from ``cnn_init(prng.PRNGKey(seed))``, each programmed on the card
+    through its crossbar transforms with its mapping (b_adc 8, t = 25 s):
+
+    - the bridge: the second conv's block programmed again on the CPU from
+      its key, its state, effective weights and GDC bitwise the card's; the
+      mapping equal to the packing of the model's own layer table; the
+      mappings' utilization printed;
+    - serving through ``cnn_apply``, every conv and the FC a B1 launch (the
+      fp32 ``gemv`` design): the always-on stream (single-image calls) and
+      one sweep batch (``CNN_TRAFFIC``), counted (main path: one launch per
+      layer per call, all ``gemv``, no plain version), then held against
+      the plain version on the card (``cnn_forward_check``);
+    - the chip aged to 24 h (``age_program``: no programming event), the
+      sweep served again and held;
+    - the sweep at b_adc 4 on a chip programmed at 4 bits, held;
+    - one sweep forward and one single-image call profiled: B1's share of
+      the device time and the device's idle share;
+    - B1 at every key this phase added to ``launched`` (the serving
+      phases' record, ``record_b1_shapes``) checked as phase 3 checks
+      (``check_launched_b1``, the worst errors in a record of the phase's
+      own), and timed per forward beside the bound (``cnn_timing``)."""
+    from repro_torch import prng
+    from repro_torch.configs import get
+    from repro_torch.core import crossbar, engine
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.models import analognet as an
+
+    res, before = {"models": {}}, set(launched)
+    total = {"gemv": 0, "prng": 0}
+    for arch, n_stream, n_sweep in CNN_TRAFFIC:
+        cfg = get(arch)
+        per = len(cfg.convs) + 1
+        acfg = AnalogConfig().infer(b_adc=8, t_seconds=CNN_AGES[0])
+        kw = dict(transforms=an.crossbar_transforms(cfg), with_mapping=True)
+        reset_counts()
+        t0 = time.perf_counter()
+        params = an.cnn_init(prng.PRNGKey(seed), cfg, device=DEV)
+        prog = engine.compile_program(params, acfg, prng.PRNGKey(seed + 1), device=DEV, **kw)
+        torch.cuda.synchronize()
+        program_s = time.perf_counter() - t0
+        total["prng"] += prng.launches
+        # the bridge: one layer (the second conv, walk index 2) programmed
+        # again on the CPU from its key, and the mapping packed from the
+        # model's own layer table
+        t0 = time.perf_counter()
+        spec = cfg.convs[1]
+        w_cpu = an.cnn_init(prng.PRNGKey(seed), cfg, device="cpu")[spec.name]
+        w_eff, gdc, st = engine.program_weight(
+            prng.fold_in(prng.PRNGKey(seed + 1), 2), kw["transforms"][spec.name](w_cpu["w"]),
+            w_cpu["w_clip_buf"][0], w_cpu["w_clip_buf"][1], acfg.t_seconds, acfg.pcm)
+        cpu_s = time.perf_counter() - t0
+        card_st = {k: v.cpu() for k, v in prog.state[spec.name].items()}
+        same = {"state": card_st.keys() == st.keys()
+                and all(torch.equal(card_st[k], st[k]) for k in st),
+                "w_eff": torch.equal(prog.params[spec.name]["w"].cpu(), w_eff),
+                "gdc": torch.equal(prog.params[spec.name]["out_scale_buf"].cpu(), gdc)}
+        table = crossbar.map_layers([crossbar.LayerShape(name, k, n, 1)
+                                     for name, _, k, n in an.mvm_shapes(cfg)])
+        same["mapping"] = (crossbar.mapping_to_dict(prog.mapping)
+                           == crossbar.mapping_to_dict(table))
+        util = {"utilization": prog.mapping.utilization, "occupancy": prog.mapping.occupancy,
+                "arrays": prog.mapping.n_arrays}
+        log(f"cnn: {arch} programmed on the card in {program_s:.2f} s (weights + program "
+            f"phase, {prng.launches} normal-draw launches); its {spec.name} programmed again "
+            f"on the CPU in {cpu_s:.2f} s; card == CPU bridge: {same}; mapping: "
+            f"{len(prog.mapping.placements)} blocks on {util['arrays']} array(s), utilization "
+            f"{util['utilization']:.4f}, occupancy {util['occupancy']:.4f}")
+        check(all(same.values()), f"cnn {arch}: the card's chip is the CPU bridge's, bitwise")
+        shape = cfg.input_hw + (cfg.in_channels,)
+        stream = prng.normal(prng.PRNGKey(seed + 2).to(DEV), (n_stream,) + shape)
+        sweep = prng.normal(prng.PRNGKey(seed + 3).to(DEV), (n_sweep,) + shape)
+        runs = {}
+
+        def serve_and_check(name, chip, stream_x):
+            events = engine.program_event_count()
+            r = cnn_serve(torch, chip, cfg, stream_x, sweep)
+            r["program_events"] = engine.program_event_count() - events
+            r["launches_expected"] = {d: per * r["calls"] if d == "gemv" else 0
+                                      for d in kernel.DESIGNS}
+            r["check"] = cnn_forward_check(torch, chip, cfg, sweep)
+            runs[name] = r
+            total["gemv"] += r["b1_designs"]["gemv"]
+            c = r["check"]
+            log(f"cnn: {arch} {name}: stream {r['stream_ms_per_inference']:.3f} ms per "
+                f"inference (median of {stream_x.shape[0]} calls), sweep of {n_sweep} in "
+                f"{r['sweep_ms']:.3f} ms (median of {CNN_SWEEP_REPS} warm calls: "
+                f"{r['sweep_ms_per_inference']:.4f} ms per inference; the cold first call "
+                f"{r['sweep_cold_ms']:.3f} ms; host clock), B1 launches {r['b1_designs']} (expected "
+                f"{r['launches_expected']}), plain calls {r['plain_calls']}, programming "
+                f"events {r['program_events']}; vs plain: layers within tolerance "
+                f"{c['layers_ok']} (worst {c['worst_adc_steps']:.3f} ADC steps, share > half "
+                f"a step {c['worst_share_half_step']:.2e}), logits rel L2 "
+                f"{c['logits_rel_l2']:.3e}, max {c['logits_max_fc_steps']:.3f} FC steps, "
+                f"argmax agreement {c['argmax_agreement']:.4f} (ties only: "
+                f"{c['argmax_differs_only_at_ties']})")
+            check(r["b1_designs"] == r["launches_expected"] and r["plain_calls"] == 0,
+                  f"cnn {arch} {name}: every layer of every call one gemv B1 launch, no plain "
+                  "version")
+            check(r["program_events"] == 0, f"cnn {arch} {name}: serving programs nothing")
+            check(c["ok"], f"cnn {arch} {name}: kernel forward within the plain version's "
+                           f"tolerance: {c}")
+
+        serve_and_check("t25s_b8", prog, stream)
+        events = engine.program_event_count()
+        t0 = time.perf_counter()
+        aged = engine.age_program(prog, CNN_AGES[1])
+        torch.cuda.synchronize()
+        age_s = time.perf_counter() - t0
+        age_events = engine.program_event_count() - events
+        log(f"cnn: {arch} aged to {CNN_AGES[1]:.0f} s in {age_s:.3f} s, programming events "
+            f"{age_events}")
+        check(age_events == 0, f"cnn {arch}: aging programs nothing")
+        serve_and_check("t24h_b8", aged, stream[:1])
+        del aged
+        reset_counts()
+        prog4 = engine.compile_program(params, AnalogConfig().infer(b_adc=4, t_seconds=CNN_AGES[0]),
+                                       prng.PRNGKey(seed + 1), device=DEV, **kw)
+        total["prng"] += prng.launches
+        serve_and_check("t25s_b4", prog4, stream[:1])
+        del prog4
+        prof = {"sweep": profiled(torch, lambda: an.cnn_apply(prog.params, sweep, prog.cfg, cfg)),
+                "single": profiled(torch, lambda: an.cnn_apply(prog.params, stream[:1], prog.cfg,
+                                                                cfg))}
+        for name, pr in prof.items():
+            if isinstance(pr["profile_device_ms"], float):
+                pr["b1_share_of_device"] = pr["profile_kernel_ms"] / max(pr["profile_device_ms"],
+                                                                         1e-9)
+            log(f"cnn: {arch} one {name} forward profiled: {pr}")
+        res["models"][arch] = {"program_s": program_s, "cpu_program_s": cpu_s,
+                               "bridge": same, "mapping": util, "age_s": age_s,
+                               "runs": runs, "profile": prof, "stream": n_stream,
+                               "sweep": n_sweep}
+        del prog, params, stream, sweep
+    # B1 at every key this phase launched, as phase 3 checks (its own record)
+    keys, by_design = sorted(launched - before), b1_by_design()
+    res["b1_check"] = {**check_launched_b1(torch, gen, keys, accuracy, by_design),
+                       "by_design": by_design}
+    log(f"cnn: B1 vs plain at the {len(keys)} keys the phase launched: worst "
+        f"{by_design['gemv']}")
+    check(bool(keys) and all(key[4] == "gemv" and key[3] == "float32" for key in keys),
+          "cnn: every B1 launch fp32 through the gemv design")
+    res["timing"] = {arch: cnn_timing(torch, gen, get(arch), (1, n_sweep))
+                     for arch, _, n_sweep in CNN_TRAFFIC}
+    res["launches"] = total
+    check(total["gemv"] > 0 and total["prng"] > 0,
+          "cnn: the path launched B1 (gemv) and the normal draw")
+    return res
+
+
+def cnn_entry(cnn: dict) -> dict:
+    """The kernels line's B1 CNN entry: the fp32 gemv design's launches on
+    the CNN phase's main-path runs, its worst error at the keys launched,
+    and its time per AnalogNet-KWS forward at the sweep batch (the other
+    forwards beside it)."""
+    arch, _, n_sweep = CNN_TRAFFIC[0]
+    kws = cnn["timing"][arch][n_sweep]["per_forward"]
+    return {
+        "name": "analog_mvm.gemv",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/analog_mvm.cu",
+        "replaces": "src/repro/kernels/analog_mvm.py:41",
+        "launches": cnn["launches"]["gemv"],
+        "max_abs_err": cnn["b1_check"]["by_design"]["gemv"]["max_abs"],
+        "ms": kws["ms"],
+        "plain_ms": kws["plain_ms"],
+        "bound_ms": kws["bound_ms"],
+        "bound_by": kws["bound_by"],
+        "library_ms": kws["library_ms"],
+        "per": f"one AnalogNet-KWS forward at {n_sweep} images, fp32 with TF32 off: "
+               f"{kws['launches']} launches (4 convs as im2col GEMMs, the FC); library: "
+               "torch.matmul of the same products; launches from the CNN phase's serving "
+               "runs; forwards: each model at 1 image and at its sweep batch",
+        "forwards": {f"{a}@{b}": t["per_forward"] for a, by in cnn["timing"].items()
+                     for b, t in by.items()},
+        "max_err_adc_steps": cnn["b1_check"]["by_design"]["gemv"]["max_steps"],
+        "pass": cnn["b1_check"]["failures"] == 0,
+    }
+
+
 def profile_summary(prof, kernel: str = "analog_mvm") -> dict:
     """Device time of one profiled step from the trace's device events
     (kernels and copies): their busy union, the time of the kernels whose
@@ -2584,8 +3030,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "chip_smoke.json",
                     help="where the full JSON record goes")
     ap.add_argument("--b2-parent", type=Path, default=None,
-                    help="a directory holding a parent's decode_fused.cu and its headers: "
-                         "phase 7 times that B2 in turns with this one")
+                    help="a directory holding a parent's decode_fused.cu, decode_rows.cu and "
+                         "their headers: phase 7 times that B2 (8 slots and 1) and phase 10 "
+                         "that attention row kernel in turns with this one")
     args = ap.parse_args(argv)
     # the drift lifecycle and resampling phases hold a second full-width
     # chip beside phase 4's: let the allocator grow segments in place
@@ -2610,9 +3057,9 @@ def main(argv=None) -> int:
         phase_s[name] = time.perf_counter() - t_start - sum(phase_s.values())
 
     card = phase_device(torch)
-    parent_b2 = build_parent_b2(args.b2_parent) if args.b2_parent else None
+    parent = build_parent(args.b2_parent) if args.b2_parent else None
     build_s, ptxas = phase_build()
-    parent_b2 = parent_b2() if parent_b2 else None
+    parent = parent() if parent else {"b2": None, "rows": None}
     lap("1-2 device, build")
     gen = torch.Generator("cuda").manual_seed(args.seed)
     accuracy = phase_kernel_vs_plain(torch, gen, tuple(sorted({*b1_served_ms(),
@@ -2629,7 +3076,7 @@ def main(argv=None) -> int:
     lap("5 B2 vs plain")
     fused_serve, fused_engine = phase_fused_serve(torch, ctx, serve)
     lap("6 fused serve")
-    step_timing = phase_step_timing(torch, ctx, fused_engine, parent_b2)
+    step_timing = phase_step_timing(torch, ctx, fused_engine, parent["b2"])
     fk = step_timing["kernel"]
     del fused_engine
     lap("7 step timing")
@@ -2638,7 +3085,7 @@ def main(argv=None) -> int:
     lap("8 B3 vs plain")
     paged_serve = phase_paged_serve(torch, ctx, serve)
     lap("9 paged serve")
-    rows = phase_rows(torch, gen)
+    rows = phase_rows(torch, gen, parent["rows"])
     lap("10 row kernels")
     lifecycle = phase_drift_lifecycle(torch, ctx)
     lap("11 drift lifecycle")
@@ -2655,6 +3102,8 @@ def main(argv=None) -> int:
     fleet["b1_checked_after"] = check_launched_b1(torch, gen, sorted(
         b1_launched - b1_before - set(map(tuple, accuracy["checked"]))), accuracy)
     lap("13 fleet")
+    cnn = phase_cnn(torch, gen, args.seed, accuracy, b1_launched)
+    lap("14 cnn")
     log(f"seconds per phase: { {k: round(v, 1) for k, v in phase_s.items()} }")
     checked = {(r["rows"], r["S"], r["dtype"]) for r in flash["cases"]}
     unchecked = sorted(fa_launched - checked)
@@ -2744,7 +3193,7 @@ def main(argv=None) -> int:
                "every checked shape, both dtypes, causal and full",
         "max_err_bf16_ulps": flash["worst_bf16_ulps"],
         "pass": True,
-    }] + [{
+    }, cnn_entry(cnn)] + [{
         "name": f"decode_rows.{name}",
         "route": "cuda",
         "source": "src/repro_torch/csrc/decode_rows.cu",
@@ -2763,7 +3212,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/prng.cu",
         "replaces": "src/repro/core/pcm.py:131 (jax.random.normal, XLA ops; not a TPU kernel)",
-        "launches": serve["prng_launches"] + fleet["launches"]["prng"],
+        "launches": serve["prng_launches"] + fleet["launches"]["prng"]
+        + cnn["launches"]["prng"],
         "max_abs_err": 0.0 if bridge["normal_card_equals_cpu"] else None,
         "ms": bridge["normal_ms_11.5M"],
         "plain_ms": bridge["normal_plain_ms_11.5M"],
@@ -2771,7 +3221,8 @@ def main(argv=None) -> int:
         "bound_by": bridge["normal_bound_by"],
         "library_ms": None,
         "per": "one 2048 x 5632 draw (a w1 member's programming noise); launches: phase 4's "
-               "lm_init and program phase, and the fleet phase's reprogram; max_abs_err: 2^22 draws on the card against the "
+               "lm_init and program phase, the fleet phase's reprogram and the CNN phase's "
+               "cnn_init and program phases; max_abs_err: 2^22 draws on the card against the "
                "CPU plain version (bitwise); library: none computes jax.random.normal's bits",
         "pass": bridge["normal_card_equals_cpu"],
     }]}
@@ -2780,7 +3231,7 @@ def main(argv=None) -> int:
            "serve": serve, "fused_check": fused_check, "fused_serve": fused_serve,
            "step_timing": step_timing, "flash_attention": flash, "paged_serve": paged_serve,
            "bridge": bridge, "rows": rows, "drift_lifecycle": lifecycle, "resample": resample,
-           "fleet": fleet, **kernels, "phase_s": phase_s,
+           "fleet": fleet, "cnn": cnn, **kernels, "phase_s": phase_s,
            "seconds": time.perf_counter() - t_start}
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(out, indent=1))

@@ -14,8 +14,8 @@ Layout (written by the reference's ``save_program``)::
 A loaded program serves bitwise the chip that was saved: every array is
 moved to ``device`` unchanged (state keys, uint32 in the file, become the
 port's int64 key words). ``save_program`` writes what the reference's
-``load_program`` reads, array for array. ``mapping`` stays the raw dict
-until ``core/crossbar.py`` is ported.
+``load_program`` reads, array for array, and the physical-array mapping
+(``crossbar.mapping_to_dict`` / ``mapping_from_dict``) both ways.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch import convert
+from repro_torch.core import crossbar
 from repro_torch.core import engine as engine_lib
 from repro_torch.core import pcm as pcm_lib
 from repro_torch.core import quant as quant_lib
@@ -76,11 +77,6 @@ def _to_numpy(t: torch.Tensor, *, key: bool = False) -> np.ndarray:
 def save_program(path: str, program: engine_lib.CiMProgram) -> str:
     """Atomically persist a compiled CiMProgram (cim-program v1); returns
     the final path. The reference's ``load_program`` reads it back bitwise."""
-    if program.mapping is not None:
-        raise NotImplementedError(
-            "a program with a physical-array mapping is saved once "
-            "core/crossbar.py is ported (queue A item 10)"
-        )
     tmp = path + ".tmp"
     os.makedirs(tmp, exist_ok=True)
     arrays = {f"params{convert.SEP}{k}": _to_numpy(v)
@@ -99,7 +95,8 @@ def save_program(path: str, program: engine_lib.CiMProgram) -> str:
         "cfg": dataclasses.asdict(program.cfg),
         "plans": {p: [plan.k, plan.n, plan.spec.b_adc]
                   for p, plan in program.plans.items()},
-        "mapping": None,
+        "mapping": (crossbar.mapping_to_dict(program.mapping)
+                    if program.mapping is not None else None),
     }
     with open(os.path.join(tmp, "meta.json"), "w") as f:
         json.dump(meta, f)
@@ -121,7 +118,9 @@ def save_program(path: str, program: engine_lib.CiMProgram) -> str:
 def _check_fits(path: str, flat_params: dict, params_like: Any) -> None:
     """Refuse an artifact that does not cover ``params_like``: a template
     leaf absent from it, or one whose shape differs at the same rank (the
-    reference's check and message)."""
+    reference's check and message). A rank change is legitimate: program
+    transforms flatten conv kernels to their 2D crossbar blocks, so a CNN
+    chip loads against ``cnn_init``'s 4D tree."""
     template = {k: tuple(v.shape) for k, v in _flatten(params_like).items()}
     missing = sorted(set(template) - set(flat_params))
     wrong_shape = sorted(
@@ -203,7 +202,8 @@ def load_program(path: str, *, params_like: Any = None, device="cuda") -> engine
         t_seconds=float(meta["t_seconds"]),
         state=state,
         plans=plans,
-        mapping=meta.get("mapping") or None,
+        mapping=(crossbar.mapping_from_dict(meta["mapping"])
+                 if meta.get("mapping") else None),
         # pre-age_history artifacts know only their final age
         age_history=tuple(
             float(t) for t in meta.get("age_history", [meta["t_seconds"]])

@@ -1,8 +1,10 @@
 """Config registry of the port (counterpart of ``repro.configs``).
 
-``get(arch_id)`` returns the full-size ModelConfig, ``get_smoke(arch_id)``
-the reduced same-family config of the CPU tests. This slice registers the
-dense LM it serves; the other architectures follow with their families.
+``get(arch_id)`` returns the full-size config -- a ModelConfig for an LM,
+a CNNConfig for the paper's own TinyML models -- and ``get_smoke(arch_id)``
+an LM's reduced same-family config of the CPU tests. The port registers
+the dense LM it serves and the two AnalogNets; the other architectures
+follow with their families.
 """
 
 from __future__ import annotations
@@ -16,12 +18,22 @@ LM_ARCHS = {
     "tinyllama-1.1b": "tinyllama_1p1b",
 }
 
+CNN_ARCHS = {
+    "analognet-kws": "analognet_kws",
+    "analognet-vww": "analognet_vww",
+}
 
-def get(arch_id: str) -> ModelConfig:
-    if arch_id not in LM_ARCHS:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(LM_ARCHS)}")
-    return importlib.import_module(f"repro_torch.configs.{LM_ARCHS[arch_id]}").config()
+ALL_ARCHS = {**LM_ARCHS, **CNN_ARCHS}
+
+
+def get(arch_id: str):
+    if arch_id not in ALL_ARCHS:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ALL_ARCHS)}")
+    return importlib.import_module(f"repro_torch.configs.{ALL_ARCHS[arch_id]}").config()
 
 
 def get_smoke(arch_id: str) -> ModelConfig:
-    return get(arch_id).smoke()
+    cfg = get(arch_id)
+    if not isinstance(cfg, ModelConfig):
+        raise TypeError(f"{arch_id} is not an LM config")
+    return cfg.smoke()

@@ -1,5 +1,8 @@
 """The weight bridge: the reference's param trees -> the port's params.
 
+:func:`cnn_params_from_numpy` does the same for the paper's CNNs (plain
+nested dicts, ``models.analognet``), keeping the order it is given.
+
 :func:`params_from_numpy` takes JAX ``LMParams`` leaves as numpy arrays --
 either the NamedTuple itself (``jax.tree.map(np.asarray, params)``) or a
 flat dict of the artifact's ``::``-joined paths
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.analognet import CNNConfig
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.lm import LMParams, block_period
 
@@ -106,4 +110,36 @@ def params_from_numpy(
                 f"params do not match {cfg.name!r}: blocks wq {got} (want "
                 f"{want}), lm_head {head} (want {(cfg.d_model, cfg.vocab)})"
             )
+    return params
+
+
+def cnn_params_from_numpy(tree: Mapping, cfg: CNNConfig, device="cuda") -> dict:
+    """The reference's CNN params (numpy leaves) as the port's, on
+    ``device``, bitwise: a nested dict (``cnn_init``'s, or a compiled
+    program's) or a flat dict of ``::``-joined paths.
+
+    The order of the layers is kept as given: ``compile_program`` programs
+    layer n of its walk from ``fold_in(key, n)``, so the order is part of
+    the chip. ``cnn_init`` inserts ``gain_s``, the convs in config order,
+    then ``fc``; a tree that went through ``jax.tree.map`` comes back with
+    its keys sorted, and programs a different chip. ``cfg`` is checked
+    against the tree (layers and weight shapes: the 4D kernel, or the
+    programmed 2D block).
+    """
+    dev = resolve_device(device)
+    if not isinstance(tree, Mapping):
+        raise TypeError(f"cnn_params_from_numpy: unsupported tree {type(tree).__name__}")
+    nested = nest(tree) if any(SEP in k for k in tree) else tree
+    params = tree_to_torch(nested, dev)
+    # each layer's weight: its kernel, or its programmed 2D block
+    want = {s.name: ((s.kh, s.kw, s.c_in, 1 if s.depthwise else s.c_out),
+                     (s.kh * s.kw * s.c_in, s.c_out)) for s in cfg.convs}
+    want["fc"] = ((cfg.fc_width, cfg.n_classes),)
+    layers = [k for k in params if k != "gain_s"]
+    bad = set(layers) ^ set(want)
+    bad |= {k for k in set(layers) & set(want)
+            if tuple(params[k]["w"].shape) not in want[k]}
+    if bad or "gain_s" not in params:
+        raise ValueError(f"params do not match {cfg.name!r}: layers {sorted(bad)} differ "
+                         "(or gain_s is missing)")
     return params

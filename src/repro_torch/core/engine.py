@@ -33,6 +33,7 @@ from typing import Any, Callable, Mapping as MappingT, Optional, Union
 import torch
 
 from repro_torch import prng
+from repro_torch.core import crossbar
 from repro_torch.core import pcm as pcm_lib
 from repro_torch.core import quant as quant_lib
 from repro_torch.core.quant import QuantSpec
@@ -540,9 +541,9 @@ class CiMProgram:
     drop into ``models.lm.lm_forward`` with ``cfg`` (mode
     ``pcm_programmed``). ``state`` holds the frozen programming state per
     layer path, with each member's threefry key, so :meth:`drift_to`
-    re-evaluates the same devices. ``mapping`` is a loaded artifact's
-    physical-array mapping, kept as its raw dict until ``core/crossbar.py``
-    is ported.
+    re-evaluates the same devices. ``mapping`` is the physical-array
+    :class:`~repro_torch.core.crossbar.Mapping` of a program compiled (or
+    saved) ``with_mapping``.
     """
 
     params: Any
@@ -550,7 +551,7 @@ class CiMProgram:
     t_seconds: float
     state: dict[str, Any]
     plans: dict[str, ExecutionPlan]
-    mapping: Optional[dict] = None
+    mapping: Optional[crossbar.Mapping] = None
     age_history: tuple[float, ...] = ()
     chip_id: Optional[int] = None
 
@@ -601,24 +602,24 @@ def compile_program(
     maps fnmatch patterns over '/'-joined layer paths to per-layer ADC bits,
     recorded as shape-encoded ``b_adc_buf`` leaves. With
     ``cfg.resample_read_noise`` every layer also carries its ``read_buf``.
+
+    ``transforms`` maps layer paths to the function that turns the layer's
+    weight into its physical crossbar block (e.g.
+    ``models.analognet.crossbar_transforms``: a conv kernel to its im2col
+    2D block); the block is programmed and returned as the layer's ``w``,
+    and its plan is the block's. ``with_mapping=True`` packs every
+    programmed block onto the physical arrays (``crossbar.map_layers`` at
+    the config's tile size) and attaches the :class:`~repro_torch.core.
+    crossbar.Mapping` to the program.
     """
     dev = resolve_device(device)
-    if transforms:
-        raise NotImplementedError(
-            "transforms flatten conv kernels to crossbar blocks; they come "
-            "with the paper's CNN path (queue A item 10)"
-        )
-    if with_mapping:
-        raise NotImplementedError(
-            "with_mapping needs core/crossbar.py, which the CNN-path slice "
-            "ports (queue A item 10)"
-        )
     if shardings is not None:
         raise NotImplementedError(
             "sharded programming is the distribution slice's work (queue A "
             "item 13); this slice programs one unsharded chip"
         )
     t = float(cfg.t_seconds if t_seconds is None else t_seconds)
+    transforms = transforms or {}
     overrides = normalize_b_adc_overrides(b_adc_overrides)
     if overrides:
         quant_lib.validate_b_adc(cfg.b_adc, "cfg.b_adc (with overrides)")
@@ -626,16 +627,19 @@ def compile_program(
     key = key.to(dev)
     state: dict[str, Any] = {}
     plans: dict[str, ExecutionPlan] = {}
+    shapes: list[crossbar.LayerShape] = []
     counter = [0]
 
     def program_node(path: str, node: dict) -> dict:
-        w = node["w"]
-        if w.device.type != dev.type:
-            raise ValueError(f"layer {path!r} lives on {w.device}, not {dev}")
+        if node["w"].device.type != dev.type:
+            raise ValueError(f"layer {path!r} lives on {node['w'].device}, not {dev}")
+        w = transforms.get(path, lambda w: w)(node["w"])
         if w.dim() > 3:
             raise ValueError(
                 f"layer '{path}': weight shape {tuple(w.shape)} has more than "
-                "one stack dim"
+                "one stack dim; pass a transforms= entry (e.g. "
+                "analognet.crossbar_transforms) to flatten conv kernels to "
+                "their 2D crossbar blocks before programming"
             )
         counter[0] += 1
         bits = resolve_b_adc(overrides, path, cfg.b_adc)
@@ -645,23 +649,34 @@ def compile_program(
             prng.fold_in(key, counter[0]), w, buf[..., 0], buf[..., 1], t, cfg.pcm
         )
         new = dict(node)
-        new["w"] = w_eff.to(w.dtype)
+        new["w"] = w_eff.to(node["w"].dtype)
         new["out_scale_buf"] = gdc
         if bits != cfg.b_adc:
             new["b_adc_buf"] = b_adc_buf(stack, bits, dev)
         if want_read_buf:
             new["read_buf"] = read_buffers(st, t, cfg.pcm)
         state[path] = st
-        plans[path] = plan_for(cfg, int(w.shape[-2]), int(w.shape[-1]), b_adc=bits)
+        k_dim, n_dim = int(w.shape[-2]), int(w.shape[-1])
+        plans[path] = plan_for(cfg, k_dim, n_dim, b_adc=bits)
+        count = math.prod(stack)
+        shapes.extend(
+            crossbar.LayerShape(f"{path}[{i}]" if count > 1 else path, k_dim, n_dim,
+                                n_patches=1)
+            for i in range(count)
+        )
         return new
 
     programmed = _walk(params, program_node)
+    mapping = None
+    if with_mapping and shapes:
+        mapping = crossbar.map_layers(shapes, cfg.tile_rows, cfg.tile_cols)
     return CiMProgram(
         params=programmed,
         cfg=dataclasses.replace(cfg, mode=PCM_PROGRAMMED, quant_noise_p=1.0),
         t_seconds=t,
         state=state,
         plans=plans,
+        mapping=mapping,
         age_history=(t,),
         chip_id=chip_id,
     )

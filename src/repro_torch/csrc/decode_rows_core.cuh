@@ -120,7 +120,8 @@ __device__ __forceinline__ void load_row(const T* row, int d0, int HD, bool vec,
 // position (fmaf over the head dims in order, then the scale), the
 // softmax a warp per head (p rounded to T), the AV product a thread per
 // (position group, head, V-wide chunk of dims) over the group's positions
-// in order, then the groups summed in order. out(i, o) receives output i
+// in order, then the groups summed in order (the groups, and so each
+// head's sum order, independent of nh). out(i, o) receives output i
 // (head i / HD, dim i % HD) rounded to T. sc holds nh x S scores, red the
 // groups' sums (<= kThreads x V floats). The caller has made qs, ks and
 // vs visible to the block; ends with a barrier.
@@ -178,8 +179,13 @@ __device__ __forceinline__ void attend(const T* kc, const T* vc, int kvn, int HD
   }
   __syncthreads();
   // AV: a thread per (position group, head, V-wide chunk of dims), each
-  // group's positions in order; then the groups summed in order
-  const int units = nh * chunks, per = min(units, kThreads), groups = kThreads / per;
+  // group's positions in order; then the groups summed in order. The
+  // groups are sized for a full pass (kMaxPass heads) whatever nh is, so a
+  // head's terms fall into the same groups in every pass split: its output
+  // does not depend on how many heads share the pass, and so neither on
+  // the slot count nor on s_max, which size the passes
+  const int units = nh * chunks, per = min(kMaxPass * chunks, kThreads);
+  const int groups = kThreads / per;
   const int g = threadIdx.x / per;
   for (int u = threadIdx.x % per; g < groups && u < units; u += per) {
     const float* p = sc + u / chunks * S;

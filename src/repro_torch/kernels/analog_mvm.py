@@ -46,7 +46,9 @@ Tensor = torch.Tensor
 Scalar = Union[Tensor, float]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_M = 65535 * 8  # grid.y limit times the block's rows
+#: rows of x one launch takes (grid.y's limit times the CUDA-core design's
+#: rows per block); analog_mvm splits larger M over launches
+MAX_M = 65535 * 8
 _FN = None
 _TC_FN = None
 #: the three designs, by name
@@ -239,7 +241,15 @@ def analog_mvm(
     """One programmed MVM on the card: x (M, K) x w (K, N) -> (M, N) in
     x's dtype, through the design :func:`select_design` picks. ``r_dac=None``
     skips the DAC (x already quantized, as the serving path passes it); the
-    DAC has ``b_adc + 1`` bits."""
+    DAC has ``b_adc + 1`` bits. Above :data:`MAX_M` rows (a batch of CNN
+    patches: VWW's stem past 209 images) the rows are split over launches,
+    each counted; rows are independent, so the result is bitwise one call's."""
+    if x.dim() == 2 and x.shape[0] > MAX_M:
+        return torch.cat([
+            analog_mvm(x[i : i + MAX_M], w, r_adc=r_adc, r_dac=r_dac, out_scale=out_scale,
+                       b_adc=b_adc, tile_rows=tile_rows, per_tile_adc=per_tile_adc)
+            for i in range(0, x.shape[0], MAX_M)
+        ])
     _check_operands(x, w, b_adc, tile_rows)
     design = select_design(x.dtype, x.shape[0], x.shape[1], w.shape[1], tile_rows=tile_rows,
                            per_tile_adc=per_tile_adc, apply_dac=r_dac is not None)
@@ -266,7 +276,7 @@ def _check_operands(x: Tensor, w: Tensor, b_adc: int, tile_rows: int) -> None:
         raise ValueError("analog_mvm kernel needs contiguous x and w")
     m, k = x.shape
     n = w.shape[1]
-    if min(m, k, n) < 1 or m > _MAX_M or max(k, n) >= 2**31:
+    if min(m, k, n) < 1 or m > MAX_M or max(k, n) >= 2**31:
         raise ValueError(f"analog_mvm kernel: unsupported shape M={m} K={k} N={n}")
     if not 2 <= b_adc <= 16 or tile_rows < 1:
         raise ValueError(f"analog_mvm kernel: b_adc={b_adc} tile_rows={tile_rows}")

@@ -13,7 +13,12 @@ imports only the port, so it runs where JAX is not installed:
   softmax and AV sums take B2's orders);
 * a per-layer decode step on the card is bitwise the fused kernel's step
   on the same chip and cache, at full width and depth 2;
-* the normal draw on the card is bitwise the plain version on the CPU.
+* the normal draw on the card is bitwise the plain version on the CPU;
+* a request's decode tokens depend neither on the engine's slot count nor
+  on its ``s_max`` (per layer and fused): served alone by a 1-slot engine
+  at ``s_max`` 256 they are bitwise its tokens inside an 8-slot engine at
+  512, and the attention row kernel's rows are bitwise equal across the
+  two launch shapes (the two size their passes of query heads apart).
 """
 
 import dataclasses
@@ -114,3 +119,49 @@ def test_normal_on_the_card_is_the_plain_version(cuda, shape):
         e = prng.normal_erf_inv(prng.PRNGKey(seed).to(cuda), shape)
         assert torch.equal(e.cpu(), prng.normal_erf_inv(prng.PRNGKey(seed), shape))
     assert prng.launches - before == 4
+
+
+def test_attention_rows_independent_of_slots_and_s_max(cuda):
+    from repro_torch.kernels import decode_rows as dr
+
+    g = torch.Generator("cuda").manual_seed(3)
+    h, kv, hd = 32, 4, 64
+    randn = lambda *shape: torch.randn(shape, generator=g, device=cuda).bfloat16()
+    q8, k8, v8 = randn(8, 1, h, hd), randn(8, 512, kv, hd), randn(8, 512, kv, hd)
+    lens = torch.tensor([5, 256, 100, 17, 255, 1, 64, 200], device=cuda, dtype=torch.int32)
+    grid = dr.sm_count(cuda)
+    assert dr.heads_per_pass(h, kv, hd, 1, 256, grid) != dr.heads_per_pass(h, kv, hd, 8, 512,
+                                                                            grid)
+    wide = dr.attention(q8, k8, v8, lens)
+    for b in range(8):
+        alone = dr.attention(q8[b:b + 1], k8[b:b + 1, :256].contiguous(),
+                             v8[b:b + 1, :256].contiguous(), lens[b:b + 1])
+        assert torch.equal(alone[0], wide[b]), b
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["per_layer", "fused"])
+def test_decode_tokens_independent_of_slots_and_s_max(cuda, fused):
+    from repro_torch import clock, prng
+    from repro_torch.configs import get
+    from repro_torch.core import engine
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.models.lm import lm_init
+    from repro_torch.serving import ServingConfig, ServingEngine, poisson_trace
+
+    cfg = dataclasses.replace(get("tinyllama-1.1b"), n_layers=2)
+    params = lm_init(prng.PRNGKey(0), cfg, device=cuda)
+    prog = engine.compile_program(params, AnalogConfig().infer(b_adc=8), prng.PRNGKey(1),
+                                  device=cuda)
+    w = engine.cast_weights(prog.params, cfg.dtype)
+    trace = poisson_trace(prng.PRNGKey(7), 8, vocab=cfg.vocab, rate=50.0,
+                          prompt_lens=(16, 32, 64), new_tokens=(8, 24))
+
+    def serve(n_slots, s_max, reqs):
+        scfg = ServingConfig(n_slots=n_slots, s_max=s_max, fused_decode=fused, ref_check=False)
+        return ServingEngine(cfg, prog.cfg, w, scfg, program=prog, device=cuda).run(
+            reqs, clock=clock.VirtualClock())
+
+    wide = serve(8, 512, trace)
+    for r in trace[:3]:
+        alone = serve(1, 256, [r]).tokens_of(r.rid)
+        assert alone.tolist() == wide.tokens_of(r.rid).tolist(), r.rid

@@ -175,8 +175,15 @@ def test_compile_program_refusals(models):
     _, _, _, tparams = models
     cfg = TAnalogConfig().infer()
     key = prng.PRNGKey(0)
-    for kw, match in ((dict(shardings={}), "item 13"), (dict(with_mapping=True), "item 10"),
-                      (dict(transforms={"x": abs}), "item 10")):
-        with pytest.raises(NotImplementedError, match=match):
-            tengine.compile_program(tparams, cfg, key, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tengine.compile_program(tparams, cfg, key, device="cpu", shardings={})
+    # a kernel of more than one stack dim needs its transforms= entry (a conv
+    # kernel's im2col block); with it, the block is what gets programmed
+    conv = {"gain_s": torch.ones(()), "c": {"w": torch.ones((3, 3, 2, 4)), "r_adc": torch.ones(()),
+                                             "w_clip_buf": torch.tensor([-1.0, 1.0])}}
+    with pytest.raises(ValueError, match="transforms= entry"):
+        tengine.compile_program(conv, cfg, key, device="cpu")
+    prog = tengine.compile_program(conv, cfg, key, device="cpu", with_mapping=True,
+                                   transforms={"c": lambda w: w.reshape(18, 4)})
+    assert prog.params["c"]["w"].shape == (18, 4) and prog.mapping.n_arrays == 1
     assert torch.equal(key, prng.PRNGKey(0))
