@@ -6,8 +6,8 @@ Run from the root of a checkout on a machine with one NVIDIA card:
     python3 chip_smoke.py [--seed 0]
 
 It drives the port's main paths -- program-once, execute-many serving of a
-dense LM on one programmed chip, and the paper's CNNs programmed and served
-through B1 -- and checks every hand-written kernel on
+dense LM on one programmed chip, the paper's CNNs programmed and served
+through B1, and their two-stage training -- and checks every hand-written kernel on
 that path against its plain PyTorch version, in phases that either pass or
 end the run with a non-zero exit:
 
@@ -121,9 +121,28 @@ end the run with a non-zero exit:
    ms per inference, B1's launches and device share, the mappings'
    utilization; B1 checked at every shape launched and timed per forward
    beside the plain version, torch.matmul and the bound;
-15. report: a JSON line ``{"kernels": [...]}`` (launches from the serving
-   phases, the fleet and the CNNs) and, last, the device line
-   ``{"ok": true, "device": {...}}``.
+15. the paper's two-stage training on the card (``phase_train``):
+   (a) B1's training form -- a p = 0.5 quant-noise keep mask in the gemv
+   epilogue -- against the plain training form at every shape the
+   training below launches and a two-tile K = 2048, b_adc 4/6/8, with and
+   without a mask (masks bitwise the CPU bridge's); (b) one stage-2 step of
+   AnalogNet-KWS at full width, batch 64, card vs CPU: draws and masks
+   bitwise, each layer's ADC outputs within the tolerance model, the loss
+   and the gradients within their bounds (the range leaves against the
+   same step through the plain version on the card); (c) AnalogNet-KWS
+   trained through ``launch/train.py``'s functions, 30 + 30 steps at batch
+   64 with asynchronous checkpoints, exactly 5 B1 launches and 5 backward
+   recomputes per stage-2 step, none in stage 1, no plain forward call,
+   the last stage-1 loss below the first, then a resume from the final
+   checkpoint that runs nothing and restores the params bitwise; ms per
+   step, one profiled step per stage, peak memory; (d) AnalogNet-VWW, 2 +
+   2 steps at batch 16, the same gates; (e) the trained KWS programmed
+   through its crossbar transforms and evaluated at 25 s and 24 h beside
+   its digital accuracy (reported); B1's training form timed per stage-2
+   forward;
+16. report: a JSON line ``{"kernels": [...]}`` (launches from the serving
+   phases, the fleet, the CNNs and the training runs) and, last, the
+   device line ``{"ok": true, "device": {...}}``.
 
 The RNG bridge (``repro_torch.prng``): phase 4 draws the weights and
 programs the chip through it (the normal draws on the card's kernel
@@ -221,6 +240,24 @@ CNN_TRAFFIC = (("analognet-kws", 32, 256), ("analognet-vww", 16, 64))
 CNN_SWEEP_REPS = 5
 #: the CNN chips are programmed at t = 25 s and aged to 24 h
 CNN_AGES = (25.0, 86400.0)
+#: the training phase (15): AnalogNet-KWS at its published widths, 30 + 30
+#: steps (and one stage-2 step held card vs CPU), then AnalogNet-VWW briefly
+TRAIN_KWS = dict(arch="analognet-kws", batch=64, stage1=30, stage2=30)
+TRAIN_VWW = dict(arch="analognet-vww", batch=16, stage1=2, stage2=2)
+#: phase 15 (b)'s bounds on one stage-2 step, card vs CPU: the loss, and
+#: each gradient leaf (rel L2). A range leaf (``r_adc``, ``gain_s``,
+#: ``w_clip_buf``) sums a layer's every quantizer term with cancellation,
+#: which a few ADC codes flipped by the order of the fp32 sums move far
+#: more: each is held within the bound, or within TRAIN_RANGE_FACTOR times
+#: its own distance in the same step through the plain version on the
+#: card (the control). On an H100 80GB HBM3 at 700 W the card's distance
+#: was at most 1.11 times the control's on every leaf above the bound
+#: (fc's ``r_adc`` 0.256 against 0.230, ``w_clip_buf`` 0.407 against 0.371)
+TRAIN_STEP_LOSS_RTOL = 1e-3
+TRAIN_STEP_GRAD_RTOL = 1e-2
+TRAIN_RANGE_FACTOR = 2.0
+#: device kernels listed by summed time in each profiled training step
+TRAIN_TOP_KERNELS = 8
 #: the row kernels' plain versions (kernels/decode_rows.py)
 ROW_PLAINS = lambda dr: (dr.norm_plain, dr.rope_plain, dr.attention_plain, dr.gate_plain)
 
@@ -449,27 +486,82 @@ def b1_cases(torch, name, x, w, design, per_tile, dac, by_design, checked, failu
         worst["elements"] += r["elements"]
         for key in ("max_abs", "max_steps", "frac_half_step"):
             worst[key] = max(worst[key], r[key])
-        checked.add(b1_key(m, k, n, dtype, design) + (1024, per_tile, dac))
+        checked.add(b1_key(m, k, n, dtype, design) + (1024, per_tile, dac, False))
         if not r["ok"]:
             failures.append((name, m, str(dtype), design, bits, per_tile, dac, r))
+
+
+def b1_train_cases(torch, name, x, w, per_tile, by_design, checked, failures) -> dict:
+    """B1's training form -- the fp32 ``gemv`` design with a p = 0.5
+    quant-noise ``keep`` mask drawn by the RNG bridge on the card -- against
+    the plain training form (``analog_mvm_ref(..., keep=...)``) on x and w
+    at b_adc 4, 6 and 8: the kept (ADC'd) values under ``compare``'s
+    tolerance model; where one conversion covers all of K, the unkept
+    values (fp32 sums in another order) within 1e-5 of max |y|. The
+    card's masks are checked bitwise against the CPU bridge's draw from
+    the same key. Returns the case's worst unkept
+    error and whether its masks were bitwise; records as ``b1_cases``."""
+    from repro_torch import prng
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.kernels.ref import analog_mvm_ref, n_tiles
+
+    r_adc = torch.tensor(1.5, device=DEV)
+    out_scale = torch.tensor(0.97, device=DEV)
+    (m, k), n = x.shape, w.shape[1]
+    t = n_tiles(k, 1024, per_tile)
+    worst, masks_ok = 0.0, True
+    for bits in (4, 6, 8):
+        key = prng.fold_in(prng.PRNGKey(m * 7919 + k), bits)
+        keep = prng.bernoulli(key.to(DEV), 0.5, (m, t, n))
+        masks_ok &= torch.equal(keep.cpu(), prng.bernoulli(key, 0.5, (m, t, n)))
+        step = (1.5 + 1e-9) / (2 ** (bits - 1) - 1) * 0.97
+        y_k = kernel.analog_mvm(x, w, r_adc=r_adc, out_scale=out_scale, b_adc=bits,
+                                per_tile_adc=per_tile, keep=keep)
+        y_p = analog_mvm_ref(x, w, None, r_adc, out_scale, b_dac=bits + 1, b_adc=bits,
+                             per_tile_adc=per_tile, apply_dac=False, keep=keep)
+        check(y_k.dtype == x.dtype and y_k.shape == (m, n),
+              f"{name}: kernel output {y_k.dtype} {tuple(y_k.shape)}")
+        r = compare(y_k, y_p, step, t, False)
+        scale = float(y_p.abs().max())
+        unkept = 0.0
+        if t == 1 and bool((~keep).any()):
+            unkept = float((y_k - y_p).abs()[~keep[:, 0, :]].max()) / max(scale, 1e-30)
+        worst = max(worst, unkept)
+        rec = by_design["gemv"]
+        rec["cases"] += 1
+        rec["flips"] += r["flips"]
+        rec["elements"] += r["elements"]
+        for key_ in ("max_abs", "max_steps", "frac_half_step"):
+            rec[key_] = max(rec[key_], r[key_])
+        checked.add(b1_key(m, k, n, x.dtype, "gemv") + (1024, per_tile, False, True))
+        if not r["ok"] or unkept > 1e-5:
+            failures.append((name, m, "keep", bits, per_tile, r, unkept))
+    check(masks_ok, f"{name}: the card's quant-noise masks are the CPU bridge's, bitwise")
+    return {"unkept_rel": worst, "masks_bitwise": masks_ok}
 
 
 def check_launched_b1(torch, gen, keys: list, accuracy: dict, by_design=None) -> dict:
     """Phase 3's comparison, at the same tolerance, for B1 keys a serving
     phase launched that phase 3 did not check (the fleet's migrated
     continuations re-prefill at prompt + prefix tokens, an M no other
-    phase serves; the CNNs' fp32 shapes); the keys merged into phase 3's
+    phase serves; the CNNs' fp32 shapes; a training launch with a keep
+    mask through ``b1_train_cases``); the keys merged into phase 3's
     record, the worst errors into ``by_design`` (phase 3's by default)."""
     by_design = accuracy["by_design"] if by_design is None else by_design
     failures = []
     checked = set(map(tuple, accuracy["checked"]))
     for key in keys:
-        m, k, n, dtype, design, tile_rows, per_tile, dac = key
+        m, k, n, dtype, design, tile_rows, per_tile, dac, keep = key
         check(tile_rows == 1024, f"B1 launched at tile_rows {tile_rows}")
         dt = getattr(torch, dtype)
         x = torch.randn((m, k), generator=gen, device=DEV).to(dt)
         w = (torch.randn((k, n), generator=gen, device=DEV) * k**-0.5).to(dt)
-        b1_cases(torch, f"{k}x{n}", x, w, design, per_tile, dac, by_design, checked, failures)
+        if keep:
+            check(not dac and design == "gemv", f"B1 training launch at {key}")
+            b1_train_cases(torch, f"{k}x{n}", x, w, per_tile, by_design, checked, failures)
+        else:
+            b1_cases(torch, f"{k}x{n}", x, w, design, per_tile, dac, by_design, checked,
+                     failures)
     torch.cuda.synchronize()
     accuracy["checked"] = sorted(checked)
     accuracy["cases"] += 3 * len(keys)
@@ -847,7 +939,7 @@ def reset_counts() -> None:
     version's call count to 0."""
     from repro_torch import prng
     from repro_torch.core import engine
-    from repro_torch.kernels import analog_mvm, decode_fused, flash_attention, ref
+    from repro_torch.kernels import analog_mvm, decode_fused, flash_attention, ops, ref
     from repro_torch.kernels import decode_rows as dr
 
     analog_mvm.analog_mvm.launches = 0
@@ -856,6 +948,7 @@ def reset_counts() -> None:
     flash_attention.flash_attention.launches = 0
     dr.launches.update(dict.fromkeys(dr.launches, 0))
     prng.launches = 0
+    ops.backward_calls = 0
     for fn in (ref.analog_mvm_ref, engine.tile_matmul_quant, ref.decode_fused_ref,
                ref.flash_attention_ref, *ROW_PLAINS(dr)):
         fn.calls = 0
@@ -1133,14 +1226,26 @@ def serve_metrics(rep) -> dict:
             "occupancy": rep.occupancy, "decode_steps": rep.n_steps}
 
 
-def profiled(torch, fn, kernel: str = "analog_mvm") -> dict:
+def profiled(torch, fn, kernel: str = "analog_mvm", top: int = 0) -> dict:
+    """``profile_summary`` of one call of ``fn``; with ``top``, also the
+    ``top`` device kernels by summed time (name, ms, launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return profile_summary(prof, kernel)
+    out = profile_summary(prof, kernel)
+    if top:
+        by_name: dict = {}
+        for e in prof.events():
+            if str(e.device_type).endswith("CUDA"):
+                ms, n = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+        out["top_kernels"] = [(name.replace("void at::native::", "")[:100], round(ms, 4), n)
+                              for name, (ms, n) in
+                              sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]]
+    return out
 
 
 def fused_bound(dec, lens) -> tuple:
@@ -1503,12 +1608,14 @@ def record_b1_shapes() -> set:
 
     def recorded(x, w, **kw):
         m, k, n = x.numel() // x.shape[-1], w.shape[0], w.shape[1]
+        keep = kw.get("keep") is not None
         design = kernel.select_design(
             x.dtype, m, k, n, tile_rows=kw.get("tile_rows", 1024),
-            per_tile_adc=kw.get("per_tile_adc", True), apply_dac=kw.get("r_dac") is not None)
+            per_tile_adc=kw.get("per_tile_adc", True), apply_dac=kw.get("r_dac") is not None,
+            keep=keep)
         seen.add(b1_key(m, k, n, x.dtype, design)
                  + (kw.get("tile_rows", 1024), kw.get("per_tile_adc", True),
-                    kw.get("r_dac") is not None))
+                    kw.get("r_dac") is not None, keep))
         return entry(x, w, **kw)
 
     ops.analog_mvm = recorded
@@ -2991,6 +3098,437 @@ def cnn_entry(cnn: dict) -> dict:
     }
 
 
+# --------------------------------------------------------------- training
+
+
+def train_step_check(torch, seed: int) -> dict:
+    """Phase 15 (b): one stage-2 step of AnalogNet-KWS at full width,
+    ``TRAIN_KWS["batch"]`` images, from the same params (``cnn_init(seed)``
+    with the stage boundary's clip refresh, on the CPU, copied to the
+    card), batch and key, three ways: on
+    the card through B1 (the main path), on the card through the plain
+    training form (``engine.execute_mvm_plain``: the control, which
+    differs from the CPU only by the order of its fp32 sums) and on the CPU.
+    Gates: every weight-noise draw and quant-noise mask bitwise card ==
+    CPU; each layer's ADC outputs, fed the CPU chain's input, within
+    ``compare``'s tolerance model; the loss within TRAIN_STEP_LOSS_RTOL;
+    each gradient leaf within TRAIN_STEP_GRAD_RTOL relative L2, a range
+    leaf (a sum over a layer's every quantizer term, with cancellation)
+    else within TRAIN_RANGE_FACTOR times the control's own distance from
+    the CPU on that leaf."""
+    from repro_torch import prng
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get
+    from repro_torch.core import engine, noise
+    from repro_torch.core.analog import AnalogConfig, AnalogCtx, analog_matmul, refresh_clip_ranges
+    from repro_torch.core.crossbar import conv_weight_as_matrix, im2col
+    from repro_torch.data.pipeline import PipelineConfig, batch_at
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.kernels import ops
+    from repro_torch.models import analognet as an
+    from repro_torch.training.loop import value_and_grad
+
+    cfg = get(TRAIN_KWS["arch"])
+    acfg = AnalogConfig().train(eta=0.1, b_adc=8, quant_noise_p=0.5)
+    b = batch_at(PipelineConfig(kind="kws", global_batch=TRAIN_KWS["batch"],
+                                n_classes=cfg.n_classes, input_hw=cfg.input_hw,
+                                channels=cfg.in_channels), 0)
+    orig_inject, orig_bern = noise.inject, prng.bernoulli
+    # one set of params for all three (the clip refresh's std is a reduction,
+    # whose order differs between the devices)
+    params_cpu = refresh_clip_ranges(an.cnn_init(prng.PRNGKey(seed), cfg, device="cpu"))
+    runs = {}
+    for name, dev, mvm in (("cpu", "cpu", None), ("card", DEV, None),
+                           ("card_plain", DEV, engine.execute_mvm_plain)):
+        params = tree_lib.tree_map(lambda t: t.to(dev), params_cpu)
+        xb = torch.as_tensor(b["x"], device=dev)
+        yb = torch.as_tensor(b["y"], device=dev).long()
+        key = prng.fold_in(prng.PRNGKey(0).to(dev), TRAIN_KWS["stage1"])
+        draws = []
+
+        def tap_inject(*a, **k):
+            out = orig_inject(*a, **k)
+            draws.append(out.detach().cpu())
+            return out
+
+        def tap_bern(*a, **k):
+            out = orig_bern(*a, **k)
+            draws.append(out.cpu())
+            return out
+
+        def loss_fn(p):
+            logits = an.cnn_apply(p, xb, acfg, cfg, rng=key, mvm=mvm).float()
+            return -torch.log_softmax(logits, -1).gather(-1, yb[:, None]).mean(), {}
+
+        noise.inject, prng.bernoulli = tap_inject, tap_bern
+        try:
+            if dev != "cpu":
+                torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            (loss, _), grads = value_and_grad(loss_fn, params)
+            if dev != "cpu":
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            noise.inject, prng.bernoulli = orig_inject, orig_bern
+        runs[name] = {"loss": float(loss), "s": secs, "draws": draws,
+                      "grads": {tree_lib.path_name(p): g.cpu()
+                                for p, g in tree_lib.flatten_with_path(grads)},
+                      "b1_launches": kernel.analog_mvm.launches, "plain_calls": plain_calls(),
+                      "backward_calls": ops.backward_calls, "params": params}
+    cpu, card, ctrl = runs["cpu"], runs["card"], runs["card_plain"]
+    per = len(cfg.convs) + 1
+    draws_ok = (len(card["draws"]) == len(cpu["draws"]) == 3 * per
+                and all(torch.equal(a, c) for a, c in zip(card["draws"], cpu["draws"])))
+    # each layer's ADC outputs on the CPU chain's input, card vs CPU
+    layers = {}
+    p_cpu, p_card = cpu["params"], card["params"]
+    kc = prng.fold_in(prng.PRNGKey(0), TRAIN_KWS["stage1"])
+    h = torch.as_tensor(b["x"])
+    with torch.no_grad():
+        for li, spec in enumerate(cfg.convs + ("fc",)):
+            outs = {}
+            for dev, p in (("cpu", p_cpu), (DEV, p_card)):
+                ctx = AnalogCtx(cfg=acfg, gain_s=p["gain_s"], key=kc.to(dev),
+                                layer_counter=3 * li)
+                hin = h.to(dev)
+                if spec == "fc":
+                    lp, xin, w2d = p["fc"], hin.mean(dim=(1, 2)), p["fc"]["w"]
+                else:
+                    lp = p[spec.name]
+                    xin = im2col(hin, spec.kh, spec.kw, spec.stride, "SAME")
+                    w2d = conv_weight_as_matrix(lp["w"])
+                outs[dev] = (analog_matmul(xin, w2d, r_adc=lp["r_adc"], w_min=lp["w_clip_buf"][0],
+                                           w_max=lp["w_clip_buf"][1], ctx=ctx), lp)
+            y_cpu, lp = outs["cpu"]
+            step = (abs(float(lp["r_adc"])) + 1e-9) / (2 ** (acfg.b_adc - 1) - 1)
+            name = "fc" if spec == "fc" else spec.name
+            layers[name] = compare(outs[DEV][0], y_cpu.to(DEV), step, 1, False)
+            if spec != "fc":
+                h = torch.relu(y_cpu * lp["bn_scale"] + lp["bn_bias"])
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    grad_rel = {}
+    for k, g in cpu["grads"].items():
+        d_card, d_ctrl = card["grads"][k] - g, ctrl["grads"][k] - g
+        rel = {"card": float(d_card.norm() / g.norm().clamp(min=1e-30)),
+               "control": float(d_ctrl.norm() / g.norm().clamp(min=1e-30)),
+               "norm": float(g.norm()),
+               # a range leaf's gradient sums a layer's every quantizer term
+               "kind": ("range" if k.rsplit("/", 1)[-1] in ("r_adc", "gain_s", "w_clip_buf")
+                        else "weight")}
+        rel["bound"] = (max(TRAIN_STEP_GRAD_RTOL, TRAIN_RANGE_FACTOR * rel["control"])
+                        if rel["kind"] == "range" else TRAIN_STEP_GRAD_RTOL)
+        grad_rel[k] = rel
+    over = {k: v for k, v in grad_rel.items() if v["card"] > v["bound"]}
+    out = {"loss": {k: runs[k]["loss"] for k in runs}, "loss_rel": loss_rel,
+           "seconds": {k: runs[k]["s"] for k in runs}, "draws": len(card["draws"]),
+           "draws_bitwise": draws_ok, "layers": layers, "grad_rel": grad_rel,
+           "card_b1_launches": card["b1_launches"], "card_plain_calls": card["plain_calls"],
+           "card_backward_calls": card["backward_calls"]}
+    log(f"train (b): one stage-2 step of {cfg.name} at {TRAIN_KWS['batch']} images: loss card "
+        f"{card['loss']:.7f} CPU {cpu['loss']:.7f} (rel {loss_rel:.2e}), the plain version on the "
+        f"card {ctrl['loss']:.7f}; {len(card['draws'])} weight-noise draws and masks bitwise: "
+        f"{draws_ok}; B1 launches {card['b1_launches']}, plain forward calls "
+        f"{card['plain_calls']}, backward recomputes {card['backward_calls']}; step s "
+        f"{ {k: round(v, 3) for k, v in out['seconds'].items()} }")
+    log("train (b): layers' ADC outputs card vs CPU: " + ", ".join(
+        f"{k} {v['max_steps']:.3f} steps ({v['flips']} differing, share > half a step "
+        f"{v['frac_half_step']:.1e})" for k, v in layers.items()))
+    log("train (b): gradients, rel L2 card vs CPU (control: the plain version on the card vs "
+        "CPU): " + ", ".join(f"{k} {v['card']:.2e} ({v['control']:.2e})"
+                             for k, v in grad_rel.items()))
+    log(f"train (b): bound {TRAIN_STEP_GRAD_RTOL} on each leaf; on a range leaf max("
+        f"{TRAIN_STEP_GRAD_RTOL}, {TRAIN_RANGE_FACTOR} x its control); over: {over or 'none'}")
+    check(draws_ok, "train (b): weight-noise draws and quant-noise masks card == CPU, bitwise")
+    check(all(v["ok"] for v in layers.values()),
+          f"train (b): every layer's ADC outputs within the tolerance model: {layers}")
+    check(card["b1_launches"] == per and card["plain_calls"] == 0
+          and card["backward_calls"] == per,
+          "train (b): one B1 launch per layer forward, no plain forward, one recompute per layer")
+    check(loss_rel <= TRAIN_STEP_LOSS_RTOL, f"train (b): loss card vs CPU {loss_rel:.2e}")
+    check(not over, f"train (b): gradient leaves over their bound, rel L2 card vs CPU: {over}")
+    return out
+
+
+def train_run(torch, spec: dict, resume: bool) -> dict:
+    """Phase 15 (c)/(d): ``spec``'s model trained through
+    ``launch.train``'s functions (``cnn_setup`` at the published widths,
+    ``run_two_stage``, ``quant_noise_p`` 0.5, every step logged,
+    asynchronous checkpoints into ``build/``), each step's B1 launches,
+    backward recomputes and plain forward calls counted; ms per step of
+    each stage (host clock, each step ending in the metrics' sync); peak
+    memory; one stage-1 and one stage-2 step profiled. With ``resume``, a
+    second run from the final checkpoint must run nothing and give the
+    trained params bitwise. Returns the record (``params``: the trained
+    params)."""
+    import shutil
+    import signal
+
+    from repro_torch import prng
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.data.pipeline import PipelineConfig, batch_at
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+    from repro_torch.training import optim
+    from repro_torch.training.loop import TrainConfig, run_two_stage, value_and_grad
+
+    arch = spec["arch"]
+    ckpt = ROOT / "build" / f"train_{arch}"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    params, loss_fn, batches = launch.cnn_setup(arch, spec["batch"], DEV)
+    cfg_m = get(arch)
+    per = len(cfg_m.convs) + 1
+    tcfg = TrainConfig(stage1_steps=spec["stage1"], stage2_steps=spec["stage2"],
+                       quant_noise_p=0.5, ckpt_dir=str(ckpt), ckpt_every=10, log_every=1)
+    steps = []
+    handler = signal.getsignal(signal.SIGTERM)  # run_two_stage installs its own
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # earlier phases' tensors
+    last = {"t": time.perf_counter(), "b1": 0, "back": 0}
+
+    def on_metrics(i, m):
+        now = time.perf_counter()  # the metrics' float() synced the step
+        steps.append({"step": i, "stage": m["stage"], "loss": m["loss"],
+                      "grad_norm": m["grad_norm"], "ms": (now - last["t"]) * 1e3,
+                      "b1": kernel.analog_mvm.launches - last["b1"],
+                      "backward": ops.backward_calls - last["back"]})
+        last.update(t=now, b1=kernel.analog_mvm.launches, back=ops.backward_calls)
+
+    t0 = time.perf_counter()
+    try:
+        trained, hist = run_two_stage(loss_fn, params, batches, tcfg, on_metrics=on_metrics)
+    finally:
+        signal.signal(signal.SIGTERM, handler)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    plain = plain_calls()
+    s1 = [r for r in steps if r["stage"] == 1]
+    s2 = [r for r in steps if r["stage"] == 2]
+    launches_ok = (all(r["b1"] == 0 and r["backward"] == 0 for r in s1)
+                   and all(r["b1"] == per and r["backward"] == per for r in s2)
+                   and len(s2) == spec["stage2"])
+    finite = all(math.isfinite(r["loss"]) for r in steps)
+    out = {"arch": arch, "batch": spec["batch"], "steps": steps, "wall_s": wall,
+           "peak_bytes_above_held": peak, "held_bytes": held, "plain_calls": plain, "launches_per_stage2_forward": per,
+           "b1_launches": sum(r["b1"] for r in s2), "backward_calls": sum(r["backward"] for r in s2),
+           "ms_per_step": {"stage1": statistics.median(r["ms"] for r in s1[1:] or s1),
+                           "stage2": statistics.median(r["ms"] for r in s2[1:] or s2)},
+           "first_step_ms": {"stage1": s1[0]["ms"], "stage2": s2[0]["ms"]},
+           "loss_first_last": {"stage1": (s1[0]["loss"], s1[-1]["loss"]),
+                               "stage2": (s2[0]["loss"], s2[-1]["loss"])}}
+    # one step of each stage profiled (on the trained params, batch 0)
+    b = batch_at(PipelineConfig(kind="kws", global_batch=spec["batch"],
+                                n_classes=cfg_m.n_classes, input_hw=cfg_m.input_hw,
+                                channels=cfg_m.in_channels), 0)
+    batch = {k: torch.as_tensor(v, device=DEV) for k, v in b.items()}
+    key = prng.fold_in(prng.PRNGKey(0).to(DEV), 1)
+    prof = {}
+    for stage, acfg in ((1, AnalogConfig()),
+                        (2, AnalogConfig().train(eta=0.1, b_adc=8, quant_noise_p=0.5))):
+        ocfg = optim.OptimizerConfig(lr=3e-3, total_steps=spec["stage2"], warmup=1)
+        state = optim.init(ocfg, trained)
+
+        def one_step():
+            _, grads = value_and_grad(lambda p: loss_fn(p, batch, acfg, key), trained)
+            optim.update(ocfg, trained, grads, state)
+
+        one_step()  # warm
+        pr = profiled(torch, one_step, top=TRAIN_TOP_KERNELS)
+        if isinstance(pr["profile_device_ms"], float):
+            pr["b1_share_of_device"] = pr["profile_kernel_ms"] / max(pr["profile_device_ms"], 1e-9)
+        prof[f"stage{stage}"] = pr
+    out["profile"] = prof
+    log(f"train ({arch}, batch {spec['batch']}): {spec['stage1']} + {spec['stage2']} steps in "
+        f"{wall:.2f} s; ms per step (median, host clock) stage 1 "
+        f"{out['ms_per_step']['stage1']:.2f}, stage 2 {out['ms_per_step']['stage2']:.2f} (first "
+        f"steps {s1[0]['ms']:.1f} / {s2[0]['ms']:.1f}); B1 launches per stage-2 step "
+        f"{sorted({r['b1'] for r in s2})} (want {per}), per stage-1 step "
+        f"{sorted({r['b1'] for r in s1})}; backward recomputes {out['backward_calls']}; plain "
+        f"forward calls {plain}; peak memory {peak / 2**20:.1f} MiB above the "
+        f"{held / 2**30:.2f} GiB earlier phases hold; losses stage 1 "
+        f"{s1[0]['loss']:.4f} -> {s1[-1]['loss']:.4f}, stage 2 {s2[0]['loss']:.4f} -> "
+        f"{s2[-1]['loss']:.4f}")
+    for k, pr in prof.items():
+        log(f"train ({arch}): one {k} step profiled: {pr}")
+    check(launches_ok, f"train {arch}: {per} B1 launches and {per} backward recomputes per "
+                       "stage-2 step, none in stage 1")
+    check(plain == 0, f"train {arch}: no plain forward call on the card ({plain})")
+    check(finite, f"train {arch}: every loss finite")
+    if resume:
+        check(s1[-1]["loss"] < s1[0]["loss"],
+              f"train {arch}: the last stage-1 loss below the first")
+        fresh, _, batches2 = launch.cnn_setup(arch, spec["batch"], DEV)
+        try:
+            again, hist2 = run_two_stage(loss_fn, fresh, batches2, tcfg)
+        finally:
+            signal.signal(signal.SIGTERM, handler)
+        same = all(torch.equal(a, c) for a, c in zip(tree_lib.leaves(again),
+                                                      tree_lib.leaves(trained)))
+        out["resume"] = {"steps_run": len(hist2), "params_bitwise": same,
+                         "checkpoints": sorted(p.name for p in ckpt.iterdir())}
+        log(f"train ({arch}): resumed from {out['resume']['checkpoints']}: {len(hist2)} steps "
+            f"run, params bitwise the trained ones: {same}")
+        check(not hist2 and same, f"train {arch}: a resume from the final checkpoint runs "
+                                  "nothing and restores the trained params bitwise")
+    out["params"] = trained
+    return out
+
+
+def train_eval(torch, trained, seed: int) -> dict:
+    """Phase 15 (e): the trained AnalogNet-KWS programmed on the card through
+    its crossbar transforms (b_adc 8, t = 25 s) and evaluated on the shared
+    protocol (``bench.common.eval_program_accuracy``: batches 50000+i) at
+    25 s and aged to 24 h, beside its digital accuracy. Reported, not
+    gated."""
+    from repro_torch import prng
+    from repro_torch.bench.common import _protocol_accuracy, eval_program_accuracy
+    from repro_torch.configs import get
+    from repro_torch.core import engine
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.models import analognet as an
+
+    cfg = get(TRAIN_KWS["arch"])
+    prog = engine.compile_program(trained, AnalogConfig().infer(b_adc=8, t_seconds=CNN_AGES[0]),
+                                  prng.PRNGKey(seed + 1), transforms=an.crossbar_transforms(cfg),
+                                  with_mapping=True, device=DEV)
+    out = {"digital": _protocol_accuracy(trained, cfg, AnalogConfig(), prng.PRNGKey(0).to(DEV), 4),
+           "t25s": eval_program_accuracy(prog, cfg),
+           "t24h": eval_program_accuracy(engine.age_program(prog, CNN_AGES[1]), cfg),
+           "chance": 1.0 / cfg.n_classes, "batches": 4, "batch": 64}
+    log(f"train (e): {cfg.name} after {TRAIN_KWS['stage1']} + {TRAIN_KWS['stage2']} steps: "
+        f"accuracy digital {out['digital']:.4f}, programmed chip at 25 s {out['t25s']:.4f}, "
+        f"aged to 24 h {out['t24h']:.4f} (chance {out['chance']:.4f}; 4 batches of 64 of the "
+        "synthetic task; reported, not gated)")
+    return out
+
+
+def train_timing(torch, gen, cfg, batch: int) -> dict:
+    """B1's training form at every MVM of one ``cfg`` stage-2 forward at
+    ``batch`` images, fp32, with a p = 0.5 mask: the kernel, the plain
+    training form and torch.matmul, timed by CUDA-graph replay in turns
+    (kernel, plain, library, kernel), summed over the forward beside the
+    bound (x, w and the mask read once, y written once, over HBM; 2 M K N
+    operations over the CUDA cores' fp32 peak)."""
+    from repro_torch import prng
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.kernels.ref import analog_mvm_ref, n_tiles
+    from repro_torch.models.analognet import mvm_shapes
+
+    r_adc = torch.tensor(1.5, device=DEV)
+    one = torch.tensor(1.0, device=DEV)
+    rows = []
+    for i, (name, m, k, n) in enumerate(mvm_shapes(cfg, batch)):
+        x = torch.randn((m, k), generator=gen, device=DEV)
+        w = torch.randn((k, n), generator=gen, device=DEV) * k**-0.5
+        t = n_tiles(k, 1024, True)
+        keep = prng.bernoulli(prng.fold_in(prng.PRNGKey(i), 1).to(DEV), 0.5, (m, t, n))
+        run_k = lambda _: kernel.analog_mvm(x, w, r_adc=r_adc, out_scale=one, b_adc=8, keep=keep)
+        run_p = lambda _: analog_mvm_ref(x, w, None, r_adc, one, apply_dac=False, keep=keep)
+        run_l = lambda _: torch.matmul(x, w)
+        ms_k1, ms_p, ms_l, ms_k2 = (time_ms(run_k, 20), time_ms(run_p, 20), time_ms(run_l, 20),
+                                    time_ms(run_k, 20))
+        nbytes = 4 * (m * k + k * n + m * n) + m * t * n
+        flops = 2 * m * k * n
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / FP32_OPS
+        rows.append({"layer": name, "M": m, "K": k, "N": n, "ms": min(ms_k1, ms_k2),
+                     "ms_readings": [ms_k1, ms_k2], "plain_ms": ms_p, "library_ms": ms_l,
+                     "bound_ms": max(t_b, t_o) * 1e3, "bytes": nbytes, "flops": flops,
+                     "bound_by": "bytes" if t_b >= t_o else "operations"})
+    tot = {key: sum(r[key] for r in rows) for key in ("ms", "plain_ms", "library_ms",
+                                                      "bound_ms", "flops", "bytes")}
+    t_o, t_b = tot["flops"] / FP32_OPS, tot["bytes"] / HBM_BYTES_PER_S
+    tot["bound_by"] = "operations" if t_o >= t_b else "bytes"
+    tot["launches"] = len(rows)
+    log(f"train: B1's training form, one {cfg.name} stage-2 forward at {batch} images "
+        f"({len(rows)} launches, fp32 gemv, p = 0.5 masks): kernel {tot['ms']:.4f} ms, plain "
+        f"{tot['plain_ms']:.4f} ms, torch.matmul {tot['library_ms']:.4f} ms, bound "
+        f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}); per layer (ms kernel/plain/bound): "
+        + ", ".join(f"{r['layer']} {r['ms']:.4f}/{r['plain_ms']:.4f}/{r['bound_ms']:.4f}"
+                    for r in rows))
+    return {"per_forward": tot, "layers": rows}
+
+
+def phase_train(torch, gen, seed: int, accuracy: dict, launched: set) -> dict:
+    """Phase 15: the paper's two-stage training on the card (see the module
+    docstring): (a) B1's training form against the plain training form at
+    every training shape, (b) one full-width stage-2 step card vs CPU, (c)
+    AnalogNet-KWS trained through the CLI's functions and resumed, (d)
+    AnalogNet-VWW briefly, (e) the trained KWS programmed and evaluated;
+    then every B1 key the phase launched checked (``check_launched_b1``)
+    and B1's training form timed per KWS stage-2 forward."""
+    from repro_torch.configs import get
+    from repro_torch.models import analognet as an
+
+    res, before = {}, set(launched)
+    by_design = b1_by_design()
+    checked, failures = set(map(tuple, accuracy["checked"])), []
+    shapes = [(f"{spec['arch']}:{name}", m, k, n) for spec in (TRAIN_KWS, TRAIN_VWW)
+              for name, m, k, n in an.mvm_shapes(get(spec["arch"]), spec["batch"])]
+    shapes.append(("two tiles", 64, 2048, 96))
+    worst_unkept = 0.0
+    t0 = time.perf_counter()
+    for name, m, k, n in shapes:
+        x = torch.randn((m, k), generator=gen, device=DEV)
+        w = torch.randn((k, n), generator=gen, device=DEV) * k**-0.5
+        r = b1_train_cases(torch, name, x, w, True, by_design, checked, failures)
+        worst_unkept = max(worst_unkept, r["unkept_rel"])
+        b1_cases(torch, name, x, w, "gemv", True, False, by_design, checked, failures)
+    torch.cuda.synchronize()
+    accuracy["checked"] = sorted(checked)
+    res["a"] = {"shapes": [s[1:] for s in shapes], "worst": dict(by_design["gemv"]),
+                "unkept_rel": worst_unkept, "failures": len(failures),
+                "s": time.perf_counter() - t0}
+    log(f"train (a): B1's training form vs the plain training form at {len(shapes)} shapes "
+        f"(M, K, N) {[s[1:] for s in shapes]}, b_adc 4/6/8, with a p = 0.5 mask and without: "
+        f"worst {by_design['gemv']}, unkept values within {worst_unkept:.2e} of max |y|, masks "
+        f"bitwise the CPU bridge's; out of tolerance: {failures[:5] or 'none'}")
+    check(not failures, f"train (a): {len(failures)} B1 training-form cases out of tolerance")
+    res["step"] = train_step_check(torch, seed)
+    res["kws"] = train_run(torch, TRAIN_KWS, resume=True)
+    res["vww"] = train_run(torch, TRAIN_VWW, resume=False)
+    res["vww"].pop("params")
+    res["eval"] = train_eval(torch, res["kws"].pop("params"), seed)
+    keys = sorted(launched - before - set(map(tuple, accuracy["checked"])))
+    res["b1_checked_after"] = check_launched_b1(torch, gen, keys, accuracy, by_design)
+    res["by_design"] = by_design
+    res["timing"] = train_timing(torch, gen, get(TRAIN_KWS["arch"]), TRAIN_KWS["batch"])
+    res["launches"] = {"train": res["kws"]["b1_launches"] + res["vww"]["b1_launches"]}
+    return res
+
+
+def train_entry(train: dict) -> dict:
+    """The kernels line's B1 training entry: the keep-mask launches of the
+    training runs (c) and (d), the worst error of the gemv design at the
+    training shapes, and its time per AnalogNet-KWS stage-2 forward."""
+    t = train["timing"]["per_forward"]
+    return {
+        "name": "analog_mvm.gemv.train",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/analog_mvm.cu",
+        "replaces": "src/repro/kernels/analog_mvm.py:41",
+        "launches": train["launches"]["train"],
+        "max_abs_err": train["by_design"]["gemv"]["max_abs"],
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],
+        "per": f"one AnalogNet-KWS stage-2 forward at {TRAIN_KWS['batch']} images, fp32 with "
+               f"TF32 off, p = 0.5 quant-noise masks: {t['launches']} launches; plain: the "
+               "plain training form; library: torch.matmul of the same products; launches: "
+               "the stage-2 steps of the KWS and VWW training runs",
+        "max_err_adc_steps": train["by_design"]["gemv"]["max_steps"],
+        "pass": train["b1_checked_after"]["failures"] == 0 and train["a"]["failures"] == 0,
+    }
+
+
 def profile_summary(prof, kernel: str = "analog_mvm") -> dict:
     """Device time of one profiled step from the trace's device events
     (kernels and copies): their busy union, the time of the kernels whose
@@ -3104,6 +3642,8 @@ def main(argv=None) -> int:
     lap("13 fleet")
     cnn = phase_cnn(torch, gen, args.seed, accuracy, b1_launched)
     lap("14 cnn")
+    train = phase_train(torch, gen, args.seed, accuracy, b1_launched)
+    lap("15 train")
     log(f"seconds per phase: { {k: round(v, 1) for k, v in phase_s.items()} }")
     checked = {(r["rows"], r["S"], r["dtype"]) for r in flash["cases"]}
     unchecked = sorted(fa_launched - checked)
@@ -3193,7 +3733,7 @@ def main(argv=None) -> int:
                "every checked shape, both dtypes, causal and full",
         "max_err_bf16_ulps": flash["worst_bf16_ulps"],
         "pass": True,
-    }, cnn_entry(cnn)] + [{
+    }, cnn_entry(cnn), train_entry(train)] + [{
         "name": f"decode_rows.{name}",
         "route": "cuda",
         "source": "src/repro_torch/csrc/decode_rows.cu",
@@ -3231,7 +3771,7 @@ def main(argv=None) -> int:
            "serve": serve, "fused_check": fused_check, "fused_serve": fused_serve,
            "step_timing": step_timing, "flash_attention": flash, "paged_serve": paged_serve,
            "bridge": bridge, "rows": rows, "drift_lifecycle": lifecycle, "resample": resample,
-           "fleet": fleet, "cnn": cnn, **kernels, "phase_s": phase_s,
+           "fleet": fleet, "cnn": cnn, "train": train, **kernels, "phase_s": phase_s,
            "seconds": time.perf_counter() - t_start}
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(out, indent=1))

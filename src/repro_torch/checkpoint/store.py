@@ -1,5 +1,24 @@
-"""Programmed-chip artifacts: the cim-program v1 format, port of the
-program half of ``repro.checkpoint.store`` (``save_program``,
+"""Training checkpoints and programmed-chip artifacts, port of
+``repro.checkpoint.store``.
+
+Training checkpoints (:func:`save`, :func:`latest_step`, :func:`restore`,
+:func:`read_meta`, :func:`gc_old`, :class:`AsyncCheckpointer`) use the
+reference's layout, so a checkpoint of either package restores in the
+other, bitwise::
+
+    ckpt_dir/
+      step_00000100/
+        host_000.npz   # '::'-joined tree path -> array (jax.tree's walk:
+                       # dict keys sorted; repro_torch.tree)
+        meta.json      # step, host_count, sorted keys, extra meta
+        COMMIT         # written last: presence marks a complete checkpoint
+
+A write lands in ``step_X.tmp<host>`` and is renamed after COMMIT, so a
+crash mid-write never corrupts the newest checkpoint; the asynchronous
+writer copies the tensors to host memory when ``save`` is called and
+writes them on its own thread.
+
+Programmed chips: the cim-program v1 format (``save_program``,
 ``load_program``).
 
 Layout (written by the reference's ``save_program``)::
@@ -23,13 +42,16 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import queue
 import shutil
-from typing import Any
+import threading
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import convert
+from repro_torch import tree as tree_lib
 from repro_torch.core import crossbar
 from repro_torch.core import engine as engine_lib
 from repro_torch.core import pcm as pcm_lib
@@ -72,6 +94,134 @@ def _to_numpy(t: torch.Tensor, *, key: bool = False) -> np.ndarray:
 
         return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
     return t.numpy()
+
+
+# ---------------------------------------------------------------------------
+# Training checkpoints
+# ---------------------------------------------------------------------------
+
+
+def _tree_arrays(tree: Any) -> dict[str, np.ndarray]:
+    """'::'-joined path -> host array of every leaf, in jax.tree's order."""
+    return {tree_lib.path_name(path, convert.SEP): _to_numpy(leaf) if isinstance(
+        leaf, torch.Tensor) else np.asarray(leaf)
+        for path, leaf in tree_lib.flatten_with_path(tree)}
+
+
+def save(
+    ckpt_dir: str,
+    step: int,
+    tree: Any,
+    *,
+    host_index: int = 0,
+    host_count: int = 1,
+    extra_meta: Optional[dict] = None,
+) -> str:
+    """Synchronous atomic save of ``tree`` (tensors or host arrays);
+    returns the final checkpoint path."""
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tmp = final + f".tmp{host_index}"
+    os.makedirs(tmp, exist_ok=True)
+    arrays = _tree_arrays(tree)
+    np.savez(os.path.join(tmp, f"host_{host_index:03d}.npz"), **arrays)
+    if host_index == 0:
+        meta = {"step": step, "host_count": host_count,
+                "keys": sorted(arrays.keys()), **(extra_meta or {})}
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump(meta, f)
+        with open(os.path.join(tmp, "COMMIT"), "w") as f:
+            f.write("ok")
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.replace(tmp, final)
+    return final
+
+
+def _committed_steps(ckpt_dir: str) -> list[int]:
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(
+        int(n.split("_")[1]) for n in os.listdir(ckpt_dir)
+        if n.startswith("step_") and ".tmp" not in n
+        and os.path.exists(os.path.join(ckpt_dir, n, "COMMIT"))
+    )
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    """Newest COMMITted step, or None."""
+    steps = _committed_steps(ckpt_dir)
+    return steps[-1] if steps else None
+
+
+def restore(ckpt_dir: str, step: int, tree_like: Any, *, host_index: int = 0) -> Any:
+    """The checkpoint of ``step`` in ``tree_like``'s structure (dicts in
+    jax.tree's sorted order, as the reference restores them), each leaf at
+    the dtype and on the device of ``tree_like``'s."""
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if not os.path.exists(os.path.join(path, "COMMIT")):
+        raise FileNotFoundError(f"no committed checkpoint at {path}")
+    leaves = []
+    with np.load(os.path.join(path, f"host_{host_index:03d}.npz")) as data:
+        for p, leaf in tree_lib.flatten_with_path(tree_like):
+            key = tree_lib.path_name(p, convert.SEP)
+            arr = data[key]
+            if tuple(arr.shape) != tuple(leaf.shape):
+                raise ValueError(f"checkpoint/model shape mismatch at {key}: "
+                                 f"{arr.shape} vs {tuple(leaf.shape)}")
+            t = convert.to_tensor(arr, leaf.device)
+            leaves.append(t if t.dtype == leaf.dtype else t.to(leaf.dtype))
+    return tree_lib.unflatten(tree_like, leaves)
+
+
+def read_meta(ckpt_dir: str, step: int) -> dict:
+    with open(os.path.join(ckpt_dir, f"step_{step:08d}", "meta.json")) as f:
+        return json.load(f)
+
+
+def gc_old(ckpt_dir: str, keep: int = 3) -> None:
+    """Delete all but the newest ``keep`` committed checkpoints."""
+    for s in _committed_steps(ckpt_dir)[:-keep]:
+        shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:08d}"))
+
+
+class AsyncCheckpointer:
+    """Background writer thread: ``save`` copies the tree to host memory
+    and returns; the thread writes it (and keeps the newest ``keep``). A
+    writer failure is raised by the next ``save`` or ``close``."""
+
+    def __init__(self, ckpt_dir: str, keep: int = 3):
+        self.ckpt_dir = ckpt_dir
+        self.keep = keep
+        self._q: queue.Queue = queue.Queue(maxsize=2)
+        self._err: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            step, arrays, meta = item
+            try:
+                save(self.ckpt_dir, step, arrays, extra_meta=meta)
+                gc_old(self.ckpt_dir, self.keep)
+            except BaseException as e:  # surfaced on the next save()/close()
+                self._err = e
+
+    def save(self, step: int, tree: Any, meta: Optional[dict] = None):
+        if self._err is not None:
+            raise RuntimeError("async checkpoint writer failed") from self._err
+        # copy to host memory now: training goes on updating the tensors
+        self._q.put((step, tree_lib.tree_map(
+            lambda x: np.array(_to_numpy(x) if isinstance(x, torch.Tensor) else x), tree),
+            meta))
+
+    def close(self):
+        self._q.put(None)
+        self._thread.join()
+        if self._err is not None:
+            raise RuntimeError("async checkpoint writer failed") from self._err
 
 
 def save_program(path: str, program: engine_lib.CiMProgram) -> str:

@@ -2,9 +2,19 @@
 
 Every stationary-weight matmul goes through :func:`analog_matmul`, a plan
 dispatcher over the execute phase (:mod:`repro_torch.core.engine`). The
-ported modes:
+modes:
 
-  * ``digital``        -- plain matmul (the full-precision reference).
+  * ``digital``        -- plain matmul (the full-precision reference; the
+                           paper's training stage 1).
+  * ``analog_train``   -- the paper's HW-aware training graph (Fig. 4,
+                           stage 2): STE weight clip -> Gaussian noise
+                           (Eq. 1, ``core.noise``) -> DAC fake-quant of the
+                           input -> MVM with a per-tile ADC, each quantizer
+                           quant-noise masked at ``quant_noise_p`` -> digital
+                           sum. The MVM goes through the STE function
+                           ``kernels.ops.analog_mvm_ste``: on a CUDA tensor
+                           B1 forward (with the ADC's keep mask), the plain
+                           training form's VJP backward.
   * ``pcm_programmed`` -- execute phase of a compiled ``CiMProgram``: the
                            weights are already PCM effective weights and each
                            layer carries its GDC ``out_scale_buf``. The DAC
@@ -23,7 +33,9 @@ ported modes:
 Keys are the RNG bridge's threefry keys (``repro_torch.prng``);
 :meth:`AnalogCtx.next_key` folds the layer counter in as the reference
 does, so a keyed forward draws the reference's noise. ``analog_train``
-raises ``NotImplementedError``: it comes with the training slice.
+takes the reference's keys in its order: the weight noise always, the DAC
+mask if ``quant_noise_p < 1``, the ADC mask if also ``not use_kernel``.
+:func:`refresh_clip_ranges` sets the stage-1 clip ranges from std(W).
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core import engine as engine_lib
+from repro_torch.core import noise as noise_lib
 from repro_torch.core import pcm as pcm_lib
 from repro_torch.core import quant as quant_lib
 from repro_torch.core.engine import PCM_PROGRAMMED
@@ -52,9 +65,11 @@ class AnalogConfig:
     """Static configuration of the analog execution environment.
 
     Every field of the reference's ``AnalogConfig`` is kept, so a stored
-    artifact's config loads unchanged. ``use_kernel``/``interpret`` are
-    recorded but do not choose the execute path here: a CUDA tensor always
-    runs the Hopper kernel, a CPU tensor its plain version.
+    artifact's config loads unchanged. ``use_kernel``/``interpret`` do not
+    choose the execute path here: a CUDA tensor always runs the Hopper
+    kernel, a CPU tensor its plain version. In ``analog_train``,
+    ``use_kernel`` does as in the reference: with it, the ADC draws no
+    quant noise (the reference's kernel has none).
     """
 
     mode: str = DIGITAL
@@ -80,6 +95,9 @@ class AnalogConfig:
         if self.mode == PCM_PROGRAMMED:
             return self.resample_read_noise
         return self.mode in (ANALOG_TRAIN, PCM_INFER)
+
+    def train(self, **kw) -> "AnalogConfig":
+        return dataclasses.replace(self, mode=ANALOG_TRAIN, **kw)
 
     def infer(self, **kw) -> "AnalogConfig":
         return dataclasses.replace(self, mode=PCM_INFER, quant_noise_p=1.0, **kw)
@@ -134,13 +152,21 @@ def analog_matmul(
     cfg = ctx.cfg
     if cfg.mode == DIGITAL:
         return engine_lib.execute_digital(x, w)
-    if cfg.mode not in (PCM_PROGRAMMED, PCM_INFER):
-        raise NotImplementedError(
-            f"analog mode {cfg.mode!r} is not ported yet: the training "
-            "slice (analog_train) comes later"
-        )
+    if cfg.mode not in (ANALOG_TRAIN, PCM_PROGRAMMED, PCM_INFER):
+        raise ValueError(f"unknown analog mode: {cfg.mode}")
     plan = engine_lib.plan_for(cfg, int(w.shape[-2]), int(w.shape[-1]), b_adc)
     out_dtype = x.dtype
+    mvm = ctx.mvm or engine_lib.execute_mvm
+    if cfg.mode == ANALOG_TRAIN:
+        spec = plan.spec
+        w_key = ctx.next_key()
+        w_eff = noise_lib.inject(w_key, w, cfg.eta, w_min, w_max)
+        masked = spec.quant_noise_p < 1.0
+        qn_key_in = ctx.next_key() if masked else None
+        qn_key_out = ctx.next_key() if masked and not cfg.use_kernel else None
+        x_q = quant_lib.dac_quantize(x, r_adc, ctx.gain_s, w_max, spec, qn_key_in)
+        x_q = x_q.to(out_dtype)
+        return mvm(x_q, w_eff.to(x_q.dtype), r_adc, plan, qn_key=qn_key_out).to(out_dtype)
     scale = 1.0 if out_scale is None else out_scale
     w_exec = w
     if cfg.mode == PCM_PROGRAMMED:
@@ -157,7 +183,6 @@ def analog_matmul(
         w_exec, scale = pcm_lib.simulate_weights(w_key, w_c.float(), cfg.t_seconds, cfg.pcm)
     x_q = quant_lib.dac_quantize(x, r_adc, ctx.gain_s, w_max, plan.spec)
     x_q = x_q.to(out_dtype)
-    mvm = ctx.mvm or engine_lib.execute_mvm
     # a no-op when the weights were pre-cast to the activation dtype
     # (engine.cast_weights): the cast is deterministic, so keeping one
     # pre-cast copy is bitwise the reference's per-call cast
@@ -204,3 +229,26 @@ def linear_apply(params: dict, x: Tensor, ctx: AnalogCtx) -> Tensor:
         # bias is applied in the digital domain, after the ADC
         y = y + params["b"].to(y.dtype)
     return y
+
+
+def refresh_clip_ranges(params: dict, n_std: float = 2.0) -> dict:
+    """Stage-1 helper: every layer's ``w_clip_buf`` recomputed from its
+    sibling ``w`` as (-n_std std, +n_std std) (population std, one range
+    per layer of a stacked ``(L, 2)`` buffer). Returns a new tree in the
+    given order; called every 10 steps in stage 1, then frozen."""
+
+    def walk(tree):
+        if not isinstance(tree, dict):
+            return tree
+        new = {k: walk(v) for k, v in tree.items()}
+        if "w" in new and "w_clip_buf" in new:
+            w, buf = new["w"].detach(), new["w_clip_buf"]
+            if buf.dim() == 1:
+                std = torch.std(w, correction=0)
+                new["w_clip_buf"] = torch.stack([-n_std * std, n_std * std])
+            else:
+                std = torch.std(w, dim=tuple(range(1, w.dim())), correction=0)
+                new["w_clip_buf"] = torch.stack([-n_std * std, n_std * std], dim=-1)
+        return new
+
+    return walk(params)

@@ -13,8 +13,13 @@ Two phases, as on the AON-CiM accelerator (paper Sec. 5):
      the programmed effective weights: tiled MVM, per-tile ADC, digital
      accumulation, GDC ``out_scale``. On a CUDA tensor it always launches
      the Hopper kernel; on a CPU tensor it runs the plain
-     :func:`tile_matmul_quant`. ``ExecutionPlan.use_kernel``/``interpret``
-     are kept for artifact parity but do not choose the path.
+     :func:`tile_matmul_quant`. Where gradients are needed or a
+     quant-noise key is given (``analog_train``), it goes through the STE
+     function ``kernels.ops.analog_mvm_ste`` -- B1 forward on a card, the
+     plain training form's VJP backward. ``ExecutionPlan.use_kernel`` and
+     ``interpret`` are kept for artifact parity and do not choose the
+     device (``analog_train`` reads ``use_kernel`` as the reference does:
+     whether the ADC quant noise is drawn).
 
 :func:`build_fused_plan` lowers a compiled program's per-layer plans to the
 static :class:`FusedDecodePlan` that ``kernels.decode_fused`` executes as
@@ -39,7 +44,7 @@ from repro_torch.core import quant as quant_lib
 from repro_torch.core.quant import QuantSpec
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels.ref import tile_mvm
+from repro_torch.kernels.ref import n_tiles, tile_mvm
 
 Tensor = torch.Tensor
 
@@ -158,22 +163,50 @@ def tile_matmul_quant(
     tile_rows: int,
     per_tile_adc: bool,
     out_scale=1.0,
+    *,
+    qn_key: Optional[Tensor] = None,
 ) -> Tensor:
     """Plain execute: per-row-tile ADC quant + tile-serial digital sum.
 
     x: (..., K), w: (K, N) in x's dtype. Products accumulate in fp32 (an
     exact widening of bf16 operands), each tile's partial is ADC-quantized,
     rounded to x's dtype and summed tile by tile; ``out_scale`` (the GDC
-    factor) multiplies the sum. ``tile_matmul_quant.calls`` counts calls.
+    factor) multiplies the sum. With ``qn_key`` each ADC'd value is
+    quant-noise masked (:func:`quant_noise_keep`). Differentiable (the
+    rounding is straight-through). ``tile_matmul_quant.calls`` counts calls.
     """
     tile_matmul_quant.calls += 1
+    k, n = w.shape
+    keep = quant_noise_keep(qn_key, spec, x.shape[:-1], k, n, tile_rows, per_tile_adc,
+                            x.device)
     return tile_mvm(
         x.float(), w, r_adc, spec.b_adc, tile_rows, per_tile_adc, out_scale,
-        x.dtype,
+        x.dtype, keep,
     )
 
 
 tile_matmul_quant.calls = 0
+
+
+def quant_noise_keep(qn_key: Optional[Tensor], spec: QuantSpec, lead: tuple, k: int, n: int,
+                     tile_rows: int, per_tile_adc: bool, device) -> Optional[Tensor]:
+    """The ADC quant-noise mask of one MVM as the reference draws it
+    (``quant.quant_noise`` over y's shape: ``(*lead, N)`` for one ADC
+    conversion, ``(*lead, T, N)`` per tile), as the (M, T, N) ``keep`` of
+    the training form (the flat order is the same). None without a key or
+    at ``quant_noise_p >= 1``."""
+    if qn_key is None or spec.quant_noise_p >= 1.0:
+        return None
+    t = n_tiles(k, tile_rows, per_tile_adc)
+    shape = (*lead, n) if t == 1 else (*lead, t, n)
+    mask = prng.bernoulli(qn_key.to(device), spec.quant_noise_p, shape)
+    return mask.reshape(-1, t, n)
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, Tensor) and t.requires_grad for t in ts
+    )
 
 
 def execute_mvm(
@@ -183,21 +216,32 @@ def execute_mvm(
     plan: ExecutionPlan,
     *,
     out_scale=1.0,
+    qn_key: Optional[Tensor] = None,
 ) -> Tensor:
     """Unified execute-phase MVM: pre-quantized inputs x effective weights.
 
     A CUDA tensor launches the Hopper kernel (``r_adc`` is passed as is: the
     ADC quantizer takes |r_adc| itself); a CPU tensor runs the plain
-    :func:`tile_matmul_quant`.
+    :func:`tile_matmul_quant`. Where a gradient is needed, or ``qn_key``
+    draws an ADC quant-noise mask, the call goes through the STE function
+    ``kernels.ops.analog_mvm_ste`` (B1 with the mask on a card; the plain
+    training form on the CPU; the VJP of the plain training form backward).
     """
+    if x_q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"execute_mvm: unsupported device {x_q.device}")
+    keep = quant_noise_keep(qn_key, plan.spec, x_q.shape[:-1], plan.k, plan.n,
+                            plan.tile_rows, plan.per_tile_adc, x_q.device)
+    if keep is not None or _needs_grad(x_q, w_eff, r_adc, out_scale):
+        return kernel_ops.analog_mvm_ste(
+            x_q, w_eff, r_adc=r_adc, out_scale=out_scale, bits=plan.spec.b_adc,
+            tile_rows=plan.tile_rows, per_tile_adc=plan.per_tile_adc, keep=keep,
+        )
     if x_q.device.type == "cuda":
         return kernel_ops.analog_mvm(
             x_q, w_eff, r_adc=r_adc, out_scale=out_scale,
             bits=plan.spec.b_adc, tile_rows=plan.tile_rows,
             per_tile_adc=plan.per_tile_adc,
         )
-    if x_q.device.type != "cpu":
-        raise ValueError(f"execute_mvm: unsupported device {x_q.device}")
     return execute_mvm_plain(x_q, w_eff, r_adc, plan, out_scale=out_scale)
 
 
@@ -208,12 +252,14 @@ def execute_mvm_plain(
     plan: ExecutionPlan,
     *,
     out_scale=1.0,
+    qn_key: Optional[Tensor] = None,
 ) -> Tensor:
     """:func:`execute_mvm` through the plain version on any device (for a
-    check that holds a whole forward on the card against the kernel)."""
+    check that holds a whole forward on the card against the kernel);
+    differentiable, so it also gives a training step's plain gradients."""
     return tile_matmul_quant(
         x_q, w_eff, r_adc, plan.spec, plan.tile_rows, plan.per_tile_adc,
-        out_scale,
+        out_scale, qn_key=qn_key,
     )
 
 

@@ -1,7 +1,18 @@
-"""DAC/ADC fake-quantizers with the shared ADC-gain constraint (Eq. 3-6).
+"""DAC/ADC fake-quantizers with the shared ADC-gain constraint (Eq. 3-6),
+port of ``repro.core.quant``.
 
-Port of ``repro.core.quant`` (forward only: the straight-through estimator
-and quant-noise masking arrive with training in a later slice).
+* symmetric fake-quantizers with straight-through rounding (Eq. 4):
+  ``x + (round(x) - x).detach()`` is ``round(x)`` bit for bit, so serving's
+  bits do not move, and its gradient passes straight through;
+* ``b_DAC = b_ADC + 1`` (Eq. 3) and the shared-gain constraint (Eq. 5):
+  ``r_DAC,l = |r_ADC,l| * |S| / |W_l,max|``, differentiable in all three;
+* stochastic quant-noise masking (Fan et al. 2020): with a key, each
+  element is quantized with probability ``quant_noise_p``.
+
+Gradients follow ``jax.grad`` of the reference: ``|.|`` has JAX's
+subgradient 1 at 0 (torch's is 0; :func:`abs_`), and the clip is
+``minimum(maximum(...))``, whose gradient both frameworks split 0.5/0.5 at
+a tie (``torch.clamp`` would not).
 
 Dtype rule: JAX promotes a bf16 activation against an f32 range array to
 f32, while torch keeps bf16 for a 0-dim f32 operand. The quantizers here
@@ -13,7 +24,11 @@ from __future__ import annotations
 
 import dataclasses
 
+from typing import Optional
+
 import torch
+
+from repro_torch import prng
 
 Tensor = torch.Tensor
 
@@ -37,21 +52,60 @@ def _as_range(r, like: Tensor) -> Tensor:
     return torch.tensor(float(r), dtype=torch.float32, device=like.device)
 
 
-def fake_quant(x: Tensor, r_max, bits: int) -> Tensor:
-    """Symmetric fake-quantization, Eq. (4), forward:
+class _Abs(torch.autograd.Function):
+    """``|x|`` with JAX's subgradient: ``jax.grad(jnp.abs)(0.0)`` is 1."""
 
-    ``round(clip(x, -r, r) / step) * step`` with ``r = |r_max| + 1e-9`` and
-    ``step = r / (2^(b-1) - 1)``; rounding is half to even, as ``jnp.round``.
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x.abs()
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def abs_(x: Tensor) -> Tensor:
+    """``x.abs()``, with JAX's gradient (+1 at 0) where one is needed."""
+    return _Abs.apply(x) if x.requires_grad else x.abs()
+
+
+def round_ste(x: Tensor) -> Tensor:
+    """Round half to even with a straight-through gradient (Bengio et al.
+    2013); the value is ``torch.round(x)`` bit for bit."""
+    if not x.requires_grad:
+        return torch.round(x)
+    return x + (torch.round(x) - x).detach()
+
+
+def fake_quant(x: Tensor, r_max, bits: int) -> Tensor:
+    """Symmetric fake-quantization, Eq. (4), differentiable in x and r_max:
+
+    ``round_ste(clip(x, -r, r) / step) * step`` with ``r = |r_max| + 1e-9``
+    and ``step = r / (2^(b-1) - 1)``; rounding is half to even, as
+    ``jnp.round``.
     """
     n_levels = 2 ** (bits - 1) - 1
     r_max = _as_range(r_max, x)
     x = x.to(torch.promote_types(x.dtype, r_max.dtype))
-    r = r_max.abs() + 1e-9
+    r = abs_(r_max) + 1e-9
     # tensor / tensor: CUDA turns a division by a host scalar into a
     # multiply by its reciprocal, one ulp off the reference's true division
     step = r / torch.full_like(r, n_levels)
     clipped = torch.minimum(torch.maximum(x, -r), r)
-    return torch.round(clipped / step) * step
+    return round_ste(clipped / step) * step
+
+
+def quant_noise(x: Tensor, x_quant: Tensor, key: Optional[Tensor], prob: float) -> Tensor:
+    """Fan et al. 2020: with probability ``prob`` per element the quantized
+    value is used, else the full-precision one (the mask is
+    ``prng.bernoulli(key, prob, x.shape)``, the reference's draw).
+    ``prob >= 1`` or ``key=None`` is plain quantization-aware training."""
+    if key is None or prob >= 1.0:
+        return x_quant
+    mask = prng.bernoulli(key.to(x.device), prob, x.shape)
+    return torch.where(mask, x_quant, x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,8 +113,8 @@ class QuantSpec:
     """Static quantizer configuration for one analog layer.
 
     ``b_adc``: ADC effective bits; the DAC gets ``b_adc + 1`` (Eq. 3).
-    ``quant_noise_p``: training-time quant-noise probability (kept for
-    config parity; serving always quantizes).
+    ``quant_noise_p``: training-time quant-noise probability (0.5 in the
+    paper; 1.0 quantizes every element, as serving always does).
     """
 
     b_adc: int = 8
@@ -73,16 +127,44 @@ class QuantSpec:
 
 def dac_range(r_adc: Tensor, gain_s: Tensor, w_max: Tensor) -> Tensor:
     """Eq. (5): r_DAC,l = |r_ADC,l| * |S| / |W_l,max|."""
-    return r_adc.abs() * gain_s.abs() / (w_max.abs() + 1e-9)
+    return abs_(r_adc) * abs_(gain_s) / (abs_(w_max) + 1e-9)
 
 
 def dac_quantize(
-    x: Tensor, r_adc: Tensor, gain_s: Tensor, w_max: Tensor, spec: QuantSpec
+    x: Tensor,
+    r_adc: Tensor,
+    gain_s: Tensor,
+    w_max: Tensor,
+    spec: QuantSpec,
+    key: Optional[Tensor] = None,
 ) -> Tensor:
-    """Quantize input activations as the PWM DAC would (Eq. 3/4/5)."""
-    return fake_quant(x, dac_range(r_adc, gain_s, w_max), spec.b_dac)
+    """Quantize input activations as the PWM DAC would (Eq. 3/4/5); with a
+    key, quant-noise masked at ``spec.quant_noise_p``."""
+    xq = fake_quant(x, dac_range(r_adc, gain_s, w_max), spec.b_dac)
+    return quant_noise(x, xq, key, spec.quant_noise_p)
 
 
-def adc_quantize(y: Tensor, r_adc: Tensor, spec: QuantSpec) -> Tensor:
-    """Quantize pre-activations as the bitline ADC would."""
-    return fake_quant(y, r_adc, spec.b_adc)
+def adc_quantize(y: Tensor, r_adc: Tensor, spec: QuantSpec, key: Optional[Tensor] = None) -> Tensor:
+    """Quantize pre-activations as the bitline ADC would (quant-noise masked
+    with a key)."""
+    yq = fake_quant(y, r_adc, spec.b_adc)
+    return quant_noise(y, yq, key, spec.quant_noise_p)
+
+
+def init_quant_params(n_layers_or_shape=(), device="cpu") -> dict:
+    """Trainable quantizer parameters: per-layer ``r_adc`` and one global
+    ``gain_s``, both 1.0 as in the paper. For stacked layers pass the
+    leading stack shape, e.g. ``init_quant_params((n_layers,))``."""
+    shape = (
+        (n_layers_or_shape,)
+        if isinstance(n_layers_or_shape, int)
+        else tuple(n_layers_or_shape)
+    )
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"r_adc": torch.ones(shape, **f32), "gain_s": torch.ones((), **f32)}
+
+
+def clip_s_gradient(grad_s: Tensor, threshold: float = 0.01) -> Tensor:
+    """Gradient clipping on S (the paper uses 0.01) to stabilise its update."""
+    return torch.minimum(torch.maximum(grad_s, torch.full_like(grad_s, -threshold)),
+                         torch.full_like(grad_s, threshold))

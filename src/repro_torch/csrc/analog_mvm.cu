@@ -36,6 +36,17 @@
 // and no tensor-core rounding, so fp32 inputs keep full precision and bf16
 // products are exact.
 //
+// Training form: an optional quant-noise mask `keep` (uint8, (M, T, N), T
+// the ADC conversions per output: ceil(K / tile_rows) with per-tile ADC and
+// K > tile_rows, else 1) selects, per ADC'd value, the quantized or the
+// full-precision partial, as src/repro/core/engine.py::tile_matmul_quant
+// does with a quant-noise key (engine.py:219-246):
+//
+//   per tile:   q_t = (float)(T)(keep[m,t,n] ? quant(p_t) : p_t)
+//   one tile:   out = (keep[m,0,n] ? quant(y) : y) * out_scale
+//
+// A null mask runs the serving arithmetic above unchanged.
+//
 // The staging, weight loads, fp32 tile sums and quantizer live in
 // analog_mvm_core.cuh, shared with decode_fused.cu. Ragged M, N and K edges
 // are masked in the kernel. The kernel allocates nothing and runs on the
@@ -57,7 +68,8 @@ analog_mvm_kernel(const T* __restrict__ x, const T* __restrict__ w,
                   const float* r_dac_p, const float* r_adc_p,
                   const float* out_scale_p, float r_dac_h, float r_adc_h,
                   float out_scale_h, int b_dac, int b_adc, int tile_rows,
-                  int per_tile_adc, int apply_dac, int vec_ok) {
+                  int per_tile_adc, int apply_dac, int vec_ok,
+                  const uint8_t* __restrict__ keep) {
   __shared__ amvm::TileSmem sm;
 
   const int tid = threadIdx.x;
@@ -77,6 +89,13 @@ analog_mvm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   // the (row, column) this thread owns in the tile epilogue
   const int orow = tid / kCols;
   const int ocol = tid % kCols;
+  const int m = m0 + orow;
+  const int n = n0 + ocol;
+  const bool inside = m < M && n < N;
+  // this output's row of the mask: T entries, N apart
+  const int n_tiles = (K + span - 1) / span;
+  const uint8_t* krow =
+      keep && inside ? keep + (static_cast<size_t>(m) * n_tiles) * N + n : nullptr;
   float yacc = 0.f;
 
   for (int t0 = 0; t0 < K; t0 += span) {
@@ -84,18 +103,18 @@ analog_mvm_kernel(const T* __restrict__ x, const T* __restrict__ w,
     const float part = amvm::tile_partial<T>(sm, x, w, M, K, N, m0, n0, t0, t1,
                                              apply_dac, r_d, step_d, vec_ok);
     if (multi) {
-      const float q = Traits<T>::round_trip(amvm::quant(part, r_a, step_a));
+      const bool q_it = !krow || krow[static_cast<size_t>(t0 / span) * N];
+      const float q = Traits<T>::round_trip(q_it ? amvm::quant(part, r_a, step_a) : part);
       yacc = (t0 == 0) ? q : __fadd_rn(yacc, q);
     } else {
       yacc = part;
     }
   }
 
-  const int m = m0 + orow;
-  const int n = n0 + ocol;
-  float out = multi ? yacc : amvm::quant(yacc, r_a, step_a);
+  const bool q_out = !multi && (!krow || krow[0]);
+  float out = q_out ? amvm::quant(yacc, r_a, step_a) : yacc;
   out = __fmul_rn(out, out_scale);
-  if (m < M && n < N) y[static_cast<size_t>(m) * N + n] = Traits<T>::from_f(out);
+  if (inside) y[static_cast<size_t>(m) * N + n] = Traits<T>::from_f(out);
 }
 
 template <typename T>
@@ -103,38 +122,40 @@ int launch(const void* x, const void* w, void* y, int M, int K, int N,
            const void* r_dac_p, const void* r_adc_p, const void* out_scale_p,
            float r_dac_h, float r_adc_h, float out_scale_h, int b_dac,
            int b_adc, int tile_rows, int per_tile_adc, int apply_dac,
-           int vec_ok, cudaStream_t stream) {
+           int vec_ok, const void* keep, cudaStream_t stream) {
   const dim3 grid((N + kCols - 1) / kCols, (M + kRows - 1) / kRows);
   analog_mvm_kernel<T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
       M, K, N, static_cast<const float*>(r_dac_p),
       static_cast<const float*>(r_adc_p), static_cast<const float*>(out_scale_p),
       r_dac_h, r_adc_h, out_scale_h, b_dac, b_adc, tile_rows, per_tile_adc,
-      apply_dac, vec_ok);
+      apply_dac, vec_ok, static_cast<const uint8_t*>(keep));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. A null range pointer takes the host
-// value beside it. Returns cudaGetLastError() after the launch (0 = ok).
+// value beside it; a null keep is the serving form (no quant-noise mask).
+// Returns cudaGetLastError() after the launch (0 = ok).
 extern "C" int analog_mvm_launch(const void* x, const void* w, void* y, int M,
                                  int K, int N, int dtype, const void* r_dac_p,
                                  const void* r_adc_p, const void* out_scale_p,
                                  float r_dac_h, float r_adc_h,
                                  float out_scale_h, int b_dac, int b_adc,
                                  int tile_rows, int per_tile_adc,
-                                 int apply_dac, int vec_ok, void* stream) {
+                                 int apply_dac, int vec_ok, const void* keep,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(x, w, y, M, K, N, r_dac_p, r_adc_p, out_scale_p,
                          r_dac_h, r_adc_h, out_scale_h, b_dac, b_adc,
-                         tile_rows, per_tile_adc, apply_dac, vec_ok, s);
+                         tile_rows, per_tile_adc, apply_dac, vec_ok, keep, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, w, y, M, K, N, r_dac_p, r_adc_p,
                                  out_scale_p, r_dac_h, r_adc_h, out_scale_h,
                                  b_dac, b_adc, tile_rows, per_tile_adc,
-                                 apply_dac, vec_ok, s);
+                                 apply_dac, vec_ok, keep, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

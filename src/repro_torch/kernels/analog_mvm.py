@@ -12,8 +12,9 @@ kernel, none a fallback):
 * ``"prefill"`` -- bf16, larger M: a tensor-core tiled GEMM with the ADC at
   every crossbar boundary in its epilogue (``analog_mvm_tc.cu``);
 * ``"gemv"`` -- fp32 (TF32 would move ADC codes), the DAC applied in the
-  kernel, or shapes the tensor-core designs do not take: the CUDA-core
-  kernel of ``analog_mvm.cu``.
+  kernel, a training launch with a quant-noise ``keep`` mask, or shapes
+  the tensor-core designs do not take: the CUDA-core kernel of
+  ``analog_mvm.cu``.
 
 The two tensor-core designs share their per-element arithmetic, so a row's
 bits depend neither on M nor on which of them ran. The CUDA sources hold
@@ -72,7 +73,7 @@ def _fn():
             fn = lib.analog_mvm_launch
             fn.argtypes = (
                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
-                + [ctypes.c_float] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+                + [ctypes.c_float] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
             )
             fn.restype = ctypes.c_int
             lib.analog_mvm_error_string.argtypes = [ctypes.c_int]
@@ -108,12 +109,14 @@ def tc_shape_ok(k: int, n: int, tile_rows: int, per_tile_adc: bool) -> bool:
 
 
 def select_design(dtype: torch.dtype, m: int, k: int, n: int, *, tile_rows: int = 1024,
-                  per_tile_adc: bool = True, apply_dac: bool = False) -> str:
+                  per_tile_adc: bool = True, apply_dac: bool = False,
+                  keep: bool = False) -> str:
     """The design :func:`analog_mvm` launches for these operands (see the
     module docstring): ``"decode"`` or ``"prefill"`` for bf16 without the DAC
-    at shapes :func:`tc_shape_ok` takes, split at :data:`DECODE_MAX_M`;
-    ``"gemv"`` otherwise."""
-    if dtype != torch.bfloat16 or apply_dac or not tc_shape_ok(k, n, tile_rows, per_tile_adc):
+    or a keep mask at shapes :func:`tc_shape_ok` takes, split at
+    :data:`DECODE_MAX_M`; ``"gemv"`` otherwise."""
+    if (dtype != torch.bfloat16 or apply_dac or keep
+            or not tc_shape_ok(k, n, tile_rows, per_tile_adc)):
         return "gemv"
     return "decode" if m <= DECODE_MAX_M else "prefill"
 
@@ -237,23 +240,48 @@ def analog_mvm(
     b_adc: int = 8,
     tile_rows: int = 1024,
     per_tile_adc: bool = True,
+    keep: Optional[Tensor] = None,
 ) -> Tensor:
     """One programmed MVM on the card: x (M, K) x w (K, N) -> (M, N) in
     x's dtype, through the design :func:`select_design` picks. ``r_dac=None``
     skips the DAC (x already quantized, as the serving path passes it); the
-    DAC has ``b_adc + 1`` bits. Above :data:`MAX_M` rows (a batch of CNN
-    patches: VWW's stem past 209 images) the rows are split over launches,
-    each counted; rows are independent, so the result is bitwise one call's."""
+    DAC has ``b_adc + 1`` bits. ``keep`` -- a bool or uint8 (M, T, N)
+    quant-noise mask on x's device, T = ``ref.n_tiles(K, tile_rows,
+    per_tile_adc)`` -- is the training form: each ADC'd partial is quantized
+    where it is set and passes at full precision where it is not (always
+    the ``gemv`` design). Above :data:`MAX_M` rows (a batch of CNN patches:
+    VWW's stem past 209 images) the rows are split over launches, each
+    counted; rows are independent, so the result is bitwise one call's."""
     if x.dim() == 2 and x.shape[0] > MAX_M:
         return torch.cat([
             analog_mvm(x[i : i + MAX_M], w, r_adc=r_adc, r_dac=r_dac, out_scale=out_scale,
-                       b_adc=b_adc, tile_rows=tile_rows, per_tile_adc=per_tile_adc)
+                       b_adc=b_adc, tile_rows=tile_rows, per_tile_adc=per_tile_adc,
+                       keep=None if keep is None else keep[i : i + MAX_M])
             for i in range(0, x.shape[0], MAX_M)
         ])
     _check_operands(x, w, b_adc, tile_rows)
+    if keep is not None:
+        _check_keep(keep, x, w, tile_rows, per_tile_adc)
     design = select_design(x.dtype, x.shape[0], x.shape[1], w.shape[1], tile_rows=tile_rows,
-                           per_tile_adc=per_tile_adc, apply_dac=r_dac is not None)
-    return _run(design, x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc)
+                           per_tile_adc=per_tile_adc, apply_dac=r_dac is not None,
+                           keep=keep is not None)
+    return _run(design, x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc, keep)
+
+
+def _check_keep(keep: Tensor, x: Tensor, w: Tensor, tile_rows: int, per_tile_adc: bool) -> None:
+    m, k = x.shape
+    t = -(-k // tile_rows) if per_tile_adc and k > tile_rows else 1
+    want = (m, t, w.shape[1])
+    if keep.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"analog_mvm kernel: keep must be bool or uint8, got {keep.dtype}")
+    if tuple(keep.shape) != want:
+        raise ValueError(f"analog_mvm kernel: keep has shape {tuple(keep.shape)}, the "
+                         f"operands want {want}")
+    if keep.device != x.device:
+        raise ValueError(f"analog_mvm kernel: keep is on {keep.device}, the operands on "
+                         f"{x.device}")
+    if not keep.is_contiguous():
+        raise ValueError("analog_mvm kernel needs a contiguous keep")
 
 
 def _check_operands(x: Tensor, w: Tensor, b_adc: int, tile_rows: int) -> None:
@@ -303,11 +331,12 @@ def _launch(design: str, x: Tensor, w: Tensor, *, r_adc: Scalar, r_dac: Optional
     return _run(design, x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc)
 
 
-def _run(design, x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc) -> Tensor:
+def _run(design, x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc,
+         keep=None) -> Tensor:
     """Launch ``design`` (operands and design already checked); the one
     place that counts launches."""
     if design == "gemv":
-        y = _launch_gemv(x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc)
+        y = _launch_gemv(x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc, keep)
     else:
         y = _launch_tc(design, x, w, r_adc, out_scale, b_adc, tile_rows, per_tile_adc)
     build.bump(analog_mvm, "launches")
@@ -315,8 +344,9 @@ def _run(design, x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc) 
     return y
 
 
-def _launch_gemv(x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc) -> Tensor:
-    """Launch the CUDA-core design (operands already checked)."""
+def _launch_gemv(x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc,
+                 keep=None) -> Tensor:
+    """Launch the CUDA-core design (operands and ``keep`` already checked)."""
     m, k = x.shape
     n = w.shape[1]
     rd_p, rd_h, rd_keep = _scalar(r_dac, "r_dac", x.device)
@@ -332,7 +362,8 @@ def _launch_gemv(x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc) 
             x.data_ptr(), w.data_ptr(), y.data_ptr(), m, k, n, _DTYPES[x.dtype],
             rd_p, ra_p, os_p, rd_h, ra_h, os_h,
             b_adc + 1, b_adc, tile_rows, int(per_tile_adc),
-            int(r_dac is not None), vec_ok, stream,
+            int(r_dac is not None), vec_ok,
+            None if keep is None else keep.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(

@@ -1,21 +1,37 @@
 """Public analog-MVM entry over (..., K) inputs, port of ``repro.kernels.ops``.
 
-Dispatches by device: a CUDA tensor launches the Hopper kernel
-(``kernels.analog_mvm``) -- a failed launch raises, nothing falls back -- and
-a CPU tensor runs the plain version (``kernels.ref.analog_mvm_ref``). The
-forward only; the STE ``autograd.Function`` comes with training.
+:func:`analog_mvm` dispatches by device: a CUDA tensor launches the Hopper
+kernel (``kernels.analog_mvm``) -- a failed launch raises, nothing falls
+back -- and a CPU tensor runs the plain version
+(``kernels.ref.analog_mvm_ref``). It computes no gradient.
+
+:func:`analog_mvm_ste` is the training entry, the counterpart of the
+reference's ``jax.custom_vjp`` (``repro/kernels/ops.py:30-97``): its
+forward is :func:`analog_mvm` (B1 on a card, with the quant-noise ``keep``
+mask of the training form), its backward recomputes the plain training
+form (``ref.analog_mvm_plain``) under autograd on the saved inputs and
+returns its VJP for x, w, r_dac, r_adc and out_scale: gradients computed
+with the quantized values, passed straight through the rounding, the clip
+boundaries gating the range gradients (the paper's Sec. 4.2 rule). The
+recompute is counted in ``backward_calls``, apart from the plain version's
+forward ``calls``.
 """
 
 from __future__ import annotations
 
+import sys
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import analog_mvm as kernel
-from repro_torch.kernels.ref import analog_mvm_ref
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import analog_mvm_plain, analog_mvm_ref
 
 Tensor = torch.Tensor
+
+#: backward recomputes of the plain training form since process start
+backward_calls = 0
 
 
 def analog_mvm(
@@ -28,9 +44,12 @@ def analog_mvm(
     bits: int = 8,
     tile_rows: int = 1024,
     per_tile_adc: bool = True,
+    keep: Optional[Tensor] = None,
 ) -> Tensor:
     """Analog MVM for (..., K) x (K, N). ``bits`` is the ADC ENOB; the DAC
-    has one more (Eq. 3). ``r_dac=None``: x is already DAC-quantized."""
+    has one more (Eq. 3). ``r_dac=None``: x is already DAC-quantized.
+    ``keep``: the training form's (M, T, N) quant-noise mask, M the rows of
+    x flattened (``ref.tile_mvm``)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x.device.type == "cuda":
@@ -38,13 +57,72 @@ def analog_mvm(
             x2.contiguous(), w.contiguous(), r_adc=r_adc, r_dac=r_dac,
             out_scale=out_scale, b_adc=bits, tile_rows=tile_rows,
             per_tile_adc=per_tile_adc,
+            keep=None if keep is None else keep.contiguous(),
         )
     elif x.device.type == "cpu":
         y = analog_mvm_ref(
             x2, w, r_dac, r_adc, out_scale, b_dac=bits + 1, b_adc=bits,
             tile_rows=tile_rows, per_tile_adc=per_tile_adc,
-            apply_dac=r_dac is not None,
+            apply_dac=r_dac is not None, keep=keep,
         )
     else:
         raise ValueError(f"analog_mvm: unsupported device {x.device}")
     return y.reshape(*lead, w.shape[-1])
+
+
+class _AnalogMVM(torch.autograd.Function):
+    """Forward: :func:`analog_mvm` (this module's, looked up at call time);
+    backward: the VJP of the plain training form, recomputed."""
+
+    @staticmethod
+    def forward(ctx, x, w, r_dac, r_adc, out_scale, keep, bits, tile_rows, per_tile_adc):
+        ctx.save_for_backward(x, w, r_dac, r_adc, out_scale, keep)
+        ctx.opts = (bits, tile_rows, per_tile_adc)
+        return sys.modules[__name__].analog_mvm(
+            x, w, r_adc=r_adc, r_dac=r_dac, out_scale=out_scale, bits=bits,
+            tile_rows=tile_rows, per_tile_adc=per_tile_adc, keep=keep,
+        )
+
+    @staticmethod
+    def backward(ctx, g):
+        bits, tile_rows, per_tile_adc = ctx.opts
+        saved = ctx.saved_tensors
+        build.bump(sys.modules[__name__], "backward_calls")
+        need = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            x, w, r_dac, r_adc, out_scale = (
+                None if t is None else t.detach().requires_grad_(n)
+                for t, n in zip(saved[:5], need)
+            )
+            y = analog_mvm_plain(
+                x.reshape(-1, x.shape[-1]), w, r_dac, r_adc, out_scale,
+                b_dac=bits + 1, b_adc=bits, tile_rows=tile_rows,
+                per_tile_adc=per_tile_adc, apply_dac=r_dac is not None,
+                keep=saved[5],
+            ).reshape(g.shape)
+            wrt = [t for t, n in zip((x, w, r_dac, r_adc, out_scale), need) if n]
+            got = iter(torch.autograd.grad(y, wrt, g, allow_unused=True))
+        grads = [next(got) if n else None for n in need]
+        grads = [torch.zeros_like(t) if n and gr is None else gr
+                 for t, n, gr in zip(saved[:5], need, grads)]
+        return (*grads, None, None, None, None)
+
+
+def analog_mvm_ste(
+    x: Tensor,
+    w: Tensor,
+    *,
+    r_adc: Tensor,
+    r_dac: Optional[Tensor] = None,
+    out_scale=1.0,
+    bits: int = 8,
+    tile_rows: int = 1024,
+    per_tile_adc: bool = True,
+    keep: Optional[Tensor] = None,
+) -> Tensor:
+    """:func:`analog_mvm` with the reference's straight-through VJP (see
+    the module docstring). ``out_scale`` may be a float (no gradient)."""
+    if not isinstance(out_scale, Tensor):
+        out_scale = torch.tensor(float(out_scale), dtype=torch.float32, device=x.device)
+    return _AnalogMVM.apply(x, w, r_dac, r_adc, out_scale, keep, bits, tile_rows,
+                            per_tile_adc)

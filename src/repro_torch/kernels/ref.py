@@ -17,7 +17,10 @@ fp32 with no intermediate rounding, so bf16 differs by rounding there (its
 own tests allow 15% bf16 mismatches for this).
 
 ``analog_mvm_ref.calls`` counts calls, so a run can show that its main path
-never took the plain version on the card. The module also holds the plain
+never took the plain version on the card. The training form takes a
+quant-noise ``keep`` mask and rounds straight-through, so autograd of it is
+the reference's VJP (``kernels.ops``' STE function differentiates
+:func:`analog_mvm_plain`, the same body uncounted). The module also holds the plain
 versions of the other kernels: :func:`decode_fused_ref` (the fused decode
 step) and :func:`flash_attention_ref` (the prefill attention), each with
 its own ``calls`` counter.
@@ -45,24 +48,69 @@ def tile_mvm(
     per_tile_adc: bool,
     out_scale,
     out_dtype: torch.dtype,
+    keep: Optional[Tensor] = None,
 ) -> Tensor:
     """Per-tile ADC MVM on an fp32 input; the arithmetic both plain entry
-    points share. A ragged last tile is quantized over its real rows."""
+    points share. A ragged last tile is quantized over its real rows.
+
+    ``keep`` is the training form's quant-noise mask, (M, T, N) over the
+    flattened rows of x (T = 1 for one ADC conversion over all of K): an
+    ADC'd partial becomes ``where(keep, q(p), p)``. The rounding is
+    straight-through, so autograd of this function is the reference's VJP;
+    without a mask the values are the serving function's, bit for bit.
+    """
     k = w.shape[0]
     wf = w.float()
+    lead = x_f32.shape[:-1]
+    if keep is not None:
+        keep = keep.reshape(*lead, keep.shape[-2], keep.shape[-1]).bool()
+
+    def adc(p, t):
+        q = fake_quant(p, r_adc, b_adc)
+        return q if keep is None else torch.where(keep[..., t, :], q, p)
+
     if not per_tile_adc or k <= tile_rows:
-        y = fake_quant(x_f32 @ wf, r_adc, b_adc)
+        y = adc(x_f32 @ wf, 0)
         return (y * out_scale).to(out_dtype)
     y = None
-    for lo in range(0, k, tile_rows):
-        part = fake_quant(
-            x_f32[..., lo:lo + tile_rows] @ wf[lo:lo + tile_rows], r_adc, b_adc
-        )
+    for t, lo in enumerate(range(0, k, tile_rows)):
+        part = adc(x_f32[..., lo:lo + tile_rows] @ wf[lo:lo + tile_rows], t)
         # quantized partials are stored at the activation dtype and summed
         # tile-serially (t = 0..T-1) in fp32
         part = part.to(out_dtype).float()
         y = part if y is None else y + part
     return (y * out_scale).to(out_dtype)
+
+
+def n_tiles(k: int, tile_rows: int, per_tile_adc: bool) -> int:
+    """T of a keep mask: the ADC conversions per output element."""
+    return -(-k // tile_rows) if per_tile_adc and k > tile_rows else 1
+
+
+def analog_mvm_plain(
+    x: Tensor,
+    w: Tensor,
+    r_dac,
+    r_adc,
+    out_scale=1.0,
+    *,
+    b_dac: int = 9,
+    b_adc: int = 8,
+    tile_rows: int = 1024,
+    per_tile_adc: bool = True,
+    apply_dac: bool = True,
+    keep: Optional[Tensor] = None,
+) -> Tensor:
+    """:func:`analog_mvm_ref` without its count: the body the STE
+    function's backward recomputes (``kernels.ops``)."""
+    if x.shape[-1] != w.shape[0]:
+        raise ValueError(f"shape mismatch {tuple(x.shape)} x {tuple(w.shape)}")
+    x_q = x.float()
+    if apply_dac:
+        x_q = fake_quant(x_q, r_dac, b_dac)
+    return tile_mvm(
+        x_q, w, r_adc, b_adc, tile_rows, per_tile_adc, out_scale, x.dtype, keep
+    )
 
 
 def analog_mvm_ref(
@@ -77,16 +125,16 @@ def analog_mvm_ref(
     tile_rows: int = 1024,
     per_tile_adc: bool = True,
     apply_dac: bool = True,
+    keep: Optional[Tensor] = None,
 ) -> Tensor:
-    """x: (M, K), w: (K, N) -> (M, N) in x's dtype, fp32 accumulation."""
-    if x.shape[-1] != w.shape[0]:
-        raise ValueError(f"shape mismatch {tuple(x.shape)} x {tuple(w.shape)}")
+    """x: (M, K), w: (K, N) -> (M, N) in x's dtype, fp32 accumulation;
+    ``keep`` (M, T, N): the training form's quant-noise mask
+    (:func:`tile_mvm`)."""
     analog_mvm_ref.calls += 1
-    x_q = x.float()
-    if apply_dac:
-        x_q = fake_quant(x_q, r_dac, b_dac)
-    return tile_mvm(
-        x_q, w, r_adc, b_adc, tile_rows, per_tile_adc, out_scale, x.dtype
+    return analog_mvm_plain(
+        x, w, r_dac, r_adc, out_scale, b_dac=b_dac, b_adc=b_adc,
+        tile_rows=tile_rows, per_tile_adc=per_tile_adc, apply_dac=apply_dac,
+        keep=keep,
     )
 
 

@@ -1,0 +1,99 @@
+"""Training launcher of the port: ``python -m repro_torch.launch.train
+--arch analognet-kws [--device cuda]``, counterpart of
+``repro.launch.train``.
+
+Runs the paper's two-stage method (``training.loop.run_two_stage``) on one
+of the paper's CNNs at its published widths (``configs.get``), weights from
+``cnn_init(PRNGKey(0))`` through the RNG bridge and the synthetic KWS-style
+task of ``data.pipeline``, on ``--device`` (default ``cuda``; ``cpu`` runs
+the plain versions of the kernels). Each logged step prints one JSON line
+with the reference CLI's keys; ``--ckpt-dir`` checkpoints asynchronously
+and resumes from the newest checkpoint there.
+
+Examples:
+  python -m repro_torch.launch.train --arch analognet-kws --stage1 150 --stage2 150
+  python -m repro_torch.launch.train --arch analognet-kws --device cpu --stage1 2 --stage2 2 --batch 4
+
+The LM archs are refused: LM training (``lm_loss``, the train step, a
+training form of the attention kernel) is the next slice of the port, and
+with it the reference CLI's LM flags (``--full``, ``--seq``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from typing import Optional
+
+from repro_torch import configs, prng
+from repro_torch.data.pipeline import PipelineConfig, iterate
+from repro_torch.device import resolve_device
+from repro_torch.models import analognet
+from repro_torch.training.loop import TrainConfig, run_two_stage
+
+
+def cnn_setup(arch: str, batch: int, device="cuda"):
+    """(params, loss_fn, batches) of ``arch`` at its published widths."""
+    cfg = configs.get(arch)
+    params = analognet.cnn_init(prng.PRNGKey(0), cfg, device=device)
+    pipe = PipelineConfig(
+        kind="kws",
+        global_batch=batch,
+        n_classes=cfg.n_classes,
+        input_hw=cfg.input_hw,
+        channels=cfg.in_channels,
+    )
+
+    def loss_fn(p, b, acfg, rng):
+        return analognet.cnn_loss(p, b, acfg, cfg, rng=rng)
+
+    return params, loss_fn, iterate(pipe)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True, choices=sorted(configs.ALL_ARCHS))
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (the kernels' plain versions)")
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--stage1", type=int, default=100)
+    ap.add_argument("--stage2", type=int, default=100)
+    ap.add_argument("--eta", type=float, default=0.1)
+    ap.add_argument("--b-adc", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--history-out", default=None)
+    return ap
+
+
+def main(argv: Optional[list[str]] = None) -> None:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.arch not in configs.CNN_ARCHS:
+        ap.error(f"--arch {args.arch}: training an LM is not ported yet (the next slice "
+                 "of the port: lm_loss, the LM train step and a training form of the "
+                 "attention kernel); the CNN archs train: "
+                 f"{', '.join(sorted(configs.CNN_ARCHS))}")
+    device = resolve_device(args.device)
+    params, loss_fn, batches = cnn_setup(args.arch, args.batch, device)
+    tcfg = TrainConfig(
+        stage1_steps=args.stage1,
+        stage2_steps=args.stage2,
+        eta=args.eta,
+        b_adc=args.b_adc,
+        lr=args.lr,
+        ckpt_dir=args.ckpt_dir,
+    )
+    params, history = run_two_stage(
+        loss_fn, params, batches, tcfg,
+        on_metrics=lambda i, m: print(json.dumps(m), flush=True),
+    )
+    if args.history_out:
+        with open(args.history_out, "w") as f:
+            json.dump(history, f, indent=1)
+    print(f"done: {len(history)} log points; final loss "
+          f"{history[-1]['loss']:.4f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -16,8 +16,9 @@ programmed chip every conv and the FC is one programmed MVM through the
 execute phase (on a CUDA tensor, the Hopper kernel ``kernels.analog_mvm``).
 BN (folded to scale/bias), ReLU and the global average pool are digital.
 Weights draw through the RNG bridge: :func:`cnn_init` from one key gives the
-reference's weights bit for bit. ``cnn_loss`` belongs to training and comes
-with it.
+reference's weights bit for bit. :func:`cnn_loss` is the training loss (the
+forward is differentiable to the input and to every 4-D kernel through
+im2col and the crossbar transforms).
 """
 
 from __future__ import annotations
@@ -193,6 +194,17 @@ def cnn_apply(params: dict, x: Tensor, analog_cfg: AnalogConfig, cfg: CNNConfig,
         out_scale=fc.get("out_scale_buf"),
     )
     return y + fc["b"].to(y.dtype)
+
+
+def cnn_loss(params: dict, batch: dict, analog_cfg: AnalogConfig, cfg: CNNConfig, rng=None):
+    """Mean cross-entropy of ``cnn_apply`` on ``batch`` ({"x", "y"}) ->
+    (loss, {"loss", "acc"})."""
+    logits = cnn_apply(params, batch["x"], analog_cfg, cfg, rng).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    y = batch["y"].long()
+    nll = -logp.gather(-1, y[:, None]).mean()
+    acc = (logits.argmax(-1) == y).float().mean()
+    return nll, {"loss": nll, "acc": acc}
 
 
 def crossbar_transforms(cfg: CNNConfig) -> dict:

@@ -6,8 +6,8 @@ with the partitionable threefry2x32 lowering (``repro/__init__.py``). This
 module is the port's own copy of what the reference uses of it:
 
 * keys: :func:`PRNGKey`, :func:`split`, :func:`fold_in`, :func:`bits`;
-* samplers: :func:`uniform`, :func:`normal`, :func:`randint`,
-  :func:`choice`, :func:`exponential`.
+* samplers: :func:`uniform`, :func:`normal`, :func:`bernoulli`,
+  :func:`randint`, :func:`choice`, :func:`exponential`.
 
 A key is an int64 tensor of shape (2,) holding the two uint32 words of
 JAX's raw key (``np.asarray(jax_key)``). Every 32-bit operation runs in
@@ -260,6 +260,12 @@ def uniform(key: Tensor, shape: Shape = (), minval=0.0, maxval=1.0) -> Tensor:
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
     f = _unit_floats(key, shape)
     return torch.maximum(lo, fma(f, (hi - lo).expand(shape), lo))
+
+
+def bernoulli(key: Tensor, p: float = 0.5, shape: Shape = ()) -> Tensor:
+    """``jax.random.bernoulli`` (bool): ``uniform(key, shape) < p`` in f32,
+    as JAX draws it (mode ``'low'``)."""
+    return uniform(key, shape) < _f32(p)
 
 
 _NORMAL_LO = -0.99999994  # np.nextafter(-1, 0) in f32

@@ -71,9 +71,11 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
         pytest.skip("a card is present: the default device is valid here")
     from repro_torch import convert, prng
     from repro_torch.checkpoint import store
+    from repro_torch.bench.common import KWS_BENCH, train_model
     from repro_torch.configs import get_smoke
     from repro_torch.core import engine
     from repro_torch.core.analog import AnalogConfig
+    from repro_torch.launch import train
     from repro_torch.models import lm
     from repro_torch.serving import ServingConfig, ServingEngine
 
@@ -88,6 +90,9 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
         lambda: convert.params_from_numpy({"gain_s": np.ones(())}),
         lambda: ServingEngine(cfg, AnalogConfig(), params,
                               ServingConfig(n_slots=1, s_max=8)),
+        lambda: train.main(["--arch", "analognet-kws", "--stage1", "1", "--stage2", "1"]),
+        lambda: train.cnn_setup("analognet-kws", 4),
+        lambda: train_model(KWS_BENCH, stage1=1, stage2=1),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
