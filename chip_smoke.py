@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 
 It drives the port's main paths -- program-once, execute-many serving of a
 dense LM on one programmed chip, the paper's CNNs programmed and served
-through B1, and their two-stage training -- and checks every hand-written kernel on
+through B1, their two-stage training and the LM's -- and checks every hand-written kernel on
 that path against its plain PyTorch version, in phases that either pass or
 end the run with a non-zero exit:
 
@@ -140,7 +140,33 @@ end the run with a non-zero exit:
    through its crossbar transforms and evaluated at 25 s and 24 h beside
    its digital accuracy (reported); B1's training form timed per stage-2
    forward;
-16. report: a JSON line ``{"kernels": [...]}`` (launches from the serving
+16. LM training on the card (``phase_lm_train``): (a) B1's bf16 training
+   form -- the keep mask in the ``gemv`` epilogue -- against the plain
+   training form at tinyllama-1.1b's projection shapes at M = 64 and 512
+   (the tokens of (b) and (c)) and a two-tile K = 2048, b_adc 4/6/8, with
+   and without a p = 0.5 mask, under phase 3's bf16 tolerance, unkept
+   values within an output ulp, masks bitwise the CPU bridge's; (b) one
+   stage-1 and one stage-2 step of tinyllama-1.1b at full width on 2
+   layers, 1 x 64 tokens, fp32 and bf16, on the card and on the CPU
+   locked to the card's forward values (``training.lockstep``; the CPU
+   steps in a child process beside (a) and (d)): masks and the CPU's own
+   weight-noise draws bitwise, each B1 output under the ADC tolerance
+   model of the CPU's at the same inputs, the loss within 1e-3 of a free
+   CPU forward, each gradient leaf within ``lockstep.GRAD_RTOL``, and a
+   zeroed or doubled leaf caught by that gate (``--lm-step-readings``
+   runs (b) alone at several seeds, the gates reported, for the readings
+   the bounds come from); (d) ``serve_drift_24h`` on the card,
+   no programming event while aging; (c) tinyllama-1.1b at full width and
+   depth trained through ``launch/train.py``'s functions, 3 + 3 steps at
+   batch 4 x 128 tokens with asynchronous checkpoints: every stage-2
+   forward 155 keep-mask ``gemv`` launches and 155 recomputes, every
+   forward 22 B3 launches (its training form) and 22 recomputes, no plain
+   forward, finite losses, a resume from the final checkpoint that runs
+   nothing and restores the params bitwise; ms per step, one profiled
+   step per stage (B1's and B3's share, idle share), peak memory; then
+   every B1 key and B3 shape the phase launched checked as phases 3 and 8
+   check theirs, and both training forms timed per forward;
+17. report: a JSON line ``{"kernels": [...]}`` (launches from the serving
    phases, the fleet, the CNNs and the training runs) and, last, the
    device line ``{"ok": true, "device": {...}}``.
 
@@ -171,6 +197,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -258,6 +285,23 @@ TRAIN_STEP_GRAD_RTOL = 1e-2
 TRAIN_RANGE_FACTOR = 2.0
 #: device kernels listed by summed time in each profiled training step
 TRAIN_TOP_KERNELS = 8
+#: the LM training phase (16): tinyllama-1.1b at full width; (b) one step
+#: of each stage on LM_STEP's 2 layers, card vs CPU; (c) the CLI's
+#: functions at full depth, LM_RUN's batch and steps, then a resume
+LM_ARCH = "tinyllama-1.1b"
+LM_STEP = dict(layers=2, batch=1, seq=64)
+LM_RUN = dict(batch=4, seq=128, stage1=3, stage2=3)
+#: the CLI's stage-2 settings
+LM_TRAIN = dict(eta=0.1, b_adc=8, quant_noise_p=0.5)
+#: (b)'s CPU steps run in a child process beside the card's work, on this
+#: many threads, and are given this long
+LM_CPU_THREADS = 8
+LM_CPU_TIMEOUT_S = 600
+#: (b)'s CPU child draws itself every weight-noise draw of this many
+#: values or fewer (wk's and wv's, 2 M of the 154 M) and holds it bitwise
+#: to the card's; it takes the others from the card
+LM_CPU_DRAW_MAX = 1 << 20
+
 #: the row kernels' plain versions (kernels/decode_rows.py)
 ROW_PLAINS = lambda dr: (dr.norm_plain, dr.rope_plain, dr.attention_plain, dr.gate_plain)
 
@@ -385,7 +429,7 @@ def compare(y_k, y_p, step: float, n_tiles: int, bf16: bool) -> dict:
     ok = bool((d <= tol).all().item()) and over < 0.01 and bool(yk.isfinite().all().item())
     return {"max_abs": d.max().item(), "max_steps": (d / step).max().item(),
             "frac_half_step": over, "flips": int((d > 0).sum().item()),
-            "elements": d.numel(), "ok": ok}
+            "elements": d.numel(), "finite": bool(yk.isfinite().all().item()), "ok": ok}
 
 
 def b1_served_ms() -> tuple:
@@ -492,15 +536,17 @@ def b1_cases(torch, name, x, w, design, per_tile, dac, by_design, checked, failu
 
 
 def b1_train_cases(torch, name, x, w, per_tile, by_design, checked, failures) -> dict:
-    """B1's training form -- the fp32 ``gemv`` design with a p = 0.5
-    quant-noise ``keep`` mask drawn by the RNG bridge on the card -- against
-    the plain training form (``analog_mvm_ref(..., keep=...)``) on x and w
-    at b_adc 4, 6 and 8: the kept (ADC'd) values under ``compare``'s
-    tolerance model; where one conversion covers all of K, the unkept
-    values (fp32 sums in another order) within 1e-5 of max |y|. The
-    card's masks are checked bitwise against the CPU bridge's draw from
-    the same key. Returns the case's worst unkept
-    error and whether its masks were bitwise; records as ``b1_cases``."""
+    """B1's training form -- the ``gemv`` design with a p = 0.5 quant-noise
+    ``keep`` mask drawn by the RNG bridge on the card -- against the plain
+    training form (``analog_mvm_ref(..., keep=...)``) on x and w (fp32 or
+    bf16) at b_adc 4, 6 and 8: the kept (ADC'd) values under ``compare``'s
+    tolerance model (in bf16 with its one output ulp); where one
+    conversion covers all of K, the unkept values (sums in another order)
+    within 1e-5 of max |y| in fp32, within one output ulp (+ 1e-6 of max
+    |y|) in bf16. The card's masks are checked bitwise against the CPU
+    bridge's draw from the same key. Returns the case's worst unkept
+    error (relative to max |y|; in bf16 also in output ulps) and whether
+    its masks were bitwise; records as ``b1_cases``."""
     from repro_torch import prng
     from repro_torch.kernels import analog_mvm as kernel
     from repro_torch.kernels.ref import analog_mvm_ref, n_tiles
@@ -509,7 +555,8 @@ def b1_train_cases(torch, name, x, w, per_tile, by_design, checked, failures) ->
     out_scale = torch.tensor(0.97, device=DEV)
     (m, k), n = x.shape, w.shape[1]
     t = n_tiles(k, 1024, per_tile)
-    worst, masks_ok = 0.0, True
+    bf16 = x.dtype == torch.bfloat16
+    worst, worst_ulps, masks_ok = 0.0, 0.0, True
     for bits in (4, 6, 8):
         key = prng.fold_in(prng.PRNGKey(m * 7919 + k), bits)
         keep = prng.bernoulli(key.to(DEV), 0.5, (m, t, n))
@@ -521,11 +568,19 @@ def b1_train_cases(torch, name, x, w, per_tile, by_design, checked, failures) ->
                              per_tile_adc=per_tile, apply_dac=False, keep=keep)
         check(y_k.dtype == x.dtype and y_k.shape == (m, n),
               f"{name}: kernel output {y_k.dtype} {tuple(y_k.shape)}")
-        r = compare(y_k, y_p, step, t, False)
+        r = compare(y_k, y_p, step, t, bf16)
         scale = float(y_p.abs().max())
-        unkept = 0.0
+        unkept, unkept_ok = 0.0, True
         if t == 1 and bool((~keep).any()):
-            unkept = float((y_k - y_p).abs()[~keep[:, 0, :]].max()) / max(scale, 1e-30)
+            free = ~keep[:, 0, :]
+            d = (y_k.float() - y_p.float()).abs()[free]
+            unkept = float(d.max()) / max(scale, 1e-30)
+            if bf16:
+                ulp = bf16_ulp(y_p.float()[free])
+                worst_ulps = max(worst_ulps, float((d / ulp).max()))
+                unkept_ok = bool((d <= ulp + 1e-6 * scale).all())
+            else:
+                unkept_ok = unkept <= 1e-5
         worst = max(worst, unkept)
         rec = by_design["gemv"]
         rec["cases"] += 1
@@ -534,10 +589,10 @@ def b1_train_cases(torch, name, x, w, per_tile, by_design, checked, failures) ->
         for key_ in ("max_abs", "max_steps", "frac_half_step"):
             rec[key_] = max(rec[key_], r[key_])
         checked.add(b1_key(m, k, n, x.dtype, "gemv") + (1024, per_tile, False, True))
-        if not r["ok"] or unkept > 1e-5:
-            failures.append((name, m, "keep", bits, per_tile, r, unkept))
+        if not r["ok"] or not unkept_ok:
+            failures.append((name, m, str(x.dtype), "keep", bits, per_tile, r, unkept))
     check(masks_ok, f"{name}: the card's quant-noise masks are the CPU bridge's, bitwise")
-    return {"unkept_rel": worst, "masks_bitwise": masks_ok}
+    return {"unkept_rel": worst, "unkept_ulps": worst_ulps, "masks_bitwise": masks_ok}
 
 
 def check_launched_b1(torch, gen, keys: list, accuracy: dict, by_design=None) -> dict:
@@ -949,6 +1004,7 @@ def reset_counts() -> None:
     dr.launches.update(dict.fromkeys(dr.launches, 0))
     prng.launches = 0
     ops.backward_calls = 0
+    ops.attention_backward_calls = 0
     for fn in (ref.analog_mvm_ref, engine.tile_matmul_quant, ref.decode_fused_ref,
                ref.flash_attention_ref, *ROW_PLAINS(dr)):
         fn.calls = 0
@@ -1226,22 +1282,33 @@ def serve_metrics(rep) -> dict:
             "occupancy": rep.occupancy, "decode_steps": rep.n_steps}
 
 
-def profiled(torch, fn, kernel: str = "analog_mvm", top: int = 0) -> dict:
+def profiled(torch, fn, kernel: str = "analog_mvm", top: int = 0,
+             host_events: bool = True) -> dict:
     """``profile_summary`` of one call of ``fn``; with ``top``, also the
-    ``top`` device kernels by summed time (name, ms, launches)."""
+    ``top`` device kernels by summed time (name, ms, launches). Without
+    ``host_events`` only the card is traced and the step's wall is the host
+    clock's (to the synchronize), and the card's events are read from the
+    profiler's raw results (``device_events``): a step of 200 k kernels
+    traced with every host op takes minutes to read back, and its
+    ``events()`` alone most of a minute."""
     from torch.profiler import ProfilerActivity, profile
 
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_events else [])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    out = profile_summary(prof, kernel)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = None if host_events else device_events(prof)
+    out = profile_summary(prof, kernel, None if host_events else wall_us, dev)
     if top:
         by_name: dict = {}
-        for e in prof.events():
-            if str(e.device_type).endswith("CUDA"):
-                ms, n = by_name.get(e.name, (0.0, 0))
-                by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+        for name, start, end in dev or ((e.name, e.time_range.start, e.time_range.end)
+                                        for e in prof.events()
+                                        if str(e.device_type).endswith("CUDA")):
+            ms, n = by_name.get(name, (0.0, 0))
+            by_name[name] = (ms + (end - start) / 1e3, n + 1)
         out["top_kernels"] = [(name.replace("void at::native::", "")[:100], round(ms, 4), n)
                               for name, (ms, n) in
                               sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]]
@@ -1581,18 +1648,22 @@ def fa_served_shapes(trace) -> list:
 
 def record_fa_shapes() -> set:
     """Record the (rows, S, dtype) of every prefill-attention launch made by
-    the model from here on (``chunked_attention``'s call of the kernel
-    wrapper); the wrapper and its launch count are left as they are."""
+    the model from here on (``chunked_attention``'s calls of the kernel
+    wrapper and of its training form); the wrappers and the launch count
+    are left as they are."""
+    from repro_torch.kernels import ops
     from repro_torch.models import attention
 
     seen: set = set()
-    kernel = attention.flash_attention
 
-    def recorded(q, k, v, **kw):
-        seen.add((q.shape[0], q.shape[1], str(q.dtype).split(".")[-1]))
-        return kernel(q, k, v, **kw)
+    def recorder(fn):
+        def recorded(q, k, v, **kw):
+            seen.add((q.shape[0], q.shape[1], str(q.dtype).split(".")[-1]))
+            return fn(q, k, v, **kw)
+        return recorded
 
-    attention.flash_attention = recorded
+    attention.flash_attention = recorder(attention.flash_attention)
+    ops.flash_attention_ste = recorder(ops.flash_attention_ste)
     return seen
 
 
@@ -3409,49 +3480,50 @@ def train_eval(torch, trained, seed: int) -> dict:
     return out
 
 
-def train_timing(torch, gen, cfg, batch: int) -> dict:
-    """B1's training form at every MVM of one ``cfg`` stage-2 forward at
-    ``batch`` images, fp32, with a p = 0.5 mask: the kernel, the plain
-    training form and torch.matmul, timed by CUDA-graph replay in turns
-    (kernel, plain, library, kernel), summed over the forward beside the
-    bound (x, w and the mask read once, y written once, over HBM; 2 M K N
-    operations over the CUDA cores' fp32 peak)."""
+def train_timing(torch, gen, shapes: list, dtype, what: str, n_iter: int = 20) -> dict:
+    """B1's training form at every MVM of one stage-2 forward, ``shapes``
+    its (layer, M, K, N, launches a forward), in ``dtype`` with a p = 0.5
+    mask: the kernel, the plain training form and torch.matmul, timed by
+    CUDA-graph replay in turns (kernel, plain, library, kernel), summed
+    over the forward beside the bound (x, w and the mask read once, y
+    written once, over HBM; 2 M K N operations over the peak for the
+    dtype: the CUDA cores' fp32, the tensor cores' bf16)."""
     from repro_torch import prng
     from repro_torch.kernels import analog_mvm as kernel
     from repro_torch.kernels.ref import analog_mvm_ref, n_tiles
-    from repro_torch.models.analognet import mvm_shapes
 
     r_adc = torch.tensor(1.5, device=DEV)
     one = torch.tensor(1.0, device=DEV)
+    esz, peak = (2, BF16_FLOPS) if dtype == torch.bfloat16 else (4, FP32_OPS)
     rows = []
-    for i, (name, m, k, n) in enumerate(mvm_shapes(cfg, batch)):
-        x = torch.randn((m, k), generator=gen, device=DEV)
-        w = torch.randn((k, n), generator=gen, device=DEV) * k**-0.5
+    for i, (name, m, k, n, count) in enumerate(shapes):
+        x = torch.randn((m, k), generator=gen, device=DEV).to(dtype)
+        w = (torch.randn((k, n), generator=gen, device=DEV) * k**-0.5).to(dtype)
         t = n_tiles(k, 1024, True)
         keep = prng.bernoulli(prng.fold_in(prng.PRNGKey(i), 1).to(DEV), 0.5, (m, t, n))
         run_k = lambda _: kernel.analog_mvm(x, w, r_adc=r_adc, out_scale=one, b_adc=8, keep=keep)
         run_p = lambda _: analog_mvm_ref(x, w, None, r_adc, one, apply_dac=False, keep=keep)
         run_l = lambda _: torch.matmul(x, w)
-        ms_k1, ms_p, ms_l, ms_k2 = (time_ms(run_k, 20), time_ms(run_p, 20), time_ms(run_l, 20),
-                                    time_ms(run_k, 20))
-        nbytes = 4 * (m * k + k * n + m * n) + m * t * n
+        ms_k1, ms_p, ms_l, ms_k2 = (time_ms(run_k, n_iter), time_ms(run_p, n_iter),
+                                    time_ms(run_l, n_iter), time_ms(run_k, n_iter))
+        nbytes = esz * (m * k + k * n + m * n) + m * t * n
         flops = 2 * m * k * n
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / FP32_OPS
-        rows.append({"layer": name, "M": m, "K": k, "N": n, "ms": min(ms_k1, ms_k2),
-                     "ms_readings": [ms_k1, ms_k2], "plain_ms": ms_p, "library_ms": ms_l,
-                     "bound_ms": max(t_b, t_o) * 1e3, "bytes": nbytes, "flops": flops,
-                     "bound_by": "bytes" if t_b >= t_o else "operations"})
-    tot = {key: sum(r[key] for r in rows) for key in ("ms", "plain_ms", "library_ms",
-                                                      "bound_ms", "flops", "bytes")}
-    t_o, t_b = tot["flops"] / FP32_OPS, tot["bytes"] / HBM_BYTES_PER_S
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / peak
+        rows.append({"layer": name, "M": m, "K": k, "N": n, "per_forward": count,
+                     "ms": min(ms_k1, ms_k2), "ms_readings": [ms_k1, ms_k2], "plain_ms": ms_p,
+                     "library_ms": ms_l, "bound_ms": max(t_b, t_o) * 1e3, "bytes": nbytes,
+                     "flops": flops, "bound_by": "bytes" if t_b >= t_o else "operations"})
+    tot = {key: sum(r[key] * r["per_forward"] for r in rows)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms", "flops", "bytes")}
+    t_o, t_b = tot["flops"] / peak, tot["bytes"] / HBM_BYTES_PER_S
     tot["bound_by"] = "operations" if t_o >= t_b else "bytes"
-    tot["launches"] = len(rows)
-    log(f"train: B1's training form, one {cfg.name} stage-2 forward at {batch} images "
-        f"({len(rows)} launches, fp32 gemv, p = 0.5 masks): kernel {tot['ms']:.4f} ms, plain "
-        f"{tot['plain_ms']:.4f} ms, torch.matmul {tot['library_ms']:.4f} ms, bound "
-        f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}); per layer (ms kernel/plain/bound): "
-        + ", ".join(f"{r['layer']} {r['ms']:.4f}/{r['plain_ms']:.4f}/{r['bound_ms']:.4f}"
-                    for r in rows))
+    tot["launches"] = sum(r["per_forward"] for r in rows)
+    log(f"train: B1's training form, {what} ({tot['launches']} launches, {dtype}, gemv, p = 0.5 "
+        f"masks): kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, torch.matmul "
+        f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms ({tot['bound_by']}); per "
+        "launch (ms kernel/plain/matmul/bound): " + ", ".join(
+            f"{r['layer']} {r['ms']:.4f}/{r['plain_ms']:.4f}/{r['library_ms']:.4f}/"
+            f"{r['bound_ms']:.4f}" for r in rows))
     return {"per_forward": tot, "layers": rows}
 
 
@@ -3498,22 +3570,25 @@ def phase_train(torch, gen, seed: int, accuracy: dict, launched: set) -> dict:
     keys = sorted(launched - before - set(map(tuple, accuracy["checked"])))
     res["b1_checked_after"] = check_launched_b1(torch, gen, keys, accuracy, by_design)
     res["by_design"] = by_design
-    res["timing"] = train_timing(torch, gen, get(TRAIN_KWS["arch"]), TRAIN_KWS["batch"])
+    res["timing"] = train_timing(
+        torch, gen, [(*r, 1) for r in an.mvm_shapes(get(TRAIN_KWS["arch"]), TRAIN_KWS["batch"])],
+        torch.float32, f"one analognet-kws stage-2 forward at {TRAIN_KWS['batch']} images")
     res["launches"] = {"train": res["kws"]["b1_launches"] + res["vww"]["b1_launches"]}
     return res
 
 
-def train_entry(train: dict) -> dict:
-    """The kernels line's B1 training entry: the keep-mask launches of the
-    training runs (c) and (d), the worst error of the gemv design at the
-    training shapes, and its time per AnalogNet-KWS stage-2 forward."""
+def train_entry(train: dict, lm_fp32_launches: int) -> dict:
+    """The kernels line's B1 training entry: the fp32 keep-mask launches of
+    the training runs (c) and (d) and of phase 16 (b)'s fp32 stage-2 step,
+    the worst error of the gemv design at the training shapes, and its time
+    per AnalogNet-KWS stage-2 forward."""
     t = train["timing"]["per_forward"]
     return {
         "name": "analog_mvm.gemv.train",
         "route": "cuda",
         "source": "src/repro_torch/csrc/analog_mvm.cu",
         "replaces": "src/repro/kernels/analog_mvm.py:41",
-        "launches": train["launches"]["train"],
+        "launches": train["launches"]["train"] + lm_fp32_launches,
         "max_abs_err": train["by_design"]["gemv"]["max_abs"],
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
@@ -3523,26 +3598,704 @@ def train_entry(train: dict) -> dict:
         "per": f"one AnalogNet-KWS stage-2 forward at {TRAIN_KWS['batch']} images, fp32 with "
                f"TF32 off, p = 0.5 quant-noise masks: {t['launches']} launches; plain: the "
                "plain training form; library: torch.matmul of the same products; launches: "
-               "the stage-2 steps of the KWS and VWW training runs",
+               "the stage-2 steps of the KWS and VWW training runs and phase 16 (b)'s fp32 "
+               "stage-2 step",
         "max_err_adc_steps": train["by_design"]["gemv"]["max_steps"],
         "pass": train["b1_checked_after"]["failures"] == 0 and train["a"]["failures"] == 0,
     }
 
 
-def profile_summary(prof, kernel: str = "analog_mvm") -> dict:
+# --------------------------------------------------------------- LM training
+
+
+def lm_step(torch, params, cfg, stage: int, tape, grad: bool = True) -> dict:
+    """Phase 16 (b)'s step: ``lm_loss`` at LM_STEP's batch (the LM
+    pipeline's batch 0) on the device ``params`` live on, in stage 1
+    (digital) or stage 2 (``analog_train`` at the CLI's settings, keyed as
+    ``run_two_stage`` keys the first stage-2 step), inside ``tape``
+    (``training.lockstep``: recorded, or locked to another device's tape).
+    ``grad``: ``value_and_grad`` (else the loss alone, no graph). Returns
+    the loss, the seconds and, with ``grad``, every gradient leaf on the
+    host."""
+    from repro_torch import prng
+    from repro_torch import tree as tree_lib
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.data.pipeline import PipelineConfig, batch_at
+    from repro_torch.models import lm
+    from repro_torch.training import lockstep
+    from repro_torch.training.loop import value_and_grad
+
+    dev = params.gain_s.device
+    b = batch_at(PipelineConfig(kind="lm", global_batch=LM_STEP["batch"], seq_len=LM_STEP["seq"],
+                                vocab=cfg.vocab), 0)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+    acfg = AnalogConfig() if stage == 1 else AnalogConfig().train(**LM_TRAIN)
+    key = prng.fold_in(prng.PRNGKey(0).to(dev), LM_RUN["stage1"]) if acfg.needs_rng else None
+    loss_of = lambda p: lm.lm_loss(p, batch, acfg, cfg, rng=key)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads = None
+    with lockstep.tape(tape):
+        if grad:
+            (loss, _), g = value_and_grad(loss_of, params)
+            grads = {tree_lib.path_name(p): t.cpu() for p, t in tree_lib.flatten_with_path(g)}
+        else:
+            with torch.no_grad():
+                loss, _ = loss_of(params)
+        loss = float(loss)
+    return {"loss": loss, "s": time.perf_counter() - t0, "grads": grads}
+
+
+def lm_cpu_step(src: Path, out: Path) -> int:
+    """Phase 16 (b)'s CPU side, run as a child process (``--lm-cpu-step SRC
+    OUT``) beside the card's work: for each of the card's steps saved in
+    SRC, the same step on the CPU locked to the card's tape (the weight-
+    noise draws of LM_CPU_DRAW_MAX values or fewer drawn here, the rest
+    taken from the card) and the loss of a free forward (only the draws
+    taken from the card), written to OUT."""
+    import dataclasses
+
+    import torch
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.training import lockstep
+
+    torch.set_num_threads(LM_CPU_THREADS)
+    saved = torch.load(src, weights_only=False)
+    params, res = saved["params"], {}
+    t0 = time.perf_counter()
+    for (dtype, stage), card in saved["card"].items():
+        cfg = dataclasses.replace(saved["cfg"], dtype=getattr(torch, dtype))
+        draw = {i for i, c in enumerate(card.of("noise")) if c["out"].numel() <= LM_CPU_DRAW_MAX}
+        locked = lockstep.Tape(lock=card, draw=draw)
+        r = lm_step(torch, params, cfg, stage, locked)
+        free = lm_step(torch, params, cfg, stage,
+                       lockstep.Tape(lock=card, draw=set(), lock_kinds=("noise",)), grad=False)
+        locked.lock = None
+        res[dtype, stage] = {**r, "tape": locked, "draw": sorted(draw), "free_loss": free["loss"],
+                             "free_s": free["s"]}
+        if saved["readings"]:  # ``--lm-step-readings``: the free step's gradients, and
+            # the locked step on 2 threads (the CPU's own rounding)
+            ft = lockstep.Tape(lock=card, draw=set(), lock_kinds=("noise",))
+            res[dtype, stage]["free"] = {"grads": lm_step(torch, params, cfg, stage, ft)["grads"],
+                                         "mvm": [c["out"] for c in ft.of("mvm")]}
+            if stage == 2:
+                torch.set_num_threads(2)
+                res[dtype, stage]["threads2"] = lm_step(
+                    torch, params, cfg, stage, lockstep.Tape(lock=card, draw=set()))["grads"]
+                torch.set_num_threads(LM_CPU_THREADS)
+    torch.save(res, out)
+    print(f"lm cpu step: {time.perf_counter() - t0:.1f} s on {LM_CPU_THREADS} threads", flush=True)
+    return 0
+
+
+def lm_step_start(torch, seed: int, readings: bool = False) -> dict:
+    """Start phase 16 (b): the 2-layer full-width stack drawn on the card
+    (``lm_init(seed)``), one step of each stage in fp32 (TF32 off) and bf16
+    run on the card with their calls taped (the main path: B1 and B3, each
+    step's launches and recomputes counted), then the CPU's child process
+    (``lm_cpu_step``) started on what they saved and left running."""
+    import dataclasses
+
+    from repro_torch import prng
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.training import lockstep
+
+    cfg = dataclasses.replace(get(LM_ARCH), n_layers=LM_STEP["layers"])
+    params = lm.lm_init(prng.PRNGKey(seed), cfg, device=DEV)
+    card, counts, steps = {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        for stage in (1, 2):
+            reset_counts()
+            card[dtype, stage] = lockstep.Tape()
+            steps[dtype, stage] = lm_step(
+                torch, params, dataclasses.replace(cfg, dtype=getattr(torch, dtype)), stage,
+                card[dtype, stage])
+            counts[dtype, stage] = {
+                "b1": kernel.analog_mvm.launches, "gemv": kernel.analog_mvm.design_launches["gemv"],
+                "backward": ops.backward_calls, "b3": fa.flash_attention.launches,
+                "attention_backward": ops.attention_backward_calls, "plain": plain_calls()}
+    # the weight-noise draws do not depend on the activation dtype: one copy
+    same = all(torch.equal(a["out"], b["out"]) for a, b in
+               zip(card["float32", 2].of("noise"), card["bfloat16", 2].of("noise")))
+    if same:
+        for a, b in zip(card["float32", 2].of("noise"), card["bfloat16", 2].of("noise")):
+            b["out"] = a["out"]
+    work = ROOT / "build" / "lm_step"
+    work.mkdir(parents=True, exist_ok=True)
+    torch.save({"cfg": cfg, "params": tree_lib.tree_map(lambda t: t.cpu(), params), "card": card,
+                "readings": readings}, work / "steps.pt")
+    log_f = open(work / "cpu_step.log", "w")
+    child = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--lm-cpu-step", str(work / "steps.pt"),
+         str(work / "cpu_step.pt")], stdout=log_f, stderr=subprocess.STDOUT, cwd=ROOT)
+    del params
+    return {"cfg": cfg, "card": card, "steps": steps, "counts": counts, "noise_same": same,
+            "child": child, "log": log_f, "work": work, "t0": time.perf_counter()}
+
+
+def lm_step_compare(card, cpu: dict, dtype: str) -> dict:
+    """One (b) step's forward, call by call: each B1 output (the card's)
+    against the CPU's plain training form on the same forward values under
+    ``compare``'s ADC tolerance model; each B3 output and each digital
+    matmul's against the CPU's (max abs and bf16 ulps, reported); the
+    masks and the weight-noise draws the CPU made itself, bitwise."""
+    import torch
+
+    bf16 = dtype == "bfloat16"
+    out = {"mvm": [], "other": {}}
+    tape = cpu["tape"]
+    for c, p in zip(card.of("mvm"), tape.of("mvm")):
+        r = compare(c["out"], p["out"], p["meta"]["step"], p["meta"]["n_tiles"], bf16)
+        # in bf16 each tile's partial is rounded to bf16 before the tile sum:
+        # an unquantized partial the two fp32 sum orders round apart moves
+        # the output by an ulp of the partial, which can be many ADC steps
+        # above the output's own ulp; only the flip share is held there
+        r["gate"] = r["finite"] and r["frac_half_step"] < 0.01 if bf16 else r["ok"]
+        out["mvm"].append(r)
+    for kind in ("attention", "digital"):
+        diffs = [(c["out"].float() - p["out"].float()).abs() for c, p in
+                 zip(card.of(kind), tape.of(kind))]
+        out["other"][kind] = {
+            "calls": len(diffs), "max_abs": max((float(d.max()) for d in diffs), default=0.0),
+            "max_ulps": max((float((d / bf16_ulp(p["out"])).max()) for d, p in
+                             zip(diffs, tape.of(kind))), default=0.0) if bf16 else None}
+    drawn = [i for i, c in enumerate(tape.of("noise")) if c["out"] is not None]
+    out["draws"] = {"masks": len(card.masks), "masks_bitwise": card.masks == tape.masks,
+                    "noise_drawn": len(drawn), "noise_calls": len(card.of("noise")),
+                    "noise_values_drawn": sum(tape.of("noise")[i]["out"].numel() for i in drawn),
+                    "noise_bitwise": all(torch.equal(card.of("noise")[i]["out"],
+                                                     tape.of("noise")[i]["out"]) for i in drawn)}
+    return out
+
+
+def lm_step_check(torch, job: dict, gate: bool = True) -> dict:
+    """Phase 16 (b): tinyllama-1.1b at full width on LM_STEP's 2 layers, one
+    stage-1 and one stage-2 step in fp32 (TF32 off) and in bf16, on the
+    card (B1 and B3, the main path) and on the CPU locked to the card's
+    forward values (``training.lockstep``; the child process). Gates:
+    per stage-2 forward one B1 launch and one recompute per analog layer,
+    per forward one B3 launch and one recompute per layer, no plain
+    forward; every quant-noise mask bitwise card == CPU, and every weight-
+    noise draw the CPU made (LM_CPU_DRAW_MAX values or fewer); each B1
+    output within the ADC tolerance model of the CPU's plain training form
+    at the same inputs (in bf16 its flip share alone, see
+    ``lm_step_compare``); the loss within TRAIN_STEP_LOSS_RTOL of the
+    CPU's free forward (the draws alone taken from the card); each gradient
+    leaf within ``lockstep.GRAD_RTOL`` relative L2 of the CPU's; and the gate
+    itself fails every leaf zeroed or doubled (``lockstep.planted_faults``).
+
+    Why locked: a free-running stage-2 step is chaotic in its rounding
+    (the ``lockstep`` module docstring): free, the card's weight gradients
+    read 0.096 (fp32) and 0.14 (bf16) relative L2 from the CPU's, a range
+    leaf up to 1.09, whether through B1 and B3 or the plain versions."""
+    from repro_torch.training import lockstep
+
+    cfg, child, layers = job["cfg"], job["child"], job["cfg"].n_layers
+    t_wait = time.perf_counter()
+    try:
+        rc = child.wait(timeout=LM_CPU_TIMEOUT_S)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        job["log"].close()
+    waited = time.perf_counter() - t_wait
+    child_log = (job["work"] / "cpu_step.log").read_text()
+    check(rc == 0, f"LM step (b): the CPU child exited {rc}: {child_log[-2000:]}")
+    cpu = torch.load(job["work"] / "cpu_step.pt", weights_only=False)
+    out = {"cpu_seconds": time.perf_counter() - job["t0"], "waited_s": waited,
+           "cpu_log": child_log.strip(), "counts": {}, "steps": {},
+           "noise_same_across_dtypes": job["noise_same"]}
+    per = 7 * layers + 1
+    want = {1: {"b1": 0, "gemv": 0, "backward": 0, "b3": layers, "attention_backward": layers,
+                "plain": 0},
+            2: {"b1": per, "gemv": per, "backward": per, "b3": layers,
+                "attention_backward": layers, "plain": 0}}
+    failed = []
+    for (dtype, stage), k in job["steps"].items():
+        c, counts = cpu[dtype, stage], job["counts"][dtype, stage]
+        bound = lockstep.GRAD_RTOL[dtype]
+        fwd = lm_step_compare(job["card"][dtype, stage], c, dtype)
+        loss_rel = abs(k["loss"] - c["free_loss"]) / abs(c["free_loss"])
+        rel = {n: lockstep.rel_l2(k["grads"][n], g) for n, g in c["grads"].items()}
+        over = lockstep.over_bound(k["grads"], c["grads"], bound)
+        missed = lockstep.planted_faults(k["grads"], c["grads"], bound)
+        worst = {kind: max((v for n, v in rel.items() if lockstep.leaf_kind(n) == kind),
+                           default=0.0) for kind in ("weight", "range")}
+        mvm_ok = all(r["gate"] for r in fwd["mvm"])
+        st = {"loss": {"card": k["loss"], "cpu_free": c["free_loss"], "cpu_locked": c["loss"]},
+              "loss_rel": loss_rel, "seconds": {"card": k["s"], "cpu": c["s"],
+                                                "cpu_free": c["free_s"]},
+              "counts": counts, "forward": fwd, "grad_rel": rel, "worst": worst, "bound": bound,
+              "over": over, "faults_missed": missed}
+        out["steps"][f"{dtype} stage {stage}"] = st
+        if "free" in c:  # ``--lm-step-readings``
+            st["free"] = {"grad_rel": {n: lockstep.rel_l2(k["grads"][n], g)
+                                       for n, g in c["free"]["grads"].items()},
+                          "mvm_rel": [lockstep.rel_l2(a["out"], b) for a, b in
+                                      zip(job["card"][dtype, stage].of("mvm"), c["free"]["mvm"])]}
+            log(f"lm (b) readings: {dtype} stage {stage}, free step (draws alone locked), rel L2 "
+                f"card vs CPU: gradients {st['free']['grad_rel']}; each MVM's output in call "
+                f"order {[f'{v:.1e}' for v in st['free']['mvm_rel']]}")
+        if "threads2" in c:
+            st["threads2"] = {n: lockstep.rel_l2(c["threads2"][n], g) for n, g in c["grads"].items()}
+            log(f"lm (b) readings: {dtype} stage {stage}, the CPU's locked step on 2 threads vs "
+                f"{LM_CPU_THREADS}: {st['threads2']}")
+        log(f"lm (b): {dtype} stage {stage}, {cfg.name} at full width on {layers} layers, "
+            f"{LM_STEP['batch']} x {LM_STEP['seq']} tokens: loss card {k['loss']:.7f}, CPU free "
+            f"{c['free_loss']:.7f} (rel {loss_rel:.2e}), CPU locked {c['loss']:.7f}; counts "
+            f"{counts}; draws {fwd['draws']}; B1 vs the CPU's plain form at the same values, "
+            f"worst {max((r['max_steps'] for r in fwd['mvm']), default=0.0):.3f} steps, "
+            f"{max((r['frac_half_step'] for r in fwd['mvm']), default=0.0):.2e} beyond half a "
+            f"step, all within the model: {mvm_ok}; {fwd['other']}; s card {k['s']:.2f} CPU "
+            f"{c['s']:.2f}")
+        log(f"lm (b): {dtype} stage {stage} gradients, rel L2 card vs CPU locked (bound "
+            f"{bound}): " + ", ".join(f"{n} {v:.2e}" for n, v in rel.items())
+            + f"; over: {over or 'none'}; planted faults not caught: {missed}")
+        checks = [
+            (counts == want[stage], f"launches and recomputes {counts}, want {want[stage]}"),
+            (fwd["draws"]["masks_bitwise"] and fwd["draws"]["noise_bitwise"]
+             and fwd["draws"]["masks"] == (0 if stage == 1 else 2 * per)
+             and fwd["draws"]["noise_calls"] == (0 if stage == 1 else per)
+             and (stage == 1 or fwd["draws"]["noise_drawn"] > 0),
+             f"draws and masks card == CPU, bitwise: {fwd['draws']}"),
+            (len(fwd["mvm"]) == want[stage]["b1"] and mvm_ok,
+             "each B1 output within the ADC tolerance model of the CPU's"),
+            (loss_rel <= TRAIN_STEP_LOSS_RTOL, f"loss card vs CPU {loss_rel:.2e}"),
+            (not over, f"gradient leaves over their bound: {over}"),
+            (not missed["zeroed"] and not missed["doubled"],
+             f"the gradient gate misses a zeroed or doubled leaf: {missed}")]
+        failed += [f"{dtype} stage {stage}: {what}" for ok, what in checks if not ok]
+    log(f"lm (b): the CPU child took {out['cpu_seconds']:.1f} s, {waited:.1f} s of it waited "
+        f"for; {child_log.strip()}")
+    out["failed"] = failed
+    check(not gate or not failed, f"lm (b): {failed}")
+    return out
+
+
+def lm_step_readings(torch, seeds: list, path: Path) -> int:
+    """``--lm-step-readings SEEDS``: phase 16 (b) alone at each seed (the
+    params' and the batch's draws), its gates reported, not enforced; the
+    first seed's CPU child also takes the free step's gradients and the
+    locked stage-2 steps on 2 threads. Then one bf16 stage-2 step profiled
+    with the card's events only, the profiler's exit and its readback
+    timed. Writes ``path``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    phase_device(torch)
+    phase_build()
+    res = {"seeds": {}}
+    for i, seed in enumerate(seeds):
+        job = lm_step_start(torch, seed, readings=i == 0)
+        res["seeds"][seed] = lm_step_check(torch, job, gate=False)
+        log(f"lm (b) readings: seed {seed} failed gates: {res['seeds'][seed]['failed'] or 'none'}")
+    import dataclasses
+
+    from repro_torch import prng
+    from repro_torch.configs import get
+    from repro_torch.models import lm
+    from repro_torch.training import lockstep
+
+    cfg = dataclasses.replace(get(LM_ARCH), n_layers=LM_STEP["layers"])
+    params = lm.lm_init(prng.PRNGKey(0), cfg, device=DEV)
+    step = lambda: lm_step(torch, params, cfg, 2, lockstep.Tape())
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    wall_us = (t1 - t0) * 1e6
+    t2 = time.perf_counter()
+    raw = profile_summary(prof, wall_us=wall_us, dev=device_events(prof))
+    t3 = time.perf_counter()
+    parsed = profile_summary(prof, wall_us=wall_us)
+    t4 = time.perf_counter()
+    res["profile_readback"] = {"raw": raw, "events": parsed, "raw_s": t3 - t2,
+                               "events_s": t4 - t3, "torch": torch.__version__}
+    log(f"lm (b) readings: one profiled bf16 stage-2 step, its card events read raw and "
+        f"through events(): {res['profile_readback']}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["run"] = lm_train_run(torch)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(res, default=str))
+    return 0
+
+
+def lm_train_run(torch) -> dict:
+    """Phase 16 (c): tinyllama-1.1b at full width and depth through
+    ``launch.train``'s functions (``lm_setup(smoke=False)``,
+    ``run_two_stage``), LM_RUN's batch and steps, every step logged, with
+    asynchronous checkpoints into ``build/``; each step's B1 launches (by
+    design), B3 launches and both backward recomputes counted. Gates: every
+    stage-2 forward 155 keep-mask ``gemv`` launches and 155 recomputes,
+    none in stage 1; every forward 22 B3 launches and 22 recomputes; no
+    plain forward; finite losses; a resume from the final checkpoint runs
+    nothing and restores the params bitwise. Reports ms per step by stage
+    (host clock, median), one profiled step per stage (device kernels, B1's
+    and B3's share, idle share) and the peak memory above what earlier
+    phases hold."""
+    import shutil
+    import signal
+
+    from repro_torch import prng
+    from repro_torch import tree as tree_lib
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.data.pipeline import PipelineConfig, batch_at
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+    from repro_torch.training import optim
+    from repro_torch.training.loop import TrainConfig, run_two_stage, value_and_grad
+
+    ckpt = ROOT / "build" / "train_lm"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()  # earlier phases' tensors
+    torch.cuda.reset_peak_memory_stats()
+    params, loss_fn, batches = launch.lm_setup(LM_ARCH, False, LM_RUN["batch"], LM_RUN["seq"],
+                                               DEV)
+    tcfg = TrainConfig(stage1_steps=LM_RUN["stage1"], stage2_steps=LM_RUN["stage2"],
+                       ckpt_dir=str(ckpt), ckpt_every=100, log_every=1, **LM_TRAIN)
+    steps = []
+    reads = lambda: {"b1": kernel.analog_mvm.launches,
+                     "gemv": kernel.analog_mvm.design_launches["gemv"],
+                     "backward": ops.backward_calls, "b3": fa.flash_attention.launches,
+                     "attention_backward": ops.attention_backward_calls}
+    handler = signal.getsignal(signal.SIGTERM)  # run_two_stage installs its own
+    torch.cuda.synchronize()
+    reset_counts()
+    last = {"t": time.perf_counter(), **reads()}
+
+    def on_metrics(i, m):
+        now = time.perf_counter()  # the metrics' float() synced the step
+        r = reads()
+        steps.append({"step": i, "stage": m["stage"], "loss": m["loss"], "ms": (now - last["t"]) * 1e3,
+                      **{k: r[k] - last[k] for k in r}})
+        last.update(t=now, **r)
+
+    t0 = time.perf_counter()
+    try:
+        trained, _ = run_two_stage(loss_fn, params, batches, tcfg, on_metrics=on_metrics)
+    finally:
+        signal.signal(signal.SIGTERM, handler)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    plain = plain_calls()
+    n_layers, per = 22, LAUNCHES_PER_FORWARD
+    s1 = [r for r in steps if r["stage"] == 1]
+    s2 = [r for r in steps if r["stage"] == 2]
+    want = {1: dict(b1=0, gemv=0, backward=0, b3=n_layers, attention_backward=n_layers),
+            2: dict(b1=per, gemv=per, backward=per, b3=n_layers, attention_backward=n_layers)}
+    launches_ok = (len(s1) == LM_RUN["stage1"] and len(s2) == LM_RUN["stage2"]
+                   and all({k: r[k] for k in want[1]} == want[r["stage"]] for r in steps))
+    finite = all(math.isfinite(r["loss"]) for r in steps)
+    out = {"arch": LM_ARCH, "batch": LM_RUN["batch"], "seq": LM_RUN["seq"], "steps": steps,
+           "wall_s": wall, "plain_calls": plain, "held_bytes": held,
+           "peak_bytes_above_held": torch.cuda.max_memory_allocated() - held,
+           "b1_launches": sum(r["b1"] for r in s2), "b3_launches": sum(r["b3"] for r in steps),
+           # stage 1's second step also carries the host copy of the step-0
+           # checkpoint, and each stage's first step is cold
+           "ms_per_step": {"stage1": statistics.median(r["ms"] for r in s1[2:] or s1),
+                           "stage2": statistics.median(r["ms"] for r in s2[1:] or s2)},
+           "first_step_ms": {"stage1": s1[0]["ms"], "stage2": s2[0]["ms"]}}
+    log(f"lm (c): {LM_ARCH} at full width and depth, batch {LM_RUN['batch']} x {LM_RUN['seq']} "
+        f"tokens, {LM_RUN['stage1']} + {LM_RUN['stage2']} steps in {wall:.2f} s (with "
+        f"checkpoints); ms per step (median, host clock) stage 1 "
+        f"{out['ms_per_step']['stage1']:.1f}, stage 2 {out['ms_per_step']['stage2']:.1f} "
+        f"(first {s1[0]['ms']:.1f} / {s2[0]['ms']:.1f}); per step "
+        f"{[{k: r[k] for k in ('stage', 'b1', 'gemv', 'backward', 'b3', 'attention_backward')} for r in steps]}; "
+        f"plain forward calls {plain}; losses {[round(r['loss'], 4) for r in steps]}; peak "
+        f"memory {out['peak_bytes_above_held'] / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB "
+        "earlier phases hold")
+    check(launches_ok, f"lm (c): per step launches and recomputes, want {want}")
+    check(plain == 0, f"lm (c): no plain forward call on the card ({plain})")
+    check(finite, "lm (c): every loss finite")
+    # a resume from the final checkpoint: nothing runs, the params come back bitwise
+    t_resume = time.perf_counter()
+    try:
+        again, hist2 = run_two_stage(loss_fn, trained, batches, tcfg)
+    finally:
+        signal.signal(signal.SIGTERM, handler)
+    same = all(torch.equal(a, c) for a, c in zip(tree_lib.leaves(again), tree_lib.leaves(trained)))
+    out["resume"] = {"steps_run": len(hist2), "params_bitwise": same,
+                     "checkpoints": sorted(p.name for p in ckpt.iterdir())}
+    log(f"lm (c): resumed from {out['resume']['checkpoints']}: {len(hist2)} steps run, params "
+        f"bitwise the trained ones: {same}")
+    check(not hist2 and same, "lm (c): a resume from the final checkpoint runs nothing and "
+                              "restores the trained params bitwise")
+    del again
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t_profile = time.perf_counter()
+    out["seconds"] = {"train": wall, "resume": t_profile - t_resume}
+    # one step of each stage profiled (the trained params, batch 0)
+    b = batch_at(PipelineConfig(kind="lm", global_batch=LM_RUN["batch"], seq_len=LM_RUN["seq"],
+                                vocab=trained.embed["table"].shape[0]), 0)
+    batch = {k: torch.as_tensor(v, device=DEV) for k, v in b.items()}
+    key = prng.fold_in(prng.PRNGKey(0).to(DEV), LM_RUN["stage1"])
+    prof = {}
+    for stage, acfg in ((1, AnalogConfig()), (2, AnalogConfig().train(**LM_TRAIN))):
+        ocfg = optim.OptimizerConfig(lr=3e-3, total_steps=LM_RUN["stage2"], warmup=1)
+        state = optim.init(ocfg, trained)
+
+        def one_step():
+            _, grads = value_and_grad(lambda p: loss_fn(p, batch, acfg, key), trained)
+            optim.update(ocfg, trained, grads, state)
+
+        t_warm = time.perf_counter()
+        one_step()  # warm
+        torch.cuda.synchronize()
+        t_prof = time.perf_counter()
+        pr = profiled(torch, one_step, kernel="flash_attention", top=TRAIN_TOP_KERNELS,
+                      host_events=False)
+        pr["seconds"] = {"warm": t_prof - t_warm, "profiled": time.perf_counter() - t_prof}
+        if isinstance(pr["profile_device_ms"], float):
+            busy = max(pr["profile_device_ms"], 1e-9)
+            pr["b1_share_of_device"] = pr["profile_mvm_ms"] / busy
+            pr["b3_share_of_device"] = pr["profile_kernel_ms"] / busy
+        prof[f"stage{stage}"] = pr
+        del state
+    out["profile"] = prof
+    out["seconds"]["profile"] = time.perf_counter() - t_profile
+    out["peak_bytes_above_held"] = torch.cuda.max_memory_allocated() - held
+    for k, pr in prof.items():
+        log(f"lm (c): one {k} step profiled (profile_kernel_ms: B3, profile_mvm_ms: B1): {pr}")
+    log(f"lm (c): peak memory with the profiled steps {out['peak_bytes_above_held'] / 2**30:.2f} "
+        f"GiB above the {held / 2**30:.2f} GiB held; seconds {out['seconds']}")
+    del trained, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_serve_drift(torch) -> dict:
+    """Phase 16 (d): ``bench.pipeline``'s ``serve_drift_24h`` row on the card
+    (the scaled KWS trained 60 + 60 steps, 4 chips programmed at 25 s and
+    aged to 24 h). Gate: no programming event while aging (asserted inside
+    the row, and read from it). Reports top-1 agreement at 25 s and 24 h."""
+    from repro_torch.bench import pipeline as bench_pipeline
+
+    t0 = time.perf_counter()
+    row = bench_pipeline.drift_lifecycle_row(True, DEV)
+    got = re.search(r"top1_t25s=([-\d.]+)_top1_t24h=([-\d.]+)_drop=[-\d.]+_chips=(\d+)"
+                    r"_program_events=(-?\d+)$", row)
+    check(got is not None, f"lm (d): the row's format: {row}")
+    out = {"row": row, "seconds": time.perf_counter() - t0, "top1_t25s": float(got[1]),
+           "top1_t24h": float(got[2]), "chips": int(got[3]), "program_events": int(got[4])}
+    log(f"lm (d): {row} ({out['seconds']:.1f} s)")
+    check(out["program_events"] == 0, f"lm (d): aging reprogrammed a chip: {row}")
+    return out
+
+
+def lm_b3_timing(torch, gen) -> dict:
+    """B3's forward at LM_RUN's (rows, S), bf16 causal, tinyllama-1.1b's
+    heads: the kernel, the plain version and SDPA by CUDA-graph replay in
+    turns, beside the bound, times the 22 launches of a forward; and the
+    training form's forward and backward (the plain version's VJP,
+    recomputed) per launch, on the host clock to a synchronize."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    c = FA_HEADS
+    chunks = dict(q_chunk=c["q_chunk"], kv_chunk=c["kv_chunk"])
+    rows, s = LM_RUN["batch"], LM_RUN["seq"]
+    q, k, v = (torch.randn((rows, s, n, c["d"]), generator=gen, device=DEV).bfloat16()
+               for n in (c["h"], c["kv"], c["kv"]))
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    launches0 = fa.flash_attention.launches
+    run_k = lambda _: fa.flash_attention(q, k, v, causal=True, **chunks)
+    ms_k1 = time_ms(run_k, 20)
+    ms_p = time_ms(lambda _: flash_attention_ref(q, k, v, True, **chunks), 5)
+    ms_l = time_ms(lambda _: sdpa(qh, kh, vh, is_causal=True, enable_gqa=True), 20)
+    ms_k2 = time_ms(run_k, 20)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    g = torch.randn_like(q)
+
+    def fwd_bwd():
+        o = ops.flash_attention_ste(qg, kg, vg, causal=True, **chunks)
+        torch.autograd.grad(o, (qg, kg, vg), g)
+
+    back_ms = wall_ms(torch, fwd_bwd, 5)
+    fa.flash_attention.launches = launches0  # timing launches are not main-path launches
+    bound, bound_by = fa_bound(rows, s, c["h"], c["kv"], c["d"])
+    n = FA_LAUNCHES_PER_PREFILL
+    out = {"rows": rows, "S": s, "ms": n * min(ms_k1, ms_k2), "ms_readings": [ms_k1, ms_k2],
+           "plain_ms": n * ms_p, "library_ms": n * ms_l, "bound_ms": n * bound,
+           "bound_by": bound_by, "forward_backward_ms_per_launch": back_ms}
+    log(f"lm: B3 forward at {rows} x {s} tokens, bf16 causal, 22 launches a forward: kernel "
+        f"{out['ms']:.4f} ms ({ms_k1:.4f}/{ms_k2:.4f} a launch), plain {out['plain_ms']:.4f} ms, "
+        f"SDPA {out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms ({bound_by}); the "
+        f"training form's forward + recomputed backward {back_ms:.3f} ms a launch (host clock)")
+    return out
+
+
+def phase_lm_train(torch, gen, seed: int, accuracy: dict, b1_launched: set,
+                   fa_launched: set, flash: dict) -> dict:
+    """Phase 16: LM training on the card (see the module docstring): (b)'s
+    CPU child started first; (a) B1's bf16 training form at every LM
+    training shape; (d) ``serve_drift_24h``; (b) one step of each stage
+    card vs CPU; (c) tinyllama-1.1b trained at full depth through
+    the CLI's functions and resumed; then every B1 key and B3 shape the
+    phase launched checked (phases 3 and 8's rules), and both kernels'
+    training forms timed."""
+    res, laps = {}, {}
+    b1_before, fa_before = set(b1_launched), set(fa_launched)
+    t0 = time.perf_counter()
+
+    def lap(name: str) -> None:
+        laps[name] = time.perf_counter() - t0 - sum(laps.values())
+
+    job = lm_step_start(torch, seed)
+    lap("start")
+    try:
+        by_design = b1_by_design()
+        checked, failures = set(map(tuple, accuracy["checked"])), []
+        shapes = [(f"{name} M={m}", m, k, n) for m in (LM_STEP["batch"] * LM_STEP["seq"],
+                                                        LM_RUN["batch"] * LM_RUN["seq"])
+                  for name, k, n, _ in SHAPES]
+        shapes.append(("two tiles", 64, 2048, 96))
+        worst_ulps = 0.0
+        for name, m, k, n in shapes:
+            x = torch.randn((m, k), generator=gen, device=DEV).bfloat16()
+            w = (torch.randn((k, n), generator=gen, device=DEV) * k**-0.5).bfloat16()
+            r = b1_train_cases(torch, name, x, w, True, by_design, checked, failures)
+            worst_ulps = max(worst_ulps, r["unkept_ulps"])
+            b1_cases(torch, name, x, w, "gemv", True, False, by_design, checked, failures)
+        torch.cuda.synchronize()
+        accuracy["checked"] = sorted(checked)
+        res["a"] = {"shapes": [s[1:] for s in shapes], "worst": dict(by_design["gemv"]),
+                    "unkept_ulps": worst_ulps, "failures": len(failures),
+                    "s": time.perf_counter() - t0}
+        log(f"lm (a): B1's bf16 training form vs the plain training form at {len(shapes)} shapes "
+            f"(M, K, N) {[s[1:] for s in shapes]}, b_adc 4/6/8, with a p = 0.5 mask and without: "
+            f"worst {by_design['gemv']}, unkept values within {worst_ulps:.3f} output ulps, "
+            f"masks bitwise the CPU bridge's; out of tolerance: {failures[:5] or 'none'}")
+        check(not failures, f"lm (a): {len(failures)} B1 bf16 training-form cases out of "
+                            "tolerance")
+        lap("a")
+        res["drift"] = lm_serve_drift(torch)  # while the CPU child runs on
+        lap("d")
+        res["step"] = lm_step_check(torch, job)
+        lap("b")
+    finally:
+        if job["child"].poll() is None:
+            job["child"].kill()
+            job["child"].wait()
+        job["log"].close()
+    res["run"] = lm_train_run(torch)
+    lap("c")
+    keys = sorted(b1_launched - b1_before - set(map(tuple, accuracy["checked"])))
+    res["b1_checked_after"] = check_launched_b1(torch, gen, keys, accuracy, by_design)
+    checked_fa = {(r["rows"], r["S"], r["dtype"]) for r in flash["cases"]}
+    train_fa = {(LM_STEP["batch"], LM_STEP["seq"], "float32"),
+                (LM_STEP["batch"], LM_STEP["seq"], "bfloat16"),
+                (LM_RUN["batch"], LM_RUN["seq"], "bfloat16")}
+    check(train_fa <= fa_launched, f"lm: B3's training form launched at {sorted(train_fa)}")
+    res["b3_checked_after"] = check_launched_fa(
+        torch, gen, sorted((fa_launched - fa_before | train_fa) - checked_fa), flash)
+    res["b3_max_abs"] = max(r["max_abs"] for r in flash["cases"]
+                            if (r["rows"], r["S"], r["dtype"]) in train_fa)
+    res["by_design"] = by_design
+    lap("checks")
+    tokens = LM_RUN["batch"] * LM_RUN["seq"]
+    res["b1_timing"] = train_timing(
+        torch, gen, [(name, tokens, k, n, count) for name, k, n, count in SHAPES],
+        torch.bfloat16, f"one tinyllama-1.1b stage-2 forward at M = {tokens}", n_iter=10)
+    res["b3_timing"] = lm_b3_timing(torch, gen)
+    lap("timing")
+    res["seconds"] = laps
+    log(f"lm: seconds of phase 16's parts: { {k: round(v, 1) for k, v in laps.items()} }")
+    steps = res["step"]["steps"]
+    b1_of = lambda dtype: sum(s["counts"]["b1"] for n, s in steps.items() if n.startswith(dtype))
+    res["launches"] = {"b1": b1_of("bfloat16") + res["run"]["b1_launches"],
+                       "b1_fp32": b1_of("float32"),
+                       "b3": sum(s["counts"]["b3"] for s in steps.values())
+                       + res["run"]["b3_launches"]}
+    return res
+
+
+def lm_entries(lm: dict) -> list:
+    """The kernels line's entries of phase 16: B1's bf16 training form and
+    B3's training form, with the launches of the (b) and (c) runs."""
+    b1, b3 = lm["b1_timing"]["per_forward"], lm["b3_timing"]
+    tokens = LM_RUN["batch"] * LM_RUN["seq"]
+    return [{
+        "name": "analog_mvm.gemv.train.bf16",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/analog_mvm.cu",
+        "replaces": "src/repro/kernels/analog_mvm.py:41",
+        "launches": lm["launches"]["b1"],
+        "max_abs_err": lm["by_design"]["gemv"]["max_abs"],
+        "ms": b1["ms"], "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"],
+        "bound_by": b1["bound_by"], "library_ms": b1["library_ms"],
+        "per": f"one tinyllama-1.1b stage-2 forward at {tokens} tokens, bf16, p = 0.5 "
+               f"quant-noise masks: {b1['launches']} launches; plain: the plain training form; "
+               "library: torch.matmul of the same products; launches: the bf16 stage-2 "
+               "steps of phase 16 (b) and (c)",
+        "max_err_adc_steps": lm["by_design"]["gemv"]["max_steps"],
+        "pass": lm["a"]["failures"] == 0 and lm["b1_checked_after"]["failures"] == 0,
+    }, {
+        "name": "flash_attention.train",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:34",
+        "launches": lm["launches"]["b3"],
+        "max_abs_err": lm["b3_max_abs"],
+        "ms": b3["ms"], "plain_ms": b3["plain_ms"], "bound_ms": b3["bound_ms"],
+        "bound_by": b3["bound_by"], "library_ms": b3["library_ms"],
+        "per": f"the attention forwards of one tinyllama-1.1b training step at "
+               f"{LM_RUN['batch']} x {LM_RUN['seq']} tokens, bf16 causal: 22 launches "
+               "(library: scaled_dot_product_attention, is_causal, enable_gqa); the backward "
+               "is the plain version's VJP, recomputed; launches: phase 16 (b) and (c), both "
+               "stages",
+        "pass": lm["b3_checked_after"]["failures"] == 0,
+    }]
+
+
+def device_events(prof) -> list:
+    """(name, start us, end us) of each device event of a finished trace,
+    read from the profiler's raw results: no ``FunctionEvent`` is built."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
+def profile_summary(prof, kernel: str = "analog_mvm", wall_us=None, dev=None) -> dict:
     """Device time of one profiled step from the trace's device events
-    (kernels and copies): their busy union, the time of the kernels whose
-    name holds ``kernel``, the host wall of the step and the device's idle
+    (kernels and copies; ``dev``, as ``device_events`` gives them, in place
+    of the trace's ``events()``): their busy union, the time of the kernels
+    whose name holds ``kernel``, the host wall of the step (the host events'
+    span, or ``wall_us`` of a trace without them) and the device's idle
     share of it. 'not measured' when the profiler recorded no device
     activity."""
-    events = prof.events()
-    dev = [e for e in events if str(e.device_type).endswith("CUDA")]
-    host = [e for e in events if str(e.device_type).endswith("CPU")]
-    if not dev or not host:
+    host = []
+    if dev is None:
+        events = prof.events()
+        dev = [(e.name, e.time_range.start, e.time_range.end) for e in events
+               if str(e.device_type).endswith("CUDA")]
+        host = [e for e in events if str(e.device_type).endswith("CPU")]
+    if not dev or not (host or wall_us):
         return {k: "not measured" for k in (
             "profile_device_ms", "profile_kernel_ms", "profile_wall_ms",
             "profile_launches", "profile_idle_share", "profile_mvm_ms")}
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    spans = sorted((s, e) for _, s, e in dev)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, e in spans[1:]:
         if s > cur_e:
@@ -3551,9 +4304,9 @@ def profile_summary(prof, kernel: str = "analog_mvm") -> dict:
         else:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
-    mvm = sum(e.time_range.end - e.time_range.start for e in dev if kernel in e.name)
-    b1 = sum(e.time_range.end - e.time_range.start for e in dev if "analog_mvm" in e.name)
-    wall = max(e.time_range.end for e in host) - min(e.time_range.start for e in host)
+    mvm = sum(e - s for name, s, e in dev if kernel in name)
+    b1 = sum(e - s for name, s, e in dev if "analog_mvm" in name)
+    wall = wall_us or (max(e.time_range.end for e in host) - min(e.time_range.start for e in host))
     return {"profile_device_ms": round(busy / 1e3, 4),
             "profile_kernel_ms": round(mvm / 1e3, 4),
             "profile_mvm_ms": round(b1 / 1e3, 4),
@@ -3567,11 +4320,18 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "chip_smoke.json",
                     help="where the full JSON record goes")
+    ap.add_argument("--lm-cpu-step", nargs=2, type=Path, metavar=("SRC", "OUT"),
+                    help=argparse.SUPPRESS)  # phase 16 (b)'s CPU child (lm_cpu_step)
+    ap.add_argument("--lm-step-readings", type=lambda v: [int(x) for x in v.split(",")],
+                    metavar="SEEDS", help="run phase 16 (b) alone at these seeds (comma-separated), "
+                    "its gates reported, and write the readings to --out")
     ap.add_argument("--b2-parent", type=Path, default=None,
                     help="a directory holding a parent's decode_fused.cu, decode_rows.cu and "
                          "their headers: phase 7 times that B2 (8 slots and 1) and phase 10 "
                          "that attention row kernel in turns with this one")
     args = ap.parse_args(argv)
+    if args.lm_cpu_step:
+        return lm_cpu_step(*args.lm_cpu_step)
     # the drift lifecycle and resampling phases hold a second full-width
     # chip beside phase 4's: let the allocator grow segments in place
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -3588,6 +4348,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    if args.lm_step_readings:
+        return lm_step_readings(torch, args.lm_step_readings, args.out)
     t_start = time.perf_counter()
     phase_s = {}  # seconds of each phase, in order
 
@@ -3644,6 +4406,8 @@ def main(argv=None) -> int:
     lap("14 cnn")
     train = phase_train(torch, gen, args.seed, accuracy, b1_launched)
     lap("15 train")
+    lm = phase_lm_train(torch, gen, args.seed, accuracy, b1_launched, fa_launched, flash)
+    lap("16 LM train")
     log(f"seconds per phase: { {k: round(v, 1) for k, v in phase_s.items()} }")
     checked = {(r["rows"], r["S"], r["dtype"]) for r in flash["cases"]}
     unchecked = sorted(fa_launched - checked)
@@ -3733,7 +4497,7 @@ def main(argv=None) -> int:
                "every checked shape, both dtypes, causal and full",
         "max_err_bf16_ulps": flash["worst_bf16_ulps"],
         "pass": True,
-    }, cnn_entry(cnn), train_entry(train)] + [{
+    }, cnn_entry(cnn), train_entry(train, lm["launches"]["b1_fp32"]), *lm_entries(lm)] + [{
         "name": f"decode_rows.{name}",
         "route": "cuda",
         "source": "src/repro_torch/csrc/decode_rows.cu",
@@ -3771,7 +4535,8 @@ def main(argv=None) -> int:
            "serve": serve, "fused_check": fused_check, "fused_serve": fused_serve,
            "step_timing": step_timing, "flash_attention": flash, "paged_serve": paged_serve,
            "bridge": bridge, "rows": rows, "drift_lifecycle": lifecycle, "resample": resample,
-           "fleet": fleet, "cnn": cnn, "train": train, **kernels, "phase_s": phase_s,
+           "fleet": fleet, "cnn": cnn, "train": train, "lm_train": lm, **kernels,
+           "phase_s": phase_s,
            "seconds": time.perf_counter() - t_start}
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(out, indent=1))

@@ -7,12 +7,16 @@ programmed chip) and :func:`eval_accuracy` (the paper's N-chips protocol)
 
 With these a model trained on the card is programmed with
 ``compile_program(..., transforms=crossbar_transforms(cfg))`` and evaluated
-at 25 s and aged to 24 h, the paper's own flow. The benchmark rows that
-use them (Table 1, Fig. 7, Fig. 9, Appendix C, ``serve_drift_24h``) are not
-ported yet.
+at 25 s and aged to 24 h, the paper's own flow: the rows of Table 1, Fig.
+7, Fig. 9, Appendix C (``bench.table1_ablation``, ``fig7_drift``,
+``fig9_micronet``, ``appxC_heuristic``) and ``bench.pipeline``'s
+``serve_drift_24h``. :func:`bench_main` is their command line.
 """
 
 from __future__ import annotations
+
+import argparse
+import sys
 
 import numpy as np
 import torch
@@ -210,3 +214,23 @@ def time_call(fn, *args, iters: int = 3, clock: clock_lib.Clock = clock_lib.SYST
         fn(*args)
         sync()
     return (clock.now() - t0) / iters * 1e6
+
+
+def bench_main(run, doc: str, argv=None) -> int:
+    """Command line of a trained-model benchmark: ``--fast`` (the default,
+    the reference's reduced protocol) or ``--full``, and ``--device``
+    (default ``cuda``); prints ``run``'s rows, then the wall seconds on
+    stderr."""
+    ap = argparse.ArgumentParser(description=doc.splitlines()[0])
+    ap.add_argument("--fast", action="store_true",
+                    help="the reduced protocol (also the default)")
+    ap.add_argument("--full", action="store_true", help="the complete protocol")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    if args.fast and args.full:
+        ap.error("--fast and --full are mutually exclusive")
+    t0 = clock_lib.SYSTEM.now()
+    for r in run(fast=not args.full, device=resolve_device(args.device)):
+        print(r, flush=True)
+    print(f"wall_s={clock_lib.SYSTEM.now() - t0:.1f}", file=sys.stderr)
+    return 0

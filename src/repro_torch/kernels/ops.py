@@ -15,6 +15,14 @@ with the quantized values, passed straight through the rounding, the clip
 boundaries gating the range gradients (the paper's Sec. 4.2 rule). The
 recompute is counted in ``backward_calls``, apart from the plain version's
 forward ``calls``.
+
+:func:`flash_attention_ste` is the prefill attention's training form. The
+reference's Pallas kernel is forward only; it differentiates its XLA
+``chunked_attention`` instead. Here the forward is
+``kernels.flash_attention.flash_attention`` (B3 on a card, the plain
+version on the CPU) and the backward recomputes the plain version
+(``ref.flash_attention_plain``) under autograd on the saved q, k and v and
+returns its VJP, counted in ``attention_backward_calls``.
 """
 
 from __future__ import annotations
@@ -26,12 +34,15 @@ import torch
 
 from repro_torch.kernels import analog_mvm as kernel
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import analog_mvm_plain, analog_mvm_ref
+from repro_torch.kernels import flash_attention as attention_kernel
+from repro_torch.kernels.ref import analog_mvm_plain, analog_mvm_ref, flash_attention_plain
 
 Tensor = torch.Tensor
 
 #: backward recomputes of the plain training form since process start
 backward_calls = 0
+#: backward recomputes of the plain prefill attention since process start
+attention_backward_calls = 0
 
 
 def analog_mvm(
@@ -126,3 +137,49 @@ def analog_mvm_ste(
         out_scale = torch.tensor(float(out_scale), dtype=torch.float32, device=x.device)
     return _AnalogMVM.apply(x, w, r_dac, r_adc, out_scale, keep, bits, tile_rows,
                             per_tile_adc)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the prefill-attention kernel's wrapper; backward: the VJP of
+    its plain version, recomputed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_chunk, kv_chunk):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = (causal, q_chunk, kv_chunk)
+        return attention_kernel.flash_attention(
+            q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, q_chunk, kv_chunk = ctx.opts
+        build.bump(sys.modules[__name__], "attention_backward_calls")
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+            o = flash_attention_plain(*qkv, causal, q_chunk=q_chunk, kv_chunk=kv_chunk)
+            wrt = [t for t, n in zip(qkv, need) if n]
+            got = iter(torch.autograd.grad(o, wrt, g))
+        return (*(next(got) if n else None for n in need), None, None, None)
+
+
+def flash_attention_ste(
+    q: Tensor,
+    k: Tensor,
+    v: Tensor,
+    *,
+    causal: bool = True,
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+) -> Tensor:
+    """Prefill attention with a gradient: q (B, S, H, D), k and v (B, S, Kv,
+    D) as ``kernels.flash_attention.flash_attention`` takes them (see the
+    module docstring).
+
+    Memory: the recompute holds every (q chunk, kv chunk) block's f32
+    scores and probabilities of one layer until its VJP is taken -- a
+    (B, Kv, G, q_chunk, kv_chunk) block is B x 16.8 MB at tinyllama-1.1b's
+    512/1024 chunks -- and frees them when that layer's backward ends;
+    nothing of the forward's blocks is kept between forward and backward.
+    """
+    return _FlashAttention.apply(q, k, v, causal, q_chunk, kv_chunk)

@@ -22,8 +22,9 @@ quant-noise ``keep`` mask and rounds straight-through, so autograd of it is
 the reference's VJP (``kernels.ops``' STE function differentiates
 :func:`analog_mvm_plain`, the same body uncounted). The module also holds the plain
 versions of the other kernels: :func:`decode_fused_ref` (the fused decode
-step) and :func:`flash_attention_ref` (the prefill attention), each with
-its own ``calls`` counter.
+step) and :func:`flash_attention_ref` (the prefill attention; its body
+:func:`flash_attention_plain` uncounted, for the attention's training
+form), each with its own ``calls`` counter.
 """
 
 from __future__ import annotations
@@ -237,6 +238,22 @@ def flash_attention_ref(
     kv_chunk: int = 1024,
     q_offset: int = 0,
 ) -> Tensor:
+    """:func:`flash_attention_plain`, counted in ``flash_attention_ref.calls``."""
+    flash_attention_ref.calls += 1
+    return flash_attention_plain(q, k, v, causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                 q_offset=q_offset)
+
+
+def flash_attention_plain(
+    q: Tensor,
+    k: Tensor,
+    v: Tensor,
+    causal: bool = True,
+    *,
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+    q_offset: int = 0,
+) -> Tensor:
     """Plain version of the prefill-attention kernel (``csrc/flash_attention.cu``):
     online-softmax attention over (q_chunk, kv_chunk) blocks, the port of the
     reference's ``models.attention.chunked_attention`` (the chunks default
@@ -248,9 +265,9 @@ def flash_attention_ref(
     and add exact zeros; p is cast to v's dtype before PV; m, l and acc
     stay f32; the output is ``acc / max(l, 1e-30)``. ``kv_chunk`` is never
     clamped to the sequence, so the outputs at real positions are bitwise
-    independent of right-padding.
+    independent of right-padding. Differentiable: the training form's
+    backward (``kernels.ops.flash_attention_ste``) recomputes it, uncounted.
     """
-    flash_attention_ref.calls += 1
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = d**-0.5

@@ -1,10 +1,11 @@
-"""Program-phase steps of serving, port of the unsharded half of
+"""Program-phase and training steps, port of the unsharded half of
 ``repro.launch.steps``.
 
 :func:`program_for_serving` programs a chip for a serving deployment;
 :func:`refresh_program` is what the refresh policy calls to rewrite a
-drifted chip from its source weights. Sharded programming is the
-distribution slice's work (queue A item 13).
+drifted chip from its source weights; :func:`make_train_step` is the LM's
+training step, with microbatch gradient accumulation. Sharded programming
+and training are the distribution slice's work (queue A item 13).
 """
 
 from __future__ import annotations
@@ -13,9 +14,15 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch import prng
+from repro_torch import tree as tree_lib
 from repro_torch.core import engine
 from repro_torch.core import pcm as pcm_lib
 from repro_torch.core.analog import AnalogConfig
+from repro_torch.models import lm as lm_lib
+from repro_torch.models.common import ModelConfig
+from repro_torch.training import optim as optim_lib
+from repro_torch.training.loop import value_and_grad
 
 
 def program_for_serving(
@@ -49,3 +56,53 @@ def refresh_program(
         t_seconds=pcm_lib.T_C,
         chip_id=program.chip_id,
     )
+
+
+def make_train_step(
+    cfg: ModelConfig,
+    analog_cfg: AnalogConfig,
+    opt_cfg: optim_lib.OptimizerConfig,
+    accum_steps: int = 1,
+):
+    """(params, opt_state, batch, rng) -> (params, opt_state, metrics), the
+    reference's step.
+
+    The step's key is ``fold_in(rng, opt_state.step)``; the forward draws
+    its noise from it only when ``analog_cfg.needs_rng``. ``accum_steps >
+    1`` splits every batch leaf into (accum_steps, B / accum_steps, ...)
+    microbatches, run in order with the same noise key each, and sums
+    their gradients in f32 from zeros before dividing by ``accum_steps``;
+    the metrics then hold the mean ``loss`` only (no ``ppl_proxy``), as the
+    reference's do. Activation memory scales with the microbatch.
+    """
+
+    def loss_for(p, batch, noise_rng):
+        return lm_lib.lm_loss(p, batch, analog_cfg, cfg, rng=noise_rng)
+
+    def train_step(params, opt_state, batch, rng):
+        step_rng = prng.fold_in(rng, int(opt_state.step))
+        noise_rng = step_rng if analog_cfg.needs_rng else None
+
+        if accum_steps <= 1:
+            (_, metrics), grads = value_and_grad(loss_for, params, batch, noise_rng)
+        else:
+            micro = tree_lib.tree_map(
+                lambda x: x.reshape((accum_steps, x.shape[0] // accum_steps) + x.shape[1:]),
+                batch,
+            )
+            grads = tree_lib.tree_map(
+                lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+            loss_sum = torch.zeros((), dtype=torch.float32, device=opt_state.step.device)
+            for i in range(accum_steps):
+                mb = tree_lib.tree_map(lambda x: x[i], micro)
+                (loss, _), g = value_and_grad(loss_for, params, mb, noise_rng)
+                grads = tree_lib.tree_map(torch.add, grads, g)
+                loss_sum = loss_sum + loss
+            grads = tree_lib.tree_map(lambda g: g / accum_steps, grads)
+            metrics = {"loss": loss_sum / accum_steps}
+
+        params, opt_state, opt_metrics = optim_lib.update(opt_cfg, params, grads, opt_state)
+        # sorted keys, as the reference's jitted step returns its dict
+        return params, opt_state, dict(sorted({**metrics, **opt_metrics}.items()))
+
+    return train_step

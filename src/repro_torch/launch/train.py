@@ -1,22 +1,21 @@
 """Training launcher of the port: ``python -m repro_torch.launch.train
---arch analognet-kws [--device cuda]``, counterpart of
-``repro.launch.train``.
+--arch <id> [--device cuda]``, counterpart of ``repro.launch.train``.
 
 Runs the paper's two-stage method (``training.loop.run_two_stage``) on one
-of the paper's CNNs at its published widths (``configs.get``), weights from
-``cnn_init(PRNGKey(0))`` through the RNG bridge and the synthetic KWS-style
-task of ``data.pipeline``, on ``--device`` (default ``cuda``; ``cpu`` runs
-the plain versions of the kernels). Each logged step prints one JSON line
-with the reference CLI's keys; ``--ckpt-dir`` checkpoints asynchronously
-and resumes from the newest checkpoint there.
+of the paper's CNNs at its published widths (``configs.get``), or on an LM
+-- its reduced smoke config by default, its full size with ``--full`` --
+with weights from ``*_init(PRNGKey(0))`` through the RNG bridge, over the
+synthetic tasks of ``data.pipeline`` (the KWS-style task for a CNN, the
+token stream of ``--batch`` x ``--seq`` for an LM), on ``--device``
+(default ``cuda``; ``cpu`` runs the plain versions of the kernels). Each
+logged step prints one JSON line with the reference CLI's keys;
+``--ckpt-dir`` checkpoints asynchronously and resumes from the newest
+checkpoint there.
 
 Examples:
   python -m repro_torch.launch.train --arch analognet-kws --stage1 150 --stage2 150
-  python -m repro_torch.launch.train --arch analognet-kws --device cpu --stage1 2 --stage2 2 --batch 4
-
-The LM archs are refused: LM training (``lm_loss``, the train step, a
-training form of the attention kernel) is the next slice of the port, and
-with it the reference CLI's LM flags (``--full``, ``--seq``).
+  python -m repro_torch.launch.train --arch tinyllama-1.1b --full --batch 4 --stage1 50 --stage2 50
+  python -m repro_torch.launch.train --arch tinyllama-1.1b --device cpu --stage1 3 --stage2 2 --batch 2 --seq 16
 """
 
 from __future__ import annotations
@@ -28,8 +27,21 @@ from typing import Optional
 from repro_torch import configs, prng
 from repro_torch.data.pipeline import PipelineConfig, iterate
 from repro_torch.device import resolve_device
-from repro_torch.models import analognet
+from repro_torch.models import analognet, lm
 from repro_torch.training.loop import TrainConfig, run_two_stage
+
+
+def lm_setup(arch: str, smoke: bool, batch: int, seq: int, device="cuda"):
+    """(params, loss_fn, batches) of the LM ``arch``: its smoke config, or
+    the full size with ``smoke=False``."""
+    cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
+    params = lm.lm_init(prng.PRNGKey(0), cfg, device=device)
+    pipe = PipelineConfig(kind="lm", global_batch=batch, seq_len=seq, vocab=cfg.vocab)
+
+    def loss_fn(p, b, acfg, rng):
+        return lm.lm_loss(p, b, acfg, cfg, rng=rng)
+
+    return params, loss_fn, iterate(pipe)
 
 
 def cnn_setup(arch: str, batch: int, device="cuda"):
@@ -55,7 +67,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", required=True, choices=sorted(configs.ALL_ARCHS))
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain versions)")
+    ap.add_argument("--full", action="store_true",
+                    help="an LM's full-size config (the smoke config without it)")
     ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--stage1", type=int, default=100)
     ap.add_argument("--stage2", type=int, default=100)
     ap.add_argument("--eta", type=float, default=0.1)
@@ -69,13 +84,12 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[list[str]] = None) -> None:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.arch not in configs.CNN_ARCHS:
-        ap.error(f"--arch {args.arch}: training an LM is not ported yet (the next slice "
-                 "of the port: lm_loss, the LM train step and a training form of the "
-                 "attention kernel); the CNN archs train: "
-                 f"{', '.join(sorted(configs.CNN_ARCHS))}")
     device = resolve_device(args.device)
-    params, loss_fn, batches = cnn_setup(args.arch, args.batch, device)
+    if args.arch in configs.CNN_ARCHS:
+        params, loss_fn, batches = cnn_setup(args.arch, args.batch, device)
+    else:
+        params, loss_fn, batches = lm_setup(args.arch, not args.full, args.batch, args.seq,
+                                            device)
     tcfg = TrainConfig(
         stage1_steps=args.stage1,
         stage2_steps=args.stage2,

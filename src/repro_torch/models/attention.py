@@ -24,6 +24,7 @@ import torch
 from repro_torch import prng
 from repro_torch.core.analog import AnalogCtx, linear_apply, linear_init
 from repro_torch.kernels import decode_rows
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ref import NEG_INF, flash_attention_ref
 from repro_torch.models.common import ModelConfig, rope
@@ -87,10 +88,16 @@ def chunked_attention(
     positions are bitwise independent of right-padding. The dense prefill's
     case (causal, ``q_offset == 0``, Sq == Sk) goes to the prefill-attention
     kernel (``kernels.flash_attention``: the Hopper kernel on a CUDA tensor,
-    its plain version on the CPU); every other case runs the plain version
+    its plain version on the CPU) -- through its training form
+    (``kernels.ops.flash_attention_ste``: the same forward, the plain
+    version's VJP backward) while autograd records and q, k or v needs a
+    gradient; every other case runs the plain version
     (``kernels.ref.flash_attention_ref``).
     """
     if causal and q_offset == 0 and q.shape[1] == k.shape[1]:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return kernel_ops.flash_attention_ste(q, k, v, causal=True, q_chunk=q_chunk,
+                                                  kv_chunk=kv_chunk)
         return flash_attention(q, k, v, causal=True, q_chunk=q_chunk, kv_chunk=kv_chunk)
     return flash_attention_ref(
         q, k, v, causal, q_chunk=q_chunk, kv_chunk=kv_chunk, q_offset=q_offset

@@ -8,6 +8,8 @@ Python loop (eager; no scan), each group reading views of the stacked
 leaves. Every projection is an analog linear layer: under a compiled
 program's ``pcm_programmed`` config each one is a programmed MVM.
 
+:func:`lm_loss` is the training loss (next-token cross-entropy).
+
 Caches: ``(group caches, tail caches)``. The *stacked* layout holds one
 ``(n_groups, ...)`` buffer per leaf; the *list* layout (decode, and the
 serving engine's per-slot cache) holds one :class:`KVCache` per group, or
@@ -200,6 +202,14 @@ def lm_forward(
     ``last_index`` ((B,) int, with ``last_token_only``) picks each row's
     position. ``mvm`` replaces the execute-phase MVM for this call (see
     ``core.analog.AnalogCtx``).
+
+    Training: without a cache the forward is differentiable (the attention
+    through B3's training form, the analog MVMs of ``analog_train``
+    through B1's). ``cfg.remat`` is not applied: the reference wraps each
+    group in ``jax.checkpoint``, which changes no value, and the port keeps
+    every group's activations for the backward instead: tinyllama-1.1b at
+    full depth, 4 x 128 tokens, peaked 41.0 GiB with its fp32 params,
+    gradients and Adam moments on an H100 (``chip_smoke.py`` phase 16).
     """
     period = _check_cfg(cfg)
     if rng is not None:  # draws land where the params live
@@ -467,3 +477,44 @@ def free_cache_slot_paged(cache: tuple, slot: int, pages) -> tuple:
         dst.table[slot].zero_()
         dst.length[slot] = 0
     return cache
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def lm_loss(
+    params: LMParams,
+    batch: dict,
+    analog_cfg: AnalogConfig,
+    cfg: ModelConfig,
+    rng: Optional[Tensor] = None,
+    *,
+    mvm: Optional[MvmFn] = None,
+) -> tuple[Tensor, dict]:
+    """Mean next-token cross-entropy of :func:`lm_forward` (no cache) on
+    ``batch`` ({"tokens", "labels"[, "mask"]}) -> (loss, {"loss",
+    "ppl_proxy"}), the reference's ``lm_loss`` for the dense family.
+
+    The logits go to f32; the label's logit is gathered where the reference
+    contracts with a one-hot (one nonzero term: the same value and the same
+    gradient); a ``mask`` weights each position, its sum clamped at 1.
+    ``mvm`` is :func:`lm_forward`'s.
+    """
+    logits, _ = lm_forward(params, batch, analog_cfg, cfg, rng=rng, mvm=mvm)
+    logits = logits.float()
+    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = lse - ll
+    mask = batch.get("mask")
+    if mask is None:
+        loss = nll.mean()
+    else:
+        mask = torch.as_tensor(mask, device=nll.device)
+        while mask.dim() < nll.dim():
+            mask = mask[..., None]
+        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    metrics = {"loss": loss, "ppl_proxy": torch.exp(torch.clamp(loss, max=20.0))}
+    return loss, metrics

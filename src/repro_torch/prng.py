@@ -105,12 +105,45 @@ def fold_in(key: Tensor, data: int) -> Tensor:
     return torch.stack([b1, b2])
 
 
+def _flat_bits(key: Tensor, start: int, stop: int) -> Tensor:
+    """The bits of a draw's flat counters ``start`` to ``stop`` (1-D)."""
+    k1, k2 = _check_key(key)
+    idx = torch.arange(start, stop, dtype=torch.int64, device=key.device)
+    b1, b2 = threefry2x32(k1, k2, idx >> 32, _u32(idx))
+    return b1 ^ b2
+
+
 def bits(key: Tensor, shape: Shape) -> Tensor:
     """``jax.random.bits`` (uint32): int64 tensor of uint32 values."""
-    k1, k2 = _check_key(key)
-    c1, c2 = _iota_2x32(_shape(shape), key.device)
-    b1, b2 = threefry2x32(k1, k2, c1, c2)
-    return b1 ^ b2
+    shape = _shape(shape)
+    return _flat_bits(key, 0, math.prod(shape)).reshape(shape)
+
+
+#: a CPU draw runs in slices of this many counters, so each slice's int64
+#: temporaries stay in the caches (measured 5x faster than one pass over
+#: 4 M values); a value depends only on its counter, so the bits are the same
+_CPU_SLICE = 1 << 18
+
+
+def _sliced(n: int, device, part) -> Tensor:
+    """``part(start, stop)`` (a 1-D result) over [0, n): one call on a card
+    or for ``n <= _CPU_SLICE``, else on the CPU slice by slice."""
+    if torch.device(device).type != "cpu" or n <= _CPU_SLICE:
+        return part(0, n)
+    first = part(0, _CPU_SLICE)
+    out = torch.empty(n, dtype=first.dtype)
+    out[:_CPU_SLICE] = first
+    for start in range(_CPU_SLICE, n, _CPU_SLICE):
+        stop = min(start + _CPU_SLICE, n)
+        out[start:stop] = part(start, stop)
+    return out
+
+
+def _draw(key: Tensor, shape: tuple, values) -> Tensor:
+    """``values`` (an elementwise map of the bits) over a draw's counters
+    (:func:`_sliced`)."""
+    return _sliced(math.prod(shape), key.device,
+                   lambda start, stop: values(_flat_bits(key, start, stop))).reshape(shape)
 
 
 # ---------------------------------------------------------------------------
@@ -124,8 +157,19 @@ def fma(a: Tensor, b: Tensor, c) -> Tensor:
     The product of two f32 values is exact in f64; their sum with ``c`` is
     rounded to f64 and then to f32, so it is first made round-to-odd (the
     f64 sum's error is recovered exactly by TwoSum): a round-to-odd f64
-    value rounds to the nearest f32 exactly as the exact sum does.
+    value rounds to the nearest f32 exactly as the exact sum does. Large
+    CPU operands go slice by slice, as a CPU draw does.
     """
+    if a.device.type != "cpu" or max(a.numel(), b.numel()) <= _CPU_SLICE:
+        return _fma(a, b, c)
+    c = c if isinstance(c, Tensor) else torch.tensor(_f32(c), dtype=torch.float32)
+    a, b, c = torch.broadcast_tensors(a, b, c)
+    flat = [t.reshape(-1) for t in (a, b, c)]
+    return _sliced(a.numel(), a.device,
+                   lambda start, stop: _fma(*(t[start:stop] for t in flat))).reshape(a.shape)
+
+
+def _fma(a: Tensor, b: Tensor, c) -> Tensor:
     a64, b64 = a.double(), b.double()
     c64 = c.double() if isinstance(c, Tensor) else torch.tensor(
         float(torch.tensor(c, dtype=torch.float32)), dtype=torch.float64,
@@ -247,25 +291,24 @@ def erf_inv(x: Tensor) -> Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _unit_floats(key: Tensor, shape: tuple) -> Tensor:
-    """Uniform floats in [0, 1): 23 random mantissa bits under exponent 0."""
-    b = (bits(key, shape) >> 9) | 0x3F800000
-    return b.to(torch.int32).view(torch.float32) - 1.0
+def _uniform_of(b: Tensor, minval, maxval) -> Tensor:
+    """Uniform floats on [minval, maxval) from bits: 23 random mantissa bits
+    under exponent 0 give [0, 1), then one f32 FMA."""
+    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=b.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=b.device)
+    return torch.maximum(lo, fma(f, (hi - lo).expand(f.shape), lo))
 
 
 def uniform(key: Tensor, shape: Shape = (), minval=0.0, maxval=1.0) -> Tensor:
     """``jax.random.uniform`` (float32) on [minval, maxval)."""
-    shape = _shape(shape)
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
-    f = _unit_floats(key, shape)
-    return torch.maximum(lo, fma(f, (hi - lo).expand(shape), lo))
+    return _draw(key, _shape(shape), lambda b: _uniform_of(b, minval, maxval))
 
 
 def bernoulli(key: Tensor, p: float = 0.5, shape: Shape = ()) -> Tensor:
     """``jax.random.bernoulli`` (bool): ``uniform(key, shape) < p`` in f32,
     as JAX draws it (mode ``'low'``)."""
-    return uniform(key, shape) < _f32(p)
+    return _draw(key, _shape(shape), lambda b: _uniform_of(b, 0.0, 1.0) < _f32(p))
 
 
 _NORMAL_LO = -0.99999994  # np.nextafter(-1, 0) in f32
@@ -315,7 +358,7 @@ def normal_erf_inv(key: Tensor, shape: Shape = ()) -> Tensor:
     two constants into one factor."""
     if key.device.type == "cuda":
         return _normal_kernel(key, _shape(shape), scaled=False)
-    return erf_inv(uniform(key, shape, _NORMAL_LO, 1.0))
+    return _draw(key, _shape(shape), lambda b: erf_inv(_uniform_of(b, _NORMAL_LO, 1.0)))
 
 
 def normal(key: Tensor, shape: Shape = ()) -> Tensor:

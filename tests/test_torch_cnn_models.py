@@ -156,10 +156,12 @@ def test_pipeline_bench_rows():
     assert got[:6] == _reference_pipeline_rows(jpb)
     names = [r.split(",")[0] for r in got[6:]]
     assert names == ["serve_percall_pcm", "serve_programmed_pcm", "serve_programmed_pcm_b4",
-                     "serve_programmed_pcm_b6", "serve_programmed_pcm_b8"]
+                     "serve_programmed_pcm_b6", "serve_programmed_pcm_b8", "serve_drift_24h"]
     params = jan.cnn_init(jax.random.PRNGKey(0), J_KWS_BENCH)
     want_sweep = [r.split(",")[2] for r in jpb._bitwidth_sweep_rows(params, J_KWS_BENCH, 1)]
-    assert [r.split(",")[2] for r in got[8:]] == want_sweep
+    assert [r.split(",")[2] for r in got[8:11]] == want_sweep
+    # the trained-model row (held against the reference's in test_torch_bench_trained.py)
+    assert got[11].endswith("_chips=4_program_events=0")
 
 
 def _reference_pipeline_rows(jpb) -> list[str]:

@@ -1,7 +1,8 @@
 """Port hygiene: the PyTorch package stands alone.
 
-* No file of ``src/repro_torch`` (nor ``chip_smoke.py``) imports ``jax``,
-  ``jaxlib`` or the reference package ``repro`` -- an AST scan.
+* No file of ``src/repro_torch`` (nor ``chip_smoke.py``, nor an
+  ``examples/*_torch.py``) imports ``jax``, ``jaxlib`` or the reference
+  package ``repro`` -- an AST scan.
 * Every port module imports in a fresh interpreter where ``jax`` and
   ``repro`` cannot be imported at all.
 * On a host without a card, entry points called without ``device=`` raise
@@ -24,7 +25,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+            + sorted((REPO / "examples").glob("*_torch.py")))
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -92,6 +94,8 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
                               ServingConfig(n_slots=1, s_max=8)),
         lambda: train.main(["--arch", "analognet-kws", "--stage1", "1", "--stage2", "1"]),
         lambda: train.cnn_setup("analognet-kws", 4),
+        lambda: train.lm_setup("tinyllama-1.1b", True, 2, 16),
+        lambda: train.main(["--arch", "tinyllama-1.1b", "--stage1", "1", "--stage2", "1"]),
         lambda: train_model(KWS_BENCH, stage1=1, stage2=1),
     ]
     for call in calls:

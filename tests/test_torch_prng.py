@@ -151,3 +151,22 @@ def test_keys_live_on_their_device_and_reject_bad_shapes():
         prng.split(prng.split(k, 3))
     with pytest.raises(ValueError, match="int32"):
         prng.PRNGKey(2**31)
+
+
+def test_cpu_slices_bitwise_with_a_partial_last_slice():
+    """A large CPU draw or ``fma`` runs in ``_CPU_SLICE``-value slices: at a
+    size that is no multiple of it, ``bernoulli`` and ``uniform`` are
+    bitwise JAX's and a broadcast ``fma`` is bitwise one unsliced pass."""
+    shape = (3, 2, 70_001)
+    assert np.prod(shape) % prng._CPU_SLICE and np.prod(shape) > prng._CPU_SLICE
+    jk, tk = jax.random.PRNGKey(5), prng.PRNGKey(5)
+    want = np.asarray(jax.random.bernoulli(jk, 0.5, shape))
+    assert np.array_equal(want, prng.bernoulli(tk, 0.5, shape).numpy())
+    want = np.asarray(jax.random.uniform(jk, shape, jnp.float32, -2.0, 3.0))
+    assert np.array_equal(want, prng.uniform(tk, shape, -2.0, 3.0).numpy())
+    a = torch.rand((3, 1, 70_001), generator=torch.Generator().manual_seed(0))
+    b = prng.normal(tk, shape)
+    c = torch.rand((2, 1), generator=torch.Generator().manual_seed(1))
+    whole = prng._fma(*torch.broadcast_tensors(a, b, c))
+    assert torch.equal(prng.fma(a, b, c), whole)
+    assert torch.equal(prng.fma(a, b, 0.1), prng._fma(a.expand(shape), b, 0.1))
