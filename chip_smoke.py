@@ -18,8 +18,8 @@ end the run with a non-zero exit:
    ``analog_mvm_ref`` at tinyllama-1.1b's projection shapes and every M
    the serving phases launch it at (``b1_served_ms``: 1, 2, 4, 8, 16, 32,
    64, 128, 256), b_adc in {4, 6, 8}, f32 and bf16, per-tile ADC both
-   ways, DAC both ways, through the design ``analog_mvm`` picks (and, for
-   bf16 without the DAC, the CUDA-core design too), under
+   ways, DAC both ways, through the design ``analog_mvm`` picks (and the
+   CUDA-core ``gemv`` design too, where it is not the one picked), under
    ``tests/test_kernels.py``'s tolerance model, the worst error per
    design; the tensor-core rows bitwise independent of M, padding rows and
    design; time the kernel, its plain version, ``torch.matmul`` (yardstick
@@ -113,17 +113,22 @@ end the run with a non-zero exit:
    AnalogNet-VWW from ``cnn_init(--seed)``, programmed on the card through
    their crossbar transforms with their mappings (b_adc 8, t = 25 s), each
    chip bitwise the CPU bridge's; served through ``cnn_apply`` (every conv
-   and the FC one fp32 B1 launch through the ``gemv`` design) as an
+   and the FC one fp32 B1 launch through the ``tiled`` design) as an
    always-on stream of single-image calls and one sweep batch
    (``CNN_TRAFFIC``: KWS 32 and 256, VWW 16 and 64), each layer's ADC
    outputs and the logits held against the plain version on the card;
+   images of the sweep served alone bitwise their rows of the sweep;
    aged to 24 h (no programming event) and at b_adc 4, the sweep again;
    ms per inference, B1's launches and device share, the mappings'
-   utilization; B1 checked at every shape launched and timed per forward
-   beside the plain version, torch.matmul and the bound;
+   utilization; the stream and the sweep served again in turns through
+   the ``gemv`` design (``cnn_serve_turns``); B1 checked at every shape
+   launched and timed per forward
+   beside the plain version, torch.matmul and the bound, and in turns
+   with its parent, the ``gemv`` design (``--b1-parent DIR``: a parent's
+   ``analog_mvm.cu`` built from DIR; else this tree's);
 15. the paper's two-stage training on the card (``phase_train``):
-   (a) B1's training form -- a p = 0.5 quant-noise keep mask in the gemv
-   epilogue -- against the plain training form at every shape the
+   (a) B1's training form -- a p = 0.5 quant-noise keep mask in the tiled
+   design's epilogue -- against the plain training form at every shape the
    training below launches and a two-tile K = 2048, b_adc 4/6/8, with and
    without a mask (masks bitwise the CPU bridge's); (b) one stage-2 step of
    AnalogNet-KWS at full width, batch 64, card vs CPU: draws and masks
@@ -131,21 +136,23 @@ end the run with a non-zero exit:
    and the gradients within their bounds (the range leaves against the
    same step through the plain version on the card); (c) AnalogNet-KWS
    trained through ``launch/train.py``'s functions, 30 + 30 steps at batch
-   64 with asynchronous checkpoints, exactly 5 B1 launches and 5 backward
-   recomputes per stage-2 step, none in stage 1, no plain forward call,
+   64 with asynchronous checkpoints, exactly 5 B1 launches (all tiled) and
+   5 backward recomputes per stage-2 step, none in stage 1, no plain
+   forward call,
    the last stage-1 loss below the first, then a resume from the final
    checkpoint that runs nothing and restores the params bitwise; ms per
    step, one profiled step per stage, peak memory; (d) AnalogNet-VWW, 2 +
    2 steps at batch 16, the same gates; (e) the trained KWS programmed
    through its crossbar transforms and evaluated at 25 s and 24 h beside
    its digital accuracy (reported); B1's training form timed per stage-2
-   forward;
+   forward, in turns with its parent as in phase 14;
 16. LM training on the card (``phase_lm_train``): (a) B1's bf16 training
-   form -- the keep mask in the ``gemv`` epilogue -- against the plain
+   form -- the keep mask in the prefill design's epilogue -- against the plain
    training form at tinyllama-1.1b's projection shapes at M = 64 and 512
    (the tokens of (b) and (c)) and a two-tile K = 2048, b_adc 4/6/8, with
    and without a p = 0.5 mask, under phase 3's bf16 tolerance, unkept
-   values within an output ulp, masks bitwise the CPU bridge's; (b) one
+   values within an output ulp, masks bitwise the CPU bridge's, and an
+   all-ones mask bitwise the same launch without one; (b) one
    stage-1 and one stage-2 step of tinyllama-1.1b at full width on 2
    layers, 1 x 64 tokens, fp32 and bf16, on the card and on the CPU
    locked to the card's forward values (``training.lockstep``; the CPU
@@ -159,13 +166,14 @@ end the run with a non-zero exit:
    no programming event while aging; (c) tinyllama-1.1b at full width and
    depth trained through ``launch/train.py``'s functions, 3 + 3 steps at
    batch 4 x 128 tokens with asynchronous checkpoints: every stage-2
-   forward 155 keep-mask ``gemv`` launches and 155 recomputes, every
+   forward 155 keep-mask ``prefill`` launches and 155 recomputes, every
    forward 22 B3 launches (its training form) and 22 recomputes, no plain
    forward, finite losses, a resume from the final checkpoint that runs
    nothing and restores the params bitwise; ms per step, one profiled
    step per stage (B1's and B3's share, idle share), peak memory; then
    every B1 key and B3 shape the phase launched checked as phases 3 and 8
-   check theirs, and both training forms timed per forward;
+   check theirs, and both training forms timed per forward (B1's in turns
+   with its parent, the ``gemv`` design);
 17. report: a JSON line ``{"kernels": [...]}`` (launches from the serving
    phases, the fleet, the CNNs and the training runs) and, last, the
    device line ``{"ok": true, "device": {...}}``.
@@ -381,6 +389,18 @@ def time_ms(fn, n_iter: int) -> float:
     return start.elapsed_time(end) / n_iter
 
 
+def turns_ms(run_new, run_old, n_iter: int) -> dict:
+    """A redesign against its parent in turns by ``time_ms``: old, new, new,
+    old. ``run_old`` launches B1's CUDA-core ``gemv`` design, the parent of
+    the tiled design and of the prefill design's training form (a parent's
+    build through ``_launch``'s ``lib``, or this tree's own)."""
+    o1 = time_ms(run_old, n_iter)
+    n1, n2 = time_ms(run_new, n_iter), time_ms(run_new, n_iter)
+    o2 = time_ms(run_old, n_iter)
+    return {"ms": min(n1, n2), "ms_readings": [n1, n2], "gemv_ms": min(o1, o2),
+            "gemv_readings": [o1, o2]}
+
+
 # --------------------------------------------------------------- phases
 
 
@@ -536,8 +556,10 @@ def b1_cases(torch, name, x, w, design, per_tile, dac, by_design, checked, failu
 
 
 def b1_train_cases(torch, name, x, w, per_tile, by_design, checked, failures) -> dict:
-    """B1's training form -- the ``gemv`` design with a p = 0.5 quant-noise
-    ``keep`` mask drawn by the RNG bridge on the card -- against the plain
+    """B1's training form -- the design ``analog_mvm`` picks for a keep
+    mask (``tiled`` in fp32, ``prefill`` in bf16 above 16 rows) with a p =
+    0.5 quant-noise ``keep`` mask drawn by the RNG bridge on the card --
+    against the plain
     training form (``analog_mvm_ref(..., keep=...)``) on x and w (fp32 or
     bf16) at b_adc 4, 6 and 8: the kept (ADC'd) values under ``compare``'s
     tolerance model (in bf16 with its one output ulp); where one
@@ -556,6 +578,7 @@ def b1_train_cases(torch, name, x, w, per_tile, by_design, checked, failures) ->
     (m, k), n = x.shape, w.shape[1]
     t = n_tiles(k, 1024, per_tile)
     bf16 = x.dtype == torch.bfloat16
+    design = kernel.select_design(x.dtype, m, k, n, per_tile_adc=per_tile, keep=True)
     worst, worst_ulps, masks_ok = 0.0, 0.0, True
     for bits in (4, 6, 8):
         key = prng.fold_in(prng.PRNGKey(m * 7919 + k), bits)
@@ -582,17 +605,18 @@ def b1_train_cases(torch, name, x, w, per_tile, by_design, checked, failures) ->
             else:
                 unkept_ok = unkept <= 1e-5
         worst = max(worst, unkept)
-        rec = by_design["gemv"]
+        rec = by_design[design]
         rec["cases"] += 1
         rec["flips"] += r["flips"]
         rec["elements"] += r["elements"]
         for key_ in ("max_abs", "max_steps", "frac_half_step"):
             rec[key_] = max(rec[key_], r[key_])
-        checked.add(b1_key(m, k, n, x.dtype, "gemv") + (1024, per_tile, False, True))
+        checked.add(b1_key(m, k, n, x.dtype, design) + (1024, per_tile, False, True))
         if not r["ok"] or not unkept_ok:
             failures.append((name, m, str(x.dtype), "keep", bits, per_tile, r, unkept))
     check(masks_ok, f"{name}: the card's quant-noise masks are the CPU bridge's, bitwise")
-    return {"unkept_rel": worst, "unkept_ulps": worst_ulps, "masks_bitwise": masks_ok}
+    return {"unkept_rel": worst, "unkept_ulps": worst_ulps, "masks_bitwise": masks_ok,
+            "design": design}
 
 
 def check_launched_b1(torch, gen, keys: list, accuracy: dict, by_design=None) -> dict:
@@ -602,6 +626,8 @@ def check_launched_b1(torch, gen, keys: list, accuracy: dict, by_design=None) ->
     phase serves; the CNNs' fp32 shapes; a training launch with a keep
     mask through ``b1_train_cases``); the keys merged into phase 3's
     record, the worst errors into ``by_design`` (phase 3's by default)."""
+    from repro_torch.kernels import analog_mvm as kernel
+
     by_design = accuracy["by_design"] if by_design is None else by_design
     failures = []
     checked = set(map(tuple, accuracy["checked"]))
@@ -612,7 +638,9 @@ def check_launched_b1(torch, gen, keys: list, accuracy: dict, by_design=None) ->
         x = torch.randn((m, k), generator=gen, device=DEV).to(dt)
         w = (torch.randn((k, n), generator=gen, device=DEV) * k**-0.5).to(dt)
         if keep:
-            check(not dac and design == "gemv", f"B1 training launch at {key}")
+            check(not dac and design == kernel.select_design(dt, m, k, n, per_tile_adc=per_tile,
+                                                             keep=True),
+                  f"B1 training launch at {key}")
             b1_train_cases(torch, f"{k}x{n}", x, w, per_tile, by_design, checked, failures)
         else:
             b1_cases(torch, f"{k}x{n}", x, w, design, per_tile, dac, by_design, checked,
@@ -976,6 +1004,24 @@ def b1_designs(prefills: list, decode_steps: int) -> dict:
         out[design(rows)] += 1
     out[design(8)] += LAUNCHES_PER_FORWARD * decode_steps
     return out
+
+
+def b1_only(design: str, n: int) -> dict:
+    """B1 launches by design: ``n`` through ``design``, none through the
+    others."""
+    from repro_torch.kernels import analog_mvm as kernel
+
+    return {d: n if d == design else 0 for d in kernel.DESIGNS}
+
+
+def train_design(dtype, m: int) -> str:
+    """The design B1's training form (a keep mask, no DAC) runs at M rows
+    of the shapes the tensor cores take (tinyllama-1.1b's, the two-tile
+    case): ``tiled`` in fp32; in bf16 ``prefill`` above 16 rows, ``gemv``
+    up to."""
+    from repro_torch.kernels import analog_mvm as kernel
+
+    return kernel.select_design(dtype, m, 2048, 2048, keep=True)
 
 
 def plain_calls() -> int:
@@ -1547,18 +1593,19 @@ def b2_breakdown(best: dict, n_layers: int, per: int) -> dict:
             / layer1}
 
 
-def build_parent(src_dir: Path):
-    """Start ``nvcc`` on a parent's ``decode_fused.cu`` and ``decode_rows.cu``
-    (with their headers beside them) into ``build/repro_torch/``, with the
-    port's own flags; returns a function that waits for both and loads
-    them as ``kernels.decode_fused._fn`` and ``kernels.decode_rows._fn``
-    do: ``{"b2": B2's function table, "rows": the attention row kernel's}``."""
+def build_parent(src_dir: Path, names=("decode_fused", "decode_rows")):
+    """Start ``nvcc`` on a parent's ``names`` sources (``decode_fused.cu`` and
+    ``decode_rows.cu``, or ``analog_mvm.cu``, with their headers beside them)
+    into ``build/repro_torch/``, with the port's own flags; returns a
+    function that waits for them and loads them as the wrappers' ``_fn`` do:
+    ``{"b2": B2's function table, "rows": the attention row kernel's}``, or
+    ``{"b1": the gemv design's}``."""
     import ctypes
 
     from repro_torch.kernels import build
 
     procs = {}
-    for name in ("decode_fused", "decode_rows"):
+    for name in names:
         out = build.BUILD_DIR / f"{name}_parent.so"
         out.parent.mkdir(parents=True, exist_ok=True)
         procs[name] = out, subprocess.Popen(
@@ -1574,6 +1621,11 @@ def build_parent(src_dir: Path):
             getattr(lib, f"{name}_error_string").argtypes = [ctypes.c_int]
             getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        if "analog_mvm" in libs:
+            fn = libs["analog_mvm"].analog_mvm_launch
+            fn.argtypes = [P] * 3 + [I] * 4 + [P] * 3 + [F] * 3 + [I] * 6 + [P] * 2
+            fn.restype = I
+            return {"b1": (fn, libs["analog_mvm"].analog_mvm_error_string)}
         lib = libs["decode_fused"]
         fn, mb = lib.decode_fused_launch, lib.decode_fused_max_blocks
         fn.argtypes = [P, P, P, I, I, P]
@@ -2940,13 +2992,13 @@ def cnn_serve(torch, prog, cfg, stream, sweep) -> dict:
             "b1_designs": dict(kernel.analog_mvm.design_launches), "plain_calls": plain_calls()}
 
 
-def cnn_timing(torch, gen, cfg, batches) -> dict:
+def cnn_timing(torch, gen, cfg, batches, parent=None) -> dict:
     """B1 at every programmed-MVM shape of one forward of ``cfg`` at each
-    batch, fp32 (TF32 off): the kernel, its plain version and torch.matmul,
-    timed by CUDA-graph replay in turns (kernel, plain, library, kernel),
-    summed over the forward beside the bound (``mvm_bound`` at fp32 over
-    the CUDA cores' peak). The weights stay in L2 as in serving (the whole
-    model is ~1.3 MB)."""
+    batch, fp32 (TF32 off): the kernel (the tiled design) in turns with its
+    parent, the ``gemv`` design (``turns_ms``), then its plain version and
+    torch.matmul, timed by CUDA-graph replay, summed over the forward beside
+    the bound (``mvm_bound`` at fp32 over the CUDA cores' peak). The weights
+    stay in L2 as in serving (the whole model is ~1.3 MB)."""
     from repro_torch.core import engine
     from repro_torch.core.quant import QuantSpec
     from repro_torch.kernels import analog_mvm as kernel
@@ -2962,31 +3014,38 @@ def cnn_timing(torch, gen, cfg, batches) -> dict:
             x = torch.randn((m, k), generator=gen, device=DEV)
             w = torch.randn((k, n), generator=gen, device=DEV) * k**-0.5
             n_iter = 20
-            run_k = lambda i: kernel.analog_mvm(x, w, r_adc=r_adc, out_scale=out_scale, b_adc=8)
+            kw = dict(r_adc=r_adc, out_scale=out_scale, b_adc=8)
+            run_k = lambda i: kernel.analog_mvm(x, w, **kw)
+            run_g = lambda i: kernel._launch("gemv", x, w, lib=parent, **kw)
             run_p = lambda i: engine.tile_matmul_quant(x, w, r_adc, spec, 1024, True, out_scale)
             run_l = lambda i: torch.matmul(x, w)
-            ms_k1, ms_p, ms_l, ms_k2 = (time_ms(run_k, n_iter), time_ms(run_p, n_iter),
-                                        time_ms(run_l, n_iter), time_ms(run_k, n_iter))
+            t = turns_ms(run_k, run_g, n_iter)
+            ms_p, ms_l = time_ms(run_p, n_iter), time_ms(run_l, n_iter)
             bound = mvm_bound(m, k, n, esz=4, peak=FP32_OPS)
-            rows.append({"layer": name, "M": m, "K": k, "N": n, "ms": min(ms_k1, ms_k2),
-                         "ms_readings": [ms_k1, ms_k2], "plain_ms": ms_p, "library_ms": ms_l,
+            rows.append({"layer": name, "M": m, "K": k, "N": n, **t,
+                         "design": kernel.select_design(x.dtype, m, k, n),
+                         "plain_ms": ms_p, "library_ms": ms_l,
                          "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
                          "flops": bound["flops"], "bytes": bound["bytes"]})
-        tot = {key: sum(r[key] for r in rows) for key in ("ms", "plain_ms", "library_ms",
-                                                          "bound_ms", "flops", "bytes")}
+        tot = {key: sum(r[key] for r in rows) for key in ("ms", "gemv_ms", "plain_ms",
+                                                          "library_ms", "bound_ms", "flops",
+                                                          "bytes")}
         t_ops, t_bytes = tot["flops"] / FP32_OPS, tot["bytes"] / HBM_BYTES_PER_S
         tot["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
         tot["launches"] = len(rows)
         out[batch] = {"per_forward": tot, "layers": rows}
         log(f"cnn: B1 {cfg.name} at {batch} image(s), one forward ({len(rows)} launches, fp32 "
-            f"gemv): kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, torch.matmul "
-            f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms ({tot['bound_by']}, "
-            f"{tot['bound_ms'] / tot['ms']:.1%} of bound); per layer (ms kernel/bound): "
-            + ", ".join(f"{r['layer']} {r['ms']:.4f}/{r['bound_ms']:.4f}" for r in rows))
+            f"tiled): kernel {tot['ms']:.4f} ms, its parent (gemv, in turns"
+            f"{', the parent build' if parent else ''}) {tot['gemv_ms']:.4f} ms, plain "
+            f"{tot['plain_ms']:.4f} ms, torch.matmul {tot['library_ms']:.4f} ms, bound "
+            f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}, {tot['bound_ms'] / tot['ms']:.1%} of "
+            "bound); per layer (ms kernel/gemv/matmul/bound): "
+            + ", ".join(f"{r['layer']} {r['ms']:.4f}/{r['gemv_ms']:.4f}/{r['library_ms']:.4f}/"
+                        f"{r['bound_ms']:.4f}" for r in rows))
     return out
 
 
-def phase_cnn(torch, gen, seed: int, accuracy: dict, launched: set) -> dict:
+def phase_cnn(torch, gen, seed: int, accuracy: dict, launched: set, parent=None) -> dict:
     """The paper's CNN path at full width (the models its headline numbers
     come from): AnalogNet-KWS and AnalogNet-VWW (``configs.get``), weights
     from ``cnn_init(prng.PRNGKey(seed))``, each programmed on the card
@@ -2997,19 +3056,25 @@ def phase_cnn(torch, gen, seed: int, accuracy: dict, launched: set) -> dict:
       mapping equal to the packing of the model's own layer table; the
       mappings' utilization printed;
     - serving through ``cnn_apply``, every conv and the FC a B1 launch (the
-      fp32 ``gemv`` design): the always-on stream (single-image calls) and
+      fp32 ``tiled`` design): the always-on stream (single-image calls) and
       one sweep batch (``CNN_TRAFFIC``), counted (main path: one launch per
-      layer per call, all ``gemv``, no plain version), then held against
+      layer per call, all ``tiled``, no plain version), then held against
       the plain version on the card (``cnn_forward_check``);
+    - images of the sweep served alone: their logits bitwise their rows of
+      the sweep's (``cnn_alone_vs_sweep``);
     - the chip aged to 24 h (``age_program``: no programming event), the
       sweep served again and held;
     - the sweep at b_adc 4 on a chip programmed at 4 bits, held;
     - one sweep forward and one single-image call profiled: B1's share of
       the device time and the device's idle share;
+    - the stream and the sweep served in turns through the tiled design
+      and its parent, the ``gemv`` design (``cnn_serve_turns``), host
+      clock;
     - B1 at every key this phase added to ``launched`` (the serving
       phases' record, ``record_b1_shapes``) checked as phase 3 checks
       (``check_launched_b1``, the worst errors in a record of the phase's
-      own), and timed per forward beside the bound (``cnn_timing``)."""
+      own), and timed per forward beside the bound and, in turns, its
+      parent (``cnn_timing``)."""
     from repro_torch import prng
     from repro_torch.configs import get
     from repro_torch.core import crossbar, engine
@@ -3018,7 +3083,7 @@ def phase_cnn(torch, gen, seed: int, accuracy: dict, launched: set) -> dict:
     from repro_torch.models import analognet as an
 
     res, before = {"models": {}}, set(launched)
-    total = {"gemv": 0, "prng": 0}
+    total = {"tiled": 0, "prng": 0}
     for arch, n_stream, n_sweep in CNN_TRAFFIC:
         cfg = get(arch)
         per = len(cfg.convs) + 1
@@ -3067,11 +3132,10 @@ def phase_cnn(torch, gen, seed: int, accuracy: dict, launched: set) -> dict:
             events = engine.program_event_count()
             r = cnn_serve(torch, chip, cfg, stream_x, sweep)
             r["program_events"] = engine.program_event_count() - events
-            r["launches_expected"] = {d: per * r["calls"] if d == "gemv" else 0
-                                      for d in kernel.DESIGNS}
+            r["launches_expected"] = b1_only("tiled", per * r["calls"])
             r["check"] = cnn_forward_check(torch, chip, cfg, sweep)
             runs[name] = r
-            total["gemv"] += r["b1_designs"]["gemv"]
+            total["tiled"] += r["b1_designs"]["tiled"]
             c = r["check"]
             log(f"cnn: {arch} {name}: stream {r['stream_ms_per_inference']:.3f} ms per "
                 f"inference (median of {stream_x.shape[0]} calls), sweep of {n_sweep} in "
@@ -3086,13 +3150,17 @@ def phase_cnn(torch, gen, seed: int, accuracy: dict, launched: set) -> dict:
                 f"argmax agreement {c['argmax_agreement']:.4f} (ties only: "
                 f"{c['argmax_differs_only_at_ties']})")
             check(r["b1_designs"] == r["launches_expected"] and r["plain_calls"] == 0,
-                  f"cnn {arch} {name}: every layer of every call one gemv B1 launch, no plain "
+                  f"cnn {arch} {name}: every layer of every call one tiled B1 launch, no plain "
                   "version")
             check(r["program_events"] == 0, f"cnn {arch} {name}: serving programs nothing")
             check(c["ok"], f"cnn {arch} {name}: kernel forward within the plain version's "
                            f"tolerance: {c}")
 
         serve_and_check("t25s_b8", prog, stream)
+        alone = cnn_alone_vs_sweep(torch, prog, cfg, sweep)
+        log(f"cnn: {arch} images of the sweep served alone: {alone}")
+        check(alone["bitwise"], f"cnn {arch}: an image's logits alone are its logits in the "
+                                f"sweep of {n_sweep}, bitwise: {alone}")
         events = engine.program_event_count()
         t0 = time.perf_counter()
         aged = engine.age_program(prog, CNN_AGES[1])
@@ -3118,8 +3186,15 @@ def phase_cnn(torch, gen, seed: int, accuracy: dict, launched: set) -> dict:
                 pr["b1_share_of_device"] = pr["profile_kernel_ms"] / max(pr["profile_device_ms"],
                                                                          1e-9)
             log(f"cnn: {arch} one {name} forward profiled: {pr}")
-        res["models"][arch] = {"program_s": program_s, "cpu_program_s": cpu_s,
+        turns = cnn_serve_turns(torch, prog, cfg, stream, sweep, parent)
+        log(f"cnn: {arch} served in turns, the tiled design against its parent (gemv"
+            f"{', the parent build' if parent else ''}) on the same chip and images, host "
+            f"clock: stream {turns['stream_ms']} ms per inference (median of "
+            f"{stream.shape[0]} calls), sweep of {n_sweep} {turns['sweep_ms']} ms (median of "
+            f"{CNN_SWEEP_REPS} warm calls); each [first, second] of gemv, tiled, tiled, gemv")
+        res["models"][arch] = {"serve_turns": turns, "program_s": program_s, "cpu_program_s": cpu_s,
                                "bridge": same, "mapping": util, "age_s": age_s,
+                               "alone_vs_sweep": alone,
                                "runs": runs, "profile": prof, "stream": n_stream,
                                "sweep": n_sweep}
         del prog, params, stream, sweep
@@ -3128,43 +3203,138 @@ def phase_cnn(torch, gen, seed: int, accuracy: dict, launched: set) -> dict:
     res["b1_check"] = {**check_launched_b1(torch, gen, keys, accuracy, by_design),
                        "by_design": by_design}
     log(f"cnn: B1 vs plain at the {len(keys)} keys the phase launched: worst "
-        f"{by_design['gemv']}")
-    check(bool(keys) and all(key[4] == "gemv" and key[3] == "float32" for key in keys),
-          "cnn: every B1 launch fp32 through the gemv design")
-    res["timing"] = {arch: cnn_timing(torch, gen, get(arch), (1, n_sweep))
+        f"{by_design['tiled']}")
+    check(bool(keys) and all(key[4] == "tiled" and key[3] == "float32" for key in keys),
+          "cnn: every B1 launch fp32 through the tiled design")
+    res["timing"] = {arch: cnn_timing(torch, gen, get(arch), (1, n_sweep), parent)
                      for arch, _, n_sweep in CNN_TRAFFIC}
     res["launches"] = total
-    check(total["gemv"] > 0 and total["prng"] > 0,
-          "cnn: the path launched B1 (gemv) and the normal draw")
+    check(total["tiled"] > 0 and total["prng"] > 0,
+          "cnn: the path launched B1 (tiled) and the normal draw")
     return res
 
 
+@contextlib.contextmanager
+def b1_through(design: str, lib=None, keep_only: bool = False):
+    """Within the block, B1 launches made through the model's entry
+    (``kernels.ops.analog_mvm``, which ``engine.execute_mvm`` and the STE
+    function look up at call time) run ``design`` through ``_launch``
+    (``lib``: a parent's ``gemv`` build), uncounted by the serving phases'
+    record (``record_b1_shapes``); with ``keep_only``, only the bf16
+    training-form launches (a keep mask), the others left as they are."""
+    import torch
+
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.kernels import ops
+
+    entry = ops.analog_mvm
+
+    def through(x, w, *, r_adc, r_dac=None, out_scale=1.0, bits=8, tile_rows=1024,
+                per_tile_adc=True, keep=None):
+        if keep_only and (keep is None or x.dtype != torch.bfloat16):
+            return entry(x, w, r_adc=r_adc, r_dac=r_dac, out_scale=out_scale, bits=bits,
+                         tile_rows=tile_rows, per_tile_adc=per_tile_adc, keep=keep)
+        y = kernel._launch(design, x.reshape(-1, x.shape[-1]).contiguous(), w.contiguous(),
+                           r_adc=r_adc, r_dac=r_dac, out_scale=out_scale, b_adc=bits,
+                           tile_rows=tile_rows, per_tile_adc=per_tile_adc,
+                           keep=None if keep is None else keep.contiguous(),
+                           lib=lib if design == "gemv" else None)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+
+    ops.analog_mvm = through
+    try:
+        yield
+    finally:
+        ops.analog_mvm = entry
+
+
+def cnn_serve_turns(torch, prog, cfg, stream, sweep, parent=None) -> dict:
+    """The always-on stream (one image a call) and the sweep's warm calls
+    served in turns through the tiled design and its parent, the ``gemv``
+    design (``b1_through``: the same host path to the launch, only the
+    design differs): gemv, tiled, tiled, gemv, each call timed on the host
+    clock to its synchronize as ``cnn_serve`` times it. Returns, per
+    design, the two runs' medians: ms per stream inference and ms per sweep
+    call."""
+    from repro_torch.models import analognet as an
+
+    def timed(x) -> float:
+        t0 = time.perf_counter()
+        an.cnn_apply(prog.params, x, prog.cfg, cfg)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def run(design) -> tuple:
+        with b1_through(design, parent):
+            timed(stream[:1])
+            timed(sweep)  # warm-up at both shapes
+            return (statistics.median(timed(stream[i:i + 1]) for i in range(stream.shape[0])),
+                    statistics.median(timed(sweep) for _ in range(CNN_SWEEP_REPS)))
+
+    torch.cuda.synchronize()
+    o1, n1, n2, o2 = run("gemv"), run("tiled"), run("tiled"), run("gemv")
+    return {"stream_ms": {"gemv": [o1[0], o2[0]], "tiled": [n1[0], n2[0]]},
+            "sweep_ms": {"gemv": [o1[1], o2[1]], "tiled": [n1[1], n2[1]]}}
+
+
+def cnn_alone_vs_sweep(torch, prog, cfg, sweep, images=(0, 1, 100, -1)) -> dict:
+    """A few images of ``sweep`` served alone (one image a ``cnn_apply``
+    call, as the always-on stream runs) against their rows of the whole
+    sweep's logits and of each layer's B1 outputs, bitwise: the tiled
+    design's rows depend on neither M nor its tile shape."""
+    from repro_torch.core.analog import AnalogCtx
+    from repro_torch.models import analognet as an
+
+    p = prog.params
+    ctx = AnalogCtx(cfg=prog.cfg, gain_s=p["gain_s"])
+    full = an.cnn_apply(p, sweep, prog.cfg, cfg)
+    layers_full, h = [], sweep
+    for spec in cfg.convs:
+        h = an.conv_apply(p[spec.name], h, spec, ctx)
+        layers_full.append(h)
+    out = {"images": [], "logits_equal": 0, "layers_equal": 0}
+    for i in images:
+        i = i % sweep.shape[0]
+        x = sweep[i:i + 1]
+        out["images"].append(i)
+        out["logits_equal"] += int(torch.equal(an.cnn_apply(p, x, prog.cfg, cfg), full[i:i + 1]))
+        same, h = True, x
+        for spec, hf in zip(cfg.convs, layers_full):
+            h = an.conv_apply(p[spec.name], h, spec, ctx)
+            same &= torch.equal(h, hf[i:i + 1])
+        out["layers_equal"] += int(same)
+    out["bitwise"] = out["logits_equal"] == out["layers_equal"] == len(images)
+    return out
+
+
 def cnn_entry(cnn: dict) -> dict:
-    """The kernels line's B1 CNN entry: the fp32 gemv design's launches on
+    """The kernels line's B1 CNN entry: the fp32 tiled design's launches on
     the CNN phase's main-path runs, its worst error at the keys launched,
     and its time per AnalogNet-KWS forward at the sweep batch (the other
-    forwards beside it)."""
+    forwards beside it), its parent's (``gemv_ms``) in turns."""
     arch, _, n_sweep = CNN_TRAFFIC[0]
     kws = cnn["timing"][arch][n_sweep]["per_forward"]
     return {
-        "name": "analog_mvm.gemv",
+        "name": "analog_mvm.tiled",
         "route": "cuda",
-        "source": "src/repro_torch/csrc/analog_mvm.cu",
+        "source": "src/repro_torch/csrc/analog_mvm_f32.cu",
         "replaces": "src/repro/kernels/analog_mvm.py:41",
-        "launches": cnn["launches"]["gemv"],
-        "max_abs_err": cnn["b1_check"]["by_design"]["gemv"]["max_abs"],
+        "launches": cnn["launches"]["tiled"],
+        "max_abs_err": cnn["b1_check"]["by_design"]["tiled"]["max_abs"],
         "ms": kws["ms"],
+        "gemv_ms": kws["gemv_ms"],
         "plain_ms": kws["plain_ms"],
         "bound_ms": kws["bound_ms"],
         "bound_by": kws["bound_by"],
         "library_ms": kws["library_ms"],
         "per": f"one AnalogNet-KWS forward at {n_sweep} images, fp32 with TF32 off: "
                f"{kws['launches']} launches (4 convs as im2col GEMMs, the FC); library: "
-               "torch.matmul of the same products; launches from the CNN phase's serving "
-               "runs; forwards: each model at 1 image and at its sweep batch",
+               "torch.matmul of the same products; gemv_ms: the CUDA-core gemv design (this "
+               "design's parent, analog_mvm.cu) on the same inputs, in turns; launches from the "
+               "CNN phase's serving runs; forwards: each model at 1 image and at its sweep batch",
         "forwards": {f"{a}@{b}": t["per_forward"] for a, by in cnn["timing"].items()
                      for b, t in by.items()},
-        "max_err_adc_steps": cnn["b1_check"]["by_design"]["gemv"]["max_steps"],
+        "max_err_adc_steps": cnn["b1_check"]["by_design"]["tiled"]["max_steps"],
         "pass": cnn["b1_check"]["failures"] == 0,
     }
 
@@ -3361,15 +3531,17 @@ def train_run(torch, spec: dict, resume: bool) -> dict:
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()  # earlier phases' tensors
-    last = {"t": time.perf_counter(), "b1": 0, "back": 0}
+    last = {"t": time.perf_counter(), "b1": 0, "tiled": 0, "back": 0}
 
     def on_metrics(i, m):
         now = time.perf_counter()  # the metrics' float() synced the step
+        tiled = kernel.analog_mvm.design_launches["tiled"]
         steps.append({"step": i, "stage": m["stage"], "loss": m["loss"],
                       "grad_norm": m["grad_norm"], "ms": (now - last["t"]) * 1e3,
                       "b1": kernel.analog_mvm.launches - last["b1"],
+                      "tiled": tiled - last["tiled"],
                       "backward": ops.backward_calls - last["back"]})
-        last.update(t=now, b1=kernel.analog_mvm.launches, back=ops.backward_calls)
+        last.update(t=now, b1=kernel.analog_mvm.launches, tiled=tiled, back=ops.backward_calls)
 
     t0 = time.perf_counter()
     try:
@@ -3383,7 +3555,7 @@ def train_run(torch, spec: dict, resume: bool) -> dict:
     s1 = [r for r in steps if r["stage"] == 1]
     s2 = [r for r in steps if r["stage"] == 2]
     launches_ok = (all(r["b1"] == 0 and r["backward"] == 0 for r in s1)
-                   and all(r["b1"] == per and r["backward"] == per for r in s2)
+                   and all(r["b1"] == r["tiled"] == r["backward"] == per for r in s2)
                    and len(s2) == spec["stage2"])
     finite = all(math.isfinite(r["loss"]) for r in steps)
     out = {"arch": arch, "batch": spec["batch"], "steps": steps, "wall_s": wall,
@@ -3428,8 +3600,8 @@ def train_run(torch, spec: dict, resume: bool) -> dict:
         f"{s2[-1]['loss']:.4f}")
     for k, pr in prof.items():
         log(f"train ({arch}): one {k} step profiled: {pr}")
-    check(launches_ok, f"train {arch}: {per} B1 launches and {per} backward recomputes per "
-                       "stage-2 step, none in stage 1")
+    check(launches_ok, f"train {arch}: {per} B1 launches (all tiled) and {per} backward "
+                       "recomputes per stage-2 step, none in stage 1")
     check(plain == 0, f"train {arch}: no plain forward call on the card ({plain})")
     check(finite, f"train {arch}: every loss finite")
     if resume:
@@ -3480,14 +3652,16 @@ def train_eval(torch, trained, seed: int) -> dict:
     return out
 
 
-def train_timing(torch, gen, shapes: list, dtype, what: str, n_iter: int = 20) -> dict:
+def train_timing(torch, gen, shapes: list, dtype, what: str, n_iter: int = 20,
+                 parent=None) -> dict:
     """B1's training form at every MVM of one stage-2 forward, ``shapes``
     its (layer, M, K, N, launches a forward), in ``dtype`` with a p = 0.5
-    mask: the kernel, the plain training form and torch.matmul, timed by
-    CUDA-graph replay in turns (kernel, plain, library, kernel), summed
-    over the forward beside the bound (x, w and the mask read once, y
-    written once, over HBM; 2 M K N operations over the peak for the
-    dtype: the CUDA cores' fp32, the tensor cores' bf16)."""
+    mask: the kernel (the design ``analog_mvm`` picks) in turns with its
+    parent, the ``gemv`` design (``turns_ms``), then the plain training
+    form and torch.matmul, timed by CUDA-graph replay, summed over the
+    forward beside the bound (x, w and the mask read once, y written once,
+    over HBM; 2 M K N operations over the peak for the dtype: the CUDA
+    cores' fp32, the tensor cores' bf16)."""
     from repro_torch import prng
     from repro_torch.kernels import analog_mvm as kernel
     from repro_torch.kernels.ref import analog_mvm_ref, n_tiles
@@ -3501,40 +3675,48 @@ def train_timing(torch, gen, shapes: list, dtype, what: str, n_iter: int = 20) -
         w = (torch.randn((k, n), generator=gen, device=DEV) * k**-0.5).to(dtype)
         t = n_tiles(k, 1024, True)
         keep = prng.bernoulli(prng.fold_in(prng.PRNGKey(i), 1).to(DEV), 0.5, (m, t, n))
-        run_k = lambda _: kernel.analog_mvm(x, w, r_adc=r_adc, out_scale=one, b_adc=8, keep=keep)
+        kw = dict(r_adc=r_adc, out_scale=one, b_adc=8, keep=keep)
+        run_k = lambda _: kernel.analog_mvm(x, w, **kw)
+        run_g = lambda _: kernel._launch("gemv", x, w, lib=parent, **kw)
         run_p = lambda _: analog_mvm_ref(x, w, None, r_adc, one, apply_dac=False, keep=keep)
         run_l = lambda _: torch.matmul(x, w)
-        ms_k1, ms_p, ms_l, ms_k2 = (time_ms(run_k, n_iter), time_ms(run_p, n_iter),
-                                    time_ms(run_l, n_iter), time_ms(run_k, n_iter))
+        turns = turns_ms(run_k, run_g, n_iter)
+        ms_p, ms_l = time_ms(run_p, n_iter), time_ms(run_l, n_iter)
         nbytes = esz * (m * k + k * n + m * n) + m * t * n
         flops = 2 * m * k * n
         t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / peak
-        rows.append({"layer": name, "M": m, "K": k, "N": n, "per_forward": count,
-                     "ms": min(ms_k1, ms_k2), "ms_readings": [ms_k1, ms_k2], "plain_ms": ms_p,
-                     "library_ms": ms_l, "bound_ms": max(t_b, t_o) * 1e3, "bytes": nbytes,
-                     "flops": flops, "bound_by": "bytes" if t_b >= t_o else "operations"})
+        rows.append({"layer": name, "M": m, "K": k, "N": n, "per_forward": count, **turns,
+                     "design": kernel.select_design(dtype, m, k, n, keep=True),
+                     "plain_ms": ms_p, "library_ms": ms_l, "bound_ms": max(t_b, t_o) * 1e3,
+                     "bytes": nbytes, "flops": flops,
+                     "bound_by": "bytes" if t_b >= t_o else "operations"})
     tot = {key: sum(r[key] * r["per_forward"] for r in rows)
-           for key in ("ms", "plain_ms", "library_ms", "bound_ms", "flops", "bytes")}
+           for key in ("ms", "gemv_ms", "plain_ms", "library_ms", "bound_ms", "flops", "bytes")}
     t_o, t_b = tot["flops"] / peak, tot["bytes"] / HBM_BYTES_PER_S
     tot["bound_by"] = "operations" if t_o >= t_b else "bytes"
     tot["launches"] = sum(r["per_forward"] for r in rows)
-    log(f"train: B1's training form, {what} ({tot['launches']} launches, {dtype}, gemv, p = 0.5 "
-        f"masks): kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, torch.matmul "
-        f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms ({tot['bound_by']}); per "
-        "launch (ms kernel/plain/matmul/bound): " + ", ".join(
-            f"{r['layer']} {r['ms']:.4f}/{r['plain_ms']:.4f}/{r['library_ms']:.4f}/"
-            f"{r['bound_ms']:.4f}" for r in rows))
+    designs = sorted({r["design"] for r in rows})
+    tot["designs"] = designs
+    log(f"train: B1's training form, {what} ({tot['launches']} launches, {dtype}, {designs}, p = "
+        f"0.5 masks): kernel {tot['ms']:.4f} ms, its parent (gemv, in turns"
+        f"{', the parent build' if parent else ''}) {tot['gemv_ms']:.4f} ms, plain "
+        f"{tot['plain_ms']:.4f} ms, torch.matmul {tot['library_ms']:.4f} ms, bound "
+        f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}); per launch (ms kernel/gemv/plain/matmul/"
+        "bound): " + ", ".join(
+            f"{r['layer']} {r['ms']:.4f}/{r['gemv_ms']:.4f}/{r['plain_ms']:.4f}/"
+            f"{r['library_ms']:.4f}/{r['bound_ms']:.4f}" for r in rows))
     return {"per_forward": tot, "layers": rows}
 
 
-def phase_train(torch, gen, seed: int, accuracy: dict, launched: set) -> dict:
+def phase_train(torch, gen, seed: int, accuracy: dict, launched: set, parent=None) -> dict:
     """Phase 15: the paper's two-stage training on the card (see the module
     docstring): (a) B1's training form against the plain training form at
     every training shape, (b) one full-width stage-2 step card vs CPU, (c)
     AnalogNet-KWS trained through the CLI's functions and resumed, (d)
     AnalogNet-VWW briefly, (e) the trained KWS programmed and evaluated;
     then every B1 key the phase launched checked (``check_launched_b1``)
-    and B1's training form timed per KWS stage-2 forward."""
+    and B1's training form timed per KWS stage-2 forward, in turns with
+    its parent."""
     from repro_torch.configs import get
     from repro_torch.models import analognet as an
 
@@ -3551,16 +3733,17 @@ def phase_train(torch, gen, seed: int, accuracy: dict, launched: set) -> dict:
         w = torch.randn((k, n), generator=gen, device=DEV) * k**-0.5
         r = b1_train_cases(torch, name, x, w, True, by_design, checked, failures)
         worst_unkept = max(worst_unkept, r["unkept_rel"])
-        b1_cases(torch, name, x, w, "gemv", True, False, by_design, checked, failures)
+        check(r["design"] == "tiled", f"train (a): {name}'s keep launch ran {r['design']}")
+        b1_cases(torch, name, x, w, "tiled", True, False, by_design, checked, failures)
     torch.cuda.synchronize()
     accuracy["checked"] = sorted(checked)
-    res["a"] = {"shapes": [s[1:] for s in shapes], "worst": dict(by_design["gemv"]),
+    res["a"] = {"shapes": [s[1:] for s in shapes], "worst": dict(by_design["tiled"]),
                 "unkept_rel": worst_unkept, "failures": len(failures),
                 "s": time.perf_counter() - t0}
-    log(f"train (a): B1's training form vs the plain training form at {len(shapes)} shapes "
-        f"(M, K, N) {[s[1:] for s in shapes]}, b_adc 4/6/8, with a p = 0.5 mask and without: "
-        f"worst {by_design['gemv']}, unkept values within {worst_unkept:.2e} of max |y|, masks "
-        f"bitwise the CPU bridge's; out of tolerance: {failures[:5] or 'none'}")
+    log(f"train (a): B1's training form (tiled) vs the plain training form at {len(shapes)} "
+        f"shapes (M, K, N) {[s[1:] for s in shapes]}, b_adc 4/6/8, with a p = 0.5 mask and "
+        f"without: worst {by_design['tiled']}, unkept values within {worst_unkept:.2e} of max "
+        f"|y|, masks bitwise the CPU bridge's; out of tolerance: {failures[:5] or 'none'}")
     check(not failures, f"train (a): {len(failures)} B1 training-form cases out of tolerance")
     res["step"] = train_step_check(torch, seed)
     res["kws"] = train_run(torch, TRAIN_KWS, resume=True)
@@ -3572,35 +3755,39 @@ def phase_train(torch, gen, seed: int, accuracy: dict, launched: set) -> dict:
     res["by_design"] = by_design
     res["timing"] = train_timing(
         torch, gen, [(*r, 1) for r in an.mvm_shapes(get(TRAIN_KWS["arch"]), TRAIN_KWS["batch"])],
-        torch.float32, f"one analognet-kws stage-2 forward at {TRAIN_KWS['batch']} images")
+        torch.float32, f"one analognet-kws stage-2 forward at {TRAIN_KWS['batch']} images",
+        parent=parent)
     res["launches"] = {"train": res["kws"]["b1_launches"] + res["vww"]["b1_launches"]}
     return res
 
 
 def train_entry(train: dict, lm_fp32_launches: int) -> dict:
     """The kernels line's B1 training entry: the fp32 keep-mask launches of
-    the training runs (c) and (d) and of phase 16 (b)'s fp32 stage-2 step,
-    the worst error of the gemv design at the training shapes, and its time
-    per AnalogNet-KWS stage-2 forward."""
+    the training runs (c) and (d) and of phase 16 (b)'s fp32 stage-2 step
+    (the tiled design), its worst error at the training shapes, and its
+    time per AnalogNet-KWS stage-2 forward, its parent's (``gemv_ms``) in
+    turns."""
     t = train["timing"]["per_forward"]
     return {
-        "name": "analog_mvm.gemv.train",
+        "name": "analog_mvm.tiled.train",
         "route": "cuda",
-        "source": "src/repro_torch/csrc/analog_mvm.cu",
+        "source": "src/repro_torch/csrc/analog_mvm_f32.cu",
         "replaces": "src/repro/kernels/analog_mvm.py:41",
         "launches": train["launches"]["train"] + lm_fp32_launches,
-        "max_abs_err": train["by_design"]["gemv"]["max_abs"],
+        "max_abs_err": train["by_design"]["tiled"]["max_abs"],
         "ms": t["ms"],
+        "gemv_ms": t["gemv_ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
         "per": f"one AnalogNet-KWS stage-2 forward at {TRAIN_KWS['batch']} images, fp32 with "
                f"TF32 off, p = 0.5 quant-noise masks: {t['launches']} launches; plain: the "
-               "plain training form; library: torch.matmul of the same products; launches: "
-               "the stage-2 steps of the KWS and VWW training runs and phase 16 (b)'s fp32 "
-               "stage-2 step",
-        "max_err_adc_steps": train["by_design"]["gemv"]["max_steps"],
+               "plain training form; library: torch.matmul of the same products; gemv_ms: the "
+               "CUDA-core gemv design (this design's parent) on the same inputs, in turns; "
+               "launches: the stage-2 steps of the KWS and VWW training runs and phase 16 (b)'s "
+               "fp32 stage-2 step",
+        "max_err_adc_steps": train["by_design"]["tiled"]["max_steps"],
         "pass": train["b1_checked_after"]["failures"] == 0 and train["a"]["failures"] == 0,
     }
 
@@ -3718,7 +3905,8 @@ def lm_step_start(torch, seed: int, readings: bool = False) -> dict:
                 torch, params, dataclasses.replace(cfg, dtype=getattr(torch, dtype)), stage,
                 card[dtype, stage])
             counts[dtype, stage] = {
-                "b1": kernel.analog_mvm.launches, "gemv": kernel.analog_mvm.design_launches["gemv"],
+                "b1": kernel.analog_mvm.launches,
+                "designs": dict(kernel.analog_mvm.design_launches),
                 "backward": ops.backward_calls, "b3": fa.flash_attention.launches,
                 "attention_backward": ops.attention_backward_calls, "plain": plain_calls()}
     # the weight-noise draws do not depend on the activation dtype: one copy
@@ -3813,14 +4001,15 @@ def lm_step_check(torch, job: dict, gate: bool = True) -> dict:
     out = {"cpu_seconds": time.perf_counter() - job["t0"], "waited_s": waited,
            "cpu_log": child_log.strip(), "counts": {}, "steps": {},
            "noise_same_across_dtypes": job["noise_same"]}
-    per = 7 * layers + 1
-    want = {1: {"b1": 0, "gemv": 0, "backward": 0, "b3": layers, "attention_backward": layers,
-                "plain": 0},
-            2: {"b1": per, "gemv": per, "backward": per, "b3": layers,
-                "attention_backward": layers, "plain": 0}}
+    per, tokens = 7 * layers + 1, LM_STEP["batch"] * LM_STEP["seq"]
     failed = []
     for (dtype, stage), k in job["steps"].items():
         c, counts = cpu[dtype, stage], job["counts"][dtype, stage]
+        # stage 2: every analog layer's keep-mask launch through the design
+        # picked for it (tiled in fp32, prefill in bf16)
+        n_b1 = 0 if stage == 1 else per
+        want = {"b1": n_b1, "designs": b1_only(train_design(getattr(torch, dtype), tokens), n_b1),
+                "backward": n_b1, "b3": layers, "attention_backward": layers, "plain": 0}
         bound = lockstep.GRAD_RTOL[dtype]
         fwd = lm_step_compare(job["card"][dtype, stage], c, dtype)
         loss_rel = abs(k["loss"] - c["free_loss"]) / abs(c["free_loss"])
@@ -3860,13 +4049,13 @@ def lm_step_check(torch, job: dict, gate: bool = True) -> dict:
             f"{bound}): " + ", ".join(f"{n} {v:.2e}" for n, v in rel.items())
             + f"; over: {over or 'none'}; planted faults not caught: {missed}")
         checks = [
-            (counts == want[stage], f"launches and recomputes {counts}, want {want[stage]}"),
+            (counts == want, f"launches and recomputes {counts}, want {want}"),
             (fwd["draws"]["masks_bitwise"] and fwd["draws"]["noise_bitwise"]
              and fwd["draws"]["masks"] == (0 if stage == 1 else 2 * per)
              and fwd["draws"]["noise_calls"] == (0 if stage == 1 else per)
              and (stage == 1 or fwd["draws"]["noise_drawn"] > 0),
              f"draws and masks card == CPU, bitwise: {fwd['draws']}"),
-            (len(fwd["mvm"]) == want[stage]["b1"] and mvm_ok,
+            (len(fwd["mvm"]) == want["b1"] and mvm_ok,
              "each B1 output within the ADC tolerance model of the CPU's"),
             (loss_rel <= TRAIN_STEP_LOSS_RTOL, f"loss card vs CPU {loss_rel:.2e}"),
             (not over, f"gradient leaves over their bound: {over}"),
@@ -3880,13 +4069,80 @@ def lm_step_check(torch, job: dict, gate: bool = True) -> dict:
     return out
 
 
+def lm_step_gemv_readings(torch, seed: int, card, cpu) -> dict:
+    """What the bf16 stage-2 range readings of phase 16 (b) owe to B1's
+    design, at ``seed``: ``card`` is the step's card tape through the
+    prefill design, ``cpu`` the CPU's tape locked to it.
+
+    (1) The same step on the card with its keep-mask launches through
+    ``gemv`` (``b1_through``), locked to ``card``: each MVM's
+    output from the same inputs and masks, held against the prefill
+    design's and the CPU's (``compare``: flips, share beyond half a step,
+    worst ADC steps), and its gradients against the prefill step's (at the
+    same forward values the backward, a recompute of the plain form, does
+    not see the forward's design). (2) Phase 16 (b) free through ``gemv``
+    (the parent's path), its gates reported, not enforced."""
+    import dataclasses
+
+    from repro_torch import prng
+    from repro_torch.configs import get
+    from repro_torch.models import lm
+    from repro_torch.training import lockstep
+
+    cfg = dataclasses.replace(get(LM_ARCH), n_layers=LM_STEP["layers"], dtype=torch.bfloat16)
+    params = lm.lm_init(prng.PRNGKey(seed), cfg, device=DEV)
+    pre_grads = lm_step(torch, params, cfg, 2, lockstep.Tape(lock=card, draw=set()))["grads"]
+    with b1_through("gemv", keep_only=True):
+        locked = lockstep.Tape(lock=card, draw=set())
+        gemv_grads = lm_step(torch, params, cfg, 2, locked)["grads"]
+    del params
+    mvm = []
+    for c, g, p in zip(card.of("mvm"), locked.of("mvm"), cpu.of("mvm")):
+        step, nt = p["meta"]["step"], p["meta"]["n_tiles"]
+        mvm.append({"prefill_vs_gemv": compare(c["out"], g["out"], step, nt, True),
+                    "prefill_vs_cpu": compare(c["out"], p["out"], step, nt, True),
+                    "gemv_vs_cpu": compare(g["out"], p["out"], step, nt, True),
+                    "n_tiles": nt, "shape": list(c["out"].shape)})
+    tot = lambda pair, key: sum(r[pair][key] for r in mvm)
+    out = {"mvm": mvm,
+           "flips": {pair: tot(pair, "flips") for pair in mvm[0] if "_vs_" in pair},
+           "elements": tot("prefill_vs_cpu", "elements"),
+           "worst_steps": {pair: max(r[pair]["max_steps"] for r in mvm)
+                           for pair in mvm[0] if "_vs_" in pair},
+           "grads_locked_gemv_vs_prefill": {n: lockstep.rel_l2(gemv_grads[n], g)
+                                            for n, g in pre_grads.items()},
+           "grads_locked_bitwise": all(torch.equal(gemv_grads[n], g)
+                                       for n, g in pre_grads.items())}
+    log(f"lm (b) readings: seed {seed}, bf16 stage 2 locked to the prefill design's step: "
+        f"{len(mvm)} MVMs, {out['elements']} outputs; elements that differ "
+        f"{out['flips']}, worst ADC steps {out['worst_steps']}; per MVM (prefill vs gemv, "
+        "prefill vs CPU, gemv vs CPU: flips / share beyond half a step): " + ", ".join(
+            "/".join(f"{r[pair]['flips']}:{r[pair]['frac_half_step']:.1e}"
+                     for pair in ("prefill_vs_gemv", "prefill_vs_cpu", "gemv_vs_cpu"))
+            for r in mvm)
+        + f"; the card's gradients through gemv vs through prefill at the same forward values: "
+          f"bitwise {out['grads_locked_bitwise']}, worst rel L2 "
+          f"{max(out['grads_locked_gemv_vs_prefill'].values()):.2e}")
+    with b1_through("gemv", keep_only=True):
+        job = lm_step_start(torch, seed)
+    out["free_through_gemv"] = free = lm_step_check(torch, job, gate=False)
+    st = free["steps"]["bfloat16 stage 2"]
+    log(f"lm (b) readings: seed {seed}, phase 16 (b) through gemv (the parent's path): bf16 "
+        f"stage 2 worst leaves {st['worst']}, range leaves "
+        + ", ".join(f"{n} {v:.3e}" for n, v in st["grad_rel"].items()
+                    if lockstep.leaf_kind(n) == "range")
+        + f"; failed gates (reported): {free['failed'] or 'none'}")
+    return out
+
+
 def lm_step_readings(torch, seeds: list, path: Path) -> int:
     """``--lm-step-readings SEEDS``: phase 16 (b) alone at each seed (the
     params' and the batch's draws), its gates reported, not enforced; the
     first seed's CPU child also takes the free step's gradients and the
-    locked stage-2 steps on 2 threads. Then one bf16 stage-2 step profiled
-    with the card's events only, the profiler's exit and its readback
-    timed. Writes ``path``."""
+    locked stage-2 steps on 2 threads; at the first seed, what the bf16
+    readings owe to B1's design (``lm_step_gemv_readings``). Then one bf16
+    stage-2 step profiled with the card's events only, the profiler's exit
+    and its readback timed. Writes ``path``."""
     from torch.profiler import ProfilerActivity, profile
 
     phase_device(torch)
@@ -3896,6 +4152,10 @@ def lm_step_readings(torch, seeds: list, path: Path) -> int:
         job = lm_step_start(torch, seed, readings=i == 0)
         res["seeds"][seed] = lm_step_check(torch, job, gate=False)
         log(f"lm (b) readings: seed {seed} failed gates: {res['seeds'][seed]['failed'] or 'none'}")
+        if i == 0:
+            first = job["card"]["bfloat16", 2], torch.load(
+                job["work"] / "cpu_step.pt", weights_only=False)["bfloat16", 2]["tape"]
+    res["gemv"] = lm_step_gemv_readings(torch, seeds[0], *first)
     import dataclasses
 
     from repro_torch import prng
@@ -3938,8 +4198,8 @@ def lm_train_run(torch) -> dict:
     ``run_two_stage``), LM_RUN's batch and steps, every step logged, with
     asynchronous checkpoints into ``build/``; each step's B1 launches (by
     design), B3 launches and both backward recomputes counted. Gates: every
-    stage-2 forward 155 keep-mask ``gemv`` launches and 155 recomputes,
-    none in stage 1; every forward 22 B3 launches and 22 recomputes; no
+    stage-2 forward 155 keep-mask launches through the prefill design and
+    155 recomputes, none in stage 1; every forward 22 B3 launches and 22 recomputes; no
     plain forward; finite losses; a resume from the final checkpoint runs
     nothing and restores the params bitwise. Reports ms per step by stage
     (host clock, median), one profiled step per stage (device kernels, B1's
@@ -3971,8 +4231,9 @@ def lm_train_run(torch) -> dict:
     tcfg = TrainConfig(stage1_steps=LM_RUN["stage1"], stage2_steps=LM_RUN["stage2"],
                        ckpt_dir=str(ckpt), ckpt_every=100, log_every=1, **LM_TRAIN)
     steps = []
+    design = train_design(torch.bfloat16, LM_RUN["batch"] * LM_RUN["seq"])
     reads = lambda: {"b1": kernel.analog_mvm.launches,
-                     "gemv": kernel.analog_mvm.design_launches["gemv"],
+                     design: kernel.analog_mvm.design_launches[design],
                      "backward": ops.backward_calls, "b3": fa.flash_attention.launches,
                      "attention_backward": ops.attention_backward_calls}
     handler = signal.getsignal(signal.SIGTERM)  # run_two_stage installs its own
@@ -3998,8 +4259,9 @@ def lm_train_run(torch) -> dict:
     n_layers, per = 22, LAUNCHES_PER_FORWARD
     s1 = [r for r in steps if r["stage"] == 1]
     s2 = [r for r in steps if r["stage"] == 2]
-    want = {1: dict(b1=0, gemv=0, backward=0, b3=n_layers, attention_backward=n_layers),
-            2: dict(b1=per, gemv=per, backward=per, b3=n_layers, attention_backward=n_layers)}
+    want = {1: {"b1": 0, design: 0, "backward": 0, "b3": n_layers, "attention_backward": n_layers},
+            2: {"b1": per, design: per, "backward": per, "b3": n_layers,
+                "attention_backward": n_layers}}
     launches_ok = (len(s1) == LM_RUN["stage1"] and len(s2) == LM_RUN["stage2"]
                    and all({k: r[k] for k in want[1]} == want[r["stage"]] for r in steps))
     finite = all(math.isfinite(r["loss"]) for r in steps)
@@ -4017,11 +4279,12 @@ def lm_train_run(torch) -> dict:
         f"checkpoints); ms per step (median, host clock) stage 1 "
         f"{out['ms_per_step']['stage1']:.1f}, stage 2 {out['ms_per_step']['stage2']:.1f} "
         f"(first {s1[0]['ms']:.1f} / {s2[0]['ms']:.1f}); per step "
-        f"{[{k: r[k] for k in ('stage', 'b1', 'gemv', 'backward', 'b3', 'attention_backward')} for r in steps]}; "
+        f"{[{k: r[k] for k in ('stage', 'b1', design, 'backward', 'b3', 'attention_backward')} for r in steps]}; "
         f"plain forward calls {plain}; losses {[round(r['loss'], 4) for r in steps]}; peak "
         f"memory {out['peak_bytes_above_held'] / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB "
         "earlier phases hold")
-    check(launches_ok, f"lm (c): per step launches and recomputes, want {want}")
+    check(design == "prefill" and launches_ok,
+          f"lm (c): per step launches ({design}) and recomputes, want {want}")
     check(plain == 0, f"lm (c): no plain forward call on the card ({plain})")
     check(finite, "lm (c): every loss finite")
     # a resume from the final checkpoint: nothing runs, the params come back bitwise
@@ -4144,8 +4407,28 @@ def lm_b3_timing(torch, gen) -> dict:
     return out
 
 
+def prefill_all_ones_bitwise(torch, x, w) -> bool:
+    """The prefill design with an all-ones keep mask against the same launch
+    without one (the serving form), bitwise, at b_adc 4 and 8, per-tile ADC
+    both ways: the masked epilogue with every mask bit set is the serving
+    epilogue."""
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.kernels.ref import n_tiles
+
+    (m, k), n = x.shape, w.shape[1]
+    kw = dict(r_adc=torch.tensor(1.5, device=DEV), out_scale=torch.tensor(0.97, device=DEV))
+    same = True
+    for per_tile in (True, False):
+        ones = torch.ones((m, n_tiles(k, 1024, per_tile), n), dtype=torch.uint8, device=DEV)
+        for bits in (4, 8):
+            a = kernel._launch("prefill", x, w, b_adc=bits, per_tile_adc=per_tile, keep=ones, **kw)
+            b = kernel._launch("prefill", x, w, b_adc=bits, per_tile_adc=per_tile, **kw)
+            same &= torch.equal(a, b)
+    return same
+
+
 def phase_lm_train(torch, gen, seed: int, accuracy: dict, b1_launched: set,
-                   fa_launched: set, flash: dict) -> dict:
+                   fa_launched: set, flash: dict, parent=None) -> dict:
     """Phase 16: LM training on the card (see the module docstring): (b)'s
     CPU child started first; (a) B1's bf16 training form at every LM
     training shape; (d) ``serve_drift_24h``; (b) one step of each stage
@@ -4169,24 +4452,31 @@ def phase_lm_train(torch, gen, seed: int, accuracy: dict, b1_launched: set,
                                                         LM_RUN["batch"] * LM_RUN["seq"])
                   for name, k, n, _ in SHAPES]
         shapes.append(("two tiles", 64, 2048, 96))
-        worst_ulps = 0.0
+        worst_ulps, ones_unequal = 0.0, []
         for name, m, k, n in shapes:
             x = torch.randn((m, k), generator=gen, device=DEV).bfloat16()
             w = (torch.randn((k, n), generator=gen, device=DEV) * k**-0.5).bfloat16()
             r = b1_train_cases(torch, name, x, w, True, by_design, checked, failures)
             worst_ulps = max(worst_ulps, r["unkept_ulps"])
-            b1_cases(torch, name, x, w, "gemv", True, False, by_design, checked, failures)
+            check(r["design"] == "prefill", f"lm (a): {name}'s keep launch ran {r['design']}")
+            b1_cases(torch, name, x, w, "prefill", True, False, by_design, checked, failures)
+            if not prefill_all_ones_bitwise(torch, x, w):
+                ones_unequal.append(name)
         torch.cuda.synchronize()
         accuracy["checked"] = sorted(checked)
-        res["a"] = {"shapes": [s[1:] for s in shapes], "worst": dict(by_design["gemv"]),
+        res["a"] = {"shapes": [s[1:] for s in shapes], "worst": dict(by_design["prefill"]),
                     "unkept_ulps": worst_ulps, "failures": len(failures),
-                    "s": time.perf_counter() - t0}
-        log(f"lm (a): B1's bf16 training form vs the plain training form at {len(shapes)} shapes "
-            f"(M, K, N) {[s[1:] for s in shapes]}, b_adc 4/6/8, with a p = 0.5 mask and without: "
-            f"worst {by_design['gemv']}, unkept values within {worst_ulps:.3f} output ulps, "
-            f"masks bitwise the CPU bridge's; out of tolerance: {failures[:5] or 'none'}")
+                    "all_ones_unequal": ones_unequal, "s": time.perf_counter() - t0}
+        log(f"lm (a): B1's bf16 training form (prefill design) vs the plain training form at "
+            f"{len(shapes)} shapes (M, K, N) {[s[1:] for s in shapes]}, b_adc 4/6/8, with a p = "
+            f"0.5 mask and without: worst {by_design['prefill']}, unkept values within "
+            f"{worst_ulps:.3f} output ulps, masks bitwise the CPU bridge's; out of tolerance: "
+            f"{failures[:5] or 'none'}; an all-ones mask bitwise the serving launch at "
+            f"{len(shapes) - len(ones_unequal)} of {len(shapes)} shapes")
         check(not failures, f"lm (a): {len(failures)} B1 bf16 training-form cases out of "
                             "tolerance")
+        check(not ones_unequal, f"lm (a): the prefill design with an all-ones keep mask is "
+                                f"bitwise the launch without one, except at {ones_unequal}")
         lap("a")
         res["drift"] = lm_serve_drift(torch)  # while the CPU child runs on
         lap("d")
@@ -4215,7 +4505,8 @@ def phase_lm_train(torch, gen, seed: int, accuracy: dict, b1_launched: set,
     tokens = LM_RUN["batch"] * LM_RUN["seq"]
     res["b1_timing"] = train_timing(
         torch, gen, [(name, tokens, k, n, count) for name, k, n, count in SHAPES],
-        torch.bfloat16, f"one tinyllama-1.1b stage-2 forward at M = {tokens}", n_iter=10)
+        torch.bfloat16, f"one tinyllama-1.1b stage-2 forward at M = {tokens}", n_iter=10,
+        parent=parent)
     res["b3_timing"] = lm_b3_timing(torch, gen)
     lap("timing")
     res["seconds"] = laps
@@ -4230,24 +4521,26 @@ def phase_lm_train(torch, gen, seed: int, accuracy: dict, b1_launched: set,
 
 
 def lm_entries(lm: dict) -> list:
-    """The kernels line's entries of phase 16: B1's bf16 training form and
-    B3's training form, with the launches of the (b) and (c) runs."""
+    """The kernels line's entries of phase 16: B1's bf16 training form (the
+    prefill design with the keep mask) and B3's training form, with the
+    launches of the (b) and (c) runs."""
     b1, b3 = lm["b1_timing"]["per_forward"], lm["b3_timing"]
     tokens = LM_RUN["batch"] * LM_RUN["seq"]
     return [{
-        "name": "analog_mvm.gemv.train.bf16",
+        "name": "analog_mvm.prefill.train",
         "route": "cuda",
-        "source": "src/repro_torch/csrc/analog_mvm.cu",
+        "source": "src/repro_torch/csrc/analog_mvm_tc.cu",
         "replaces": "src/repro/kernels/analog_mvm.py:41",
         "launches": lm["launches"]["b1"],
-        "max_abs_err": lm["by_design"]["gemv"]["max_abs"],
+        "max_abs_err": lm["by_design"]["prefill"]["max_abs"],
         "ms": b1["ms"], "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"],
-        "bound_by": b1["bound_by"], "library_ms": b1["library_ms"],
+        "bound_by": b1["bound_by"], "library_ms": b1["library_ms"], "gemv_ms": b1["gemv_ms"],
         "per": f"one tinyllama-1.1b stage-2 forward at {tokens} tokens, bf16, p = 0.5 "
                f"quant-noise masks: {b1['launches']} launches; plain: the plain training form; "
-               "library: torch.matmul of the same products; launches: the bf16 stage-2 "
-               "steps of phase 16 (b) and (c)",
-        "max_err_adc_steps": lm["by_design"]["gemv"]["max_steps"],
+               "library: torch.matmul of the same products; gemv_ms: the CUDA-core gemv "
+               "design (this form's parent) on the same inputs, in turns; launches: the bf16 "
+               "stage-2 steps of phase 16 (b) and (c)",
+        "max_err_adc_steps": lm["by_design"]["prefill"]["max_steps"],
         "pass": lm["a"]["failures"] == 0 and lm["b1_checked_after"]["failures"] == 0,
     }, {
         "name": "flash_attention.train",
@@ -4324,11 +4617,16 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)  # phase 16 (b)'s CPU child (lm_cpu_step)
     ap.add_argument("--lm-step-readings", type=lambda v: [int(x) for x in v.split(",")],
                     metavar="SEEDS", help="run phase 16 (b) alone at these seeds (comma-separated), "
-                    "its gates reported, and write the readings to --out")
+                    "its gates reported, then the first seed's bf16 stage 2 through the gemv "
+                    "design, and write the readings to --out")
     ap.add_argument("--b2-parent", type=Path, default=None,
                     help="a directory holding a parent's decode_fused.cu, decode_rows.cu and "
                          "their headers: phase 7 times that B2 (8 slots and 1) and phase 10 "
                          "that attention row kernel in turns with this one")
+    ap.add_argument("--b1-parent", type=Path, default=None,
+                    help="a directory holding a parent's analog_mvm.cu and its headers: "
+                         "phases 14-16 time that gemv design in turns with the designs that "
+                         "replaced it (without it, this tree's own gemv)")
     args = ap.parse_args(argv)
     if args.lm_cpu_step:
         return lm_cpu_step(*args.lm_cpu_step)
@@ -4358,8 +4656,10 @@ def main(argv=None) -> int:
 
     card = phase_device(torch)
     parent = build_parent(args.b2_parent) if args.b2_parent else None
+    b1_parent = build_parent(args.b1_parent, ("analog_mvm",)) if args.b1_parent else None
     build_s, ptxas = phase_build()
     parent = parent() if parent else {"b2": None, "rows": None}
+    parent.update(b1_parent() if b1_parent else {"b1": None})
     lap("1-2 device, build")
     gen = torch.Generator("cuda").manual_seed(args.seed)
     accuracy = phase_kernel_vs_plain(torch, gen, tuple(sorted({*b1_served_ms(),
@@ -4402,11 +4702,12 @@ def main(argv=None) -> int:
     fleet["b1_checked_after"] = check_launched_b1(torch, gen, sorted(
         b1_launched - b1_before - set(map(tuple, accuracy["checked"]))), accuracy)
     lap("13 fleet")
-    cnn = phase_cnn(torch, gen, args.seed, accuracy, b1_launched)
+    cnn = phase_cnn(torch, gen, args.seed, accuracy, b1_launched, parent["b1"])
     lap("14 cnn")
-    train = phase_train(torch, gen, args.seed, accuracy, b1_launched)
+    train = phase_train(torch, gen, args.seed, accuracy, b1_launched, parent["b1"])
     lap("15 train")
-    lm = phase_lm_train(torch, gen, args.seed, accuracy, b1_launched, fa_launched, flash)
+    lm = phase_lm_train(torch, gen, args.seed, accuracy, b1_launched, fa_launched, flash,
+                        parent["b1"])
     lap("16 LM train")
     log(f"seconds per phase: { {k: round(v, 1) for k, v in phase_s.items()} }")
     checked = {(r["rows"], r["S"], r["dtype"]) for r in flash["cases"]}

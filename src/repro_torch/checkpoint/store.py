@@ -290,13 +290,41 @@ def _check_fits(path: str, flat_params: dict, params_like: Any) -> None:
         )
 
 
+def _cast_like(template: Any, loaded: Any, dev) -> Any:
+    """``loaded`` (nested dicts from :func:`_nest`) on ``dev``, rebuilt in
+    the container types of ``template`` (``LMParams``, tuples, lists,
+    dicts), as the reference's ``_cast_like`` rebuilds it: keys only
+    ``loaded`` has (``out_scale_buf``, added by the program phase) are
+    kept, and template subtrees with no stored leaves (the empty ``norm1``
+    and ``norm2`` of a model with non-parametric norms) come from the
+    template. Leaf shapes may differ from the template's (programmed conv
+    kernels come back as 2D crossbar blocks)."""
+    on_dev = lambda t: tree_lib.tree_map(lambda leaf: leaf.to(dev), t)
+    if not isinstance(loaded, dict):
+        return convert.to_tensor(loaded, dev)
+    if hasattr(template, "_fields"):
+        return type(template)(*(
+            _cast_like(getattr(template, f), loaded[f], dev) if f in loaded
+            else on_dev(getattr(template, f)) for f in template._fields))
+    if isinstance(template, (list, tuple)):
+        out = [_cast_like(t, loaded[str(i)], dev) if str(i) in loaded else on_dev(t)
+               for i, t in enumerate(template)]
+        return type(template)(out) if isinstance(template, tuple) else out
+    if isinstance(template, dict):
+        merged = {k: _cast_like(template.get(k), v, dev) for k, v in loaded.items()}
+        merged.update((k, on_dev(v)) for k, v in template.items() if k not in merged)
+        return merged
+    return convert.tree_to_torch(loaded, dev)  # no template guidance: nested dicts
+
+
 def load_program(path: str, *, params_like: Any = None, device="cuda") -> engine_lib.CiMProgram:
     """Load a cim-program v1 artifact onto ``device``.
 
     Refuses an artifact without ``COMMIT``, of another format, or of a newer
     version, and malformed or unsupported per-layer plans; with
     ``params_like`` (the model's param tree, e.g. from ``lm_init``) also
-    one that does not fit the model. LM artifacts come back as
+    one that does not fit the model, and the params are rebuilt on its
+    structure (:func:`_cast_like`). Without it, LM artifacts come back as
     :class:`~repro_torch.models.lm.LMParams`, others as nested dicts.
     """
     dev = resolve_device(device)
@@ -326,7 +354,9 @@ def load_program(path: str, *, params_like: Any = None, device="cuda") -> engine
     cfg_d = dict(meta["cfg"])
     cfg = AnalogConfig(**{**cfg_d, "pcm": pcm_lib.PCMConfig(**cfg_d["pcm"])})
     nested = _nest(flat_params)
-    if _LM_FIELDS <= set(nested):
+    if params_like is not None:
+        params = _cast_like(params_like, nested, dev)
+    elif _LM_FIELDS <= set(nested):
         params = convert.lm_params_from_nested(nested, dev)
     else:
         params = convert.tree_to_torch(nested, dev)

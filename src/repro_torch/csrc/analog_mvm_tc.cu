@@ -4,10 +4,12 @@
 //
 // Replaces the TPU kernel src/repro/kernels/analog_mvm.py::_kernel (launched
 // by analog_mvm_fwd, pallas_call at analog_mvm.py:147) for bf16 operands
-// without the DAC (the serving path passes x already quantized); fp32, the
-// DAC and shapes these kernels do not take stay on the CUDA-core kernel of
-// analog_mvm.cu (kernels/analog_mvm.py::select_design picks). It computes
-// src/repro/core/engine.py::tile_matmul_quant:
+// without the DAC (the serving path passes x already quantized), and the
+// bf16 training form above 16 rows (the prefill design with a quant-noise
+// keep mask in its epilogue); fp32 runs the tiled design of
+// analog_mvm_f32.cu, the DAC and shapes these kernels do not take the
+// CUDA-core kernel of analog_mvm.cu (kernels/analog_mvm.py::select_design
+// picks). It computes src/repro/core/engine.py::tile_matmul_quant:
 //
 //   for each crossbar tile t of `span` rows of K (the last one ragged):
 //       s_c  = sum over the k16 steps of sub-chunk c, k ascending, of the
@@ -172,14 +174,21 @@ __device__ __forceinline__ bool last_to_finish(unsigned long long* flags, unsign
 }
 
 // two blocks an SM (at most 128 registers a thread): 16 warps to overlap one
-// block's ldmatrix and mma latency with the other's
+// block's ldmatrix and mma latency with the other's. KEEP: the training
+// form, keep the (M, T, N) uint8 quant-noise mask (T crossbar tiles of K
+// when multi, else 1) -- its ADC selects quant(p) where the mask is set
+// and p where it is not (Adc::tile_q_keep, finish_keep); each split applies
+// its own tile's mask before it writes its partial. KEEP = false is the
+// serving form, and compiles to the instructions it had before the mask.
+template <bool KEEP>
 __global__ void __launch_bounds__(kPThreads, 2)
 analog_mvm_prefill_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                           bf16* __restrict__ y, float* __restrict__ part,
                           unsigned long long* __restrict__ flags,
                           unsigned long long tag, int M, int K, int N,
                           const float* r_adc_p, const float* out_scale_p, float r_adc_h,
-                          float out_scale_h, int b_adc, int span, int multi) {
+                          float out_scale_h, int b_adc, int span, int multi,
+                          const uint8_t* __restrict__ keep) {
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sbase = smem_u32(smem);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -191,6 +200,14 @@ analog_mvm_prefill_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w
   const int k_hi = splits > 1 ? min(k_lo + span, K) : K;
   const Adc adc = make_adc(r_adc_p, out_scale_p, r_adc_h, out_scale_h, b_adc, multi);
   const int nst = (k_hi - k_lo + kBK - 1) / kBK;
+  // the training form: whether element (mi, ni, e)'s ADC conversion of
+  // crossbar tile t quantizes (outside M x N it does not matter)
+  const int n_tiles = multi ? (K + span - 1) / span : 1;
+  auto kept = [&](int mi, int ni, int e, int t) {
+    const int m = m0 + wm * 32 + mi * 16 + (lane >> 2) + (e >> 1) * 8;
+    const int n = n0 + wn * 32 + ni * 8 + (lane & 3) * 2 + (e & 1);
+    return m >= M || n >= N || keep[(static_cast<size_t>(m) * n_tiles + t) * N + n] != 0;
+  };
 
   // stage s holds x[m0:m0+128, kb:kb+64] (A) and w[kb:kb+64, n0:n0+64] (B)
   auto load_stage = [&](int s) {
@@ -284,7 +301,11 @@ analog_mvm_prefill_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w
         for (int j = 0; j < 4; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const float q = adc.tile_q(tile[i][j][e]);
+            float q;
+            if constexpr (KEEP)  // a split's tile is z, one block's t_idx
+              q = adc.tile_q_keep(tile[i][j][e], kept(i, j, e, z + t_idx));
+            else
+              q = adc.tile_q(tile[i][j][e]);
             yacc[i][j][e] = t_idx == 0 ? q : __fadd_rn(yacc[i][j][e], q);
             tile[i][j][e] = 0.f;
           }
@@ -311,8 +332,16 @@ analog_mvm_prefill_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w
           __stcg(dst, make_float2(yacc[mi][ni][2 * h], yacc[mi][ni][2 * h + 1]));
           continue;
         }
-        const float o0 = adc.finish(yacc[mi][ni][2 * h], tile[mi][ni][2 * h]);
-        const float o1 = adc.finish(yacc[mi][ni][2 * h + 1], tile[mi][ni][2 * h + 1]);
+        float o0, o1;
+        if constexpr (KEEP) {  // one conversion over all of K reads tile 0's mask
+          o0 = adc.finish_keep(yacc[mi][ni][2 * h], tile[mi][ni][2 * h],
+                               multi || kept(mi, ni, 2 * h, 0));
+          o1 = adc.finish_keep(yacc[mi][ni][2 * h + 1], tile[mi][ni][2 * h + 1],
+                               multi || kept(mi, ni, 2 * h + 1, 0));
+        } else {
+          o0 = adc.finish(yacc[mi][ni][2 * h], tile[mi][ni][2 * h]);
+          o1 = adc.finish(yacc[mi][ni][2 * h + 1], tile[mi][ni][2 * h + 1]);
+        }
         *reinterpret_cast<__nv_bfloat162*>(y + static_cast<size_t>(m) * N + n) =
             __floats2bfloat162_rn(o0, o1);
       }
@@ -456,6 +485,28 @@ analog_mvm_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
+template <bool KEEP>
+int launch_prefill(const void* x, const void* w, void* y, void* part, void* flags,
+                   unsigned long long tag, int M, int K, int N, const void* r_adc_p,
+                   const void* out_scale_p, float r_adc_h, float out_scale_h, int b_adc,
+                   int span, int multi, int splits, const void* keep, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(analog_mvm_prefill_kernel<KEEP>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               kPrefillSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
+  analog_mvm_prefill_kernel<KEEP><<<grid, kPThreads, kPrefillSmem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<bf16*>(y),
+      static_cast<float*>(part), static_cast<unsigned long long*>(flags), tag, M, K, N,
+      static_cast<const float*>(r_adc_p), static_cast<const float*>(out_scale_p), r_adc_h,
+      out_scale_h, b_adc, span, multi, static_cast<const uint8_t*>(keep));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Prefill design. x (M, K), w (K, N), y (M, N) bf16, contiguous, 16-byte
@@ -464,31 +515,24 @@ analog_mvm_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 // of K, one block per tile, summed by the last to finish through part
 // (splits x M x N fp32) and flags (splits 8-byte-aligned 64-bit words per
 // 128 x 64 output tile, any contents; `tag` this call's own, see
-// last_to_finish). A null range pointer takes the host value beside it.
-// Returns cudaGetLastError() after the launch (0 = ok).
+// last_to_finish). keep: null (serving), or the training form's (M, T, N)
+// uint8 quant-noise mask, T = ceil(K / span) when multi, else 1. A null
+// range pointer takes the host value beside it. Returns cudaGetLastError()
+// after the launch (0 = ok).
 extern "C" int analog_mvm_tc_prefill(const void* x, const void* w, void* y, void* part,
                                      void* flags, unsigned long long tag, int M, int K,
                                      int N, const void* r_adc_p, const void* out_scale_p,
                                      float r_adc_h, float out_scale_h, int b_adc, int span,
-                                     int multi, int splits, void* stream) {
+                                     int multi, int splits, const void* keep, void* stream) {
   if (M < 1 || K < 1 || N < 1 || K % 8 || N % 8 || (multi && span % kSub) || splits < 1 ||
       reinterpret_cast<uintptr_t>(flags) % 8 ||
       (splits > 1 && (!multi || splits != (K + span - 1) / span)))
     return static_cast<int>(cudaErrorInvalidValue);
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        analog_mvm_prefill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kPrefillSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    attr_set = true;
-  }
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
-  analog_mvm_prefill_kernel<<<grid, kPThreads, kPrefillSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<bf16*>(y),
-      static_cast<float*>(part), static_cast<unsigned long long*>(flags), tag, M, K, N,
-      static_cast<const float*>(r_adc_p), static_cast<const float*>(out_scale_p), r_adc_h,
-      out_scale_h, b_adc, span, multi);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return keep ? launch_prefill<true>(x, w, y, part, flags, tag, M, K, N, r_adc_p, out_scale_p,
+                                     r_adc_h, out_scale_h, b_adc, span, multi, splits, keep, s)
+              : launch_prefill<false>(x, w, y, part, flags, tag, M, K, N, r_adc_p, out_scale_p,
+                                      r_adc_h, out_scale_h, b_adc, span, multi, splits, keep, s);
 }
 
 // Decode design, M <= 16; the same operand rules. part: ceil(K / 128) x M x

@@ -11,6 +11,8 @@
 //         row of K)                                        -- sub_chain
 //   p_t = ((0 + s_c0) + s_c1) + ...  (crossbar tile t's sub-chunks in order)
 //   q_t = quant(p_t), rounded to bf16 when K spans several tiles -- Adc
+//         (the training form: quant(p_t) where its keep mask is set, else
+//         p_t -- Adc::tile_q_keep, finish_keep)
 //   y   = ((q_0 + q_1) + ...) * out_scale, rounded to bf16
 
 #pragma once
@@ -98,6 +100,17 @@ struct Adc {
   }
   __device__ __forceinline__ float finish(float y, float tile) const {
     return __fmul_rn(multi ? y : amvm::quant(tile, r, step), out_scale);
+  }
+  // The training form (B1's prefill design with a quant-noise keep mask):
+  // the ADC where the mask is set, the unquantized value where it is not
+  // (src/repro/core/engine.py:219-246). With q set these are tile_q and
+  // finish, so an all-ones mask gives the serving bits; the serving
+  // epilogues above are not touched.
+  __device__ __forceinline__ float tile_q_keep(float tile, bool q) const {
+    return amvm::Traits<__nv_bfloat16>::round_trip(q ? amvm::quant(tile, r, step) : tile);
+  }
+  __device__ __forceinline__ float finish_keep(float y, float tile, bool q) const {
+    return __fmul_rn(multi ? y : (q ? amvm::quant(tile, r, step) : tile), out_scale);
   }
 };
 

@@ -1,7 +1,7 @@
 """Wrapper of the Hopper analog-MVM kernels (``csrc/analog_mvm.cu``,
-``csrc/analog_mvm_tc.cu``).
+``csrc/analog_mvm_tc.cu``, ``csrc/analog_mvm_f32.cu``).
 
-Replaces the TPU kernel ``repro/kernels/analog_mvm.py::_kernel``. Three
+Replaces the TPU kernel ``repro/kernels/analog_mvm.py::_kernel``. Four
 hand-written designs compute the one function; :func:`select_design` picks
 one from the dtype, M and the options, as a choice of design (each is a
 kernel, none a fallback):
@@ -10,16 +10,21 @@ kernel, none a fallback):
   into 128-row sub-chunks over several hundred blocks, fixed-order sum of
   the partials (``analog_mvm_tc.cu``; :func:`split_plan` sizes the grid);
 * ``"prefill"`` -- bf16, larger M: a tensor-core tiled GEMM with the ADC at
-  every crossbar boundary in its epilogue (``analog_mvm_tc.cu``);
-* ``"gemv"`` -- fp32 (TF32 would move ADC codes), the DAC applied in the
-  kernel, a training launch with a quant-noise ``keep`` mask, or shapes
-  the tensor-core designs do not take: the CUDA-core kernel of
-  ``analog_mvm.cu``.
+  every crossbar boundary in its epilogue (``analog_mvm_tc.cu``;
+  :func:`prefill_plan`); above :data:`DECODE_MAX_M` rows it also runs the
+  bf16 training form, the quant-noise ``keep`` mask in that epilogue;
+* ``"tiled"`` -- every fp32 launch (TF32 would move ADC codes), with or
+  without the DAC or a ``keep`` mask: a register-tiled CUDA-core GEMM
+  (``analog_mvm_f32.cu``; :func:`tiled_plan` picks the tile);
+* ``"gemv"`` -- bf16 with the DAC applied in the kernel, bf16 shapes the
+  tensor-core designs do not take, and the bf16 training form at
+  <= :data:`DECODE_MAX_M` rows: the CUDA-core kernel of ``analog_mvm.cu``.
 
 The two tensor-core designs share their per-element arithmetic, so a row's
-bits depend neither on M nor on which of them ran. The CUDA sources hold
-the design notes (what they compute, their bounds, what the designs do
-about them); the plain PyTorch version of the same function is
+bits depend neither on M nor on which of them ran; the tiled design's rows
+depend on neither M nor its tile shape. The CUDA sources hold the design
+notes (what they compute, their bounds, what the designs do about them);
+the plain PyTorch version of the same function is
 ``kernels.ref.analog_mvm_ref``.
 
 :func:`analog_mvm` takes CUDA tensors only -- there is no CPU fallback here;
@@ -52,8 +57,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_M = 65535 * 8
 _FN = None
 _TC_FN = None
-#: the three designs, by name
-DESIGNS = ("gemv", "decode", "prefill")
+_F32_FN = None
+#: the four designs, by name
+DESIGNS = ("gemv", "decode", "prefill", "tiled")
 #: largest M the decode design takes (one 16-row mma tile)
 DECODE_MAX_M = 16
 #: rows of K per sub-chunk: one fp32 mma chain from zero in both
@@ -63,6 +69,15 @@ SUB_ROWS = 128
 MIN_BLOCKS = 2 * 132
 #: the prefill design's output tile: rows of M, columns of N per block
 PREFILL_TILE = (128, 64)
+#: the tiled design's column tiles and, for each, its row tiles: 8, 4 or 2
+#: rows a thread of 256, 4 columns a thread (2 at 16) (``csrc/analog_mvm_f32.cu``)
+TILED_BN = (16, 32, 64, 128)
+TILED_BM = {16: (256, 128, 64), 32: (256, 128, 64), 64: (128, 64, 32), 128: (64, 32, 16)}
+#: streaming multiprocessors of an H100: the tiled design's grid covers them
+SMS = 132
+#: rows of K per staged chunk of the tiled design (``kBK``): its fp32 sum is
+#: a chain per chunk, the chunks added in order
+TILED_BK = 32
 
 
 def _fn():
@@ -89,16 +104,35 @@ def _tc_fn():
             lib = build.load("analog_mvm_tc")
             pre = lib.analog_mvm_tc_prefill
             dec = lib.analog_mvm_tc_decode
-            pre.argtypes = dec.argtypes = (
+            common = (
                 [ctypes.c_void_p] * 5 + [ctypes.c_uint64] + [ctypes.c_int] * 3
                 + [ctypes.c_void_p] * 2 + [ctypes.c_float] * 2 + [ctypes.c_int] * 4
-                + [ctypes.c_void_p]
             )
+            pre.argtypes = common + [ctypes.c_void_p] * 2  # keep, stream
+            dec.argtypes = common + [ctypes.c_void_p]
             pre.restype = dec.restype = ctypes.c_int
             lib.analog_mvm_tc_error_string.argtypes = [ctypes.c_int]
             lib.analog_mvm_tc_error_string.restype = ctypes.c_char_p
             _TC_FN = (pre, dec, lib.analog_mvm_tc_error_string)
     return _TC_FN
+
+
+def _f32_fn():
+    global _F32_FN
+    with build.LOCK:
+        if _F32_FN is None:
+            lib = build.load("analog_mvm_f32")
+            fn = lib.analog_mvm_f32_launch
+            fn.argtypes = (
+                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+                + [ctypes.c_float] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+            )
+            fn.restype = ctypes.c_int
+            lib.analog_mvm_f32_error_string.argtypes = [ctypes.c_int]
+            lib.analog_mvm_f32_error_string.restype = ctypes.c_char_p
+            _F32_FN = (fn, lib.analog_mvm_f32_error_string)
+    return _F32_FN
 
 
 def tc_shape_ok(k: int, n: int, tile_rows: int, per_tile_adc: bool) -> bool:
@@ -112,13 +146,17 @@ def select_design(dtype: torch.dtype, m: int, k: int, n: int, *, tile_rows: int 
                   per_tile_adc: bool = True, apply_dac: bool = False,
                   keep: bool = False) -> str:
     """The design :func:`analog_mvm` launches for these operands (see the
-    module docstring): ``"decode"`` or ``"prefill"`` for bf16 without the DAC
-    or a keep mask at shapes :func:`tc_shape_ok` takes, split at
-    :data:`DECODE_MAX_M`; ``"gemv"`` otherwise."""
-    if (dtype != torch.bfloat16 or apply_dac or keep
-            or not tc_shape_ok(k, n, tile_rows, per_tile_adc)):
+    module docstring): ``"tiled"`` for every fp32 launch; for bf16 without
+    the DAC at shapes :func:`tc_shape_ok` takes, ``"decode"`` up to
+    :data:`DECODE_MAX_M` rows and ``"prefill"`` above (a keep mask:
+    ``"prefill"`` above, ``"gemv"`` up to); ``"gemv"`` otherwise."""
+    if dtype == torch.float32:
+        return "tiled"
+    if apply_dac or not tc_shape_ok(k, n, tile_rows, per_tile_adc):
         return "gemv"
-    return "decode" if m <= DECODE_MAX_M else "prefill"
+    if m <= DECODE_MAX_M:
+        return "gemv" if keep else "decode"
+    return "prefill"
 
 
 @dataclass(frozen=True)
@@ -196,6 +234,35 @@ def prefill_plan(m: int, k: int, n: int, tile_rows: int = 1024,
                        workspace_bytes=splits * m * n * 4 if splits > 1 else 0)
 
 
+@dataclass(frozen=True)
+class TiledPlan:
+    """The tiled design's grid for one (M, K, N): ``row_tiles`` x
+    ``col_tiles`` output tiles of ``bm`` x ``bn``, one block each, which
+    walks all of K."""
+
+    bm: int
+    bn: int
+    row_tiles: int
+    col_tiles: int
+
+    @property
+    def blocks(self) -> int:
+        return self.row_tiles * self.col_tiles
+
+
+@functools.lru_cache(maxsize=None)
+def tiled_plan(m: int, n: int) -> TiledPlan:
+    """The narrowest column tile of :data:`TILED_BN` that holds N (128 above
+    it: several column tiles), then the tallest of its row tiles
+    (:data:`TILED_BM`) that still gives every one of :data:`SMS` SMs a
+    block (else the shortest). One block walks all of K, whatever its
+    length."""
+    bn = next((b for b in TILED_BN if b >= n), TILED_BN[-1])
+    cols = -(-n // bn)
+    bm = next((b for b in TILED_BM[bn] if -(-m // b) * cols >= SMS), TILED_BM[bn][-1])
+    return TiledPlan(bm=bm, bn=bn, row_tiles=-(-m // bm), col_tiles=cols)
+
+
 _CALLS = itertools.count(1)
 
 
@@ -248,10 +315,13 @@ def analog_mvm(
     DAC has ``b_adc + 1`` bits. ``keep`` -- a bool or uint8 (M, T, N)
     quant-noise mask on x's device, T = ``ref.n_tiles(K, tile_rows,
     per_tile_adc)`` -- is the training form: each ADC'd partial is quantized
-    where it is set and passes at full precision where it is not (always
-    the ``gemv`` design). Above :data:`MAX_M` rows (a batch of CNN patches:
-    VWW's stem past 209 images) the rows are split over launches, each
-    counted; rows are independent, so the result is bitwise one call's."""
+    where it is set and passes at full precision where it is not (the
+    ``tiled`` design in fp32; in bf16 the ``prefill`` design above
+    :data:`DECODE_MAX_M` rows, ``gemv`` up to). Above :data:`MAX_M` rows (a
+    batch of CNN patches: VWW's stem past 209 images; the ``gemv`` design's
+    grid.y limit, kept for every design) the rows are split over launches,
+    each counted; rows are independent, so the result is bitwise one
+    call's."""
     if x.dim() == 2 and x.shape[0] > MAX_M:
         return torch.cat([
             analog_mvm(x[i : i + MAX_M], w, r_adc=r_adc, r_dac=r_dac, out_scale=out_scale,
@@ -312,41 +382,53 @@ def _check_operands(x: Tensor, w: Tensor, b_adc: int, tile_rows: int) -> None:
 
 def _launch(design: str, x: Tensor, w: Tensor, *, r_adc: Scalar, r_dac: Optional[Scalar] = None,
             out_scale: Scalar = 1.0, b_adc: int = 8, tile_rows: int = 1024,
-            per_tile_adc: bool = True) -> Tensor:
+            per_tile_adc: bool = True, keep: Optional[Tensor] = None, lib=None) -> Tensor:
     """:func:`analog_mvm` through a given design, for the checks only: they
     hold a design ``select_design`` does not pick for these operands (the
-    CUDA-core design on bf16) against the others. Refuses a design that
-    cannot take the operands."""
+    CUDA-core design on bf16 and fp32, the parent of the others) against
+    the others. ``lib``: the ``gemv`` design's (launch, error string)
+    functions from another build of ``analog_mvm.cu`` (a parent's, timed
+    against this one); None: this build's. Refuses a design that cannot
+    take the operands."""
     _check_operands(x, w, b_adc, tile_rows)
+    if keep is not None:
+        _check_keep(keep, x, w, tile_rows, per_tile_adc)
     m, k = x.shape
     n = w.shape[1]
-    tc_ok = select_design(x.dtype, m, k, n, tile_rows=tile_rows, per_tile_adc=per_tile_adc,
-                          apply_dac=r_dac is not None) != "gemv"
-    if design not in DESIGNS or (design != "gemv" and not tc_ok) or (
-            design == "decode" and m > DECODE_MAX_M):
+    tc_ok = (x.dtype == torch.bfloat16 and r_dac is None
+             and tc_shape_ok(k, n, tile_rows, per_tile_adc))
+    takes = {"gemv": True, "tiled": x.dtype == torch.float32, "prefill": tc_ok,
+             "decode": tc_ok and keep is None and m <= DECODE_MAX_M}
+    if not takes.get(design, False):
         raise ValueError(
             f"analog_mvm kernel: design {design!r} does not take M={m} K={k} N={n} "
-            f"dtype={x.dtype} tile_rows={tile_rows} dac={r_dac is not None}"
+            f"dtype={x.dtype} tile_rows={tile_rows} dac={r_dac is not None} "
+            f"keep={keep is not None}"
         )
-    return _run(design, x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc)
+    return _run(design, x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc, keep,
+                lib)
 
 
 def _run(design, x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc,
-         keep=None) -> Tensor:
+         keep=None, lib=None) -> Tensor:
     """Launch ``design`` (operands and design already checked); the one
     place that counts launches."""
     if design == "gemv":
-        y = _launch_gemv(x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc, keep)
+        y = _launch_gemv(x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc, keep,
+                         lib)
+    elif design == "tiled":
+        y = _launch_tiled(x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc, keep)
     else:
-        y = _launch_tc(design, x, w, r_adc, out_scale, b_adc, tile_rows, per_tile_adc)
+        y = _launch_tc(design, x, w, r_adc, out_scale, b_adc, tile_rows, per_tile_adc, keep)
     build.bump(analog_mvm, "launches")
     build.bump(analog_mvm, "design_launches", design)
     return y
 
 
 def _launch_gemv(x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc,
-                 keep=None) -> Tensor:
-    """Launch the CUDA-core design (operands and ``keep`` already checked)."""
+                 keep=None, lib=None) -> Tensor:
+    """Launch the CUDA-core design (operands and ``keep`` already checked)
+    through ``lib`` (see :func:`_launch`) or this build."""
     m, k = x.shape
     n = w.shape[1]
     rd_p, rd_h, rd_keep = _scalar(r_dac, "r_dac", x.device)
@@ -355,7 +437,7 @@ def _launch_gemv(x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc,
     vec = 16 // x.element_size()
     vec_ok = int(n % vec == 0 and w.data_ptr() % 16 == 0)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    fn, err_str = _fn()
+    fn, err_str = lib or _fn()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(
@@ -374,11 +456,43 @@ def _launch_gemv(x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc,
     return y
 
 
-def _launch_tc(design, x, w, r_adc, out_scale, b_adc, tile_rows, per_tile_adc) -> Tensor:
-    """Launch a tensor-core design (operands already checked). Its
-    workspace -- the fp32 partials, then the arrival flags, raised with
-    this call's :func:`_tag` so they need no zeroing -- is the call's own:
-    calls on different streams, or in different graphs, share nothing."""
+def _launch_tiled(x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc,
+                  keep=None) -> Tensor:
+    """Launch the tiled fp32 design (operands and ``keep`` already checked)
+    on :func:`tiled_plan`'s grid; it needs no workspace."""
+    m, k = x.shape
+    n = w.shape[1]
+    rd_p, rd_h, rd_keep = _scalar(r_dac, "r_dac", x.device)
+    ra_p, ra_h, ra_keep = _scalar(r_adc, "r_adc", x.device)
+    os_p, os_h, os_keep = _scalar(out_scale, "out_scale", x.device)
+    multi = int(per_tile_adc and k > tile_rows)
+    plan = tiled_plan(m, n)
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    fn, err_str = _f32_fn()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), m, k, n, rd_p, ra_p, os_p,
+            rd_h, ra_h, os_h, b_adc + 1, b_adc, tile_rows if multi else k, multi,
+            int(r_dac is not None), None if keep is None else keep.data_ptr(),
+            plan.bm, plan.bn, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"analog_mvm tiled kernel launch failed: {err_str(rc).decode()} "
+            f"(M={m} K={k} N={n} dtype={x.dtype})"
+        )
+    del rd_keep, ra_keep, os_keep  # freed after the launch was enqueued
+    return y
+
+
+def _launch_tc(design, x, w, r_adc, out_scale, b_adc, tile_rows, per_tile_adc,
+               keep=None) -> Tensor:
+    """Launch a tensor-core design (operands already checked; ``keep``,
+    the prefill design's training form, too). Its workspace -- the fp32
+    partials, then the arrival flags, raised with this call's :func:`_tag`
+    so they need no zeroing -- is the call's own: calls on different
+    streams, or in different graphs, share nothing."""
     m, k = x.shape
     n = w.shape[1]
     if x.data_ptr() % 16 or w.data_ptr() % 16:
@@ -398,7 +512,8 @@ def _launch_tc(design, x, w, r_adc, out_scale, b_adc, tile_rows, per_tile_adc) -
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if design == "prefill":
             rc = pre(x.data_ptr(), w.data_ptr(), y.data_ptr(), work.data_ptr(), flags,
-                     tag, m, k, n, ra_p, os_p, ra_h, os_h, b_adc, span, multi, plan.splits, stream)
+                     tag, m, k, n, ra_p, os_p, ra_h, os_h, b_adc, span, multi, plan.splits,
+                     None if keep is None else keep.data_ptr(), stream)
         else:
             rc = dec(x.data_ptr(), w.data_ptr(), y.data_ptr(), work.data_ptr(), flags,
                      tag, m, k, n, ra_p, os_p, ra_h, os_h, b_adc, span, multi, plan.warps, stream)

@@ -1,7 +1,10 @@
 """The Hopper analog-MVM kernels against their plain version, on the card:
 the design ``analog_mvm`` picks for each case (the bf16 cases without the
-DAC at M <= 16 run the tensor-core decode design), the tensor-core prefill
-design at prefill shapes, and its rows bitwise across M, padding and design.
+DAC at M <= 16 run the tensor-core decode design, fp32 the tiled design),
+the tensor-core prefill design at prefill shapes, its rows bitwise across
+M, padding and design, and its training form (a quant-noise keep mask in
+its epilogue): an all-ones mask bitwise the launch without one, all-zeros
+and p = 0.5 masks within the model, the split-K path included.
 
 Marked ``gpu``: each test skips on a host without a CUDA device (the kernel
 has no interpret mode). On the card: ``PYTHONPATH=src python -m pytest -m gpu
@@ -152,11 +155,17 @@ def test_design_selection_and_refusals(cuda):
     kernel.analog_mvm(x, w, r_adc=1.0, r_dac=2.0)
     kernel.analog_mvm(x.float(), w.float(), r_adc=1.0)
     after = dict(kernel.analog_mvm.design_launches)
-    assert {d: after[d] - before[d] for d in after} == {"decode": 1, "prefill": 1, "gemv": 2}
+    assert {d: after[d] - before[d] for d in after} == {"decode": 1, "prefill": 1, "gemv": 1,
+                                                       "tiled": 1}
     with pytest.raises(ValueError, match="design"):
         kernel._launch("decode", x, w, r_adc=1.0)  # M = 32 > 16
     with pytest.raises(ValueError, match="design"):
         kernel._launch("prefill", x.float(), w.float(), r_adc=1.0)
+    with pytest.raises(ValueError, match="design"):
+        kernel._launch("tiled", x, w, r_adc=1.0)  # bf16
+    keep = torch.ones((16, 1, 40), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="design"):
+        kernel._launch("decode", x[:16].contiguous(), w, r_adc=1.0, keep=keep)
     assert kernel.analog_mvm.design_launches == after
 
 
@@ -210,3 +219,61 @@ def test_split_designs_in_cuda_graph_replays(cuda, m, k, n):
         torch.cuda.synchronize()
         assert torch.equal(y, eager)
         kernel.analog_mvm(x[: m // 2 or 1].contiguous(), w, **kw)
+
+
+#: the training form's prefill shapes: tinyllama-1.1b's at 64 and 512
+#: tokens (split at the crossbar tiles where the output tiles are few), a
+#: ragged M and an N off the 64-column tile
+KEEP_SHAPES = [(64, 2048, 256), (64, 5632, 2048), (512, 2048, 5632), (512, 2048, 32000),
+               (17, 2048, 2048), (131, 1024, 520), (200, 5632, 256)]
+
+
+def _mask(gen, m, t, n, p, cuda):
+    return (torch.rand((m, t, n), generator=gen, device=cuda) < p).to(torch.uint8)
+
+
+@pytest.mark.parametrize("m,k,n", KEEP_SHAPES)
+@pytest.mark.parametrize("per_tile", [True, False])
+def test_prefill_all_ones_mask_is_the_serving_launch(cuda, m, k, n, per_tile):
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.kernels.ref import n_tiles
+
+    gen = torch.Generator("cuda").manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    w = (torch.randn((k, n), generator=gen, device=cuda) * k**-0.5).bfloat16()
+    ones = torch.ones((m, n_tiles(k, 1024, per_tile), n), dtype=torch.uint8, device=cuda)
+    for bits in (4, 8):
+        kw = dict(r_adc=torch.tensor(2.0, device=cuda), out_scale=0.9, b_adc=bits,
+                  per_tile_adc=per_tile)
+        assert kernel.select_design(x.dtype, m, k, n, per_tile_adc=per_tile, keep=True) == "prefill"
+        before = kernel.analog_mvm.design_launches["prefill"]
+        masked = kernel.analog_mvm(x, w, keep=ones, **kw)
+        assert kernel.analog_mvm.design_launches["prefill"] == before + 1
+        assert torch.equal(masked, kernel.analog_mvm(x, w, **kw)), bits
+
+
+@pytest.mark.parametrize("m,k,n", KEEP_SHAPES)
+@pytest.mark.parametrize("p", [0.0, 0.5])
+@pytest.mark.parametrize("per_tile", [True, False])
+def test_prefill_keep_masks_match_the_plain_training_form(cuda, m, k, n, p, per_tile):
+    """All-zeros and p = 0.5 masks against ``ref.analog_mvm_plain`` under
+    phase 3's bf16 model; the split-K path (``prefill_plan(...).splits >
+    1``) applies each split's own tile's mask before it writes its
+    partial."""
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.kernels.ref import analog_mvm_plain, n_tiles
+
+    gen = torch.Generator("cuda").manual_seed(m * n + k)
+    x = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    w = (torch.randn((k, n), generator=gen, device=cuda) * k**-0.5).bfloat16()
+    t = n_tiles(k, 1024, per_tile)
+    keep = _mask(gen, m, t, n, p, cuda)
+    r_adc = torch.tensor(2.0, device=cuda)
+    for bits in (4, 8):
+        y_k = kernel.analog_mvm(x, w, r_adc=r_adc, out_scale=0.9, b_adc=bits,
+                                per_tile_adc=per_tile, keep=keep)
+        y_p = analog_mvm_plain(x, w, None, r_adc, 0.9, b_adc=bits, per_tile_adc=per_tile,
+                               apply_dac=False, keep=keep)
+        assert y_k.dtype == torch.bfloat16 and y_k.shape == (m, n)
+        _check(y_k, y_p, (2.0 + 1e-9) / (2 ** (bits - 1) - 1) * 0.9, t, True)
+

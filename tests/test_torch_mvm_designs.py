@@ -1,10 +1,13 @@
 """The pure-Python pieces of the programmed-MVM kernel's designs, on the CPU.
 
-``kernels/analog_mvm.py`` picks one of three hand-written designs
-(``select_design``) and sizes the decode design's split-K grid
-(``split_plan``); ``chip_smoke.py`` computes each timed shape's bound
-(``mvm_bound``) and the prefill Ms it times (``prefill_ms``). The kernels
-themselves run only on the card (``tests/test_torch_kernel_gpu.py``).
+``kernels/analog_mvm.py`` picks one of four hand-written designs
+(``select_design``), sizes the decode design's split-K grid
+(``split_plan``), the prefill design's (``prefill_plan``) and the tiled
+fp32 design's tile (``tiled_plan``); ``chip_smoke.py`` computes each timed
+shape's bound (``mvm_bound``) and the prefill Ms it times (``prefill_ms``).
+The kernels themselves run only on the card
+(``tests/test_torch_kernel_gpu.py``, ``test_torch_cnn_gpu.py``,
+``test_torch_train_gpu.py``).
 """
 
 import importlib.util
@@ -38,8 +41,29 @@ def test_bf16_design_by_m_at_the_threshold(m, design):
 
 @pytest.mark.parametrize("m", [1, 8, 16, 17, 256])
 def test_fp32_and_the_dac_keep_the_cuda_core_design(m):
-    assert kernel.select_design(torch.float32, m, 2048, 2048) == "gemv"
+    """fp32 runs the register-tiled CUDA-core design (with or without the
+    DAC or a mask); bf16 with the DAC keeps the gemv design."""
+    assert kernel.select_design(torch.float32, m, 2048, 2048) == "tiled"
+    assert kernel.select_design(torch.float32, m, 2048, 2048, apply_dac=True) == "tiled"
     assert kernel.select_design(torch.bfloat16, m, 2048, 2048, apply_dac=True) == "gemv"
+
+
+@pytest.mark.parametrize("m,design", [(1, "gemv"), (8, "gemv"), (16, "gemv"),
+                                      (17, "prefill"), (64, "prefill"), (512, "prefill")])
+def test_bf16_keep_masks_above_16_rows_run_the_prefill_design(m, design):
+    for _, k, n in TINYLLAMA:
+        assert kernel.select_design(torch.bfloat16, m, k, n, keep=True) == design
+    # with the DAC, or at a shape the tensor cores refuse, the mask stays on gemv
+    assert kernel.select_design(torch.bfloat16, m, 2048, 2048, keep=True, apply_dac=True) == "gemv"
+    assert kernel.select_design(torch.bfloat16, m, 2044, 2048, keep=True) == "gemv"
+
+
+@pytest.mark.parametrize("m", [1, 7, 16, 17, 64, 256, 32_000, 160_000])
+@pytest.mark.parametrize("dac,keep", [(False, False), (True, False), (False, True), (True, True)])
+def test_every_fp32_launch_runs_the_tiled_design(m, dac, keep):
+    for k, n in [(9, 106), (954, 106), (106, 12), (27, 24), (128, 2), (2048, 256),
+                 (5632, 2048), (2044, 130)]:
+        assert kernel.select_design(torch.float32, m, k, n, apply_dac=dac, keep=keep) == "tiled"
 
 
 @pytest.mark.parametrize("k,n,tile_rows,per_tile,design", [
@@ -216,4 +240,117 @@ def test_expected_b1_launches_by_design():
     M = rows (the last token), its 154 layer projections at rows x tokens."""
     cs = _chip_smoke()
     got = cs.b1_designs([(1, 16), (1, 256), (4, 32)], decode_steps=3)
-    assert got == {"gemv": 0, "decode": 155 + 1 + 1 + 3 * 155, "prefill": 154 + 154}
+    assert got == {"gemv": 0, "decode": 155 + 1 + 1 + 3 * 155, "prefill": 154 + 154,
+                   "tiled": 0}
+    # the CNN phase: every conv and the FC of every call one tiled launch
+    assert cs.b1_only("tiled", 5 * 38) == {"gemv": 0, "decode": 0, "prefill": 0, "tiled": 190}
+    # the training forms: fp32 tiled at any M; bf16 prefill above 16 rows
+    # (phase 16 (b) at 1 x 64 tokens, (c) at 4 x 128), gemv up to
+    assert cs.train_design(torch.float32, 64) == "tiled"
+    assert cs.train_design(torch.float32, 1) == "tiled"
+    assert cs.train_design(torch.bfloat16, 64) == "prefill"
+    assert cs.train_design(torch.bfloat16, 512) == "prefill"
+    assert cs.train_design(torch.bfloat16, 16) == "gemv"
+    assert cs.b1_only(cs.train_design(torch.bfloat16, 512), 155)["prefill"] == 155
+
+
+#: the tiled design's grid at each programmed MVM of the paper's CNNs:
+#: (arch, batch) -> [(layer, bm, bn, blocks)]
+TILED_CNN = {
+    ("analognet-kws", 1): [("conv1", 16, 128, 31), ("conv2", 16, 128, 8),
+                           ("conv3", 16, 128, 8), ("conv4", 16, 128, 8),
+                           ("fc", 64, 16, 1)],
+    ("analognet-kws", 256): [("conv1", 64, 128, 1960), ("conv2", 64, 128, 500),
+                             ("conv3", 64, 128, 500), ("conv4", 64, 128, 500),
+                             ("fc", 64, 16, 4)],
+    ("analognet-kws", 64): [("conv1", 64, 128, 490), ("conv2", 32, 128, 250),
+                            ("conv3", 32, 128, 250), ("conv4", 32, 128, 250),
+                            ("fc", 64, 16, 1)],
+    ("analognet-vww", 64): [("stem", 256, 32, 625), ("b1_expand", 64, 128, 625),
+                            ("b1_proj", 256, 32, 157), ("b2_expand", 64, 128, 169),
+                            ("b2_proj", 64, 64, 169), ("b3_expand", 32, 128, 196),
+                            ("b3_proj", 32, 64, 98), ("b4_expand", 32, 128, 196),
+                            ("b4_proj", 16, 128, 196), ("head", 16, 128, 196),
+                            ("fc", 64, 16, 1)],
+    ("analognet-vww", 1): [("stem", 64, 32, 40), ("b1_expand", 16, 128, 40),
+                           ("b1_proj", 64, 32, 10), ("b2_expand", 16, 128, 11),
+                           ("b2_proj", 32, 64, 6), ("b3_expand", 16, 128, 8),
+                           ("b3_proj", 32, 64, 2), ("b4_expand", 16, 128, 8),
+                           ("b4_proj", 16, 128, 4), ("head", 16, 128, 4),
+                           ("fc", 64, 16, 1)],
+}
+
+
+@pytest.mark.parametrize("arch,batch", sorted(TILED_CNN))
+def test_tiled_plan_at_the_cnn_shapes(arch, batch):
+    from repro_torch.configs import get
+    from repro_torch.models.analognet import mvm_shapes
+
+    got = []
+    for name, m, k, n in mvm_shapes(get(arch), batch):
+        plan = kernel.tiled_plan(m, n)
+        assert plan.bm * plan.row_tiles >= m > plan.bm * (plan.row_tiles - 1)
+        assert plan.bn * plan.col_tiles >= n > plan.bn * (plan.col_tiles - 1)
+        got.append((name, plan.bm, plan.bn, plan.blocks))
+    assert got == TILED_CNN[arch, batch]
+
+
+@pytest.mark.parametrize("n,bn", [(1, 16), (2, 16), (12, 16), (16, 16), (17, 32), (24, 32),
+                                  (32, 32), (48, 64), (64, 64), (96, 128), (106, 128),
+                                  (128, 128), (192, 128), (32000, 128)])
+def test_tiled_column_tile_holds_n_without_a_wider_tile(n, bn):
+    plan = kernel.tiled_plan(100_000, n)
+    assert plan.bn == bn
+    assert plan.col_tiles == -(-n // bn)
+    # narrower tiles would not hold N in one tile (below 128 columns)
+    assert n > 128 or all(b < n for b in kernel.TILED_BN if b < bn)
+
+
+@pytest.mark.parametrize("m,n,bm", [(1, 12, 64), (4224, 64, 32), (8384, 64, 32),
+                                    (8385, 64, 64), (16_768, 64, 64), (16_769, 64, 128),
+                                    (16_896, 128, 64), (512, 32000, 64), (64, 2048, 16),
+                                    (33_537, 24, 256), (33_536, 24, 128)])
+def test_tiled_row_tile_puts_a_block_on_every_sm(m, n, bm):
+    plan = kernel.tiled_plan(m, n)
+    rows = kernel.TILED_BM[plan.bn]
+    assert plan.bm == bm and bm in rows
+    assert plan.row_tiles * plan.col_tiles >= kernel.SMS or plan.bm == rows[-1]
+    assert all(-(-m // b) * plan.col_tiles < kernel.SMS for b in rows if b > bm)
+
+
+def test_tiled_row_tiles_are_8_4_and_2_rows_a_thread():
+    """256 threads: BN / TN across N (TN = 4 columns a thread, 2 at BN =
+    16), the rest across M at 8, 4 or 2 rows a thread."""
+    for bn, rows in kernel.TILED_BM.items():
+        tn = 2 if bn == 16 else 4
+        assert rows == tuple(tm * 256 // (bn // tn) for tm in (8, 4, 2))
+
+
+@pytest.mark.parametrize("m,k,n,splits", [(64, 2048, 256, 2), (64, 5632, 2048, 6),
+                                          (512, 2048, 5632, 1), (512, 2048, 32000, 1),
+                                          (17, 2048, 2048, 2), (131, 1024, 520, 1)])
+def test_the_bf16_training_form_plans_as_the_serving_prefill(m, k, n, splits):
+    """A keep launch runs the prefill design on the serving plan: the split-K
+    path (one block per crossbar tile, each applying its own tile's mask
+    before it writes its partial) where the output tiles are few, one block
+    per output tile otherwise."""
+    assert kernel.select_design(torch.bfloat16, m, k, n, keep=True) == "prefill"
+    plan = kernel.prefill_plan(m, k, n)
+    assert plan.splits == splits
+    assert plan.flags == (plan.blocks if splits > 1 else 0)
+
+
+@pytest.mark.parametrize("m,n,blocks", [
+    (125, 106, 8),      # KWS conv2, one image: 8 row tiles of 16
+    (1, 12, 1),         # the always-on FC: one block
+    (8, 2048, 16),      # one row tile, 16 column tiles of 128
+    (64, 2048, 64),     # 4 row tiles of 16
+    (256, 2048, 256),
+    (32_000, 106, 500),
+])
+def test_tiled_grid_is_one_block_an_output_tile(m, n, blocks):
+    """One block walks all of K for each output tile, however few the tiles
+    (the always-on stream's single image fills 8 of 132 SMs at KWS's
+    conv2)."""
+    plan = kernel.tiled_plan(m, n)
+    assert plan.blocks == plan.row_tiles * plan.col_tiles == blocks

@@ -1,5 +1,6 @@
 """The paper's training on the card: B1's training form (the quant-noise
-``keep`` mask in ``csrc/analog_mvm.cu``'s epilogue) and one stage-2 step.
+``keep`` mask in the epilogue of the design ``analog_mvm`` picks: the tiled
+design of ``csrc/analog_mvm_f32.cu`` in fp32) and one stage-2 step.
 
 Marked ``gpu``: each test skips on a host without a CUDA device (the
 kernel has no CPU mode). It imports only the port, so it runs where JAX is
@@ -73,9 +74,10 @@ def test_keep_mask_launch_matches_plain_training_form(cuda, bits):
         keep = prng.bernoulli(key.to(cuda), 0.5, (m, t, n))
         assert torch.equal(keep.cpu(), prng.bernoulli(key, 0.5, (m, t, n)))
         kw = dict(r_adc=r_adc, out_scale=out_scale, b_adc=bits)
-        before = kernel.analog_mvm.design_launches["gemv"]
+        assert kernel.select_design(x.dtype, m, k, n, keep=True) == "tiled"
+        before = kernel.analog_mvm.design_launches["tiled"]
         y_k = kernel.analog_mvm(x, w, keep=keep, **kw)
-        assert kernel.analog_mvm.design_launches["gemv"] == before + 1
+        assert kernel.analog_mvm.design_launches["tiled"] == before + 1
         y_p = analog_mvm_ref(x, w, None, r_adc, out_scale, b_dac=bits + 1, b_adc=bits,
                              apply_dac=False, keep=keep)
         _check(y_k, y_p, keep, (1.5 + 1e-9) / (2 ** (bits - 1) - 1), t)
