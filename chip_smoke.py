@@ -164,19 +164,45 @@ end the run with a non-zero exit:
    runs (b) alone at several seeds, the gates reported, for the readings
    the bounds come from); (d) ``serve_drift_24h`` on the card,
    no programming event while aging; (c) tinyllama-1.1b at full width and
-   depth trained through ``launch/train.py``'s functions, 3 + 3 steps at
-   batch 4 x 128 tokens with asynchronous checkpoints: every stage-2
-   forward 155 keep-mask ``prefill`` launches and 155 recomputes, every
-   forward 22 B3 launches (its training form) and 22 recomputes, no plain
+   depth trained through ``launch/train.py``'s functions with the
+   config's remat (each group's forward recomputed in the backward), 3 +
+   3 steps at batch 4 x 128 tokens with asynchronous checkpoints: every
+   stage-2 step 309 keep-mask ``prefill`` launches (155 forward, 154
+   recomputed) and 155 backward recomputes, every step 44 B3 launches (its
+   training form; 22 and 22) and 22 backward recomputes, no plain
    forward, finite losses, a resume from the final checkpoint that runs
    nothing and restores the params bitwise; ms per step, one profiled
-   step per stage (B1's and B3's share, idle share), peak memory; then
-   every B1 key and B3 shape the phase launched checked as phases 3 and 8
-   check theirs, and both training forms timed per forward (B1's in turns
-   with its parent, the ``gemv`` design);
-17. report: a JSON line ``{"kernels": [...]}`` (launches from the serving
-   phases, the fleet, the CNNs and the training runs) and, last, the
-   device line ``{"ok": true, "device": {...}}``.
+   step per stage (B1's and B3's share, idle share), peak memory against
+   the run without remat; then every B1 key and B3 shape the phase
+   launched checked as phases 3 and 8 check theirs, and both training
+   forms timed per forward (B1's in turns with its parent, the ``gemv``
+   design); (b) runs without remat (its tapes hold each forward call once);
+17. the other dense LMs and the MoE family (``phase_archs``), after the
+   earlier phases' chips are freed: olmo-1b and llama3.2-3b at their
+   published widths and as deep as the card holds them (olmo-1b whole),
+   qwen2-72b at full width on one layer, phi3.5-moe on two layers (one if
+   two do not fit), llama4-maverick at its smoke width and depth (its one
+   MoE layer of 128 experts is ~16 B weights, past one card): each
+   programmed on the card from random weights (``--seed``) and serving a
+   Poisson trace of 8 requests at 8 slots per layer (olmo-1b and
+   llama3.2-3b also through B2, the same tokens); program seconds, peak
+   memory, decode ms per step, tokens/s; exact B1, bank-form and B3
+   launch counts and no plain-version call; a prompt's prefill through the
+   kernels against the plain version (every MVM through B1 on the plain
+   forward's inputs under phase 3's ADC model, the same argmax, the
+   logits' rel L2 reported); every MoE family through B1's expert-bank
+   form, one launch an
+   MoE layer's family; then every new B1 key (the lm_heads' N = 128256,
+   50304, 152064 among them) checked as phase 3 checks its own, every
+   bank key (E, M, K, N, dtype, design) against its plain version under
+   the ADC tolerance model and each expert bitwise the 2-D launch of its
+   slice, every new B3 shape at its arch's heads, and the bank form timed
+   per MoE layer at phi3.5-moe's decode and prefill shapes beside its
+   plain version, ``torch.bmm`` (yardstick only), the 48 2-D launches it
+   replaces and the bound; budget ``ARCH_BUDGET_S``;
+18. report: a JSON line ``{"kernels": [...]}`` (launches from the serving
+   phases, the fleet, the CNNs, the training runs and phase 17) and,
+   last, the device line ``{"ok": true, "device": {...}}``.
 
 The RNG bridge (``repro_torch.prng``): phase 4 draws the weights and
 programs the chip through it (the normal draws on the card's kernel
@@ -301,6 +327,9 @@ LM_STEP = dict(layers=2, batch=1, seq=64)
 LM_RUN = dict(batch=4, seq=128, stage1=3, stage2=3)
 #: the CLI's stage-2 settings
 LM_TRAIN = dict(eta=0.1, b_adc=8, quant_noise_p=0.5)
+#: (c)'s peak before the port applied ``cfg.remat``: this script's runs on
+#: an H100 80GB HBM3 at 700 W
+LM_PEAK_NO_REMAT = "40.98 GiB above 28.66 GiB"
 #: (b)'s CPU steps run in a child process beside the card's work, on this
 #: many threads, and are given this long
 LM_CPU_THREADS = 8
@@ -1031,8 +1060,8 @@ def plain_calls() -> int:
     from repro_torch.kernels import ref
 
     return (ref.analog_mvm_ref.calls + engine.tile_matmul_quant.calls
-            + ref.decode_fused_ref.calls + ref.flash_attention_ref.calls
-            + sum(f.calls for f in ROW_PLAINS(dr)))
+            + ref.analog_mvm_bank_ref.calls + ref.decode_fused_ref.calls
+            + ref.flash_attention_ref.calls + sum(f.calls for f in ROW_PLAINS(dr)))
 
 
 def reset_counts() -> None:
@@ -1045,14 +1074,16 @@ def reset_counts() -> None:
 
     analog_mvm.analog_mvm.launches = 0
     analog_mvm.analog_mvm.design_launches = dict.fromkeys(analog_mvm.DESIGNS, 0)
+    analog_mvm.analog_mvm_bank.launches = 0
+    analog_mvm.analog_mvm_bank.design_launches = dict.fromkeys(analog_mvm.BANK_DESIGNS, 0)
     decode_fused.launches = 0
     flash_attention.flash_attention.launches = 0
     dr.launches.update(dict.fromkeys(dr.launches, 0))
     prng.launches = 0
     ops.backward_calls = 0
     ops.attention_backward_calls = 0
-    for fn in (ref.analog_mvm_ref, engine.tile_matmul_quant, ref.decode_fused_ref,
-               ref.flash_attention_ref, *ROW_PLAINS(dr)):
+    for fn in (ref.analog_mvm_ref, engine.tile_matmul_quant, ref.analog_mvm_bank_ref,
+               ref.decode_fused_ref, ref.flash_attention_ref, *ROW_PLAINS(dr)):
         fn.calls = 0
 
 
@@ -1324,7 +1355,9 @@ def serve_metrics(rep) -> dict:
             "prefill_s": rep.t_prefill, "wall_s": rep.wall,
             "latency_p50_s": rep.latency_s(50), "latency_p95_s": rep.latency_s(95),
             "ttft_p50_s": rep.ttft_s(50), "ttft_p95_s": rep.ttft_s(95),
-            "top1_agreement": rep.counters["top1"], "logit_mse": rep.counters["logit_mse"],
+            # no digital lockstep (phase 17), no agreement counters
+            "top1_agreement": (rep.counters or {}).get("top1"),
+            "logit_mse": (rep.counters or {}).get("logit_mse"),
             "occupancy": rep.occupancy, "decode_steps": rep.n_steps}
 
 
@@ -1822,15 +1855,16 @@ def phase_flash_attention(torch, gen, shapes: list) -> dict:
             "worst_bf16_ulps": worst_bf16, "worst_f32_rel": worst_f32}
 
 
-def fa_cases(torch, gen, rows: int, s: int, dtype, cases: list, failures: list) -> tuple:
+def fa_cases(torch, gen, rows: int, s: int, dtype, cases: list, failures: list,
+             heads=None) -> tuple:
     """B3 against its plain version on random (rows, S) operands at
-    tinyllama-1.1b's heads, causal and full, under phase 8's tolerance:
-    each case into ``cases``, a case out of tolerance into ``failures``;
-    returns the operands (q, k, v)."""
+    ``heads`` ({"h", "kv", "d"}; tinyllama-1.1b's by default), causal and
+    full, under phase 8's tolerance: each case into ``cases``, a case out of
+    tolerance into ``failures``; returns the operands (q, k, v)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_ref
 
-    c = FA_HEADS
+    c = {**FA_HEADS, **(heads or {})}
     chunks = dict(q_chunk=c["q_chunk"], kv_chunk=c["kv_chunk"])
     q, k, v = (torch.randn((rows, s, n, c["d"]), generator=gen, device=DEV).to(dtype)
                for n in (c["h"], c["kv"], c["kv"]))
@@ -1842,6 +1876,7 @@ def fa_cases(torch, gen, rows: int, s: int, dtype, cases: list, failures: list) 
         scale = op_.abs().max().item()
         ulp = bf16_ulp(op_)
         r = {"rows": rows, "S": s, "dtype": str(dtype).split(".")[-1],
+             "heads": (c["h"], c["kv"], c["d"]),
              "causal": causal, "max_abs": dd.max().item(), "max_abs_o": scale,
              "max_ulps": (dd / ulp).max().item() if dtype == torch.bfloat16 else None,
              "over_one_ulp": int((dd > ulp).sum().item()),
@@ -2219,7 +2254,8 @@ def phase_bridge(torch, ctx) -> dict:
     # the kernel alone (the wrapper reads the key's words back to the host),
     # and the plain version's PyTorch ops on the card, by CUDA events
     res["normal_ms_11.5M"] = events_ms(
-        torch, lambda: prng._FN.prng_normal(k1, k2, buf.data_ptr(), buf.numel(), 1, stream()), 20)
+        torch, lambda: prng._FN.prng_normal(k1, k2, buf.data_ptr(), 0, buf.numel(), 1, stream()),
+        20)
     res["normal_plain_ms_11.5M"] = events_ms(
         torch, lambda: prng.erf_inv(prng.uniform(k, shape, prng._NORMAL_LO, 1.0)) * prng.SQRT2, 2)
     # bytes: 4 written per draw; operations: PRNG_OPS_PER_DRAW, over the
@@ -2571,8 +2607,10 @@ def fleet_expected(rep, trace, cfg, refresh_draws: int) -> dict:
 
 def refresh_draws(torch, ctx) -> int:
     """Normal-draw launches of one full-width reprogram: one layer member's
-    programming and evaluation on the card, times the chip's members (a
-    check's launches, not the main path's: the count is restored)."""
+    programming and evaluation on the card, times the chip's member chunks
+    (a member above ``engine._CHUNK`` weights draws chunk by chunk: the
+    lm_head in 4) -- a check's launches, not the main path's: the count is
+    restored."""
     from repro_torch import prng
     from repro_torch.core import engine
     from repro_torch.core import pcm as pcm_lib
@@ -2585,9 +2623,9 @@ def refresh_draws(torch, ctx) -> int:
     engine._drift_read_2d(st, pcm_lib.T_C, program.cfg.pcm)
     per_member = prng.launches - before
     prng.launches = before
-    members = sum(int(v["g_pos"].shape[0]) if v["g_pos"].dim() == 3 else 1
-                  for v in program.state.values())
-    return per_member * members
+    chunks = sum((int(v["g_pos"].shape[0]) if v["g_pos"].dim() == 3 else 1)
+                 * len(engine._chunks(*v["g_pos"].shape[-2:])) for v in program.state.values())
+    return per_member * chunks
 
 
 def refreshed_chip_check(torch, router, rep, params, cfg) -> dict:
@@ -3894,7 +3932,9 @@ def lm_step_start(torch, seed: int, readings: bool = False) -> dict:
     from repro_torch.models import lm
     from repro_torch.training import lockstep
 
-    cfg = dataclasses.replace(get(LM_ARCH), n_layers=LM_STEP["layers"])
+    # (b) tapes each call of the step's forward once, in order: remat would
+    # run every group's calls again inside the backward
+    cfg = dataclasses.replace(get(LM_ARCH), n_layers=LM_STEP["layers"], remat=False)
     params = lm.lm_init(prng.PRNGKey(seed), cfg, device=DEV)
     card, counts, steps = {}, {}, {}
     for dtype in ("float32", "bfloat16"):
@@ -4089,7 +4129,8 @@ def lm_step_gemv_readings(torch, seed: int, card, cpu) -> dict:
     from repro_torch.models import lm
     from repro_torch.training import lockstep
 
-    cfg = dataclasses.replace(get(LM_ARCH), n_layers=LM_STEP["layers"], dtype=torch.bfloat16)
+    cfg = dataclasses.replace(get(LM_ARCH), n_layers=LM_STEP["layers"], dtype=torch.bfloat16,
+                              remat=False)  # as lm_step_start
     params = lm.lm_init(prng.PRNGKey(seed), cfg, device=DEV)
     pre_grads = lm_step(torch, params, cfg, 2, lockstep.Tape(lock=card, draw=set()))["grads"]
     with b1_through("gemv", keep_only=True):
@@ -4163,7 +4204,7 @@ def lm_step_readings(torch, seeds: list, path: Path) -> int:
     from repro_torch.models import lm
     from repro_torch.training import lockstep
 
-    cfg = dataclasses.replace(get(LM_ARCH), n_layers=LM_STEP["layers"])
+    cfg = dataclasses.replace(get(LM_ARCH), n_layers=LM_STEP["layers"], remat=False)
     params = lm.lm_init(prng.PRNGKey(0), cfg, device=DEV)
     step = lambda: lm_step(torch, params, cfg, 2, lockstep.Tape())
     step()
@@ -4197,11 +4238,14 @@ def lm_train_run(torch) -> dict:
     ``launch.train``'s functions (``lm_setup(smoke=False)``,
     ``run_two_stage``), LM_RUN's batch and steps, every step logged, with
     asynchronous checkpoints into ``build/``; each step's B1 launches (by
-    design), B3 launches and both backward recomputes counted. Gates: every
-    stage-2 forward 155 keep-mask launches through the prefill design and
-    155 recomputes, none in stage 1; every forward 22 B3 launches and 22 recomputes; no
-    plain forward; finite losses; a resume from the final checkpoint runs
-    nothing and restores the params bitwise. Reports ms per step by stage
+    design), B3 launches and both backward recomputes counted. The config
+    applies remat: each group's forward runs again in the backward. Gates:
+    every stage-2 step 309 keep-mask launches through the prefill design
+    (155 in the forward, the groups' 154 again in the recompute) and 155
+    backward recomputes, none in stage 1; every step 44 B3 launches (22 and
+    22) and 22 backward recomputes; no plain forward; finite losses; a
+    resume from the final checkpoint runs nothing and restores the params
+    bitwise. Reports ms per step by stage
     (host clock, median), one profiled step per stage (device kernels, B1's
     and B3's share, idle share) and the peak memory above what earlier
     phases hold."""
@@ -4219,6 +4263,9 @@ def lm_train_run(torch) -> dict:
     from repro_torch.training import optim
     from repro_torch.training.loop import TrainConfig, run_two_stage, value_and_grad
 
+    from repro_torch.configs import get
+
+    check(get(LM_ARCH).remat, f"lm (c): {LM_ARCH}'s config applies remat")
     ckpt = ROOT / "build" / "train_lm"
     shutil.rmtree(ckpt, ignore_errors=True)
     gc.collect()
@@ -4259,8 +4306,13 @@ def lm_train_run(torch) -> dict:
     n_layers, per = 22, LAUNCHES_PER_FORWARD
     s1 = [r for r in steps if r["stage"] == 1]
     s2 = [r for r in steps if r["stage"] == 2]
-    want = {1: {"b1": 0, design: 0, "backward": 0, "b3": n_layers, "attention_backward": n_layers},
-            2: {"b1": per, design: per, "backward": per, "b3": n_layers,
+    # remat (the config's, as the reference's): the backward recomputes
+    # every group's forward, launching its 154 B1 and 22 B3 kernels again
+    # (the lm_head is outside the groups); each MVM and attention is still
+    # differentiated once
+    b1_step, b3_step = per + (per - 1), 2 * n_layers
+    want = {1: {"b1": 0, design: 0, "backward": 0, "b3": b3_step, "attention_backward": n_layers},
+            2: {"b1": b1_step, design: b1_step, "backward": per, "b3": b3_step,
                 "attention_backward": n_layers}}
     launches_ok = (len(s1) == LM_RUN["stage1"] and len(s2) == LM_RUN["stage2"]
                    and all({k: r[k] for k in want[1]} == want[r["stage"]] for r in steps))
@@ -4281,8 +4333,8 @@ def lm_train_run(torch) -> dict:
         f"(first {s1[0]['ms']:.1f} / {s2[0]['ms']:.1f}); per step "
         f"{[{k: r[k] for k in ('stage', 'b1', design, 'backward', 'b3', 'attention_backward')} for r in steps]}; "
         f"plain forward calls {plain}; losses {[round(r['loss'], 4) for r in steps]}; peak "
-        f"memory {out['peak_bytes_above_held'] / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB "
-        "earlier phases hold")
+        f"memory with remat {out['peak_bytes_above_held'] / 2**30:.2f} GiB above the "
+        f"{held / 2**30:.2f} GiB earlier phases hold (without remat: {LM_PEAK_NO_REMAT})")
     check(design == "prefill" and launches_ok,
           f"lm (c): per step launches ({design}) and recomputes, want {want}")
     check(plain == 0, f"lm (c): no plain forward call on the card ({plain})")
@@ -4338,6 +4390,29 @@ def lm_train_run(torch) -> dict:
         log(f"lm (c): one {k} step profiled (profile_kernel_ms: B3, profile_mvm_ms: B1): {pr}")
     log(f"lm (c): peak memory with the profiled steps {out['peak_bytes_above_held'] / 2**30:.2f} "
         f"GiB above the {held / 2**30:.2f} GiB held; seconds {out['seconds']}")
+    # what remat saves in the step itself: one stage-2 forward and backward
+    # of the trained params, its peak above what is held before it (the
+    # gradients included), with and without remat
+    import dataclasses
+
+    from repro_torch.models import lm
+
+    peaks = {}
+    for remat in (True, False):
+        cfg = dataclasses.replace(get(LM_ARCH), remat=remat)
+        acfg = AnalogConfig().train(**LM_TRAIN)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, grads = value_and_grad(lambda p: lm.lm_loss(p, batch, acfg, cfg, rng=key), trained)
+        torch.cuda.synchronize()
+        peaks["remat" if remat else "no_remat"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        del grads
+    out["stage2_step_peak_gib"] = peaks
+    log(f"lm (c): one stage-2 forward and backward alone, peak above what is held before it "
+        f"(GiB): {peaks}")
     del trained, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4608,6 +4683,487 @@ def profile_summary(prof, kernel: str = "analog_mvm", wall_us=None, dev=None) ->
             "profile_idle_share": round(1 - busy / max(wall, 1e-9), 4)}
 
 
+# --------------------------------------------------------------- the other LMs and MoE
+
+#: phase 17's archs: (arch, depth, fused). depth None: the published depth,
+#: cut to what the card holds; an int: at most that many layers (full
+#: width); "smoke": the smoke config's width and depth (float32). fused:
+#: the trace served through B2 too
+ARCH_RUNS = (("olmo-1b", None, True), ("llama3.2-3b", None, True), ("qwen2-72b", 1, False),
+             ("phi3.5-moe-42b-a6.6b", 2, False), ("llama4-maverick-400b-a17b", "smoke", False))
+#: each arch's Poisson trace and engine
+ARCH_TRACE = dict(n=8, rate=50.0, prompt_lens=(16, 32, 64, 128), new_tokens=(8, 16))
+ARCH_SERVE = dict(n_slots=8, s_max=256)
+#: phase 17's budget, seconds (it fails past it)
+ARCH_BUDGET_S = 300
+#: the share of the card's free memory a programmed arch may plan to take
+ARCH_MEMORY_SHARE = 0.95
+#: B1's bank form timed per MoE layer at phi3.5-moe's shapes: a decode step
+#: at 8 slots (M = 8: G = 8 groups of one token, C = 1) and a bucketed
+#: 1 x 256 prefill (M = 32: G = 32 groups of 8 tokens, C = 1)
+BANK_ARCH, BANK_MS = "phi3.5-moe-42b-a6.6b", (8, 32)
+
+
+def analog_weights(cfg) -> tuple:
+    """(analog weights of ``cfg``, its largest programmed member): every
+    layer's q/k/v/o projections and its FFN or expert bank (+ the shared
+    expert), and the lm_head."""
+    from repro_torch.models.lm import block_period
+
+    d, f = cfg.d_model, cfg.d_ff
+    attn = 2 * d * cfg.n_heads * cfg.hd + 2 * d * cfg.n_kv_heads * cfg.hd
+    per = {"attn": attn + 3 * d * f,
+           "moe": attn + 3 * cfg.n_experts * d * f + (3 * d * f if cfg.shared_expert else 0)}
+    period = block_period(cfg)
+    layers = [period[i % len(period)] for i in range(cfg.n_layers)]
+    return sum(per[k] for k in layers) + d * cfg.vocab, max(d * cfg.vocab, d * f,
+                                                           cfg.n_heads * cfg.hd * d)
+
+
+def program_bytes(cfg, temp_per: float) -> float:
+    """What programming ``cfg`` on the card takes at its peak: the weights
+    (4 bytes), their PCM state and effective weights (20), the programming
+    temporaries of the largest member's chunk (``temp_per`` a weight,
+    measured; ``core/engine.py::_CHUNK``), the embedding table and 2 GiB for
+    serving."""
+    from repro_torch.core import engine
+
+    n, largest = analog_weights(cfg)
+    return (24 * n + temp_per * min(largest, engine._CHUNK) + 4 * cfg.vocab * cfg.d_model
+            + 2 * 2**30)
+
+
+def program_temp_per_weight(torch) -> float:
+    """Bytes a weight of one (2048, 8192) member -- one chunk of
+    ``core/engine.py::_CHUNK`` -- takes on the card while ``program_weight``
+    programs it, beyond the 24 its input, state and effective weights keep."""
+    from repro_torch import prng
+    from repro_torch.core import engine, pcm
+
+    w = prng.normal(prng.PRNGKey(0).to(DEV), (2048, 8192)) * 0.02
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = engine.program_weight(prng.PRNGKey(1).to(DEV), w, torch.tensor(-1.0, device=DEV),
+                                torch.tensor(1.0, device=DEV), 86400.0, pcm.PCMConfig())
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del out, w
+    return max(peak / (2048 * 8192) - 20.0, 0.0)
+
+
+def arch_config(torch, name: str, depth, temp_per: float):
+    """The config phase 17 serves ``name`` at and what was cut: the smoke
+    config, or the published widths at the depth asked (None: the
+    published one), cut to the deepest that fits the card's free memory."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.models.lm import block_period
+
+    full = get(name)
+    if depth == "smoke":
+        return full.smoke(), "smoke width and depth (float32): one MoE layer of the published " \
+                             "128 experts is ~16 B weights, past one card"
+    free = torch.cuda.mem_get_info()[0] * ARCH_MEMORY_SHARE
+    step = len(block_period(full))
+    for n in range(min(depth or full.n_layers, full.n_layers), 0, -step):
+        cfg = dataclasses.replace(full, n_layers=n)
+        if program_bytes(cfg, temp_per) <= free:
+            cut = None if n == full.n_layers else f"depth {n} of {full.n_layers}"
+            return cfg, cut
+    check(False, f"arch {name}: one layer at full width needs "
+                 f"{program_bytes(dataclasses.replace(full, n_layers=step), temp_per) / 2**30:.1f}"
+                 f" GiB to program, the card has {free / 2**30:.1f} free")
+
+
+def moe_forward_launches(cfg, tokens_list: list, decode_steps: int, slots: int) -> dict:
+    """B1 launches per forward expected of ``cfg``'s serving: the 2-D
+    launches (every dense projection and shared expert, the lm_head) and the
+    bank form's by design (3 per MoE layer, at M = groups x capacity of the
+    forward's tokens) over prefills of ``tokens_list`` and ``decode_steps``
+    steps at ``slots`` slots."""
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.models import moe
+    from repro_torch.models.lm import block_period
+
+    period = block_period(cfg)
+    kinds = [period[i % len(period)] for i in range(cfg.n_layers)]
+    n_moe = kinds.count("moe")
+    two_d = 4 * cfg.n_layers + 3 * kinds.count("attn") + 3 * n_moe * cfg.shared_expert + 1
+    bank = dict.fromkeys(kernel.BANK_DESIGNS, 0)
+    for tokens, n in [(t, 1) for t in tokens_list] + [(slots, decode_steps)]:
+        if not n_moe:
+            continue
+        g, _, cap = moe.capacity(cfg, tokens)
+        design = kernel.select_design(cfg.dtype, g * cap, cfg.d_model, cfg.d_ff)
+        bank[design] += 3 * n_moe * n
+    forwards = len(tokens_list) + decode_steps
+    return {"b1": two_d * forwards, "bank": bank, "b3": cfg.n_layers * len(tokens_list)}
+
+
+def record_bank_shapes() -> set:
+    """Record (E, M, K, N, dtype, design) of every bank-form launch made
+    through the model's entry (``kernels.ops.analog_mvm_bank``) from here on."""
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.kernels import ops
+
+    seen: set = set()
+    entry = ops.analog_mvm_bank
+
+    def recorded(x, w, **kw):
+        e, k, n = w.shape
+        m = x.numel() // (e * k)
+        seen.add((e, m, k, n, str(x.dtype).split(".")[-1],
+                  kernel.select_design(x.dtype, m, k, n, tile_rows=kw.get("tile_rows", 1024),
+                                       per_tile_adc=kw.get("per_tile_adc", True))))
+        return entry(x, w, **kw)
+
+    ops.analog_mvm_bank = recorded
+    return seen
+
+
+def record_fa_heads() -> set:
+    """Record (rows, S, heads, kv heads, head dim, dtype) of every
+    prefill-attention launch made through the model from here on."""
+    from repro_torch.models import attention
+
+    seen: set = set()
+    entry = attention.flash_attention
+
+    def recorded(q, k, v, **kw):
+        seen.add((q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3],
+                  str(q.dtype).split(".")[-1]))
+        return entry(q, k, v, **kw)
+
+    attention.flash_attention = recorded
+    return seen
+
+
+def bank_case(torch, gen, key: tuple, bits_list=(4, 6, 8)) -> dict:
+    """The bank form at ``key`` (E, M, K, N, dtype, design) against its plain
+    version under phase 3's tolerance model (each expert at its own GDC
+    scalar's step) and each expert's slice bitwise the 2-D launch of the same
+    design on it; the 2-D launches are checks, not main-path launches."""
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.kernels.ref import analog_mvm_bank_ref, n_tiles
+
+    e, m, k, n, dtype, design = key
+    dt = getattr(torch, dtype)
+    x = torch.randn((e, m, k), generator=gen, device=DEV).to(dt)
+    w = (torch.randn((e, k, n), generator=gen, device=DEV) * k**-0.5).to(dt)
+    scales = 0.8 + 0.4 * torch.rand((e,), generator=gen, device=DEV)
+    r_adc = torch.tensor(1.5, device=DEV)
+    launches = kernel.analog_mvm.launches, dict(kernel.analog_mvm.design_launches)
+    bank = kernel.analog_mvm_bank.launches, dict(kernel.analog_mvm_bank.design_launches)
+    worst = {"max_abs": 0.0, "max_steps": 0.0, "frac_half_step": 0.0, "flips": 0,
+             "elements": 0, "ok": True, "unequal_experts": []}
+    for bits in bits_list:
+        y = kernel.analog_mvm_bank(x, w, r_adc=r_adc, out_scale=scales, b_adc=bits)
+        y_p = analog_mvm_bank_ref(x, w, r_adc, scales, b_adc=bits)
+        for i in range(e):
+            step = (1.5 + 1e-9) / (2 ** (bits - 1) - 1) * float(scales[i])
+            r = compare(y[i], y_p[i], step, n_tiles(k, 1024, True), dt == torch.bfloat16)
+            worst["ok"] &= r["ok"]
+            worst["flips"] += r["flips"]
+            worst["elements"] += r["elements"]
+            for name in ("max_abs", "max_steps", "frac_half_step"):
+                worst[name] = max(worst[name], r[name])
+            alone = kernel.analog_mvm(x[i], w[i], r_adc=r_adc, out_scale=scales[i], b_adc=bits)
+            if not torch.equal(alone, y[i]):
+                worst["unequal_experts"].append((bits, i))
+    kernel.analog_mvm.launches, kernel.analog_mvm.design_launches = launches[0], launches[1]
+    kernel.analog_mvm_bank.launches = bank[0]
+    kernel.analog_mvm_bank.design_launches = bank[1]
+    worst["ok"] &= not worst["unequal_experts"]
+    return worst
+
+
+def bank_timing(torch, gen) -> dict:
+    """One MoE layer's three families through the bank form at
+    ``BANK_ARCH``'s widths (bf16), at each M of ``BANK_MS``: the kernel, the
+    plain version, ``torch.bmm`` of the same products (yardstick only), the
+    E 2-D launches a family would take one expert at a time, and the bound
+    (every weight, input and output moved once at the HBM rate, or 2 E M K
+    N operations at the bf16 peak), by CUDA events."""
+    from repro_torch.configs import get
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.kernels.ref import analog_mvm_bank_ref
+
+    cfg = get(BANK_ARCH)
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    launches = kernel.analog_mvm.launches, dict(kernel.analog_mvm.design_launches)
+    bank = kernel.analog_mvm_bank.launches, dict(kernel.analog_mvm_bank.design_launches)
+    out = {}
+    for m in BANK_MS:
+        fams = []
+        for k, n in ((d, f), (d, f), (f, d)):
+            x = torch.randn((e, m, k), generator=gen, device=DEV).bfloat16()
+            w = (torch.randn((e, k, n), generator=gen, device=DEV) * k**-0.5).bfloat16()
+            fams.append((x, w, 0.8 + 0.4 * torch.rand((e,), generator=gen, device=DEV)))
+        r_adc = torch.tensor(1.5, device=DEV)
+        run_k = lambda i: [kernel.analog_mvm_bank(x, w, r_adc=r_adc, out_scale=s)
+                           for x, w, s in fams]
+        ms_k1 = time_ms(run_k, 10)
+        ms_p = time_ms(lambda i: [analog_mvm_bank_ref(x, w, r_adc, s) for x, w, s in fams], 2)
+        ms_l = time_ms(lambda i: [torch.bmm(x, w) for x, w, _ in fams], 10)
+        ms_2d = time_ms(lambda i: [kernel.analog_mvm(x[j], w[j], r_adc=r_adc, out_scale=s[j])
+                                   for x, w, s in fams for j in range(e)], 5)
+        ms_k2 = time_ms(run_k, 10)
+        bounds = [mvm_bound(e * m, k, n) for k, n in ((d, f), (d, f), (f, d))]
+        # E independent (M, K) x (K, N) products: E K N weights, E M K inputs,
+        # E M N outputs -- mvm_bound of (E M, K) x (K, N) counts one weight
+        # matrix, so the weights of the other E - 1 experts are added
+        extra = 3 * (e - 1) * d * f * 2 / HBM_BYTES_PER_S * 1e3
+        t_bytes = sum(b["bytes"] for b in bounds) / HBM_BYTES_PER_S * 1e3 + extra
+        t_ops = sum(b["flops"] for b in bounds) / BF16_FLOPS * 1e3
+        row = {"M": m, "design": kernel.select_design(torch.bfloat16, m, d, f),
+               "launches_per_layer": 3, "ms": min(ms_k1, ms_k2), "ms_readings": [ms_k1, ms_k2],
+               "plain_ms": ms_p, "library_ms": ms_l, "loop_2d_ms": ms_2d,
+               "loop_2d_launches": 3 * e, "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        out[m] = row
+        log(f"bank: {BANK_ARCH} MoE layer at M = {m} ({row['design']}, 3 launches of E = {e}): "
+            f"kernel {row['ms']:.4f} ms ({ms_k1:.4f}/{ms_k2:.4f}), plain {ms_p:.4f}, torch.bmm "
+            f"{ms_l:.4f}, the {3 * e} 2-D launches {ms_2d:.4f}, bound {row['bound_ms']:.4f} "
+            f"({row['bound_by']}; {row['bound_ms'] / row['ms']:.1%} of it)")
+        del fams
+    kernel.analog_mvm.launches, kernel.analog_mvm.design_launches = launches[0], launches[1]
+    kernel.analog_mvm_bank.launches = bank[0]
+    kernel.analog_mvm_bank.design_launches = bank[1]
+    return out
+
+
+def arch_forward_check(torch, served, req) -> dict:
+    """One prompt's prefill through the kernels and through the plain
+    version (``engine.execute_mvm_plain`` for every MVM, a bank's experts
+    one by one), every MVM of the plain forward also run through B1 on the
+    same inputs and held to phase 3's ADC tolerance model: the worst MVM,
+    the logits' rel L2 (ADC code flips grow with depth) and argmax."""
+    from repro_torch.core import engine
+    from repro_torch.kernels.ref import n_tiles
+    from repro_torch.models.lm import lm_forward
+
+    worst = {"mvms": 0, "failed": 0, "max_steps": 0.0, "frac_half_step": 0.0, "flips": 0,
+             "elements": 0}
+
+    def plain_and_compare(x_q, w, r_adc, plan, *, out_scale=1.0):
+        y_p = engine.execute_mvm_plain(x_q, w, r_adc, plan, out_scale=out_scale)
+        y_k = engine.execute_mvm(x_q, w, r_adc, plan, out_scale=out_scale)
+        step = (abs(float(r_adc)) + 1e-9) / (2 ** (plan.spec.b_adc - 1) - 1) * abs(
+            float(out_scale))
+        r = compare(y_k, y_p, step, n_tiles(plan.k, plan.tile_rows, plan.per_tile_adc),
+                    y_k.dtype == torch.bfloat16)
+        worst["mvms"] += 1
+        worst["failed"] += not r["ok"]
+        worst["flips"] += r["flips"]
+        worst["elements"] += r["elements"]
+        for key in ("max_steps", "frac_half_step"):
+            worst[key] = max(worst[key], r[key])
+        return y_p
+
+    toks = torch.as_tensor(req.prompt, device=DEV).long()[None]
+    logits_k, _ = lm_forward(served.params, {"tokens": toks}, served.acfg, served.cfg,
+                             last_token_only=True)
+    logits_p, _ = lm_forward(served.params, {"tokens": toks}, served.acfg, served.cfg,
+                             last_token_only=True, mvm=plain_and_compare)
+    lk, lp = logits_k[0, -1].float(), logits_p[0, -1].float()
+    return {"rel_l2": ((lk - lp).norm() / lp.norm().clamp(min=1e-30)).item(),
+            "argmax_equal": bool(lk.argmax() == lp.argmax()),
+            "finite": bool(lk.isfinite().all()), "mvm": worst}
+
+
+def arch_run(torch, name: str, depth, fused: bool, seed: int, temp_per: float) -> dict:
+    """Program ``name`` on the card and serve phase 17's trace (see
+    ``phase_archs``)."""
+    import dataclasses
+
+    from repro_torch import prng
+    from repro_torch.core import engine
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.kernels import decode_fused
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.lm import lm_init
+    from repro_torch.serving import Request, ServingConfig, ServingEngine, poisson_trace
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, cut = arch_config(torch, name, depth, temp_per)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm_init(prng.PRNGKey(seed), cfg, device=DEV)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    program = engine.compile_program(params, AnalogConfig().infer(b_adc=8),
+                                     prng.PRNGKey(seed + 1), device=DEV)
+    torch.cuda.synchronize()
+    t_program = time.perf_counter() - t0
+    peak_program = torch.cuda.max_memory_allocated() - held
+    n_weights = analog_weights(cfg)[0]
+    # phase 17 neither ages nor refreshes: the chip's state and source
+    # weights are dropped before serving
+    program = dataclasses.replace(program, state={})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    trace = poisson_trace(prng.PRNGKey(seed + 7), ARCH_TRACE["n"], vocab=cfg.vocab,
+                          rate=ARCH_TRACE["rate"], prompt_lens=ARCH_TRACE["prompt_lens"],
+                          new_tokens=ARCH_TRACE["new_tokens"])
+    out = {"arch": name, "cut": cut, "n_layers": cfg.n_layers, "dtype": str(cfg.dtype),
+           "analog_weights": n_weights, "init_s": t_init, "program_s": t_program,
+           "program_peak_gib": peak_program / 2**30,
+           "program_estimate_gib": program_bytes(cfg, temp_per) / 2**30}
+    runs = {}
+    for mode in ("per_layer", "fused") if fused else ("per_layer",):
+        served = ServingEngine.for_program(
+            program, cfg, ServingConfig(**ARCH_SERVE, fused_decode=mode == "fused"), device=DEV)
+        served.run([Request(rid=-1, prompt=trace[0].prompt[:16], max_new_tokens=2)])  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        rep = served.run(trace)
+        torch.cuda.synchronize()
+        counts = {"b1": kernel.analog_mvm.launches,
+                  "bank": dict(kernel.analog_mvm_bank.design_launches),
+                  "b3": fa.flash_attention.launches, "b2": decode_fused.launches,
+                  "plain": plain_calls()}
+        decode_steps = 0 if mode == "fused" else rep.n_steps
+        want = moe_forward_launches(cfg, [int(q.prompt.size) for q in trace], decode_steps,
+                                    ARCH_SERVE["n_slots"])
+        if mode == "fused":  # the prefills per layer, every decode step one B2 launch
+            want["b2"] = rep.n_steps
+        else:
+            want["b2"] = 0
+        runs[mode] = {**serve_metrics(rep), "counts": counts, "want": want,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "tokens": {r.rid: r.tokens.tolist() for r in rep.records},
+                      "requests": rep.n_requests, "generated": rep.n_generated}
+        log(f"arch {name} ({cut or 'published size'}, {cfg.n_layers} layers, {n_weights} "
+            f"analog weights) {mode}: {rep.n_requests} requests, {rep.n_generated} tokens, "
+            f"{rep.n_steps} decode steps, {runs[mode]['ms_per_decode_step']:.2f} ms/decode step, "
+            f"{runs[mode]['tokens_per_s']:.1f} tokens/s, ttft p50 {runs[mode]['ttft_p50_s']:.3f} s, "
+            f"peak memory {runs[mode]['peak_gib']:.1f} GiB; launches {counts} (want {want})")
+        check(rep.n_requests == len(trace) and all(
+            r.n_new == q.max_new_tokens
+            for r, q in zip(sorted(rep.records, key=lambda r: r.rid), trace)),
+            f"arch {name} {mode}: every request retires with its budget")
+        check(counts["plain"] == 0, f"arch {name} {mode}: no plain-version call")
+        check(counts["b1"] == want["b1"] and counts["bank"] == want["bank"]
+              and counts["b3"] == want["b3"] and counts["b2"] == want["b2"],
+              f"arch {name} {mode}: launches {counts}, want {want}")
+        if mode == "per_layer":
+            out["forward_check"] = arch_forward_check(torch, served, trace[0])
+            fc = out["forward_check"]
+            log(f"arch {name}: a {trace[0].prompt.size}-token prefill through the kernels vs "
+                f"the plain version: logits rel L2 {fc['rel_l2']:.3e}, argmax equal "
+                f"{fc['argmax_equal']}; each of its {fc['mvm']['mvms']} MVMs through B1 on the "
+                f"plain forward's inputs under phase 3's model: {fc['mvm']}")
+            check(fc["finite"] and fc["argmax_equal"] and fc["mvm"]["failed"] == 0
+                  and fc["mvm"]["mvms"] > 0,
+                  f"arch {name}: the kernels' prefill against the plain version {fc}")
+        del served
+    if fused:
+        same = runs["fused"]["tokens"] == runs["per_layer"]["tokens"]
+        log(f"arch {name}: fused tokens == per-layer tokens: {same}")
+        check(same, f"arch {name}: B2 serves the per-layer tokens")
+    for r in runs.values():
+        r.pop("tokens")
+    out["runs"] = runs
+    del program
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_archs(torch, gen, seed: int, accuracy: dict, b1_launched: set, flash: dict) -> dict:
+    """Phase 17 (see the module docstring): each of ``ARCH_RUNS`` programmed
+    and served (``arch_run``), then the new B1 keys, bank keys and B3 shapes
+    checked, and the bank form timed."""
+    t0 = time.perf_counter()
+    b1_before = set(b1_launched)
+    bank_seen, fa_seen = record_bank_shapes(), record_fa_heads()
+    temp_per = program_temp_per_weight(torch)
+    log(f"archs: programming temporaries {temp_per:.1f} bytes a weight of the member being "
+        f"programmed (beyond its 24); {torch.cuda.memory_allocated() / 2**30:.2f} GiB held, "
+        f"{torch.cuda.mem_get_info()[0] / 2**30:.1f} GiB free")
+    res = {"temp_bytes_per_weight": temp_per, "archs": {}}
+    for name, depth, fused in ARCH_RUNS:
+        res["archs"][name] = arch_run(torch, name, depth, fused, seed, temp_per)
+    t_serve = time.perf_counter() - t0
+    keys = sorted(b1_launched - b1_before - set(map(tuple, accuracy["checked"])))
+    res["b1_checked_after"] = check_launched_b1(torch, gen, keys, accuracy)
+    heads = sorted(fa_seen)
+    fa_failures = []
+    for rows, s, h, kv, d, dtype in heads:
+        fa_cases(torch, gen, rows, s, getattr(torch, dtype), flash["cases"], fa_failures,
+                 heads=dict(h=h, kv=kv, d=d))
+    torch.cuda.synchronize()
+    flash["worst_bf16_ulps"] = max(r["max_ulps"] for r in flash["cases"]
+                                   if r["max_ulps"] is not None)
+    log(f"archs: B3 vs plain at every (rows, S, heads, kv heads, head dim, dtype) phase 17 "
+        f"launched ({len(heads)}): out of tolerance {fa_failures or 'none'}")
+    check(not fa_failures, f"archs: {len(fa_failures)} B3 cases out of tolerance")
+    res["b3_checked"] = heads
+    bank = {}
+    for key in sorted(bank_seen):
+        bank[key] = bank_case(torch, gen, key)
+    torch.cuda.synchronize()
+    bad = {k: v for k, v in bank.items() if not v["ok"]}
+    worst = max((v["max_abs"] for v in bank.values()), default=0.0)
+    log(f"archs: B1's bank form vs its plain version at every key launched (E, M, K, N, dtype, "
+        f"design) {sorted(bank)}: worst max |d| {worst:.3e} "
+        f"({max((v['max_steps'] for v in bank.values()), default=0.0):.3f} ADC steps), every "
+        f"expert bitwise its 2-D launch: {all(not v['unequal_experts'] for v in bank.values())}; "
+        f"out of tolerance {list(bad) or 'none'}")
+    check(bank and not bad, f"archs: bank form cases out of tolerance or unequal: {bad}")
+    check({k[-1] for k in bank} == {"decode", "prefill", "tiled"},
+          f"archs: the bank form ran its three designs ({sorted({k[-1] for k in bank})})")
+    res["bank_cases"] = {str(k): v for k, v in bank.items()}
+    res["bank_max_abs"] = worst
+    res["bank_timing"] = bank_timing(torch, gen)
+    res["bank_launches"] = sum(sum(r["counts"]["bank"].values())
+                               for a in res["archs"].values() for r in a["runs"].values())
+    res["seconds"] = {"serve": t_serve, "total": time.perf_counter() - t0}
+    log(f"archs: phase 17 took {res['seconds']['total']:.1f} s (serving {t_serve:.1f} s) of its "
+        f"{ARCH_BUDGET_S} s budget")
+    check(res["seconds"]["total"] <= ARCH_BUDGET_S,
+          f"archs: phase 17 within its {ARCH_BUDGET_S} s budget")
+    return res
+
+
+def bank_entry(archs: dict) -> dict:
+    """The kernels line's entry of B1's bank form: phase 17's MoE launches
+    and its timing at phi3.5-moe's decode step."""
+    t = archs["bank_timing"][BANK_MS[0]]
+    p = archs["bank_timing"][BANK_MS[1]]
+    return {
+        "name": "analog_mvm.bank",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/analog_mvm_tc.cu",
+        "replaces": "src/repro/kernels/analog_mvm.py:41 (pallas_call :147, vmapped over the "
+                    "experts at src/repro/models/moe.py:120)",
+        "launches": archs["bank_launches"],
+        "max_abs_err": archs["bank_max_abs"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "loop_2d_ms": t["loop_2d_ms"],
+        "prefill": {k: p[k] for k in ("M", "ms", "plain_ms", "library_ms", "loop_2d_ms",
+                                      "bound_ms", "bound_by")},
+        "per": f"one {BANK_ARCH} MoE layer at a decode step of 8 slots (M = 8 rows an expert, "
+               "bf16): "
+               "3 launches (w1, w3 4096 x 6400; w2 6400 x 4096) of the decode design over the "
+               "16 experts; library: torch.bmm of the same products; loop_2d_ms: the 48 2-D "
+               "launches it replaces; prefill: the same at a bucketed 1 x 256 prefill (M = 32, "
+               "the prefill design); launches: phase 17's MoE serving (phi3.5-moe's decode and "
+               "prefill designs, llama4-maverick's smoke-width tiled design); max_abs_err over "
+               "every bank key launched",
+        "pass": True,
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4709,6 +5265,11 @@ def main(argv=None) -> int:
     lm = phase_lm_train(torch, gen, args.seed, accuracy, b1_launched, fa_launched, flash,
                         parent["b1"])
     lap("16 LM train")
+    ctx.clear()  # the earlier phases' chips: phase 17 programs its own
+    gc.collect()
+    torch.cuda.empty_cache()
+    archs = phase_archs(torch, gen, args.seed, accuracy, b1_launched, flash)
+    lap("17 archs")
     log(f"seconds per phase: { {k: round(v, 1) for k, v in phase_s.items()} }")
     checked = {(r["rows"], r["S"], r["dtype"]) for r in flash["cases"]}
     unchecked = sorted(fa_launched - checked)
@@ -4798,7 +5359,8 @@ def main(argv=None) -> int:
                "every checked shape, both dtypes, causal and full",
         "max_err_bf16_ulps": flash["worst_bf16_ulps"],
         "pass": True,
-    }, cnn_entry(cnn), train_entry(train, lm["launches"]["b1_fp32"]), *lm_entries(lm)] + [{
+    }, cnn_entry(cnn), train_entry(train, lm["launches"]["b1_fp32"]), *lm_entries(lm),
+        bank_entry(archs)] + [{
         "name": f"decode_rows.{name}",
         "route": "cuda",
         "source": "src/repro_torch/csrc/decode_rows.cu",
@@ -4836,7 +5398,8 @@ def main(argv=None) -> int:
            "serve": serve, "fused_check": fused_check, "fused_serve": fused_serve,
            "step_timing": step_timing, "flash_attention": flash, "paged_serve": paged_serve,
            "bridge": bridge, "rows": rows, "drift_lifecycle": lifecycle, "resample": resample,
-           "fleet": fleet, "cnn": cnn, "train": train, "lm_train": lm, **kernels,
+           "fleet": fleet, "cnn": cnn, "train": train, "lm_train": lm, "archs": archs,
+           **kernels,
            "phase_s": phase_s,
            "seconds": time.perf_counter() - t_start}
     args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -3,8 +3,8 @@
 ``get(arch_id)`` returns the full-size config -- a ModelConfig for an LM,
 a CNNConfig for the paper's own TinyML models -- and ``get_smoke(arch_id)``
 an LM's reduced same-family config of the CPU tests. The port registers
-the dense LM it serves and the two AnalogNets; the other architectures
-follow with their families.
+the dense and MoE LMs, in the reference's order, and the two AnalogNets;
+the SSM, hybrid, audio and vision architectures follow with their families.
 """
 
 from __future__ import annotations
@@ -15,7 +15,12 @@ from repro_torch.models.common import ModelConfig
 
 # arch id -> module name
 LM_ARCHS = {
+    "llama3.2-3b": "llama3p2_3b",
     "tinyllama-1.1b": "tinyllama_1p1b",
+    "olmo-1b": "olmo_1b",
+    "qwen2-72b": "qwen2_72b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b",
+    "phi3.5-moe-42b-a6.6b": "phi3p5_moe_42b",
 }
 
 CNN_ARCHS = {

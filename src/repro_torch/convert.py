@@ -89,7 +89,12 @@ def params_from_numpy(
     """The reference's LM params (numpy leaves) as the port's, on ``device``.
 
     ``cfg``, when given, is checked against the tree (family, group count
-    and projection widths) so a tree of another architecture is refused.
+    and projection widths; a MoE block's expert banks and its shared
+    expert) so a tree of another architecture is refused. An expert bank
+    (``w1``/``w3``/``w2`` of (n_groups, E, K, N), ``r_adc`` (n_groups, 3),
+    ``w_clip_buf`` (n_groups, 3, 2), the router, the optional ``shared``
+    expert; a compiled program's ``out_scale_buf``, ``b_adc_buf`` and
+    ``read_buf`` too) moves leaf for leaf like any other node.
     """
     dev = resolve_device(device)
     if hasattr(tree, "_fields"):
@@ -110,6 +115,23 @@ def params_from_numpy(
                 f"params do not match {cfg.name!r}: blocks wq {got} (want "
                 f"{want}), lm_head {head} (want {(cfg.d_model, cfg.vocab)})"
             )
+        e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+        for kind, block in zip(period, params.blocks):
+            if (kind == "moe") != ("moe" in block):
+                raise ValueError(f"params do not match {cfg.name!r}: a {kind!r} block "
+                                 f"holds {sorted(block)}")
+            if kind != "moe":
+                continue
+            moe = block["moe"]
+            banks = {fam: tuple(moe[fam].shape) for fam in ("w1", "w3", "w2")}
+            want_banks = {"w1": (n_groups, e, d, f), "w3": (n_groups, e, d, f),
+                          "w2": (n_groups, e, f, d)}
+            if banks != want_banks or ("shared" in moe) != cfg.shared_expert:
+                raise ValueError(
+                    f"params do not match {cfg.name!r}: expert banks {banks} (want "
+                    f"{want_banks}), shared expert {'shared' in moe} (want "
+                    f"{cfg.shared_expert})"
+                )
     return params
 
 

@@ -189,6 +189,47 @@ def analog_matmul(
     return mvm(x_q, w_exec.to(x_q.dtype), r_adc, plan, out_scale=scale).to(out_dtype)
 
 
+def analog_matmul_bank(
+    x: Tensor,
+    w: Tensor,
+    *,
+    r_adc: Tensor,
+    w_min: Tensor,
+    w_max: Tensor,
+    ctx: AnalogCtx,
+    out_scale: Optional[Tensor] = None,
+    b_adc: Optional[int] = None,
+) -> Tensor:
+    """:func:`analog_matmul` over an expert bank: x (E, T, K), w (E, K, N)
+    -> (E, T, N), one family of a MoE layer (``models.moe``); the range,
+    the clip and the bitwidth are the family's, ``out_scale`` (E,) the
+    experts' GDC scalars.
+
+    On a programmed chip (and no ``ctx.mvm``) the DAC quantizes the whole
+    bank's inputs and ``engine.execute_mvm_bank`` runs it as one MVM (B1's
+    expert-bank form on a card). Every other mode runs the experts one at
+    a time, each from the key counter the family started at: the
+    reference vmaps one expert's function over the bank, so its experts
+    draw from the same keys, and the counter ends where one expert's draws
+    end.
+    """
+    cfg = ctx.cfg
+    if cfg.mode == PCM_PROGRAMMED and ctx.mvm is None:
+        plan = engine_lib.plan_for(cfg, int(w.shape[-2]), int(w.shape[-1]), b_adc)
+        x_q = quant_lib.dac_quantize(x, r_adc, ctx.gain_s, w_max, plan.spec).to(x.dtype)
+        y = engine_lib.execute_mvm_bank(x_q, w.to(x_q.dtype), r_adc, plan,
+                                        out_scale=1.0 if out_scale is None else out_scale)
+        return y.to(x.dtype)
+    start, out = ctx.layer_counter, []
+    for e in range(w.shape[0]):
+        ctx.layer_counter = start
+        out.append(analog_matmul(
+            x[e], w[e], r_adc=r_adc, w_min=w_min, w_max=w_max, ctx=ctx,
+            out_scale=None if out_scale is None else out_scale[e], b_adc=b_adc,
+        ))
+    return torch.stack(out)
+
+
 def linear_init(
     key: Tensor,
     d_in: int,

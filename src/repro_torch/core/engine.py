@@ -263,6 +263,35 @@ def execute_mvm_plain(
     )
 
 
+def execute_mvm_bank(
+    x_q: Tensor,
+    w_eff: Tensor,
+    r_adc: Tensor,
+    plan: ExecutionPlan,
+    *,
+    out_scale=1.0,
+) -> Tensor:
+    """:func:`execute_mvm` over an expert bank, one family of a MoE layer:
+    x_q (E, T, K) pre-quantized, w_eff (E, K, N), ``out_scale`` a float or
+    the (E,) GDC scalars -> (E, T, N). A CUDA tensor launches B1's bank
+    form (``kernels.analog_mvm.analog_mvm_bank``: one launch for every
+    expert), a CPU tensor runs its plain version (the 2-D plain version
+    expert by expert, so each expert's rows are bitwise :func:`execute_mvm`'s
+    on its slice). Where a gradient is needed the experts go through
+    :func:`execute_mvm` one at a time."""
+    e = w_eff.shape[0]
+    scale = lambda i: out_scale[i] if isinstance(out_scale, Tensor) and out_scale.dim() else out_scale
+    if _needs_grad(x_q, w_eff, r_adc, out_scale):
+        return torch.stack([execute_mvm(x_q[i], w_eff[i], r_adc, plan, out_scale=scale(i))
+                            for i in range(e)])
+    if x_q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"execute_mvm_bank: unsupported device {x_q.device}")
+    return kernel_ops.analog_mvm_bank(
+        x_q, w_eff, r_adc=r_adc, out_scale=out_scale, bits=plan.spec.b_adc,
+        tile_rows=plan.tile_rows, per_tile_adc=plan.per_tile_adc,
+    )
+
+
 # ---------------------------------------------------------------------------
 # Program phase (unsharded), keyed as the reference
 #
@@ -274,79 +303,108 @@ def execute_mvm_plain(
 # ---------------------------------------------------------------------------
 
 
-def _program_2d(key: Tensor, w: Tensor, w_min, w_max, cfg: pcm_lib.PCMConfig) -> dict:
-    """Program one (K, N) block: write noise drawn HERE."""
+#: elements of a member the program phase's elementwise chains take at
+#: once. Their exact arithmetic (f64 FMAs, glibc's powf in f64 and int64)
+#: holds ~230 bytes of temporaries a weight on a card, so a larger member
+#: (qwen2-72b's lm_head: 1.25 B weights) is programmed, drifted and read in
+#: row chunks: each chunk's draws over its own flat counters
+#: (``prng.normal(offset=)``), ``det_sum`` from the chunks' summed limbs and
+#: the weight scale from their maxima, so the chip is bitwise the one-pass
+#: chip
+_CHUNK = 1 << 24
+
+
+def _chunks(k: int, n: int) -> list:
+    """(row slice, flat offset of its first element) of each row chunk of a
+    (K, N) member."""
+    rows = max(1, _CHUNK // max(n, 1))
+    return [(slice(r0, min(r0 + rows, k)), r0 * n) for r0 in range(0, k, rows)]
+
+
+def _f32_block(like: Tensor) -> Tensor:
+    return torch.empty(like.shape[-2:], dtype=torch.float32, device=like.device)
+
+
+def _program_2d(key: Tensor, w: Tensor, w_min, w_max, cfg: pcm_lib.PCMConfig,
+                out: Optional[dict] = None) -> dict:
+    """Program one (K, N) block: write noise drawn HERE, chunk by chunk
+    (:data:`_CHUNK`). ``out``: (K, N) tensors to write ``g_pos``, ``g_neg``,
+    ``q_pos`` and ``q_neg`` into (new ones when None)."""
     # the reference clips in f32 (f32 bounds promote a bf16 weight)
-    w_c = torch.minimum(torch.maximum(w.float(), w_min), w_max)
-    g_pos_t, g_neg_t, w_scale = pcm_lib.weights_to_conductances(w_c)
+    clip = lambda part: torch.minimum(torch.maximum(part.float(), w_min), w_max)
+    chunks = _chunks(*w.shape)
+    # weights_to_conductances's scale, max |w_c| + 1e-12, from the chunks' maxima
+    w_scale = torch.stack([clip(w[rows]).abs().max() for rows, _ in chunks]).max() + 1e-12
     k_pp, k_pn = prng.split(key)
-    return {
-        "g_pos": pcm_lib.program(k_pp, g_pos_t, cfg),
-        "g_neg": pcm_lib.program(k_pn, g_neg_t, cfg),
-        "q_pos": pcm_lib.read_noise_q(g_pos_t),
-        "q_neg": pcm_lib.read_noise_q(g_neg_t),
-        "gt_sum": pcm_lib.det_sum(g_pos_t + g_neg_t),
-        "w_scale": w_scale,
-        "key": key,
-    }
+    out = out or {name: _f32_block(w) for name in ("g_pos", "g_neg", "q_pos", "q_neg")}
+    limbs = 0
+    for rows, off in chunks:
+        g_pos_t, g_neg_t = pcm_lib.split_conductances(clip(w[rows]), w_scale)
+        out["g_pos"][rows] = pcm_lib.program(k_pp, g_pos_t, cfg, off)
+        out["g_neg"][rows] = pcm_lib.program(k_pn, g_neg_t, cfg, off)
+        out["q_pos"][rows] = pcm_lib.read_noise_q(g_pos_t)
+        out["q_neg"][rows] = pcm_lib.read_noise_q(g_neg_t)
+        limbs = limbs + pcm_lib.det_limbs(g_pos_t + g_neg_t)
+    return {**out, "gt_sum": pcm_lib.det_total(limbs), "w_scale": w_scale, "key": key}
 
 
-def _drift_factors(state: dict, t, cfg: pcm_lib.PCMConfig):
-    """Per-device drift factors of the block at age ``t`` (None: no drift)."""
+def _drifted_chunk(state: dict, rows: slice, off: int, t, cfg: pcm_lib.PCMConfig) -> tuple:
+    """(g_pos, g_neg, their pair sum the GDC reads or None) of a row chunk
+    drifted to age ``t`` (no read draw)."""
+    g_pos, g_neg = state["g_pos"][rows], state["g_neg"][rows]
     if not cfg.drift:
-        return None, None
+        return g_pos, g_neg, g_pos + g_neg if cfg.gdc else None
     k_dp, k_dn = prng.split(state["key"], 4)[:2]
-    f_p = pcm_lib.drift_factor(pcm_lib.sample_drift_nu(k_dp, state["g_pos"].shape, cfg), t)
-    f_n = pcm_lib.drift_factor(pcm_lib.sample_drift_nu(k_dn, state["g_neg"].shape, cfg), t)
-    return f_p, f_n
+    f_p = pcm_lib.drift_factor(pcm_lib.sample_drift_nu(k_dp, g_pos.shape, cfg, off), t)
+    f_n = pcm_lib.drift_factor(pcm_lib.sample_drift_nu(k_dn, g_neg.shape, cfg, off), t)
+    # the reference's compiler fuses the first drift product into the pair
+    # sum it feeds
+    g_sum = prng.fma(g_pos, f_p, g_neg * f_n) if cfg.gdc else None
+    return g_pos * f_p, g_neg * f_n, g_sum
 
 
-def _drifted(state: dict, t, cfg: pcm_lib.PCMConfig) -> tuple[Tensor, Tensor]:
-    """The block's conductances drifted to age ``t`` (no read draw)."""
-    f_p, f_n = _drift_factors(state, t, cfg)
-    if f_p is None:
-        return state["g_pos"], state["g_neg"]
-    return state["g_pos"] * f_p, state["g_neg"] * f_n
-
-
-def _drift_read_2d(state: dict, t, cfg: pcm_lib.PCMConfig):
-    """Evaluate programmed conductances at age ``t`` -> (w_eff, gdc)."""
+def _drift_read_2d(state: dict, t, cfg: pcm_lib.PCMConfig, out: Optional[Tensor] = None):
+    """Evaluate programmed conductances at age ``t`` -> (w_eff, gdc), chunk
+    by chunk; ``out``: the (K, N) tensor to write w_eff into."""
     k_rp, k_rn = prng.split(state["key"], 4)[2:]
-    f_p, f_n = _drift_factors(state, t, cfg)
-    g_pos, g_neg = state["g_pos"], state["g_neg"]
-    dev = g_pos.device
+    dev = state["g_pos"].device
+    w_eff = _f32_block(state["g_pos"]) if out is None else out
+    scale_t = pcm_lib.read_noise_scale(t, dev) if cfg.read_noise else None
+    limbs = 0
+    for rows, off in _chunks(*state["g_pos"].shape[-2:]):
+        g_pos, g_neg, g_sum = _drifted_chunk(state, rows, off, t, cfg)
+        if cfg.gdc:  # det_sum makes the scalar order-free
+            limbs = limbs + pcm_lib.det_limbs(g_sum)
+        if cfg.read_noise:
+            g_pos = prng.fma(g_pos * state["q_pos"][rows] * scale_t,
+                             prng.normal(k_rp, g_pos.shape, off), g_pos).clamp(min=0.0)
+            g_neg = prng.fma(g_neg * state["q_neg"][rows] * scale_t,
+                             prng.normal(k_rn, g_neg.shape, off), g_neg).clamp(min=0.0)
+        w_eff[rows] = (g_pos - g_neg) * state["w_scale"]
     if cfg.gdc:
-        # the reference's compiler fuses the first drift product into the
-        # pair sum it feeds; det_sum makes the scalar order-free
-        g_sum = (g_pos + g_neg if f_p is None
-                 else prng.fma(g_pos, f_p, g_neg * f_n))
-        gdc = state["gt_sum"] / (pcm_lib.det_sum(g_sum) + prng._f32(1e-12))
+        gdc = state["gt_sum"] / (pcm_lib.det_total(limbs) + prng._f32(1e-12))
     else:
         gdc = torch.ones((), dtype=torch.float32, device=dev)
-    if f_p is not None:
-        g_pos, g_neg = g_pos * f_p, g_neg * f_n
-    if cfg.read_noise:
-        scale_t = pcm_lib.read_noise_scale(t, dev)
-        g_pos = prng.fma(g_pos * state["q_pos"] * scale_t,
-                         prng.normal(k_rp, g_pos.shape), g_pos).clamp(min=0.0)
-        g_neg = prng.fma(g_neg * state["q_neg"] * scale_t,
-                         prng.normal(k_rn, g_neg.shape), g_neg).clamp(min=0.0)
-    return (g_pos - g_neg) * state["w_scale"], gdc
+    return w_eff, gdc
 
 
 def _read_buffers_2d(state: dict, t, cfg: pcm_lib.PCMConfig) -> dict:
     """Pre-read execute-time buffers for per-MVM read-noise resampling: the
     drifted conductances before any read draw, the per-device read-noise
     sigmas at ``t`` and the weight scale (see :func:`resample_read`)."""
-    g_pos, g_neg = _drifted(state, t, cfg)
-    if cfg.read_noise:
-        scale_t = pcm_lib.read_noise_scale(t, g_pos.device)
-        sigma_pos = g_pos * state["q_pos"] * scale_t
-        sigma_neg = g_neg * state["q_neg"] * scale_t
-    else:
-        sigma_pos, sigma_neg = torch.zeros_like(g_pos), torch.zeros_like(g_neg)
-    return {"g_pos": g_pos, "g_neg": g_neg, "sigma_pos": sigma_pos,
-            "sigma_neg": sigma_neg, "w_scale": state["w_scale"]}
+    names = ("g_pos", "g_neg", "sigma_pos", "sigma_neg")
+    out = {name: _f32_block(state["g_pos"]) for name in names}
+    scale_t = pcm_lib.read_noise_scale(t, state["g_pos"].device) if cfg.read_noise else None
+    for rows, off in _chunks(*state["g_pos"].shape[-2:]):
+        g_pos, g_neg, _ = _drifted_chunk(state, rows, off, t, cfg)
+        out["g_pos"][rows], out["g_neg"][rows] = g_pos, g_neg
+        if cfg.read_noise:
+            out["sigma_pos"][rows] = g_pos * state["q_pos"][rows] * scale_t
+            out["sigma_neg"][rows] = g_neg * state["q_neg"][rows] * scale_t
+        else:
+            out["sigma_pos"][rows] = 0.0
+            out["sigma_neg"][rows] = 0.0
+    return {**out, "w_scale": state["w_scale"]}
 
 
 def resample_read(key: Tensor, buf: dict) -> Tensor:
@@ -385,7 +443,7 @@ def drift_state(state: dict, t_seconds, cfg: pcm_lib.PCMConfig):
     w_eff = torch.empty((m, k, n), dtype=torch.float32, device=dev)
     gdc = torch.empty((m,), dtype=torch.float32, device=dev)
     for i in range(m):
-        w_eff[i], gdc[i] = _drift_read_2d(_member(state, i), t_seconds, cfg)
+        _, gdc[i] = _drift_read_2d(_member(state, i), t_seconds, cfg, out=w_eff[i])
     return w_eff.reshape(stack + (k, n)), gdc.reshape(stack)
 
 
@@ -426,11 +484,10 @@ def program_weight(
     out_scale = torch.empty_like(gt_sum)
     w_eff = full()
     for i in range(n_members):
-        st = _program_2d(keys[i], w_flat[i], lo[i], hi[i], cfg)
-        for name in ("g_pos", "g_neg", "q_pos", "q_neg"):
-            state[name][i] = st[name]
+        st = _program_2d(keys[i], w_flat[i], lo[i], hi[i], cfg,
+                         out={name: state[name][i] for name in ("g_pos", "g_neg", "q_pos", "q_neg")})
         gt_sum[i], w_scale[i] = st["gt_sum"], st["w_scale"]
-        w_eff[i], out_scale[i] = _drift_read_2d(st, t_seconds, cfg)
+        _, out_scale[i] = _drift_read_2d(st, t_seconds, cfg, out=w_eff[i])
     state = {key_: v.reshape(stack + (k, n)) for key_, v in state.items()}
     state["gt_sum"] = gt_sum.reshape(stack)
     state["w_scale"] = w_scale.reshape(stack)
@@ -449,16 +506,30 @@ def _is_expert_bank(node: dict) -> bool:
     )
 
 
+#: an expert bank's weight families, in the row order of its ``r_adc``,
+#: ``w_clip_buf`` and ``out_scale_buf`` (``models.moe``)
+MOE_FAMILIES = ("w1", "w3", "w2")
+
+#: expert-bank keys the bank's programming consumes; its siblings (the MoE
+#: dict's shared expert, the digital router) are still walked
+_BANK_KEYS = frozenset(MOE_FAMILIES) | {
+    "r_adc", "w_clip_buf", "out_scale_buf", "b_adc_buf", "read_buf"
+}
+
+
 def _walk(tree: Any, fn: Callable[[str, dict], dict], path: str = "") -> Any:
-    """Rebuild ``tree``, applying ``fn(path, node)`` to analog-layer dicts."""
+    """Rebuild ``tree``, applying ``fn(path, node)`` to analog-layer dicts
+    and MoE expert banks (a bank's siblings walked after it, as in the
+    reference: the program phase's keys follow this order)."""
     if isinstance(tree, dict):
         if _is_linear_layer(tree):
             return fn(path, tree)
         if _is_expert_bank(tree):
-            raise NotImplementedError(
-                f"{path}: MoE expert banks are programmed in a later slice "
-                "(this slice serves the dense family)"
-            )
+            new = fn(path, tree)
+            for k, v in tree.items():
+                if k not in _BANK_KEYS:
+                    new[k] = _walk(v, fn, f"{path}/{k}" if path else k)
+            return new
         return {k: _walk(v, fn, f"{path}/{k}" if path else k) for k, v in tree.items()}
     if hasattr(tree, "_fields"):  # NamedTuple (LMParams)
         return type(tree)(
@@ -613,11 +684,23 @@ class CiMProgram:
         def reprogram(path: str, node: dict) -> dict:
             st = self.state[path]
             new = dict(node)
-            w_eff, gdc = drift_state(st, t_seconds, pcm_cfg)
-            new["w"] = w_eff.to(node["w"].dtype)
-            new["out_scale_buf"] = gdc
-            if "read_buf" in node:
-                new["read_buf"] = read_buffers(st, t_seconds, pcm_cfg)
+            if "w" in node:
+                w_eff, gdc = drift_state(st, t_seconds, pcm_cfg)
+                new["w"] = w_eff.to(node["w"].dtype)
+                new["out_scale_buf"] = gdc
+                if "read_buf" in node:
+                    new["read_buf"] = read_buffers(st, t_seconds, pcm_cfg)
+                return new
+            scales, read_bufs = [], {}  # an expert bank: family by family
+            for fam in MOE_FAMILIES:
+                w_eff, gdc = drift_state(st[fam], t_seconds, pcm_cfg)
+                new[fam] = w_eff.to(node[fam].dtype)
+                scales.append(gdc)
+                if "read_buf" in node:
+                    read_bufs[fam] = read_buffers(st[fam], t_seconds, pcm_cfg)
+            if read_bufs:
+                new["read_buf"] = read_bufs
+            new["out_scale_buf"] = torch.stack(scales, dim=-2)
             return new
 
         return dataclasses.replace(
@@ -676,7 +759,51 @@ def compile_program(
     shapes: list[crossbar.LayerShape] = []
     counter = [0]
 
+    def add_plan(path: str, k_dim: int, n_dim: int, count: int, bits: int) -> None:
+        plans[path] = plan_for(cfg, k_dim, n_dim, b_adc=bits)
+        shapes.extend(
+            crossbar.LayerShape(f"{path}[{i}]" if count > 1 else path, k_dim, n_dim,
+                                n_patches=1)
+            for i in range(count)
+        )
+
+    def program_bank(path: str, node: dict) -> dict:
+        """An expert bank: each family programmed as one (stack..., E, K,
+        N) weight, its clip range broadcast over the experts; the GDC
+        scalars stacked to (stack..., 3, E); one bitwidth for the bank."""
+        bits = resolve_b_adc(overrides, path, cfg.b_adc)
+        new = dict(node)
+        st_fams, scales, read_bufs = {}, [], {}
+        buf = node["w_clip_buf"]  # (stack..., 3, 2)
+        for f, fam in enumerate(MOE_FAMILIES):
+            w = node[fam]
+            if w.device.type != dev.type:
+                raise ValueError(f"layer {path!r} lives on {w.device}, not {dev}")
+            counter[0] += 1
+            stack = tuple(w.shape[:-2])
+            w_eff, gdc, st = program_weight(
+                prng.fold_in(key, counter[0]), w, buf[..., f, 0][..., None],
+                buf[..., f, 1][..., None], t, cfg.pcm,
+            )
+            new[fam] = w_eff.to(w.dtype)
+            st_fams[fam] = st
+            scales.append(gdc)
+            if want_read_buf:
+                read_bufs[fam] = read_buffers(st, t, cfg.pcm)
+            add_plan(f"{path}/{fam}", int(w.shape[-2]), int(w.shape[-1]),
+                     math.prod(stack), bits)
+        new["out_scale_buf"] = torch.stack(scales, dim=-2)
+        if bits != cfg.b_adc:
+            # one bitwidth a bank: its families share the layer's ADC
+            new["b_adc_buf"] = b_adc_buf(stack, bits, dev)
+        if want_read_buf:
+            new["read_buf"] = read_bufs
+        state[path] = st_fams
+        return new
+
     def program_node(path: str, node: dict) -> dict:
+        if "w" not in node:
+            return program_bank(path, node)
         if node["w"].device.type != dev.type:
             raise ValueError(f"layer {path!r} lives on {node['w'].device}, not {dev}")
         w = transforms.get(path, lambda w: w)(node["w"])
@@ -702,14 +829,7 @@ def compile_program(
         if want_read_buf:
             new["read_buf"] = read_buffers(st, t, cfg.pcm)
         state[path] = st
-        k_dim, n_dim = int(w.shape[-2]), int(w.shape[-1])
-        plans[path] = plan_for(cfg, k_dim, n_dim, b_adc=bits)
-        count = math.prod(stack)
-        shapes.extend(
-            crossbar.LayerShape(f"{path}[{i}]" if count > 1 else path, k_dim, n_dim,
-                                n_patches=1)
-            for i in range(count)
-        )
+        add_plan(path, int(w.shape[-2]), int(w.shape[-1]), math.prod(stack), bits)
         return new
 
     programmed = _walk(params, program_node)
@@ -729,7 +849,8 @@ def compile_program(
 
 
 def cast_weights(params: Any, dtype: torch.dtype) -> Any:
-    """``params`` with every analog layer's weights pre-cast to ``dtype``.
+    """``params`` with every analog layer's weights (an expert bank's three
+    families) pre-cast to ``dtype``.
 
     The execute phase casts weights to the activation dtype on every call
     (``analog_matmul``); at tinyllama-1.1b width that is a 4 GB f32 -> bf16
@@ -739,7 +860,8 @@ def cast_weights(params: Any, dtype: torch.dtype) -> Any:
 
     def cast(_path: str, node: dict) -> dict:
         new = dict(node)
-        new["w"] = node["w"].to(dtype)
+        for name in ("w",) if "w" in node else MOE_FAMILIES:
+            new[name] = node[name].to(dtype)
         return new
 
     return _walk(params, cast)

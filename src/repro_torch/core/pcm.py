@@ -80,8 +80,13 @@ def weights_to_conductances(w: Tensor) -> tuple[Tensor, Tensor, Tensor]:
     Returns (g_pos, g_neg, w_scale), W = (g_pos - g_neg) * w_scale.
     """
     w_scale = w.abs().max() + 1e-12
+    return (*split_conductances(w, w_scale), w_scale)
+
+
+def split_conductances(w: Tensor, w_scale: Tensor) -> tuple[Tensor, Tensor]:
+    """(G+, G-) fractions of ``w`` (or of a slice of it) at ``w_scale``."""
     g = w / w_scale
-    return g.clamp(min=0.0), (-g).clamp(min=0.0), w_scale
+    return g.clamp(min=0.0), (-g).clamp(min=0.0)
 
 
 def programming_noise_sigma(g_frac: Tensor, g_max: float = G_MAX_US) -> Tensor:
@@ -94,19 +99,23 @@ def programming_noise_sigma(g_frac: Tensor, g_max: float = G_MAX_US) -> Tensor:
     return sigma_us * _recip(g_max)
 
 
-def program(key: Tensor, g_target: Tensor, cfg: PCMConfig = PCMConfig()) -> Tensor:
-    """Apply programming (write) noise to target conductance fractions."""
+def program(key: Tensor, g_target: Tensor, cfg: PCMConfig = PCMConfig(),
+            offset: int = 0) -> Tensor:
+    """Apply programming (write) noise to target conductance fractions
+    (``offset``: ``g_target`` is the slice of a larger block whose flat
+    index starts there, see ``prng.normal``)."""
     if not cfg.programming_noise:
         return g_target
     sigma = programming_noise_sigma(g_target, cfg.g_max)
-    g = prng.fma(sigma, prng.normal(key, g_target.shape), g_target)
+    g = prng.fma(sigma, prng.normal(key, g_target.shape, offset), g_target)
     return g.clamp(0.0, 1.2)
 
 
-def sample_drift_nu(key: Tensor, shape, cfg: PCMConfig = PCMConfig()) -> Tensor:
+def sample_drift_nu(key: Tensor, shape, cfg: PCMConfig = PCMConfig(),
+                    offset: int = 0) -> Tensor:
     """Per-device drift exponent nu ~ N(mean, std), truncated at 0."""
     # std * (e * sqrt2) compiles to e * (std * sqrt2), one FMA with the mean
-    e = prng.normal_erf_inv(key, shape)
+    e = prng.normal_erf_inv(key, shape, offset)
     scale = prng._f32(cfg.drift_nu_std) * torch.tensor(prng.SQRT2, device=e.device)
     nu = prng.fma(e, scale.expand(e.shape), cfg.drift_nu_mean)
     return nu.clamp(min=0.0)
@@ -183,11 +192,21 @@ def det_sum(g: Tensor) -> Tensor:
     reference's int32-limb ``det_sum`` (the limb sums stay below 2^31, so
     torch's int64 accumulation equals JAX's int32 one).
     """
+    return det_total(det_limbs(g))
+
+
+def det_limbs(g: Tensor) -> Tensor:
+    """The integer limb sums :func:`det_sum` adds (int64, one per 4-bit
+    limb); those of a block's slices add up to the block's exactly."""
     v = torch.round(g * DET_SUM_SCALE).to(torch.int32)
-    total = torch.zeros((), dtype=torch.float32, device=g.device)
-    for shift in range(0, 24, 4):
-        limb_sum = ((v >> shift) & 0xF).sum()
-        total = total + limb_sum.to(torch.float32) * float(2**shift)
+    return torch.stack([((v >> shift) & 0xF).sum() for shift in range(0, 24, 4)])
+
+
+def det_total(limbs: Tensor) -> Tensor:
+    """:func:`det_sum` from its limb sums."""
+    total = torch.zeros((), dtype=torch.float32, device=limbs.device)
+    for i, shift in enumerate(range(0, 24, 4)):
+        total = total + limbs[i].to(torch.float32) * float(2**shift)
     return total / DET_SUM_SCALE
 
 

@@ -116,7 +116,13 @@ __device__ __forceinline__ void lds(const float* p, float* out) {
 // tx + TX * j (lane-consecutive: the epilogue's stores and mask reads are
 // coalesced). Shared memory (dynamic, smem_bytes<BM, BN>): two buffers of
 // x transposed (kBK x (BM + kPad)) and of w (kBK x BN).
-template <int BM, int BN, int TM, int TN>
+//
+// BANK: the expert-bank form (grid.z = experts): expert e = blockIdx.z
+// reads x[e] (M, K), w[e] (K, N), out_scale_p[e] and keep[e] (M, T, N) and
+// writes y[e] (M, N), each at its own offset, with the 2-D kernel's
+// instructions per element (an expert's slice is bitwise the 2-D launch
+// on it). BANK = false is the 2-D kernel.
+template <int BM, int BN, int TM, int TN, bool BANK>
 __global__ void __launch_bounds__(kThreads, 1)
 analog_mvm_tiled_kernel(const float* __restrict__ x, const float* __restrict__ w,
                         float* __restrict__ y, int M, int K, int N,
@@ -124,6 +130,14 @@ analog_mvm_tiled_kernel(const float* __restrict__ x, const float* __restrict__ w
                         const float* out_scale_p, float r_dac_h, float r_adc_h,
                         float out_scale_h, int b_dac, int b_adc, int span,
                         int multi, int apply_dac, const uint8_t* __restrict__ keep) {
+  if constexpr (BANK) {
+    const size_t e = blockIdx.z, mn = static_cast<size_t>(M) * N;
+    x += e * M * K;
+    w += e * K * N;
+    y += e * mn;
+    if (keep) keep += e * mn * ((K + span - 1) / span);
+    if (out_scale_p) out_scale_p += e;
+  }
   constexpr int TX = BN / TN, TY = kThreads / TX;
   constexpr int A_PER = BM * kBK / kThreads, B_PER = kBK * BN / kThreads;
   static_assert(TY * TM == BM && TX * TN == BN, "the threads cover the tile");
@@ -276,24 +290,54 @@ struct Launch {
 
 // one instantiation; above 48 KB a kernel takes dynamic shared memory only
 // once allowed to (set once, thread-safe as a function-local static)
-template <int BM, int BN, int TM, int TN>
+template <int BM, int BN, int TM, int TN, bool BANK>
 Launch instance() {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      analog_mvm_tiled_kernel<BM, BN, TM, TN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes<BM, BN>());
-  return {analog_mvm_tiled_kernel<BM, BN, TM, TN>, smem_bytes<BM, BN>(), attr};
+      analog_mvm_tiled_kernel<BM, BN, TM, TN, BANK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<BM, BN>());
+  return {analog_mvm_tiled_kernel<BM, BN, TM, TN, BANK>, smem_bytes<BM, BN>(), attr};
 }
 
 // the instantiation of a (BM, BN) tile: TN = 4 (2 at BN = 16), TM = 8, 4 or
 // 2 rows a thread
-template <int BN>
+template <int BN, bool BANK>
 Launch kernel_for(int bm) {
   constexpr int TN = BN == 16 ? 2 : 4;
   constexpr int TY = kThreads / (BN / TN);
-  if (bm == 8 * TY) return instance<8 * TY, BN, 8, TN>();
-  if (bm == 4 * TY) return instance<4 * TY, BN, 4, TN>();
-  if (bm == 2 * TY) return instance<2 * TY, BN, 2, TN>();
+  if (bm == 8 * TY) return instance<8 * TY, BN, 8, TN, BANK>();
+  if (bm == 4 * TY) return instance<4 * TY, BN, 4, TN, BANK>();
+  if (bm == 2 * TY) return instance<2 * TY, BN, 2, TN, BANK>();
   return {nullptr, 0, cudaSuccess};
+}
+
+template <bool BANK>
+Launch launch_for(int bm, int bn) {
+  switch (bn) {
+    case 16: return kernel_for<16, BANK>(bm);
+    case 32: return kernel_for<32, BANK>(bm);
+    case 64: return kernel_for<64, BANK>(bm);
+    case 128: return kernel_for<128, BANK>(bm);
+    default: return {nullptr, 0, cudaSuccess};
+  }
+}
+
+// the launch of E >= 1 problems (grid.z = E; the 2-D kernel at E = 0)
+int launch(const void* x, const void* w, void* y, int E, int M, int K, int N,
+           const void* r_dac_p, const void* r_adc_p, const void* out_scale_p, float r_dac_h,
+           float r_adc_h, float out_scale_h, int b_dac, int b_adc, int span, int multi,
+           int apply_dac, const void* keep, int bm, int bn, void* stream) {
+  const Launch l = E ? launch_for<true>(bm, bn) : launch_for<false>(bm, bn);
+  if (!l.fn || M < 1 || K < 1 || N < 1 || span < 1 || (!multi && span != K) ||
+      (N + bn - 1) / bn > 65535 || E < 0 || E > 65535 || (E && apply_dac))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (l.attr != cudaSuccess) return static_cast<int>(l.attr);
+  const dim3 grid((M + bm - 1) / bm, (N + bn - 1) / bn, E ? E : 1);
+  l.fn<<<grid, kThreads, l.smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(y), M, K,
+      N, static_cast<const float*>(r_dac_p), static_cast<const float*>(r_adc_p),
+      static_cast<const float*>(out_scale_p), r_dac_h, r_adc_h, out_scale_h, b_dac, b_adc, span,
+      multi, apply_dac, static_cast<const uint8_t*>(keep));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -310,25 +354,22 @@ extern "C" int analog_mvm_f32_launch(const void* x, const void* w, void* y, int 
                                      float out_scale_h, int b_dac, int b_adc, int span,
                                      int multi, int apply_dac, const void* keep, int bm, int bn,
                                      void* stream) {
-  Launch l{nullptr, 0, cudaSuccess};
-  switch (bn) {
-    case 16: l = kernel_for<16>(bm); break;
-    case 32: l = kernel_for<32>(bm); break;
-    case 64: l = kernel_for<64>(bm); break;
-    case 128: l = kernel_for<128>(bm); break;
-    default: break;
-  }
-  if (!l.fn || M < 1 || K < 1 || N < 1 || span < 1 || (!multi && span != K) ||
-      (N + bn - 1) / bn > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (l.attr != cudaSuccess) return static_cast<int>(l.attr);
-  const dim3 grid((M + bm - 1) / bm, (N + bn - 1) / bn);
-  l.fn<<<grid, kThreads, l.smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(y), M, K,
-      N, static_cast<const float*>(r_dac_p), static_cast<const float*>(r_adc_p),
-      static_cast<const float*>(out_scale_p), r_dac_h, r_adc_h, out_scale_h, b_dac, b_adc, span,
-      multi, apply_dac, static_cast<const uint8_t*>(keep));
-  return static_cast<int>(cudaGetLastError());
+  return launch(x, w, y, 0, M, K, N, r_dac_p, r_adc_p, out_scale_p, r_dac_h, r_adc_h,
+                out_scale_h, b_dac, b_adc, span, multi, apply_dac, keep, bm, bn, stream);
+}
+
+// The expert-bank form: E >= 1 problems of one shape, x (E, M, K), w (E, K,
+// N), y (E, M, N), keep (E, M, T, N) or null, out_scale_p the (E,) GDC
+// scalars (null: the host value for all); no DAC (x already quantized);
+// the other rules as above.
+extern "C" int analog_mvm_f32_bank_launch(const void* x, const void* w, void* y, int E, int M,
+                                          int K, int N, const void* r_adc_p,
+                                          const void* out_scale_p, float r_adc_h,
+                                          float out_scale_h, int b_adc, int span, int multi,
+                                          const void* keep, int bm, int bn, void* stream) {
+  if (E < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(x, w, y, E, M, K, N, nullptr, r_adc_p, out_scale_p, 0.f, r_adc_h, out_scale_h,
+                b_adc + 1, b_adc, span, multi, 0, keep, bm, bn, stream);
 }
 
 extern "C" const char* analog_mvm_f32_error_string(int code) {

@@ -74,7 +74,17 @@
 // time (two streams, two graphs) share nothing; see last_to_finish for why
 // the flags need no zeroing.
 //
-// Both kernels allocate nothing and run on the caller's stream; the
+// Expert-bank form (a MoE layer's family, kernels/analog_mvm.py::
+// analog_mvm_bank): E problems of one shape (E, M, K) x (E, K, N), each
+// expert its own GDC scalar, in ONE launch of either design: the expert is
+// the grid's z (times the prefill design's splits). Its blocks run the
+// 2-D design's block code (prefill_tile, decode_strip) on the expert's
+// operands, so each expert's slice is bitwise the 2-D launch on it; the
+// launch replaces E launches (3 x 16 a phi3.5-moe layer), which at decode
+// (M = 8 slots) each stream a 4096 x 6400 weight, bytes-bound as the 2-D
+// decode design is.
+//
+// The kernels allocate nothing and run on the caller's stream; the
 // launchers return cudaGetLastError().
 
 #include <cuda_bf16.h>
@@ -180,21 +190,29 @@ __device__ __forceinline__ bool last_to_finish(unsigned long long* flags, unsign
 // and p where it is not (Adc::tile_q_keep, finish_keep); each split applies
 // its own tile's mask before it writes its partial. KEEP = false is the
 // serving form, and compiles to the instructions it had before the mask.
+//
+// The block's work is prefill_tile, one (M, K) x (K, N) problem's output
+// tile (blockIdx.x, blockIdx.y) and split z of `splits`: the serving kernel
+// runs it on grid.z = the splits, the expert-bank kernel on grid.z =
+// experts x splits, each expert its own operands at its own offsets. Both
+// run the same instructions per element, so an expert's slice of a bank
+// launch is bitwise the 2-D launch on that slice.
 template <bool KEEP>
-__global__ void __launch_bounds__(kPThreads, 2)
-analog_mvm_prefill_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                          bf16* __restrict__ y, float* __restrict__ part,
-                          unsigned long long* __restrict__ flags,
-                          unsigned long long tag, int M, int K, int N,
-                          const float* r_adc_p, const float* out_scale_p, float r_adc_h,
-                          float out_scale_h, int b_adc, int span, int multi,
-                          const uint8_t* __restrict__ keep) {
+__device__ __forceinline__ void prefill_tile(const bf16* __restrict__ x,
+                                             const bf16* __restrict__ w, bf16* __restrict__ y,
+                                             float* __restrict__ part,
+                                             unsigned long long* __restrict__ flags,
+                                             unsigned long long tag, int M, int K, int N,
+                                             const float* r_adc_p, const float* out_scale_p,
+                                             float r_adc_h, float out_scale_h, int b_adc,
+                                             int span, int multi,
+                                             const uint8_t* __restrict__ keep, const int splits,
+                                             const int z) {
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sbase = smem_u32(smem);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 1, wn = warp & 1;
   const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
-  const int splits = gridDim.z, z = blockIdx.z;
   // a split is one crossbar tile (multi); one split walks all of K
   const int k_lo = splits > 1 ? z * span : 0;
   const int k_hi = splits > 1 ? min(k_lo + span, K) : K;
@@ -376,19 +394,60 @@ analog_mvm_prefill_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w
   }
 }
 
+template <bool KEEP>
+__global__ void __launch_bounds__(kPThreads, 2)
+analog_mvm_prefill_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                          bf16* __restrict__ y, float* __restrict__ part,
+                          unsigned long long* __restrict__ flags,
+                          unsigned long long tag, int M, int K, int N,
+                          const float* r_adc_p, const float* out_scale_p, float r_adc_h,
+                          float out_scale_h, int b_adc, int span, int multi,
+                          const uint8_t* __restrict__ keep) {
+  prefill_tile<KEEP>(x, w, y, part, flags, tag, M, K, N, r_adc_p, out_scale_p, r_adc_h,
+                     out_scale_h, b_adc, span, multi, keep, gridDim.z, blockIdx.z);
+}
+
+// The expert-bank form: grid.z = experts x splits; expert e = blockIdx.z /
+// splits reads x[e] (M, K), w[e] (K, N), out_scale_p[e] and keep[e] (M, T,
+// N), writes y[e] (M, N), and owns `stride` floats of the workspace (its
+// partials, then its flags, as one 2-D call's).
+template <bool KEEP>
+__global__ void __launch_bounds__(kPThreads, 2)
+analog_mvm_prefill_bank_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                               bf16* __restrict__ y, float* __restrict__ part,
+                               unsigned long long* __restrict__ flags,
+                               unsigned long long tag, int M, int K, int N,
+                               const float* r_adc_p, const float* out_scale_p, float r_adc_h,
+                               float out_scale_h, int b_adc, int span, int multi,
+                               const uint8_t* __restrict__ keep, int splits, size_t stride) {
+  const int e = blockIdx.z / splits;
+  const size_t mn = static_cast<size_t>(M) * N;
+  const int n_tiles = multi ? (K + span - 1) / span : 1;
+  prefill_tile<KEEP>(
+      x + e * static_cast<size_t>(M) * K, w + e * static_cast<size_t>(K) * N, y + e * mn,
+      part + e * stride,
+      reinterpret_cast<unsigned long long*>(reinterpret_cast<float*>(flags) + e * stride), tag,
+      M, K, N, r_adc_p, out_scale_p ? out_scale_p + e : nullptr, r_adc_h, out_scale_h, b_adc,
+      span, multi, keep ? keep + e * mn * n_tiles : nullptr, splits, blockIdx.z % splits);
+}
+
 // ------------------------------------------------------------ decode design
 
 constexpr int kDRows = 16;             // x rows, zero-padded past M
 constexpr int kXChunks = kSub / 8;     // 16-byte chunks of an x row (16)
 
+// One block's strip and sub-chunk (blockIdx.x, blockIdx.y) of one (M, K) x
+// (K, N) problem: the serving kernel's, and each expert's of the bank
+// kernel (grid.z = experts), as for the prefill design.
 template <int W>
-__global__ void __launch_bounds__(32 * W)
-analog_mvm_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                         bf16* __restrict__ y, float* __restrict__ part,
-                         unsigned long long* __restrict__ flags,
-                         unsigned long long tag, int M, int K, int N,
-                         const float* r_adc_p, const float* out_scale_p, float r_adc_h,
-                         float out_scale_h, int b_adc, int span, int multi) {
+__device__ __forceinline__ void decode_strip(const bf16* __restrict__ x,
+                                             const bf16* __restrict__ w, bf16* __restrict__ y,
+                                             float* __restrict__ part,
+                                             unsigned long long* __restrict__ flags,
+                                             unsigned long long tag, int M, int K, int N,
+                                             const float* r_adc_p, const float* out_scale_p,
+                                             float r_adc_h, float out_scale_h, int b_adc,
+                                             int span, int multi) {
   constexpr int kCols = 16 * W;        // columns of the block's strip
   constexpr int kWChunks = kCols / 8;  // 16-byte chunks of a weight row
   constexpr int kWMask = (kWChunks < 8 ? kWChunks : 8) - 1;
@@ -485,6 +544,39 @@ analog_mvm_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
+template <int W>
+__global__ void __launch_bounds__(32 * W)
+analog_mvm_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                         bf16* __restrict__ y, float* __restrict__ part,
+                         unsigned long long* __restrict__ flags,
+                         unsigned long long tag, int M, int K, int N,
+                         const float* r_adc_p, const float* out_scale_p, float r_adc_h,
+                         float out_scale_h, int b_adc, int span, int multi) {
+  decode_strip<W>(x, w, y, part, flags, tag, M, K, N, r_adc_p, out_scale_p, r_adc_h,
+                  out_scale_h, b_adc, span, multi);
+}
+
+// The expert-bank form of the decode design: expert e = blockIdx.z, its
+// operands and its `stride` floats of workspace as in the prefill bank
+// kernel.
+template <int W>
+__global__ void __launch_bounds__(32 * W)
+analog_mvm_decode_bank_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                              bf16* __restrict__ y, float* __restrict__ part,
+                              unsigned long long* __restrict__ flags,
+                              unsigned long long tag, int M, int K, int N,
+                              const float* r_adc_p, const float* out_scale_p, float r_adc_h,
+                              float out_scale_h, int b_adc, int span, int multi,
+                              size_t stride) {
+  const int e = blockIdx.z;
+  decode_strip<W>(
+      x + e * static_cast<size_t>(M) * K, w + e * static_cast<size_t>(K) * N,
+      y + e * static_cast<size_t>(M) * N, part + e * stride,
+      reinterpret_cast<unsigned long long*>(reinterpret_cast<float*>(flags) + e * stride), tag,
+      M, K, N, r_adc_p, out_scale_p ? out_scale_p + e : nullptr, r_adc_h, out_scale_h, b_adc,
+      span, multi);
+}
+
 template <bool KEEP>
 int launch_prefill(const void* x, const void* w, void* y, void* part, void* flags,
                    unsigned long long tag, int M, int K, int N, const void* r_adc_p,
@@ -504,6 +596,29 @@ int launch_prefill(const void* x, const void* w, void* y, void* part, void* flag
       static_cast<float*>(part), static_cast<unsigned long long*>(flags), tag, M, K, N,
       static_cast<const float*>(r_adc_p), static_cast<const float*>(out_scale_p), r_adc_h,
       out_scale_h, b_adc, span, multi, static_cast<const uint8_t*>(keep));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool KEEP>
+int launch_prefill_bank(const void* x, const void* w, void* y, void* part, void* flags,
+                        unsigned long long tag, int E, int M, int K, int N, const void* r_adc_p,
+                        const void* out_scale_p, float r_adc_h, float out_scale_h, int b_adc,
+                        int span, int multi, int splits, const void* keep, size_t stride,
+                        cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(analog_mvm_prefill_bank_kernel<KEEP>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               kPrefillSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, E * splits);
+  analog_mvm_prefill_bank_kernel<KEEP><<<grid, kPThreads, kPrefillSmem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<bf16*>(y),
+      static_cast<float*>(part), static_cast<unsigned long long*>(flags), tag, M, K, N,
+      static_cast<const float*>(r_adc_p), static_cast<const float*>(out_scale_p), r_adc_h,
+      out_scale_h, b_adc, span, multi, static_cast<const uint8_t*>(keep), splits, stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -563,6 +678,64 @@ extern "C" int analog_mvm_tc_decode(const void* x, const void* w, void* y, void*
   else
     return static_cast<int>(cudaErrorInvalidValue);
 #undef AMVM_DECODE
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Expert-bank forms: E problems of one shape in one launch, expert e's x
+// at x + e M K, w at w + e K N, y at y + e M N, keep (when given) at keep +
+// e M T N, its GDC scalar out_scale_p[e] (null: the host value for all),
+// and `stride` floats of the workspace at part + e stride holding what one
+// 2-D call of the design holds (its partials, then its flags at the same
+// offset from its start as `flags` from part); stride % 4 == 0. The other
+// operands and rules are the 2-D launchers'. Returns cudaGetLastError().
+extern "C" int analog_mvm_tc_prefill_bank(const void* x, const void* w, void* y, void* part,
+                                          void* flags, unsigned long long tag, int E, int M,
+                                          int K, int N, const void* r_adc_p,
+                                          const void* out_scale_p, float r_adc_h,
+                                          float out_scale_h, int b_adc, int span, int multi,
+                                          int splits, const void* keep,
+                                          unsigned long long stride, void* stream) {
+  if (E < 1 || M < 1 || K < 1 || N < 1 || K % 8 || N % 8 || (multi && span % kSub) ||
+      splits < 1 || static_cast<long long>(E) * splits > 65535 || stride % 4 ||
+      reinterpret_cast<uintptr_t>(flags) % 8 ||
+      (splits > 1 && (!multi || splits != (K + span - 1) / span)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return keep ? launch_prefill_bank<true>(x, w, y, part, flags, tag, E, M, K, N, r_adc_p,
+                                          out_scale_p, r_adc_h, out_scale_h, b_adc, span, multi,
+                                          splits, keep, stride, s)
+              : launch_prefill_bank<false>(x, w, y, part, flags, tag, E, M, K, N, r_adc_p,
+                                           out_scale_p, r_adc_h, out_scale_h, b_adc, span,
+                                           multi, splits, keep, stride, s);
+}
+
+extern "C" int analog_mvm_tc_decode_bank(const void* x, const void* w, void* y, void* part,
+                                         void* flags, unsigned long long tag, int E, int M,
+                                         int K, int N, const void* r_adc_p,
+                                         const void* out_scale_p, float r_adc_h,
+                                         float out_scale_h, int b_adc, int span, int multi,
+                                         int warps, unsigned long long stride, void* stream) {
+  const int n_sub = (K + kSub - 1) / kSub;
+  if (E < 1 || E > 65535 || M < 1 || M > kDRows || K < 1 || N < 1 || K % 8 || N % 8 ||
+      (multi && span % kSub) || stride % 4 || reinterpret_cast<uintptr_t>(flags) % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define AMVM_DECODE_BANK(WW)                                                                 \
+  analog_mvm_decode_bank_kernel<WW>                                                          \
+      <<<dim3((N + 16 * WW - 1) / (16 * WW), n_sub, E), 32 * WW, 0, s>>>(                    \
+          static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<bf16*>(y),  \
+          static_cast<float*>(part), static_cast<unsigned long long*>(flags), tag, M, K, N,  \
+          static_cast<const float*>(r_adc_p), static_cast<const float*>(out_scale_p),        \
+          r_adc_h, out_scale_h, b_adc, span, multi, stride)
+  if (warps == 1)
+    AMVM_DECODE_BANK(1);
+  else if (warps == 2)
+    AMVM_DECODE_BANK(2);
+  else if (warps == 4)
+    AMVM_DECODE_BANK(4);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+#undef AMVM_DECODE_BANK
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -109,14 +109,17 @@ __device__ __forceinline__ float erf_inv_xla(float x) {
   return fabsf(x) == 1.0f ? __fmul_rn(x, __int_as_float(0x7f800000)) : __fmul_rn(p, x);
 }
 
-// scaled = 1: sqrt(2) * erf_inv(u), jax.random.normal; 0: erf_inv(u) alone
-__global__ void normal_kernel(uint32_t k1, uint32_t k2, float* __restrict__ out, int64_t n,
-                              int scaled) {
+// scaled = 1: sqrt(2) * erf_inv(u), jax.random.normal; 0: erf_inv(u) alone.
+// out[i] is the draw's element offset + i (a slice of a larger draw: the
+// program phase draws a large member's rows chunk by chunk)
+__global__ void normal_kernel(uint32_t k1, uint32_t k2, float* __restrict__ out, int64_t offset,
+                              int64_t n, int scaled) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    uint32_t x0 = static_cast<uint32_t>(static_cast<uint64_t>(i) >> 32);
-    uint32_t x1 = static_cast<uint32_t>(i);
+    const uint64_t c = static_cast<uint64_t>(offset + i);  // the draw's flat counter
+    uint32_t x0 = static_cast<uint32_t>(c >> 32);
+    uint32_t x1 = static_cast<uint32_t>(c);
     threefry(k1, k2, x0, x1);
     const uint32_t bits = x0 ^ x1;
     const float f = __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
@@ -129,16 +132,17 @@ __global__ void normal_kernel(uint32_t k1, uint32_t k2, float* __restrict__ out,
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = ok).
-extern "C" int prng_normal(unsigned int k1, unsigned int k2, void* out, long long n, int scaled,
-                           void* stream) {
-  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+// n draws, elements offset to offset + n - 1 of the key's draw. Returns
+// cudaGetLastError() after the launch (0 = ok).
+extern "C" int prng_normal(unsigned int k1, unsigned int k2, void* out, long long offset,
+                           long long n, int scaled, void* stream) {
+  if (n < 0 || offset < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   const int threads = 256;
   const long long want = (n + threads - 1) / threads;
   const int blocks = static_cast<int>(want < 132 * 64 ? want : 132 * 64);
   normal_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      k1, k2, static_cast<float*>(out), n, scaled);
+      k1, k2, static_cast<float*>(out), offset, n, scaled);
   return static_cast<int>(cudaGetLastError());
 }
 

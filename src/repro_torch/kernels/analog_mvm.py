@@ -27,6 +27,11 @@ notes (what they compute, their bounds, what the designs do about them);
 the plain PyTorch version of the same function is
 ``kernels.ref.analog_mvm_ref``.
 
+:func:`analog_mvm_bank` is the expert-bank form (a MoE layer's family):
+every expert of an (E, M, K) x (E, K, N) bank in one launch of the
+``decode``, ``prefill`` or ``tiled`` design, the expert the grid's z, each
+expert's slice bitwise the 2-D launch on it.
+
 :func:`analog_mvm` takes CUDA tensors only -- there is no CPU fallback here;
 ``kernels.ops.analog_mvm`` is the device-dispatching entry. It checks
 device, dtype, shape and contiguity, allocates the output, launches on the
@@ -110,10 +115,17 @@ def _tc_fn():
             )
             pre.argtypes = common + [ctypes.c_void_p] * 2  # keep, stream
             dec.argtypes = common + [ctypes.c_void_p]
-            pre.restype = dec.restype = ctypes.c_int
+            # the bank forms: E after the tag; then stride (floats), stream
+            bank = common[:6] + [ctypes.c_int] + common[6:]
+            lib.analog_mvm_tc_prefill_bank.argtypes = bank + [ctypes.c_void_p, ctypes.c_uint64,
+                                                              ctypes.c_void_p]
+            lib.analog_mvm_tc_decode_bank.argtypes = bank + [ctypes.c_uint64, ctypes.c_void_p]
+            for fn in (pre, dec, lib.analog_mvm_tc_prefill_bank, lib.analog_mvm_tc_decode_bank):
+                fn.restype = ctypes.c_int
             lib.analog_mvm_tc_error_string.argtypes = [ctypes.c_int]
             lib.analog_mvm_tc_error_string.restype = ctypes.c_char_p
-            _TC_FN = (pre, dec, lib.analog_mvm_tc_error_string)
+            _TC_FN = (pre, dec, lib.analog_mvm_tc_error_string,
+                      lib.analog_mvm_tc_prefill_bank, lib.analog_mvm_tc_decode_bank)
     return _TC_FN
 
 
@@ -129,9 +141,16 @@ def _f32_fn():
                 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
             )
             fn.restype = ctypes.c_int
+            bank = lib.analog_mvm_f32_bank_launch
+            bank.argtypes = (
+                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+                + [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+                + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+            )
+            bank.restype = ctypes.c_int
             lib.analog_mvm_f32_error_string.argtypes = [ctypes.c_int]
             lib.analog_mvm_f32_error_string.restype = ctypes.c_char_p
-            _F32_FN = (fn, lib.analog_mvm_f32_error_string)
+            _F32_FN = (fn, lib.analog_mvm_f32_error_string, bank)
     return _F32_FN
 
 
@@ -468,7 +487,7 @@ def _launch_tiled(x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc,
     multi = int(per_tile_adc and k > tile_rows)
     plan = tiled_plan(m, n)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    fn, err_str = _f32_fn()
+    fn, err_str, _ = _f32_fn()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(
@@ -507,7 +526,7 @@ def _launch_tc(design, x, w, r_adc, out_scale, b_adc, tile_rows, per_tile_adc,
     work = torch.empty(words, dtype=torch.float32, device=x.device)
     flags, tag = work.data_ptr() + 4 * off, _tag()
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    pre, dec, err_str = _tc_fn()
+    pre, dec, err_str, _, _ = _tc_fn()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if design == "prefill":
@@ -526,7 +545,162 @@ def _launch_tc(design, x, w, r_adc, out_scale, b_adc, tile_rows, per_tile_adc,
     return y
 
 
+# ---------------------------------------------------------------------------
+# The expert-bank form: one launch for every expert of a MoE layer's family
+# ---------------------------------------------------------------------------
+
+#: the designs the bank form runs: each expert one problem of the design
+#: (grid.z), so its slice is bitwise the 2-D launch of that design on it
+BANK_DESIGNS = ("decode", "prefill", "tiled")
+
+
+def bank_workspace_words(plan) -> tuple:
+    """(float32 words of one expert's workspace -- a 2-D call's, rounded up
+    to 16 bytes --, word offset of its flags)."""
+    words, off = workspace_words(plan)
+    return -(-words // 4) * 4, off
+
+
+def analog_mvm_bank(
+    x: Tensor,
+    w: Tensor,
+    *,
+    r_adc: Scalar,
+    out_scale: Scalar = 1.0,
+    b_adc: int = 8,
+    tile_rows: int = 1024,
+    per_tile_adc: bool = True,
+    keep: Optional[Tensor] = None,
+) -> Tensor:
+    """B1's expert-bank form on the card: x (E, M, K) already
+    DAC-quantized, w (E, K, N) -> (E, M, N) in x's dtype, in ONE launch of
+    the design :func:`select_design` picks for (M, K, N) -- ``decode``,
+    ``prefill`` or ``tiled`` (:data:`BANK_DESIGNS`; what would run
+    ``gemv`` is refused). ``r_adc`` and ``b_adc`` are the family's;
+    ``out_scale`` is a float, or a tensor of one GDC scalar or the (E,)
+    experts' own; ``keep`` is the training form's (E, M, T, N) mask. Each
+    expert's slice is bitwise :func:`analog_mvm` on it. Adds one to
+    ``analog_mvm_bank.launches`` (and to its ``design_launches``) per
+    launch, and nowhere else."""
+    _check_bank(x, w, b_adc, tile_rows)
+    e, m, k = x.shape
+    n = w.shape[2]
+    if keep is not None:
+        if keep.dim() != 4 or tuple(keep.shape[:2]) != (e, m) or not keep.is_contiguous():
+            raise ValueError(f"analog_mvm_bank kernel: keep must be a contiguous ({e}, {m}, "
+                             f"T, {n}) mask, got {tuple(keep.shape)}")
+        _check_keep(keep.reshape(e * m, *keep.shape[2:]), x.reshape(e * m, k), w[0],
+                    tile_rows, per_tile_adc)
+    design = select_design(x.dtype, m, k, n, tile_rows=tile_rows, per_tile_adc=per_tile_adc,
+                           keep=keep is not None)
+    if design not in BANK_DESIGNS:
+        raise ValueError(
+            f"analog_mvm_bank kernel: the bank form runs {BANK_DESIGNS}, and these operands "
+            f"(M={m} K={k} N={n} dtype={x.dtype} keep={keep is not None}) want {design!r}"
+        )
+    if isinstance(out_scale, Tensor):
+        if out_scale.device != x.device:
+            raise ValueError(f"out_scale is on {out_scale.device}, the operands on {x.device}")
+        if out_scale.numel() not in (1, e):
+            raise ValueError(f"analog_mvm_bank kernel: out_scale has {out_scale.numel()} "
+                             f"values for {e} experts")
+        out_scale = out_scale.float().reshape(-1).expand(e).contiguous()
+    if design == "tiled":
+        y = _launch_tiled_bank(x, w, r_adc, out_scale, b_adc, tile_rows, per_tile_adc, keep)
+    else:
+        y = _launch_tc_bank(design, x, w, r_adc, out_scale, b_adc, tile_rows, per_tile_adc,
+                            keep)
+    build.bump(analog_mvm_bank, "launches")
+    build.bump(analog_mvm_bank, "design_launches", design)
+    return y
+
+
+def _check_bank(x: Tensor, w: Tensor, b_adc: int, tile_rows: int) -> None:
+    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
+        raise ValueError(
+            f"analog_mvm_bank kernel needs x (E, M, K) and w (E, K, N), got "
+            f"{tuple(x.shape)} and {tuple(w.shape)}"
+        )
+    if x.shape[0] < 1 or x.shape[0] > 65535:
+        raise ValueError(f"analog_mvm_bank kernel: {x.shape[0]} experts (1 to 65535)")
+    _check_operands(x[0], w[0], b_adc, tile_rows)
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("analog_mvm_bank kernel needs contiguous x and w")
+
+
+def _out_scale_arg(out_scale) -> tuple:
+    """(device pointer of the (E,) scalars or None, host value)."""
+    if isinstance(out_scale, Tensor):
+        return out_scale.data_ptr(), 0.0
+    return None, float(out_scale)
+
+
+def _launch_tiled_bank(x, w, r_adc, out_scale, b_adc, tile_rows, per_tile_adc, keep) -> Tensor:
+    e, m, k = x.shape
+    n = w.shape[2]
+    ra_p, ra_h, ra_keep = _scalar(r_adc, "r_adc", x.device)
+    os_p, os_h = _out_scale_arg(out_scale)
+    multi = int(per_tile_adc and k > tile_rows)
+    plan = tiled_plan(m, n)
+    y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
+    _, err_str, fn = _f32_fn()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), e, m, k, n, ra_p, os_p, ra_h, os_h,
+                b_adc, tile_rows if multi else k, multi,
+                None if keep is None else keep.data_ptr(), plan.bm, plan.bn, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"analog_mvm_bank tiled kernel launch failed: {err_str(rc).decode()} "
+            f"(E={e} M={m} K={k} N={n} dtype={x.dtype})"
+        )
+    del ra_keep, out_scale  # freed after the launch was enqueued
+    return y
+
+
+def _launch_tc_bank(design, x, w, r_adc, out_scale, b_adc, tile_rows, per_tile_adc,
+                    keep) -> Tensor:
+    """One launch of a tensor-core design over every expert: expert e gets
+    the 2-D call's plan and workspace at ``e * stride`` (its partials, then
+    its flags), raised with one tag (:func:`_tag`)."""
+    e, m, k = x.shape
+    n = w.shape[2]
+    if x.data_ptr() % 16 or w.data_ptr() % 16 or (m * k) % 8 or (k * n) % 8:
+        raise ValueError("analog_mvm tensor-core kernels need 16-byte aligned x and w")
+    ra_p, ra_h, ra_keep = _scalar(r_adc, "r_adc", x.device)
+    os_p, os_h = _out_scale_arg(out_scale)
+    multi = int(per_tile_adc and k > tile_rows)
+    span = tile_rows if multi else k
+    plan = (prefill_plan if design == "prefill" else split_plan)(m, k, n, tile_rows,
+                                                                  per_tile_adc)
+    stride, off = bank_workspace_words(plan)
+    work = torch.empty(e * stride, dtype=torch.float32, device=x.device)
+    flags, tag = work.data_ptr() + 4 * off, _tag()
+    y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
+    _, _, err_str, pre, dec = _tc_fn()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if design == "prefill":
+            rc = pre(x.data_ptr(), w.data_ptr(), y.data_ptr(), work.data_ptr(), flags, tag, e,
+                     m, k, n, ra_p, os_p, ra_h, os_h, b_adc, span, multi, plan.splits,
+                     None if keep is None else keep.data_ptr(), stride, stream)
+        else:
+            rc = dec(x.data_ptr(), w.data_ptr(), y.data_ptr(), work.data_ptr(), flags, tag, e,
+                     m, k, n, ra_p, os_p, ra_h, os_h, b_adc, span, multi, plan.warps, stride,
+                     stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"analog_mvm_bank {design} kernel launch failed: {err_str(rc).decode()} "
+            f"(E={e} M={m} K={k} N={n} dtype={x.dtype})"
+        )
+    del ra_keep, out_scale  # freed after the launch was enqueued
+    return y
+
+
 #: kernel launches since process start (see module docstring)
 analog_mvm.launches = 0
 #: the same launches by design
 analog_mvm.design_launches = dict.fromkeys(DESIGNS, 0)
+#: the bank form's launches since process start, and by design
+analog_mvm_bank.launches = 0
+analog_mvm_bank.design_launches = dict.fromkeys(BANK_DESIGNS, 0)

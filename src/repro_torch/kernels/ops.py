@@ -4,6 +4,8 @@
 kernel (``kernels.analog_mvm``) -- a failed launch raises, nothing falls
 back -- and a CPU tensor runs the plain version
 (``kernels.ref.analog_mvm_ref``). It computes no gradient.
+:func:`analog_mvm_bank` does the same for an expert bank (B1's bank form,
+``ref.analog_mvm_bank_ref``).
 
 :func:`analog_mvm_ste` is the training entry, the counterpart of the
 reference's ``jax.custom_vjp`` (``repro/kernels/ops.py:30-97``): its
@@ -35,7 +37,12 @@ import torch
 from repro_torch.kernels import analog_mvm as kernel
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as attention_kernel
-from repro_torch.kernels.ref import analog_mvm_plain, analog_mvm_ref, flash_attention_plain
+from repro_torch.kernels.ref import (
+    analog_mvm_bank_ref,
+    analog_mvm_plain,
+    analog_mvm_ref,
+    flash_attention_plain,
+)
 
 Tensor = torch.Tensor
 
@@ -79,6 +86,38 @@ def analog_mvm(
     else:
         raise ValueError(f"analog_mvm: unsupported device {x.device}")
     return y.reshape(*lead, w.shape[-1])
+
+
+def analog_mvm_bank(
+    x: Tensor,
+    w: Tensor,
+    *,
+    r_adc,
+    out_scale=1.0,
+    bits: int = 8,
+    tile_rows: int = 1024,
+    per_tile_adc: bool = True,
+    keep: Optional[Tensor] = None,
+) -> Tensor:
+    """An expert bank's MVM: x (E, ..., K) already DAC-quantized, w (E, K,
+    N), ``out_scale`` a float or the (E,) GDC scalars, ``keep`` the
+    training form's (E, M, T, N) mask -> (E, ..., N). A CUDA tensor
+    launches B1's bank form (``kernel.analog_mvm_bank``, one launch for
+    every expert), a CPU tensor runs ``ref.analog_mvm_bank_ref``."""
+    e, lead = x.shape[0], x.shape[1:-1]
+    x3 = x.reshape(e, -1, x.shape[-1])
+    if x.device.type == "cuda":
+        y = kernel.analog_mvm_bank(
+            x3.contiguous(), w.contiguous(), r_adc=r_adc, out_scale=out_scale, b_adc=bits,
+            tile_rows=tile_rows, per_tile_adc=per_tile_adc,
+            keep=None if keep is None else keep.contiguous(),
+        )
+    elif x.device.type == "cpu":
+        y = analog_mvm_bank_ref(x3, w, r_adc, out_scale, b_adc=bits, tile_rows=tile_rows,
+                                per_tile_adc=per_tile_adc, keep=keep)
+    else:
+        raise ValueError(f"analog_mvm_bank: unsupported device {x.device}")
+    return y.reshape(e, *lead, w.shape[-1])
 
 
 class _AnalogMVM(torch.autograd.Function):

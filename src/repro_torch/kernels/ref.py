@@ -20,7 +20,8 @@ own tests allow 15% bf16 mismatches for this).
 never took the plain version on the card. The training form takes a
 quant-noise ``keep`` mask and rounds straight-through, so autograd of it is
 the reference's VJP (``kernels.ops``' STE function differentiates
-:func:`analog_mvm_plain`, the same body uncounted). The module also holds the plain
+:func:`analog_mvm_plain`, the same body uncounted). :func:`analog_mvm_bank_plain` is the expert-bank
+form's (the 2-D version expert by expert). The module also holds the plain
 versions of the other kernels: :func:`decode_fused_ref` (the fused decode
 step) and :func:`flash_attention_ref` (the prefill attention; its body
 :func:`flash_attention_plain` uncounted, for the attention's training
@@ -141,6 +142,43 @@ def analog_mvm_ref(
 
 #: calls since process start
 analog_mvm_ref.calls = 0
+
+
+def analog_mvm_bank_plain(
+    x: Tensor,
+    w: Tensor,
+    r_adc,
+    out_scale=1.0,
+    *,
+    b_adc: int = 8,
+    tile_rows: int = 1024,
+    per_tile_adc: bool = True,
+    keep: Optional[Tensor] = None,
+) -> Tensor:
+    """Plain version of B1's expert-bank form: x (E, M, K) already
+    DAC-quantized, w (E, K, N), ``out_scale`` a float or the (E,) GDC
+    scalars, ``keep`` the training form's (E, M, T, N) mask -> (E, M, N):
+    the 2-D plain version (:func:`analog_mvm_plain`, no DAC) expert by
+    expert, so each expert's slice is bitwise the 2-D call on it."""
+    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0]:
+        raise ValueError(f"bank shapes {tuple(x.shape)} x {tuple(w.shape)}")
+    per = (out_scale.dim() > 0) if isinstance(out_scale, Tensor) else False
+    return torch.stack([
+        analog_mvm_plain(x[e], w[e], None, r_adc, out_scale[e] if per else out_scale,
+                         b_adc=b_adc, tile_rows=tile_rows, per_tile_adc=per_tile_adc,
+                         apply_dac=False, keep=None if keep is None else keep[e])
+        for e in range(x.shape[0])
+    ])
+
+
+def analog_mvm_bank_ref(x: Tensor, w: Tensor, r_adc, out_scale=1.0, **kw) -> Tensor:
+    """:func:`analog_mvm_bank_plain`, counted in ``calls``."""
+    analog_mvm_bank_ref.calls += 1
+    return analog_mvm_bank_plain(x, w, r_adc, out_scale, **kw)
+
+
+#: calls since process start
+analog_mvm_bank_ref.calls = 0
 
 
 def decode_fused_ref(

@@ -497,6 +497,11 @@ def main(argv: Optional[list[str]] = None) -> None:
             prompt_lens=trace_prompt_buckets(s),
             new_tokens=(max(1, min(8, args.tokens)), args.tokens),
         )
+        if cfg.family == "moe":
+            print("warning: MoE capacity routing pools tokens across the "
+                  "decode batch, so continuous-batching generations are "
+                  "not bit-identical to solo serving for this family",
+                  file=sys.stderr)
         if fleet_n is not None:
             serve_fleet(args, fleet_n, trace, program, params, acfg, cfg, serving_cfg,
                         ref_params if ref_check else None, src_params, overrides, b_adc,

@@ -1,4 +1,4 @@
-"""The dense LM, port of ``repro.models.lm`` (``family="dense"`` only).
+"""The LM, port of ``repro.models.lm``: the dense and MoE families.
 
 Parameters keep the reference's layout -- :class:`LMParams` with the block
 stack as ``(n_groups, ...)`` tensors -- so a JAX param tree or program
@@ -15,7 +15,12 @@ Caches: ``(group caches, tail caches)``. The *stacked* layout holds one
 serving engine's per-slot cache) holds one :class:`KVCache` per group, or
 one :class:`PagedKVCache` per group in the paged layout (page pools shared
 by every slot, one page-id space across layers). KV rows are written in
-place in every layout. Other families raise.
+place in every layout. A MoE block (``models.moe``) replaces the FFN with
+expert banks; the SSM, hybrid, audio and vision families raise.
+
+``cfg.remat`` recomputes each group's forward in the backward
+(``torch.utils.checkpoint``), as the reference wraps each group in
+``jax.checkpoint``; the values do not change (see :func:`lm_forward`).
 """
 
 from __future__ import annotations
@@ -23,12 +28,14 @@ from __future__ import annotations
 from typing import Any, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import prng
 from repro_torch.core.analog import AnalogConfig, AnalogCtx, MvmFn, linear_apply, linear_init
 from repro_torch.device import resolve_device
 from repro_torch.kernels import decode_rows
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (
     ModelConfig,
     embedding_apply,
@@ -41,10 +48,17 @@ Tensor = torch.Tensor
 
 
 def block_period(cfg: ModelConfig) -> list[str]:
+    """The kinds of a group's blocks: dense ``["attn"]``; MoE ``["moe"]``,
+    or ``moe_every - 1`` dense blocks then one MoE block (llama4's
+    interleaving)."""
+    if cfg.family == "moe":
+        if cfg.moe_every <= 1:
+            return ["moe"]
+        return ["attn"] * (cfg.moe_every - 1) + ["moe"]
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r} is ported in a later slice; this slice "
-            "runs the dense LM"
+            f"family {cfg.family!r} is ported in a later slice; the port "
+            "runs the dense and MoE LMs"
         )
     return ["attn"]
 
@@ -78,14 +92,18 @@ def mlp_apply(params: dict, x: Tensor, ctx: AnalogCtx, *, rows: bool = False) ->
     return linear_apply(params["w2"], h, ctx)
 
 
-def _block_init(key: Tensor, cfg: ModelConfig) -> dict:
+def _block_init(key: Tensor, kind: str, cfg: ModelConfig) -> dict:
     km, kf = prng.split(key, 4)[:2]
-    return {
+    params = {
         "norm1": rmsnorm_init(cfg, device=key.device),
         "norm2": rmsnorm_init(cfg, device=key.device),
         "attn": attn_lib.attn_init(km, cfg),
-        "ffn": mlp_init(kf, cfg),
     }
+    if kind == "moe":
+        params["moe"] = moe_lib.moe_init(kf, cfg)
+    else:
+        params["ffn"] = mlp_init(kf, cfg)
+    return params
 
 
 def _stack(trees: list) -> Any:
@@ -100,10 +118,11 @@ def _stack(trees: list) -> Any:
 
 
 def _block_apply(
-    params: dict, x: Tensor, ctx: AnalogCtx, cfg: ModelConfig,
+    params: dict, kind: str, x: Tensor, ctx: AnalogCtx, cfg: ModelConfig,
     positions: Tensor, cache,
 ):
-    """One block: norm -> attention -> residual -> norm -> ffn -> residual."""
+    """One block: norm -> attention -> residual -> norm -> ffn (the MoE
+    layer in a ``"moe"`` block) -> residual."""
     rows = _rows(x, cache)
     h = _norm(params["norm1"], x, cfg.norm_eps, rows)
     out, new_cache = attn_lib.attn_apply(
@@ -111,6 +130,8 @@ def _block_apply(
     )
     x = x + out
     h = _norm(params["norm2"], x, cfg.norm_eps, rows)
+    if kind == "moe":
+        return x + moe_lib.moe_apply(params["moe"], h, ctx, cfg), new_cache
     return x + mlp_apply(params["ffn"], h, ctx, rows=rows), new_cache
 
 
@@ -135,7 +156,7 @@ def _check_cfg(cfg: ModelConfig) -> list[str]:
 
 
 def lm_init(key: Tensor, cfg: ModelConfig, *, device="cuda") -> LMParams:
-    """Random dense-LM params drawn from the threefry ``key`` on ``device``.
+    """Random LM params drawn from the threefry ``key`` on ``device``.
 
     The reference's initializers and key tree (N(0, d_in^-1/2) projections,
     N(0, 0.02) embeddings, unit norms, r_adc = 1, clip range [-1, 1],
@@ -151,9 +172,10 @@ def lm_init(key: Tensor, cfg: ModelConfig, *, device="cuda") -> LMParams:
     groups = []
     for gk in prng.split(k_blocks, n_groups):
         keys = prng.split(gk, len(period))
-        groups.append([_block_init(keys[i], cfg) for i in range(len(period))])
+        groups.append([_block_init(keys[i], kind, cfg) for i, kind in enumerate(period)])
     blocks = tuple(_stack([g[i] for g in groups]) for i in range(len(period)))
-    tail = tuple(_block_init(prng.fold_in(k_tail, i), cfg) for i in range(n_tail))
+    tail = tuple(_block_init(prng.fold_in(k_tail, i), period[i % len(period)], cfg)
+                 for i in range(n_tail))
     return LMParams(
         embed=embedding_init(k_embed, cfg.vocab, cfg.d_model),
         blocks=blocks,
@@ -205,11 +227,16 @@ def lm_forward(
 
     Training: without a cache the forward is differentiable (the attention
     through B3's training form, the analog MVMs of ``analog_train``
-    through B1's). ``cfg.remat`` is not applied: the reference wraps each
-    group in ``jax.checkpoint``, which changes no value, and the port keeps
-    every group's activations for the backward instead: tinyllama-1.1b at
-    full depth, 4 x 128 tokens, peaked 41.0 GiB with its fp32 params,
-    gradients and Adam moments on an H100 (``chip_smoke.py`` phase 16).
+    through B1's). With ``cfg.remat`` and grad enabled, each group runs
+    under ``torch.utils.checkpoint`` (non-reentrant), as the reference
+    wraps each group in ``jax.checkpoint``: only the group's input is kept,
+    and the backward recomputes the group's forward. The recompute builds
+    the group's ``AnalogCtx`` afresh, so its key counter starts where the
+    forward's did and it draws the same weight noise and keep masks: the
+    loss and every gradient are bitwise those without remat. The recompute
+    is a second forward of every group: its kernel launches are counted as
+    launches (B1 and B3 run again), the backward recomputes
+    (``ops.backward_calls``) once, as without remat.
     """
     period = _check_cfg(cfg)
     if rng is not None:  # draws land where the params live
@@ -234,6 +261,18 @@ def lm_forward(
 
     n_groups = cfg.n_layers // len(period)
     stacked = group_caches is not None and not isinstance(group_caches, list)
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+
+    def group(h: Tensor, gp, gc, key) -> tuple:
+        # the context is built here, so a recompute draws from the counter
+        # the forward started at
+        ctx_g = AnalogCtx(cfg=analog_cfg, gain_s=params.gain_s, key=key, mvm=mvm)
+        new_gc = []
+        for i, kind in enumerate(period):
+            h, nc = _block_apply(gp[i], kind, h, ctx_g, cfg, positions, gc[i])
+            new_gc.append(nc)
+        return h, tuple(new_gc)
+
     new_groups = []
     for gi in range(n_groups):
         gp = _index(params.blocks, gi)
@@ -243,18 +282,19 @@ def lm_forward(
             gc = _group_view(group_caches, gi)
         else:
             gc = group_caches[gi]
-        ctx_g = AnalogCtx(cfg=analog_cfg, gain_s=params.gain_s, key=sub(gi), mvm=mvm)
-        new_gc = []
-        for i in range(len(period)):
-            h, nc = _block_apply(gp[i], h, ctx_g, cfg, positions, gc[i])
-            new_gc.append(nc)
-        new_groups.append(tuple(new_gc))
+        if remat:
+            h = checkpoint(lambda x, gp=gp, gc=gc, k=sub(gi): group(x, gp, gc, k)[0], h,
+                           use_reentrant=False)
+            new_groups.append(gc)
+        else:
+            h, new_gc = group(h, gp, gc, sub(gi))
+            new_groups.append(new_gc)
 
     new_tail = []
     for i, tp in enumerate(params.tail):
         tc = None if tail_caches is None else tail_caches[i]
         ctx_t = AnalogCtx(cfg=analog_cfg, gain_s=params.gain_s, key=sub(10_000 + i), mvm=mvm)
-        h, nc = _block_apply(tp, h, ctx_t, cfg, positions, tc)
+        h, nc = _block_apply(tp, period[i % len(period)], h, ctx_t, cfg, positions, tc)
         new_tail.append(nc)
 
     h = _norm(params.final_norm, h, cfg.norm_eps, _rows(h, cache))

@@ -139,11 +139,11 @@ def _sliced(n: int, device, part) -> Tensor:
     return out
 
 
-def _draw(key: Tensor, shape: tuple, values) -> Tensor:
+def _draw(key: Tensor, shape: tuple, values, offset: int = 0) -> Tensor:
     """``values`` (an elementwise map of the bits) over a draw's counters
-    (:func:`_sliced`)."""
-    return _sliced(math.prod(shape), key.device,
-                   lambda start, stop: values(_flat_bits(key, start, stop))).reshape(shape)
+    ``offset`` to ``offset + prod(shape)`` (:func:`_sliced`)."""
+    return _sliced(math.prod(shape), key.device, lambda start, stop: values(
+        _flat_bits(key, offset + start, offset + stop))).reshape(shape)
 
 
 # ---------------------------------------------------------------------------
@@ -324,7 +324,7 @@ launches = 0
 _FN = None
 
 
-def _normal_kernel(key: Tensor, shape: tuple, scaled: bool) -> Tensor:
+def _normal_kernel(key: Tensor, shape: tuple, scaled: bool, offset: int = 0) -> Tensor:
     """A draw on the card by ``csrc/prng.cu``: the same operations as the
     plain version below, bit for bit."""
     global _FN
@@ -336,7 +336,8 @@ def _normal_kernel(key: Tensor, shape: tuple, scaled: bool) -> Tensor:
         if _FN is None:
             lib = build.load("prng")
             lib.prng_normal.argtypes = [ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
-                                        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+                                        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                                        ctypes.c_void_p]
             lib.prng_normal.restype = ctypes.c_int
             lib.prng_error_string.argtypes = [ctypes.c_int]
             lib.prng_error_string.restype = ctypes.c_char_p
@@ -344,7 +345,7 @@ def _normal_kernel(key: Tensor, shape: tuple, scaled: bool) -> Tensor:
     k1, k2 = (int(v) for v in _check_key(key))
     out = torch.empty(shape, dtype=torch.float32, device=key.device)
     with torch.cuda.device(key.device):
-        rc = _FN.prng_normal(k1, k2, out.data_ptr(), out.numel(), int(scaled),
+        rc = _FN.prng_normal(k1, k2, out.data_ptr(), offset, out.numel(), int(scaled),
                              torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"prng normal kernel launch failed: {_FN.prng_error_string(rc).decode()}")
@@ -352,22 +353,27 @@ def _normal_kernel(key: Tensor, shape: tuple, scaled: bool) -> Tensor:
     return out
 
 
-def normal_erf_inv(key: Tensor, shape: Shape = ()) -> Tensor:
+def normal_erf_inv(key: Tensor, shape: Shape = (), offset: int = 0) -> Tensor:
     """``erf_inv(u)`` of :func:`normal`'s draw, before the ``* SQRT2``: where
     the reference multiplies a normal by a constant, its compiler folds the
     two constants into one factor."""
     if key.device.type == "cuda":
-        return _normal_kernel(key, _shape(shape), scaled=False)
-    return _draw(key, _shape(shape), lambda b: erf_inv(_uniform_of(b, _NORMAL_LO, 1.0)))
+        return _normal_kernel(key, _shape(shape), scaled=False, offset=offset)
+    return _draw(key, _shape(shape), lambda b: erf_inv(_uniform_of(b, _NORMAL_LO, 1.0)),
+                 offset)
 
 
-def normal(key: Tensor, shape: Shape = ()) -> Tensor:
+def normal(key: Tensor, shape: Shape = (), offset: int = 0) -> Tensor:
     """``jax.random.normal`` (float32): sqrt(2) * erf_inv(u), u uniform on
     (-1, 1). A key on a card draws with the kernel ``csrc/prng.cu``; a key
-    on the CPU with the plain version (the same operations in PyTorch)."""
+    on the CPU with the plain version (the same operations in PyTorch).
+
+    ``offset``: the draw's flat counters start there -- rows ``r0:r1`` of
+    an (R, C) draw are ``normal(key, (r1 - r0, C), offset=r0 * C)``, bit
+    for bit (a value depends only on its counter)."""
     if key.device.type == "cuda":
-        return _normal_kernel(key, _shape(shape), scaled=True)
-    return normal_erf_inv(key, shape) * SQRT2
+        return _normal_kernel(key, _shape(shape), scaled=True, offset=offset)
+    return normal_erf_inv(key, shape, offset) * SQRT2
 
 
 def exponential(key: Tensor, shape: Shape = ()) -> Tensor:

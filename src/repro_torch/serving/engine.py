@@ -443,12 +443,11 @@ class ServingEngine:
                 raise ValueError(
                     f"prefill buckets must be >= 1: {self.prefill_buckets}"
                 )
-            # the reference batches prefill rows only where they are
-            # independent (no per-request rng, no MoE capacity routing);
-            # both are refused above or unported here
-            # per-request keys couple a prefill batch's rows to its
-            # composition: solo prefill keeps paged == rectangular
-            self.prefill_batch = 1 if analog_cfg.needs_rng else int(config.prefill_batch)
+            # per-request rng keys and MoE capacity routing both couple a
+            # prefill batch's rows to its composition; solo prefill keeps
+            # paged serving bit-identical to the rectangular engine
+            solo = analog_cfg.needs_rng or "moe" in block_period(model_cfg)
+            self.prefill_batch = 1 if solo else int(config.prefill_batch)
             self._pb_of = prefill_rows(self.prefill_buckets, self.prefill_batch)
 
         self.decoder: Any = _LayerDecoder(self)
