@@ -3,8 +3,8 @@
 ``get(arch_id)`` returns the full-size config -- a ModelConfig for an LM,
 a CNNConfig for the paper's own TinyML models -- and ``get_smoke(arch_id)``
 an LM's reduced same-family config of the CPU tests. The port registers
-the dense and MoE LMs, in the reference's order, and the two AnalogNets;
-the SSM, hybrid, audio and vision architectures follow with their families.
+the SSM, hybrid, dense and MoE LMs, in the reference's order, and the two
+AnalogNets; the audio and vision architectures follow with their families.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ from repro_torch.models.common import ModelConfig
 
 # arch id -> module name
 LM_ARCHS = {
+    "mamba2-2.7b": "mamba2_2p7b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
     "llama3.2-3b": "llama3p2_3b",
     "tinyllama-1.1b": "tinyllama_1p1b",
     "olmo-1b": "olmo_1b",

@@ -88,9 +88,11 @@ def params_from_numpy(
 ) -> LMParams:
     """The reference's LM params (numpy leaves) as the port's, on ``device``.
 
-    ``cfg``, when given, is checked against the tree (family, group count
-    and projection widths; a MoE block's expert banks and its shared
-    expert) so a tree of another architecture is refused. An expert bank
+    ``cfg``, when given, is checked against the tree (the period's block
+    kinds, group count and each mixer's projection widths -- attention's
+    wq/wk, the SSM's in/out_proj, the RG-LRU block's five linears --; a MoE
+    block's expert banks and its shared expert) so a tree of another
+    architecture is refused. An expert bank
     (``w1``/``w3``/``w2`` of (n_groups, E, K, N), ``r_adc`` (n_groups, 3),
     ``w_clip_buf`` (n_groups, 3, 2), the router, the optional ``shared``
     expert; a compiled program's ``out_scale_buf``, ``b_adc_buf`` and
@@ -107,19 +109,26 @@ def params_from_numpy(
     if cfg is not None:
         period = block_period(cfg)
         n_groups = cfg.n_layers // len(period)
-        want = (n_groups, cfg.d_model, cfg.n_heads * cfg.hd)
-        got = tuple(params.blocks[0]["attn"]["wq"]["w"].shape)
         head = tuple(params.lm_head["w"].shape)
-        if got != want or head != (cfg.d_model, cfg.vocab):
+        if len(params.blocks) != len(period) or head != (cfg.d_model, cfg.vocab):
             raise ValueError(
-                f"params do not match {cfg.name!r}: blocks wq {got} (want "
-                f"{want}), lm_head {head} (want {(cfg.d_model, cfg.vocab)})"
+                f"params do not match {cfg.name!r}: {len(params.blocks)} blocks a "
+                f"group (want {len(period)}), lm_head {head} (want "
+                f"{(cfg.d_model, cfg.vocab)})"
             )
         e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
         for kind, block in zip(period, params.blocks):
-            if (kind == "moe") != ("moe" in block):
+            mixer = {"ssm": "ssm", "rec": "rec"}.get(kind, "attn")
+            if mixer not in block or (kind == "moe") != ("moe" in block):
                 raise ValueError(f"params do not match {cfg.name!r}: a {kind!r} block "
                                  f"holds {sorted(block)}")
+            for name, (k_in, n_out) in _projections(kind, cfg).items():
+                got = tuple(block[mixer][name]["w"].shape) if name in block[mixer] else None
+                if got != (n_groups, k_in, n_out):
+                    raise ValueError(
+                        f"params do not match {cfg.name!r}: blocks {mixer}/{name} {got} "
+                        f"(want {(n_groups, k_in, n_out)})"
+                    )
             if kind != "moe":
                 continue
             moe = block["moe"]
@@ -133,6 +142,20 @@ def params_from_numpy(
                     f"{cfg.shared_expert})"
                 )
     return params
+
+
+def _projections(kind: str, cfg: ModelConfig) -> dict:
+    """The (K, N) of a block kind's mixer projections under ``cfg``."""
+    m = cfg.d_model
+    if kind == "ssm":
+        d_in = cfg.d_inner
+        return {"in_proj": (m, 2 * d_in + 2 * cfg.ssm_state + cfg.ssm_heads),
+                "out_proj": (d_in, m)}
+    if kind == "rec":
+        w = cfg.lru_width or m
+        return {"gate_proj": (m, w), "x_proj": (m, w), "out_proj": (w, m),
+                "a_gate": (w, w), "i_gate": (w, w)}
+    return {"wq": (m, cfg.n_heads * cfg.hd), "wk": (m, cfg.n_kv_heads * cfg.hd)}
 
 
 def cnn_params_from_numpy(tree: Mapping, cfg: CNNConfig, device="cuda") -> dict:

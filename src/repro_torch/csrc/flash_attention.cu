@@ -8,7 +8,8 @@
 // models/attention.py::chunked_attention), in its rounding points:
 //
 //   s[i,j] = (sum_d q[i,d] * k[j,d]) * D^-0.5    (fp32; scaled after QK^T)
-//   s[i,j] = NEG_INF (-1e30) where j >= S, or j > i when causal
+//   s[i,j] = NEG_INF (-1e30) where j >= S, or j > i when causal, or
+//            i - j >= window when a local window is set (window > 0)
 //   per KV chunk of `chunk` keys (the plain version's kv_chunk,
 //   ModelConfig.attn_chunk_kv):
 //                 m' = max(m, max_j s)   alpha = exp(m - m')
@@ -41,8 +42,22 @@
 // chunk walk) depends on the row alone. Rows past S are computed from zero
 // q and never written; K/V rows past S are staged as zeros.
 //
-// Bound: at the prefill shapes (S <= 2048, D = 64, bf16) the work is
-// 2*S^2*D*H operations per row causal against (2H + 2Kv)*S*D*2 bytes, far
+// The local window (recurrentgemma's attention layers). A row's live keys
+// are (i - window, i]; the plain version walks every chunk from key 0, and
+// a row's wholly masked leading chunks form p = 1 against m = NEG_INF
+// (exp(NEG_INF - NEG_INF) = 1), which the first live chunk's alpha =
+// exp(NEG_INF - m') = 0 wipes: l = 0 * l + cs and acc = 0 * acc + pv. So a
+// block may start its walk at the key tile holding key q0 - window + 1 (q0
+// its first position; every key before it is masked for every row of the
+// block): the wiped state then starts from zeros instead, and the sums
+// after the wipe carry the same bits (0 * x + y == y, the one exception a
+// pv of -0 against a negative wiped acc, which gives +0 for -0). `skip` = 0
+// walks from key 0 as the plain version does: chip_smoke.py holds the two
+// walks bitwise equal at the window shapes it launches.
+//
+// Bound: at the prefill shapes (S <= 2048, D = 64 to 256, bf16) the work
+// is 4*D*H*sum_i(live keys of row i) operations (causal: S(S+1)/2 keys,
+// windowed: sum_i min(i + 1, window)) against (2H + 2Kv)*S*D*2 bytes, far
 // above the card's bytes-per-operation line: bound by operations (dense
 // bf16 tensor-core peak). bf16 runs on the tensor cores (the second kernel
 // below). fp32 keeps the CUDA-core kernel (TF32 would round the scores):
@@ -139,8 +154,9 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int S,
-                       int H, int KV, int causal, int chunk, float scale) {
-  static_assert(D % 16 == 0 && D <= 128, "head dim");
+                       int H, int KV, int causal, int window, int skip, int chunk,
+                       float scale) {
+  static_assert(D % 16 == 0 && D <= 256, "head dim");
   constexpr int LD = D + 1;
   constexpr int kOut = D / 16;  // output columns per thread: tx + 16 c
   extern __shared__ float smem[];
@@ -171,16 +187,18 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < kOut; ++c) acc[i][c] = 0.f;
   }
 
-  // keys this q tile can attend to: [0, key_end)
+  // keys this q tile can attend to: [key_start, key_end)
   const int key_end = causal ? min(S, q0 + kTile) : S;
+  const int key_start = skip && window ? max(0, q0 - window + 1) : 0;
   float sc[kRows][kCols];
-  for (int c0 = 0; c0 < key_end; c0 += chunk) {
+  for (int c0 = key_start / chunk * chunk; c0 < key_end; c0 += chunk) {
     const int c1 = min(c0 + chunk, key_end);
-    const int t0 = c0 / kTile, t1 = (c1 + kTile - 1) / kTile;
+    const int t0 = max(c0, key_start) / kTile, t1 = (c1 + kTile - 1) / kTile;
     // key kp of tile row j is live for q row qp: inside this chunk, below
-    // S and, when causal, not after qp
+    // S, when causal not after qp, and inside the window
     auto live = [&](int kp, int qp) {
-      return kp >= c0 && kp < c0 + chunk && kp < S && (!causal || kp <= qp);
+      return kp >= c0 && kp < c0 + chunk && kp < S && (!causal || kp <= qp) &&
+             (!window || qp - kp < window);
     };
 
     // pass 1: the row max over the chunk
@@ -325,6 +343,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // for a row leaves m, l and acc as they were, and each row's reductions
 // (the per-thread sums in fixed order, then a fixed 4-lane butterfly) are
 // the row's alone.
+//
+// D = 256 (recurrentgemma, paligemma). A warp's 16 x 256 fp32 accumulator
+// and its chunk's PV sum would be 256 registers a thread; so two warps
+// share each 16 rows, each owning 128 output columns (acc and pv 64
+// registers each, as at D = 128): both compute the rows' whole QK^T, with
+// the same instructions on the same operands, so the same scores, max and
+// p. HB = gcd(G, 4) heads x 4 / HB position groups. Q (8 warps x 16 rows,
+// 64 KB) plus a 4-deep K/V ring (256 KB) would pass the 227 KB a block may
+// have, so the ring is 2 deep at D = 256 (Q 64 KB + ring 128 KB = 192 KB).
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -373,7 +400,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 constexpr int kTcWarps = 8;
 constexpr int kTcThreads = 32 * kTcWarps;
-constexpr int kTcStages = 4;  // K (and V) tiles in flight: a ring of 4
+// K (and V) tiles in flight: a ring of 4, of 2 at D = 256
+template <int D>
+__host__ __device__ constexpr int tc_stages() {
+  return D > 128 ? 2 : 4;
+}
+// warps sharing 16 rows, each with D / tc_halves output columns
+template <int D>
+__host__ __device__ constexpr int tc_halves() {
+  return D > 128 ? 2 : 1;
+}
 // a p whose fp32 bits lie within kPWindow units of the last place below or
 // above a bf16 rounding midpoint (low 16 bits 0x8000) is recomputed from the
 // plain version's score (a window of 2^-18 of p; ~0.1% of p's). Both
@@ -401,7 +437,7 @@ __device__ __forceinline__ int tc_swz(int row, int chunk) {
 
 template <int D>
 constexpr int tc_smem_bytes() {
-  return (kTcWarps * 16 + 2 * kTcStages * kTile) * D * 2;  // Q, then the K/V ring
+  return (kTcWarps * 16 + 2 * tc_stages<D>() * kTile) * D * 2;  // Q, then the K/V ring
 }
 
 // the plain version's score of one (q row, key row) pair from shared memory:
@@ -460,10 +496,14 @@ __global__ void __launch_bounds__(kTcThreads)
 flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                          int S, int H, int KV, int HB, int causal, int chunk, float scale) {
-  static_assert(D % 16 == 0 && D <= 128, "head dim");
+                          int S, int H, int KV, int HB, int causal, int window, int skip,
+                          int chunk, float scale) {
+  static_assert(D % 16 == 0 && D <= 256, "head dim");
+  constexpr int kTcStages = tc_stages<D>();
+  constexpr int NH = tc_halves<D>();  // warps per 16 rows
+  constexpr int DV = D / NH;          // output columns of a warp
   constexpr int NC = D / 8;   // 16-byte chunks per row
-  constexpr int NT = D / 8;   // n8 tiles of the output
+  constexpr int NT = DV / 8;  // n8 tiles of a warp's output
   constexpr int KT = kTile / 8;  // n8 tiles of a score tile
   static_assert(KT * 4 <= 32, "one flag bit per score of a thread");
   extern __shared__ __align__(128) unsigned char tc_smem[];
@@ -471,12 +511,13 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const uint32_t ks0 = qs + kTcWarps * 16 * D * 2;
   constexpr uint32_t kTileBytes = kTile * D * 2;
 
-  const int G = H / KV, PG = kTcWarps / HB, BQ = 16 * PG;
+  const int G = H / KV, PG = kTcWarps / NH / HB, BQ = 16 * PG;
   const int kvh = blockIdx.y / (G / HB), hg = blockIdx.y % (G / HB);
   const int b = blockIdx.z, q0 = blockIdx.x * BQ;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int h = kvh * G + hg * HB + warp % HB;  // this warp's query head
-  const int p0 = q0 + (warp / HB) * 16;         // and its first position
+  const int half = warp % NH, wq = warp / NH;  // output columns, row group
+  const int h = kvh * G + hg * HB + wq % HB;   // this warp's query head
+  const int p0 = q0 + (wq / HB) * 16;          // and its first position
   const long q_row = static_cast<long>(H) * D, kv_row = static_cast<long>(KV) * D;
   const __nv_bfloat16* kb = k + static_cast<long>(b) * S * kv_row + static_cast<long>(kvh) * D;
   const __nv_bfloat16* vb = v + static_cast<long>(b) * S * kv_row + static_cast<long>(kvh) * D;
@@ -485,7 +526,7 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int it = 0; it < kTcWarps * 16 * NC / kTcThreads; ++it) {
     const int i = tid + it * kTcThreads, wr = i / NC, c = i % NC, w = wr / 16, r = wr % 16;
-    const int hh = kvh * G + hg * HB + w % HB, pos = q0 + (w / HB) * 16 + r;
+    const int hh = kvh * G + hg * HB + (w / NH) % HB, pos = q0 + (w / NH / HB) * 16 + r;
     const bool ok = pos < S;
     const __nv_bfloat16* src =
         q + (static_cast<long>(b) * S + (ok ? pos : 0)) * q_row + static_cast<long>(hh) * D + c * 8;
@@ -546,11 +587,12 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
         mma_bf16(sc[2 * jp + 1], a, bb[2], bb[3]);
       }
     }
-    // a tile inside the chunk, below S and (causal) below this warp's first
-    // row is live throughout: no mask
+    // a tile inside the chunk, below S, (causal) below this warp's first
+    // row and inside its last row's window is live throughout: no mask
     const int k0 = t * kTile;
     const bool all_live = k0 >= c0 && k0 + kTile <= min(c0 + chunk, S) &&
-                          (!causal || k0 + kTile - 1 <= p0);
+                          (!causal || k0 + kTile - 1 <= p0) &&
+                          (!window || p0 + 15 - k0 < window);
 #pragma unroll
     for (int j = 0; j < KT; ++j)
 #pragma unroll
@@ -558,16 +600,20 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
         const int kp = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
         const int row = qp[e >> 1];
         const bool live =
-            all_live || (kp >= c0 && kp < c0 + chunk && kp < S && (!causal || kp <= row));
+            all_live || (kp >= c0 && kp < c0 + chunk && kp < S && (!causal || kp <= row) &&
+                         (!window || row - kp < window));
         sc[j][e] = live ? __fmul_rn(sc[j][e], scale) : kNegInf;
       }
   };
 
   const int key_end = causal ? min(S, q0 + BQ) : S;
+  // every key before key_start is masked for every row of the block (see
+  // the header on the window)
+  const int key_start = skip && window ? max(0, q0 - window + 1) : 0;
   float sc[KT][4];
-  for (int c0 = 0; c0 < key_end; c0 += chunk) {
+  for (int c0 = key_start / chunk * chunk; c0 < key_end; c0 += chunk) {
     const int c1 = min(c0 + chunk, key_end);
-    const int t0 = c0 / kTile, t1 = (c1 + kTile - 1) / kTile;
+    const int t0 = max(c0, key_start) / kTile, t1 = (c1 + kTile - 1) / kTile;
 
     // pass 1: the row max over the chunk, exact: each lane keeps its best
     // two tensor-core scores per row, and the plain version's scores of
@@ -685,7 +731,8 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int dp = 0; dp < NT / 2; ++dp) {
           uint32_t bb[4];
-          ldsm_x4_t(vd + tc_swz<D>(kj * 16 + (lane & 15), 2 * dp + (lane >> 4)) * 16, bb);
+          ldsm_x4_t(vd + tc_swz<D>(kj * 16 + (lane & 15), half * (DV / 8) + 2 * dp + (lane >> 4)) * 16,
+                    bb);
           mma_bf16(pv[2 * dp], a, bb[0], bb[1]);
           mma_bf16(pv[2 * dp + 1], a, bb[2], bb[3]);
         }
@@ -712,7 +759,7 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const float denom = fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      const int d = j * 8 + (lane & 3) * 2;
+      const int d = half * DV + j * 8 + (lane & 3) * 2;
       *reinterpret_cast<__nv_bfloat162*>(ob + qp[r] * q_row + d) = __floats2bfloat162_rn(
           __fdiv_rn(acc[j][2 * r], denom), __fdiv_rn(acc[j][2 * r + 1], denom));
     }
@@ -721,7 +768,8 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-              int KV, int causal, int chunk, float scale, cudaStream_t stream) {
+              int KV, int causal, int window, int skip, int chunk, float scale,
+              cudaStream_t stream) {
   constexpr int bytes = tc_smem_bytes<D>();
   static bool attr_set = false;  // once per instantiation
   if (!attr_set) {
@@ -731,21 +779,22 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S
     attr_set = true;
   }
   const int G = H / KV;
-  int HB = 1;  // gcd(G, 8)
-  while (HB < kTcWarps && G % (2 * HB) == 0) HB *= 2;
-  const int BQ = 16 * (kTcWarps / HB);
+  constexpr int RW = kTcWarps / tc_halves<D>();  // warps of distinct rows
+  int HB = 1;  // gcd(G, RW)
+  while (HB < RW && G % (2 * HB) == 0) HB *= 2;
+  const int BQ = 16 * (RW / HB);
   const dim3 grid((S + BQ - 1) / BQ, KV * (G / HB), B);
   if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidValue);
   flash_attention_tc_kernel<D><<<grid, kTcThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, H, KV, HB,
-      causal, chunk, scale);
+      causal, window, skip, chunk, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int KV, int causal, int chunk, float scale,
+           int H, int KV, int causal, int window, int skip, int chunk, float scale,
            cudaStream_t stream) {
   constexpr int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
   static bool attr_set = false;  // once per instantiation
@@ -759,45 +808,51 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   const dim3 grid((S + kTile - 1) / kTile, H, B);
   flash_attention_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, KV, causal, chunk, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), S, H, KV, causal, window, skip, chunk,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+#define FA_ARGS q, k, v, o, B, S, H, KV, causal, window, skip, chunk, scale, s
+
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int S, int H, int KV, int D, int causal, int chunk,
+             int S, int H, int KV, int D, int causal, int window, int skip, int chunk,
              float scale, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, S, H, KV, causal, chunk, scale, s);
-    case 32: return launch<T, 32>(q, k, v, o, B, S, H, KV, causal, chunk, scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, KV, causal, chunk, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, KV, causal, chunk, scale, s);
+    case 16: return launch<T, 16>(FA_ARGS);
+    case 32: return launch<T, 32>(FA_ARGS);
+    case 64: return launch<T, 64>(FA_ARGS);
+    case 128: return launch<T, 128>(FA_ARGS);
+    case 256: return launch<T, 256>(FA_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. D in {16, 32, 64, 128}; H a multiple
-// of KV. Returns cudaGetLastError() after the launch (0 = ok), or
-// cudaErrorInvalidValue for arguments the kernel does not take.
+// dtype: 0 = float32, 1 = bfloat16. D in {16, 32, 64, 128, 256}; H a
+// multiple of KV; window 0 = none, else the local window (>= 1); skip 0
+// walks every key from 0 (see the header). Returns cudaGetLastError() after
+// the launch (0 = ok), or cudaErrorInvalidValue for arguments the kernel
+// does not take.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
                                       int H, int KV, int D, int causal,
-                                      int chunk, float scale, int dtype,
-                                      void* stream) {
-  if (B < 1 || S < 1 || H < 1 || KV < 1 || H % KV != 0 || chunk < 1)
+                                      int chunk, int window, int skip, float scale,
+                                      int dtype, void* stream) {
+  if (B < 1 || S < 1 || H < 1 || KV < 1 || H % KV != 0 || chunk < 1 || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, o, B, S, H, KV, D, causal, chunk, scale,
-                           s);
+    return dispatch<float>(q, k, v, o, B, S, H, KV, D, causal, window, skip, chunk, scale, s);
   if (dtype == 1) {
     switch (D) {
-      case 16: return launch_tc<16>(q, k, v, o, B, S, H, KV, causal, chunk, scale, s);
-      case 32: return launch_tc<32>(q, k, v, o, B, S, H, KV, causal, chunk, scale, s);
-      case 64: return launch_tc<64>(q, k, v, o, B, S, H, KV, causal, chunk, scale, s);
-      case 128: return launch_tc<128>(q, k, v, o, B, S, H, KV, causal, chunk, scale, s);
+      case 16: return launch_tc<16>(FA_ARGS);
+      case 32: return launch_tc<32>(FA_ARGS);
+      case 64: return launch_tc<64>(FA_ARGS);
+      case 128: return launch_tc<128>(FA_ARGS);
+      case 256: return launch_tc<256>(FA_ARGS);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

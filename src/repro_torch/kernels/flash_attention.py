@@ -11,7 +11,11 @@ kernel on a CUDA tensor -- a failed build or launch raises, nothing falls
 back. On the card it checks device, dtype, shape and contiguity, allocates
 the output, launches on the current stream, raises on a launch error, and
 adds one to ``flash_attention.launches`` per launch (and nowhere else), so a
-run can show that its path went through the kernel.
+run can show that its path went through the kernel. ``window`` is local
+attention's (the hybrid family's): on the card a block starts its key walk
+at the first key tile live for its first row (:func:`_launch` with
+``skip=False`` walks every key from 0, as the plain version does -- a
+checks-only path that shows the skip leaves the bits alone).
 """
 
 from __future__ import annotations
@@ -20,14 +24,18 @@ import ctypes
 
 import torch
 
+from typing import Optional
+
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_ref
 
 Tensor = torch.Tensor
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the kernel is instantiated for
-HEAD_DIMS = (16, 32, 64, 128)
+#: head dims the kernels are instantiated for (256: recurrentgemma's and
+#: paligemma's; the bf16 kernel splits its output columns over two warps
+#: there and rings 2 K/V tiles, not 4)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _MAX_GRID_YZ = 65535
 _FN = None
 
@@ -39,7 +47,7 @@ def _fn():
             lib = build.load("flash_attention")
             fn = lib.flash_attention_launch
             fn.argtypes = (
-                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
+                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float]
                 + [ctypes.c_int, ctypes.c_void_p]
             )
             fn.restype = ctypes.c_int
@@ -57,6 +65,7 @@ def flash_attention(
     causal: bool = True,
     q_chunk: int = 512,
     kv_chunk: int = 1024,
+    window: Optional[int] = None,
 ) -> Tensor:
     """Attention forward: q (B, S, H, D), k and v (B, S, Kv, D) -> (B, S, H, D)
     in q's dtype; query head h reads KV head ``h // (H / Kv)``.
@@ -64,10 +73,21 @@ def flash_attention(
     ``q_chunk`` and ``kv_chunk`` are the model's attention chunks
     (``ModelConfig.attn_chunk_q`` / ``attn_chunk_kv``): the plain version
     runs at them, and the kernel updates its online softmax at the same
-    ``kv_chunk`` boundaries, so both round p at the same points.
+    ``kv_chunk`` boundaries, so both round p at the same points. ``window``
+    (None: none) masks keys at ``q_pos - k_pos >= window``.
     """
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal, q_chunk=q_chunk, kv_chunk=kv_chunk)
+        return flash_attention_ref(q, k, v, causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                   window=window)
+    o = _launch(q, k, v, causal=causal, kv_chunk=kv_chunk, window=window, skip=True)
+    build.bump(flash_attention, "launches")
+    return o
+
+
+def _launch(q: Tensor, k: Tensor, v: Tensor, *, causal: bool, kv_chunk: int,
+            window: Optional[int], skip: bool) -> Tensor:
+    """One launch on the card, uncounted. ``skip=False`` walks every key
+    tile from 0 (the checks' path; see the module docstring)."""
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(
             f"flash_attention kernel needs q, k and v on one CUDA device, got "
@@ -90,10 +110,11 @@ def flash_attention(
             f"flash_attention kernel: q {tuple(q.shape)} and k {tuple(k.shape)} "
             "need one batch, one sequence, one head dim and H a multiple of Kv"
         )
-    if d not in HEAD_DIMS or min(b, s) < 1 or max(b, h) > _MAX_GRID_YZ or kv_chunk < 1:
+    if (d not in HEAD_DIMS or min(b, s) < 1 or max(b, h) > _MAX_GRID_YZ or kv_chunk < 1
+            or (window is not None and window < 1)):
         raise ValueError(
             f"flash_attention kernel: unsupported B={b} S={s} H={h} D={d} "
-            f"kv_chunk={kv_chunk} (D in {HEAD_DIMS})"
+            f"kv_chunk={kv_chunk} window={window} (D in {HEAD_DIMS}, window >= 1)"
         )
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel needs contiguous q, k and v")
@@ -106,14 +127,14 @@ def flash_attention(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h, kv,
-            d, int(causal), int(kv_chunk), d**-0.5, _DTYPES[q.dtype], stream,
+            d, int(causal), int(kv_chunk), int(window or 0), int(skip), d**-0.5,
+            _DTYPES[q.dtype], stream,
         )
     if rc != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: {err_str(rc).decode()} "
-            f"(B={b} S={s} H={h} Kv={kv} D={d} dtype={q.dtype})"
+            f"(B={b} S={s} H={h} Kv={kv} D={d} window={window} dtype={q.dtype})"
         )
-    build.bump(flash_attention, "launches")
     return o
 
 

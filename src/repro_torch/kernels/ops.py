@@ -183,23 +183,24 @@ class _FlashAttention(torch.autograd.Function):
     its plain version, recomputed."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, q_chunk, kv_chunk):
+    def forward(ctx, q, k, v, causal, q_chunk, kv_chunk, window):
         ctx.save_for_backward(q, k, v)
-        ctx.opts = (causal, q_chunk, kv_chunk)
+        ctx.opts = (causal, q_chunk, kv_chunk, window)
         return attention_kernel.flash_attention(
-            q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk)
+            q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk, window=window)
 
     @staticmethod
     def backward(ctx, g):
-        causal, q_chunk, kv_chunk = ctx.opts
+        causal, q_chunk, kv_chunk, window = ctx.opts
         build.bump(sys.modules[__name__], "attention_backward_calls")
         need = ctx.needs_input_grad[:3]
         with torch.enable_grad():
             qkv = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
-            o = flash_attention_plain(*qkv, causal, q_chunk=q_chunk, kv_chunk=kv_chunk)
+            o = flash_attention_plain(*qkv, causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                      window=window)
             wrt = [t for t, n in zip(qkv, need) if n]
             got = iter(torch.autograd.grad(o, wrt, g))
-        return (*(next(got) if n else None for n in need), None, None, None)
+        return (*(next(got) if n else None for n in need), None, None, None, None)
 
 
 def flash_attention_ste(
@@ -210,10 +211,11 @@ def flash_attention_ste(
     causal: bool = True,
     q_chunk: int = 512,
     kv_chunk: int = 1024,
+    window: Optional[int] = None,
 ) -> Tensor:
     """Prefill attention with a gradient: q (B, S, H, D), k and v (B, S, Kv,
-    D) as ``kernels.flash_attention.flash_attention`` takes them (see the
-    module docstring).
+    D) and the local ``window`` as ``kernels.flash_attention.flash_attention``
+    takes them (see the module docstring).
 
     Memory: the recompute holds every (q chunk, kv chunk) block's f32
     scores and probabilities of one layer until its VJP is taken -- a
@@ -221,4 +223,4 @@ def flash_attention_ste(
     512/1024 chunks -- and frees them when that layer's backward ends;
     nothing of the forward's blocks is kept between forward and backward.
     """
-    return _FlashAttention.apply(q, k, v, causal, q_chunk, kv_chunk)
+    return _FlashAttention.apply(q, k, v, causal, q_chunk, kv_chunk, window)

@@ -275,11 +275,12 @@ def flash_attention_ref(
     q_chunk: int = 512,
     kv_chunk: int = 1024,
     q_offset: int = 0,
+    window: Optional[int] = None,
 ) -> Tensor:
     """:func:`flash_attention_plain`, counted in ``flash_attention_ref.calls``."""
     flash_attention_ref.calls += 1
     return flash_attention_plain(q, k, v, causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
-                                 q_offset=q_offset)
+                                 q_offset=q_offset, window=window)
 
 
 def flash_attention_plain(
@@ -291,6 +292,7 @@ def flash_attention_plain(
     q_chunk: int = 512,
     kv_chunk: int = 1024,
     q_offset: int = 0,
+    window: Optional[int] = None,
 ) -> Tensor:
     """Plain version of the prefill-attention kernel (``csrc/flash_attention.cu``):
     online-softmax attention over (q_chunk, kv_chunk) blocks, the port of the
@@ -301,7 +303,10 @@ def flash_attention_plain(
     ``h // (H / Kv)``. Returns (B, Sq, H, D) in q's dtype. Scores are f32
     products scaled by D^-0.5 after QK^T; masked positions are ``NEG_INF``
     and add exact zeros; p is cast to v's dtype before PV; m, l and acc
-    stay f32; the output is ``acc / max(l, 1e-30)``. ``kv_chunk`` is never
+    stay f32; the output is ``acc / max(l, 1e-30)``. ``window`` (local
+    attention) masks keys with ``q_pos - k_pos >= window`` too; a row's
+    wholly masked leading chunks form p = 1 against m = ``NEG_INF``, which
+    the first live chunk's alpha = 0 wipes, as in the reference. ``kv_chunk`` is never
     clamped to the sequence, so the outputs at real positions are bitwise
     independent of right-padding. Differentiable: the training form's
     backward (``kernels.ops.flash_attention_ste``) recomputes it, uncounted.
@@ -339,6 +344,8 @@ def flash_attention_plain(
             mask = (k_pos[None, :] < sk).expand(q_chunk, kv_chunk)
             if causal:
                 mask = mask & (q_pos[:, None] >= k_pos[None, :])
+            if window is not None:
+                mask = mask & (q_pos[:, None] - k_pos[None, :] < window)
             s = torch.where(mask, s, torch.full_like(s, NEG_INF))
             m_new = torch.maximum(m, s.amax(dim=-1))
             alpha = torch.exp(m - m_new)

@@ -62,9 +62,15 @@ def cnn_setup(arch: str, batch: int, device="cuda"):
     return params, loss_fn, iterate(pipe)
 
 
+#: the recurrent families serve on the port; their training comes later
+UNTRAINED_FAMILIES = ("ssm", "hybrid")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", required=True, choices=sorted(configs.ALL_ARCHS))
+    archs = [a for a in configs.ALL_ARCHS if a in configs.CNN_ARCHS
+             or configs.get(a).family not in UNTRAINED_FAMILIES]
+    ap.add_argument("--arch", required=True, choices=sorted(archs))
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain versions)")
     ap.add_argument("--full", action="store_true",

@@ -1,14 +1,17 @@
-"""Attention, port of ``repro.models.attention`` (dense branches).
+"""Attention, port of ``repro.models.attention``: global and local-window
+(the hybrid family's) attention.
 
 GQA projections are analog layers (``core.analog.linear_apply``); the QK^T
 and AV products have two dynamic operands, run on the digital datapath and
 stay plain torch here in decode, as the reference left them to XLA outside
 any Pallas kernel. Two paths: the chunked online-softmax prefill (shape-stable
 kv chunks, so real positions are bitwise independent of right-padding; on
-the card the prefill-attention kernel) and one-token decode against a KV
-cache with scalar or per-slot (B,) lengths, or against the paged cache
-(:class:`PagedKVCache`: a shared page pool read through per-slot page
-tables).
+the card the prefill-attention kernel, window included) and one-token
+decode against a KV cache with scalar or per-slot (B,) lengths, or against
+the paged cache (:class:`PagedKVCache`: a shared page pool read through
+per-slot page tables). A local-window layer's cache is a rolling buffer of
+``min(s_max, window)`` rows (decode writes at ``length % rows``); paged
+caches refuse the window, as the reference's do.
 
 KV writes update the cache buffers in place (``index_copy_``/``index_put_``)
 instead of copying the whole multi-layer cache every step; the returned
@@ -79,8 +82,11 @@ def chunked_attention(
     kv_chunk: int,
     causal: bool = True,
     q_offset: int = 0,
+    window: Optional[int] = None,
 ) -> Tensor:
-    """Online-softmax attention over (q_chunk, kv_chunk) blocks.
+    """Online-softmax attention over (q_chunk, kv_chunk) blocks; ``window``
+    (local attention) masks keys at ``q_pos - k_pos >= window`` on every
+    route.
 
     q: (B, Sq, H, D); k, v: (B, Sk, Kv, D). ``kv_chunk`` is never clamped to
     the sequence: a short sequence pads up to one full chunk, and padded or
@@ -97,24 +103,31 @@ def chunked_attention(
     if causal and q_offset == 0 and q.shape[1] == k.shape[1]:
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
             return kernel_ops.flash_attention_ste(q, k, v, causal=True, q_chunk=q_chunk,
-                                                  kv_chunk=kv_chunk)
-        return flash_attention(q, k, v, causal=True, q_chunk=q_chunk, kv_chunk=kv_chunk)
+                                                  kv_chunk=kv_chunk, window=window)
+        return flash_attention(q, k, v, causal=True, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                               window=window)
     return flash_attention_ref(
-        q, k, v, causal, q_chunk=q_chunk, kv_chunk=kv_chunk, q_offset=q_offset
+        q, k, v, causal, q_chunk=q_chunk, kv_chunk=kv_chunk, q_offset=q_offset,
+        window=window,
     )
 
 
 def decode_attention(q: Tensor, cache: KVCache) -> Tensor:
-    """One-token attention against the cache. q: (B, 1, H, D)."""
+    """One-token attention against the cache. q: (B, 1, H, D).
+
+    Row j is valid below ``min(length, S_max)``: the written rows of a
+    rolling window buffer (every one inside the window by construction),
+    and the same mask as ``j < length`` for a global cache."""
     b, _, h, d = q.shape
     s_max = cache.k.shape[1]
     s = _gqa_scores(q, cache.k) * d**-0.5  # (B, Kv, G, 1, S_max)
     pos = torch.arange(s_max, device=q.device)
+    limit = cache.length.clamp(max=s_max)
     if cache.length.dim():
-        valid = pos[None, :] < cache.length[:, None]  # (B, S_max)
+        valid = pos[None, :] < limit[:, None]  # (B, S_max)
         valid = valid[:, None, None, None, :]
     else:
-        valid = (pos < cache.length)[None, None, None, None, :]
+        valid = (pos < limit)[None, None, None, None, :]
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return _gqa_values(p, cache.v).to(q.dtype)
@@ -200,15 +213,17 @@ def attn_apply(
     cache: Optional[KVCache] = None,
     window: Optional[int] = None,
 ) -> tuple[Tensor, Optional[KVCache]]:
-    """Full attention block. x: (B, S, M). Returns (out, updated_cache)."""
-    if window is not None:
-        if isinstance(cache, PagedKVCache):
-            raise NotImplementedError(
-                "local-window attention keeps its bounded rolling buffer; "
-                "paging applies to global-attention caches only"
-            )
+    """Full attention block. x: (B, S, M). Returns (out, updated_cache).
+
+    ``window`` (the hybrid family's local attention) masks the prefill's
+    keys and makes a cache of at most ``window`` rows a rolling buffer:
+    decode writes at ``length % rows``, prefill writes its last ``rows``
+    keys rolled by ``S % rows``. A global cache's writes clamp at its last
+    row instead (retired slots keep stepping), as the reference's do."""
+    if window is not None and isinstance(cache, PagedKVCache):
         raise NotImplementedError(
-            "local-window attention (hybrid family) comes in a later slice"
+            "local-window attention keeps its bounded rolling buffer; "
+            "paging applies to global-attention caches only"
         )
     b, s, _ = x.shape
     hd, nh, nkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
@@ -253,11 +268,15 @@ def attn_apply(
         return linear_apply(params["wo"], out, ctx), new_cache
 
     new_cache = None
+    s_cache = cache.k.shape[1] if cache is not None else 0
+    rolling = window is not None and s_cache <= window
     if cache is not None and s == 1:
-        s_cache = cache.k.shape[1]
-        # a write past the end lands on the last row, as the reference's
-        # clamped dynamic_update_slice does (retired slots keep stepping)
-        idx = cache.length.clamp(max=s_cache - 1).long()
+        if rolling:
+            idx = (cache.length % s_cache).long()
+        else:
+            # a write past the end lands on the last row, as the reference's
+            # clamped dynamic_update_slice does (retired slots keep stepping)
+            idx = cache.length.clamp(max=s_cache - 1).long()
         if cache.length.dim():
             rows = torch.arange(b, device=x.device)
             cache.k.index_put_((rows, idx), k[:, 0].to(cache.k.dtype))
@@ -275,15 +294,20 @@ def attn_apply(
                     "prefill writes a rectangle cache (scalar length); "
                     "prefill a request alone and write_cache_slot it"
                 )
-            s_cache = cache.k.shape[1]
-            start = cache.length.clamp(max=s_cache - s).long()
-            idx = start + torch.arange(s, device=x.device)
-            cache.k.index_copy_(1, idx, k.to(cache.k.dtype))
-            cache.v.index_copy_(1, idx, v.to(cache.v.dtype))
+            if rolling and s >= s_cache:
+                # the last s_cache keys at their position-mod-rows slots
+                cache.k.copy_(torch.roll(k[:, -s_cache:], s % s_cache, dims=1))
+                cache.v.copy_(torch.roll(v[:, -s_cache:], s % s_cache, dims=1))
+            else:
+                start = (torch.zeros_like(cache.length) if rolling
+                         else cache.length.clamp(max=s_cache - s)).long()
+                idx = start + torch.arange(s, device=x.device)
+                cache.k.index_copy_(1, idx, k.to(cache.k.dtype))
+                cache.v.index_copy_(1, idx, v.to(cache.v.dtype))
             new_cache = KVCache(cache.k, cache.v, cache.length + s)
         out = chunked_attention(
             q, k, v, q_chunk=cfg.attn_chunk_q, kv_chunk=cfg.attn_chunk_kv,
-            causal=True,
+            causal=True, window=window,
         )
     out = out.reshape(b, s, nh * hd)
     return linear_apply(params["wo"], out, ctx), new_cache

@@ -61,6 +61,14 @@ class ModelConfig:
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    @property
+    def d_inner(self) -> int:  # mamba2
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
     def smoke(self) -> "ModelConfig":
         """Reduced config of the same family for CPU smoke tests (the
         reference's ``smoke()`` values)."""

@@ -1,4 +1,5 @@
-"""The LM, port of ``repro.models.lm``: the dense and MoE families.
+"""The LM, port of ``repro.models.lm``: the dense, MoE, SSM (mamba2) and
+hybrid (recurrentgemma: RG-LRU and local attention, 2:1) families.
 
 Parameters keep the reference's layout -- :class:`LMParams` with the block
 stack as ``(n_groups, ...)`` tensors -- so a JAX param tree or program
@@ -10,13 +11,19 @@ program's ``pcm_programmed`` config each one is a programmed MVM.
 
 :func:`lm_loss` is the training loss (next-token cross-entropy).
 
-Caches: ``(group caches, tail caches)``. The *stacked* layout holds one
-``(n_groups, ...)`` buffer per leaf; the *list* layout (decode, and the
-serving engine's per-slot cache) holds one :class:`KVCache` per group, or
-one :class:`PagedKVCache` per group in the paged layout (page pools shared
-by every slot, one page-id space across layers). KV rows are written in
-place in every layout. A MoE block (``models.moe``) replaces the FFN with
-expert banks; the SSM, hybrid, audio and vision families raise.
+Caches: ``(group caches, tail caches)``, one cache per block: a
+:class:`KVCache` for attention (a rolling window buffer in the hybrid
+family), an ``SSMCache`` (``models.ssm``) or an ``RGLRUCache``
+(``models.griffin``) for the recurrent blocks, whose fp32 states are
+position-free. The *stacked* layout holds one ``(n_groups, ...)`` buffer
+per leaf; the *list* layout (decode, and the serving engine's per-slot
+cache) holds one cache per block of each group, or one
+:class:`PagedKVCache` per group in the paged layout (page pools shared by
+every slot, one page-id space across layers; attention families only). KV
+rows are written in place in every layout; a recurrent block returns new
+state tensors. A MoE block (``models.moe``) replaces the FFN with expert
+banks. Layers past the last whole group (recurrentgemma's 38 = 12 x 3 + 2)
+are the unstacked tail. The audio and vision families raise.
 
 ``cfg.remat`` recomputes each group's forward in the backward
 (``torch.utils.checkpoint``), as the reference wraps each group in
@@ -35,7 +42,9 @@ from repro_torch.core.analog import AnalogConfig, AnalogCtx, MvmFn, linear_apply
 from repro_torch.device import resolve_device
 from repro_torch.kernels import decode_rows
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import griffin as griffin_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (
     ModelConfig,
     embedding_apply,
@@ -50,7 +59,12 @@ Tensor = torch.Tensor
 def block_period(cfg: ModelConfig) -> list[str]:
     """The kinds of a group's blocks: dense ``["attn"]``; MoE ``["moe"]``,
     or ``moe_every - 1`` dense blocks then one MoE block (llama4's
-    interleaving)."""
+    interleaving); SSM ``["ssm"]``; hybrid its ``block_pattern``
+    (recurrentgemma: ``["rec", "rec", "attn"]``)."""
+    if cfg.family == "ssm":
+        return ["ssm"]
+    if cfg.family == "hybrid":
+        return list(cfg.block_pattern) or ["rec", "rec", "attn"]
     if cfg.family == "moe":
         if cfg.moe_every <= 1:
             return ["moe"]
@@ -58,7 +72,7 @@ def block_period(cfg: ModelConfig) -> list[str]:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is ported in a later slice; the port "
-            "runs the dense and MoE LMs"
+            "runs the dense, MoE, SSM and hybrid LMs"
         )
     return ["attn"]
 
@@ -93,12 +107,21 @@ def mlp_apply(params: dict, x: Tensor, ctx: AnalogCtx, *, rows: bool = False) ->
 
 
 def _block_init(key: Tensor, kind: str, cfg: ModelConfig) -> dict:
+    """A block's params: an ``"ssm"`` block is norm1 and the Mamba-2 mixer;
+    every other kind adds norm2 and an FFN (the MoE layer in a ``"moe"``
+    block) to its mixer (attention, or the RG-LRU block in a ``"rec"``)."""
     km, kf = prng.split(key, 4)[:2]
-    params = {
-        "norm1": rmsnorm_init(cfg, device=key.device),
-        "norm2": rmsnorm_init(cfg, device=key.device),
-        "attn": attn_lib.attn_init(km, cfg),
-    }
+    params: dict[str, Any] = {"norm1": rmsnorm_init(cfg, device=key.device)}
+    if kind == "ssm":
+        params["ssm"] = ssm_lib.ssm_init(km, cfg)
+        return params
+    params["norm2"] = rmsnorm_init(cfg, device=key.device)
+    if kind in ("attn", "moe"):
+        params["attn"] = attn_lib.attn_init(km, cfg)
+    elif kind == "rec":
+        params["rec"] = griffin_lib.griffin_init(km, cfg)
+    else:
+        raise ValueError(kind)
     if kind == "moe":
         params["moe"] = moe_lib.moe_init(kf, cfg)
     else:
@@ -121,13 +144,22 @@ def _block_apply(
     params: dict, kind: str, x: Tensor, ctx: AnalogCtx, cfg: ModelConfig,
     positions: Tensor, cache,
 ):
-    """One block: norm -> attention -> residual -> norm -> ffn (the MoE
-    layer in a ``"moe"`` block) -> residual."""
+    """One block: norm -> mixer -> residual [-> norm -> ffn (the MoE layer
+    in a ``"moe"`` block) -> residual]; the mixer is attention (local in
+    the hybrid family), the Mamba-2 block (``"ssm"``, no FFN) or the RG-LRU
+    block (``"rec"``)."""
     rows = _rows(x, cache)
     h = _norm(params["norm1"], x, cfg.norm_eps, rows)
-    out, new_cache = attn_lib.attn_apply(
-        params["attn"], h, ctx, cfg, positions=positions, cache=cache
-    )
+    if kind == "ssm":
+        out, new_cache = ssm_lib.ssm_apply(params["ssm"], h, ctx, cfg, cache)
+        return x + out, new_cache
+    if kind == "rec":
+        out, new_cache = griffin_lib.griffin_apply(params["rec"], h, ctx, cfg, cache)
+    else:
+        window = cfg.local_window if cfg.family == "hybrid" else None
+        out, new_cache = attn_lib.attn_apply(
+            params["attn"], h, ctx, cfg, positions=positions, cache=cache, window=window
+        )
     x = x + out
     h = _norm(params["norm2"], x, cfg.norm_eps, rows)
     if kind == "moe":
@@ -198,7 +230,16 @@ def _index(tree: Any, i: int) -> Any:
 
 def _group_view(group_cache, gi: int):
     """Group ``gi``'s caches of a stacked cache, as views into it."""
-    return tuple(attn_lib.KVCache(c.k[gi], c.v[gi], c.length[gi]) for c in group_cache)
+    return tuple(type(c)(*(leaf[gi] for leaf in c)) for c in group_cache)
+
+
+def _restack(stacked, caches: list):
+    """One block's stacked cache after a forward from its per-group caches:
+    KV rows were written in place into ``stacked``'s buffers (only the
+    lengths are stacked anew); recurrent states are new tensors, stacked."""
+    if isinstance(stacked, attn_lib.KVCache):
+        return stacked._replace(length=torch.stack([c.length for c in caches]))
+    return type(stacked)(*(torch.stack(leaves) for leaves in zip(*caches)))
 
 
 def lm_forward(
@@ -309,12 +350,8 @@ def lm_forward(
     new_cache = None
     if cache is not None:
         if stacked:
-            # k/v rows were written in place into the stacked buffers
             new_group_caches = tuple(
-                attn_lib.KVCache(
-                    c.k, c.v, torch.stack([g[i].length for g in new_groups])
-                )
-                for i, c in enumerate(group_caches)
+                _restack(c, [g[i] for g in new_groups]) for i, c in enumerate(group_caches)
             )
         else:
             new_group_caches = new_groups
@@ -323,8 +360,10 @@ def lm_forward(
 
 
 def _cache_length(group_caches, tail_caches) -> Tensor:
-    """The current position: a scalar for rectangle caches, the (B,)
-    vector for a per-slot cache (stacked caches strip the layer axis)."""
+    """The current position from any attention cache: a scalar for
+    rectangle caches, the (B,) vector for a per-slot cache (stacked caches
+    strip the layer axis). A pure-SSM cache is position-free: a scalar 0,
+    as the reference returns (its positions feed no RoPE)."""
     stacked = not isinstance(group_caches, list)
     kinds = (attn_lib.KVCache, attn_lib.PagedKVCache)
     for group in (group_caches if not stacked else [group_caches]):
@@ -334,7 +373,8 @@ def _cache_length(group_caches, tail_caches) -> Tensor:
     for c in tail_caches:
         if isinstance(c, kinds):
             return c.length
-    raise ValueError("cache holds no attention layer")
+    layers = cache_layers((group_caches if not stacked else [group_caches], tail_caches))
+    return torch.zeros((), dtype=torch.int32, device=layers[0].h.device)
 
 
 def check_pageable(cfg: ModelConfig) -> None:
@@ -393,24 +433,30 @@ def init_lm_cache(
     n_groups = cfg.n_layers // len(period)
     n_tail = cfg.n_layers - n_groups * len(period)
 
-    def one(slot_lengths: bool):
+    def one(kind: str, slot_lengths: bool):
+        if kind == "ssm":
+            return ssm_lib.init_ssm_cache(cfg, batch, dtype, device=dev)
+        if kind == "rec":
+            return griffin_lib.init_rglru_cache(cfg, batch, dtype, device=dev)
+        # local attention holds only a window of rows (a rolling buffer)
+        rows = min(s_max, cfg.local_window) if cfg.family == "hybrid" else s_max
         if paged:
             return attn_lib.init_paged_cache(
-                cfg, batch, s_max, dtype, page_size=page_size,
+                cfg, batch, rows, dtype, page_size=page_size,
                 n_pages=n_pages, device=dev,
             )
         return attn_lib.init_cache(
-            cfg, batch, s_max, dtype, per_slot=slot_lengths, device=dev
+            cfg, batch, rows, dtype, per_slot=slot_lengths, device=dev
         )
 
     if stacked:
         groups = tuple(
-            attn_lib.KVCache(*(torch.stack([leaf] * n_groups) for leaf in one(False)))
-            for _ in period
+            type(c)(*(torch.stack([leaf] * n_groups) for leaf in c))
+            for c in (one(kind, False) for kind in period)
         )
     else:
-        groups = [tuple(one(per_slot) for _ in period) for _ in range(n_groups)]
-    tail = tuple(one(per_slot) for _ in range(n_tail))
+        groups = [tuple(one(kind, per_slot) for kind in period) for _ in range(n_groups)]
+    tail = tuple(one(period[i % len(period)], per_slot) for i in range(n_tail))
     return groups, tail
 
 
@@ -419,37 +465,50 @@ def unstack_cache(cache: tuple) -> tuple:
     groups, tail = cache
     if isinstance(groups, list):
         return cache
-    n_groups = groups[0].k.shape[0] if groups else 0
+    n_groups = groups[0][0].shape[0] if groups else 0
     return [_group_view(groups, gi) for gi in range(n_groups)], tail
 
 
 def cache_layers(cache: tuple) -> list:
-    """Every layer's cache (:class:`KVCache` or :class:`PagedKVCache`) of a
-    list-layout cache, in order."""
+    """Every layer's cache (:class:`KVCache`, :class:`PagedKVCache`,
+    ``SSMCache`` or ``RGLRUCache``) of a list-layout cache, in order."""
     groups, tail = cache
     return [c for g in list(groups) + [tail] for c in g]
+
+
+def kv_layers(cache: tuple) -> list:
+    """The attention caches of :func:`cache_layers`, in order."""
+    kinds = (attn_lib.KVCache, attn_lib.PagedKVCache)
+    return [c for c in cache_layers(cache) if isinstance(c, kinds)]
 
 
 def write_cache_slot(cache: tuple, src: tuple, slot: int) -> tuple:
     """Write a single-request cache into batch row ``slot`` of a slot cache.
 
     ``src`` is the request's batch=1 cache in the list layout, built with
-    the same ``s_max``. Rows and the slot's length are written in place;
+    the same ``s_max``. KV rows and the slot's length, or a recurrent
+    block's conv window and state (a full-row copy), are written in place;
     the (mutated) ``cache`` is returned.
     """
     for dst, s in zip(cache_layers(cache), cache_layers(src), strict=True):
-        dst.k[slot].copy_(s.k[0])
-        dst.v[slot].copy_(s.v[0])
-        dst.length[slot] = s.length
+        if isinstance(dst, attn_lib.KVCache):
+            dst.k[slot].copy_(s.k[0])
+            dst.v[slot].copy_(s.v[0])
+            dst.length[slot] = s.length
+        else:
+            for d_leaf, s_leaf in zip(dst, s):
+                d_leaf[slot].copy_(s_leaf[0])
     return cache
 
 
 def reset_cache_slot(cache: tuple, slot: int) -> tuple:
     """Zero batch row ``slot`` of a per-slot cache, in place."""
     for dst in cache_layers(cache):
-        dst.k[slot].zero_()
-        dst.v[slot].zero_()
-        dst.length[slot] = 0
+        if isinstance(dst, attn_lib.KVCache):
+            dst.length[slot] = 0
+        for leaf in dst:
+            if leaf.dim() > 1:
+                leaf[slot].zero_()
     return cache
 
 

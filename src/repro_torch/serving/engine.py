@@ -67,6 +67,7 @@ from repro_torch.models.lm import (
     check_pageable,
     free_cache_slot_paged,
     init_lm_cache,
+    kv_layers,
     lm_forward,
     reset_cache_slot,
     write_cache_slot,
@@ -103,7 +104,9 @@ class _LayerDecoder:
 
     @staticmethod
     def kv_bytes(cache) -> int:
-        return sum(c.k.nbytes + c.v.nbytes for c in cache_layers(cache))
+        # attention K/V only, as the reference counts (recurrent states
+        # are a fixed few rows a slot)
+        return sum(c.k.nbytes + c.v.nbytes for c in kv_layers(cache))
 
     def step(self, tok: Tensor, cache, rng=None):
         eng = self.eng
@@ -462,7 +465,7 @@ class ServingEngine:
                 raise NotImplementedError(
                     "fused decode supports the dense attention+FFN layer "
                     f"walk; family {model_cfg.family!r} has recurrent or "
-                    "MoE blocks"
+                    "MoE blocks with no grid-step lowering"
                 )
             # raises ValueError when the artifact's plans can't be
             # statically fused (tail layers, biases, missing GDC scalars)
