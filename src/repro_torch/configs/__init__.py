@@ -3,8 +3,8 @@
 ``get(arch_id)`` returns the full-size config -- a ModelConfig for an LM,
 a CNNConfig for the paper's own TinyML models -- and ``get_smoke(arch_id)``
 an LM's reduced same-family config of the CPU tests. The port registers
-the SSM, hybrid, dense and MoE LMs, in the reference's order, and the two
-AnalogNets; the audio and vision architectures follow with their families.
+the reference's ten LMs (SSM, hybrid, dense, audio, MoE and vision), in
+its order, and the two AnalogNets.
 """
 
 from __future__ import annotations
@@ -21,8 +21,10 @@ LM_ARCHS = {
     "tinyllama-1.1b": "tinyllama_1p1b",
     "olmo-1b": "olmo_1b",
     "qwen2-72b": "qwen2_72b",
+    "musicgen-large": "musicgen_large",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b",
     "phi3.5-moe-42b-a6.6b": "phi3p5_moe_42b",
+    "paligemma-3b": "paligemma_3b",
 }
 
 CNN_ARCHS = {

@@ -91,8 +91,9 @@ def params_from_numpy(
     ``cfg``, when given, is checked against the tree (the period's block
     kinds, group count and each mixer's projection widths -- attention's
     wq/wk, the SSM's in/out_proj, the RG-LRU block's five linears --; a MoE
-    block's expert banks and its shared expert) so a tree of another
-    architecture is refused. An expert bank
+    block's expert banks and its shared expert; the lm_head's ``vocab *
+    n_codebooks`` columns; the vision family's ``extras/patch_proj``) so a
+    tree of another architecture is refused. An expert bank
     (``w1``/``w3``/``w2`` of (n_groups, E, K, N), ``r_adc`` (n_groups, 3),
     ``w_clip_buf`` (n_groups, 3, 2), the router, the optional ``shared``
     expert; a compiled program's ``out_scale_buf``, ``b_adc_buf`` and
@@ -110,12 +111,18 @@ def params_from_numpy(
         period = block_period(cfg)
         n_groups = cfg.n_layers // len(period)
         head = tuple(params.lm_head["w"].shape)
-        if len(params.blocks) != len(period) or head != (cfg.d_model, cfg.vocab):
+        want_head = (cfg.d_model, cfg.vocab * max(cfg.n_codebooks, 1))
+        if len(params.blocks) != len(period) or head != want_head:
             raise ValueError(
                 f"params do not match {cfg.name!r}: {len(params.blocks)} blocks a "
-                f"group (want {len(period)}), lm_head {head} (want "
-                f"{(cfg.d_model, cfg.vocab)})"
+                f"group (want {len(period)}), lm_head {head} (want {want_head})"
             )
+        extras = {k: tuple(v["w"].shape) for k, v in params.extras.items()}
+        want_extras = ({"patch_proj": (cfg.d_model, cfg.d_model)}
+                       if cfg.frontend == "vision_patches" else {})
+        if extras != want_extras:
+            raise ValueError(f"params do not match {cfg.name!r}: extras {extras} (want "
+                             f"{want_extras})")
         e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
         for kind, block in zip(period, params.blocks):
             mixer = {"ssm": "ssm", "rec": "rec"}.get(kind, "attn")

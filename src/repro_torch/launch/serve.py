@@ -8,7 +8,10 @@ Serves the reduced (smoke) config of ``--arch`` through
 ``cpu`` runs the plain versions of the kernels):
 
 * default: a rectangle batch of ``--batch`` requests of ``--prompt-len``
-  tokens and ``--tokens`` new tokens each;
+  tokens and ``--tokens`` new tokens each (a vision arch's requests each
+  carry their own image patches, drawn from the rectangle's data key, and
+  ``s_max`` grows by ``num_patches``; a multi-codebook arch is refused:
+  serve it through ``launch.steps.make_prefill_step`` / ``make_serve_step``);
 * ``--request-trace N``: N variable-length requests through the continuous
   scheduler over ``--batch`` slots, all queued at t = 0 or spaced by Poisson
   arrivals at ``--arrival-rate`` requests/s.
@@ -394,6 +397,11 @@ def main(argv: Optional[list[str]] = None) -> None:
             ap.error(str(e))
     b_adc = 8 if args.b_adc is None else args.b_adc
     cfg = configs.get_smoke(args.arch)
+    if cfg.n_codebooks:
+        # musicgen-style decoders emit one token per codebook per step; the
+        # request-level engine drives a single token stream
+        ap.error(f"--arch {args.arch}: multi-codebook decoders are not "
+                 "servable through the token-stream engine")
     analog = args.analog or args.load_program is not None
     # --fleet 1 serves through the single-engine path: one chip needs no router
     fleet_n = args.fleet if args.fleet is not None and args.fleet > 1 else None
@@ -453,9 +461,16 @@ def main(argv: Optional[list[str]] = None) -> None:
                   f"{store.save_program(args.save_program, program)}")
 
     b, s = args.batch, args.prompt_len
+    s_max = s + args.tokens
+    patches = None
+    if cfg.frontend == "vision_patches":
+        # independent per-request images (sliced per rid below), drawn from
+        # the rectangle's data key in the config's dtype
+        patches = prng.normal(k_data, (b, cfg.num_patches, cfg.d_model)).to(cfg.dtype)
+        s_max += cfg.num_patches
     ref_check = analog and not args.no_ref_check
     serving_cfg = ServingConfig(
-        n_slots=b, s_max=s + args.tokens,
+        n_slots=b, s_max=s_max,
         paged=args.kv_page_size is not None,
         page_size=args.kv_page_size if args.kv_page_size is not None else 16,
         n_pages=args.kv_pages,
@@ -539,7 +554,8 @@ def main(argv: Optional[list[str]] = None) -> None:
 
     def rectangle_requests():
         toks = prng.randint(k_data, (b, s), 0, cfg.vocab).numpy()
-        return [Request(rid=i, prompt=toks[i], max_new_tokens=args.tokens)
+        return [Request(rid=i, prompt=toks[i], max_new_tokens=args.tokens,
+                        features=None if patches is None else {"patches": patches[i:i + 1]})
                 for i in range(b)]
 
     if schedule is None:

@@ -4,12 +4,17 @@
 :func:`program_for_serving` programs a chip for a serving deployment;
 :func:`refresh_program` is what the refresh policy calls to rewrite a
 drifted chip from its source weights; :func:`make_train_step` is the LM's
-training step, with microbatch gradient accumulation. Sharded programming
-and training are the distribution slice's work (queue A item 13).
+training step, with microbatch gradient accumulation;
+:func:`make_prefill_step` and :func:`make_serve_step` are the rectangle
+batch's prefill and greedy decode step -- the only way a multi-codebook
+decoder (musicgen) is served, since the request-level engine drives one
+token stream. Sharded programming and training are the distribution
+slice's work (queue A item 13).
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Any, Optional
 
 import torch
@@ -19,6 +24,7 @@ from repro_torch import tree as tree_lib
 from repro_torch.core import engine
 from repro_torch.core import pcm as pcm_lib
 from repro_torch.core.analog import AnalogConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import lm as lm_lib
 from repro_torch.models.common import ModelConfig
 from repro_torch.training import optim as optim_lib
@@ -106,3 +112,90 @@ def make_train_step(
         return params, opt_state, dict(sorted({**metrics, **opt_metrics}.items()))
 
     return train_step
+
+
+class _Cast:
+    """A params object and its copy with the analog weights cast to ``dtype``."""
+
+    __slots__ = ("src", "dtype", "params", "__weakref__")
+
+    def __init__(self, src, dtype: torch.dtype):
+        self.src, self.dtype = src, dtype
+        self.params = engine.cast_weights(src, dtype)
+
+
+#: id(params) -> its cast copy, alive while a step holds it
+_CASTS: "weakref.WeakValueDictionary[int, _Cast]" = weakref.WeakValueDictionary()
+
+
+def _cast_once(held: list, params, dtype: torch.dtype):
+    """``params`` with its analog weights cast to the model ``dtype`` once
+    per params object, as the serving engine casts them (bitwise the
+    execute phase's per-call cast): the copy is shared by the steps handed
+    the same object and freed when no step holds it. ``held`` is the
+    calling step's one-entry memo."""
+    if not (held and held[0].src is params and held[0].dtype == dtype):
+        c = _CASTS.get(id(params))
+        if c is None or c.src is not params or c.dtype != dtype:
+            c = _CASTS[id(params)] = _Cast(params, dtype)
+        held[:] = [c]
+    return held[0].params
+
+
+def _batch_on(params, batch: dict, dev: torch.device) -> dict:
+    """``batch``'s leaves as tensors on ``dev`` (token ids as int64), where
+    ``params`` must live."""
+    if params.gain_s.device.type != dev.type:
+        raise ValueError(f"params live on {params.gain_s.device}, the step runs on {dev}")
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v, device=dev)
+        out[k] = t.long() if k == "tokens" else t
+    return out
+
+
+def make_prefill_step(cfg: ModelConfig, analog_cfg: AnalogConfig, *, device="cuda"):
+    """(params, batch, cache, rng) -> (next-position logits, cache), the
+    reference's prefill step on ``device``.
+
+    ``batch`` holds ``tokens`` (B, S) -- with ``patches`` (B, P, d) for the
+    vision family -- or the audio family's ``frames`` (B, S, d); ``cache``
+    is a stacked :func:`~repro_torch.models.lm.init_lm_cache`. Only the
+    last position's logits are computed: (B, 1, V), or (B, 1, C, V) for a
+    codebook head. ``rng`` draws per-call noise only when
+    ``analog_cfg.needs_rng``. The analog weights run from a copy cast to
+    ``cfg.dtype`` once per params object (shared with a serve step handed
+    the same object), not at every MVM.
+    """
+    dev = resolve_device(device)
+    held: list = []
+
+    def prefill_step(params, batch, cache, rng):
+        noise_rng = rng if analog_cfg.needs_rng else None
+        return lm_lib.lm_forward(_cast_once(held, params, cfg.dtype),
+                                 _batch_on(params, batch, dev), analog_cfg, cfg,
+                                 rng=noise_rng, cache=cache, last_token_only=True)
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, analog_cfg: AnalogConfig, *, device="cuda"):
+    """One greedy decode step on ``device``: (params, batch, cache, rng) ->
+    (next tokens, cache), the reference's serve step.
+
+    ``batch`` holds the previous step's ``tokens`` (B, 1), or the audio
+    family's next ``frames`` (B, 1, d). The argmax runs over the last axis:
+    (B,) int32 tokens, or (B, C) codes for a codebook head. The weights
+    are cast once per params object, as in :func:`make_prefill_step`.
+    """
+    dev = resolve_device(device)
+    held: list = []
+
+    def serve_step(params, batch, cache, rng):
+        noise_rng = rng if analog_cfg.needs_rng else None
+        logits, cache = lm_lib.lm_forward(_cast_once(held, params, cfg.dtype),
+                                          _batch_on(params, batch, dev), analog_cfg, cfg,
+                                          rng=noise_rng, cache=cache)
+        return logits[:, -1].argmax(dim=-1).to(torch.int32), cache
+
+    return serve_step

@@ -62,8 +62,9 @@ def cnn_setup(arch: str, batch: int, device="cuda"):
     return params, loss_fn, iterate(pipe)
 
 
-#: the recurrent families serve on the port; their training comes later
-UNTRAINED_FAMILIES = ("ssm", "hybrid")
+#: these families serve on the port; their training comes later (the
+#: reference's ``lm_setup`` feeds tokens only: no images, no frames)
+UNTRAINED_FAMILIES = ("ssm", "hybrid", "vlm", "audio")
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -1,5 +1,6 @@
-"""The LM, port of ``repro.models.lm``: the dense, MoE, SSM (mamba2) and
-hybrid (recurrentgemma: RG-LRU and local attention, 2:1) families.
+"""The LM, port of ``repro.models.lm``: the dense, MoE, SSM (mamba2),
+hybrid (recurrentgemma: RG-LRU and local attention, 2:1), audio (musicgen)
+and vision (paligemma) families.
 
 Parameters keep the reference's layout -- :class:`LMParams` with the block
 stack as ``(n_groups, ...)`` tensors -- so a JAX param tree or program
@@ -23,7 +24,14 @@ every slot, one page-id space across layers; attention families only). KV
 rows are written in place in every layout; a recurrent block returns new
 state tensors. A MoE block (``models.moe``) replaces the FFN with expert
 banks. Layers past the last whole group (recurrentgemma's 38 = 12 x 3 + 2)
-are the unstacked tail. The audio and vision families raise.
+are the unstacked tail.
+
+Inputs (:func:`_embed_inputs`): token ids; the audio family's
+precomputed frame embeddings (``batch["frames"]``, no token embedding);
+or the vision family's image patches (``batch["patches"]``), projected by
+the analog ``extras["patch_proj"]`` and prepended to the embedded tokens.
+A multi-codebook head (``n_codebooks``) is ``vocab * n_codebooks`` wide,
+its logits reshaped to ``(..., n_codebooks, vocab)``.
 
 ``cfg.remat`` recomputes each group's forward in the backward
 (``torch.utils.checkpoint``), as the reference wraps each group in
@@ -57,9 +65,9 @@ Tensor = torch.Tensor
 
 
 def block_period(cfg: ModelConfig) -> list[str]:
-    """The kinds of a group's blocks: dense ``["attn"]``; MoE ``["moe"]``,
-    or ``moe_every - 1`` dense blocks then one MoE block (llama4's
-    interleaving); SSM ``["ssm"]``; hybrid its ``block_pattern``
+    """The kinds of a group's blocks: dense, audio and vision ``["attn"]``;
+    MoE ``["moe"]``, or ``moe_every - 1`` dense blocks then one MoE block
+    (llama4's interleaving); SSM ``["ssm"]``; hybrid its ``block_pattern``
     (recurrentgemma: ``["rec", "rec", "attn"]``)."""
     if cfg.family == "ssm":
         return ["ssm"]
@@ -69,12 +77,7 @@ def block_period(cfg: ModelConfig) -> list[str]:
         if cfg.moe_every <= 1:
             return ["moe"]
         return ["attn"] * (cfg.moe_every - 1) + ["moe"]
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is ported in a later slice; the port "
-            "runs the dense, MoE, SSM and hybrid LMs"
-        )
-    return ["attn"]
+    return ["attn"]  # dense / audio / vlm
 
 
 def mlp_init(key: Tensor, cfg: ModelConfig) -> dict:
@@ -177,16 +180,6 @@ class LMParams(NamedTuple):
     gain_s: Tensor  # network-wide ADC gain S (Eq. 5)
 
 
-def _check_cfg(cfg: ModelConfig) -> list[str]:
-    period = block_period(cfg)
-    if cfg.n_codebooks or cfg.frontend != "none":
-        raise NotImplementedError(
-            "multi-codebook heads and feature frontends come with their "
-            "families in a later slice"
-        )
-    return period
-
-
 def lm_init(key: Tensor, cfg: ModelConfig, *, device="cuda") -> LMParams:
     """Random LM params drawn from the threefry ``key`` on ``device``.
 
@@ -197,10 +190,10 @@ def lm_init(key: Tensor, cfg: ModelConfig, *, device="cuda") -> LMParams:
     """
     dev = resolve_device(device)
     key = key.to(dev)
-    period = _check_cfg(cfg)
+    period = block_period(cfg)
     n_groups = cfg.n_layers // len(period)
     n_tail = cfg.n_layers - n_groups * len(period)
-    k_embed, k_blocks, k_tail, k_head, _k_extra = prng.split(key, 5)
+    k_embed, k_blocks, k_tail, k_head, k_extra = prng.split(key, 5)
     groups = []
     for gk in prng.split(k_blocks, n_groups):
         keys = prng.split(gk, len(period))
@@ -208,15 +201,33 @@ def lm_init(key: Tensor, cfg: ModelConfig, *, device="cuda") -> LMParams:
     blocks = tuple(_stack([g[i] for g in groups]) for i in range(len(period)))
     tail = tuple(_block_init(prng.fold_in(k_tail, i), period[i % len(period)], cfg)
                  for i in range(n_tail))
+    extras: dict[str, Any] = {}
+    if cfg.frontend == "vision_patches":
+        extras["patch_proj"] = linear_init(k_extra, cfg.d_model, cfg.d_model)
     return LMParams(
         embed=embedding_init(k_embed, cfg.vocab, cfg.d_model),
         blocks=blocks,
         tail=tail,
         final_norm=rmsnorm_init(cfg, device=dev),
-        lm_head=linear_init(k_head, cfg.d_model, cfg.vocab),
-        extras={},
+        lm_head=linear_init(k_head, cfg.d_model, cfg.vocab * max(cfg.n_codebooks, 1)),
+        extras=extras,
         gain_s=torch.ones((), device=dev),
     )
+
+
+def _embed_inputs(params: LMParams, batch: dict, cfg: ModelConfig, ctx: AnalogCtx) -> Tensor:
+    """The forward's input rows: the audio family's ``frames`` (B, S, d)
+    as they come; the vision family's ``patches`` (B, P, d), when given,
+    through ``extras["patch_proj"]`` (an analog MVM drawing from ``ctx``,
+    the lm_head's context, first) ahead of the embedded ``tokens``; else
+    the embedded ``tokens``."""
+    if cfg.frontend == "audio_frames":
+        return batch["frames"].to(cfg.dtype)
+    tok = embedding_apply(params.embed, batch["tokens"], cfg.dtype)
+    if cfg.frontend == "vision_patches" and "patches" in batch:
+        patches = linear_apply(params.extras["patch_proj"], batch["patches"].to(cfg.dtype), ctx)
+        return torch.cat([patches, tok], dim=1)
+    return tok
 
 
 def _index(tree: Any, i: int) -> Any:
@@ -279,12 +290,12 @@ def lm_forward(
     launches (B1 and B3 run again), the backward recomputes
     (``ops.backward_calls``) once, as without remat.
     """
-    period = _check_cfg(cfg)
+    period = block_period(cfg)
     if rng is not None:  # draws land where the params live
         rng = rng.to(params.gain_s.device)
     sub = lambda i: None if rng is None else prng.fold_in(rng, i)
     ctx = AnalogCtx(cfg=analog_cfg, gain_s=params.gain_s, key=rng, mvm=mvm)
-    h = embedding_apply(params.embed, batch["tokens"], cfg.dtype)
+    h = _embed_inputs(params, batch, cfg, ctx)
     b, s, _ = h.shape
     dev = h.device
 
@@ -346,6 +357,8 @@ def lm_forward(
         else:
             h = h[:, -1:, :]
     logits = linear_apply(params.lm_head, h, ctx)
+    if cfg.n_codebooks:
+        logits = logits.reshape(*logits.shape[:-1], cfg.n_codebooks, cfg.vocab)
 
     new_cache = None
     if cache is not None:
@@ -429,7 +442,7 @@ def init_lm_cache(
         check_pageable(cfg)
         if n_pages is None:
             n_pages = batch * (-(-s_max // page_size)) + 1
-    period = _check_cfg(cfg)
+    period = block_period(cfg)
     n_groups = cfg.n_layers // len(period)
     n_tail = cfg.n_layers - n_groups * len(period)
 
@@ -593,15 +606,19 @@ def lm_loss(
     mvm: Optional[MvmFn] = None,
 ) -> tuple[Tensor, dict]:
     """Mean next-token cross-entropy of :func:`lm_forward` (no cache) on
-    ``batch`` ({"tokens", "labels"[, "mask"]}) -> (loss, {"loss",
-    "ppl_proxy"}), the reference's ``lm_loss`` for the dense family.
+    ``batch`` ({"tokens" or "frames"[, "patches"], "labels"[, "mask"]}) ->
+    (loss, {"loss", "ppl_proxy"}), the reference's ``lm_loss``.
 
-    The logits go to f32; the label's logit is gathered where the reference
+    The image-prefix positions of a patch-fed forward carry no loss. The
+    logits go to f32; the label's logit is gathered where the reference
     contracts with a one-hot (one nonzero term: the same value and the same
-    gradient); a ``mask`` weights each position, its sum clamped at 1.
-    ``mvm`` is :func:`lm_forward`'s.
+    gradient), over (B, S) labels or a codebook head's (B, S, C); a
+    ``mask`` weights each position (trailing axes broadcast), its sum
+    clamped at 1. ``mvm`` is :func:`lm_forward`'s.
     """
     logits, _ = lm_forward(params, batch, analog_cfg, cfg, rng=rng, mvm=mvm)
+    if cfg.frontend == "vision_patches" and "patches" in batch:
+        logits = logits[:, batch["patches"].shape[1]:]
     logits = logits.float()
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     lse = torch.logsumexp(logits, dim=-1)

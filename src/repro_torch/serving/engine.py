@@ -391,7 +391,8 @@ class ServingEngine:
             raise NotImplementedError("sharded serving comes in a later slice")
         if model_cfg.n_codebooks:
             raise NotImplementedError(
-                "request-level serving drives a single token stream"
+                "request-level serving drives a single token stream; "
+                "multi-codebook decoders are not supported"
             )
         self.device = resolve_device(device)
         for name, tree in (("params", params), ("ref_params", ref_params),
@@ -524,10 +525,14 @@ class ServingEngine:
             per_slot=per_slot, device=self.device,
         )
 
-    def _prefill_tokens(self, req: Request) -> Tensor:
-        if req.features:
-            raise NotImplementedError("feature-fed prefill comes with its families")
-        return torch.as_tensor(req.prompt, device=self.device)[None, :].long()
+    def _prefill_inputs(self, req: Request) -> dict:
+        """A request's prefill batch: its prompt's tokens (1, S) and its
+        ``features`` (a vision request's ``patches``), on the engine's
+        device."""
+        batch = {"tokens": torch.as_tensor(req.prompt, device=self.device)[None, :].long()}
+        for k, v in (req.features or {}).items():
+            batch[k] = torch.as_tensor(v, device=self.device)
+        return batch
 
     def call_key(self, i: int) -> Optional[Tensor]:
         """``fold_in(rng, i)`` when the config draws per call, else None."""
@@ -555,7 +560,7 @@ class ServingEngine:
         prefill counterpart, and its attention is B3."""
         cache = self.new_cache(1, per_slot=False)
         logits, cache = lm_forward(
-            params, {"tokens": self._prefill_tokens(req)}, acfg, self.cfg,
+            params, self._prefill_inputs(req), acfg, self.cfg,
             rng=rng, cache=cache, last_token_only=True,
         )
         last = logits[:, -1]
