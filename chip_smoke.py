@@ -234,9 +234,32 @@ end the run with a non-zero exit:
    8/1, 256), no window, against its plain version and bitwise under
    right-padding, and the row kernels at both archs' decode shapes; budget
    ``ARCH_BUDGET_S``;
-18. report: a JSON line ``{"kernels": [...]}`` (launches from the serving
-   phases, the fleet, the CNNs, the training runs and phase 17) and,
-   last, the device line ``{"ok": true, "device": {...}}``.
+18. sharded serving (``phase_mesh``) at world size 1 over NCCL (one card
+   holds one rank; the multi-rank semantics are held on the CPU over gloo,
+   ``tests/test_torch_distributed.py``), its own store in a temp dir:
+   tinyllama-1.1b at full width and depth programmed through
+   ``program_for_serving(mesh=make_serving_mesh(1))``, gathered and held
+   bitwise to phase 4's chip (every param and state leaf's two exact
+   integer checksums, taken right after phase 4); 8 of phase 4's requests
+   at 8 slots through ``ServingEngine(mesh=)``, per layer, each cut to its
+   first 16 tokens: the prefix of phase 4's tokens, exact B1 (by design), B3 and row-kernel launches, no plain
+   call, ms a decode step, tokens/s, collective calls a forward and their
+   host-clock share; phi3.5-moe at full width on 2 layers with
+   ``moe_dispatch="shard_map"``: at its published capacity factor 1.25 a
+   prefill through the kernels against shard_map's own plain version
+   (phase 17's check: every MVM under phase 3's model, the argmax at the
+   plain logits' maximum) and phase 17's trace served with one bank
+   launch a MoE family, ms a decode step; at capacity factor 8 (= E /
+   top_k: no token drops) the trace's tokens through shard_map equal the
+   einsum path's on the same chip; the sharded chip's artifact (cut to 1
+   layer, for the write's time) bitwise the unsharded chip's arrays, and
+   ``load_program(shardings=)`` serving the unsharded chip's tokens; a
+   mesh with ``fused_decode`` refused in the reference's words; then every
+   new B1 key checked as phase 3 checks its own, every new bank key as
+   phase 17 does at the 8 bits served; budget ``MESH_BUDGET_S``;
+19. report: a JSON line ``{"kernels": [...]}`` (launches from the serving
+   phases, the fleet, the CNNs, the training runs and phases 17 and 18)
+   and, last, the device line ``{"ok": true, "device": {...}}``.
 
 The RNG bridge (``repro_torch.prng``): phase 4 draws the weights and
 programs the chip through it (the normal draws on the card's kernel
@@ -260,6 +283,7 @@ Without a card, or outside a checkout, it prints no result and exits 2.
 from __future__ import annotations
 
 import argparse
+import ast
 import contextlib
 import gc
 import json
@@ -5629,9 +5653,9 @@ def phase_archs(torch, gen, seed: int, accuracy: dict, b1_launched: set, flash: 
     return res
 
 
-def bank_entry(archs: dict) -> dict:
-    """The kernels line's entry of B1's bank form: phase 17's MoE launches
-    and its timing at phi3.5-moe's decode step."""
+def bank_entry(archs: dict, mesh: dict) -> dict:
+    """The kernels line's entry of B1's bank form: phases 17 and 18's MoE
+    launches and its timing at phi3.5-moe's decode step."""
     t = archs["bank_timing"][BANK_MS[0]]
     p = archs["bank_timing"][BANK_MS[1]]
     return {
@@ -5640,8 +5664,10 @@ def bank_entry(archs: dict) -> dict:
         "source": "src/repro_torch/csrc/analog_mvm_tc.cu",
         "replaces": "src/repro/kernels/analog_mvm.py:41 (pallas_call :147, vmapped over the "
                     "experts at src/repro/models/moe.py:120)",
-        "launches": archs["bank_launches"],
-        "max_abs_err": archs["bank_max_abs"],
+        "launches": archs["bank_launches"] + sum(
+            r["counts"]["bank"] for r in mesh["phi3.5"]["runs"].values()),
+        "max_abs_err": max([archs["bank_max_abs"]] + [
+            v["max_abs"] for v in mesh["bank_cases"].values()]),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "loop_2d_ms": t["loop_2d_ms"],
@@ -5652,11 +5678,310 @@ def bank_entry(archs: dict) -> dict:
                "3 launches (w1, w3 4096 x 6400; w2 6400 x 4096) of the decode design over the "
                "16 experts; library: torch.bmm of the same products; loop_2d_ms: the 48 2-D "
                "launches it replaces; prefill: the same at a bucketed 1 x 256 prefill (M = 32, "
-               "the prefill design); launches: phase 17's MoE serving (phi3.5-moe's decode and "
-               "prefill designs, llama4-maverick's smoke-width tiled design); max_abs_err over "
-               "every bank key launched",
+               "the prefill design); launches: phases 17 and 18's MoE serving (phi3.5-moe's "
+               "decode and prefill designs, llama4-maverick's smoke-width tiled design, "
+               "phase 18's shard_map and einsum runs); max_abs_err over every bank key launched",
         "pass": True,
     }
+
+
+#: phase 18's budget, seconds (it fails past it)
+MESH_BUDGET_S = 90
+#: phase 18 serves this many of phase 4's requests at 8 slots, each cut to
+#: its first MESH_NEW_TOKENS tokens
+MESH_REQUESTS = 8
+MESH_NEW_TOKENS = 16
+
+
+def chip_digest(torch, program) -> dict:
+    """Two exact integer checksums of every param and state leaf of a chip
+    (its bits as integers: their sum, and their sum weighted by position
+    mod 65521), with its dtype and shape: equal digests mean the same
+    bits but for an astronomically unlikely collision."""
+    from repro_torch.checkpoint import store
+
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = {}
+    for part, tree in (("params", program.params), ("state", program.state)):
+        for k, t in store._flatten(tree).items():
+            v = t.detach().contiguous().view(-1).view(ints[t.element_size()]).long()
+            w = torch.arange(v.numel(), device=v.device) % 65521 + 1
+            out[f"{part}::{k}"] = (str(t.dtype), tuple(t.shape), int(v.sum()), int((v * w).sum()))
+    return out
+
+
+def mesh_counts(torch) -> dict:
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.kernels import decode_rows as dr
+    from repro_torch.kernels import flash_attention as fa
+
+    return {"b1": kernel.analog_mvm.launches, "designs": dict(kernel.analog_mvm.design_launches),
+            "bank": kernel.analog_mvm_bank.launches,
+            "bank_designs": dict(kernel.analog_mvm_bank.design_launches),
+            "b3": fa.flash_attention.launches, "rows": dict(dr.launches), "plain": plain_calls()}
+
+
+def phase_mesh(torch, gen, seed: int, chip4: dict, tokens4: dict, trace4: list,
+               accuracy: dict, b1_launched: set, checked_banks: set) -> dict:
+    """Phase 18 (see the module docstring)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import collectives, prng
+    from repro_torch.configs import get
+    from repro_torch.core import engine
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.models.common import set_logical_rules
+    from repro_torch.models.lm import lm_init
+    from repro_torch.serving import Request, ServingConfig, ServingEngine
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    acfg = AnalogConfig().infer(b_adc=8)
+    res = {}
+    b1_before = set(b1_launched)
+    bank_seen = record_bank_shapes()
+    try:
+        mesh_lib.init_process_group("cuda", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                    rank=0, world_size=1, timeout_s=60)
+        mesh = mesh_lib.make_serving_mesh(1)
+        res["backend"] = dist.get_backend()
+        # (1) tinyllama-1.1b at full width and depth
+        cfg = get("tinyllama-1.1b")
+        params = lm_init(prng.PRNGKey(seed), cfg, device=DEV)
+        collectives.reset_stats()
+        t1 = time.perf_counter()
+        program = steps.program_for_serving(params, acfg, prng.PRNGKey(seed + 1), mesh=mesh,
+                                            model_cfg=cfg)
+        torch.cuda.synchronize()
+        res["program_s"] = time.perf_counter() - t1
+        res["program_collectives"] = collectives.stats["calls"]
+        del params
+        splits = []
+        engine._walk(program.params, lambda path, node: splits.append(node.get("tp")) or node)
+        res["layers_split"] = f"{sum(sp is not None for sp in splits)} of {len(splits)}"
+        host = program.gather()
+        same = chip_digest(torch, host) == chip4
+        del host
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"mesh: tinyllama-1.1b programmed over a {res['backend']} mesh of 1 in "
+            f"{res['program_s']:.2f} s ({res['program_collectives']} collective calls; "
+            f"{res['layers_split']} layers carry a split); gathered == phase 4's chip, every "
+            f"param and state leaf: {same}")
+        check(same, "mesh: the sharded chip gathered is bitwise phase 4's chip")
+        served = ServingEngine.for_program(program, cfg, ServingConfig(n_slots=SLOTS, s_max=512),
+                                           device=DEV)
+        check(served.mesh is mesh, "mesh: the engine serves over the chip's mesh")
+        # phase 4's first requests, cut to their first MESH_NEW_TOKENS tokens
+        # (greedy: the prefix of what phase 4 served them)
+        reqs = [dataclasses.replace(q, max_new_tokens=min(q.max_new_tokens, MESH_NEW_TOKENS))
+                for q in trace4[:MESH_REQUESTS]]
+        served.run([Request(rid=-1, prompt=reqs[0].prompt[:16], max_new_tokens=4)])  # warm
+        torch.cuda.synchronize()
+        reset_counts()
+        collectives.reset_stats()
+        rep = served.run(reqs)
+        torch.cuda.synchronize()
+        counts = mesh_counts(torch)
+        coll = dict(collectives.stats)
+        forwards = rep.n_requests + rep.n_steps
+        want = {"b1": LAUNCHES_PER_FORWARD * forwards,
+                "designs": b1_designs([(1, q.prompt.size) for q in reqs], rep.n_steps),
+                "b3": FA_LAUNCHES_PER_PREFILL * rep.n_requests,
+                "rows": {k: v * rep.n_steps for k, v in rows_per_forward(cfg).items()}}
+        tokens = {r.rid: r.tokens.tolist() for r in rep.records}
+        same_tokens = tokens == {q.rid: tokens4[q.rid][:q.max_new_tokens] for q in reqs}
+        res["tinyllama"] = {
+            **serve_metrics(rep), "counts": counts, "want": want, "tokens_equal": same_tokens,
+            "seconds": time.perf_counter() - t0,
+            "b1_per_decode_step": LAUNCHES_PER_FORWARD,
+            "collective_calls": coll["calls"], "collective_calls_per_forward": coll["calls"]
+            / forwards, "collective_s": coll["seconds"],
+            "collective_host_share": coll["seconds"] / max(rep.t_decode + rep.t_prefill, 1e-9)}
+        t = res["tinyllama"]
+        log(f"mesh: tinyllama-1.1b served over the mesh: {rep.n_requests} requests, "
+            f"{rep.n_generated} tokens, {rep.n_steps} decode steps, "
+            f"{t['ms_per_decode_step']:.2f} ms/decode step, {t['tokens_per_s']:.1f} tokens/s; "
+            f"{coll['calls']} collective calls ({t['collective_calls_per_forward']:.2f} a "
+            f"forward), {coll['seconds'] * 1e3:.1f} ms of host clock, share "
+            f"{t['collective_host_share']:.4f}; tokens == phase 4's: {same_tokens}; launches "
+            f"b1 {counts['b1']} {counts['designs']} b3 {counts['b3']} plain {counts['plain']} "
+            f"(want {want['b1']} {want['designs']} b3 {want['b3']})")
+        check(same_tokens, "mesh: phase 4's tokens")
+        check(counts["plain"] == 0, "mesh: no plain-version call")
+        check(counts["b1"] == want["b1"] and counts["designs"] == want["designs"]
+              and counts["b3"] == want["b3"] and counts["rows"] == want["rows"],
+              "mesh: phase 4's B1 (155 a forward, by design), B3 and row-kernel launches")
+        check(coll["calls"] > 0, "mesh: the sharded forward ran its collectives")
+        # (4) a mesh refuses fused decode, in the reference's words
+        try:
+            ServingEngine.for_program(program, cfg, ServingConfig(n_slots=SLOTS, s_max=64,
+                                                                  fused_decode=True), device=DEV)
+            refused = ""
+        except NotImplementedError as e:
+            refused = str(e)
+        res["fused_refusal"] = refused
+        check("sharded serving keeps the per-layer path" in refused,
+              f"mesh: fused decode refused with the reference's words ({refused!r})")
+        del served, program
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        res["phi3.5"] = mesh_moe(torch, seed, mesh, acfg)
+        res["phi3.5"]["seconds"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        res["artifact"] = mesh_artifact(torch, seed, mesh, acfg, tmp, trace4)
+        res["artifact"]["seconds"] = time.perf_counter() - t1
+    finally:
+        set_logical_rules({})
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    keys = sorted(b1_launched - b1_before - set(map(tuple, accuracy["checked"])))
+    res["b1_checked_after"] = check_launched_b1(torch, gen, keys, accuracy)
+    t1 = time.perf_counter()
+    new_banks = sorted(bank_seen - checked_banks)
+    # at the bitwidth the phase served (phase 17 holds its keys at 4, 6, 8)
+    banks = {key: bank_case(torch, gen, key, bits_list=(8,)) for key in new_banks}
+    bad = [k for k, v in banks.items() if not v["ok"]]
+    log(f"mesh: B1's bank form vs its plain version at the new keys {new_banks}: out of "
+        f"tolerance {bad or 'none'}")
+    check(not bad, f"mesh: bank form cases out of tolerance or unequal: {bad}")
+    res["bank_cases"] = {str(k): v for k, v in banks.items()}
+    res["checks_s"] = time.perf_counter() - t1
+    res["seconds"] = time.perf_counter() - t0
+    log(f"mesh: phase 18 took {res['seconds']:.1f} s of its {MESH_BUDGET_S} s budget "
+        f"(tinyllama {res['tinyllama']['seconds']:.1f}, phi3.5-moe "
+        f"{res['phi3.5']['seconds']:.1f}, artifact {res['artifact']['seconds']:.1f}, "
+        f"the new keys' checks {res['checks_s']:.1f})")
+    check(res["seconds"] <= MESH_BUDGET_S, f"mesh: phase 18 within its {MESH_BUDGET_S} s budget")
+    return res
+
+
+def mesh_moe(torch, seed: int, mesh, acfg) -> dict:
+    """Phase 18's phi3.5-moe runs (see the module docstring)."""
+    import dataclasses
+
+    from repro_torch import prng
+    from repro_torch.configs import get
+    from repro_torch.core import engine
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import lm_init
+    from repro_torch.serving import ServingConfig, ServingEngine, poisson_trace
+
+    cfg = dataclasses.replace(get(BANK_ARCH), n_layers=2)
+    params = lm_init(prng.PRNGKey(seed), cfg, device=DEV)
+    t1 = time.perf_counter()
+    chip = steps.program_for_serving(params, acfg, prng.PRNGKey(seed + 1), mesh=mesh,
+                                     model_cfg=cfg)
+    torch.cuda.synchronize()
+    out = {"program_s": time.perf_counter() - t1, "capacity_factor": cfg.capacity_factor}
+    # no aging or refresh here: the state and source weights go
+    chip = dataclasses.replace(chip, state={})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    check("tp" in chip.params.blocks[0]["moe"], "mesh: phi3.5-moe's banks carry their split")
+    trace = poisson_trace(prng.PRNGKey(seed + 7), ARCH_TRACE["n"], vocab=cfg.vocab,
+                          rate=ARCH_TRACE["rate"], prompt_lens=ARCH_TRACE["prompt_lens"],
+                          new_tokens=ARCH_TRACE["new_tokens"])
+    shard_map = dataclasses.replace(cfg, moe_dispatch="shard_map")
+    cast = engine.cast_weights(chip.params, cfg.dtype)
+    fc = arch_forward_check(torch, cast, chip.cfg, shard_map,
+                            {"tokens": torch.as_tensor(trace[0].prompt, device=DEV)[None].long()})
+    del cast
+    log_forward_check(f"{BANK_ARCH} shard_map (capacity factor {cfg.capacity_factor})",
+                      f"{trace[0].prompt.size}-token", fc)
+    out["forward_check"] = fc
+    runs = {}
+    for name, run_cfg in (("shard_map", shard_map),
+                          ("shard_map_cf8", dataclasses.replace(shard_map, capacity_factor=8.0)),
+                          ("einsum_cf8", dataclasses.replace(cfg, capacity_factor=8.0))):
+        served = ServingEngine.for_program(chip, run_cfg, ServingConfig(**ARCH_SERVE), device=DEV)
+        reset_counts()
+        rep = served.run(trace)
+        torch.cuda.synchronize()
+        counts = mesh_counts(torch)
+        forwards = rep.n_requests + rep.n_steps
+        runs[name] = {**serve_metrics(rep), "counts": counts,
+                      "bank_per_forward": counts["bank"] / forwards,
+                      "tokens": {r.rid: r.tokens.tolist() for r in rep.records}}
+        log(f"mesh: {BANK_ARCH} (2 layers) {name}: {rep.n_requests} requests, {rep.n_steps} "
+            f"decode steps, {runs[name]['ms_per_decode_step']:.2f} ms/decode step, "
+            f"{runs[name]['tokens_per_s']:.1f} tokens/s; launches b1 {counts['b1']} bank "
+            f"{counts['bank']} {counts['bank_designs']} b3 {counts['b3']} plain "
+            f"{counts['plain']} ({forwards} forwards)")
+        check(counts["plain"] == 0, f"mesh: {name}: no plain-version call")
+        check(counts["bank"] == 3 * cfg.n_layers * forwards,
+              f"mesh: {name}: one bank launch a MoE family a forward")
+        del served
+    same = runs["shard_map_cf8"]["tokens"] == runs["einsum_cf8"]["tokens"]
+    log(f"mesh: {BANK_ARCH} at capacity factor 8 (no drops): shard_map tokens == einsum "
+        f"tokens: {same}")
+    check(same, "mesh: shard_map serves the einsum path's tokens where no token drops")
+    for r in runs.values():
+        r.pop("tokens")
+    out["runs"] = runs
+    del chip
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_artifact(torch, seed: int, mesh, acfg, tmp: str, trace4: list) -> dict:
+    """Phase 18's artifact: tinyllama-1.1b at full width on 1 layer, the
+    sharded chip saved and held array by array against the unsharded chip
+    (what its artifact holds), loaded with ``shardings=`` and served."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import prng
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import get
+    from repro_torch.core import engine
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import lm_init
+    from repro_torch.serving import ServingConfig, ServingEngine
+
+    cfg = dataclasses.replace(get("tinyllama-1.1b"), n_layers=1)
+    params = lm_init(prng.PRNGKey(seed), cfg, device=DEV)
+    host = engine.compile_program(params, acfg, prng.PRNGKey(seed + 1), device=DEV)
+    sharded = steps.program_for_serving(params, acfg, prng.PRNGKey(seed + 1), mesh=mesh,
+                                        model_cfg=cfg)
+    path = os.path.join(tmp, "chip")
+    t1 = time.perf_counter()
+    store.save_program(path, sharded)
+    save_s = time.perf_counter() - t1
+    want = {f"params::{k}": store._to_numpy(v) for k, v in store._flatten(host.params).items()}
+    want.update({f"state::{k}": store._to_numpy(v, key=k.rsplit("::", 1)[-1] == "key")
+                 for k, v in store._flatten(host.state).items()})
+    with np.load(os.path.join(path, "arrays.npz")) as got:
+        same = set(got.files) == set(want) and all(
+            got[k].dtype == w.dtype and got[k].tobytes() == w.tobytes() for k, w in want.items())
+    del sharded
+    loaded = store.load_program(path, params_like=params,
+                                shardings=shd.program_shardings(params, mesh, cfg), device=DEV)
+    reqs = [dataclasses.replace(q, max_new_tokens=8, arrival_t=0.0) for q in trace4[:4]]
+    tokens = []
+    for prog in (loaded, host):
+        rep = ServingEngine.for_program(prog, cfg, ServingConfig(n_slots=4, s_max=512),
+                                        device=DEV).run(reqs)
+        tokens.append({r.rid: r.tokens.tolist() for r in rep.records})
+    log(f"mesh: the sharded chip's artifact (tinyllama-1.1b, 1 layer, {len(want)} arrays, "
+        f"written in {save_s:.2f} s) == the unsharded chip's arrays: {same}; loaded with "
+        f"shardings= it serves the unsharded chip's tokens: {tokens[0] == tokens[1]}")
+    check(same, "mesh: the sharded chip's artifact is bitwise the unsharded chip's")
+    check(tokens[0] == tokens[1], "mesh: load_program(shardings=) serves the same tokens")
+    return {"arrays": len(want), "save_s": save_s, "bitwise": same,
+            "tokens_equal": tokens[0] == tokens[1]}
 
 
 def main(argv=None) -> int:
@@ -5722,6 +6047,8 @@ def main(argv=None) -> int:
     fa_launched = record_fa_shapes()
     b1_launched = record_b1_shapes()
     serve, ctx = phase_serve(torch, args.seed)
+    chip4 = chip_digest(torch, ctx["program"])  # phase 18's sharded chip is held to it
+    tokens4, trace4 = ctx["tokens"], ctx["trace"]
     lap("4 serve")
     bridge = phase_bridge(torch, ctx)
     lap("bridge")
@@ -5768,6 +6095,9 @@ def main(argv=None) -> int:
     archs = phase_archs(torch, gen, args.seed, accuracy, b1_launched, flash)
     archs["host_probe_start"] = host0
     lap("17 archs")
+    mesh = phase_mesh(torch, gen, args.seed, chip4, tokens4, trace4, accuracy, b1_launched,
+                      {ast.literal_eval(k) for k in archs["bank_cases"]})
+    lap("18 mesh")
     log(f"seconds per phase: { {k: round(v, 1) for k, v in phase_s.items()} }")
     checked = {(r["rows"], r["S"], r["dtype"]) for r in flash["cases"]}
     unchecked = sorted(fa_launched - checked)
@@ -5795,7 +6125,8 @@ def main(argv=None) -> int:
             "source": "src/repro_torch/csrc/analog_mvm_tc.cu",
             "replaces": "src/repro/kernels/analog_mvm.py:41",
             "launches": serve["design_launches"][design]
-            + fleet["launches"]["b1_designs"][design],
+            + fleet["launches"]["b1_designs"][design]
+            + mesh["tinyllama"]["counts"]["designs"][design],
             "max_abs_err": accuracy["by_design"][design]["max_abs"],
             "ms": total("ms"),
             "plain_ms": total("plain_ms"),
@@ -5844,7 +6175,7 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:34",
         "launches": paged_serve["flash_attention_launches"] + fleet["launches"]["b3"]
-        + archs["b3_launches"],
+        + archs["b3_launches"] + mesh["tinyllama"]["counts"]["b3"],
         "max_abs_err": max(r["max_abs"] for r in flash["cases"]),
         "ms": FA_LAUNCHES_PER_PREFILL * fa_t["ms"],
         "plain_ms": FA_LAUNCHES_PER_PREFILL * fa_t["plain_ms"],
@@ -5863,7 +6194,7 @@ def main(argv=None) -> int:
         "max_err_bf16_ulps": flash["worst_bf16_ulps"],
         "pass": True,
     }, cnn_entry(cnn), train_entry(train, lm["launches"]["b1_fp32"]), *lm_entries(lm),
-        bank_entry(archs)] + [{
+        bank_entry(archs, mesh)] + [{
         "name": f"decode_rows.{name}",
         "route": "cuda",
         "source": "src/repro_torch/csrc/decode_rows.cu",
@@ -5902,6 +6233,7 @@ def main(argv=None) -> int:
            "step_timing": step_timing, "flash_attention": flash, "paged_serve": paged_serve,
            "bridge": bridge, "rows": rows, "drift_lifecycle": lifecycle, "resample": resample,
            "fleet": fleet, "cnn": cnn, "train": train, "lm_train": lm, "archs": archs,
+           "mesh": mesh,
            **kernels,
            "phase_s": phase_s,
            "seconds": time.perf_counter() - t_start}

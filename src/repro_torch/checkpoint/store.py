@@ -226,7 +226,19 @@ class AsyncCheckpointer:
 
 def save_program(path: str, program: engine_lib.CiMProgram) -> str:
     """Atomically persist a compiled CiMProgram (cim-program v1); returns
-    the final path. The reference's ``load_program`` reads it back bitwise."""
+    the final path. The reference's ``load_program`` reads it back bitwise.
+
+    A sharded chip is gathered (every rank calls this) and rank 0 writes the
+    host chip's artifact, layout-free and bitwise the unsharded chip's; the
+    ranks leave together, the artifact written."""
+    if program.mesh is not None:
+        import torch.distributed as dist
+
+        host = program.gather()
+        if dist.get_rank() == 0:
+            save_program(path, host)
+        dist.barrier()
+        return path
     tmp = path + ".tmp"
     os.makedirs(tmp, exist_ok=True)
     arrays = {f"params{convert.SEP}{k}": _to_numpy(v)
@@ -317,7 +329,8 @@ def _cast_like(template: Any, loaded: Any, dev) -> Any:
     return convert.tree_to_torch(loaded, dev)  # no template guidance: nested dicts
 
 
-def load_program(path: str, *, params_like: Any = None, device="cuda") -> engine_lib.CiMProgram:
+def load_program(path: str, *, params_like: Any = None, shardings: Any = None,
+                 device="cuda") -> engine_lib.CiMProgram:
     """Load a cim-program v1 artifact onto ``device``.
 
     Refuses an artifact without ``COMMIT``, of another format, or of a newer
@@ -326,7 +339,24 @@ def load_program(path: str, *, params_like: Any = None, device="cuda") -> engine
     one that does not fit the model, and the params are rebuilt on its
     structure (:func:`_cast_like`). Without it, LM artifacts come back as
     :class:`~repro_torch.models.lm.LMParams`, others as nested dicts.
+
+    ``shardings`` (``launch.sharding.program_shardings`` over a mesh): each
+    rank keeps its shard of the loaded chip (``engine.shard_program``), and
+    the mesh's logical rules are installed if none are.
     """
+    program = _load_program(path, params_like, device)
+    if shardings is None:
+        return program
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import common
+
+    program = engine_lib.shard_program(program, shardings)
+    if common.mesh_axis("model") is None:
+        common.set_logical_rules(shd.logical_rules(program.mesh), program.mesh)
+    return program
+
+
+def _load_program(path: str, params_like: Any, device) -> engine_lib.CiMProgram:
     dev = resolve_device(device)
     if not os.path.exists(os.path.join(path, "COMMIT")):
         raise FileNotFoundError(f"no committed program artifact at {path}")

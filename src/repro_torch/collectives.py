@@ -1,0 +1,133 @@
+"""The collectives of sharded programming and serving, over a
+``torch.distributed`` group (gloo on the CPU, NCCL on a card).
+
+Every float combine is exact: an all-gather (the columns of a
+column-parallel MVM, the per-tile partials of a row-parallel one, the
+shards of a state tensor) after which the caller sums in a fixed order, or
+a selection in which exactly one rank contributes each element. NCCL's
+reduction order depends on the world size and the algorithm, so no float
+goes through an ``all_reduce``; the program phase reduces only integers
+(``det_sum``'s limbs, a SUM) and f32 maxima (MAX, exact in any order).
+
+``stats`` counts the calls and their host-clock seconds since the last
+:func:`reset_stats` (``chip_smoke.py`` reports them per decode step).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.clock import SYSTEM
+
+Tensor = torch.Tensor
+
+stats = {"calls": 0, "seconds": 0.0}
+
+
+def reset_stats() -> None:
+    stats["calls"] = 0
+    stats["seconds"] = 0.0
+
+
+class _timed:
+    def __enter__(self):
+        self.t0 = SYSTEM.now()
+
+    def __exit__(self, *exc):
+        stats["calls"] += 1
+        stats["seconds"] += SYSTEM.now() - self.t0
+
+
+@dataclasses.dataclass(frozen=True)
+class Axis:
+    """One mesh axis as a process group: this rank's index on it and its
+    size."""
+
+    group: Any
+    rank: int
+    size: int
+
+
+_AXES: dict = {}  # (id(mesh), name) -> (mesh, Axis)
+
+
+def axis_of(mesh, name: str = "model") -> Optional[Axis]:
+    """The axis ``name`` of a ``DeviceMesh`` (None for a mesh without it).
+    Remembered per mesh: a DeviceMesh takes ~0.25 ms of host to answer,
+    and the forward asks every layer."""
+    hit = _AXES.get((id(mesh), name))
+    if hit is not None and hit[0] is mesh:
+        return hit[1]
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    axis = None
+    if name in names:
+        axis = Axis(mesh.get_group(name), int(mesh.get_local_rank(name)),
+                    int(mesh.mesh.shape[names.index(name)]))
+    _AXES[(id(mesh), name)] = (mesh, axis)
+    return axis
+
+
+def _wire(t: Tensor) -> Tensor:
+    # a gather moves bits: 16-bit floats go as bytes (gloo has no bf16, NCCL
+    # no int16); the last dim doubles, and viewing back halves it
+    return t.view(torch.uint8) if t.dtype in (torch.bfloat16, torch.float16) else t
+
+
+def all_gather_dim(t: Tensor, dim: int, bounds: tuple, axis: Axis) -> Tensor:
+    """The global tensor whose slice ``[bounds[r], bounds[r + 1])`` along
+    ``dim`` rank ``r`` holds (``t`` this rank's slice; slices may differ in
+    size: each is padded to the largest and trimmed after the gather)."""
+    import torch.distributed as dist
+
+    dim = dim % t.dim()
+    sizes = [b - a for a, b in zip(bounds, bounds[1:])]
+    width = max(sizes)
+    src = t.contiguous()
+    if src.shape[dim] < width:
+        pad = list(src.shape)
+        pad[dim] = width - src.shape[dim]
+        src = torch.cat([src, src.new_zeros(pad)], dim=dim)
+    src = _wire(src)
+    parts = [torch.empty_like(src) for _ in range(axis.size)]
+    with _timed():
+        dist.all_gather(parts, src, group=axis.group)
+    parts = [p.view(t.dtype).narrow(dim, 0, s) for p, s in zip(parts, sizes)]
+    return torch.cat(parts, dim=dim)
+
+
+def all_reduce_max(t: Tensor, axis: Axis) -> Tensor:
+    """Elementwise maximum over the axis (exact in any order)."""
+    import torch.distributed as dist
+
+    out = t.clone()
+    with _timed():
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=axis.group)
+    return out
+
+
+def all_reduce_sum_int(t: Tensor, axis: Axis) -> Tensor:
+    """Sum of an integer tensor over the axis (exact in any order)."""
+    import torch.distributed as dist
+
+    if t.dtype.is_floating_point:
+        raise TypeError("all_reduce_sum_int sums integers only: a float sum's bits "
+                        "would follow the collective's order")
+    out = t.clone()
+    with _timed():
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=axis.group)
+    return out
+
+
+def all_to_all(t: Tensor, axis: Axis) -> Tensor:
+    """``t`` (n, ...) -> (n, ...): row ``j`` goes to rank ``j``; row ``j`` of
+    the result came from rank ``j``."""
+    import torch.distributed as dist
+
+    src = _wire(t.contiguous())
+    out = torch.empty_like(src)
+    with _timed():
+        dist.all_to_all_single(out, src, group=axis.group)
+    return out.view(t.dtype)

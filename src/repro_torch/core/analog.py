@@ -45,7 +45,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch import prng
+from repro_torch import collectives, prng
 from repro_torch.core import engine as engine_lib
 from repro_torch.core import noise as noise_lib
 from repro_torch.core import pcm as pcm_lib
@@ -141,6 +141,8 @@ def analog_matmul(
     out_scale: Optional[Tensor] = None,
     b_adc: Optional[int] = None,
     read_buf: Optional[dict] = None,
+    split=None,
+    rows_axis=None,
 ) -> Tensor:
     """The framework-wide analog-aware matmul. x: (..., K), w: (K, N).
 
@@ -148,8 +150,18 @@ def analog_matmul(
     ``cfg.resample_read_noise`` and a key in ``ctx`` the frozen read draw
     is replaced by a fresh one per MVM; without a key the frozen weights
     execute bitwise as before.
+
+    ``split``: ``w`` is a rank's shard of a programmed layer (its read
+    noise redrawn at its slice of the whole draw's counters). With
+    ``rows_axis`` the shard is a range of whole crossbar tiles of K and x
+    holds those rows: each tile is one MVM with ``out_scale`` 1 (one B1
+    launch per tile on a card; the plain version's partial on the CPU),
+    the ranks' partials are gathered over the axis and summed in tile order
+    (:func:`engine.tile_sum`). No float crosses the ranks in a reduction.
     """
     cfg = ctx.cfg
+    if split is not None and cfg.mode != PCM_PROGRAMMED:
+        raise ValueError(f"a sharded layer runs on a programmed chip, not in mode {cfg.mode!r}")
     if cfg.mode == DIGITAL:
         return engine_lib.execute_digital(x, w)
     if cfg.mode not in (ANALOG_TRAIN, PCM_PROGRAMMED, PCM_INFER):
@@ -173,7 +185,7 @@ def analog_matmul(
         if read_buf is not None and cfg.resample_read_noise:
             r_key = ctx.next_key()
             if r_key is not None:
-                w_exec = engine_lib.resample_read(r_key, read_buf).to(w.dtype)
+                w_exec = engine_lib.resample_read(r_key, read_buf, split).to(w.dtype)
     else:
         w_key = ctx.next_key()
         if w_key is None:
@@ -186,7 +198,19 @@ def analog_matmul(
     # a no-op when the weights were pre-cast to the activation dtype
     # (engine.cast_weights): the cast is deterministic, so keeping one
     # pre-cast copy is bitwise the reference's per-call cast
-    return mvm(x_q, w_exec.to(x_q.dtype), r_adc, plan, out_scale=scale).to(out_dtype)
+    w_exec = w_exec.to(x_q.dtype)
+    if rows_axis is not None:
+        tr = plan.tile_rows
+        parts = []
+        for lo in range(0, plan.k, tr):
+            hi = min(lo + tr, plan.k)
+            tile = engine_lib.plan_for(cfg, hi - lo, plan.n, b_adc)
+            parts.append(mvm(x_q[..., lo:hi].contiguous(), w_exec[lo:hi], r_adc, tile,
+                             out_scale=1.0).to(out_dtype))
+        tiles = tuple(-(-b // tr) for b in split.bounds)
+        parts = collectives.all_gather_dim(torch.stack(parts), 0, tiles, rows_axis)
+        return engine_lib.tile_sum(parts, scale, out_dtype)
+    return mvm(x_q, w_exec, r_adc, plan, out_scale=scale).to(out_dtype)
 
 
 def analog_matmul_bank(
@@ -254,7 +278,9 @@ def linear_init(
     return params
 
 
-def linear_apply(params: dict, x: Tensor, ctx: AnalogCtx) -> Tensor:
+def _linear(params: dict, x: Tensor, ctx: AnalogCtx, rows_axis=None) -> Tensor:
+    """The layer on the weights it holds (a rank's shard, or all of it;
+    ``rows_axis``: whole tiles of its rows, see :func:`analog_matmul`)."""
     y = analog_matmul(
         x,
         params["w"],
@@ -265,11 +291,90 @@ def linear_apply(params: dict, x: Tensor, ctx: AnalogCtx) -> Tensor:
         out_scale=params.get("out_scale_buf"),
         b_adc=engine_lib.bits_of(params.get("b_adc_buf")),
         read_buf=params.get("read_buf"),
+        split=params.get("tp"),
+        rows_axis=rows_axis,
     )
     if "b" in params:
         # bias is applied in the digital domain, after the ADC
         y = y + params["b"].to(y.dtype)
     return y
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism. A layer of a sharded chip carries its split
+# (``launch.sharding.Split``) under ``"tp"``: its output columns, its rows
+# at crossbar tile boundaries, or (a bank) its experts. Activations between
+# layers are whole on every rank, except a column-parallel layer's output,
+# which the next row-parallel layer may take as it lies (the attention's
+# heads, the FFN's hidden units).
+#
+# A measured hazard of the column split: on the CPU, torch's fp32
+# ``x @ w[:, cols]`` is bitwise the full product's columns at M = 8, 64 and
+# 256 rows but not at M = 1 (a GEMV route; measured at K = 1024 and 2048
+# over 2 and 4 column slices), so a one-row MVM of a column shard can move
+# an ADC code against the unsharded layer: its tests hold M = 1 to the ADC
+# tolerance model and the same tokens, not bitwise. On a card, B1's split
+# plan depends on (M, K, N), so a rank's columns at world size > 1 may be
+# summed in another order than the whole layer's; one card cannot check it.
+# ---------------------------------------------------------------------------
+
+
+def model_axis(split):
+    """The ``collectives.Axis`` a split layer lies across."""
+    from repro_torch.models.common import mesh_axis
+
+    axis = mesh_axis("model")
+    if axis is None or axis.size != split.n:
+        raise RuntimeError(
+            f"a layer split over {split.n} ranks runs under a mesh of that "
+            "'model' degree: set models.common.set_logical_rules(rules, mesh) "
+            "(launch.steps.program_for_serving(mesh=) and ServingEngine(mesh=) do)"
+        )
+    return axis
+
+
+def gather_columns(y: Tensor, split) -> Tensor:
+    """The whole tensor of a rank's columns ``y`` (``split`` None: ``y`` is
+    whole)."""
+    if split is None:
+        return y
+    return collectives.all_gather_dim(y, -1, split.bounds, model_axis(split))
+
+
+def linear_local(params: dict, x: Tensor, ctx: AnalogCtx) -> tuple:
+    """A column-parallel layer on the whole input ``x`` -> (this rank's
+    output columns, their split); any other layer -> (its whole output,
+    None)."""
+    split = params.get("tp")
+    if split is None or split.dim != -1:
+        return linear_apply(params, x, ctx), None
+    return _linear(params, x, ctx), split
+
+
+def linear_apply(params: dict, x: Tensor, ctx: AnalogCtx, x_split=None) -> Tensor:
+    """The layer's whole output, on every rank. ``x`` is the whole input, or
+    with ``x_split`` a rank's columns of it (a column-parallel layer's
+    output): a row-parallel layer whose rows are those columns takes it as
+    it lies, every other layer gathers it first."""
+    split = params.get("tp")
+    if split is not None and split.dim == -2 and x_split is not None \
+            and x_split.bounds == split.bounds:
+        return _rows_parallel(params, x, ctx, split)
+    x = gather_columns(x, x_split)
+    if split is None:
+        return _linear(params, x, ctx)
+    if split.dim == -1:
+        return gather_columns(_linear(params, x, ctx), split)
+    return _rows_parallel(params, split.take(x, -1), ctx, split)
+
+
+def _rows_parallel(params: dict, x: Tensor, ctx: AnalogCtx, split) -> Tensor:
+    """A row-parallel layer on a rank's rows of the input: each tile's
+    ADC'd partial here, then every rank's partials gathered and summed in
+    tile order, in the dtype and at the rounding points of the one chip's
+    tile-serial sum (``engine.tile_matmul_quant``), then ``out_scale``:
+    bitwise the unsharded layer (one rank: the layer as it is)."""
+    return _linear(params, x, ctx, None if split.n == 1 else model_axis(split))
 
 
 def refresh_clip_ranges(params: dict, n_std: float = 2.0) -> dict:

@@ -37,7 +37,7 @@ from typing import Any, Callable, Mapping as MappingT, Optional, Union
 
 import torch
 
-from repro_torch import prng
+from repro_torch import collectives, prng
 from repro_torch.core import crossbar
 from repro_torch.core import pcm as pcm_lib
 from repro_torch.core import quant as quant_lib
@@ -188,6 +188,18 @@ def tile_matmul_quant(
 tile_matmul_quant.calls = 0
 
 
+def tile_sum(parts: Tensor, out_scale, out_dtype: torch.dtype) -> Tensor:
+    """The one chip's tile-serial sum of ADC'd tile partials (T, ..., N),
+    each stored at the activation dtype: summed t = 0..T-1 in fp32, then
+    ``out_scale``, then the activation dtype -- :func:`tile_matmul_quant`'s
+    rounding points, so a row-parallel layer's gathered partials give the
+    unsharded layer's bits."""
+    y = parts[0].float()
+    for t in range(1, parts.shape[0]):
+        y = y + parts[t].float()
+    return (y * out_scale).to(out_dtype)
+
+
 def quant_noise_keep(qn_key: Optional[Tensor], spec: QuantSpec, lead: tuple, k: int, n: int,
                      tile_rows: int, per_tile_adc: bool, device) -> Optional[Tensor]:
     """The ADC quant-noise mask of one MVM as the reference draws it
@@ -314,11 +326,46 @@ def execute_mvm_bank(
 _CHUNK = 1 << 24
 
 
-def _chunks(k: int, n: int) -> list:
-    """(row slice, flat offset of its first element) of each row chunk of a
-    (K, N) member."""
+@dataclasses.dataclass(frozen=True)
+class _Block:
+    """Where a rank's (K_loc, N_loc) slice of a sharded member lies in the
+    member: its first row ``k0`` and column ``c0`` and the member's width
+    ``n`` (the counters' row stride); the member's whole-block reductions
+    (the weight scale's max, ``det_sum``'s limbs) run over ``axis``."""
+
+    k0: int
+    c0: int
+    n: int
+    axis: Any
+
+
+def _block_of(split, n_local: int, axis) -> Optional[_Block]:
+    """The :class:`_Block` of a layer's ``launch.sharding.Split`` (None:
+    the rank holds whole members -- unsharded, or a bank's experts)."""
+    if split is None or split.dim not in (-1, -2):
+        return None
+    if split.dim == -1:
+        return _Block(0, split.start, split.size, axis)
+    return _Block(split.start, 0, n_local, axis)
+
+
+def _chunks(k: int, n: int, blk: Optional[_Block] = None) -> list:
+    """(row slice, flat counter of its first element, row stride of the
+    counters or None) of each row chunk of a (K, N) member, or of a rank's
+    block of one."""
     rows = max(1, _CHUNK // max(n, 1))
-    return [(slice(r0, min(r0 + rows, k)), r0 * n) for r0 in range(0, k, rows)]
+    if blk is None:
+        return [(slice(r0, min(r0 + rows, k)), r0 * n, None) for r0 in range(0, k, rows)]
+    return [(slice(r0, min(r0 + rows, k)), (blk.k0 + r0) * blk.n + blk.c0, blk.n)
+            for r0 in range(0, k, rows)]
+
+
+def _max_over(t: Tensor, blk: Optional[_Block]) -> Tensor:
+    return t if blk is None else collectives.all_reduce_max(t, blk.axis)
+
+
+def _limbs_over(limbs: Tensor, blk: Optional[_Block]) -> Tensor:
+    return limbs if blk is None else collectives.all_reduce_sum_int(limbs, blk.axis)
 
 
 def _f32_block(like: Tensor) -> Tensor:
@@ -326,77 +373,86 @@ def _f32_block(like: Tensor) -> Tensor:
 
 
 def _program_2d(key: Tensor, w: Tensor, w_min, w_max, cfg: pcm_lib.PCMConfig,
-                out: Optional[dict] = None) -> dict:
+                out: Optional[dict] = None, blk: Optional[_Block] = None) -> dict:
     """Program one (K, N) block: write noise drawn HERE, chunk by chunk
     (:data:`_CHUNK`). ``out``: (K, N) tensors to write ``g_pos``, ``g_neg``,
-    ``q_pos`` and ``q_neg`` into (new ones when None)."""
+    ``q_pos`` and ``q_neg`` into (new ones when None). ``blk``: ``w`` is a
+    rank's block of the member; its draws take the member's counters, and
+    the weight scale and ``det_sum`` are the whole member's (an f32 MAX and
+    an integer SUM over the ranks, both exact)."""
     # the reference clips in f32 (f32 bounds promote a bf16 weight)
     clip = lambda part: torch.minimum(torch.maximum(part.float(), w_min), w_max)
-    chunks = _chunks(*w.shape)
+    chunks = _chunks(*w.shape, blk)
     # weights_to_conductances's scale, max |w_c| + 1e-12, from the chunks' maxima
-    w_scale = torch.stack([clip(w[rows]).abs().max() for rows, _ in chunks]).max() + 1e-12
+    w_scale = _max_over(torch.stack([clip(w[rows]).abs().max() for rows, _, _ in chunks]).max(),
+                        blk) + 1e-12
     k_pp, k_pn = prng.split(key)
     out = out or {name: _f32_block(w) for name in ("g_pos", "g_neg", "q_pos", "q_neg")}
     limbs = 0
-    for rows, off in chunks:
+    for rows, off, stride in chunks:
         g_pos_t, g_neg_t = pcm_lib.split_conductances(clip(w[rows]), w_scale)
-        out["g_pos"][rows] = pcm_lib.program(k_pp, g_pos_t, cfg, off)
-        out["g_neg"][rows] = pcm_lib.program(k_pn, g_neg_t, cfg, off)
+        out["g_pos"][rows] = pcm_lib.program(k_pp, g_pos_t, cfg, off, stride)
+        out["g_neg"][rows] = pcm_lib.program(k_pn, g_neg_t, cfg, off, stride)
         out["q_pos"][rows] = pcm_lib.read_noise_q(g_pos_t)
         out["q_neg"][rows] = pcm_lib.read_noise_q(g_neg_t)
         limbs = limbs + pcm_lib.det_limbs(g_pos_t + g_neg_t)
-    return {**out, "gt_sum": pcm_lib.det_total(limbs), "w_scale": w_scale, "key": key}
+    return {**out, "gt_sum": pcm_lib.det_total(_limbs_over(limbs, blk)), "w_scale": w_scale,
+            "key": key}
 
 
-def _drifted_chunk(state: dict, rows: slice, off: int, t, cfg: pcm_lib.PCMConfig) -> tuple:
+def _drifted_chunk(state: dict, rows: slice, off: int, stride, t,
+                   cfg: pcm_lib.PCMConfig) -> tuple:
     """(g_pos, g_neg, their pair sum the GDC reads or None) of a row chunk
     drifted to age ``t`` (no read draw)."""
     g_pos, g_neg = state["g_pos"][rows], state["g_neg"][rows]
     if not cfg.drift:
         return g_pos, g_neg, g_pos + g_neg if cfg.gdc else None
     k_dp, k_dn = prng.split(state["key"], 4)[:2]
-    f_p = pcm_lib.drift_factor(pcm_lib.sample_drift_nu(k_dp, g_pos.shape, cfg, off), t)
-    f_n = pcm_lib.drift_factor(pcm_lib.sample_drift_nu(k_dn, g_neg.shape, cfg, off), t)
+    f_p = pcm_lib.drift_factor(pcm_lib.sample_drift_nu(k_dp, g_pos.shape, cfg, off, stride), t)
+    f_n = pcm_lib.drift_factor(pcm_lib.sample_drift_nu(k_dn, g_neg.shape, cfg, off, stride), t)
     # the reference's compiler fuses the first drift product into the pair
     # sum it feeds
     g_sum = prng.fma(g_pos, f_p, g_neg * f_n) if cfg.gdc else None
     return g_pos * f_p, g_neg * f_n, g_sum
 
 
-def _drift_read_2d(state: dict, t, cfg: pcm_lib.PCMConfig, out: Optional[Tensor] = None):
+def _drift_read_2d(state: dict, t, cfg: pcm_lib.PCMConfig, out: Optional[Tensor] = None,
+                   blk: Optional[_Block] = None):
     """Evaluate programmed conductances at age ``t`` -> (w_eff, gdc), chunk
-    by chunk; ``out``: the (K, N) tensor to write w_eff into."""
+    by chunk; ``out``: the (K, N) tensor to write w_eff into; ``blk`` as in
+    :func:`_program_2d` (the GDC from the member's reduced limbs)."""
     k_rp, k_rn = prng.split(state["key"], 4)[2:]
     dev = state["g_pos"].device
     w_eff = _f32_block(state["g_pos"]) if out is None else out
     scale_t = pcm_lib.read_noise_scale(t, dev) if cfg.read_noise else None
     limbs = 0
-    for rows, off in _chunks(*state["g_pos"].shape[-2:]):
-        g_pos, g_neg, g_sum = _drifted_chunk(state, rows, off, t, cfg)
+    for rows, off, stride in _chunks(*state["g_pos"].shape[-2:], blk):
+        g_pos, g_neg, g_sum = _drifted_chunk(state, rows, off, stride, t, cfg)
         if cfg.gdc:  # det_sum makes the scalar order-free
             limbs = limbs + pcm_lib.det_limbs(g_sum)
         if cfg.read_noise:
             g_pos = prng.fma(g_pos * state["q_pos"][rows] * scale_t,
-                             prng.normal(k_rp, g_pos.shape, off), g_pos).clamp(min=0.0)
+                             prng.normal(k_rp, g_pos.shape, off, stride), g_pos).clamp(min=0.0)
             g_neg = prng.fma(g_neg * state["q_neg"][rows] * scale_t,
-                             prng.normal(k_rn, g_neg.shape, off), g_neg).clamp(min=0.0)
+                             prng.normal(k_rn, g_neg.shape, off, stride), g_neg).clamp(min=0.0)
         w_eff[rows] = (g_pos - g_neg) * state["w_scale"]
     if cfg.gdc:
-        gdc = state["gt_sum"] / (pcm_lib.det_total(limbs) + prng._f32(1e-12))
+        gdc = state["gt_sum"] / (pcm_lib.det_total(_limbs_over(limbs, blk)) + prng._f32(1e-12))
     else:
         gdc = torch.ones((), dtype=torch.float32, device=dev)
     return w_eff, gdc
 
 
-def _read_buffers_2d(state: dict, t, cfg: pcm_lib.PCMConfig) -> dict:
+def _read_buffers_2d(state: dict, t, cfg: pcm_lib.PCMConfig,
+                     blk: Optional[_Block] = None) -> dict:
     """Pre-read execute-time buffers for per-MVM read-noise resampling: the
     drifted conductances before any read draw, the per-device read-noise
     sigmas at ``t`` and the weight scale (see :func:`resample_read`)."""
     names = ("g_pos", "g_neg", "sigma_pos", "sigma_neg")
     out = {name: _f32_block(state["g_pos"]) for name in names}
     scale_t = pcm_lib.read_noise_scale(t, state["g_pos"].device) if cfg.read_noise else None
-    for rows, off in _chunks(*state["g_pos"].shape[-2:]):
-        g_pos, g_neg, _ = _drifted_chunk(state, rows, off, t, cfg)
+    for rows, off, stride in _chunks(*state["g_pos"].shape[-2:], blk):
+        g_pos, g_neg, _ = _drifted_chunk(state, rows, off, stride, t, cfg)
         out["g_pos"][rows], out["g_neg"][rows] = g_pos, g_neg
         if cfg.read_noise:
             out["sigma_pos"][rows] = g_pos * state["q_pos"][rows] * scale_t
@@ -407,19 +463,59 @@ def _read_buffers_2d(state: dict, t, cfg: pcm_lib.PCMConfig) -> dict:
     return {**out, "w_scale": state["w_scale"]}
 
 
-def resample_read(key: Tensor, buf: dict) -> Tensor:
+def resample_read(key: Tensor, buf: dict, split=None) -> Tensor:
     """One fresh per-MVM read-noise draw -> effective weights.
 
     ``buf`` is a per-layer ``read_buf`` (possibly with leading stack dims;
-    one draw covers the whole stack, as in the reference).
+    one draw covers the whole stack, as in the reference). ``split`` (a
+    ``launch.sharding.Split``): ``buf`` is a rank's slice of the layer's,
+    and draws the counters of its slice of the whole draw.
     """
     k_p, k_n = prng.split(key.to(buf["g_pos"].device))
-    g_pos = prng.fma(buf["sigma_pos"], prng.normal(k_p, buf["g_pos"].shape),
+    shape = tuple(buf["g_pos"].shape)
+    off, stride = _slice_counters(shape, split)
+    g_pos = prng.fma(buf["sigma_pos"], _normal_at(k_p, shape, off, stride, split),
                      buf["g_pos"]).clamp(min=0.0)
-    g_neg = prng.fma(buf["sigma_neg"], prng.normal(k_n, buf["g_neg"].shape),
+    g_neg = prng.fma(buf["sigma_neg"], _normal_at(k_n, shape, off, stride, split),
                      buf["g_neg"]).clamp(min=0.0)
     w_scale = buf["w_scale"]
     return (g_pos - g_neg) * w_scale.reshape(w_scale.shape + (1, 1))
+
+
+def _slice_counters(shape: tuple, split) -> tuple:
+    """(offset, stride) of a rank's slice of a (stack..., K, N) draw within
+    one member (row or column split); stacks are handled by
+    :func:`_normal_at`."""
+    if split is None or split.dim not in (-1, -2):
+        return 0, None
+    if split.dim == -1:
+        return split.start, split.size
+    return split.start * shape[-1], None
+
+
+def _normal_at(key: Tensor, shape: tuple, off: int, stride, split) -> Tensor:
+    """``prng.normal`` of the rank's slice of one draw over a whole
+    (stack..., K, N) buffer: member by member, each member's counters at its
+    global flat position."""
+    if split is None:
+        return prng.normal(key, shape)
+    if split.dim == -3:  # a bank's experts: whole members, global index
+        lead = shape[:-3]
+        e_loc, k, n = shape[-3:]
+        member = k * n
+        parts = []
+        for g in range(math.prod(lead)):
+            base = (g * split.size + split.start) * member
+            parts.append(prng.normal(key, (e_loc, k, n), base))
+        return torch.stack(parts).reshape(shape)
+    k_loc, n_loc = shape[-2:]
+    g_k = k_loc if split.dim == -1 else split.size
+    g_n = split.size if split.dim == -1 else n_loc
+    parts = []
+    for g in range(math.prod(shape[:-2])):
+        base = g * g_k * g_n
+        parts.append(prng.normal(key, (k_loc, n_loc), base + off, stride))
+    return torch.stack(parts).reshape(shape) if shape[:-2] else parts[0]
 
 
 def _members(state: dict) -> int:
@@ -432,10 +528,11 @@ def _member(state: dict, i: int) -> dict:
     return {k: v[i] for k, v in flat.items()}
 
 
-def drift_state(state: dict, t_seconds, cfg: pcm_lib.PCMConfig):
+def drift_state(state: dict, t_seconds, cfg: pcm_lib.PCMConfig,
+                blk: Optional[_Block] = None):
     """(w_eff, out_scale) of a programmed (stack..., K, N) state re-evaluated
     at ``t_seconds``, member by member (the peak is one member's
-    temporaries)."""
+    temporaries); ``blk``: the state is a rank's block of every member."""
     stack = tuple(state["g_pos"].shape[:-2])
     k, n = state["g_pos"].shape[-2:]
     dev = state["g_pos"].device
@@ -443,15 +540,16 @@ def drift_state(state: dict, t_seconds, cfg: pcm_lib.PCMConfig):
     w_eff = torch.empty((m, k, n), dtype=torch.float32, device=dev)
     gdc = torch.empty((m,), dtype=torch.float32, device=dev)
     for i in range(m):
-        _, gdc[i] = _drift_read_2d(_member(state, i), t_seconds, cfg, out=w_eff[i])
+        _, gdc[i] = _drift_read_2d(_member(state, i), t_seconds, cfg, out=w_eff[i], blk=blk)
     return w_eff.reshape(stack + (k, n)), gdc.reshape(stack)
 
 
-def read_buffers(state: dict, t_seconds, cfg: pcm_lib.PCMConfig) -> dict:
+def read_buffers(state: dict, t_seconds, cfg: pcm_lib.PCMConfig,
+                 blk: Optional[_Block] = None) -> dict:
     """Per-MVM read-noise buffers of a programmed state at ``t_seconds``
     (:func:`_read_buffers_2d` per member, stacked)."""
     stack = tuple(state["g_pos"].shape[:-2])
-    bufs = [_read_buffers_2d(_member(state, i), t_seconds, cfg)
+    bufs = [_read_buffers_2d(_member(state, i), t_seconds, cfg, blk)
             for i in range(_members(state))]
     return {k: torch.stack([b[k] for b in bufs]).reshape(stack + tuple(bufs[0][k].shape))
             for k in bufs[0]}
@@ -459,7 +557,7 @@ def read_buffers(state: dict, t_seconds, cfg: pcm_lib.PCMConfig) -> dict:
 
 def program_weight(
     key: Tensor, w: Tensor, w_min: Tensor, w_max: Tensor, t_seconds,
-    cfg: pcm_lib.PCMConfig,
+    cfg: pcm_lib.PCMConfig, split=None, axis=None,
 ):
     """Program a (stack..., K, N) weight once and evaluate it at t_seconds.
 
@@ -467,13 +565,25 @@ def program_weight(
     noise draw, weight scale and GDC scalar. Returns (w_eff, out_scale,
     state). Outputs are preallocated and filled member by member, so the
     peak is one member's temporaries.
+
+    ``split`` (a ``launch.sharding.Split``) with ``axis`` (the ``model``
+    axis): ``w`` is a rank's shard of the layer's weight -- a row or column
+    block of every member, or a bank's experts (whole members, their keys
+    picked from the whole bank's) -- and the state is the same shard of
+    the host chip's.
     """
     record_program_event()
     stack = tuple(w.shape[:-2])
     dev = w.device
     k, n = w.shape[-2:]
     n_members = math.prod(stack)
-    keys = prng.split(key.to(dev), n_members)
+    if split is not None and split.dim == -3:
+        whole = stack[:-1] + (split.size,)
+        keys = prng.split(key.to(dev), math.prod(whole)).reshape(whole + (2,))
+        keys = keys.narrow(-2, split.start, split.stop - split.start).reshape(n_members, 2)
+    else:
+        keys = prng.split(key.to(dev), n_members)
+    blk = _block_of(split, int(n), axis)
     w_flat = w.reshape(n_members, k, n)
     lo = torch.broadcast_to(w_min.float(), stack).reshape(n_members)
     hi = torch.broadcast_to(w_max.float(), stack).reshape(n_members)
@@ -485,9 +595,10 @@ def program_weight(
     w_eff = full()
     for i in range(n_members):
         st = _program_2d(keys[i], w_flat[i], lo[i], hi[i], cfg,
-                         out={name: state[name][i] for name in ("g_pos", "g_neg", "q_pos", "q_neg")})
+                         out={name: state[name][i] for name in ("g_pos", "g_neg", "q_pos", "q_neg")},
+                         blk=blk)
         gt_sum[i], w_scale[i] = st["gt_sum"], st["w_scale"]
-        _, out_scale[i] = _drift_read_2d(st, t_seconds, cfg, out=w_eff[i])
+        _, out_scale[i] = _drift_read_2d(st, t_seconds, cfg, out=w_eff[i], blk=blk)
     state = {key_: v.reshape(stack + (k, n)) for key_, v in state.items()}
     state["gt_sum"] = gt_sum.reshape(stack)
     state["w_scale"] = w_scale.reshape(stack)
@@ -513,7 +624,7 @@ MOE_FAMILIES = ("w1", "w3", "w2")
 #: expert-bank keys the bank's programming consumes; its siblings (the MoE
 #: dict's shared expert, the digital router) are still walked
 _BANK_KEYS = frozenset(MOE_FAMILIES) | {
-    "r_adc", "w_clip_buf", "out_scale_buf", "b_adc_buf", "read_buf"
+    "r_adc", "w_clip_buf", "out_scale_buf", "b_adc_buf", "read_buf", "tp"
 }
 
 
@@ -661,6 +772,13 @@ class CiMProgram:
     re-evaluates the same devices. ``mapping`` is the physical-array
     :class:`~repro_torch.core.crossbar.Mapping` of a program compiled (or
     saved) ``with_mapping``.
+
+    A chip sharded over a mesh (``mesh`` set; ``compile_program(shardings=)``
+    or ``checkpoint.store.load_program(shardings=)``) holds this rank's
+    shard: every split layer carries its ``launch.sharding.Split`` under
+    ``"tp"`` beside its leaves, the embedding table its rows of the vocab.
+    Its ``plans`` are the whole layers'; :meth:`gather` returns the host
+    chip.
     """
 
     params: Any
@@ -671,25 +789,33 @@ class CiMProgram:
     mapping: Optional[crossbar.Mapping] = None
     age_history: tuple[float, ...] = ()
     chip_id: Optional[int] = None
+    mesh: Any = None
 
     @property
     def n_layers(self) -> int:
         return len(self.plans)
 
+    @property
+    def axis(self):
+        """The ``model`` axis a sharded chip is split over (else None)."""
+        return None if self.mesh is None else collectives.axis_of(self.mesh, "model")
+
     def drift_to(self, t_seconds: float) -> "CiMProgram":
         """Same programmed conductances, re-evaluated at ``t_seconds``: only
         drift and read noise change, never the programming noise."""
         pcm_cfg = self.cfg.pcm
+        axis = self.axis
 
         def reprogram(path: str, node: dict) -> dict:
             st = self.state[path]
             new = dict(node)
             if "w" in node:
-                w_eff, gdc = drift_state(st, t_seconds, pcm_cfg)
+                blk = _block_of(node.get("tp"), int(node["w"].shape[-1]), axis)
+                w_eff, gdc = drift_state(st, t_seconds, pcm_cfg, blk)
                 new["w"] = w_eff.to(node["w"].dtype)
                 new["out_scale_buf"] = gdc
                 if "read_buf" in node:
-                    new["read_buf"] = read_buffers(st, t_seconds, pcm_cfg)
+                    new["read_buf"] = read_buffers(st, t_seconds, pcm_cfg, blk)
                 return new
             scales, read_bufs = [], {}  # an expert bank: family by family
             for fam in MOE_FAMILIES:
@@ -706,6 +832,136 @@ class CiMProgram:
         return dataclasses.replace(
             self, params=_walk(self.params, reprogram), t_seconds=float(t_seconds)
         )
+
+    def gather(self) -> "CiMProgram":
+        """The host chip of a sharded chip, on every rank: each state tensor
+        and param all-gathered into its global layout (an unsharded chip is
+        returned as is)."""
+        if self.mesh is None:
+            return self
+        axis = self.axis
+        state: dict[str, Any] = {}
+
+        def node_fn(path: str, node: dict) -> dict:
+            split = node.get("tp")
+            if split is None:
+                state[path] = self.state[path]
+                return node
+            new, state[path] = _map_layer(node, self.state[path], lambda t, d: (
+                collectives.all_gather_dim(t, d, split.bounds, axis)))
+            return new
+
+        params = _walk(self.params, node_fn)
+        embed = getattr(params, "embed", None)
+        if isinstance(embed, dict) and "tp" in embed:
+            split = embed["tp"]
+            params = params._replace(embed={
+                **{k: v for k, v in embed.items() if k != "tp"},
+                "table": collectives.all_gather_dim(embed["table"], -2, split.bounds, axis)})
+        return dataclasses.replace(self, params=params, state=state, mesh=None)
+
+
+#: a layer's leaves that are elementwise images of its weight
+_PLANES = ("g_pos", "g_neg", "q_pos", "q_neg", "sigma_pos", "sigma_neg")
+
+
+def _expert_dim(name: str) -> int:
+    """The expert dim of a bank family's state or read-buffer leaf: the
+    planes (stack..., E, K, N), the member keys (stack..., E, 2), the
+    per-member scalars (stack..., E)."""
+    return -2 if name == "key" else (-3 if name in _PLANES else -1)
+
+
+def _map_layer(node: dict, st: dict, fn: Callable[[Tensor, int], Tensor]) -> tuple:
+    """(node, state) of a split layer with ``fn(tensor, dim)`` applied to
+    every leaf that lies across the split (``dim`` the one it is split
+    along; its ``"tp"`` dropped): the weight, a column split's bias, the
+    read buffer's and the state's planes; a bank's families, GDC scalars,
+    and every state and read-buffer leaf along its experts."""
+    split = node["tp"]
+    new = {k: v for k, v in node.items() if k != "tp"}
+    if "w" in node:
+        d = split.dim
+        new["w"] = fn(node["w"], d)
+        if "b" in node and d == -1:
+            new["b"] = fn(node["b"], -1)
+        if "read_buf" in node:
+            new["read_buf"] = {k: fn(v, d) if k in _PLANES else v
+                               for k, v in node["read_buf"].items()}
+        return new, {k: fn(v, d) if k in _PLANES else v for k, v in st.items()}
+    experts = lambda t: {k: fn(v, _expert_dim(k)) for k, v in t.items()}
+    for fam in MOE_FAMILIES:
+        new[fam] = fn(node[fam], -3)
+    new["out_scale_buf"] = fn(node["out_scale_buf"], -1)
+    if "read_buf" in node:
+        new["read_buf"] = {f: experts(b) for f, b in node["read_buf"].items()}
+    return new, {f: experts(st[f]) for f in MOE_FAMILIES}
+
+
+def _specs_of(shardings: Any) -> tuple[Any, dict]:
+    """(mesh, {'/'-joined leaf path: spec}) of a ``launch.sharding`` tree."""
+    from repro_torch import tree as tree_lib
+
+    flat = tree_lib.flatten_with_path(shardings)
+    if not flat:
+        raise ValueError("shardings= holds no leaf")
+    return flat[0][1].mesh, {tree_lib.path_name(p): sh.spec for p, sh in flat}
+
+
+def _splitter(shardings: Any, cfg: Any):
+    """(mesh, model axis, ``split(path, leaf, shape, bank)``) of a
+    shardings tree: each programmed layer's ``launch.sharding.Split`` by
+    its spec and the crossbar rule."""
+    from repro_torch.launch import sharding as shd
+
+    mesh, specs = _specs_of(shardings)
+    axis = collectives.axis_of(mesh, "model")
+    if axis is None:
+        raise ValueError("a sharded chip needs a mesh with a 'model' axis")
+
+    def split(path: str, leaf: str, shape: tuple, bank: bool = False):
+        return shd.layer_split(specs.get(f"{path}/{leaf}" if path else leaf, ()), tuple(shape),
+                               axis.size, axis.rank, cfg.tile_rows, cfg.per_tile_adc, bank)
+
+    def table(params: Any):
+        """The embedding's rows of the vocab, or None."""
+        embed = getattr(params, "embed", None)
+        if not isinstance(embed, dict) or "table" not in embed:
+            return None
+        return shd.layer_split(specs.get("embed/table", ()), tuple(embed["table"].shape),
+                               axis.size, axis.rank, 1, True, bank=True)
+
+    return mesh, axis, split, table
+
+
+def _shard_embed(params: Any, split) -> Any:
+    if split is None:
+        return params
+    embed = params.embed
+    return params._replace(embed={**embed, "table": split.take(embed["table"]), "tp": split})
+
+
+def shard_program(program: CiMProgram, shardings: Any) -> CiMProgram:
+    """This rank's shard of a host chip (every rank holds the whole chip
+    and keeps its slice: ``load_program(shardings=)``); bitwise the shard
+    ``compile_program(shardings=)`` programs."""
+    if program.mesh is not None:
+        raise ValueError("the program is sharded already")
+    mesh, _, split_of, table = _splitter(shardings, program.cfg)
+    state: dict[str, Any] = {}
+
+    def node_fn(path: str, node: dict) -> dict:
+        split = (split_of(path, "w", node["w"].shape) if "w" in node
+                 else split_of(path, "w1", node["w1"].shape, bank=True))
+        if split is None:
+            state[path] = program.state[path]
+            return node
+        new, state[path] = _map_layer({**node, "tp": split}, program.state[path],
+                                      lambda t, d: split.take(t, d))
+        return {**new, "tp": split}
+
+    params = _shard_embed(_walk(program.params, node_fn), table(program.params))
+    return dataclasses.replace(program, params=params, state=state, mesh=mesh)
 
 
 def compile_program(
@@ -740,13 +996,24 @@ def compile_program(
     programmed block onto the physical arrays (``crossbar.map_layers`` at
     the config's tile size) and attaches the :class:`~repro_torch.core.
     crossbar.Mapping` to the program.
+
+    ``shardings`` (``launch.sharding.program_shardings``: a spec per leaf
+    over a ``DeviceMesh``; every rank passes the whole ``params``) programs
+    this rank's shard of every layer (``launch.sharding.layer_split``: a
+    layer's columns, its rows at crossbar tile boundaries, or a bank's
+    experts): the conductances, Q factors and read buffers of its slice,
+    drawn at the slice's own counters, with the weight scale and the GDC
+    scalar from the whole member (an f32 MAX and an integer SUM of
+    ``det_sum``'s limbs over the ``model`` axis, both exact). The gathered
+    chip (:meth:`CiMProgram.gather`) is bitwise the unsharded one.
     """
     dev = resolve_device(device)
+    if shardings is not None and transforms:
+        raise NotImplementedError("sharded programming maps LM layers; crossbar transforms "
+                                  "(the CNNs) program one unsharded chip")
+    mesh = axis = split_of = table = None
     if shardings is not None:
-        raise NotImplementedError(
-            "sharded programming is the distribution slice's work (queue A "
-            "item 13); this slice programs one unsharded chip"
-        )
+        mesh, axis, split_of, table = _splitter(shardings, cfg)
     t = float(cfg.t_seconds if t_seconds is None else t_seconds)
     transforms = transforms or {}
     overrides = normalize_b_adc_overrides(b_adc_overrides)
@@ -775,6 +1042,7 @@ def compile_program(
         new = dict(node)
         st_fams, scales, read_bufs = {}, [], {}
         buf = node["w_clip_buf"]  # (stack..., 3, 2)
+        split = split_of(path, "w1", node["w1"].shape, bank=True) if split_of else None
         for f, fam in enumerate(MOE_FAMILIES):
             w = node[fam]
             if w.device.type != dev.type:
@@ -782,8 +1050,8 @@ def compile_program(
             counter[0] += 1
             stack = tuple(w.shape[:-2])
             w_eff, gdc, st = program_weight(
-                prng.fold_in(key, counter[0]), w, buf[..., f, 0][..., None],
-                buf[..., f, 1][..., None], t, cfg.pcm,
+                prng.fold_in(key, counter[0]), w if split is None else split.take(w),
+                buf[..., f, 0][..., None], buf[..., f, 1][..., None], t, cfg.pcm, split, axis,
             )
             new[fam] = w_eff.to(w.dtype)
             st_fams[fam] = st
@@ -793,9 +1061,11 @@ def compile_program(
             add_plan(f"{path}/{fam}", int(w.shape[-2]), int(w.shape[-1]),
                      math.prod(stack), bits)
         new["out_scale_buf"] = torch.stack(scales, dim=-2)
+        if split is not None:
+            new["tp"] = split
         if bits != cfg.b_adc:
             # one bitwidth a bank: its families share the layer's ADC
-            new["b_adc_buf"] = b_adc_buf(stack, bits, dev)
+            new["b_adc_buf"] = b_adc_buf(tuple(node["w1"].shape[:-2]), bits, dev)
         if want_read_buf:
             new["read_buf"] = read_bufs
         state[path] = st_fams
@@ -818,21 +1088,30 @@ def compile_program(
         bits = resolve_b_adc(overrides, path, cfg.b_adc)
         stack = tuple(w.shape[:-2])
         buf = node["w_clip_buf"]
+        split = split_of(path, "w", w.shape) if split_of else None
         w_eff, gdc, st = program_weight(
-            prng.fold_in(key, counter[0]), w, buf[..., 0], buf[..., 1], t, cfg.pcm
+            prng.fold_in(key, counter[0]), w if split is None else split.take(w),
+            buf[..., 0], buf[..., 1], t, cfg.pcm, split, axis,
         )
         new = dict(node)
         new["w"] = w_eff.to(node["w"].dtype)
         new["out_scale_buf"] = gdc
+        if split is not None:
+            new["tp"] = split
+            if "b" in node and split.dim == -1:
+                new["b"] = split.take(node["b"])
         if bits != cfg.b_adc:
             new["b_adc_buf"] = b_adc_buf(stack, bits, dev)
         if want_read_buf:
-            new["read_buf"] = read_buffers(st, t, cfg.pcm)
+            new["read_buf"] = read_buffers(st, t, cfg.pcm,
+                                           _block_of(split, int(w_eff.shape[-1]), axis))
         state[path] = st
         add_plan(path, int(w.shape[-2]), int(w.shape[-1]), math.prod(stack), bits)
         return new
 
     programmed = _walk(params, program_node)
+    if table is not None:
+        programmed = _shard_embed(programmed, table(params))
     mapping = None
     if with_mapping and shapes:
         mapping = crossbar.map_layers(shapes, cfg.tile_rows, cfg.tile_cols)
@@ -845,6 +1124,7 @@ def compile_program(
         mapping=mapping,
         age_history=(t,),
         chip_id=chip_id,
+        mesh=mesh,
     )
 
 

@@ -100,22 +100,23 @@ def programming_noise_sigma(g_frac: Tensor, g_max: float = G_MAX_US) -> Tensor:
 
 
 def program(key: Tensor, g_target: Tensor, cfg: PCMConfig = PCMConfig(),
-            offset: int = 0) -> Tensor:
+            offset: int = 0, stride=None) -> Tensor:
     """Apply programming (write) noise to target conductance fractions
-    (``offset``: ``g_target`` is the slice of a larger block whose flat
-    index starts there, see ``prng.normal``)."""
+    (``offset``, ``stride``: ``g_target`` is a slice of a larger block whose
+    flat index starts there, with rows ``stride`` apart, see
+    ``prng.normal``)."""
     if not cfg.programming_noise:
         return g_target
     sigma = programming_noise_sigma(g_target, cfg.g_max)
-    g = prng.fma(sigma, prng.normal(key, g_target.shape, offset), g_target)
+    g = prng.fma(sigma, prng.normal(key, g_target.shape, offset, stride), g_target)
     return g.clamp(0.0, 1.2)
 
 
 def sample_drift_nu(key: Tensor, shape, cfg: PCMConfig = PCMConfig(),
-                    offset: int = 0) -> Tensor:
+                    offset: int = 0, stride=None) -> Tensor:
     """Per-device drift exponent nu ~ N(mean, std), truncated at 0."""
     # std * (e * sqrt2) compiles to e * (std * sqrt2), one FMA with the mean
-    e = prng.normal_erf_inv(key, shape, offset)
+    e = prng.normal_erf_inv(key, shape, offset, stride)
     scale = prng._f32(cfg.drift_nu_std) * torch.tensor(prng.SQRT2, device=e.device)
     nu = prng.fma(e, scale.expand(e.shape), cfg.drift_nu_mean)
     return nu.clamp(min=0.0)
@@ -197,7 +198,8 @@ def det_sum(g: Tensor) -> Tensor:
 
 def det_limbs(g: Tensor) -> Tensor:
     """The integer limb sums :func:`det_sum` adds (int64, one per 4-bit
-    limb); those of a block's slices add up to the block's exactly."""
+    limb); those of a block's slices add up to the block's exactly (so a
+    sharded chip ``all_reduce``s its ranks' limbs as an integer SUM)."""
     v = torch.round(g * DET_SUM_SCALE).to(torch.int32)
     return torch.stack([((v >> shift) & 0xF).sum() for shift in range(0, 24, 4)])
 

@@ -110,14 +110,17 @@ __device__ __forceinline__ float erf_inv_xla(float x) {
 }
 
 // scaled = 1: sqrt(2) * erf_inv(u), jax.random.normal; 0: erf_inv(u) alone.
-// out[i] is the draw's element offset + i (a slice of a larger draw: the
-// program phase draws a large member's rows chunk by chunk)
+// out[i] is the draw's element offset + (i / row_len) * row_stride +
+// i % row_len: a slice of a larger draw (the program phase draws a large
+// member's rows chunk by chunk; a rank of a sharded chip draws its columns,
+// row_len of every row_stride counters)
 __global__ void normal_kernel(uint32_t k1, uint32_t k2, float* __restrict__ out, int64_t offset,
-                              int64_t n, int scaled) {
+                              int64_t n, int scaled, int64_t row_len, int64_t row_stride) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const uint64_t c = static_cast<uint64_t>(offset + i);  // the draw's flat counter
+    // the draw's flat counter
+    const uint64_t c = static_cast<uint64_t>(offset + (i / row_len) * row_stride + i % row_len);
     uint32_t x0 = static_cast<uint32_t>(c >> 32);
     uint32_t x1 = static_cast<uint32_t>(c);
     threefry(k1, k2, x0, x1);
@@ -132,18 +135,28 @@ __global__ void normal_kernel(uint32_t k1, uint32_t k2, float* __restrict__ out,
 
 }  // namespace
 
-// n draws, elements offset to offset + n - 1 of the key's draw. Returns
-// cudaGetLastError() after the launch (0 = ok).
-extern "C" int prng_normal(unsigned int k1, unsigned int k2, void* out, long long offset,
-                           long long n, int scaled, void* stream) {
-  if (n < 0 || offset < 0) return static_cast<int>(cudaErrorInvalidValue);
+// n draws, rows of row_len elements each row_stride counters apart from
+// counter offset on (row_len == row_stride: elements offset to offset + n - 1
+// of the key's draw). Returns cudaGetLastError() after the launch (0 = ok).
+extern "C" int prng_normal_strided(unsigned int k1, unsigned int k2, void* out, long long offset,
+                                   long long n, int scaled, long long row_len,
+                                   long long row_stride, void* stream) {
+  if (n < 0 || offset < 0 || row_len < 1 || row_stride < row_len)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   const int threads = 256;
   const long long want = (n + threads - 1) / threads;
   const int blocks = static_cast<int>(want < 132 * 64 ? want : 132 * 64);
   normal_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      k1, k2, static_cast<float*>(out), offset, n, scaled);
+      k1, k2, static_cast<float*>(out), offset, n, scaled, row_len, row_stride);
   return static_cast<int>(cudaGetLastError());
+}
+
+// n draws, elements offset to offset + n - 1 of the key's draw.
+extern "C" int prng_normal(unsigned int k1, unsigned int k2, void* out, long long offset,
+                           long long n, int scaled, void* stream) {
+  return prng_normal_strided(k1, k2, out, offset, n, scaled, n > 0 ? n : 1, n > 0 ? n : 1,
+                             stream);
 }
 
 extern "C" const char* prng_error_string(int code) {

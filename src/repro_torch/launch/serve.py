@@ -52,13 +52,21 @@ RNG bridge with the reference CLI's keys offset by ``--seed``: weights,
 rectangle prompts and the engine's key from ``split(PRNGKey(seed), 3)``,
 the chip from ``PRNGKey(seed + 42)``, the trace from ``PRNGKey(seed + 7)``,
 refresh ``n`` from ``fold_in(PRNGKey(seed + 43), n)``. At ``--seed 0`` a
-run prints the reference CLI's tokens. Meshes are not ported yet, and
-their flags do not exist here.
+run prints the reference CLI's tokens.
+
+Sharded serving: ``--mesh-model N`` programs (or loads) the chip TP-sharded
+over N ranks and serves it over that mesh (``launch.mesh.
+make_serving_mesh``; the dense and MoE families). Start one process a
+device: ``torchrun --nproc-per-node N -m repro_torch.launch.serve
+--mesh-model N ...``; every rank runs the CLI and rank 0 prints. Its tokens
+are the unsharded run's.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 import time
 from typing import Optional
@@ -173,6 +181,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="resample PCM 1/f read noise per MVM from stored "
                         "pre-read conductances (default: frozen draw, "
                         "bit-exact executes)")
+    g.add_argument("--mesh-model", type=int, default=0,
+                   help="shard programming+serving with this TP degree")
     g.add_argument("--save-program", default=None, metavar="DIR",
                    help="persist the programmed chip artifact")
     g.add_argument("--load-program", default=None, metavar="DIR",
@@ -264,6 +274,10 @@ def validate_args(ap: argparse.ArgumentParser, args) -> None:
         if args.fleet is not None and args.fleet > 1:
             ap.error("--fused-decode is not threaded through the fleet "
                      "path (serve one chip)")
+        if args.mesh_model:
+            ap.error("--fused-decode runs the decode step in one single-"
+                     "device kernel; sharded serving keeps the per-layer "
+                     "path")
         fused_cfg = configs.get_smoke(args.arch)
         if fused_cfg.family in ("ssm", "hybrid", "moe"):
             ap.error(f"--fused-decode fuses the dense attention+FFN layer "
@@ -329,7 +343,7 @@ def validate_args(ap: argparse.ArgumentParser, args) -> None:
 
 
 def serve_fleet(args, fleet_n, trace, program, params, acfg, cfg, serving_cfg,
-                ref_params, src_params, overrides, b_adc, t0_seconds) -> None:
+                ref_params, src_params, overrides, b_adc, t0_seconds, mesh=None) -> None:
     """The trace across ``fleet_n`` chips behind the router (see
     ``serving/fleet.py`` for dispatch, drain and refresh)."""
     fleet_cfg = FleetConfig(n_chips=fleet_n, agreement_slo=args.agreement_slo)
@@ -339,14 +353,14 @@ def serve_fleet(args, fleet_n, trace, program, params, acfg, cfg, serving_cfg,
     if program is not None:
         router = router_cls.from_program(
             program, cfg, serving_cfg, fleet_cfg,
-            ref_params=ref_params, src_params=src_params, rng=key,
+            ref_params=ref_params, src_params=src_params, mesh=mesh, rng=key,
         )
         print(f"fleet: {fleet_n} replicas of the loaded chip draw "
               f"in {time.time()-t0:.2f}s")
     else:
         router = router_cls.build(
             params, acfg, cfg, serving_cfg, fleet_cfg, key=key,
-            ref_params=ref_params, src_params=src_params,
+            ref_params=ref_params, src_params=src_params, mesh=mesh,
             b_adc_overrides=overrides,
         )
         print(f"programmed {fleet_n} independent chip draws in "
@@ -375,14 +389,63 @@ def serve_fleet(args, fleet_n, trace, program, params, acfg, cfg, serving_cfg,
           longest.tokens[: min(16, longest.n_new)].tolist())
 
 
+def join_mesh(ap: argparse.ArgumentParser, args):
+    """``--mesh-model``: join the process group ``torchrun`` started and
+    build the serving mesh over it -> (mesh, this rank's device), or (None,
+    None) without the flag."""
+    if not args.mesh_model:
+        return None, None
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    n = args.mesh_model
+    world = int(os.environ.get("WORLD_SIZE", "0"))
+    if n < 1:
+        ap.error("--mesh-model needs a TP degree >= 1")
+    if world < n and not dist.is_initialized():
+        ap.error(f"--mesh-model {n} shards the chip over {n} processes, one a "
+                 f"device: start them with torchrun --nproc-per-node {n} -m "
+                 f"repro_torch.launch.serve --mesh-model {n} ... (this process "
+                 f"has no process group of {n} ranks)")
+    try:
+        dev = mesh_lib.init_process_group(args.device)
+    except (RuntimeError, ValueError) as e:
+        ap.error(str(e))
+    if dist.get_world_size() < n:
+        ap.error(f"--mesh-model {n}: the process group has {dist.get_world_size()} "
+                 f"ranks; start {n} with torchrun --nproc-per-node {n}")
+    cfg = configs.get_smoke(args.arch)
+    if cfg.family in steps.UNSHARDED_FAMILIES:
+        ap.error(f"--mesh-model: sharded serving covers the dense and MoE families; "
+                 f"the {cfg.family} family ({args.arch}) is served on one device")
+    return mesh_lib.make_serving_mesh(n), dev
+
+
 def main(argv: Optional[list[str]] = None) -> None:
     ap = build_parser()
     args = ap.parse_args(argv)
     validate_args(ap, args)
-    try:
-        dev = resolve_device(args.device)
-    except (RuntimeError, ValueError) as e:
-        ap.error(str(e))
+    mesh, dev = join_mesh(ap, args)
+    if mesh is None:
+        _main(ap, args, None, None)
+        return
+    import torch.distributed as dist
+
+    if dist.get_rank() == 0:
+        _main(ap, args, mesh, dev)
+    else:  # every rank serves; rank 0 prints
+        with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+            _main(ap, args, mesh, dev)
+    dist.destroy_process_group()
+
+
+def _main(ap: argparse.ArgumentParser, args, mesh, dev) -> None:
+    if dev is None:
+        try:
+            dev = resolve_device(args.device)
+        except (RuntimeError, ValueError) as e:
+            ap.error(str(e))
     schedule = None
     if args.drift_schedule:
         try:
@@ -420,7 +483,13 @@ def main(argv: Optional[list[str]] = None) -> None:
     program = None
     if args.load_program is not None:
         t0 = time.time()
-        program = store.load_program(args.load_program, params_like=params, device=dev)
+        shardings = None
+        if mesh is not None:
+            from repro_torch.launch import sharding as shd
+
+            shardings = shd.program_shardings(params, mesh, cfg)
+        program = store.load_program(args.load_program, params_like=params,
+                                     shardings=shardings, device=dev)
         if args.b_adc is not None and program.cfg.b_adc != args.b_adc:
             ap.error(
                 f"--b-adc {args.b_adc} does not match the loaded artifact "
@@ -437,19 +506,22 @@ def main(argv: Optional[list[str]] = None) -> None:
             # the same chip, advanced to the requested age (recorded in its
             # age_history for a later --save-program)
             program = engine.age_program(program, t0_seconds)
+        where = f" onto {mesh.size()}-device mesh" if mesh is not None else ""
         print(f"loaded programmed chip ({program.n_layers} layers, "
               f"b_adc={program.cfg.b_adc}, "
               f"t={pcm_lib.format_age(program.t_seconds)}, "
               f"age_history={len(program.age_history)} entries) "
-              f"in {time.time()-t0:.2f}s from {args.load_program}")
+              f"in {time.time()-t0:.2f}s from {args.load_program}{where}")
     elif analog and fleet_n is None:
         # (a fleet without --load-program programs its N draws itself)
         t0 = time.time()
         program = steps.program_for_serving(
-            params, acfg, prng.PRNGKey(args.seed + 42), b_adc_overrides=overrides,
+            params, acfg, prng.PRNGKey(args.seed + 42), mesh=mesh, model_cfg=cfg,
+            b_adc_overrides=overrides,
         )
+        where = f"on {mesh.size()}-device mesh " if mesh is not None else ""
         mixed = f" with {len(overrides)} bitwidth overrides" if overrides else ""
-        print(f"programmed {program.n_layers} analog layers once "
+        print(f"programmed {program.n_layers} analog layers once {where}"
               f"in {time.time()-t0:.2f}s (b_adc={b_adc}{mixed}, "
               f"t={pcm_lib.format_age(t0_seconds)})")
     if program is not None:
@@ -486,7 +558,7 @@ def main(argv: Optional[list[str]] = None) -> None:
         served = ServingEngine(
             cfg, acfg, params, serving_cfg,
             program=program, ref_params=ref_params if ref_check else None,
-            src_params=src_params, rng=k_rng, device=dev,
+            src_params=src_params, mesh=mesh, rng=k_rng, device=dev,
         )
 
     def fmt_timing(m):
@@ -520,7 +592,7 @@ def main(argv: Optional[list[str]] = None) -> None:
         if fleet_n is not None:
             serve_fleet(args, fleet_n, trace, program, params, acfg, cfg, serving_cfg,
                         ref_params if ref_check else None, src_params, overrides, b_adc,
-                        t0_seconds)
+                        t0_seconds, mesh)
             return
         policy = None
         if schedule is not None:

@@ -8,8 +8,11 @@ training step, with microbatch gradient accumulation;
 :func:`make_prefill_step` and :func:`make_serve_step` are the rectangle
 batch's prefill and greedy decode step -- the only way a multi-codebook
 decoder (musicgen) is served, since the request-level engine drives one
-token stream. Sharded programming and training are the distribution
-slice's work (queue A item 13).
+token stream. With ``mesh=`` (a ``DeviceMesh``, ``launch.mesh``) the
+program phase programs this rank's shard of the chip
+(``launch.sharding.program_shardings``) and installs the mesh's logical
+rules for the tensor-parallel forward; the sharded training step is not
+ported.
 """
 
 from __future__ import annotations
@@ -36,28 +39,62 @@ def program_for_serving(
     analog_cfg: AnalogConfig,
     key: torch.Tensor,
     *,
+    mesh: Any = None,
+    model_cfg: Optional[ModelConfig] = None,
     b_adc_overrides: Optional[dict] = None,
     t_seconds: Optional[float] = None,
     chip_id: Optional[int] = None,
 ) -> engine.CiMProgram:
     """Program phase of an analog serving deployment -> CiMProgram, on the
     device ``params`` live on. ``t_seconds`` overrides the config's age for
-    the first evaluation."""
+    the first evaluation.
+
+    With ``mesh``, every rank passes the whole ``params`` and keeps its
+    shard of the chip in the inference layout (TP over ``model``), bitwise
+    its slice of the single-host chip (``CiMProgram.gather`` returns the
+    host chip); the mesh's ``logical_rules`` (from ``model_cfg``) are
+    installed for the forward. The SSM, hybrid, vision and audio families
+    are not sharded."""
+    shardings = None
+    if mesh is not None:
+        shardings = use_mesh(mesh, model_cfg, params)
     return engine.compile_program(
-        params, analog_cfg, key, t_seconds=t_seconds,
+        params, analog_cfg, key, t_seconds=t_seconds, shardings=shardings,
         b_adc_overrides=b_adc_overrides, chip_id=chip_id,
         device=params.gain_s.device,
     )
 
 
+def use_mesh(mesh: Any, model_cfg: Optional[ModelConfig], params: Any = None) -> Any:
+    """Refuse a family that is not sharded, install ``mesh``'s logical rules
+    (``models.common.set_logical_rules``) and return the program shardings
+    of ``params`` (None without them)."""
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models.common import set_logical_rules
+
+    if model_cfg is not None and model_cfg.family in UNSHARDED_FAMILIES:
+        raise NotImplementedError(
+            f"sharded serving covers the dense and MoE families; the "
+            f"{model_cfg.family} family ({model_cfg.name}) is served on one device"
+        )
+    set_logical_rules(shd.logical_rules(mesh, model_cfg), mesh)
+    return None if params is None else shd.program_shardings(params, mesh, model_cfg)
+
+
+#: families whose chips are not sharded over a mesh
+UNSHARDED_FAMILIES = ("ssm", "hybrid", "vlm", "audio")
+
+
 def refresh_program(
-    program: engine.CiMProgram, src_params: Any, key: torch.Tensor,
+    program: engine.CiMProgram, src_params: Any, key: torch.Tensor, *,
+    mesh: Any = None, model_cfg: Optional[ModelConfig] = None,
 ) -> engine.CiMProgram:
     """Rewrite a drifted chip from the stored source weights: fresh write
     noise, the drift clock reset to t_c, the same per-layer bitwidths and
-    the same chip id."""
+    the same chip id (with ``mesh``: this rank's shard of it, as
+    :func:`program_for_serving`)."""
     return program_for_serving(
-        src_params, program.cfg, key,
+        src_params, program.cfg, key, mesh=mesh, model_cfg=model_cfg,
         b_adc_overrides=engine.plan_bit_overrides(program) or None,
         t_seconds=pcm_lib.T_C,
         chip_id=program.chip_id,

@@ -20,12 +20,13 @@ instead of copying the whole multi-layer cache every step; the returned
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
 from repro_torch import prng
-from repro_torch.core.analog import AnalogCtx, linear_apply, linear_init
+from repro_torch.core.analog import (AnalogCtx, gather_columns, linear_apply, linear_init,
+                                     linear_local)
 from repro_torch.kernels import decode_rows
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.flash_attention import flash_attention
@@ -41,6 +42,36 @@ class KVCache(NamedTuple):
     #: tokens already written: () int32 for a rectangle batch, (B,) int32
     #: for a per-slot cache (each batch row an independent request)
     length: Tensor
+
+
+class HeadLayout(NamedTuple):
+    """The heads a rank's attention runs on a sharded chip: ``heads`` query
+    heads from ``h0`` on and the ``kv_heads`` its cache holds. Where the
+    query heads are the rank's (``q_split``: ``wq``'s column split, so
+    ``wo`` takes the output as it lies), its KV heads are too
+    (``kv_local``), or -- where the ``model`` degree does not divide the KV
+    heads (``logical_rules``' ``kv_heads`` None) -- the KV heads its query
+    heads read, one per query head. Unsharded: every head."""
+
+    heads: int
+    kv_heads: int
+    q_split: Any
+    kv_local: bool
+    h0: int
+
+
+def head_layout(params: dict, cfg: ModelConfig) -> HeadLayout:
+    from repro_torch.models.common import split_axis
+
+    hd = cfg.hd
+    sq, sk = params["wq"].get("tp"), params["wk"].get("tp")
+    col = lambda sp: sp is not None and sp.dim == -1 and sp.aligned(hd)
+    if not (col(sq) and split_axis("heads") is not None):
+        return HeadLayout(cfg.n_heads, cfg.n_kv_heads, None, False, 0)
+    h0, h1 = sq.start // hd, sq.stop // hd
+    if col(sk) and split_axis("kv_heads") is not None:
+        return HeadLayout(h1 - h0, (sk.stop - sk.start) // hd, sq, True, h0)
+    return HeadLayout(h1 - h0, h1 - h0, sq, False, h0)
 
 
 def attn_init(key: Tensor, cfg: ModelConfig) -> dict:
@@ -166,9 +197,11 @@ def init_paged_cache(
     page_size: int,
     n_pages: int,
     device,
+    kv_heads: Optional[int] = None,
 ) -> PagedKVCache:
     """One layer's page pool and per-slot tables (one page-id space for all
-    layers: the serving allocator hands out ids valid in every pool)."""
+    layers: the serving allocator hands out ids valid in every pool);
+    ``kv_heads`` as in :func:`init_cache`."""
     if page_size < 1:
         raise ValueError(f"page_size must be >= 1, got {page_size}")
     pages_per_slot = -(-s_max // page_size)
@@ -179,7 +212,7 @@ def init_paged_cache(
         )
     # n_pages may be far below batch * pages_per_slot (s_max is virtual);
     # the serving engine's admission reservations keep usage in the pool
-    shape = (n_pages, page_size, cfg.n_kv_heads, cfg.hd)
+    shape = (n_pages, page_size, kv_heads or cfg.n_kv_heads, cfg.hd)
     return PagedKVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
@@ -226,10 +259,23 @@ def attn_apply(
             "paging applies to global-attention caches only"
         )
     b, s, _ = x.shape
-    hd, nh, nkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    q = linear_apply(params["wq"], x, ctx).reshape(b, s, nh, hd)
-    k = linear_apply(params["wk"], x, ctx).reshape(b, s, nkv, hd)
-    v = linear_apply(params["wv"], x, ctx).reshape(b, s, nkv, hd)
+    lay = head_layout(params, cfg)
+    hd, nh, nkv = cfg.hd, lay.heads, lay.kv_heads
+    q, sq = linear_local(params["wq"], x, ctx)
+    k, sk = linear_local(params["wk"], x, ctx)
+    v, sv = linear_local(params["wv"], x, ctx)
+    if lay.q_split is None:
+        q = gather_columns(q, sq)
+    if not lay.kv_local:
+        k, v = gather_columns(k, sk), gather_columns(v, sv)
+        if lay.q_split is not None:  # each query head's KV head, one per query head
+            idx = torch.arange(lay.h0, lay.h0 + nh, device=x.device) // (
+                cfg.n_heads // cfg.n_kv_heads)
+            k = k.reshape(b, s, cfg.n_kv_heads, hd).index_select(2, idx)
+            v = v.reshape(b, s, cfg.n_kv_heads, hd).index_select(2, idx)
+    q = q.reshape(b, s, nh, hd)
+    k = k.reshape(b, s, nkv, hd)
+    v = v.reshape(b, s, nkv, hd)
     # one token per slot against a cache on a card: RoPE and attention run
     # the fused decode kernel's row code (kernels.decode_rows), so the
     # per-layer step's K rows and outputs are B2's bit for bit
@@ -265,7 +311,7 @@ def attn_apply(
         view = paged_view(new_cache)
         out = (decode_rows.attention(q, view.k, view.v, view.length) if row_kernels
                else decode_attention(q, view)).reshape(b, s, nh * hd)
-        return linear_apply(params["wo"], out, ctx), new_cache
+        return linear_apply(params["wo"], out, ctx, lay.q_split), new_cache
 
     new_cache = None
     s_cache = cache.k.shape[1] if cache is not None else 0
@@ -310,14 +356,16 @@ def attn_apply(
             causal=True, window=window,
         )
     out = out.reshape(b, s, nh * hd)
-    return linear_apply(params["wo"], out, ctx), new_cache
+    return linear_apply(params["wo"], out, ctx, lay.q_split), new_cache
 
 
 def init_cache(
     cfg: ModelConfig, batch: int, s_max: int, dtype, *, per_slot: bool = False,
-    device,
+    device, kv_heads: Optional[int] = None,
 ) -> KVCache:
-    shape = (batch, s_max, cfg.n_kv_heads, cfg.hd)
+    """One layer's KV cache; ``kv_heads`` (default ``cfg.n_kv_heads``): the
+    heads a rank of a sharded chip holds (:func:`head_layout`)."""
+    shape = (batch, s_max, kv_heads or cfg.n_kv_heads, cfg.hd)
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),

@@ -1,16 +1,70 @@
 """Shared model components, port of ``repro.models.common``: the LM config,
-RMSNorm, embeddings and RoPE. No logical-axis sharding (one card)."""
+RMSNorm, embeddings and RoPE, and the logical-axis registry of sharded
+serving."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
 from repro_torch import prng
 
 Tensor = torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# Logical-axis registry. The tensor-parallel forward consults it: which
+# logical dims (``heads``, ``kv_heads``, ``ffn``, ``vocab``, ``experts``,
+# ``batch``) are split, and over which process group (the mesh's axis).
+# With no rules set, or no mesh, every query answers "not split" and the
+# forward is the one-device forward.
+# ---------------------------------------------------------------------------
+
+# logical name -> mesh axes (None = replicated / not sharded)
+_LOGICAL_RULES: dict[str, Any] = {}
+_MESH: dict[str, Any] = {"mesh": None}
+
+
+def set_logical_rules(rules: dict[str, Any], mesh: Any = None) -> None:
+    """Install ``rules`` (``launch.sharding.logical_rules``) and the
+    ``DeviceMesh`` whose axes they name; ``{}`` clears both."""
+    _LOGICAL_RULES.clear()
+    _LOGICAL_RULES.update(rules)
+    _MESH["mesh"] = mesh if rules else None
+
+
+def logical_rules() -> dict[str, Any]:
+    return dict(_LOGICAL_RULES)
+
+
+def shard(x: Tensor, *names: Optional[str]) -> Tensor:
+    """The reference's sharding annotation. The port's forward places its
+    tensors itself (a rank's heads, columns or experts, see
+    :func:`split_axis`), so this names the layout and returns ``x``."""
+    return x
+
+
+def mesh_axis(name: str = "model"):
+    """The ``collectives.Axis`` of the registered mesh's axis ``name``, or
+    None (no mesh registered, or no such axis)."""
+    from repro_torch import collectives
+
+    mesh = _MESH["mesh"]
+    return None if mesh is None else collectives.axis_of(mesh, name)
+
+
+def split_axis(name: str):
+    """The ``collectives.Axis`` the logical dim ``name`` is split over, or
+    None (no rules, no mesh, or the dim replicated)."""
+    from repro_torch import collectives
+
+    ax = _LOGICAL_RULES.get(name)
+    mesh = _MESH["mesh"]
+    if ax is None or mesh is None or not isinstance(ax, str):
+        return None
+    return collectives.axis_of(mesh, ax)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,9 +172,23 @@ def embedding_init(key: Tensor, vocab: int, d_model: int) -> dict:
 
 
 def embedding_apply(params: dict, tokens: Tensor, dtype) -> Tensor:
-    # gather, then cast: the same values as the reference's cast-then-
-    # gather, without casting the whole table on every call
-    return params["table"][tokens].to(dtype)
+    """Rows of the table, cast: gather, then cast -- the same values as the
+    reference's cast-then-gather, without casting the whole table on every
+    call. A vocab-sharded table (``"tp"``: this rank's rows) looks up the
+    tokens it holds, every rank's lookups are gathered and each token takes
+    the row of the one rank that holds it (an exact selection)."""
+    split = params.get("tp")
+    if split is None:
+        return params["table"][tokens].to(dtype)
+    from repro_torch import collectives
+
+    axis = mesh_axis("model")
+    local = params["table"][(tokens - split.start).clamp(0, split.stop - split.start - 1)]
+    every = collectives.all_gather_dim(local[None], 0, tuple(range(split.n + 1)), axis)
+    inner = torch.tensor(split.bounds[1:-1], dtype=tokens.dtype, device=tokens.device)
+    owner = torch.bucketize(tokens, inner, right=True)
+    idx = owner[None, ..., None].expand(1, *local.shape)
+    return torch.gather(every, 0, idx)[0].to(dtype)
 
 
 def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:

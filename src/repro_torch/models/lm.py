@@ -46,7 +46,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import prng
-from repro_torch.core.analog import AnalogConfig, AnalogCtx, MvmFn, linear_apply, linear_init
+from repro_torch.core.analog import (AnalogConfig, AnalogCtx, MvmFn, linear_apply, linear_init,
+                                     linear_local)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import decode_rows
 from repro_torch.models import attention as attn_lib
@@ -103,10 +104,13 @@ def _norm(params: dict, x: Tensor, eps: float, rows: bool) -> Tensor:
 
 
 def mlp_apply(params: dict, x: Tensor, ctx: AnalogCtx, *, rows: bool = False) -> Tensor:
-    u = linear_apply(params["w1"], x, ctx)
-    g = linear_apply(params["w3"], x, ctx)
+    """SwiGLU. On a sharded chip w1 and w3 give the rank's hidden units and
+    w2 takes them as they lie where its rows are the same units
+    (``core.analog.linear_apply``)."""
+    u, split = linear_local(params["w1"], x, ctx)
+    g, _ = linear_local(params["w3"], x, ctx)
     h = decode_rows.gate(u, g) if rows else torch.nn.functional.silu(u) * g
-    return linear_apply(params["w2"], h, ctx)
+    return linear_apply(params["w2"], h, ctx, split)
 
 
 def _block_init(key: Tensor, kind: str, cfg: ModelConfig) -> dict:
@@ -166,6 +170,10 @@ def _block_apply(
     x = x + out
     h = _norm(params["norm2"], x, cfg.norm_eps, rows)
     if kind == "moe":
+        if cfg.moe_dispatch == "shard_map":
+            from repro_torch.models.moe_shardmap import moe_apply_shardmap
+
+            return x + moe_apply_shardmap(params["moe"], h, ctx, cfg), new_cache
         return x + moe_lib.moe_apply(params["moe"], h, ctx, cfg), new_cache
     return x + mlp_apply(params["ffn"], h, ctx, rows=rows), new_cache
 
@@ -236,7 +244,7 @@ def _index(tree: Any, i: int) -> Any:
         return {k: _index(v, i) for k, v in tree.items()}
     if isinstance(tree, tuple):
         return tuple(_index(v, i) for v in tree)
-    return tree[i]
+    return tree[i] if isinstance(tree, Tensor) else tree  # a layer's split
 
 
 def _group_view(group_cache, gi: int):
@@ -415,6 +423,7 @@ def init_lm_cache(
     n_pages: Optional[int] = None,
     *,
     device="cuda",
+    kv_heads: Optional[int] = None,
 ) -> tuple:
     """Build the (group caches, tail caches) tuple on ``device``.
 
@@ -427,7 +436,8 @@ def init_lm_cache(
     full slots plus the scratch page 0) with ``s_max`` the per-slot virtual
     capacity; slots are admitted and retired through
     :func:`write_cache_slot_paged` / :func:`free_cache_slot_paged` with page
-    ids from the serving engine's allocator.
+    ids from the serving engine's allocator. ``kv_heads``: the KV heads of
+    a rank of a sharded chip (:func:`cache_kv_heads`).
     """
     dev = resolve_device(device)
     if per_slot and stacked:
@@ -456,10 +466,10 @@ def init_lm_cache(
         if paged:
             return attn_lib.init_paged_cache(
                 cfg, batch, rows, dtype, page_size=page_size,
-                n_pages=n_pages, device=dev,
+                n_pages=n_pages, device=dev, kv_heads=kv_heads,
             )
         return attn_lib.init_cache(
-            cfg, batch, rows, dtype, per_slot=slot_lengths, device=dev
+            cfg, batch, rows, dtype, per_slot=slot_lengths, device=dev, kv_heads=kv_heads,
         )
 
     if stacked:
@@ -471,6 +481,15 @@ def init_lm_cache(
         groups = [tuple(one(kind, per_slot) for kind in period) for _ in range(n_groups)]
     tail = tuple(one(period[i % len(period)], per_slot) for i in range(n_tail))
     return groups, tail
+
+
+def cache_kv_heads(params: LMParams, cfg: ModelConfig) -> int:
+    """The KV heads a cache of ``params``' forward holds: every KV head,
+    or a rank's of a sharded chip (``attention.head_layout``)."""
+    for group in tuple(params.blocks) + tuple(params.tail):
+        if "attn" in group:
+            return attn_lib.head_layout(group["attn"], cfg).kv_heads
+    return cfg.n_kv_heads
 
 
 def unstack_cache(cache: tuple) -> tuple:

@@ -26,7 +26,8 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core import engine as engine_lib
-from repro_torch.core.analog import AnalogCtx, analog_matmul_bank, linear_apply, linear_init
+from repro_torch.core.analog import (AnalogCtx, analog_matmul_bank, linear_apply, linear_init,
+                                     linear_local)
 from repro_torch.core.engine import PCM_PROGRAMMED
 from repro_torch.models.common import ModelConfig
 
@@ -77,11 +78,23 @@ def _expert_ffn(params: dict, x: Tensor, ctx: AnalogCtx, dtype, b_adc=None) -> T
         b_adc = engine_lib.bits_of(params.get("b_adc_buf"))
     bank = {f: params[f] for f in FAMILIES}
     read_buf = params.get("read_buf")
+    split = params.get("tp")  # a sharded chip's bank: the rank's experts
     if (read_buf is not None and ctx.cfg.mode == PCM_PROGRAMMED
             and ctx.cfg.resample_read_noise and ctx.key is not None):
         for fam in FAMILIES:
-            bank[fam] = engine_lib.resample_read(ctx.next_key(), read_buf[fam]).to(
+            bank[fam] = engine_lib.resample_read(ctx.next_key(), read_buf[fam], split).to(
                 params[fam].dtype)
+    if split is not None:
+        from repro_torch import collectives
+        from repro_torch.core.analog import model_axis
+
+        # the rank's experts on their tokens, every expert's output gathered
+        # (an exact concatenation)
+        local = dict(params, **bank)
+        local.pop("tp")
+        local.pop("read_buf", None)
+        y = _expert_ffn(local, split.take(x, 0), ctx, dtype, b_adc)
+        return collectives.all_gather_dim(y, 0, split.bounds, model_axis(split))
     clip = params["w_clip_buf"]
     e, m = x.shape[0], x.shape[-1]
 
@@ -101,8 +114,9 @@ def shared_expert_apply(params: dict, x: Tensor, ctx: AnalogCtx) -> Tensor:
     """The always-on shared expert (llama4-style): a SwiGLU of analog
     linears on every token, added to the routed experts' output."""
     sh = params["shared"]
-    h = torch.nn.functional.silu(linear_apply(sh["w1"], x, ctx)) * linear_apply(sh["w3"], x, ctx)
-    return linear_apply(sh["w2"], h, ctx)
+    u, split = linear_local(sh["w1"], x, ctx)
+    g, _ = linear_local(sh["w3"], x, ctx)
+    return linear_apply(sh["w2"], torch.nn.functional.silu(u) * g, ctx, split)
 
 
 def one_hot(idx: Tensor, n: int, dtype) -> Tensor:

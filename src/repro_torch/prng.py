@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import math
 import sys
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -105,10 +105,17 @@ def fold_in(key: Tensor, data: int) -> Tensor:
     return torch.stack([b1, b2])
 
 
-def _flat_bits(key: Tensor, start: int, stop: int) -> Tensor:
-    """The bits of a draw's flat counters ``start`` to ``stop`` (1-D)."""
+def _flat_bits(key: Tensor, start: int, stop: int, row: Optional[tuple] = None,
+               offset: int = 0) -> Tensor:
+    """The bits of a draw's flat counters ``start`` to ``stop`` (1-D) past
+    ``offset``; ``row = (row_len, row_stride)`` maps flat index ``i`` to
+    counter ``offset + (i // row_len) * row_stride + i % row_len`` (a column
+    block of a wider draw)."""
     k1, k2 = _check_key(key)
     idx = torch.arange(start, stop, dtype=torch.int64, device=key.device)
+    if row is not None:
+        idx = (idx // row[0]) * row[1] + idx % row[0]
+    idx = idx + offset
     b1, b2 = threefry2x32(k1, k2, idx >> 32, _u32(idx))
     return b1 ^ b2
 
@@ -139,11 +146,25 @@ def _sliced(n: int, device, part) -> Tensor:
     return out
 
 
-def _draw(key: Tensor, shape: tuple, values, offset: int = 0) -> Tensor:
+def _row(shape: tuple, stride: Optional[int]) -> Optional[tuple]:
+    """A strided draw's ``(row_len, row_stride)``, None when contiguous."""
+    if stride is None or not shape or stride == shape[-1]:
+        return None
+    if stride < shape[-1]:
+        raise ValueError(f"a draw's row stride {stride} is below its row length {shape[-1]}")
+    return (shape[-1], stride)
+
+
+def _draw(key: Tensor, shape: tuple, values, offset: int = 0,
+          stride: Optional[int] = None) -> Tensor:
     """``values`` (an elementwise map of the bits) over a draw's counters
-    ``offset`` to ``offset + prod(shape)`` (:func:`_sliced`)."""
+    ``offset`` to ``offset + prod(shape)`` (:func:`_sliced`); with
+    ``stride``, row ``r`` of the draw takes its counters from ``offset + r *
+    stride`` on (a column block of a wider draw: a rank's columns of a
+    sharded chip)."""
+    row = _row(shape, stride)
     return _sliced(math.prod(shape), key.device, lambda start, stop: values(
-        _flat_bits(key, offset + start, offset + stop))).reshape(shape)
+        _flat_bits(key, start, stop, row, offset))).reshape(shape)
 
 
 # ---------------------------------------------------------------------------
@@ -324,7 +345,8 @@ launches = 0
 _FN = None
 
 
-def _normal_kernel(key: Tensor, shape: tuple, scaled: bool, offset: int = 0) -> Tensor:
+def _normal_kernel(key: Tensor, shape: tuple, scaled: bool, offset: int = 0,
+                   stride: Optional[int] = None) -> Tensor:
     """A draw on the card by ``csrc/prng.cu``: the same operations as the
     plain version below, bit for bit."""
     global _FN
@@ -339,41 +361,52 @@ def _normal_kernel(key: Tensor, shape: tuple, scaled: bool, offset: int = 0) -> 
                                         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                                         ctypes.c_void_p]
             lib.prng_normal.restype = ctypes.c_int
+            lib.prng_normal_strided.argtypes = [
+                ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p, ctypes.c_longlong,
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+                ctypes.c_void_p]
+            lib.prng_normal_strided.restype = ctypes.c_int
             lib.prng_error_string.argtypes = [ctypes.c_int]
             lib.prng_error_string.restype = ctypes.c_char_p
             _FN = lib
     k1, k2 = (int(v) for v in _check_key(key))
     out = torch.empty(shape, dtype=torch.float32, device=key.device)
+    row = _row(shape, stride) or (max(out.numel(), 1),) * 2
     with torch.cuda.device(key.device):
-        rc = _FN.prng_normal(k1, k2, out.data_ptr(), offset, out.numel(), int(scaled),
-                             torch.cuda.current_stream().cuda_stream)
+        rc = _FN.prng_normal_strided(k1, k2, out.data_ptr(), offset, out.numel(), int(scaled),
+                                     row[0], row[1], torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"prng normal kernel launch failed: {_FN.prng_error_string(rc).decode()}")
     build.bump(sys.modules[__name__], "launches")
     return out
 
 
-def normal_erf_inv(key: Tensor, shape: Shape = (), offset: int = 0) -> Tensor:
+def normal_erf_inv(key: Tensor, shape: Shape = (), offset: int = 0,
+                   stride: Optional[int] = None) -> Tensor:
     """``erf_inv(u)`` of :func:`normal`'s draw, before the ``* SQRT2``: where
     the reference multiplies a normal by a constant, its compiler folds the
     two constants into one factor."""
     if key.device.type == "cuda":
-        return _normal_kernel(key, _shape(shape), scaled=False, offset=offset)
+        return _normal_kernel(key, _shape(shape), scaled=False, offset=offset, stride=stride)
     return _draw(key, _shape(shape), lambda b: erf_inv(_uniform_of(b, _NORMAL_LO, 1.0)),
-                 offset)
+                 offset, stride)
 
 
-def normal(key: Tensor, shape: Shape = (), offset: int = 0) -> Tensor:
+def normal(key: Tensor, shape: Shape = (), offset: int = 0,
+           stride: Optional[int] = None) -> Tensor:
     """``jax.random.normal`` (float32): sqrt(2) * erf_inv(u), u uniform on
     (-1, 1). A key on a card draws with the kernel ``csrc/prng.cu``; a key
     on the CPU with the plain version (the same operations in PyTorch).
 
     ``offset``: the draw's flat counters start there -- rows ``r0:r1`` of
     an (R, C) draw are ``normal(key, (r1 - r0, C), offset=r0 * C)``, bit
-    for bit (a value depends only on its counter)."""
+    for bit (a value depends only on its counter). ``stride``: row ``r``
+    starts at counter ``offset + r * stride`` -- columns ``c0:c1`` of rows
+    ``r0:r1`` are ``normal(key, (r1 - r0, c1 - c0), offset=r0 * C + c0,
+    stride=C)``."""
     if key.device.type == "cuda":
-        return _normal_kernel(key, _shape(shape), scaled=True, offset=offset)
-    return normal_erf_inv(key, shape, offset) * SQRT2
+        return _normal_kernel(key, _shape(shape), scaled=True, offset=offset, stride=stride)
+    return normal_erf_inv(key, shape, offset, stride) * SQRT2
 
 
 def exponential(key: Tensor, shape: Shape = ()) -> Tensor:

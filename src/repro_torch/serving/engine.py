@@ -39,7 +39,20 @@ re-evaluates it at a later age (zero programming events),
 steps of one run. Per-call keys follow the reference: a request's prefill
 draws under ``fold_in(rng, 1_000_000 + rid)``, decode step ``n`` under
 ``fold_in(rng, n)``, a refresh at step ``n`` under ``fold_in(rng,
-7_000_000 + n)``. Meshes come in a later slice and raise here.
+7_000_000 + n)``.
+
+Sharded serving (``mesh=``, a ``DeviceMesh`` over one rank a device; the
+chip from ``launch.steps.program_for_serving(mesh=)`` or
+``checkpoint.store.load_program(shardings=)``): every rank runs this same
+engine -- scheduler, page allocator and keys are pure Python fed only
+values that are the same on every rank (the forward's logits are whole on
+each), so every decision is the same without a broadcast. The forward is
+tensor-parallel over ``model`` (``core.analog``: a rank's columns, tiles
+or experts; its caches hold its KV heads). A ``data`` axis greater than 1
+gives each data group its rows of the slot batch in the decode step, the
+step's logits all-gathered (prefill stays whole on every rank). Fused
+decode refuses a mesh, as the reference does; so do the SSM, hybrid,
+vision and audio families, which are not sharded.
 """
 
 from __future__ import annotations
@@ -53,6 +66,7 @@ import numpy as np
 import torch
 
 from repro_torch import clock as clock_lib
+from repro_torch import collectives
 from repro_torch import prng
 from repro_torch.core import engine as engine_mod
 from repro_torch.core.analog import AnalogConfig
@@ -60,9 +74,11 @@ from repro_torch.core.engine import CiMProgram
 from repro_torch.device import resolve_device
 from repro_torch.kernels import decode_fused
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.attention import KVCache, PagedKVCache
 from repro_torch.models.lm import (
     append_cache_page,
     block_period,
+    cache_kv_heads,
     cache_layers,
     check_pageable,
     free_cache_slot_paged,
@@ -110,11 +126,40 @@ class _LayerDecoder:
 
     def step(self, tok: Tensor, cache, rng=None):
         eng = self.eng
-        return lm_forward(eng.params, {"tokens": tok.long()}, eng.acfg, eng.cfg,
-                          rng=rng, cache=cache)
+        if eng.data_rows is None:
+            return lm_forward(eng.params, {"tokens": tok.long()}, eng.acfg, eng.cfg,
+                              rng=rng, cache=cache)
+        # this data group's slots, the step's logits gathered over the groups
+        rows, axis = eng.data_rows
+        a, b = rows.start, rows.stop
+        logits, _ = lm_forward(eng.params, {"tokens": tok[a:b].long()}, eng.acfg, eng.cfg,
+                               rng=rng, cache=_rows_view(cache, a, b))
+        return collectives.all_gather_dim(logits, 0, rows.bounds, axis), _advanced(cache)
 
     def set_params(self, params) -> None:
         pass  # the forward reads ``eng.params`` every step
+
+
+def _rows_view(cache: tuple, a: int, b: int) -> tuple:
+    """Slots ``a:b`` of a list-layout slot cache, as views (a step's KV
+    writes land in the whole cache's buffers)."""
+    def rows(c):
+        if isinstance(c, KVCache):
+            return KVCache(c.k[a:b], c.v[a:b], c.length[a:b])
+        return PagedKVCache(c.k, c.v, c.table[a:b], c.length[a:b], c.s_max)
+
+    groups, tail = cache
+    return [tuple(rows(c) for c in g) for g in groups], tuple(rows(c) for c in tail)
+
+
+def _advanced(cache: tuple) -> tuple:
+    """The slot cache after a decode step: every slot one token longer, as
+    the whole batch's forward leaves it (retired slots keep stepping)."""
+    def step(c):
+        return c._replace(length=c.length + 1)
+
+    groups, tail = cache
+    return [tuple(step(c) for c in g) for g in groups], tuple(step(c) for c in tail)
 
 
 @dataclasses.dataclass
@@ -182,7 +227,7 @@ class _PagePool:
         return init_lm_cache(
             eng.cfg, eng.n_slots, eng.s_max, eng.cfg.dtype, stacked=False,
             paged=True, page_size=self.page_size, n_pages=eng.n_pages,
-            device=eng.device,
+            device=eng.device, kv_heads=cache_kv_heads(eng.params, eng.cfg),
         )
 
     @property
@@ -348,6 +393,20 @@ class ServeReport:
         return line
 
 
+def _data_rows(mesh: Any, n_slots: int) -> Optional[tuple]:
+    """(this rank's ``launch.sharding.Split`` of the slots, the data axis)
+    when ``mesh`` has a data axis greater than 1 that divides the slots
+    (``launch.sharding.batch_axis``), else None."""
+    if mesh is None:
+        return None
+    from repro_torch.launch import sharding as shd
+
+    axis = collectives.axis_of(mesh, "data")
+    if axis is None or axis.size == 1 or shd.batch_axis(mesh, n_slots) is None:
+        return None
+    return shd.Split(0, shd.even_bounds(n_slots, axis.size), axis.rank), axis
+
+
 class ServingEngine:
     """Request-level serving over one model (programmed chip or digital).
 
@@ -388,7 +447,15 @@ class ServingEngine:
                 "s_max=64))"
             )
         if mesh is not None:
-            raise NotImplementedError("sharded serving comes in a later slice")
+            if config.fused_decode:
+                raise NotImplementedError(
+                    "fused decode runs the whole step in one single-"
+                    "device kernel; sharded serving keeps the per-layer "
+                    "path"
+                )
+            from repro_torch.launch.steps import use_mesh
+
+            use_mesh(mesh, model_cfg)
         if model_cfg.n_codebooks:
             raise NotImplementedError(
                 "request-level serving drives a single token stream; "
@@ -404,6 +471,10 @@ class ServingEngine:
                 )
         self.cfg = model_cfg
         self.acfg = analog_cfg
+        self.mesh = mesh
+        #: (this data group's slot rows, the data axis) when the slot batch
+        #: is split over a data axis greater than 1
+        self.data_rows = _data_rows(mesh, int(config.n_slots))
         self.params = engine_mod.cast_weights(params, model_cfg.dtype)
         self.program = program
         self.src_params = src_params
@@ -501,7 +572,8 @@ class ServingEngine:
         if self.program is None or self.src_params is None:
             raise RuntimeError("refresh needs a compiled program and src_params")
         before = engine_mod.program_event_count()
-        self.set_program(steps.refresh_program(self.program, self.src_params, key))
+        self.set_program(steps.refresh_program(self.program, self.src_params, key,
+                                               mesh=self.mesh, model_cfg=self.cfg))
         self.reprograms += 1
         return engine_mod.program_event_count() - before
 
@@ -513,16 +585,22 @@ class ServingEngine:
         config: Optional[ServingConfig] = None,
         **kw,
     ) -> "ServingEngine":
-        """Engine over a compiled chip: executes (program.params, .cfg)."""
+        """Engine over a compiled chip: executes (program.params, .cfg); a
+        sharded chip is served over its mesh unless ``mesh=`` says
+        otherwise."""
+        kw.setdefault("mesh", program.mesh)
         return cls(model_cfg, program.cfg, program.params, config,
                    program=program, **kw)
 
     # -- the forward passes -------------------------------------------------
 
-    def new_cache(self, batch: int, per_slot: bool) -> tuple:
+    def new_cache(self, batch: int, per_slot: bool, params: Any = None) -> tuple:
+        """A list-layout cache for ``params``' forward (default: the served
+        chip's; a sharded chip's holds the rank's KV heads)."""
         return init_lm_cache(
             self.cfg, batch, self.s_max, self.cfg.dtype, stacked=False,
             per_slot=per_slot, device=self.device,
+            kv_heads=cache_kv_heads(self.params if params is None else params, self.cfg),
         )
 
     def _prefill_inputs(self, req: Request) -> dict:
@@ -544,7 +622,8 @@ class ServingEngine:
         position -> (tokens (PB,), logits (PB, V), rectangular list cache)."""
         pb, sb = toks.shape
         cache = init_lm_cache(
-            self.cfg, pb, sb, self.cfg.dtype, stacked=False, device=self.device
+            self.cfg, pb, sb, self.cfg.dtype, stacked=False, device=self.device,
+            kv_heads=cache_kv_heads(self.params, self.cfg),
         )
         logits, cache = lm_forward(
             self.params, {"tokens": toks.long()}, self.acfg, self.cfg, rng=rng,
@@ -558,7 +637,7 @@ class ServingEngine:
 
         Prefill keeps its torch ops on a card: the fused kernel (B2) has no
         prefill counterpart, and its attention is B3."""
-        cache = self.new_cache(1, per_slot=False)
+        cache = self.new_cache(1, per_slot=False, params=params)
         logits, cache = lm_forward(
             params, self._prefill_inputs(req), acfg, self.cfg,
             rng=rng, cache=cache, last_token_only=True,
@@ -719,7 +798,8 @@ class EngineRun:
         self.cache = self.pool.new_cache()
         self.peak_kv_bytes = engine.decoder.kv_bytes(self.cache)
         self.ref_cache = (
-            engine.new_cache(engine.n_slots, per_slot=True) if engine._ref else None
+            engine.new_cache(engine.n_slots, per_slot=True, params=engine.ref_params)
+            if engine._ref else None
         )
         self.cur = torch.zeros(
             (engine.n_slots, 1), dtype=torch.int32, device=engine.device

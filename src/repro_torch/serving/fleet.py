@@ -249,6 +249,7 @@ class FleetRouter:
         key: torch.Tensor,
         ref_params: Any = None,
         src_params: Any = None,
+        mesh: Any = None,
         t_seconds: Optional[float] = None,
         b_adc_overrides: Any = None,
     ) -> "FleetRouter":
@@ -259,26 +260,30 @@ class FleetRouter:
         tagged ``chip_id=0..N-1``. ``src_params`` defaults to ``params``
         when a refresh policy is configured (the checkpoint IS the
         reprogramming source). The chips are programmed and served on the
-        device ``params`` live on.
+        device ``params`` live on; with ``mesh`` every chip is TP-sharded
+        over the same group (``launch.steps.program_for_serving(mesh=)``).
         """
+        from repro_torch.launch import steps
+
         device = params.gain_s.device
         if src_params is None and fleet_cfg.refresh_below is not None:
             src_params = params
         engines = []
         for c in range(fleet_cfg.n_chips):
-            program = engine_mod.compile_program(
+            program = steps.program_for_serving(
                 params,
                 analog_cfg,
                 prng.fold_in(key, c),
+                mesh=mesh,
+                model_cfg=model_cfg,
                 t_seconds=t_seconds,
                 b_adc_overrides=b_adc_overrides,
                 chip_id=c,
-                device=device,
             )
             engines.append(
                 ServingEngine.for_program(
                     program, model_cfg, serving_cfg,
-                    ref_params=ref_params, src_params=src_params,
+                    ref_params=ref_params, src_params=src_params, mesh=mesh,
                     rng=prng.fold_in(key, 10_000 + c), device=device,
                 )
             )
@@ -294,6 +299,7 @@ class FleetRouter:
         *,
         ref_params: Any = None,
         src_params: Any = None,
+        mesh: Any = None,
         rng: Optional[torch.Tensor] = None,
     ) -> "FleetRouter":
         """N replicas of ONE compiled chip (e.g. a loaded v1 artifact).
@@ -305,9 +311,17 @@ class FleetRouter:
         share the program's tensors, and the first replica's weights cast to
         the model's dtype (its digital reference's too): the others execute
         those same tensors, bitwise what their own cast would give. They
-        serve on the device the program lives on.
+        serve on the device the program lives on; with ``mesh`` every
+        replica is TP-sharded over the same group (a whole ``program`` is
+        cut to this rank's shard first).
         """
         device = program.params.gain_s.device
+        mesh = program.mesh if mesh is None else mesh
+        if mesh is not None and program.mesh is None:
+            from repro_torch.launch import steps
+
+            program = engine_mod.shard_program(
+                program, steps.use_mesh(mesh, model_cfg, program.params))
         engines: list[ServingEngine] = []
         for c in range(fleet_cfg.n_chips):
             first = engines[0] if engines else None
@@ -317,7 +331,7 @@ class FleetRouter:
                     first.params if first else program.params, serving_cfg,
                     program=dataclasses.replace(program, chip_id=c),
                     ref_params=first.ref_params if first else ref_params,
-                    src_params=src_params, device=device,
+                    src_params=src_params, mesh=mesh, device=device,
                 )
             )
         return cls(engines, fleet_cfg, rng=rng)

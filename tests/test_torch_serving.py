@@ -174,9 +174,12 @@ def test_engine_guards(setup):
     policy = tserving.DriftPolicy(tengine.DriftSchedule.parse("25,3600"), every_steps=1)
     with pytest.raises(ValueError, match="compiled program"):
         digital.start_run(drift_policy=policy)
+    # a mesh is served (tests/test_torch_distributed.py) except through
+    # fused decode, as in the reference
     with pytest.raises(NotImplementedError):
         tserving.ServingEngine.for_program(
-            s["tprog"], s["tcfg"], tserving.ServingConfig(n_slots=2, s_max=16),
+            s["tprog"], s["tcfg"],
+            tserving.ServingConfig(n_slots=2, s_max=16, fused_decode=True),
             mesh=object(), device="cpu",
         )
     with pytest.raises(TypeError):
