@@ -168,13 +168,13 @@ end the run with a non-zero exit:
    zeroed or doubled leaf caught by that gate (``--lm-step-readings``
    runs (b) alone at several seeds, the gates reported, for the readings
    the bounds come from); (d) ``serve_drift_24h`` on the card,
-   no programming event while aging; (c) tinyllama-1.1b at full width and
-   depth trained through ``launch/train.py``'s functions with the
-   config's remat (each group's forward recomputed in the backward), 3 +
+   no programming event while aging; (c) tinyllama-1.1b at full width on
+   8 of its 22 layers (``LM_RUN``) trained through ``run_two_stage`` with
+   the config's remat (each group's forward recomputed in the backward), 3 +
    3 steps at batch 4 x 128 tokens with asynchronous checkpoints: every
-   stage-2 step 309 keep-mask ``prefill`` launches (155 forward, 154
-   recomputed) and 155 backward recomputes, every step 44 B3 launches (its
-   training form; 22 and 22) and 22 backward recomputes, no plain
+   stage-2 step 113 keep-mask ``prefill`` launches (57 forward, 56
+   recomputed) and 57 backward recomputes, every step 16 B3 launches (its
+   training form; 8 and 8) and 8 backward recomputes, no plain
    forward, finite losses, a resume from the final checkpoint that runs
    nothing and restores the params bitwise; ms per step, one profiled
    step per stage (B1's and B3's share, idle share), peak memory against
@@ -257,8 +257,20 @@ end the run with a non-zero exit:
    mesh with ``fused_decode`` refused in the reference's words; then every
    new B1 key checked as phase 3 checks its own, every new bank key as
    phase 17 does at the 8 bits served; budget ``MESH_BUDGET_S``;
-19. report: a JSON line ``{"kernels": [...]}`` (launches from the serving
-   phases, the fleet, the CNNs, the training runs and phases 17 and 18)
+19. sharded training (``phase_train_mesh``) over phase 18's NCCL group:
+   phase 16 (b)'s stack (tinyllama-1.1b at full width on 2 layers, drawn
+   again from ``--seed``, bitwise 16 (b)'s) takes one stage-1
+   (``digital``) and one stage-2 (``analog_train``, LM_TRAIN) step, bf16,
+   through ``make_train_step(mesh=)`` at mesh (1, 1): params, optimizer
+   state and metrics bitwise the unsharded steps phase 16 (b) took
+   (``lm_train_steps``: their digests, kept from phase 16), the same B1
+   (by design, the training form) and B3 launches and recomputes, no plain
+   call; ms a step against the unsharded one, collective calls a step and
+   their share of the host clock; every new B1 key checked as phase 3
+   checks its own; budget ``TRAIN_MESH_BUDGET_S``. A world size above 1 on
+   cards is not checked: one card holds one rank;
+20. report: a JSON line ``{"kernels": [...]}`` (launches from the serving
+   phases, the fleet, the CNNs, the training runs and phases 17-19)
    and, last, the device line ``{"ok": true, "device": {...}}``.
 
 The RNG bridge (``repro_torch.prng``): phase 4 draws the weights and
@@ -385,13 +397,19 @@ TRAIN_RANGE_FACTOR = 2.0
 #: device kernels listed by summed time in each profiled training step
 TRAIN_TOP_KERNELS = 8
 #: the LM training phase (16): tinyllama-1.1b at full width; (b) one step
-#: of each stage on LM_STEP's 2 layers, card vs CPU; (c) the CLI's
-#: functions at full depth, LM_RUN's batch and steps, then a resume
+#: of each stage on LM_STEP's 2 layers, card vs CPU; (c) run_two_stage on
+#: LM_RUN's layers (8 of 22: the whole 22 until phase 19 took its budget
+#: out of the script's time limit; (c) took 100-107 s of it at 22), batch
+#: and steps, then a resume
 LM_ARCH = "tinyllama-1.1b"
 LM_STEP = dict(layers=2, batch=1, seq=64)
-LM_RUN = dict(batch=4, seq=128, stage1=3, stage2=3)
+LM_RUN = dict(layers=8, batch=4, seq=128, stage1=3, stage2=3)
 #: the CLI's stage-2 settings
 LM_TRAIN = dict(eta=0.1, b_adc=8, quant_noise_p=0.5)
+#: phase 19's optimizer (both stages), and its budget, seconds (it fails
+#: past it)
+LM_MESH_OPT = dict(lr=3e-3, total_steps=10, warmup=1)
+TRAIN_MESH_BUDGET_S = 45
 #: (c)'s peak before the port applied ``cfg.remat``: this script's runs on
 #: an H100 80GB HBM3 at 700 W
 LM_PEAK_NO_REMAT = "40.98 GiB above 28.66 GiB"
@@ -4171,6 +4189,72 @@ def lm_step(torch, params, cfg, stage: int, tape, grad: bool = True) -> dict:
     return {"loss": loss, "s": time.perf_counter() - t0, "grads": grads}
 
 
+def lm_train_steps(torch, params, cfg, mesh=None) -> dict:
+    """Phase 19's steps: from ``params`` (16 (b)'s stack on the card) one
+    stage-1 (``digital``) step, then from its params one stage-2
+    (``analog_train`` at LM_TRAIN) step, each with a fresh AdamW
+    (LM_MESH_OPT), of ``make_train_step`` at LM_STEP's batch in bf16 and
+    key ``fold_in(PRNGKey(0), stage - 1)``: unsharded, or with ``mesh``
+    the sharded step on the rank's slices in each stage's training layout.
+    Each step runs twice on the same inputs, the first cold (a first
+    collective over a group, first allocations), the second warm. Per
+    stage: the digest of the params, optimizer state and metrics after
+    the step, whether the two runs' digests agree, the seconds of each
+    (host clock to a synchronize), and the warm run's launches and
+    recomputes, and its collective calls and their seconds."""
+    import dataclasses
+
+    from repro_torch import collectives, prng
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.data.pipeline import PipelineConfig, batch_at
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.training import optim
+
+    cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    b = batch_at(PipelineConfig(kind="lm", global_batch=LM_STEP["batch"], seq_len=LM_STEP["seq"],
+                                vocab=cfg.vocab), 0)
+    batch = {k: torch.as_tensor(v, device=DEV) for k, v in b.items()}
+    ocfg = optim.OptimizerConfig(**LM_MESH_OPT)
+    out = {}
+    for stage, acfg in ((1, AnalogConfig()), (2, AnalogConfig().train(**LM_TRAIN))):
+        opt = optim.init(ocfg, params)
+        p, o = params, opt
+        if mesh is None:
+            step = steps.make_train_step(cfg, acfg, ocfg)
+        else:
+            p_sh = shd.param_shardings(params, mesh, cfg, analog_cfg=acfg)
+            o_sh = shd.build_opt_shardings(opt, params, p_sh, mesh)
+            step = steps.make_train_step(cfg, acfg, ocfg, mesh=mesh, shardings=(p_sh, o_sh))
+            p, o = shd.shard_tree(params, p_sh), shd.shard_tree(opt, o_sh)
+        runs = []
+        for _ in range(2):  # cold, then warm
+            torch.cuda.synchronize()
+            reset_counts()
+            collectives.reset_stats()
+            t0 = time.perf_counter()
+            new_p, new_o, m = step(p, o, batch, prng.fold_in(prng.PRNGKey(0).to(DEV), stage - 1))
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            coll = dict(collectives.stats)
+            counts = {"b1": kernel.analog_mvm.launches,
+                      "designs": dict(kernel.analog_mvm.design_launches),
+                      "backward": ops.backward_calls, "b3": fa.flash_attention.launches,
+                      "attention_backward": ops.attention_backward_calls, "plain": plain_calls()}
+            if mesh is not None:
+                new_p, new_o = shd.gather_tree(new_p, p_sh), shd.gather_tree(new_o, o_sh)
+            runs.append((sec, tree_digest(torch, {"params": new_p, "opt": new_o, "metrics": m})))
+        out[stage] = {"digest": runs[1][1], "repeats_bitwise": runs[0][1] == runs[1][1],
+                      "cold_s": runs[0][0], "s": runs[1][0], "counts": counts,
+                      "collective_calls": coll["calls"], "collective_s": coll["seconds"],
+                      "metrics": {k: float(v) for k, v in m.items()}}
+        params = new_p
+    return out
+
+
 def lm_cpu_step(src: Path, out: Path) -> int:
     """Phase 16 (b)'s CPU side, run as a child process (``--lm-cpu-step SRC
     OUT``) beside the card's work: for each of the card's steps saved in
@@ -4262,9 +4346,13 @@ def lm_step_start(torch, seed: int, readings: bool = False) -> dict:
     child = subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--lm-cpu-step", str(work / "steps.pt"),
          str(work / "cpu_step.pt")], stdout=log_f, stderr=subprocess.STDOUT, cwd=ROOT)
+    # while the child runs: phase 19's reference, the unsharded train steps
+    train = {"init": tree_digest(torch, {"params": params}),
+             **lm_train_steps(torch, params, cfg)}
     del params
     return {"cfg": cfg, "card": card, "steps": steps, "counts": counts, "noise_same": same,
-            "child": child, "log": log_f, "work": work, "t0": time.perf_counter()}
+            "child": child, "log": log_f, "work": work, "t0": time.perf_counter(),
+            "train_steps": train}
 
 
 def lm_step_compare(card, cpu: dict, dtype: str) -> dict:
@@ -4533,16 +4621,17 @@ def lm_step_readings(torch, seeds: list, path: Path) -> int:
 
 
 def lm_train_run(torch) -> dict:
-    """Phase 16 (c): tinyllama-1.1b at full width and depth through
-    ``launch.train``'s functions (``lm_setup(smoke=False)``,
-    ``run_two_stage``), LM_RUN's batch and steps, every step logged, with
+    """Phase 16 (c): tinyllama-1.1b at full width on LM_RUN's layers
+    through ``run_two_stage`` (params and batches from ``launch.train.lm_setup``
+    cut to those layers), LM_RUN's batch and steps, every step logged, with
     asynchronous checkpoints into ``build/``; each step's B1 launches (by
     design), B3 launches and both backward recomputes counted. The config
-    applies remat: each group's forward runs again in the backward. Gates:
-    every stage-2 step 309 keep-mask launches through the prefill design
-    (155 in the forward, the groups' 154 again in the recompute) and 155
-    backward recomputes, none in stage 1; every step 44 B3 launches (22 and
-    22) and 22 backward recomputes; no plain forward; finite losses; a
+    applies remat: each group's forward runs again in the backward. Gates,
+    at L layers: every stage-2 step 2 (7 L) + 1 keep-mask launches through
+    the prefill design (7 L + 1 in the forward, the groups' 7 L again in
+    the recompute) and 7 L + 1 backward recomputes, none in stage 1; every
+    step 2 L B3 launches (L and L) and L backward recomputes; no plain
+    forward; finite losses; a
     resume from the final checkpoint runs nothing and restores the params
     bitwise. Reports ms per step by stage
     (host clock, median), one profiled step per stage (device kernels, B1's
@@ -4550,6 +4639,8 @@ def lm_train_run(torch) -> dict:
     phases hold."""
     import shutil
     import signal
+
+    import dataclasses
 
     from repro_torch import prng
     from repro_torch import tree as tree_lib
@@ -4559,6 +4650,7 @@ def lm_train_run(torch) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launch
+    from repro_torch.models import lm
     from repro_torch.training import optim
     from repro_torch.training.loop import TrainConfig, run_two_stage, value_and_grad
 
@@ -4573,7 +4665,8 @@ def lm_train_run(torch) -> dict:
     held = torch.cuda.memory_allocated()  # earlier phases' tensors
     torch.cuda.reset_peak_memory_stats()
     params, loss_fn, batches = launch.lm_setup(LM_ARCH, False, LM_RUN["batch"], LM_RUN["seq"],
-                                               DEV)
+                                               DEV, n_layers=LM_RUN["layers"])
+    run_cfg = dataclasses.replace(get(LM_ARCH), n_layers=LM_RUN["layers"])  # remat's peaks
     tcfg = TrainConfig(stage1_steps=LM_RUN["stage1"], stage2_steps=LM_RUN["stage2"],
                        ckpt_dir=str(ckpt), ckpt_every=100, log_every=1, **LM_TRAIN)
     steps = []
@@ -4602,11 +4695,12 @@ def lm_train_run(torch) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     plain = plain_calls()
-    n_layers, per = 22, LAUNCHES_PER_FORWARD
+    n_layers = LM_RUN["layers"]
+    per = 7 * n_layers + 1
     s1 = [r for r in steps if r["stage"] == 1]
     s2 = [r for r in steps if r["stage"] == 2]
     # remat (the config's, as the reference's): the backward recomputes
-    # every group's forward, launching its 154 B1 and 22 B3 kernels again
+    # every group's forward, launching its 7 B1 and 1 B3 kernels a layer again
     # (the lm_head is outside the groups); each MVM and attention is still
     # differentiated once
     b1_step, b3_step = per + (per - 1), 2 * n_layers
@@ -4625,7 +4719,7 @@ def lm_train_run(torch) -> dict:
            "ms_per_step": {"stage1": statistics.median(r["ms"] for r in s1[2:] or s1),
                            "stage2": statistics.median(r["ms"] for r in s2[1:] or s2)},
            "first_step_ms": {"stage1": s1[0]["ms"], "stage2": s2[0]["ms"]}}
-    log(f"lm (c): {LM_ARCH} at full width and depth, batch {LM_RUN['batch']} x {LM_RUN['seq']} "
+    log(f"lm (c): {LM_ARCH} at full width on {n_layers} layers, batch {LM_RUN['batch']} x {LM_RUN['seq']} "
         f"tokens, {LM_RUN['stage1']} + {LM_RUN['stage2']} steps in {wall:.2f} s (with "
         f"checkpoints); ms per step (median, host clock) stage 1 "
         f"{out['ms_per_step']['stage1']:.1f}, stage 2 {out['ms_per_step']['stage2']:.1f} "
@@ -4633,7 +4727,8 @@ def lm_train_run(torch) -> dict:
         f"{[{k: r[k] for k in ('stage', 'b1', design, 'backward', 'b3', 'attention_backward')} for r in steps]}; "
         f"plain forward calls {plain}; losses {[round(r['loss'], 4) for r in steps]}; peak "
         f"memory with remat {out['peak_bytes_above_held'] / 2**30:.2f} GiB above the "
-        f"{held / 2**30:.2f} GiB earlier phases hold (without remat: {LM_PEAK_NO_REMAT})")
+        f"{held / 2**30:.2f} GiB earlier phases hold (without remat, at 22 layers: "
+        f"{LM_PEAK_NO_REMAT})")
     check(design == "prefill" and launches_ok,
           f"lm (c): per step launches ({design}) and recomputes, want {want}")
     check(plain == 0, f"lm (c): no plain forward call on the card ({plain})")
@@ -4692,13 +4787,9 @@ def lm_train_run(torch) -> dict:
     # what remat saves in the step itself: one stage-2 forward and backward
     # of the trained params, its peak above what is held before it (the
     # gradients included), with and without remat
-    import dataclasses
-
-    from repro_torch.models import lm
-
     peaks = {}
     for remat in (True, False):
-        cfg = dataclasses.replace(get(LM_ARCH), remat=remat)
+        cfg = dataclasses.replace(run_cfg, remat=remat)
         acfg = AnalogConfig().train(**LM_TRAIN)
         gc.collect()
         torch.cuda.empty_cache()
@@ -4806,8 +4897,8 @@ def phase_lm_train(torch, gen, seed: int, accuracy: dict, b1_launched: set,
     """Phase 16: LM training on the card (see the module docstring): (b)'s
     CPU child started first; (a) B1's bf16 training form at every LM
     training shape; (d) ``serve_drift_24h``; (b) one step of each stage
-    card vs CPU; (c) tinyllama-1.1b trained at full depth through
-    the CLI's functions and resumed; then every B1 key and B3 shape the
+    card vs CPU; (c) tinyllama-1.1b trained on LM_RUN's layers through
+    ``run_two_stage`` and resumed; then every B1 key and B3 shape the
     phase launched checked (phases 3 and 8's rules), and both kernels'
     training forms timed."""
     res, laps = {}, {}
@@ -4855,6 +4946,7 @@ def phase_lm_train(torch, gen, seed: int, accuracy: dict, b1_launched: set,
         res["drift"] = lm_serve_drift(torch)  # while the CPU child runs on
         lap("d")
         res["step"] = lm_step_check(torch, job)
+        res["train_steps"] = job["train_steps"]
         lap("b")
     finally:
         if job["child"].poll() is None:
@@ -4894,10 +4986,10 @@ def phase_lm_train(torch, gen, seed: int, accuracy: dict, b1_launched: set,
     return res
 
 
-def lm_entries(lm: dict) -> list:
+def lm_entries(lm: dict, train_mesh: dict) -> list:
     """The kernels line's entries of phase 16: B1's bf16 training form (the
     prefill design with the keep mask) and B3's training form, with the
-    launches of the (b) and (c) runs."""
+    launches of the (b) and (c) runs and of phase 19's sharded steps."""
     b1, b3 = lm["b1_timing"]["per_forward"], lm["b3_timing"]
     tokens = LM_RUN["batch"] * LM_RUN["seq"]
     return [{
@@ -4905,7 +4997,7 @@ def lm_entries(lm: dict) -> list:
         "route": "cuda",
         "source": "src/repro_torch/csrc/analog_mvm_tc.cu",
         "replaces": "src/repro/kernels/analog_mvm.py:41",
-        "launches": lm["launches"]["b1"],
+        "launches": lm["launches"]["b1"] + train_mesh["b1_launches"],
         "max_abs_err": lm["by_design"]["prefill"]["max_abs"],
         "ms": b1["ms"], "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"],
         "bound_by": b1["bound_by"], "library_ms": b1["library_ms"], "gemv_ms": b1["gemv_ms"],
@@ -4913,7 +5005,7 @@ def lm_entries(lm: dict) -> list:
                f"quant-noise masks: {b1['launches']} launches; plain: the plain training form; "
                "library: torch.matmul of the same products; gemv_ms: the CUDA-core gemv "
                "design (this form's parent) on the same inputs, in turns; launches: the bf16 "
-               "stage-2 steps of phase 16 (b) and (c)",
+               "stage-2 steps of phase 16 (b) and (c) and phase 19's sharded step",
         "max_err_adc_steps": lm["by_design"]["prefill"]["max_steps"],
         "pass": lm["a"]["failures"] == 0 and lm["b1_checked_after"]["failures"] == 0,
     }, {
@@ -4921,15 +5013,15 @@ def lm_entries(lm: dict) -> list:
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:34",
-        "launches": lm["launches"]["b3"],
+        "launches": lm["launches"]["b3"] + train_mesh["b3_launches"],
         "max_abs_err": lm["b3_max_abs"],
         "ms": b3["ms"], "plain_ms": b3["plain_ms"], "bound_ms": b3["bound_ms"],
         "bound_by": b3["bound_by"], "library_ms": b3["library_ms"],
         "per": f"the attention forwards of one tinyllama-1.1b training step at "
                f"{LM_RUN['batch']} x {LM_RUN['seq']} tokens, bf16 causal: 22 launches "
                "(library: scaled_dot_product_attention, is_causal, enable_gqa); the backward "
-               "is the plain version's VJP, recomputed; launches: phase 16 (b) and (c), both "
-               "stages",
+               "is the plain version's VJP, recomputed; launches: phase 16 (b) and (c) and "
+               "phase 19's sharded steps, both stages",
         "pass": lm["b3_checked_after"]["failures"] == 0,
     }]
 
@@ -5693,21 +5785,26 @@ MESH_REQUESTS = 8
 MESH_NEW_TOKENS = 16
 
 
-def chip_digest(torch, program) -> dict:
-    """Two exact integer checksums of every param and state leaf of a chip
-    (its bits as integers: their sum, and their sum weighted by position
-    mod 65521), with its dtype and shape: equal digests mean the same
-    bits but for an astronomically unlikely collision."""
+def tree_digest(torch, trees: dict) -> dict:
+    """Two exact integer checksums of every leaf of each named tree (its
+    bits as integers: their sum, and their sum weighted by position mod
+    65521), with its dtype and shape: equal digests mean the same bits but
+    for an astronomically unlikely collision."""
     from repro_torch.checkpoint import store
 
     ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
     out = {}
-    for part, tree in (("params", program.params), ("state", program.state)):
+    for part, tree in trees.items():
         for k, t in store._flatten(tree).items():
             v = t.detach().contiguous().view(-1).view(ints[t.element_size()]).long()
             w = torch.arange(v.numel(), device=v.device) % 65521 + 1
             out[f"{part}::{k}"] = (str(t.dtype), tuple(t.shape), int(v.sum()), int((v * w).sum()))
     return out
+
+
+def chip_digest(torch, program) -> dict:
+    """:func:`tree_digest` of a chip's params and state."""
+    return tree_digest(torch, {"params": program.params, "state": program.state})
 
 
 def mesh_counts(torch) -> dict:
@@ -5721,9 +5818,34 @@ def mesh_counts(torch) -> dict:
             "b3": fa.flash_attention.launches, "rows": dict(dr.launches), "plain": plain_calls()}
 
 
-def phase_mesh(torch, gen, seed: int, chip4: dict, tokens4: dict, trace4: list,
+@contextlib.contextmanager
+def nccl_mesh():
+    """Phases 18 and 19's process group, NCCL at world size 1 over a store
+    in a temp dir, and its (data 1, model 1) mesh; the group destroyed and
+    the logical rules cleared at the end."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.common import set_logical_rules
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    try:
+        mesh_lib.init_process_group("cuda", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                    rank=0, world_size=1, timeout_s=60)
+        yield mesh_lib.make_serving_mesh(1)
+    finally:
+        set_logical_rules({})
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_mesh(torch, gen, seed: int, mesh, chip4: dict, tokens4: dict, trace4: list,
                accuracy: dict, b1_launched: set, checked_banks: set) -> dict:
-    """Phase 18 (see the module docstring)."""
+    """Phase 18 (see the module docstring), over ``mesh`` (:func:`nccl_mesh`)."""
     import dataclasses
     import shutil
     import tempfile
@@ -5734,7 +5856,6 @@ def phase_mesh(torch, gen, seed: int, chip4: dict, tokens4: dict, trace4: list,
     from repro_torch.configs import get
     from repro_torch.core import engine
     from repro_torch.core.analog import AnalogConfig
-    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import steps
     from repro_torch.models.common import set_logical_rules
     from repro_torch.models.lm import lm_init
@@ -5747,9 +5868,6 @@ def phase_mesh(torch, gen, seed: int, chip4: dict, tokens4: dict, trace4: list,
     b1_before = set(b1_launched)
     bank_seen = record_bank_shapes()
     try:
-        mesh_lib.init_process_group("cuda", store=dist.FileStore(os.path.join(tmp, "store"), 1),
-                                    rank=0, world_size=1, timeout_s=60)
-        mesh = mesh_lib.make_serving_mesh(1)
         res["backend"] = dist.get_backend()
         # (1) tinyllama-1.1b at full width and depth
         cfg = get("tinyllama-1.1b")
@@ -5840,8 +5958,6 @@ def phase_mesh(torch, gen, seed: int, chip4: dict, tokens4: dict, trace4: list,
         res["artifact"]["seconds"] = time.perf_counter() - t1
     finally:
         set_logical_rules({})
-        if dist.is_initialized():
-            dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
     keys = sorted(b1_launched - b1_before - set(map(tuple, accuracy["checked"])))
     res["b1_checked_after"] = check_launched_b1(torch, gen, keys, accuracy)
@@ -5861,6 +5977,71 @@ def phase_mesh(torch, gen, seed: int, chip4: dict, tokens4: dict, trace4: list,
         f"{res['phi3.5']['seconds']:.1f}, artifact {res['artifact']['seconds']:.1f}, "
         f"the new keys' checks {res['checks_s']:.1f})")
     check(res["seconds"] <= MESH_BUDGET_S, f"mesh: phase 18 within its {MESH_BUDGET_S} s budget")
+    return res
+
+
+def phase_train_mesh(torch, gen, seed: int, mesh, reference: dict, accuracy: dict,
+                     b1_launched: set, fa_launched: set, flash: dict) -> dict:
+    """Phase 19 (see the module docstring): phase 16 (b)'s 2-layer stack
+    drawn again from ``seed``, its stage-1 and stage-2 steps through the
+    sharded train step over ``mesh`` (:func:`lm_train_steps`), each held
+    to 16 (b)'s unsharded step (``reference``): the params, optimizer
+    state and metrics bitwise (their digests), the same B1 (by design), B3
+    and recompute launches, no plain call; then every new B1 key checked
+    as phase 3 checks its own and every new B3 shape as phase 8 does."""
+    import dataclasses
+
+    from repro_torch import prng
+    from repro_torch.configs import get
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    b1_before, fa_before = set(b1_launched), set(fa_launched)
+    cfg = dataclasses.replace(get(LM_ARCH), n_layers=LM_STEP["layers"], remat=False)
+    params = lm.lm_init(prng.PRNGKey(seed), cfg, device=DEV)
+    res = {"init_equal": tree_digest(torch, {"params": params}) == reference["init"]}
+    check(res["init_equal"], "train mesh: the stack drawn again is 16 (b)'s")
+    got = lm_train_steps(torch, params, cfg, mesh)
+    del params
+    res["stages"] = {}
+    for stage, g in got.items():
+        want = reference[stage]
+        same = g["digest"] == want["digest"]
+        share = g["collective_s"] / g["s"]
+        res["stages"][stage] = {
+            "ms": g["s"] * 1e3, "unsharded_ms": want["s"] * 1e3, "cold_ms": g["cold_s"] * 1e3,
+            "unsharded_cold_ms": want["cold_s"] * 1e3, "counts": g["counts"],
+            "unsharded_counts": want["counts"], "bitwise": same,
+            "repeats_bitwise": g["repeats_bitwise"], "metrics": g["metrics"],
+            "collective_calls": g["collective_calls"], "collective_host_share": share}
+        log(f"train mesh: stage {stage} through the sharded step over a (1, 1) NCCL mesh: "
+            f"params, optimizer state and metrics == 16 (b)'s unsharded step: {same}, a second "
+            f"run == the first: {g['repeats_bitwise']}; warm {g['s'] * 1e3:.2f} ms a step "
+            f"(unsharded {want['s'] * 1e3:.2f}), cold {g['cold_s'] * 1e3:.2f} (unsharded "
+            f"{want['cold_s'] * 1e3:.2f}); {g['collective_calls']} collective calls, "
+            f"{g['collective_s'] * 1e3:.2f} ms of host clock, share {share:.4f}; launches "
+            f"{g['counts']} (unsharded {want['counts']}); metrics {g['metrics']}")
+        check(same and g["repeats_bitwise"] and want["repeats_bitwise"],
+              f"train mesh: stage {stage} bitwise 16 (b)'s unsharded step, each run twice the "
+              "same")
+        check(g["counts"] == want["counts"] and g["counts"]["plain"] == 0
+              and (stage == 1 or g["counts"]["b1"] > 0) and g["counts"]["b3"] > 0,
+              f"train mesh: stage {stage}'s B1 and B3 launches the unsharded step's, "
+              "no plain call")
+        check(g["collective_calls"] > 0, f"train mesh: stage {stage} ran its collectives")
+    res["b1_launches"] = sum(g["counts"]["b1"] for g in got.values())
+    res["b3_launches"] = sum(g["counts"]["b3"] for g in got.values())
+    keys = sorted(b1_launched - b1_before - set(map(tuple, accuracy["checked"])))
+    res["b1_checked_after"] = check_launched_b1(torch, gen, keys, accuracy)
+    res["b3_new_shapes"] = sorted(fa_launched - fa_before)
+    checked_fa = {(r["rows"], r["S"], r["dtype"]) for r in flash["cases"]}
+    res["b3_checked_after"] = check_launched_fa(
+        torch, gen, sorted(set(res["b3_new_shapes"]) - checked_fa), flash)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"train mesh: phase 19 took {res['seconds']:.1f} s of its {TRAIN_MESH_BUDGET_S} s "
+        f"budget; new B1 keys {keys or 'none'}, new B3 shapes {res['b3_new_shapes'] or 'none'}")
+    check(res["seconds"] <= TRAIN_MESH_BUDGET_S,
+          f"train mesh: phase 19 within its {TRAIN_MESH_BUDGET_S} s budget")
     return res
 
 
@@ -6095,9 +6276,13 @@ def main(argv=None) -> int:
     archs = phase_archs(torch, gen, args.seed, accuracy, b1_launched, flash)
     archs["host_probe_start"] = host0
     lap("17 archs")
-    mesh = phase_mesh(torch, gen, args.seed, chip4, tokens4, trace4, accuracy, b1_launched,
-                      {ast.literal_eval(k) for k in archs["bank_cases"]})
-    lap("18 mesh")
+    with nccl_mesh() as nccl:
+        mesh = phase_mesh(torch, gen, args.seed, nccl, chip4, tokens4, trace4, accuracy,
+                          b1_launched, {ast.literal_eval(k) for k in archs["bank_cases"]})
+        lap("18 mesh")
+        train_mesh = phase_train_mesh(torch, gen, args.seed, nccl, lm["train_steps"], accuracy,
+                                      b1_launched, fa_launched, flash)
+        lap("19 sharded training")
     log(f"seconds per phase: { {k: round(v, 1) for k, v in phase_s.items()} }")
     checked = {(r["rows"], r["S"], r["dtype"]) for r in flash["cases"]}
     unchecked = sorted(fa_launched - checked)
@@ -6193,7 +6378,7 @@ def main(argv=None) -> int:
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
         "max_err_bf16_ulps": flash["worst_bf16_ulps"],
         "pass": True,
-    }, cnn_entry(cnn), train_entry(train, lm["launches"]["b1_fp32"]), *lm_entries(lm),
+    }, cnn_entry(cnn), train_entry(train, lm["launches"]["b1_fp32"]), *lm_entries(lm, train_mesh),
         bank_entry(archs, mesh)] + [{
         "name": f"decode_rows.{name}",
         "route": "cuda",
@@ -6233,7 +6418,7 @@ def main(argv=None) -> int:
            "step_timing": step_timing, "flash_attention": flash, "paged_serve": paged_serve,
            "bridge": bridge, "rows": rows, "drift_lifecycle": lifecycle, "resample": resample,
            "fleet": fleet, "cnn": cnn, "train": train, "lm_train": lm, "archs": archs,
-           "mesh": mesh,
+           "mesh": mesh, "train_mesh": train_mesh,
            **kernels,
            "phase_s": phase_s,
            "seconds": time.perf_counter() - t_start}

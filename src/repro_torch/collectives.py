@@ -9,8 +9,17 @@ reduction order depends on the world size and the algorithm, so no float
 goes through an ``all_reduce``; the program phase reduces only integers
 (``det_sum``'s limbs, a SUM) and f32 maxima (MAX, exact in any order).
 
+Training adds a conjugate pair of autograd operators, both exact because
+the activations between layers are whole and identical on every rank:
+:func:`gather` all-gathers forward and keeps the rank's slice of the
+gradient backward; :func:`split` keeps the rank's slice forward and
+all-gathers the gradient backward. :func:`sum_in_rank_order` sums the
+ranks' partial gradients of a data-parallel step: all-gathered, then added
+in rank order, as ``engine.tile_sum`` adds tiles.
+
 ``stats`` counts the calls and their host-clock seconds since the last
-:func:`reset_stats` (``chip_smoke.py`` reports them per decode step).
+:func:`reset_stats` (``chip_smoke.py`` reports them per decode step and per
+training step).
 """
 
 from __future__ import annotations
@@ -72,8 +81,9 @@ def axis_of(mesh, name: str = "model") -> Optional[Axis]:
 
 def _wire(t: Tensor) -> Tensor:
     # a gather moves bits: 16-bit floats go as bytes (gloo has no bf16, NCCL
-    # no int16); the last dim doubles, and viewing back halves it
-    return t.view(torch.uint8) if t.dtype in (torch.bfloat16, torch.float16) else t
+    # no int16; the last dim doubles, and viewing back halves it), and a
+    # mask as bytes (gloo has no bool)
+    return t.view(torch.uint8) if t.dtype in (torch.bfloat16, torch.float16, torch.bool) else t
 
 
 def all_gather_dim(t: Tensor, dim: int, bounds: tuple, axis: Axis) -> Tensor:
@@ -131,3 +141,56 @@ def all_to_all(t: Tensor, axis: Axis) -> Tensor:
     with _timed():
         dist.all_to_all_single(out, src, group=axis.group)
     return out.view(t.dtype)
+
+
+def rank_slice(t: Tensor, dim: int, bounds: tuple, axis: Axis) -> Tensor:
+    """This rank's slice ``[bounds[r], bounds[r + 1])`` of ``t`` along ``dim``."""
+    lo, hi = bounds[axis.rank], bounds[axis.rank + 1]
+    return t.narrow(dim, lo, hi - lo).contiguous()
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, bounds, axis):
+        ctx.args = (dim, bounds, axis)
+        return all_gather_dim(t, dim, bounds, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return rank_slice(g, *ctx.args), None, None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, bounds, axis):
+        ctx.args = (dim, bounds, axis)
+        return rank_slice(t, *ctx.args)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, *ctx.args), None, None, None
+
+
+def gather(t: Tensor, dim: int, bounds: tuple, axis: Axis) -> Tensor:
+    """:func:`all_gather_dim` with a gradient: backward keeps this rank's
+    slice of the (whole, on every rank the same) output gradient."""
+    return _Gather.apply(t, dim, bounds, axis)
+
+
+def split(t: Tensor, dim: int, bounds: tuple, axis: Axis) -> Tensor:
+    """This rank's slice ``[bounds[r], bounds[r + 1])`` of ``t`` along
+    ``dim``, with a gradient: backward all-gathers the ranks' slices of the
+    gradient, so the input's gradient is whole on every rank."""
+    return _Split.apply(t, dim, bounds, axis)
+
+
+def sum_in_rank_order(t: Tensor, axis: Axis) -> Tensor:
+    """The sum over the axis of each rank's ``t``, the same bits on every
+    rank: the ranks' tensors all-gathered as f32, then rank 0's plus rank
+    1's plus ... in rank order (one rank: ``t`` itself), returned in ``t``'s
+    dtype. No float goes through a collective's own reduction."""
+    parts = all_gather_dim(t.float()[None], 0, tuple(range(axis.size + 1)), axis)
+    y = parts[0]
+    for r in range(1, axis.size):
+        y = y + parts[r]
+    return y.to(t.dtype)

@@ -52,6 +52,7 @@ from repro_torch.core import pcm as pcm_lib
 from repro_torch.core import quant as quant_lib
 from repro_torch.core.engine import PCM_PROGRAMMED
 from repro_torch.core.quant import QuantSpec
+from repro_torch.kernels import ops as kernel_ops
 
 Tensor = torch.Tensor
 
@@ -158,27 +159,26 @@ def analog_matmul(
     launch per tile on a card; the plain version's partial on the CPU),
     the ranks' partials are gathered over the axis and summed in tile order
     (:func:`engine.tile_sum`). No float crosses the ranks in a reduction.
+
+    In training (``digital``, ``analog_train``) ``split`` is a rank's shard
+    of a sharded training step's layer (:func:`_train_matmul`,
+    :func:`_digital_columns`); ``pcm_infer`` runs no shard.
     """
     cfg = ctx.cfg
-    if split is not None and cfg.mode != PCM_PROGRAMMED:
-        raise ValueError(f"a sharded layer runs on a programmed chip, not in mode {cfg.mode!r}")
+    if split is not None and cfg.mode == PCM_INFER:
+        raise ValueError(f"a sharded layer runs on a programmed chip or in training, not in "
+                         f"mode {cfg.mode!r}")
     if cfg.mode == DIGITAL:
+        if split is not None:
+            return _digital_columns(x, w, split)
         return engine_lib.execute_digital(x, w)
     if cfg.mode not in (ANALOG_TRAIN, PCM_PROGRAMMED, PCM_INFER):
         raise ValueError(f"unknown analog mode: {cfg.mode}")
+    if cfg.mode == ANALOG_TRAIN:
+        return _train_matmul(x, w, r_adc, w_min, w_max, ctx, b_adc, split)
     plan = engine_lib.plan_for(cfg, int(w.shape[-2]), int(w.shape[-1]), b_adc)
     out_dtype = x.dtype
     mvm = ctx.mvm or engine_lib.execute_mvm
-    if cfg.mode == ANALOG_TRAIN:
-        spec = plan.spec
-        w_key = ctx.next_key()
-        w_eff = noise_lib.inject(w_key, w, cfg.eta, w_min, w_max)
-        masked = spec.quant_noise_p < 1.0
-        qn_key_in = ctx.next_key() if masked else None
-        qn_key_out = ctx.next_key() if masked and not cfg.use_kernel else None
-        x_q = quant_lib.dac_quantize(x, r_adc, ctx.gain_s, w_max, spec, qn_key_in)
-        x_q = x_q.to(out_dtype)
-        return mvm(x_q, w_eff.to(x_q.dtype), r_adc, plan, qn_key=qn_key_out).to(out_dtype)
     scale = 1.0 if out_scale is None else out_scale
     w_exec = w
     if cfg.mode == PCM_PROGRAMMED:
@@ -211,6 +211,67 @@ def analog_matmul(
         parts = collectives.all_gather_dim(torch.stack(parts), 0, tiles, rows_axis)
         return engine_lib.tile_sum(parts, scale, out_dtype)
     return mvm(x_q, w_exec, r_adc, plan, out_scale=scale).to(out_dtype)
+
+
+def _train_matmul(x: Tensor, w: Tensor, r_adc: Tensor, w_min: Tensor, w_max: Tensor,
+                  ctx: AnalogCtx, b_adc: Optional[int], split) -> Tensor:
+    """``analog_train``'s MVM (see the module docstring). Under a sharded
+    training step (``models.common.row_axis``: ``x`` holds a data-parallel
+    rank's rows of the global batch) every draw is the rank's slice of the
+    unsharded step's: the DAC and ADC masks at its rows, and with ``split``
+    (``w`` a rank's columns, or whole tiles of its rows with ``x`` whole)
+    the weight noise and the ADC mask at its columns or tiles; the MVM then
+    runs on the shard (``kernels.ops.analog_mvm_shard``)."""
+    from repro_torch.models.common import row_axis
+
+    cfg = ctx.cfg
+    k, n = int(w.shape[-2]), int(w.shape[-1])
+    if split is not None:
+        k, n = (k, split.size) if split.dim == -1 else (split.size, n)
+    plan = engine_lib.plan_for(cfg, k, n, b_adc)
+    spec = plan.spec
+    w_key = ctx.next_key()
+    if split is None:
+        w_eff = noise_lib.inject(w_key, w, cfg.eta, w_min, w_max)
+    else:
+        w_eff = noise_lib.inject(w_key, w, cfg.eta, w_min, w_max,
+                                 *engine_lib.slice_counters(tuple(w.shape), split))
+    masked = spec.quant_noise_p < 1.0
+    qn_key_in = ctx.next_key() if masked else None
+    qn_key_out = ctx.next_key() if masked and not cfg.use_kernel else None
+    rows = row_axis()
+    r = 0 if rows is None else rows.rank
+    x_q = quant_lib.dac_quantize(x, r_adc, ctx.gain_s, w_max, spec, qn_key_in, r * x.numel())
+    x_q = x_q.to(x.dtype)
+    w_q = w_eff.to(x_q.dtype)
+    if rows is None and split is None:
+        mvm = ctx.mvm or engine_lib.execute_mvm
+        return mvm(x_q, w_q, r_adc, plan, qn_key=qn_key_out).to(x.dtype)
+    if ctx.mvm is not None:
+        raise ValueError("ctx.mvm replaces the unsharded execute path; a sharded training "
+                         "step runs its own")
+    keep = engine_lib.quant_noise_keep(
+        qn_key_out, spec, x.shape[:-1], k, n, plan.tile_rows, plan.per_tile_adc, x.device,
+        row0=r * (x.numel() // x.shape[-1]), split=split)
+    if split is None:
+        return engine_lib.execute_mvm(x_q, w_q, r_adc, plan, keep=keep).to(x.dtype)
+    return kernel_ops.analog_mvm_shard(
+        x_q, w_q, r_adc=r_adc, split=split, axis=model_axis(split), bits=spec.b_adc,
+        tile_rows=plan.tile_rows, per_tile_adc=plan.per_tile_adc, keep=keep).to(x.dtype)
+
+
+def _digital_columns(x: Tensor, w: Tensor, split) -> Tensor:
+    """``digital``'s MVM on a rank's columns of a layer: its output columns
+    from the whole input (a digital layer has no tile, so its rows stay
+    whole); the backward takes the whole layer's VJP
+    (``kernels.ops.sharded``)."""
+    if split.dim != -1:
+        raise ValueError("a digital layer is split by its columns: it has no crossbar tile "
+                         "to cut its rows at (launch.sharding's crossbar rule)")
+    fn = engine_lib.execute_digital
+    part = (-1, split.bounds)
+    return kernel_ops.sharded(fn, kernel_ops.autograd_vjp(fn), (x, w), (None, part),
+                              model_axis(split), part)
 
 
 def analog_matmul_bank(
@@ -308,14 +369,22 @@ def _linear(params: dict, x: Tensor, ctx: AnalogCtx, rows_axis=None) -> Tensor:
 # which the next row-parallel layer may take as it lies (the attention's
 # heads, the FFN's hidden units).
 #
-# A measured hazard of the column split: on the CPU, torch's fp32
-# ``x @ w[:, cols]`` is bitwise the full product's columns at M = 8, 64 and
-# 256 rows but not at M = 1 (a GEMV route; measured at K = 1024 and 2048
-# over 2 and 4 column slices), so a one-row MVM of a column shard can move
-# an ADC code against the unsharded layer: its tests hold M = 1 to the ADC
-# tolerance model and the same tokens, not bitwise. On a card, B1's split
-# plan depends on (M, K, N), so a rank's columns at world size > 1 may be
-# summed in another order than the whole layer's; one card cannot check it.
+# A training step's layer carries the same splits (the training layout,
+# ``launch.sharding.param_shardings(analog_cfg=)``); its row-parallel layer
+# takes its whole input (gathered where it came as columns) so the DAC's
+# range gradients are whole, and every sharded layer's backward is the
+# unsharded layer's VJP on gathered inputs (``kernels.ops.sharded``).
+#
+# A measured hazard of the column split, and its condition: on the CPU,
+# torch's fp32 ``x @ w[:, cols]`` is bitwise the whole product's columns
+# at one intra-op thread (measured at K = 1024 and 2048, N = 2048, M = 1-8
+# over 4 slices), but at 8 threads not at any M from 2 to 8. A CPU process
+# group pins one thread (``launch.mesh.init_process_group``). The whole
+# product itself is the same at 1 and 8 threads at M = 2-8 and differs at
+# M = 1 (a GEMV route), so the host result a shard is held against is
+# computed at one thread too. On a card, B1's split plan depends on
+# (M, K, N), so a rank's columns at world size > 1 may be summed in
+# another order than the whole layer's; one card cannot check it.
 # ---------------------------------------------------------------------------
 
 
@@ -335,10 +404,10 @@ def model_axis(split):
 
 def gather_columns(y: Tensor, split) -> Tensor:
     """The whole tensor of a rank's columns ``y`` (``split`` None: ``y`` is
-    whole)."""
+    whole); its gradient keeps the rank's columns (``collectives.gather``)."""
     if split is None:
         return y
-    return collectives.all_gather_dim(y, -1, split.bounds, model_axis(split))
+    return collectives.gather(y, -1, split.bounds, model_axis(split))
 
 
 def linear_local(params: dict, x: Tensor, ctx: AnalogCtx) -> tuple:
@@ -357,7 +426,8 @@ def linear_apply(params: dict, x: Tensor, ctx: AnalogCtx, x_split=None) -> Tenso
     output): a row-parallel layer whose rows are those columns takes it as
     it lies, every other layer gathers it first."""
     split = params.get("tp")
-    if split is not None and split.dim == -2 and x_split is not None \
+    programmed = ctx.cfg.mode == PCM_PROGRAMMED
+    if programmed and split is not None and split.dim == -2 and x_split is not None \
             and x_split.bounds == split.bounds:
         return _rows_parallel(params, x, ctx, split)
     x = gather_columns(x, x_split)
@@ -365,6 +435,8 @@ def linear_apply(params: dict, x: Tensor, ctx: AnalogCtx, x_split=None) -> Tenso
         return _linear(params, x, ctx)
     if split.dim == -1:
         return gather_columns(_linear(params, x, ctx), split)
+    if not programmed:  # training: the row shard takes the whole input
+        return _linear(params, x, ctx)
     return _rows_parallel(params, split.take(x, -1), ctx, split)
 
 

@@ -201,18 +201,38 @@ def tile_sum(parts: Tensor, out_scale, out_dtype: torch.dtype) -> Tensor:
 
 
 def quant_noise_keep(qn_key: Optional[Tensor], spec: QuantSpec, lead: tuple, k: int, n: int,
-                     tile_rows: int, per_tile_adc: bool, device) -> Optional[Tensor]:
+                     tile_rows: int, per_tile_adc: bool, device, *, row0: int = 0,
+                     split=None) -> Optional[Tensor]:
     """The ADC quant-noise mask of one MVM as the reference draws it
     (``quant.quant_noise`` over y's shape: ``(*lead, N)`` for one ADC
     conversion, ``(*lead, T, N)`` per tile), as the (M, T, N) ``keep`` of
     the training form (the flat order is the same). None without a key or
-    at ``quant_noise_p >= 1``."""
+    at ``quant_noise_p >= 1``.
+
+    A shard's slice of the whole MVM's mask: ``row0``, the first of the
+    whole draw's M rows that ``lead`` holds (a data-parallel rank's rows);
+    ``split`` (``launch.sharding.Split``), the layer is a rank's columns
+    (-> its columns of the mask) or whole tiles of its K rows (-> its tiles)
+    of the whole ``k`` x ``n`` layer."""
     if qn_key is None or spec.quant_noise_p >= 1.0:
         return None
     t = n_tiles(k, tile_rows, per_tile_adc)
-    shape = (*lead, n) if t == 1 else (*lead, t, n)
-    mask = prng.bernoulli(qn_key.to(device), spec.quant_noise_p, shape)
-    return mask.reshape(-1, t, n)
+    if row0 == 0 and split is None:
+        shape = (*lead, n) if t == 1 else (*lead, t, n)
+        return prng.bernoulli(qn_key.to(device), spec.quant_noise_p, shape).reshape(-1, t, n)
+    m = math.prod(lead)
+    t_loc, n_loc, off, stride = t, n, row0 * t * n, None
+    shape = (m, t * n)
+    if split is not None and split.dim == -1:  # rows of the draw: (m, t) pairs
+        n_loc, off, stride = split.stop - split.start, off + split.start, n
+        shape = (m * t, n_loc)
+    elif split is not None:  # whole tiles of K
+        t0 = split.start // tile_rows
+        t_loc = -(-split.stop // tile_rows) - t0
+        off, stride = off + t0 * n, t * n
+        shape = (m, t_loc * n)
+    mask = prng.bernoulli(qn_key.to(device), spec.quant_noise_p, shape, off, stride)
+    return mask.reshape(-1, t_loc, n_loc)
 
 
 def _needs_grad(*ts) -> bool:
@@ -229,20 +249,23 @@ def execute_mvm(
     *,
     out_scale=1.0,
     qn_key: Optional[Tensor] = None,
+    keep: Optional[Tensor] = None,
 ) -> Tensor:
     """Unified execute-phase MVM: pre-quantized inputs x effective weights.
 
     A CUDA tensor launches the Hopper kernel (``r_adc`` is passed as is: the
     ADC quantizer takes |r_adc| itself); a CPU tensor runs the plain
     :func:`tile_matmul_quant`. Where a gradient is needed, or ``qn_key``
-    draws an ADC quant-noise mask, the call goes through the STE function
+    draws an ADC quant-noise mask (or ``keep`` is one already drawn: a
+    data-parallel rank's rows of it), the call goes through the STE function
     ``kernels.ops.analog_mvm_ste`` (B1 with the mask on a card; the plain
     training form on the CPU; the VJP of the plain training form backward).
     """
     if x_q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"execute_mvm: unsupported device {x_q.device}")
-    keep = quant_noise_keep(qn_key, plan.spec, x_q.shape[:-1], plan.k, plan.n,
-                            plan.tile_rows, plan.per_tile_adc, x_q.device)
+    if keep is None:
+        keep = quant_noise_keep(qn_key, plan.spec, x_q.shape[:-1], plan.k, plan.n,
+                                plan.tile_rows, plan.per_tile_adc, x_q.device)
     if keep is not None or _needs_grad(x_q, w_eff, r_adc, out_scale):
         return kernel_ops.analog_mvm_ste(
             x_q, w_eff, r_adc=r_adc, out_scale=out_scale, bits=plan.spec.b_adc,
@@ -473,7 +496,7 @@ def resample_read(key: Tensor, buf: dict, split=None) -> Tensor:
     """
     k_p, k_n = prng.split(key.to(buf["g_pos"].device))
     shape = tuple(buf["g_pos"].shape)
-    off, stride = _slice_counters(shape, split)
+    off, stride = slice_counters(shape, split)
     g_pos = prng.fma(buf["sigma_pos"], _normal_at(k_p, shape, off, stride, split),
                      buf["g_pos"]).clamp(min=0.0)
     g_neg = prng.fma(buf["sigma_neg"], _normal_at(k_n, shape, off, stride, split),
@@ -482,7 +505,7 @@ def resample_read(key: Tensor, buf: dict, split=None) -> Tensor:
     return (g_pos - g_neg) * w_scale.reshape(w_scale.shape + (1, 1))
 
 
-def _slice_counters(shape: tuple, split) -> tuple:
+def slice_counters(shape: tuple, split) -> tuple:
     """(offset, stride) of a rank's slice of a (stack..., K, N) draw within
     one member (row or column split); stacks are handled by
     :func:`_normal_at`."""

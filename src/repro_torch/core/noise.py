@@ -36,10 +36,12 @@ def clip_ste(w: Tensor, w_min: Tensor, w_max: Tensor) -> Tensor:
     return w + (clipped - w).detach()
 
 
-def sample_weight_noise(key: Tensor, w: Tensor, eta: float, w_max: Tensor) -> Tensor:
-    """dW ~ N(0, (eta * W_max)^2) in w's dtype (Eq. 1)."""
+def sample_weight_noise(key: Tensor, w: Tensor, eta: float, w_max: Tensor, offset: int = 0,
+                        stride: Optional[int] = None) -> Tensor:
+    """dW ~ N(0, (eta * W_max)^2) in w's dtype (Eq. 1); ``offset`` and
+    ``stride``: ``w`` is a slice of a wider weight (``prng.normal``)."""
     sigma = eta * abs_(w_max)
-    return (sigma * prng.normal(key.to(w.device), w.shape)).to(w.dtype)
+    return (sigma * prng.normal(key.to(w.device), w.shape, offset, stride)).to(w.dtype)
 
 
 class _GradTo(torch.autograd.Function):
@@ -60,9 +62,14 @@ def inject(
     eta: float,
     w_min: Tensor,
     w_max: Tensor,
+    offset: int = 0,
+    stride: Optional[int] = None,
 ) -> Tensor:
     """The training-time weight path: STE clip, then Gaussian noise (a
-    constant draw: no gradient flows through it).
+    constant draw: no gradient flows through it). On a tensor-parallel
+    rank ``w`` is its shard and draws its slice of the whole weight's draw:
+    a column shard ``offset`` its first column and ``stride`` the whole
+    width, a row shard ``offset`` its first row times the width.
 
     For f32 weights the sum is computed as the reference's compiled train
     step computes it: the compiler folds ``eta * sqrt(2)`` into one f32
@@ -74,11 +81,12 @@ def inject(
     if key is None or eta <= 0.0:
         return w_c
     if w.dtype != torch.float32:
-        return w_c + sample_weight_noise(key, w, eta, w_max).detach()
+        return w_c + sample_weight_noise(key, w, eta, w_max, offset, stride).detach()
     dev = w.device
     factor = torch.tensor(prng._f32(eta), device=dev) * torch.tensor(prng.SQRT2, device=dev)
     scale = (w_max.detach().abs() * factor).expand(w.shape)
-    noisy = prng.fma(scale, prng.normal_erf_inv(key.to(dev), w.shape), w_c.detach())
+    noisy = prng.fma(scale, prng.normal_erf_inv(key.to(dev), w.shape, offset, stride),
+                     w_c.detach())
     return _GradTo.apply(noisy, w_c)
 
 

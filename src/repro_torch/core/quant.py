@@ -97,14 +97,19 @@ def fake_quant(x: Tensor, r_max, bits: int) -> Tensor:
     return round_ste(clipped / step) * step
 
 
-def quant_noise(x: Tensor, x_quant: Tensor, key: Optional[Tensor], prob: float) -> Tensor:
+def quant_noise(x: Tensor, x_quant: Tensor, key: Optional[Tensor], prob: float,
+                offset: int = 0) -> Tensor:
     """Fan et al. 2020: with probability ``prob`` per element the quantized
     value is used, else the full-precision one (the mask is
-    ``prng.bernoulli(key, prob, x.shape)``, the reference's draw).
+    ``prng.bernoulli(key, prob, x.shape)``, the reference's draw; from
+    counter ``offset`` on for a data-parallel rank's rows of it).
     ``prob >= 1`` or ``key=None`` is plain quantization-aware training."""
     if key is None or prob >= 1.0:
         return x_quant
-    mask = prng.bernoulli(key.to(x.device), prob, x.shape)
+    if offset:
+        mask = prng.bernoulli(key.to(x.device), prob, x.shape, offset)
+    else:
+        mask = prng.bernoulli(key.to(x.device), prob, x.shape)
     return torch.where(mask, x_quant, x)
 
 
@@ -137,11 +142,13 @@ def dac_quantize(
     w_max: Tensor,
     spec: QuantSpec,
     key: Optional[Tensor] = None,
+    offset: int = 0,
 ) -> Tensor:
     """Quantize input activations as the PWM DAC would (Eq. 3/4/5); with a
-    key, quant-noise masked at ``spec.quant_noise_p``."""
+    key, quant-noise masked at ``spec.quant_noise_p`` (``offset``: see
+    :func:`quant_noise`)."""
     xq = fake_quant(x, dac_range(r_adc, gain_s, w_max), spec.b_dac)
-    return quant_noise(x, xq, key, spec.quant_noise_p)
+    return quant_noise(x, xq, key, spec.quant_noise_p, offset)
 
 
 def adc_quantize(y: Tensor, r_adc: Tensor, spec: QuantSpec, key: Optional[Tensor] = None) -> Tensor:

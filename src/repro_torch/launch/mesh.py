@@ -10,9 +10,9 @@ placement rules (``launch.sharding``) and their tests can use the 256- and
 
 :func:`init_process_group` starts the group a ``torchrun`` launch
 describes (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
-``MASTER_PORT``): gloo for the CPU, NCCL for the card (one card a rank,
-``cuda:{LOCAL_RANK}``), with a timeout, so a hung collective fails the run
-instead of hanging it.
+``MASTER_PORT``): NCCL for the card by default (one card a rank,
+``cuda:{LOCAL_RANK}``), gloo for the CPU with ``device="cpu"``, with a
+timeout, so a hung collective fails the run instead of hanging it.
 """
 
 from __future__ import annotations
@@ -93,7 +93,8 @@ def _world() -> int:
         raise RuntimeError(
             "a mesh is built over a torch.distributed process group: start "
             "one rank per device (torchrun --nproc-per-node N ...) and call "
-            "launch.mesh.init_process_group() first"
+            "launch.mesh.init_process_group() first (NCCL on the card; "
+            "init_process_group('cpu') for gloo on the CPU)"
         )
     return dist.get_world_size()
 
@@ -130,15 +131,23 @@ def make_serving_mesh(model: Optional[int] = None):
     return _device_mesh(serving_layout(_world(), model))
 
 
-def init_process_group(device="cpu", *, timeout_s: float = DEFAULT_TIMEOUT_S,
+def init_process_group(device="cuda", *, timeout_s: float = DEFAULT_TIMEOUT_S,
                        store=None, rank: Optional[int] = None,
                        world_size: Optional[int] = None) -> torch.device:
     """Join the process group (once) and return this rank's device.
 
     Without ``store``, the group is the one ``torchrun`` describes in the
     environment; ``store`` (a ``FileStore`` or ``TCPStore``) with ``rank``
-    and ``world_size`` names it explicitly. gloo on the CPU; NCCL on a card,
-    each rank on ``cuda:{LOCAL_RANK}``.
+    and ``world_size`` names it explicitly. NCCL on a card (the default),
+    each rank on ``cuda:{LOCAL_RANK}``; gloo on the CPU (``device="cpu"``).
+
+    A CPU group pins this process to one intra-op thread
+    (``torch.set_num_threads(1)``): at more threads torch's fp32 product
+    of a column slice ``x @ w[:, cols]`` is not bitwise the whole product's
+    columns (measured at K = 1024 and 2048, N = 2048, M = 2-8 over 4
+    slices, 8 threads), at one thread it is, and the tensor-parallel
+    forward rests on that. The host result a sharded one is held against
+    is computed at one thread as well (``core.analog``'s note).
     """
     import torch.distributed as dist
 
@@ -148,6 +157,8 @@ def init_process_group(device="cpu", *, timeout_s: float = DEFAULT_TIMEOUT_S,
                            else dev.index)
         torch.cuda.set_device(dev)
     if not dist.is_initialized():
+        if dev.type == "cpu":
+            torch.set_num_threads(1)
         kw = {}
         if store is not None:
             kw = dict(store=store, rank=rank, world_size=world_size)

@@ -30,12 +30,27 @@ tile boundaries (:func:`tile_bounds`): tinyllama-1.1b's ``w2`` (K = 5,632,
 converts the whole K (``per_tile_adc=False``), its rows stay whole and its
 columns are split instead: the rank computes its output columns from the
 gathered input. :func:`layer_split` applies it to a programmed layer.
+
+**The training layout.** ``param_shardings(analog_cfg=)`` is the
+reference's FSDP x TP layout with the crossbar rule on the TP dim: a
+row-parallel analog weight's K over ``model`` at whole tiles of
+``analog_cfg`` (its :class:`NamedSharding` carries the uneven split points
+in ``bounds``), or -- in ``digital`` mode, which has no tile, or where the
+tiles are fewer than the ranks -- its columns over ``model`` and its rows
+over the FSDP axes. :func:`shard_tree` keeps a rank's slice of every leaf
+(``jax.device_put``'s counterpart), :func:`gather_tree` gives the global
+tree back, bitwise, and :func:`train_view` is the tree a rank's forward
+runs on (each layer's split, the vocab-sharded embedding gathered).
+Training supports a (data, model) mesh: a dim over more than one axis (a
+``pod`` axis) is refused.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional
+
+import torch
 
 from repro_torch import tree as tree_lib
 from repro_torch.launch.mesh import layout_of
@@ -48,10 +63,14 @@ _ROW = {"wo", "w2", "out_proj"}
 
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
-    """A leaf's placement: ``spec`` (one entry per dim) over ``mesh``."""
+    """A leaf's placement: ``spec`` (one entry per dim) over ``mesh``.
+    ``bounds``, where not empty, has one entry per dim of ``spec``: None
+    where the dim's axis splits it evenly, else its split points (the
+    crossbar rule's whole tiles, :func:`tile_bounds`)."""
 
     mesh: Any
     spec: tuple
+    bounds: tuple = ()
 
 
 def fsdp_axes(mesh) -> tuple:
@@ -139,19 +158,42 @@ def param_pspec(path: tuple, shape: tuple, mesh, cfg=None, inference: bool = Fal
 
 
 def param_shardings(params: Any, mesh, cfg=None, inference: bool = False,
-                    layout: str = "2d") -> Any:
+                    layout: str = "2d", analog_cfg=None) -> Any:
     """A :class:`NamedSharding` per leaf of ``params`` (tensors, or anything
     with a ``shape``: a meta-device tree works), in ``params``' structure.
 
     ``layout="dp"``: every mesh axis acts as one FSDP/DP axis, no tensor
     parallelism (right-sized for small models on the production mesh).
+    ``analog_cfg``: the training layout of a step in that config (the
+    crossbar rule on the TP dim, see the module docstring).
     """
     flat = tree_lib.flatten_with_path(params)
     if layout == "dp":
         specs = [_dp_pspec(p, tuple(x.shape), mesh) for p, x in flat]
     else:
         specs = [param_pspec(p, tuple(x.shape), mesh, cfg, inference) for p, x in flat]
-    return tree_lib.unflatten(params, [NamedSharding(mesh, s) for s in specs])
+    out = [NamedSharding(mesh, s) for s in specs]
+    if analog_cfg is not None:
+        out = [_crossbar(p, tuple(x.shape), sh, analog_cfg) for (p, x), sh in zip(flat, out)]
+    return tree_lib.unflatten(params, out)
+
+
+def _crossbar(path: tuple, shape: tuple, sh: NamedSharding, analog_cfg) -> NamedSharding:
+    """The crossbar rule on a row-parallel analog weight's placement."""
+    n = _axis_size(sh.mesh, "model") if "model" in layout_of(sh.mesh).axis_names else 1
+    if _owner(path)[1] != "w" or n == 1 or _model_entry(sh.spec) != -2:
+        return sh
+    per_tile = analog_cfg.per_tile_adc and analog_cfg.mode != "digital"
+    bounds = tile_bounds(shape[-2], n, analog_cfg.tile_rows, per_tile)
+    spec = list(sh.spec)
+    if bounds is not None:
+        return NamedSharding(sh.mesh, sh.spec, (None,) * (len(spec) - 2) + (bounds, None))
+    # rows whole: the columns over model (where it divides them), the FSDP
+    # axes over the rows
+    fsdp = spec[-1]
+    spec[-2] = fsdp if fsdp is not None and shape[-2] % _axis_size(sh.mesh, fsdp) == 0 else None
+    spec[-1] = "model" if shape[-1] % n == 0 else None
+    return NamedSharding(sh.mesh, tuple(spec))
 
 
 def program_shardings(params: Any, mesh, cfg=None) -> Any:
@@ -232,11 +274,12 @@ def cache_shardings(cache: Any, mesh, global_batch: int) -> Any:
         lambda x: NamedSharding(mesh, cache_pspec(tuple(x.shape), mesh, global_batch)), cache)
 
 
-def logical_rules(mesh, cfg=None, layout: str = "2d") -> dict:
+def logical_rules(mesh, cfg=None, layout: str = "2d", training: bool = False) -> dict:
     """Logical activation dims -> mesh axes (None: replicated). With
     ``cfg``, a heads or kv-heads count the ``model`` degree does not divide
     is replicated (padding a tiny kv-head dim would cost more than it
-    saves)."""
+    saves). ``training``: also ``rows`` -- a training step's batch rows,
+    over ``data`` (``models.common.row_axis``)."""
     lay = layout_of(mesh)
     if layout == "dp":
         axes = tuple(lay.axis_names)
@@ -261,6 +304,8 @@ def logical_rules(mesh, cfg=None, layout: str = "2d") -> dict:
             rules["kv_heads"] = None
         if cfg.n_heads and cfg.n_heads % model_n != 0:
             rules["heads"] = None
+    if training:
+        rules["rows"] = b
     return rules
 
 
@@ -281,6 +326,15 @@ def opt_pspec(state_shape: tuple, param_shape: tuple, param_spec: tuple) -> tupl
     return ()
 
 
+def _opt_sharding(state_shape: tuple, param_shape: tuple, sh: NamedSharding) -> NamedSharding:
+    """:func:`opt_pspec`, the parameter's ``bounds`` carried the same way."""
+    spec = opt_pspec(state_shape, param_shape, sh.spec)
+    if not sh.bounds or not spec:
+        return NamedSharding(sh.mesh, spec)
+    bounds = opt_pspec(state_shape, param_shape, sh.bounds)
+    return NamedSharding(sh.mesh, spec, bounds)
+
+
 def build_opt_shardings(opt_state: Any, params: Any, param_shards: Any, mesh) -> Any:
     """Optimizer-state shardings that mirror the parameters'
     (``training.optim.OptState``): the step replicated, each moment leaf by
@@ -292,7 +346,7 @@ def build_opt_shardings(opt_state: Any, params: Any, param_shards: Any, mesh) ->
 
     def match(states):
         return tree_lib.unflatten(states, [
-            NamedSharding(mesh, opt_pspec(tuple(s.shape), tuple(p.shape), sh.spec))
+            dataclasses.replace(_opt_sharding(tuple(s.shape), tuple(p.shape), sh), mesh=mesh)
             for s, p, sh in zip(tree_lib.leaves(states), p_leaves, s_leaves, strict=True)])
 
     return optim_lib.OptState(
@@ -393,3 +447,114 @@ def layer_split(spec: tuple, shape: tuple, n: int, rank: int, tile_rows: int,
             return None
         return Split(-1, even_bounds(shape[-1], n), rank)
     return Split(dim, even_bounds(shape[dim], n), rank)
+
+
+# ---------------------------------------------------------------------------
+# A rank's slices of a tree in a layout, and the global tree back
+# ---------------------------------------------------------------------------
+
+
+def placed_dims(sh: NamedSharding) -> list:
+    """(dim from the end, axis name, split points or None) of each dim of a
+    leaf that ``sh`` splits."""
+    out = []
+    for i, ax in enumerate(sh.spec):
+        if ax is None:
+            continue
+        names = tuple(ax) if isinstance(ax, (tuple, list)) else (ax,)
+        if len(names) != 1:
+            raise NotImplementedError(
+                f"a dim over mesh axes {names}: the sharded step takes a (data, model) mesh")
+        out.append((i - len(sh.spec), names[0], sh.bounds[i] if sh.bounds else None))
+    return out
+
+
+def _axis(sh: NamedSharding, name: str):
+    from repro_torch import collectives
+
+    axis = collectives.axis_of(sh.mesh, name)
+    if axis is None:
+        raise ValueError(f"the mesh has no axis {name!r}")
+    return axis
+
+
+def take_leaf(t, sh: NamedSharding, names: Optional[tuple] = None):
+    """This rank's slice of the global leaf ``t`` in ``sh`` (over the axes
+    ``names``, default every one it is split over), a tensor of its own."""
+    for dim, name, bounds in placed_dims(sh):
+        if names is not None and name not in names:
+            continue
+        axis = _axis(sh, name)
+        b = bounds or even_bounds(t.shape[dim], axis.size)
+        t = t.narrow(dim, b[axis.rank], b[axis.rank + 1] - b[axis.rank])
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def gather_leaf(t, sh: NamedSharding, names: Optional[tuple] = None):
+    """The leaf whose slices the ranks hold in ``sh`` (``t`` this rank's),
+    all-gathered over the axes ``names`` (default every one): an exact
+    concatenation."""
+    from repro_torch import collectives
+
+    for dim, name, bounds in placed_dims(sh):
+        if names is not None and name not in names:
+            continue
+        axis = _axis(sh, name)
+        b = bounds or even_bounds(t.shape[dim] * axis.size, axis.size)
+        t = collectives.all_gather_dim(t, dim, b, axis)
+    return t
+
+
+def shard_tree(tree: Any, shardings: Any) -> Any:
+    """Each leaf's slice this rank holds in ``shardings`` (the counterpart
+    of ``jax.device_put(tree, shardings)``): every rank passes the global
+    tree."""
+    return tree_lib.tree_map(take_leaf, tree, shardings)
+
+
+def gather_tree(tree: Any, shardings: Any) -> Any:
+    """The global tree of a rank's slices in ``shardings``, bitwise."""
+    return tree_lib.tree_map(gather_leaf, tree, shardings)
+
+
+def leaf_split(t, sh: NamedSharding) -> Optional[Split]:
+    """The :class:`Split` over ``model`` of a leaf whose rank holds ``t``
+    (its slice over ``model``, whole over the FSDP axes); None where it is
+    not split over more than one rank."""
+    dim = _model_entry(sh.spec)
+    if dim is None:
+        return None
+    axis = _axis(sh, "model")
+    if axis.size == 1:
+        return None
+    bounds = sh.bounds[dim] if sh.bounds and sh.bounds[dim] is not None else \
+        even_bounds(t.shape[dim] * axis.size, axis.size)
+    return Split(dim, bounds, axis.rank)
+
+
+def train_view(params: Any, shardings: Any) -> Any:
+    """The tree a tensor-parallel rank's training forward runs on, from its
+    leaves gathered over the FSDP axes: each analog layer and expert bank
+    split over ``model`` carries its :class:`Split` under ``"tp"`` (the
+    layer's bias its columns), and the vocab-sharded embedding table is
+    gathered over ``model`` (``collectives.gather``: its gradient keeps the
+    rank's rows)."""
+    from repro_torch import collectives
+    from repro_torch.core import engine
+
+    by_path = {tree_lib.path_name(p): sh for p, sh in tree_lib.flatten_with_path(shardings)}
+
+    def node_fn(path: str, node: dict) -> dict:
+        w = "w" if "w" in node else "w1"
+        split = leaf_split(node[w], by_path[f"{path}/{w}"])
+        return dict(node) if split is None else {**node, "tp": split}
+
+    view = engine._walk(params, node_fn)
+    embed = getattr(view, "embed", None)
+    if isinstance(embed, dict) and "table" in embed:
+        split = leaf_split(embed["table"], by_path["embed/table"])
+        if split is not None:
+            table = collectives.gather(embed["table"], split.dim, split.bounds,
+                                       _axis(by_path["embed/table"], "model"))
+            view = view._replace(embed={**embed, "table": table})
+    return view

@@ -1,5 +1,4 @@
-"""Program-phase and training steps, port of the unsharded half of
-``repro.launch.steps``.
+"""Program-phase and training steps, port of ``repro.launch.steps``.
 
 :func:`program_for_serving` programs a chip for a serving deployment;
 :func:`refresh_program` is what the refresh policy calls to rewrite a
@@ -11,8 +10,11 @@ decoder (musicgen) is served, since the request-level engine drives one
 token stream. With ``mesh=`` (a ``DeviceMesh``, ``launch.mesh``) the
 program phase programs this rank's shard of the chip
 (``launch.sharding.program_shardings``) and installs the mesh's logical
-rules for the tensor-parallel forward; the sharded training step is not
-ported.
+rules for the tensor-parallel forward, and ``make_train_step(mesh=)`` is
+the reference's train step under its param, optimizer and batch shardings
+on a (data, model) mesh: FSDP x tensor-parallel, every draw a rank's slice
+of the unsharded step's, no float summed by a collective (see
+:func:`make_train_step`).
 """
 
 from __future__ import annotations
@@ -106,6 +108,9 @@ def make_train_step(
     analog_cfg: AnalogConfig,
     opt_cfg: optim_lib.OptimizerConfig,
     accum_steps: int = 1,
+    *,
+    mesh: Any = None,
+    shardings: Optional[tuple] = None,
 ):
     """(params, opt_state, batch, rng) -> (params, opt_state, metrics), the
     reference's step.
@@ -117,10 +122,30 @@ def make_train_step(
     their gradients in f32 from zeros before dividing by ``accum_steps``;
     the metrics then hold the mean ``loss`` only (no ``ppl_proxy``), as the
     reference's do. Activation memory scales with the microbatch.
+
+    **Sharded** (``mesh``, a (data, model) ``DeviceMesh``; ``shardings`` =
+    (``launch.sharding.param_shardings(..., analog_cfg=analog_cfg)``,
+    ``build_opt_shardings(...)``)): the step the reference jits with those
+    in/out shardings. ``params`` and ``opt_state`` hold the rank's slices
+    (``sharding.shard_tree``) and come back so; ``batch`` is the global
+    batch, of which the rank takes its rows of each microbatch
+    (``batch_shardings``: over ``data``). It computes the unsharded step's
+    function: the same key schedule, each rank drawing its slice of every
+    draw (its rows of the batch, its columns or tiles of a layer); each
+    leaf gathered over ``data`` before use and its gradient summed over
+    ``data`` in rank order (``training.loop.value_and_grad``); the loss
+    gathered over the rows; the optimizer's reductions on whole leaves
+    (``optim.update``). The metrics are the same on every rank. The SSM,
+    hybrid, vision and audio families, and the shard_map MoE dispatch,
+    refuse a mesh.
     """
 
     def loss_for(p, batch, noise_rng):
         return lm_lib.lm_loss(p, batch, analog_cfg, cfg, rng=noise_rng)
+
+    if mesh is not None:
+        return _sharded_train_step(cfg, analog_cfg, opt_cfg, accum_steps, mesh, shardings,
+                                   loss_for)
 
     def train_step(params, opt_state, batch, rng):
         step_rng = prng.fold_in(rng, int(opt_state.step))
@@ -129,23 +154,85 @@ def make_train_step(
         if accum_steps <= 1:
             (_, metrics), grads = value_and_grad(loss_for, params, batch, noise_rng)
         else:
-            micro = tree_lib.tree_map(
-                lambda x: x.reshape((accum_steps, x.shape[0] // accum_steps) + x.shape[1:]),
-                batch,
-            )
-            grads = tree_lib.tree_map(
-                lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
-            loss_sum = torch.zeros((), dtype=torch.float32, device=opt_state.step.device)
-            for i in range(accum_steps):
-                mb = tree_lib.tree_map(lambda x: x[i], micro)
-                (loss, _), g = value_and_grad(loss_for, params, mb, noise_rng)
-                grads = tree_lib.tree_map(torch.add, grads, g)
-                loss_sum = loss_sum + loss
-            grads = tree_lib.tree_map(lambda g: g / accum_steps, grads)
-            metrics = {"loss": loss_sum / accum_steps}
+            grads, metrics = _accumulate(loss_for, params, _micro(batch, accum_steps),
+                                         accum_steps, noise_rng, opt_state.step.device)
 
         params, opt_state, opt_metrics = optim_lib.update(opt_cfg, params, grads, opt_state)
         # sorted keys, as the reference's jitted step returns its dict
+        return params, opt_state, dict(sorted({**metrics, **opt_metrics}.items()))
+
+    return train_step
+
+
+def _micro(batch: dict, accum_steps: int) -> list:
+    """The batch's ``accum_steps`` microbatches of B / accum_steps rows."""
+    return [tree_lib.tree_map(lambda x: x.reshape(
+        (accum_steps, x.shape[0] // accum_steps) + x.shape[1:])[i], batch)
+        for i in range(accum_steps)]
+
+
+def _accumulate(loss_for, params, micro: list, accum_steps: int, noise_rng, dev,
+                **kw) -> tuple:
+    """The microbatches' gradients summed in f32 from zeros, then divided by
+    ``accum_steps``, and their mean loss."""
+    grads = tree_lib.tree_map(
+        lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+    for mb in micro:
+        (loss, _), g = value_and_grad(loss_for, params, mb, noise_rng, **kw)
+        grads = tree_lib.tree_map(torch.add, grads, g)
+        loss_sum = loss_sum + loss
+    grads = tree_lib.tree_map(lambda g: g / accum_steps, grads)
+    return grads, {"loss": loss_sum / accum_steps}
+
+
+def _sharded_train_step(cfg, analog_cfg, opt_cfg, accum_steps, mesh, shardings, loss_for):
+    """:func:`make_train_step` under ``mesh`` (see its docstring)."""
+    from repro_torch import collectives
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models.common import logical_rules_of
+
+    if cfg.family in UNSHARDED_FAMILIES:
+        raise NotImplementedError(
+            f"the sharded train step covers the dense and MoE families; the {cfg.family} "
+            f"family ({cfg.name}) trains on one device")
+    if cfg.moe_dispatch == "shard_map" and cfg.family == "moe":
+        raise NotImplementedError("the sharded train step runs the einsum MoE dispatch, the "
+                                  "reference's default; shard_map dispatch is served only")
+    if shardings is None:
+        raise ValueError("a sharded train step takes shardings=(param_shardings(..., "
+                         "analog_cfg=), build_opt_shardings(...))")
+    p_sh, _ = shardings
+    rules = shd.logical_rules(mesh, cfg, training=True)
+    data = collectives.axis_of(mesh, "data")
+
+    def sharded_loss(p, batch, noise_rng):
+        return loss_for(shd.train_view(p, p_sh), batch, noise_rng)
+
+    def rows_of(batch: dict) -> dict:
+        rows = {}
+        for k, v in batch.items():
+            t = torch.as_tensor(v)
+            if t.shape[0] % data.size:
+                raise ValueError(f"batch leaf {k!r} of {t.shape[0]} rows does not split over "
+                                 f"{data.size} data-parallel ranks")
+            n = t.shape[0] // data.size
+            rows[k] = t.narrow(0, data.rank * n, n)
+        return rows
+
+    def train_step(params, opt_state, batch, rng):
+        step_rng = prng.fold_in(rng, int(opt_state.step))
+        noise_rng = step_rng if analog_cfg.needs_rng else None
+        with logical_rules_of(rules, mesh):
+            if accum_steps <= 1:
+                (_, metrics), grads = value_and_grad(sharded_loss, params, rows_of(batch),
+                                                     noise_rng, shardings=p_sh)
+            else:
+                grads, metrics = _accumulate(
+                    sharded_loss, params, [rows_of(mb) for mb in _micro(batch, accum_steps)],
+                    accum_steps, noise_rng, opt_state.step.device, shardings=p_sh)
+            params, opt_state, opt_metrics = optim_lib.update(opt_cfg, params, grads, opt_state,
+                                                              shardings)
         return params, opt_state, dict(sorted({**metrics, **opt_metrics}.items()))
 
     return train_step

@@ -21,6 +21,7 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 from typing import Optional
 
@@ -31,10 +32,14 @@ from repro_torch.models import analognet, lm
 from repro_torch.training.loop import TrainConfig, run_two_stage
 
 
-def lm_setup(arch: str, smoke: bool, batch: int, seq: int, device="cuda"):
+def lm_setup(arch: str, smoke: bool, batch: int, seq: int, device="cuda",
+             n_layers: Optional[int] = None):
     """(params, loss_fn, batches) of the LM ``arch``: its smoke config, or
-    the full size with ``smoke=False``."""
+    the full size with ``smoke=False``; ``n_layers`` cuts its depth and
+    keeps its widths."""
     cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     params = lm.lm_init(prng.PRNGKey(0), cfg, device=device)
     pipe = PipelineConfig(kind="lm", global_batch=batch, seq_len=seq, vocab=cfg.vocab)
 

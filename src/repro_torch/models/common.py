@@ -4,6 +4,7 @@ serving."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Optional
 
@@ -20,6 +21,14 @@ Tensor = torch.Tensor
 # ``batch``) are split, and over which process group (the mesh's axis).
 # With no rules set, or no mesh, every query answers "not split" and the
 # forward is the one-device forward.
+#
+# Training's rules (``launch.sharding.logical_rules(training=True)``, which
+# a sharded training step installs for the step's duration with
+# :func:`logical_rules_of`) add ``rows``: the forward's batch rows are a
+# data-parallel rank's rows of one global batch (:func:`row_axis`), so its
+# draws take their rows of the whole batch's, its MoE groups are its rows'
+# groups of the whole batch's and its loss gathers the per-token loss. The
+# heads and FFN units stay over ``model``, as in serving.
 # ---------------------------------------------------------------------------
 
 # logical name -> mesh axes (None = replicated / not sharded)
@@ -39,6 +48,18 @@ def logical_rules() -> dict[str, Any]:
     return dict(_LOGICAL_RULES)
 
 
+@contextlib.contextmanager
+def logical_rules_of(rules: dict[str, Any], mesh: Any):
+    """:func:`set_logical_rules` for the block's duration; the rules before
+    it come back at its end."""
+    before, before_mesh = dict(_LOGICAL_RULES), _MESH["mesh"]
+    set_logical_rules(rules, mesh)
+    try:
+        yield
+    finally:
+        set_logical_rules(before, before_mesh)
+
+
 def shard(x: Tensor, *names: Optional[str]) -> Tensor:
     """The reference's sharding annotation. The port's forward places its
     tensors itself (a rank's heads, columns or experts, see
@@ -53,6 +74,12 @@ def mesh_axis(name: str = "model"):
 
     mesh = _MESH["mesh"]
     return None if mesh is None else collectives.axis_of(mesh, name)
+
+
+def row_axis():
+    """The ``collectives.Axis`` a training step's batch rows are split over
+    (training's ``rows`` rule), or None."""
+    return split_axis("rows")
 
 
 def split_axis(name: str):

@@ -45,7 +45,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import prng
+from repro_torch import collectives, prng
 from repro_torch.core.analog import (AnalogConfig, AnalogCtx, MvmFn, linear_apply, linear_init,
                                      linear_local)
 from repro_torch.device import resolve_device
@@ -60,6 +60,7 @@ from repro_torch.models.common import (
     embedding_init,
     rmsnorm_apply,
     rmsnorm_init,
+    row_axis,
 )
 
 Tensor = torch.Tensor
@@ -634,6 +635,13 @@ def lm_loss(
     gradient), over (B, S) labels or a codebook head's (B, S, C); a
     ``mask`` weights each position (trailing axes broadcast), its sum
     clamped at 1. ``mvm`` is :func:`lm_forward`'s.
+
+    Under a sharded training step (``models.common.row_axis``) ``batch``
+    holds a data-parallel rank's rows: the per-token loss (and ``mask``) is
+    gathered over the rows' axis, an exact concatenation
+    (``collectives.gather``: its gradient keeps the rank's rows), and
+    reduced as the unsharded loss is, so the loss is bitwise wherever the
+    rows are.
     """
     logits, _ = lm_forward(params, batch, analog_cfg, cfg, rng=rng, mvm=mvm)
     if cfg.frontend == "vision_patches" and "patches" in batch:
@@ -644,6 +652,13 @@ def lm_loss(
     ll = torch.gather(logits, -1, labels[..., None])[..., 0]
     nll = lse - ll
     mask = batch.get("mask")
+    rows = row_axis()
+    if rows is not None:
+        bounds = tuple(i * nll.shape[0] for i in range(rows.size + 1))
+        nll = collectives.gather(nll, 0, bounds, rows)
+        if mask is not None:
+            mask = collectives.all_gather_dim(torch.as_tensor(mask, device=nll.device), 0,
+                                              bounds, rows)
     if mask is None:
         loss = nll.mean()
     else:

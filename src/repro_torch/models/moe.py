@@ -18,6 +18,11 @@ expert's function over the bank, so every expert of a family draws from
 the same key (one ``next_key`` per family); the other modes run the
 experts one at a time from the same key counter, which draws the same.
 The router stays digital.
+
+In a sharded training step (``launch.steps.make_train_step(mesh=)``) a
+bank split over ``model`` runs the rank's experts forward and the whole
+bank's VJP backward (:func:`_experts_sharded`), and a data-parallel rank
+routes its rows' groups of the whole batch's (``models.common.row_axis``).
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from repro_torch.core import engine as engine_lib
 from repro_torch.core.analog import (AnalogCtx, analog_matmul_bank, linear_apply, linear_init,
                                      linear_local)
 from repro_torch.core.engine import PCM_PROGRAMMED
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, row_axis
 
 Tensor = torch.Tensor
 
@@ -84,6 +89,8 @@ def _expert_ffn(params: dict, x: Tensor, ctx: AnalogCtx, dtype, b_adc=None) -> T
         for fam in FAMILIES:
             bank[fam] = engine_lib.resample_read(ctx.next_key(), read_buf[fam], split).to(
                 params[fam].dtype)
+    if split is not None and ctx.cfg.mode != PCM_PROGRAMMED:
+        return _experts_sharded(params, x, ctx, dtype, b_adc, split)
     if split is not None:
         from repro_torch import collectives
         from repro_torch.core.analog import model_axis
@@ -108,6 +115,38 @@ def _expert_ffn(params: dict, x: Tensor, ctx: AnalogCtx, dtype, b_adc=None) -> T
     xf = x.reshape(e, -1, m)
     h = torch.nn.functional.silu(family(0, xf)) * family(1, xf)
     return family(2, h).reshape(x.shape)
+
+
+def _experts_sharded(params: dict, x: Tensor, ctx: AnalogCtx, dtype, b_adc, split) -> Tensor:
+    """A training step's bank on a tensor-parallel rank: forward, the
+    rank's experts on their tokens (each drawing what every expert draws,
+    from the counter the family starts at) and every expert's output
+    gathered; backward, the whole bank's VJP recomputed on the gathered
+    banks (``kernels.ops.sharded``), so the ranges', the clip's and S's
+    gradients are whole on every rank."""
+    from repro_torch import collectives
+    from repro_torch.core.analog import model_axis
+    from repro_torch.kernels import ops
+
+    start, end, axis = ctx.layer_counter, [ctx.layer_counter], model_axis(split)
+
+    def run(x, w1, w3, w2, r_adc, clip, gain):
+        c = AnalogCtx(cfg=ctx.cfg, gain_s=gain, key=ctx.key, layer_counter=start)
+        y = _expert_ffn({"w1": w1, "w3": w3, "w2": w2, "r_adc": r_adc, "w_clip_buf": clip},
+                        x, c, dtype, b_adc)
+        end[0] = c.layer_counter
+        return y
+
+    def local(x, *rest):
+        return collectives.all_gather_dim(run(split.take(x, 0), *rest), 0, split.bounds, axis)
+
+    bank = (-3, split.bounds)
+    y = ops.sharded(local, ops.autograd_vjp(run),
+                    (x, params["w1"], params["w3"], params["w2"], params["r_adc"],
+                     params["w_clip_buf"], ctx.gain_s),
+                    (None, bank, bank, bank, None, None, None), axis)
+    ctx.layer_counter = end[0]
+    return y
 
 
 def shared_expert_apply(params: dict, x: Tensor, ctx: AnalogCtx) -> Tensor:
@@ -165,7 +204,16 @@ def moe_apply(params: dict, x: Tensor, ctx: AnalogCtx, cfg: ModelConfig) -> Tens
     b, s, m = x.shape
     e, k = cfg.n_experts, cfg.top_k
     dtype = x.dtype
-    g, sg, cap = capacity(cfg, b * s)
+    rows = row_axis()
+    if rows is None:
+        g, sg, cap = capacity(cfg, b * s)
+    else:  # a data-parallel rank's rows: its groups of the whole batch's
+        g, sg, cap = capacity(cfg, b * s * rows.size)
+        if g % rows.size:
+            raise NotImplementedError(
+                f"the global batch's {g} routing groups do not split over {rows.size} "
+                "data-parallel ranks")
+        g //= rows.size
     xt = x.reshape(g, sg, m)
 
     # the router: digital, fp32

@@ -321,15 +321,21 @@ def _uniform_of(b: Tensor, minval, maxval) -> Tensor:
     return torch.maximum(lo, fma(f, (hi - lo).expand(f.shape), lo))
 
 
-def uniform(key: Tensor, shape: Shape = (), minval=0.0, maxval=1.0) -> Tensor:
-    """``jax.random.uniform`` (float32) on [minval, maxval)."""
-    return _draw(key, _shape(shape), lambda b: _uniform_of(b, minval, maxval))
+def uniform(key: Tensor, shape: Shape = (), minval=0.0, maxval=1.0, offset: int = 0,
+            stride: Optional[int] = None) -> Tensor:
+    """``jax.random.uniform`` (float32) on [minval, maxval); ``offset`` and
+    ``stride`` take a slice of a wider draw, as :func:`normal`'s do."""
+    return _draw(key, _shape(shape), lambda b: _uniform_of(b, minval, maxval), offset, stride)
 
 
-def bernoulli(key: Tensor, p: float = 0.5, shape: Shape = ()) -> Tensor:
+def bernoulli(key: Tensor, p: float = 0.5, shape: Shape = (), offset: int = 0,
+              stride: Optional[int] = None) -> Tensor:
     """``jax.random.bernoulli`` (bool): ``uniform(key, shape) < p`` in f32,
-    as JAX draws it (mode ``'low'``)."""
-    return _draw(key, _shape(shape), lambda b: _uniform_of(b, 0.0, 1.0) < _f32(p))
+    as JAX draws it (mode ``'low'``); ``offset`` and ``stride`` take a slice
+    of a wider draw, as :func:`normal`'s do (a data-parallel rank's rows of
+    a quant-noise mask, a tensor-parallel rank's columns or tiles)."""
+    return _draw(key, _shape(shape), lambda b: _uniform_of(b, 0.0, 1.0) < _f32(p), offset,
+                 stride)
 
 
 _NORMAL_LO = -0.99999994  # np.nextafter(-1, 0) in f32

@@ -57,12 +57,26 @@ class TrainConfig:
     log_every: int = 25
 
 
-def value_and_grad(loss_fn: Callable, params: Any, *args) -> tuple:
+def value_and_grad(loss_fn: Callable, params: Any, *args, shardings: Any = None) -> tuple:
     """``jax.value_and_grad(loss_fn, has_aux=True)(params, *args)``:
     ((loss, metrics), grads), the grads a tree of ``params``' structure
     with a gradient for every leaf (zeros where the loss does not depend
-    on it, as JAX gives)."""
+    on it, as JAX gives).
+
+    ``shardings`` (``launch.sharding.param_shardings``' tree; a sharded
+    training step's): ``params`` holds a rank's slices. Each leaf is
+    gathered over the FSDP axes before use (exact), so ``loss_fn`` sees the
+    rank's tensor-parallel shards; each gradient, the rank's rows' part of
+    it, is summed over ``data`` (``collectives.sum_in_rank_order``) and the
+    rank keeps its FSDP slice."""
     flat = tree_lib.leaves(params)
+    if shardings is not None:
+        from repro_torch import collectives
+        from repro_torch.launch import sharding as shd
+
+        shs = tree_lib.leaves(shardings)
+        fsdp = shd.fsdp_axes(shs[0].mesh)
+        flat = [shd.gather_leaf(x, sh, fsdp) for x, sh in zip(flat, shs, strict=True)]
     leaves = [x.detach().requires_grad_(x.is_floating_point()) for x in flat]
     loss, metrics = loss_fn(tree_lib.unflatten(params, leaves), *args)
     wrt = [x for x in leaves if x.requires_grad]
@@ -71,6 +85,11 @@ def value_and_grad(loss_fn: Callable, params: Any, *args) -> tuple:
     for x in leaves:
         g = next(got) if x.requires_grad else None
         grads.append(torch.zeros_like(x) if g is None else g)
+    if shardings is not None:
+        data = collectives.axis_of(shs[0].mesh, "data")
+        grads = [shd.take_leaf(collectives.sum_in_rank_order(g, data), sh, fsdp)
+                 if g.is_floating_point() else shd.take_leaf(g, sh, fsdp)
+                 for g, sh in zip(grads, shs)]
     metrics = {k: v.detach() for k, v in metrics.items()}
     return (loss.detach(), metrics), tree_lib.unflatten(params, grads)
 

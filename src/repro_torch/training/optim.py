@@ -128,8 +128,10 @@ def init(cfg: OptimizerConfig, params) -> OptState:
 
 def global_norm(tree) -> Tensor:
     """sqrt of the sum of squares of every leaf, the leaves added in the
-    reference's order (a Python sum from 0)."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree_lib.leaves(tree)))
+    reference's order (a Python sum from 0); ``tree`` may be an iterable of
+    leaves."""
+    leaves = tree if hasattr(tree, "__next__") else tree_lib.leaves(tree)
+    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
 
 
 def _one(cfg: OptimizerConfig, kind: str, step: Tensor, lr_w, lr_r, p, g, m, v, vc):
@@ -171,25 +173,46 @@ def _one(cfg: OptimizerConfig, kind: str, step: Tensor, lr_w, lr_r, p, g, m, v, 
 
 
 @torch.no_grad()
-def update(cfg: OptimizerConfig, params, grads, state: OptState) -> tuple[Any, OptState, dict]:
+def update(cfg: OptimizerConfig, params, grads, state: OptState,
+           shardings=None) -> tuple[Any, OptState, dict]:
     """One optimizer step with the paper's parameter groups -> (params,
-    state, {"grad_norm", "lr"}); ``grads`` has ``params``' structure."""
+    state, {"grad_norm", "lr"}); ``grads`` has ``params``' structure.
+
+    ``shardings`` = (the params' and the state's ``launch.sharding``
+    trees): ``params``, ``grads`` and ``state`` hold a rank's slices. AdamW
+    runs on the slices (it is elementwise); every reduction across a leaf
+    runs on the gathered whole leaf in the unsharded order -- the global
+    norm, and Adafactor (its row and column means and its RMS clip, each
+    leaf's step taken whole and the rank's slices kept) -- so the norm, the
+    clip scale and every updated value are the unsharded step's for the
+    same gradients."""
     step = state.step + 1
     lr_w = cosine_schedule(cfg.lr, cfg.total_steps, cfg.warmup)(step)
     lr_r = exp_schedule(cfg.range_lr0, cfg.range_lr1, cfg.total_steps)(step)
 
-    gnorm = global_norm(grads)
+    g_leaves = tree_lib.leaves(grads)
+    if shardings is None:
+        gnorm = global_norm(grads)
+    else:
+        from repro_torch.launch import sharding as shd
+
+        p_sh = tree_lib.leaves(shardings[0])
+        s_sh = [tree_lib.leaves(t) for t in (shardings[1].m, shardings[1].v, shardings[1].v_col)]
+        gnorm = global_norm(shd.gather_leaf(g, sh) for g, sh in zip(g_leaves, p_sh))
     scale = torch.clamp(cfg.grad_clip_norm / (gnorm + 1e-9), max=1.0)
 
     flat = tree_lib.flatten_with_path(params)
-    cols = zip(
-        [classify_param(path) for path, _ in flat],
-        [p for _, p in flat],
-        [g * scale for g in tree_lib.leaves(grads)],
-        tree_lib.leaves(state.m),
-        tree_lib.leaves(state.v),
-        tree_lib.leaves(state.v_col),
-    )
-    res = [_one(cfg, kind, step, lr_w, lr_r, *rest) for kind, *rest in cols]
+    states = [tree_lib.leaves(t) for t in (state.m, state.v, state.v_col)]
+    res = []
+    for i, (path, p) in enumerate(flat):
+        kind = classify_param(path)
+        leaf = [p, g_leaves[i] * scale] + [st[i] for st in states]
+        if shardings is None or cfg.kind == "adamw":
+            res.append(_one(cfg, kind, step, lr_w, lr_r, *leaf))
+            continue
+        shs = [p_sh[i], p_sh[i]] + [sh[i] for sh in s_sh]
+        out = _one(cfg, kind, step, lr_w, lr_r,
+                   *(shd.gather_leaf(t, sh) for t, sh in zip(leaf, shs)))
+        res.append([shd.take_leaf(t, sh) for t, sh in zip(out, shs[:1] + shs[2:])])
     new = [tree_lib.unflatten(params, [r[i] for r in res]) for i in range(4)]
     return new[0], OptState(step, *new[1:]), {"grad_norm": gnorm, "lr": lr_w}

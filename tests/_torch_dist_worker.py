@@ -1,18 +1,21 @@
-"""One rank of the port's multi-rank CPU checks (``test_torch_distributed.py``).
+"""One rank of the port's multi-rank CPU checks (``test_torch_distributed.py``,
+``test_torch_sharded_train.py``).
 
 ``python tests/_torch_dist_worker.py RANK WORLD STORE OUT JOBS [ARTIFACT]``
-joins a gloo group of WORLD ranks over a ``FileStore`` at STORE (60 s
-timeout), runs the comma-separated JOBS in order (``chips-dense``: the
-``chips`` job over one model) and writes their results under OUT
-(``<job>.rank<r>.npz``, or artifacts). It imports torch and the
-port only; the test holds what it writes against JAX's host chip.
+asks for 8 intra-op threads, joins a gloo group of WORLD ranks over a
+``FileStore`` at STORE (60 s timeout; the group pins one thread), runs the
+comma-separated JOBS in order (``chips-dense``: the ``chips`` job over one
+model) and writes their results under OUT (``<job>.rank<r>.npz``, or
+artifacts). It imports torch and the port only; the tests hold what it
+writes against JAX and the port's unsharded results.
 
 The models: tinyllama-1.1b's smoke config (``dense``) and the MoE smoke of
 ``tests/test_sharded_program.py`` (``moe``: 8 experts, top-2, smoke-cut to
-4), programmed at ``tile_rows=32`` so the smoke widths' K of 64 and 128
-span several crossbar tiles and row splits really happen.
+4), programmed (and trained) at ``tile_rows=32`` so the smoke widths' K of
+64 and 128 span several crossbar tiles and row splits really happen.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -37,6 +40,7 @@ from repro_torch.launch import sharding as shd  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models import lm, moe, moe_shardmap  # noqa: E402
 from repro_torch.models.common import ModelConfig  # noqa: E402
+from repro_torch.training import optim  # noqa: E402
 
 from test_torch_traces import numpy_trace  # noqa: E402
 
@@ -180,18 +184,328 @@ def job_serve(ctx, models):
     return out
 
 
+# --------------------------------------------------------------- sharded training
+
+#: the sharded train step's cases, (model, config, accum_steps): stage 2
+#: with both masks (b_adc 6, p 0.5), also over 2 microbatches, and stage 1
+TRAIN = AnalogConfig(tile_rows=32).train(eta=0.1, b_adc=6, quant_noise_p=0.5)
+DIGITAL = AnalogConfig(tile_rows=32)
+#: the reference's scenario (``tests/test_distributed.py``)
+JAX_TRAIN = AnalogConfig(tile_rows=32).train(eta=0.05)
+OPT = optim.OptimizerConfig(lr=1e-2, total_steps=50, warmup=0)
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 32, 3
+TRAIN_CASES = {"dense-analog": ("dense", TRAIN, 1), "moe-analog": ("moe", TRAIN, 1),
+               "dense-digital": ("dense", DIGITAL, 1), "moe-digital": ("moe", DIGITAL, 1),
+               "dense-analog-accum2": ("dense", TRAIN, 2)}
+#: (data, model) -> the cases a mesh runs
+MESH_CASES = {(1, 1): ("dense-analog", "moe-analog", "dense-digital"),
+              (1, 2): tuple(TRAIN_CASES), (2, 1): ("dense-analog", "moe-analog"),
+              (2, 2): ("dense-analog",)}
+
+
+def train_batch(vocab: int) -> dict:
+    rng = np.random.default_rng(3)
+    return {k: torch.as_tensor(rng.integers(0, vocab, size=(TRAIN_B, TRAIN_S)))
+            for k in ("tokens", "labels")}
+
+
+def step_key(i: int):
+    return prng.fold_in(prng.PRNGKey(0), i)
+
+
+class DrawLog:
+    """Every draw of ``prng.bernoulli``, ``normal`` and ``normal_erf_inv``
+    while on: (sampler, key, p, shape, offset, stride)."""
+
+    NAMES = ("bernoulli", "normal", "normal_erf_inv")
+
+    def __init__(self):
+        self.on, self.draws = False, []
+        for name in self.NAMES:
+            setattr(prng, name, self._wrap(name, getattr(prng, name)))
+
+    def _wrap(self, name, fn):
+        def draw(key, *args, **kw):
+            if self.on:
+                a = list(args)
+                p = a.pop(0) if name == "bernoulli" else None
+                shape = kw.get("shape", a[0] if a else ())
+                offset = kw.get("offset", a[1] if len(a) > 1 else 0)
+                stride = kw.get("stride", a[2] if len(a) > 2 else None)
+                self.draws.append([name, [int(v) for v in key], p, list(shape), int(offset),
+                                   stride])
+            return fn(key, *args, **kw)
+        return draw
+
+
+DRAWS = DrawLog()
+
+
+def per_token_nll(logits, labels):
+    logits = logits.float()
+    return torch.logsumexp(logits, dim=-1) - torch.gather(logits, -1, labels[..., None])[..., 0]
+
+
+def sharded_nll(params, p_sh, mesh, cfg, acfg, batch, key):
+    """The per-token loss of the sharded step's forward at ``params`` (the
+    rank's slices), gathered over ``data``."""
+    from repro_torch import collectives, tree as tree_lib
+    from repro_torch.models.common import logical_rules_of
+
+    data = collectives.axis_of(mesh, "data")
+    n = TRAIN_B // data.size
+    fsdp = shd.fsdp_axes(mesh)
+    with torch.no_grad(), logical_rules_of(shd.logical_rules(mesh, cfg, training=True), mesh):
+        view = shd.train_view(tree_lib.tree_map(lambda t, sh: shd.gather_leaf(t, sh, fsdp),
+                                                params, p_sh), p_sh)
+        rows = {k: v[data.rank * n:(data.rank + 1) * n] for k, v in batch.items()}
+        logits, _ = lm.lm_forward(view, {"tokens": rows["tokens"]}, acfg, cfg, rng=key)
+        nll = per_token_nll(logits, rows["labels"])
+        return collectives.all_gather_dim(nll, 0, tuple(i * n for i in range(data.size + 1)),
+                                          data)
+
+
+def flat(tree, prefix: str) -> dict:
+    return {f"{prefix}::{k}": v.numpy() for k, v in store._flatten(tree).items()}
+
+
+def job_train(ctx, model: int):
+    """The sharded train step over a (world / model, model) mesh, each of
+    its cases TRAIN_STEPS steps: metrics a step, the gathered params and
+    optimizer state after the first and the last, step 1's draws, the
+    step-1 forward's per-token loss, FSDP gathers and the local shapes; the
+    first case's step 1 run twice. On a data axis rank 0 also runs the
+    unsharded step on from the sharded step-1 state (``witness``)."""
+    from repro_torch import tree as tree_lib
+
+    mesh = mesh_lib.make_host_mesh(model)
+    shape = tuple(mesh.mesh.shape)
+    out = {"mesh": np.array(shape)}
+    for i_case, case in enumerate(MESH_CASES[shape]):
+        name, acfg, accum = TRAIN_CASES[case]
+        cfg = cfg_of(name)
+        params = lm.lm_init(prng.PRNGKey(0), cfg, device="cpu")
+        opt = optim.init(OPT, params)
+        batch = train_batch(cfg.vocab)
+        p_sh = shd.param_shardings(params, mesh, cfg, analog_cfg=acfg)
+        o_sh = shd.build_opt_shardings(opt, params, p_sh, mesh)
+        ps, os_ = shd.shard_tree(params, p_sh), shd.shard_tree(opt, o_sh)
+        exact = all(torch.equal(a, b) for a, b in zip(
+            tree_lib.leaves(shd.gather_tree(ps, p_sh)) + tree_lib.leaves(shd.gather_tree(os_, o_sh)),
+            tree_lib.leaves(params) + tree_lib.leaves(opt)))
+        out[f"{case}_gather_exact"] = np.array(exact)
+        out[f"{case}_shapes"] = np.array(json.dumps({k: list(v.shape) for k, v in
+                                                     store._flatten(ps).items()}))
+        out[f"{case}_nll"] = sharded_nll(ps, p_sh, mesh, cfg, acfg, batch,
+                                         prng.fold_in(step_key(0), 0)).numpy()
+        step = steps.make_train_step(cfg, acfg, OPT, accum, mesh=mesh, shardings=(p_sh, o_sh))
+        for i in range(TRAIN_STEPS):
+            DRAWS.on, DRAWS.draws = i == 0, []
+            new = step(ps, os_, batch, step_key(i))
+            DRAWS.on = False
+            if i == 0:
+                out[f"{case}_draws"] = np.array(json.dumps(DRAWS.draws))
+                if i_case == 0:  # the same step again: the same bits
+                    again = step(ps, os_, batch, step_key(0))
+                    out[f"{case}_twice"] = np.array(all(torch.equal(a, b) for a, b in zip(
+                        tree_lib.leaves(new), tree_lib.leaves(again))))
+            ps, os_, m = new
+            out.update({f"{case}_step{i}_{k}": v.numpy() for k, v in m.items()})
+            if i == 0:
+                first = shd.gather_tree(ps, p_sh), shd.gather_tree(os_, o_sh)
+                out.update({**flat(first[0], f"{case}_params1"), **flat(first[1], f"{case}_opt1")})
+        out.update(flat(shd.gather_tree(ps, p_sh), f"{case}_params"))
+        out.update(flat(shd.gather_tree(os_, o_sh), f"{case}_opt"))
+        if shape[0] > 1 and ctx["rank"] == 0:
+            out.update({f"{case}_witness_{k}": v
+                        for k, v in witness(cfg, acfg, accum, batch, *first).items()})
+    return out
+
+
+def witness(cfg, acfg, accum, batch, params, opt) -> dict:
+    """The port's unsharded step run from ``params`` and ``opt`` (a step-1
+    state) through steps 2 to TRAIN_STEPS: its params, and each step's MoE
+    routing (``route<i>``: every layer's top-k expert choices)."""
+    step = steps.make_train_step(cfg, acfg, OPT, accum)
+    out = {}
+    for i in range(1, TRAIN_STEPS):
+        with routing() as route:
+            params, opt, _ = step(params, opt, batch, step_key(i))
+        out[f"route{i}"] = np.stack(route) if route else np.zeros(0, np.int64)
+    return {**flat(params, "params"), **out}
+
+
+@contextlib.contextmanager
+def routing():
+    """The top-k expert choices of every ``moe._topk_routing`` call in the
+    block, appended to the yielded list."""
+    calls, topk = [], moe._topk_routing
+
+    def record(gates, k, cap):
+        out = topk(gates, k, cap)
+        calls.append(torch.stack(out[0]).numpy())
+        return out
+
+    moe._topk_routing = record
+    try:
+        yield calls
+    finally:
+        moe._topk_routing = topk
+
+
+def job_train1x1(ctx, models):
+    return job_train(ctx, 1)
+
+
+def job_train1xn(ctx, models):
+    return job_train(ctx, ctx["world"])
+
+
+def job_train2xn(ctx, models):
+    return job_train(ctx, ctx["world"] // 2)
+
+
+def job_jax(ctx, models):
+    """The reference's scenario at (2, 2): its batch (OUT/jax_batch.npz),
+    its config, 6 steps."""
+    d = np.load(os.path.join(ctx["out"], "jax_batch.npz"))
+    mesh = mesh_lib.make_host_mesh(2)
+    cfg = cfg_of("dense")
+    params = lm.lm_init(prng.PRNGKey(0), cfg, device="cpu")
+    opt = optim.init(OPT, params)
+    batch = {k: torch.as_tensor(d[k]) for k in ("tokens", "labels")}
+    p_sh = shd.param_shardings(params, mesh, cfg, analog_cfg=JAX_TRAIN)
+    o_sh = shd.build_opt_shardings(opt, params, p_sh, mesh)
+    ps, os_ = shd.shard_tree(params, p_sh), shd.shard_tree(opt, o_sh)
+    step = steps.make_train_step(cfg, JAX_TRAIN, OPT, mesh=mesh, shardings=(p_sh, o_sh))
+    out = {}
+    for i in range(6):
+        ps, os_, m = step(ps, os_, batch, step_key(i))
+        out.update({f"step{i}_{k}": v.numpy() for k, v in m.items()})
+        if i == 0:
+            out.update(flat(shd.gather_tree(ps, p_sh), "step0_params"))
+    blk = ps.blocks[0]
+    out["local"] = np.array(json.dumps({k: list(v.shape) for k, v in {
+        "wq": blk["attn"]["wq"]["w"], "wo": blk["attn"]["wo"]["w"],
+        "w2": blk["ffn"]["w2"]["w"], "lm_head": ps.lm_head["w"],
+        "embed": ps.embed["table"]}.items()}))
+    return out
+
+
+def job_hazard(ctx, models):
+    """One column-parallel layer over a (1, world) mesh at K = 1024, N =
+    2048, digital at M = 2-8 and analog_train (p = 0.5) at 8: every rank's
+    output (whole: the layer gathers its columns), input gradient, range
+    gradient and weight-gradient columns, gathered, against the whole layer
+    on rank 0 (one intra-op thread, as the group pinned it). Rank 0 writes
+    the comparisons."""
+    from repro_torch import collectives
+    from repro_torch.core.analog import AnalogCtx, linear_apply
+    from repro_torch.models.common import logical_rules_of
+
+    world, rank = ctx["world"], ctx["rank"]
+    mesh = mesh_lib.make_host_mesh(world)
+    axis = collectives.axis_of(mesh, "model")
+    ranks = tuple(range(world + 1))
+    rng = np.random.default_rng(7)
+    k, n = 1024, 2048
+    w = torch.as_tensor(rng.standard_normal((k, n)) * k**-0.5, dtype=torch.float32)
+    split = shd.Split(-1, shd.even_bounds(n, world), rank)
+    out = {"threads": np.array(torch.get_num_threads())}
+    analog = AnalogConfig().train(eta=0.1, b_adc=8, quant_noise_p=0.5)
+
+    def run(acfg, x, gy, layer, tp=None):
+        layer = {**layer, "w": layer["w"].clone().requires_grad_(),
+                 "r_adc": torch.ones(()).requires_grad_()}
+        x = x.clone().requires_grad_()
+        ctx_a = AnalogCtx(cfg=acfg, gain_s=torch.ones(()), key=prng.PRNGKey(5))
+        with logical_rules_of(shd.logical_rules(mesh, training=True), mesh):
+            y = linear_apply({**layer, "tp": tp} if tp else layer, x, ctx_a)
+            (y * gy).sum().backward()
+        dr = layer["r_adc"].grad
+        return y.detach(), x.grad, layer["w"].grad, torch.zeros(()) if dr is None else dr
+
+    for mode, acfg, ms in (("digital", AnalogConfig(), range(2, 9)),
+                           ("analog", analog, (8,))):
+        for m in ms:
+            x = torch.as_tensor(rng.standard_normal((m, k)), dtype=torch.float32)
+            gy = torch.as_tensor(rng.standard_normal((m, n)), dtype=torch.float32)
+            clip = torch.tensor([-1.0, 1.0])
+            y, gx, gw, gr = run(acfg, x, gy, {"w": split.take(w), "w_clip_buf": clip}, split)
+            got = [collectives.all_gather_dim(t[None], 0, ranks, axis) for t in (y, gx, gr)]
+            got.insert(2, collectives.all_gather_dim(gw, -1, split.bounds, axis))
+            if rank == 0:
+                want = run(acfg, x, gy, {"w": w, "w_clip_buf": clip})
+                out[f"{mode}_m{m}"] = np.array([
+                    torch.equal(got[2], want[2]),
+                    *(all(torch.equal(g, v) for g in t) for t, v in zip(
+                        got[:2] + got[3:], want[:2] + want[3:]))])
+    return out
+
+
+def job_ops(ctx, models):
+    """The autograd operators, ``sum_in_rank_order`` and the optimizer's
+    update on sharded leaves against the whole update, over the (world, 1)
+    and (1, world) meshes."""
+    from repro_torch import collectives
+    from repro_torch import tree as tree_lib
+
+    out, world, rank = {}, ctx["world"], ctx["rank"]
+    mesh = mesh_lib.make_host_mesh(world)
+    axis = collectives.axis_of(mesh, "model")
+    rng = np.random.default_rng(9)
+    whole = torch.as_tensor(rng.standard_normal((3, 10)), dtype=torch.float32)
+    cot = torch.as_tensor(rng.standard_normal((3, 10)), dtype=torch.float32)
+    bounds = (0,) + tuple(range(1, world)) + (10,)  # uneven: the last rank takes the rest
+    lo, hi = bounds[rank], bounds[rank + 1]
+    x = whole.clone().requires_grad_()
+    part = collectives.split(x, 1, bounds, axis)
+    (part * cot[:, lo:hi]).sum().backward()
+    out["split"] = np.array([torch.equal(part, whole[:, lo:hi]), torch.equal(x.grad, cot)])
+    xl = whole[:, lo:hi].clone().requires_grad_()
+    full = collectives.gather(xl, 1, bounds, axis)
+    (full * cot).sum().backward()
+    out["gather"] = np.array([torch.equal(full, whole), torch.equal(xl.grad, cot[:, lo:hi])])
+    mine = whole * (rank + 1) + 0.1
+    total = collectives.sum_in_rank_order(mine, axis)
+    want = whole * 1 + 0.1
+    for r in range(1, world):
+        want = want + (whole * (r + 1) + 0.1)
+    out["sum"] = np.array(torch.equal(total, want))
+    for model in (1, world):
+        mesh = mesh_lib.make_host_mesh(model)
+        cfg = cfg_of("dense")
+        params = lm.lm_init(prng.PRNGKey(0), cfg, device="cpu")
+        grads = tree_lib.tree_map(lambda p: torch.as_tensor(
+            rng.standard_normal(tuple(p.shape)), dtype=p.dtype), params)
+        p_sh = shd.param_shardings(params, mesh, cfg, analog_cfg=TRAIN)
+        for kind in ("adamw", "adafactor"):
+            ocfg = dataclasses.replace(OPT, kind=kind, factored_min_dim=32)
+            st = optim.init(ocfg, params)
+            o_sh = shd.build_opt_shardings(st, params, p_sh, mesh)
+            want = optim.update(ocfg, params, grads, st)
+            got = optim.update(ocfg, shd.shard_tree(params, p_sh), shd.shard_tree(grads, p_sh),
+                               shd.shard_tree(st, o_sh), (p_sh, o_sh))
+            got = (shd.gather_tree(got[0], p_sh), shd.gather_tree(got[1], o_sh), got[2])
+            out[f"update_{kind}_model{model}"] = np.array(all(
+                torch.equal(a, b) for a, b in zip(tree_lib.leaves(got), tree_lib.leaves(want))))
+    return out
+
+
 JOBS = {"chips": job_chips, "forward": job_forward, "shardmap": job_shardmap,
-        "serve": job_serve}
+        "serve": job_serve, "train1x1": job_train1x1, "train1xn": job_train1xn,
+        "train2xn": job_train2xn, "jax": job_jax, "hazard": job_hazard, "ops": job_ops}
 
 
 def main():
     rank, world = int(sys.argv[1]), int(sys.argv[2])
     store_path, out, jobs = sys.argv[3], sys.argv[4], sys.argv[5].split(",")
-    torch.set_num_threads(1)
+    torch.set_num_threads(8)  # the gloo group pins one (launch.mesh.init_process_group)
     mesh_lib.init_process_group("cpu", store=dist.FileStore(store_path, world), rank=rank,
                                 world_size=world, timeout_s=60)
+    assert torch.get_num_threads() == 1
     ctx = {"mesh": mesh_lib.make_serving_mesh(world), "out": out, "world": world,
-           "artifact": sys.argv[6] if len(sys.argv) > 6 else None}
+           "rank": rank, "artifact": sys.argv[6] if len(sys.argv) > 6 else None}
     for job in jobs:  # "name" or "name-model": a job over one model
         name, *models = job.split("-")
         res = JOBS[name](ctx, models or ("dense", "moe"))

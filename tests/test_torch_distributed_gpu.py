@@ -12,7 +12,10 @@ the bank form on a rank's shards run on the card at smoke width:
   launches and no plain call; the collectives ran;
 * ``ServingEngine(mesh=)`` serves the unsharded engine's tokens; the
   shard_map MoE at capacity factor 8 serves the einsum path's tokens with
-  one bank launch a family.
+  one bank launch a family;
+* the sharded train step (``make_train_step(mesh=)``) at smoke width in
+  bf16, two steps of each stage: params, optimizer state and metrics
+  bitwise the unsharded step's, with the same B1 and B3 launches.
 
 Marked ``gpu``: each test skips on a host without a CUDA device. On the
 card: ``PYTHONPATH=src python -m pytest --noconftest -m gpu
@@ -138,3 +141,50 @@ def test_sharded_serving_and_shardmap_moe_tokens(mesh):
     # one bank launch a family of each MoE layer, every prefill and step
     forwards = len(reqs) + steps_run[-1]
     assert kernel.analog_mvm_bank.launches == 3 * moe.n_layers * forwards
+
+
+@pytest.mark.parametrize("mode", ["digital", "analog_train"])
+def test_sharded_train_step_is_the_unsharded_step(mesh, mode):
+    from repro_torch import prng
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.models.common import set_logical_rules
+    from repro_torch.training import optim
+
+    set_logical_rules({})
+    cfg = dataclasses.replace(get_smoke("tinyllama-1.1b"), dtype=torch.bfloat16)
+    acfg = AnalogConfig(tile_rows=32)
+    if mode == "analog_train":
+        acfg = acfg.train(eta=0.1, b_adc=6, quant_noise_p=0.5)
+    ocfg = optim.OptimizerConfig(lr=1e-2, total_steps=50, warmup=0)
+    params = lm.lm_init(prng.PRNGKey(0), cfg, device="cuda")
+    opt = optim.init(ocfg, params)
+    batch = {k: torch.randint(0, cfg.vocab, (8, 32), device="cuda") for k in ("tokens", "labels")}
+    p_sh = shd.param_shardings(params, mesh, cfg, analog_cfg=acfg)
+    o_sh = shd.build_opt_shardings(opt, params, p_sh, mesh)
+    out = {}
+    for name, step, p, o in (
+            ("unsharded", steps.make_train_step(cfg, acfg, ocfg), params, opt),
+            ("sharded", steps.make_train_step(cfg, acfg, ocfg, mesh=mesh, shardings=(p_sh, o_sh)),
+             shd.shard_tree(params, p_sh), shd.shard_tree(opt, o_sh))):
+        kernel.analog_mvm.launches = 0
+        fa.flash_attention.launches = 0
+        metrics = []
+        for i in range(2):
+            p, o, m = step(p, o, batch, prng.fold_in(prng.PRNGKey(0).to("cuda"), i))
+            metrics.append(m)
+        torch.cuda.synchronize()
+        if name == "sharded":
+            p, o = shd.gather_tree(p, p_sh), shd.gather_tree(o, o_sh)
+        out[name] = (tree_lib.leaves((p, o, metrics)), kernel.analog_mvm.launches,
+                     fa.flash_attention.launches)
+    want, got = out["unsharded"], out["sharded"]
+    assert len(want[0]) == len(got[0])
+    assert all(torch.equal(a, b) for a, b in zip(want[0], got[0]))
+    assert want[1:] == got[1:] and want[2] > 0 and (mode == "digital" or want[1] > 0)
