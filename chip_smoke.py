@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 
 It drives the port's main paths -- program-once, execute-many serving of a
 dense LM on one programmed chip, the paper's CNNs programmed and served
-through B1, their two-stage training and the LM's -- and checks every hand-written kernel on
+through B1, their two-stage training and the LM's, every family sharded
+and trained -- and checks every hand-written kernel on
 that path against its plain PyTorch version, in phases that either pass or
 end the run with a non-zero exit:
 
@@ -256,7 +257,22 @@ end the run with a non-zero exit:
    ``load_program(shardings=)`` serving the unsharded chip's tokens; a
    mesh with ``fused_decode`` refused in the reference's words; then every
    new B1 key checked as phase 3 checks its own, every new bank key as
-   phase 17 does at the 8 bits served; budget ``MESH_BUDGET_S``;
+   phase 17 does at the 8 bits served. The other families
+   (``mesh_family``): mamba2-2.7b on 4 layers, recurrentgemma-9b
+   on one (rec, rec, attn) period, paligemma-3b and musicgen-large on 2,
+   at full width from ``--seed``, each programmed through the mesh and
+   unsharded at one key: the gathered chip's every param and state leaf's
+   two integer checksums the unsharded chip's (split leaves gathered one
+   at a time, ``program_digest``); 4 of phase 17's requests (paligemma's
+   each with its 256 patches) served on both chips per layer, or
+   musicgen's 8 x 128-frame rectangle and 8 steps of (8, 4) codes through
+   the step makers: the same tokens (codes), B1 launches by design and B3
+   and row-kernel launches the unsharded run's, B1 and B3 exact, no plain
+   call; AnalogNet-KWS programmed with ``shardings=`` and its crossbar
+   transforms (``mesh_cnn``): its gathered chip and mapping phase 14's at
+   the same key, its logits on 4 images the unsharded chip's, bitwise;
+   these reported against ``MESH_FAMILIES_BUDGET_S``; budget
+   ``MESH_BUDGET_S``;
 19. sharded training (``phase_train_mesh``) over phase 18's NCCL group:
    phase 16 (b)'s stack (tinyllama-1.1b at full width on 2 layers, drawn
    again from ``--seed``, bitwise 16 (b)'s) takes one stage-1
@@ -267,10 +283,38 @@ end the run with a non-zero exit:
    (by design, the training form) and B3 launches and recomputes, no plain
    call; ms a step against the unsharded one, collective calls a step and
    their share of the host clock; every new B1 key checked as phase 3
-   checks its own; budget ``TRAIN_MESH_BUDGET_S``. A world size above 1 on
-   cards is not checked: one card holds one rank;
-20. report: a JSON line ``{"kernels": [...]}`` (launches from the serving
-   phases, the fleet, the CNNs, the training runs and phases 17-19)
+   checks its own; then recurrentgemma-9b on one period at full width
+   (``train_mesh_hybrid``: its conv gathered in ``train_view``, the
+   RG-LRU, the windowed attention's replicated KV head), its own stage-1
+   and stage-2 steps unsharded and sharded, with Adafactor: bitwise, the
+   same launches, reported against ``TRAIN_MESH_HYBRID_BUDGET_S``; budget
+   ``TRAIN_MESH_BUDGET_S``. A world size above 1 on cards is not checked:
+   one card holds one rank;
+20. training the other families (``phase_train_families``):
+   mamba2-2.7b on 2 layers, recurrentgemma-9b on one period and
+   paligemma-3b on 2 layers (``TRAIN_FAMILIES``), at full width through
+   the CLI's ``lm_setup(n_layers=)``, bf16, 1 x 64 tokens: one stage-1 and
+   one stage-2 step each, held as phase 16 (b) holds tinyllama but against
+   phase 15 (b)'s control, the same step through the plain versions on
+   the card (``plain_on_card``), locked to the card's forward values
+   (``training.lockstep``, its tapes on the card): the CPU side would move
+   every weight-noise draw of a stack to the host (1.7 B values for
+   recurrentgemma's, with its untied 256,000-word head) and take minutes.
+   Gates: launches and recomputes exact (every analog layer one
+   training-form B1 launch by design a stage-2 forward, every attention
+   layer one B3 launch), no plain forward; masks and weight-noise draws
+   bitwise; each B1 output under the ADC model of the plain form's (bf16:
+   the flip share); the loss within 1e-3 of the control's free forward;
+   each gradient leaf within ``lockstep.GRAD_RTOL``; a zeroed or doubled
+   leaf caught. Reported: ms a step by stage, device kernels a step and
+   the idle share (one untaped step profiled), peak memory. Then B3's
+   windowed training form at recurrentgemma's heads (``b3_train_window``:
+   (1, 4096, 16/1, 256), window 2048): the forward under phase 8's bound
+   with ``fa_flip_rows``' allowance, ``dq``, ``dk``, ``dv`` within twice
+   the plain backward's own bf16 rounding of autograd of the plain
+   version on the card; budget ``TRAIN_FAMILIES_BUDGET_S``;
+21. report: a JSON line ``{"kernels": [...]}`` (launches from the serving
+   phases, the fleet, the CNNs, the training runs and phases 17-20)
    and, last, the device line ``{"ok": true, "device": {...}}``.
 
 The RNG bridge (``repro_torch.prng``): phase 4 draws the weights and
@@ -409,7 +453,7 @@ LM_TRAIN = dict(eta=0.1, b_adc=8, quant_noise_p=0.5)
 #: phase 19's optimizer (both stages), and its budget, seconds (it fails
 #: past it)
 LM_MESH_OPT = dict(lr=3e-3, total_steps=10, warmup=1)
-TRAIN_MESH_BUDGET_S = 45
+TRAIN_MESH_BUDGET_S = 60
 #: (c)'s peak before the port applied ``cfg.remat``: this script's runs on
 #: an H100 80GB HBM3 at 700 W
 LM_PEAK_NO_REMAT = "40.98 GiB above 28.66 GiB"
@@ -2016,46 +2060,55 @@ def fa_cases(torch, gen, rows: int, s: int, dtype, cases: list, failures: list,
 
     c = {**FA_HEADS, **(heads or {})}
     chunks = dict(q_chunk=c["q_chunk"], kv_chunk=c["kv_chunk"])
-    flips_allowed = (dtype == torch.bfloat16
-                     and all(c[x] == RG_HEADS[x] for x in ("h", "kv", "d")))
     q, k, v = (torch.randn((rows, s, n, c["d"]), generator=gen, device=DEV).to(dtype)
                for n in (c["h"], c["kv"], c["kv"]))
     for causal in (True, False):
         o_k = fa.flash_attention(q, k, v, causal=causal, window=window, **chunks)
         o_p = flash_attention_ref(q, k, v, causal, window=window, **chunks)
-        ok_, op_ = o_k.float(), o_p.float()
-        dd = (ok_ - op_).abs()
-        scale = op_.abs().max().item()
-        ulp = bf16_ulp(op_)
-        r = {"rows": rows, "S": s, "dtype": str(dtype).split(".")[-1],
-             "heads": (c["h"], c["kv"], c["d"]), "window": window,
-             "causal": causal, "max_abs": dd.max().item(), "max_abs_o": scale,
-             # ulps of the outputs the bound's absolute term does not cover
-             "max_ulps": ((dd / ulp)[op_.abs() >= 1e-5 * scale].max().item()
-                          if dtype == torch.bfloat16 else None),
-             "over_one_ulp": int((dd > ulp).sum().item()),
-             "differing": int((dd > 0).sum().item()), "elements": dd.numel(),
-             "finite": bool(ok_.isfinite().all().item())}
-        if dtype == torch.float32:
-            r["ok"] = r["finite"] and r["max_abs"] <= 1e-5 * scale
-        else:
-            over = dd > ulp + 1e-5 * scale
-            r["over_bound"] = int(over.sum().item())
-            shown = True
-            if r["over_bound"] and flips_allowed and r["over_bound"] <= FA_FLIP_OUTPUTS:
-                r["flip_rows"] = fa_flip_rows(torch, q, k, v, ok_, op_, over, causal, window,
-                                              c["kv_chunk"], scale)
-                shown = all(x["shown"] for x in r["flip_rows"])
-                log(f"B3 {r['heads']} rows={rows} S={s} window {window} causal {causal}: "
-                    f"{r['over_bound']} outputs past phase 8's bound, rows recomputed with "
-                    f"p flipped: {r['flip_rows']}")
-            r["ok"] = (r["finite"] and r["differing"] / r["elements"] < 0.01
-                       and (r["over_bound"] == 0 or (flips_allowed and shown
-                                                     and r["over_bound"] <= FA_FLIP_OUTPUTS)))
+        r = fa_compare(torch, q, k, v, o_k, o_p, causal, window, c, dtype, rows, s)
         cases.append(r)
         if not r["ok"]:
             failures.append(r)
     return q, k, v
+
+
+def fa_compare(torch, q, k, v, o_k, o_p, causal: bool, window, c: dict, dtype, rows: int,
+               s: int) -> dict:
+    """One B3 output ``o_k`` against its plain version's ``o_p`` on the same
+    operands under phase 8's bound (``fa_cases``; ``c`` the heads and
+    chunks), with ``fa_flip_rows``' allowance at recurrentgemma-9b's heads."""
+    flips_allowed = (dtype == torch.bfloat16
+                     and all(c[x] == RG_HEADS[x] for x in ("h", "kv", "d")))
+    ok_, op_ = o_k.float(), o_p.float()
+    dd = (ok_ - op_).abs()
+    scale = op_.abs().max().item()
+    ulp = bf16_ulp(op_)
+    r = {"rows": rows, "S": s, "dtype": str(dtype).split(".")[-1],
+         "heads": (c["h"], c["kv"], c["d"]), "window": window,
+         "causal": causal, "max_abs": dd.max().item(), "max_abs_o": scale,
+         # ulps of the outputs the bound's absolute term does not cover
+         "max_ulps": ((dd / ulp)[op_.abs() >= 1e-5 * scale].max().item()
+                      if dtype == torch.bfloat16 else None),
+         "over_one_ulp": int((dd > ulp).sum().item()),
+         "differing": int((dd > 0).sum().item()), "elements": dd.numel(),
+         "finite": bool(ok_.isfinite().all().item())}
+    if dtype == torch.float32:
+        r["ok"] = r["finite"] and r["max_abs"] <= 1e-5 * scale
+        return r
+    over = dd > ulp + 1e-5 * scale
+    r["over_bound"] = int(over.sum().item())
+    shown = True
+    if r["over_bound"] and flips_allowed and r["over_bound"] <= FA_FLIP_OUTPUTS:
+        r["flip_rows"] = fa_flip_rows(torch, q, k, v, ok_, op_, over, causal, window,
+                                      c["kv_chunk"], scale)
+        shown = all(x["shown"] for x in r["flip_rows"])
+        log(f"B3 {r['heads']} rows={rows} S={s} window {window} causal {causal}: "
+            f"{r['over_bound']} outputs past phase 8's bound, rows recomputed with "
+            f"p flipped: {r['flip_rows']}")
+    r["ok"] = (r["finite"] and r["differing"] / r["elements"] < 0.01
+               and (r["over_bound"] == 0 or (flips_allowed and shown
+                                             and r["over_bound"] <= FA_FLIP_OUTPUTS)))
+    return r
 
 
 def check_launched_fa(torch, gen, shapes: list, flash: dict) -> dict:
@@ -3478,6 +3531,9 @@ def phase_cnn(torch, gen, seed: int, accuracy: dict, launched: set, parent=None)
             f"{len(prog.mapping.placements)} blocks on {util['arrays']} array(s), utilization "
             f"{util['utilization']:.4f}, occupancy {util['occupancy']:.4f}")
         check(all(same.values()), f"cnn {arch}: the card's chip is the CPU bridge's, bitwise")
+        if arch == MESH_CNN:  # phase 18 programs it again through shardings=
+            res["mesh_reference"] = {"digest": program_digest(torch, prog),
+                                     "mapping": crossbar.mapping_to_dict(prog.mapping)}
         shape = cfg.input_hw + (cfg.in_channels,)
         stream = prng.normal(prng.PRNGKey(seed + 2).to(DEV), (n_stream,) + shape)
         sweep = prng.normal(prng.PRNGKey(seed + 3).to(DEV), (n_sweep,) + shape)
@@ -4189,19 +4245,20 @@ def lm_step(torch, params, cfg, stage: int, tape, grad: bool = True) -> dict:
     return {"loss": loss, "s": time.perf_counter() - t0, "grads": grads}
 
 
-def lm_train_steps(torch, params, cfg, mesh=None) -> dict:
+def lm_train_steps(torch, params, cfg, mesh=None, ocfg=None, runs: int = 2) -> dict:
     """Phase 19's steps: from ``params`` (16 (b)'s stack on the card) one
     stage-1 (``digital``) step, then from its params one stage-2
     (``analog_train`` at LM_TRAIN) step, each with a fresh AdamW
-    (LM_MESH_OPT), of ``make_train_step`` at LM_STEP's batch in bf16 and
+    (LM_MESH_OPT, or ``ocfg``), of ``make_train_step`` at LM_STEP's batch in bf16 and
     key ``fold_in(PRNGKey(0), stage - 1)``: unsharded, or with ``mesh``
     the sharded step on the rank's slices in each stage's training layout.
-    Each step runs twice on the same inputs, the first cold (a first
-    collective over a group, first allocations), the second warm. Per
-    stage: the digest of the params, optimizer state and metrics after
-    the step, whether the two runs' digests agree, the seconds of each
-    (host clock to a synchronize), and the warm run's launches and
-    recomputes, and its collective calls and their seconds."""
+    Each step runs ``runs`` times (2: twice) on the same inputs, the first
+    cold (a first collective over a group, first allocations), the second
+    warm. Per stage: the digest of the params, optimizer state and metrics
+    after the step, whether the runs' digests agree (None for one run),
+    the seconds of the first and the last (host clock to a synchronize),
+    and the last run's launches and recomputes, and its collective calls
+    and their seconds."""
     import dataclasses
 
     from repro_torch import collectives, prng
@@ -4218,7 +4275,7 @@ def lm_train_steps(torch, params, cfg, mesh=None) -> dict:
     b = batch_at(PipelineConfig(kind="lm", global_batch=LM_STEP["batch"], seq_len=LM_STEP["seq"],
                                 vocab=cfg.vocab), 0)
     batch = {k: torch.as_tensor(v, device=DEV) for k, v in b.items()}
-    ocfg = optim.OptimizerConfig(**LM_MESH_OPT)
+    ocfg = ocfg or optim.OptimizerConfig(**LM_MESH_OPT)
     out = {}
     for stage, acfg in ((1, AnalogConfig()), (2, AnalogConfig().train(**LM_TRAIN))):
         opt = optim.init(ocfg, params)
@@ -4230,8 +4287,11 @@ def lm_train_steps(torch, params, cfg, mesh=None) -> dict:
             o_sh = shd.build_opt_shardings(opt, params, p_sh, mesh)
             step = steps.make_train_step(cfg, acfg, ocfg, mesh=mesh, shardings=(p_sh, o_sh))
             p, o = shd.shard_tree(params, p_sh), shd.shard_tree(opt, o_sh)
-        runs = []
-        for _ in range(2):  # cold, then warm
+        done = []
+        for i in range(runs):  # cold, then warm
+            if i:  # the cold run's results go first (a full-width stack's memory)
+                del new_p, new_o, m
+                gc.collect()
             torch.cuda.synchronize()
             reset_counts()
             collectives.reset_stats()
@@ -4246,9 +4306,10 @@ def lm_train_steps(torch, params, cfg, mesh=None) -> dict:
                       "attention_backward": ops.attention_backward_calls, "plain": plain_calls()}
             if mesh is not None:
                 new_p, new_o = shd.gather_tree(new_p, p_sh), shd.gather_tree(new_o, o_sh)
-            runs.append((sec, tree_digest(torch, {"params": new_p, "opt": new_o, "metrics": m})))
-        out[stage] = {"digest": runs[1][1], "repeats_bitwise": runs[0][1] == runs[1][1],
-                      "cold_s": runs[0][0], "s": runs[1][0], "counts": counts,
+            done.append((sec, tree_digest(torch, {"params": new_p, "opt": new_o, "metrics": m})))
+        out[stage] = {"digest": done[-1][1],
+                      "repeats_bitwise": done[0][1] == done[-1][1] if runs > 1 else None,
+                      "cold_s": done[0][0], "s": done[-1][0], "counts": counts,
                       "collective_calls": coll["calls"], "collective_s": coll["seconds"],
                       "metrics": {k: float(v) for k, v in m.items()}}
         params = new_p
@@ -4986,10 +5047,11 @@ def phase_lm_train(torch, gen, seed: int, accuracy: dict, b1_launched: set,
     return res
 
 
-def lm_entries(lm: dict, train_mesh: dict) -> list:
+def lm_entries(lm: dict, train_mesh: dict, train_families: dict) -> list:
     """The kernels line's entries of phase 16: B1's bf16 training form (the
     prefill design with the keep mask) and B3's training form, with the
-    launches of the (b) and (c) runs and of phase 19's sharded steps."""
+    launches of the (b) and (c) runs, of phase 19's sharded steps and of
+    phase 20's steps."""
     b1, b3 = lm["b1_timing"]["per_forward"], lm["b3_timing"]
     tokens = LM_RUN["batch"] * LM_RUN["seq"]
     return [{
@@ -4997,7 +5059,8 @@ def lm_entries(lm: dict, train_mesh: dict) -> list:
         "route": "cuda",
         "source": "src/repro_torch/csrc/analog_mvm_tc.cu",
         "replaces": "src/repro/kernels/analog_mvm.py:41",
-        "launches": lm["launches"]["b1"] + train_mesh["b1_launches"],
+        "launches": lm["launches"]["b1"] + train_mesh["b1_launches"]
+        + train_families["b1_prefill_launches"],
         "max_abs_err": lm["by_design"]["prefill"]["max_abs"],
         "ms": b1["ms"], "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"],
         "bound_by": b1["bound_by"], "library_ms": b1["library_ms"], "gemv_ms": b1["gemv_ms"],
@@ -5005,7 +5068,8 @@ def lm_entries(lm: dict, train_mesh: dict) -> list:
                f"quant-noise masks: {b1['launches']} launches; plain: the plain training form; "
                "library: torch.matmul of the same products; gemv_ms: the CUDA-core gemv "
                "design (this form's parent) on the same inputs, in turns; launches: the bf16 "
-               "stage-2 steps of phase 16 (b) and (c) and phase 19's sharded step",
+               "stage-2 steps of phase 16 (b) and (c), phase 19's sharded steps and phase "
+               "20's steps (their prefill-design launches)",
         "max_err_adc_steps": lm["by_design"]["prefill"]["max_steps"],
         "pass": lm["a"]["failures"] == 0 and lm["b1_checked_after"]["failures"] == 0,
     }, {
@@ -5013,15 +5077,16 @@ def lm_entries(lm: dict, train_mesh: dict) -> list:
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:34",
-        "launches": lm["launches"]["b3"] + train_mesh["b3_launches"],
+        "launches": lm["launches"]["b3"] + train_mesh["b3_launches"]
+        + train_families["b3_launches"],
         "max_abs_err": lm["b3_max_abs"],
         "ms": b3["ms"], "plain_ms": b3["plain_ms"], "bound_ms": b3["bound_ms"],
         "bound_by": b3["bound_by"], "library_ms": b3["library_ms"],
         "per": f"the attention forwards of one tinyllama-1.1b training step at "
                f"{LM_RUN['batch']} x {LM_RUN['seq']} tokens, bf16 causal: 22 launches "
                "(library: scaled_dot_product_attention, is_causal, enable_gqa); the backward "
-               "is the plain version's VJP, recomputed; launches: phase 16 (b) and (c) and "
-               "phase 19's sharded steps, both stages",
+               "is the plain version's VJP, recomputed; launches: phase 16 (b) and (c), "
+               "phase 19's sharded steps and phase 20's steps, both stages",
         "pass": lm["b3_checked_after"]["failures"] == 0,
     }]
 
@@ -5778,11 +5843,32 @@ def bank_entry(archs: dict, mesh: dict) -> dict:
 
 
 #: phase 18's budget, seconds (it fails past it)
-MESH_BUDGET_S = 90
+MESH_BUDGET_S = 130
 #: phase 18 serves this many of phase 4's requests at 8 slots, each cut to
 #: its first MESH_NEW_TOKENS tokens
 MESH_REQUESTS = 8
 MESH_NEW_TOKENS = 16
+#: phase 18's other families at full width, (arch, depth): mamba2-2.7b on 4
+#: of its 64 layers, recurrentgemma-9b on one (rec, rec, attn) period,
+#: paligemma-3b and musicgen-large on 2 layers; each programmed through the
+#: mesh and unsharded at one key, MESH_FAMILY_REQUESTS of phase 17's
+#: requests (musicgen: its rectangle, MESH_CODEBOOK_STEPS decode steps)
+#: served on both chips; with the CNN's, MESH_FAMILIES_BUDGET_S of the
+#: phase's MESH_BUDGET_S (reported; the phase's budget is the gate: two
+#: programmings of 2.85 B weights read 36.0-42.5 s across hosts)
+MESH_FAMILIES = (("mamba2-2.7b", 4), ("recurrentgemma-9b", 3), ("paligemma-3b", 2),
+                 ("musicgen-large", 2))
+MESH_FAMILY_REQUESTS, MESH_FAMILY_NEW_TOKENS, MESH_CODEBOOK_STEPS = 4, 8, 8
+MESH_FAMILIES_BUDGET_S = 40
+#: the CNN phase 18 programs with shardings= and its crossbar transforms,
+#: against phase 14's chip of it; the images its logits are held on
+MESH_CNN, MESH_CNN_IMAGES = "analognet-kws", 4
+#: phase 19's hybrid stack: recurrentgemma-9b on one period at full width,
+#: with Adafactor (AdamW's two fp32 moments of its 2.75 B params, with the
+#: step's own copies, pass the card's 80 GB); its share of the phase's
+#: TRAIN_MESH_BUDGET_S (reported; the phase's budget is the gate)
+TRAIN_MESH_HYBRID = ("recurrentgemma-9b", 3)
+TRAIN_MESH_HYBRID_BUDGET_S = 15
 
 
 def tree_digest(torch, trees: dict) -> dict:
@@ -5792,19 +5878,64 @@ def tree_digest(torch, trees: dict) -> dict:
     for an astronomically unlikely collision."""
     from repro_torch.checkpoint import store
 
-    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
     out = {}
     for part, tree in trees.items():
         for k, t in store._flatten(tree).items():
-            v = t.detach().contiguous().view(-1).view(ints[t.element_size()]).long()
-            w = torch.arange(v.numel(), device=v.device) % 65521 + 1
-            out[f"{part}::{k}"] = (str(t.dtype), tuple(t.shape), int(v.sum()), int((v * w).sum()))
+            out[f"{part}::{k}"] = t.digest if isinstance(t, _Digest) else leaf_digest(torch, t)
     return out
+
+
+def leaf_digest(torch, t) -> tuple:
+    """One leaf's (dtype, shape, sum, weighted sum) of :func:`tree_digest`."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    v = t.detach().contiguous().view(-1).view(ints[t.element_size()]).long()
+    w = torch.arange(v.numel(), device=v.device) % 65521 + 1
+    return (str(t.dtype), tuple(t.shape), int(v.sum()), int((v * w).sum()))
+
+
+class _Digest:
+    """A leaf already digested (:func:`program_digest`)."""
+
+    __slots__ = ("digest",)
+
+    def __init__(self, digest: tuple):
+        self.digest = digest
 
 
 def chip_digest(torch, program) -> dict:
     """:func:`tree_digest` of a chip's params and state."""
     return tree_digest(torch, {"params": program.params, "state": program.state})
+
+
+def program_digest(torch, program) -> dict:
+    """:func:`chip_digest` of ``program``'s host chip: a sharded chip's split
+    leaves all-gathered and digested one at a time (its whole gathered chip
+    does not fit beside the shards at full width), the rest as they lie."""
+    from repro_torch import collectives
+    from repro_torch.core import engine
+
+    if program.mesh is None:
+        return chip_digest(torch, program)
+    axis, state = program.axis, {}
+
+    def node_fn(path: str, node: dict) -> dict:
+        split = node.get("tp")
+        if split is None:
+            state[path] = program.state[path]
+            return node
+        new, state[path] = engine._map_layer(node, program.state[path], lambda t, d: _Digest(
+            leaf_digest(torch, collectives.all_gather_dim(t, d, split.bounds, axis))))
+        return new
+
+    params = engine._walk(program.params, node_fn)
+    embed = getattr(params, "embed", None)
+    if isinstance(embed, dict) and "tp" in embed:
+        split = embed["tp"]
+        table = _Digest(leaf_digest(torch, collectives.all_gather_dim(
+            embed["table"], -2, split.bounds, axis)))
+        params = params._replace(embed={**{k: v for k, v in embed.items() if k != "tp"},
+                                        "table": table})
+    return tree_digest(torch, {"params": params, "state": state})
 
 
 def mesh_counts(torch) -> dict:
@@ -5844,7 +5975,7 @@ def nccl_mesh():
 
 
 def phase_mesh(torch, gen, seed: int, mesh, chip4: dict, tokens4: dict, trace4: list,
-               accuracy: dict, b1_launched: set, checked_banks: set) -> dict:
+               accuracy: dict, b1_launched: set, checked_banks: set, cnn_reference: dict) -> dict:
     """Phase 18 (see the module docstring), over ``mesh`` (:func:`nccl_mesh`)."""
     import dataclasses
     import shutil
@@ -5883,9 +6014,7 @@ def phase_mesh(torch, gen, seed: int, mesh, chip4: dict, tokens4: dict, trace4: 
         splits = []
         engine._walk(program.params, lambda path, node: splits.append(node.get("tp")) or node)
         res["layers_split"] = f"{sum(sp is not None for sp in splits)} of {len(splits)}"
-        host = program.gather()
-        same = chip_digest(torch, host) == chip4
-        del host
+        same = program_digest(torch, program) == chip4
         gc.collect()
         torch.cuda.empty_cache()
         log(f"mesh: tinyllama-1.1b programmed over a {res['backend']} mesh of 1 in "
@@ -5956,6 +6085,17 @@ def phase_mesh(torch, gen, seed: int, mesh, chip4: dict, tokens4: dict, trace4: 
         t1 = time.perf_counter()
         res["artifact"] = mesh_artifact(torch, seed, mesh, acfg, tmp, trace4)
         res["artifact"]["seconds"] = time.perf_counter() - t1
+        # the other families and the CNN
+        t1 = time.perf_counter()
+        res["families"] = {name: mesh_family(torch, name, depth, seed, mesh, acfg)
+                           for name, depth in MESH_FAMILIES}
+        res["cnn"] = mesh_cnn(torch, seed, mesh, cnn_reference)
+        res["families_s"] = time.perf_counter() - t1
+        log(f"mesh: the other families and the CNN took {res['families_s']:.1f} s against "
+            f"their {MESH_FAMILIES_BUDGET_S} s share of the phase's budget (within: "
+            f"{res['families_s'] <= MESH_FAMILIES_BUDGET_S}; "
+            f"{ {n: round(f['seconds'], 1) for n, f in res['families'].items()} }, "
+            f"{MESH_CNN} {res['cnn']['seconds']:.1f})")
     finally:
         set_logical_rules({})
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5974,8 +6114,9 @@ def phase_mesh(torch, gen, seed: int, mesh, chip4: dict, tokens4: dict, trace4: 
     res["seconds"] = time.perf_counter() - t0
     log(f"mesh: phase 18 took {res['seconds']:.1f} s of its {MESH_BUDGET_S} s budget "
         f"(tinyllama {res['tinyllama']['seconds']:.1f}, phi3.5-moe "
-        f"{res['phi3.5']['seconds']:.1f}, artifact {res['artifact']['seconds']:.1f}, "
-        f"the new keys' checks {res['checks_s']:.1f})")
+        f"{res['phi3.5']['seconds']:.1f}, artifact {res['artifact']['seconds']:.1f}, the "
+        f"other families and the CNN {res['families_s']:.1f}, the new keys' checks "
+        f"{res['checks_s']:.1f})")
     check(res["seconds"] <= MESH_BUDGET_S, f"mesh: phase 18 within its {MESH_BUDGET_S} s budget")
     return res
 
@@ -6029,17 +6170,24 @@ def phase_train_mesh(torch, gen, seed: int, mesh, reference: dict, accuracy: dic
               f"train mesh: stage {stage}'s B1 and B3 launches the unsharded step's, "
               "no plain call")
         check(g["collective_calls"] > 0, f"train mesh: stage {stage} ran its collectives")
-    res["b1_launches"] = sum(g["counts"]["b1"] for g in got.values())
-    res["b3_launches"] = sum(g["counts"]["b3"] for g in got.values())
+    res["hybrid"] = train_mesh_hybrid(torch, seed, mesh)
+    res["b1_launches"] = (sum(g["counts"]["b1"] for g in got.values())
+                          + res["hybrid"]["b1_launches"])
+    res["b3_launches"] = (sum(g["counts"]["b3"] for g in got.values())
+                          + res["hybrid"]["b3_launches"])
+    t1 = time.perf_counter()
     keys = sorted(b1_launched - b1_before - set(map(tuple, accuracy["checked"])))
     res["b1_checked_after"] = check_launched_b1(torch, gen, keys, accuracy)
     res["b3_new_shapes"] = sorted(fa_launched - fa_before)
     checked_fa = {(r["rows"], r["S"], r["dtype"]) for r in flash["cases"]}
     res["b3_checked_after"] = check_launched_fa(
         torch, gen, sorted(set(res["b3_new_shapes"]) - checked_fa), flash)
+    res["checks_s"] = time.perf_counter() - t1
     res["seconds"] = time.perf_counter() - t0
     log(f"train mesh: phase 19 took {res['seconds']:.1f} s of its {TRAIN_MESH_BUDGET_S} s "
-        f"budget; new B1 keys {keys or 'none'}, new B3 shapes {res['b3_new_shapes'] or 'none'}")
+        f"budget ({TRAIN_MESH_HYBRID[0]} {res['hybrid']['seconds']:.1f}, the new keys' checks "
+        f"{res['checks_s']:.1f}); new B1 keys {keys or 'none'}, new B3 shapes "
+        f"{res['b3_new_shapes'] or 'none'}")
     check(res["seconds"] <= TRAIN_MESH_BUDGET_S,
           f"train mesh: phase 19 within its {TRAIN_MESH_BUDGET_S} s budget")
     return res
@@ -6165,6 +6313,581 @@ def mesh_artifact(torch, seed: int, mesh, acfg, tmp: str, trace4: list) -> dict:
             "tokens_equal": tokens[0] == tokens[1]}
 
 
+def family_requests(torch, cfg, seed: int) -> list:
+    """Phase 18's requests of a token-fed family: the first
+    MESH_FAMILY_REQUESTS of phase 17's trace, each cut to
+    MESH_FAMILY_NEW_TOKENS tokens (the vision family's each with phase
+    17's image patches)."""
+    import dataclasses
+
+    from repro_torch import prng
+    from repro_torch.serving import poisson_trace
+
+    trace = poisson_trace(prng.PRNGKey(seed + 7), ARCH_TRACE["n"], vocab=cfg.vocab,
+                          rate=ARCH_TRACE["rate"], prompt_lens=ARCH_TRACE["prompt_lens"],
+                          new_tokens=ARCH_TRACE["new_tokens"])
+    patches = None
+    if cfg.frontend == "vision_patches":
+        patches = prng.normal(prng.PRNGKey(seed + 8).to(DEV),
+                              (len(trace), cfg.num_patches, cfg.d_model)).to(cfg.dtype)
+    return [dataclasses.replace(
+        q, max_new_tokens=min(q.max_new_tokens, MESH_FAMILY_NEW_TOKENS), arrival_t=0.0,
+        features=None if patches is None else {"patches": patches[i:i + 1]})
+        for i, q in enumerate(trace[:MESH_FAMILY_REQUESTS])]
+
+
+def family_serve(torch, chip, cfg, seed: int) -> dict:
+    """Serve ``chip`` as phase 17 serves its family, per layer: the engine
+    over :func:`family_requests` at phase 17's slots (a sharded chip over
+    its mesh), or a codebook decoder's rectangle through the step makers
+    (CODEBOOK_RUN's rows and frames, MESH_CODEBOOK_STEPS steps, its cache
+    holding the chip's KV heads). The tokens (codes), launches and what
+    they should be, ms a decode step, collective calls."""
+    from repro_torch import collectives, prng
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.kernels import decode_rows as dr
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.lm import cache_kv_heads, init_lm_cache
+    from repro_torch.serving import ServingConfig, ServingEngine
+
+    def counts() -> dict:
+        return {"b1": kernel.analog_mvm.launches,
+                "designs": dict(kernel.analog_mvm.design_launches),
+                "bank": kernel.analog_mvm_bank.launches, "b3": fa.flash_attention.launches,
+                "rows": dict(dr.launches), "plain": plain_calls()}
+
+    torch.cuda.synchronize()
+    if cfg.n_codebooks:
+        b, s, n = CODEBOOK_RUN["rows"], CODEBOOK_RUN["frames"], MESH_CODEBOOK_STEPS
+        frames = prng.normal(prng.PRNGKey(seed + 9).to(DEV), (b, s + n, cfg.d_model)).to(cfg.dtype)
+        cache = init_lm_cache(cfg, b, s + n, cfg.dtype, device=DEV,
+                              kv_heads=cache_kv_heads(chip.params, cfg))
+        prefill = make_prefill_step(cfg, chip.cfg, device=DEV)
+        step = make_serve_step(cfg, chip.cfg, device=DEV)
+        rng = prng.PRNGKey(seed + 10)
+        reset_counts()
+        collectives.reset_stats()
+        t0 = time.perf_counter()
+        logits, cache = prefill(chip.params, {"frames": frames[:, :s]}, cache, rng)
+        out = [logits[:, -1].argmax(-1).to(torch.int32)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(n):
+            code, cache = step(chip.params, {"frames": frames[:, s + i:s + i + 1]}, cache, rng)
+            out.append(code)
+        torch.cuda.synchronize()
+        return {"codes": torch.stack(out, 1).tolist(), "counts": counts(),
+                "want": moe_forward_launches(cfg, [b * s], n, b), "prefill_s": t1 - t0,
+                "ms_per_decode_step": (time.perf_counter() - t1) / n * 1e3,
+                "collective_calls": collectives.stats["calls"], "forwards": n + 1}
+    reqs = family_requests(torch, cfg, seed)
+    served = ServingEngine.for_program(
+        chip, cfg, ServingConfig(**dict(ARCH_SERVE, s_max=ARCH_SERVE["s_max"] + cfg.num_patches)),
+        device=DEV)
+    reset_counts()
+    collectives.reset_stats()
+    rep = served.run(reqs)
+    torch.cuda.synchronize()
+    want = moe_forward_launches(cfg, [int(q.prompt.size) for q in reqs], rep.n_steps,
+                                ARCH_SERVE["n_slots"])
+    want["b1"] += sum(q.features is not None for q in reqs)  # patch_proj
+    return {"tokens": {r.rid: r.tokens.tolist() for r in rep.records}, "counts": counts(),
+            "want": want, "budgets_met": all(r.n_new == q.max_new_tokens for r, q in zip(
+                sorted(rep.records, key=lambda r: r.rid), reqs)),
+            "mesh": served.mesh is not None, **serve_metrics(rep),
+            "collective_calls": collectives.stats["calls"],
+            "forwards": rep.n_requests + rep.n_steps}
+
+
+def mesh_family(torch, name: str, depth: int, seed: int, mesh, acfg) -> dict:
+    """Phase 18's run of one family (see the module docstring): ``name`` at
+    full width on ``depth`` layers from ``lm_init(seed)``, programmed
+    through ``program_for_serving(mesh=)`` and unsharded at one key, each
+    chip's digest (:func:`program_digest`) taken and its state dropped,
+    each served (:func:`family_serve`): the same digests, tokens (codes)
+    and launches, every launch exact, no plain call."""
+    import dataclasses
+
+    from repro_torch import prng
+    from repro_torch.configs import get
+    from repro_torch.core import engine
+    from repro_torch.launch import steps
+    from repro_torch.models.common import set_logical_rules
+    from repro_torch.models.lm import lm_init
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get(name), n_layers=depth)
+    params = lm_init(prng.PRNGKey(seed), cfg, device=DEV)
+    out = {"n_layers": depth, "analog_weights": analog_weights(cfg)[0]}
+    for kind in ("sharded", "unsharded"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if kind == "sharded":
+            chip = steps.program_for_serving(params, acfg, prng.PRNGKey(seed + 1), mesh=mesh,
+                                             model_cfg=cfg)
+        else:
+            set_logical_rules({})
+            chip = engine.compile_program(params, acfg, prng.PRNGKey(seed + 1), device=DEV)
+        torch.cuda.synchronize()
+        run = {"program_s": time.perf_counter() - t1, "digest": program_digest(torch, chip)}
+        if kind == "sharded":
+            splits = []
+            engine._walk(chip.params, lambda path, node: splits.append(node.get("tp")) or node)
+            run["layers_split"] = f"{sum(sp is not None for sp in splits)} of {len(splits)}"
+        # no aging or refresh here: the state goes before serving
+        chip = dataclasses.replace(chip, state={})
+        if kind == "unsharded":
+            del params
+        run.update(family_serve(torch, chip, cfg, seed))
+        out[kind] = run
+        del chip
+    set_logical_rules({})
+    gc.collect()
+    torch.cuda.empty_cache()
+    sh, un = out["sharded"], out["unsharded"]
+    out["digest_equal"] = sh.pop("digest") == un.pop("digest")
+    key = "codes" if cfg.n_codebooks else "tokens"
+    out["tokens_equal"] = sh[key] == un[key]
+    out["counts_equal"] = sh["counts"] == un["counts"]
+    c, w = sh["counts"], sh["want"]
+    out["launches_exact"] = (c["b1"] == w["b1"] and c["b3"] == w["b3"] and c["bank"] == 0
+                             and c["plain"] == 0 and un["counts"]["plain"] == 0)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"mesh: {name} at full width on {depth} layers ({out['analog_weights']} analog weights) "
+        f"programmed through the mesh in {sh['program_s']:.2f} s ({sh['layers_split']} layers "
+        f"carry a split) and unsharded in {un['program_s']:.2f} s; gathered == unsharded, every "
+        f"param and state leaf: {out['digest_equal']}; served "
+        f"{'its rectangle through the step makers' if cfg.n_codebooks else 'per layer'}: "
+        f"{key} == the unsharded chip's: {out['tokens_equal']}; launches {c} (unsharded "
+        f"{un['counts']}, want b1 {w['b1']} b3 {w['b3']}); {sh['ms_per_decode_step']:.2f} ms a "
+        f"decode step (unsharded {un['ms_per_decode_step']:.2f}), {sh['collective_calls']} "
+        f"collective calls over {sh['forwards']} forwards; {out['seconds']:.1f} s")
+    check(out["digest_equal"], f"mesh: {name}'s sharded chip gathered is bitwise its unsharded "
+                               "chip")
+    check(out["tokens_equal"] and sh.get("budgets_met", True),
+          f"mesh: {name} serves the unsharded chip's {key}")
+    check(out["counts_equal"] and out["launches_exact"],
+          f"mesh: {name}'s B1 (by design) and B3 launches exact, the unsharded chip's, no plain "
+          "call")
+    check(sh["collective_calls"] > 0, f"mesh: {name}'s sharded forward ran its collectives")
+    return out
+
+
+def mesh_cnn(torch, seed: int, mesh, reference: dict) -> dict:
+    """Phase 18's CNN: MESH_CNN from ``cnn_init(seed)`` programmed with
+    ``shardings=`` (``launch.sharding.program_shardings``) and its crossbar
+    transforms and mapping at phase 14's config and key, against phase
+    14's chip (``reference``: its digest and mapping) and the same params
+    programmed unsharded: the gathered chip, its mapping and the logits of
+    MESH_CNN_IMAGES images bitwise, one tiled B1 launch a layer."""
+    from repro_torch import prng
+    from repro_torch.configs import get
+    from repro_torch.core import crossbar, engine
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import analognet as an
+
+    t0 = time.perf_counter()
+    cfg = get(MESH_CNN)
+    acfg = AnalogConfig().infer(b_adc=8, t_seconds=CNN_AGES[0])
+    kw = dict(transforms=an.crossbar_transforms(cfg), with_mapping=True, device=DEV)
+    params = an.cnn_init(prng.PRNGKey(seed), cfg, device=DEV)
+    sharded = engine.compile_program(params, acfg, prng.PRNGKey(seed + 1),
+                                     shardings=shd.program_shardings(params, mesh), **kw)
+    host = engine.compile_program(params, acfg, prng.PRNGKey(seed + 1), **kw)
+    gathered = sharded.gather()
+    x = prng.normal(prng.PRNGKey(seed + 12).to(DEV),
+                    (MESH_CNN_IMAGES,) + cfg.input_hw + (cfg.in_channels,))
+    reset_counts()
+    logits = an.cnn_apply(sharded.params, x, sharded.cfg, cfg)
+    torch.cuda.synchronize()
+    launches = {"b1": kernel.analog_mvm.launches,
+                "designs": dict(kernel.analog_mvm.design_launches), "plain": plain_calls()}
+    want = b1_only("tiled", len(cfg.convs) + 1)
+    out = {"mesh": sharded.mesh is mesh,
+           "chip_equal": program_digest(torch, sharded) == reference["digest"]
+           == program_digest(torch, host),
+           "mapping_equal": crossbar.mapping_to_dict(gathered.mapping) == reference["mapping"]
+           == crossbar.mapping_to_dict(host.mapping),
+           "logits_equal": bool(torch.equal(
+               logits, an.cnn_apply(host.params, x, host.cfg, cfg))),
+           "launches": launches, "seconds": time.perf_counter() - t0}
+    log(f"mesh: {MESH_CNN} programmed with shardings= and its crossbar transforms: gathered == "
+        f"phase 14's chip at the same key (and the same params unsharded): {out['chip_equal']}; "
+        f"mapping: {out['mapping_equal']}; logits of {MESH_CNN_IMAGES} images: "
+        f"{out['logits_equal']}; launches {launches} (want {want}); {out['seconds']:.1f} s")
+    check(out["mesh"] and out["chip_equal"] and out["mapping_equal"],
+          f"mesh: {MESH_CNN}'s chip and mapping through shardings= are phase 14's, bitwise")
+    check(out["logits_equal"], f"mesh: {MESH_CNN}'s logits are the unsharded chip's, bitwise")
+    check(launches["designs"] == want and launches["plain"] == 0,
+          f"mesh: {MESH_CNN}: one tiled B1 launch a layer, no plain call")
+    return out
+
+
+def train_mesh_hybrid(torch, seed: int, mesh) -> dict:
+    """Phase 19's hybrid stack (TRAIN_MESH_HYBRID at full width, drawn from
+    ``seed``): its stage-1 and stage-2 steps (:func:`lm_train_steps`, with
+    Adafactor, one run each: phase 16 (b)'s stack shows a step repeats
+    bitwise) unsharded, then through the sharded step over ``mesh``: every
+    leaf of the params, optimizer state and metrics bitwise, the same
+    launches and recomputes, no plain call."""
+    import dataclasses
+
+    from repro_torch import prng
+    from repro_torch.configs import get
+    from repro_torch.models import lm
+    from repro_torch.training import optim
+
+    t0 = time.perf_counter()
+    name, depth = TRAIN_MESH_HYBRID
+    cfg = dataclasses.replace(get(name), n_layers=depth, remat=False)
+    params = lm.lm_init(prng.PRNGKey(seed), cfg, device=DEV)
+    ocfg = optim.OptimizerConfig(kind="adafactor", **LM_MESH_OPT)
+    want = lm_train_steps(torch, params, cfg, ocfg=ocfg, runs=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = lm_train_steps(torch, params, cfg, mesh, ocfg=ocfg, runs=1)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"stages": {}}
+    for stage, g in got.items():
+        w = want[stage]
+        same = g["digest"] == w["digest"]
+        out["stages"][stage] = {
+            "ms": g["s"] * 1e3, "unsharded_ms": w["s"] * 1e3, "counts": g["counts"],
+            "unsharded_counts": w["counts"], "bitwise": same,
+            "collective_calls": g["collective_calls"], "metrics": g["metrics"]}
+        log(f"train mesh: {name} ({depth} layers, full width) stage {stage} through the "
+            f"sharded step over a (1, 1) NCCL mesh == its unsharded step, every leaf: {same}; "
+            f"one cold run each: {g['s'] * 1e3:.2f} ms a step (unsharded "
+            f"{w['s'] * 1e3:.2f}); {g['collective_calls']} collective calls; launches "
+            f"{g['counts']} (unsharded {w['counts']}); metrics {g['metrics']}")
+        check(same, f"train mesh: {name} stage {stage} bitwise its unsharded step")
+        check(g["counts"] == w["counts"] and g["counts"]["plain"] == 0
+              and (stage == 1 or g["counts"]["b1"] > 0) and g["counts"]["b3"] > 0,
+              f"train mesh: {name} stage {stage}'s B1 and B3 launches the unsharded step's, "
+              "no plain call")
+    out["b1_launches"] = sum(g["counts"]["b1"] for g in got.values())
+    out["b3_launches"] = sum(g["counts"]["b3"] for g in got.values())
+    out["seconds"] = time.perf_counter() - t0
+    log(f"train mesh: {name} took {out['seconds']:.1f} s against its "
+        f"{TRAIN_MESH_HYBRID_BUDGET_S} s share of the phase's budget (within: "
+        f"{out['seconds'] <= TRAIN_MESH_HYBRID_BUDGET_S})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: training the other families
+# ---------------------------------------------------------------------------
+
+#: phase 20's stacks at full width, (arch, depth) through the CLI's
+#: ``lm_setup(n_layers=)``: mamba2-2.7b on 2 layers, recurrentgemma-9b on
+#: one (rec, rec, attn) period, paligemma-3b on 2 layers; 1 x 64 tokens
+TRAIN_FAMILIES = (("mamba2-2.7b", 2), ("recurrentgemma-9b", 3), ("paligemma-3b", 2))
+TRAIN_FAMILIES_BUDGET_S = 60
+#: B3's windowed training form at recurrentgemma-9b's heads: (rows, S,
+#: window); the window bites from row 2048 on
+B3_TRAIN_WINDOW = (1, 4096, 2048)
+
+
+@contextlib.contextmanager
+def plain_on_card():
+    """B1's and B3's wrappers replaced by their plain versions while the
+    body runs, on the card (``ref.analog_mvm_ref``, ``ref.flash_attention_ref``:
+    what a CPU tensor runs, counted as plain calls): the control of phase
+    20, the same step through the plain versions on the card."""
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import analog_mvm_ref, flash_attention_ref
+    from repro_torch.models import attention
+
+    def b1(x, w, *, r_adc, r_dac=None, out_scale=1.0, b_adc=8, tile_rows=1024,
+           per_tile_adc=True, keep=None):
+        return analog_mvm_ref(x, w, r_dac, r_adc, out_scale, b_dac=b_adc + 1, b_adc=b_adc,
+                              tile_rows=tile_rows, per_tile_adc=per_tile_adc,
+                              apply_dac=r_dac is not None, keep=keep)
+
+    def b3(q, k, v, *, causal=True, q_chunk=512, kv_chunk=1024, window=None):
+        return flash_attention_ref(q, k, v, causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                   window=window)
+
+    saved = kernel.analog_mvm, fa.flash_attention, attention.flash_attention
+    kernel.analog_mvm, fa.flash_attention, attention.flash_attention = b1, b3, b3
+    try:
+        yield
+    finally:
+        kernel.analog_mvm, fa.flash_attention, attention.flash_attention = saved
+
+
+def family_step(torch, loss_fn, params, batch: dict, stage: int, tape, grad: bool = True):
+    """Phase 20's step: ``loss_fn`` (``lm_setup``'s) on ``batch`` in stage 1
+    (digital) or stage 2 (``analog_train`` at LM_TRAIN, keyed as phase 16
+    (b) keys it), inside ``tape`` (None: untaped); with ``grad`` its
+    gradients, kept on the card. The loss and the seconds (host clock to a
+    synchronize)."""
+    from repro_torch import prng
+    from repro_torch import tree as tree_lib
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.training import lockstep
+    from repro_torch.training.loop import value_and_grad
+
+    acfg = AnalogConfig() if stage == 1 else AnalogConfig().train(**LM_TRAIN)
+    key = prng.fold_in(prng.PRNGKey(0).to(DEV), LM_RUN["stage1"]) if acfg.needs_rng else None
+    loss_of = lambda p: loss_fn(p, batch, acfg, key)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads = None
+    with lockstep.tape(tape) if tape is not None else contextlib.nullcontext():
+        if grad:
+            (loss, _), g = value_and_grad(loss_of, params)
+            grads = {tree_lib.path_name(p): t.detach() for p, t in tree_lib.flatten_with_path(g)}
+        else:
+            with torch.no_grad():
+                loss, _ = loss_of(params)
+        loss = float(loss)
+    torch.cuda.synchronize()
+    return {"loss": loss, "s": time.perf_counter() - t0, "grads": grads}
+
+
+def train_family_designs(torch, params, tokens: int) -> dict:
+    """B1's training-form launches a stage-2 forward of ``params`` makes, by
+    design: one a member of every analog layer but the vision family's
+    ``patch_proj`` (a token batch carries no image), each at M = ``tokens``
+    through the design ``select_design`` picks with a keep mask."""
+    from repro_torch.core import engine
+    from repro_torch.kernels import analog_mvm as kernel
+
+    out = dict.fromkeys(kernel.DESIGNS, 0)
+
+    def node_fn(path: str, node: dict) -> dict:
+        if not path.startswith("extras/"):
+            w = node["w"]
+            out[kernel.select_design(torch.bfloat16, tokens, int(w.shape[-2]),
+                                     int(w.shape[-1]), keep=True)] += math.prod(w.shape[:-2])
+        return node
+
+    engine._walk(params, node_fn)
+    return out
+
+
+def train_family(torch, name: str, depth: int) -> dict:
+    """Phase 20's run of one family (see the module docstring)."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import analog_mvm as kernel
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import lm_setup
+    from repro_torch.models.lm import block_period, lm_loss
+    from repro_torch.training import lockstep
+
+    t0 = time.perf_counter()
+    # lm_setup's params and first batch; its loss with the config's remat
+    # off, as 16 (b) runs it: a tape records each forward call once, and
+    # remat would run every group's calls again inside the backward
+    cfg = dataclasses.replace(get(name), n_layers=depth, remat=False)
+    check(cfg.dtype == torch.bfloat16, f"train families: {name} trains in bf16")
+    params, _, batches = lm_setup(name, False, LM_STEP["batch"], LM_STEP["seq"], DEV,
+                                  n_layers=depth)
+    loss_fn = lambda p, b, acfg, rng: lm_loss(p, b, acfg, cfg, rng=rng)
+    batch = {k: torch.as_tensor(v, device=DEV) for k, v in next(batches).items()}
+    tokens = LM_STEP["batch"] * LM_STEP["seq"]
+    period = block_period(cfg)
+    attn = sum(k == "attn" for k in period) * (depth // len(period))
+    n_b1 = sum(train_family_designs(torch, params, tokens).values())
+    out = {"n_layers": depth, "analog_weights": analog_weights(cfg)[0], "stages": {}}
+    bound = lockstep.GRAD_RTOL["bfloat16"]
+    failed = []
+    for stage in (1, 2):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t1 = time.perf_counter()
+        card = lockstep.Tape(on_host=False)
+        k = family_step(torch, loss_fn, params, batch, stage, card)
+        counts = {"b1": kernel.analog_mvm.launches,
+                  "designs": dict(kernel.analog_mvm.design_launches),
+                  "backward": ops.backward_calls, "b3": fa.flash_attention.launches,
+                  "attention_backward": ops.attention_backward_calls, "plain": plain_calls()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        nb = 0 if stage == 1 else n_b1
+        want = {"b1": nb, "designs": dict.fromkeys(kernel.DESIGNS, 0) if stage == 1 else
+                train_family_designs(torch, params, tokens), "backward": nb, "b3": attn,
+                "attention_backward": attn, "plain": 0}
+        # the control: the same step through the plain versions on the card,
+        # locked to the card's forward values; its free forward for the loss
+        t2 = time.perf_counter()
+        with plain_on_card():
+            ctrl = lockstep.Tape(lock=card, on_host=False)
+            c = family_step(torch, loss_fn, params, batch, stage, ctrl)
+            t3 = time.perf_counter()
+            free = family_step(torch, loss_fn, params, batch, stage, lockstep.Tape(
+                lock=card, draw=set(), lock_kinds=("noise",), on_host=False), grad=False)
+        t4 = time.perf_counter()
+        fwd = lm_step_compare(card, {"tape": ctrl}, "bfloat16")
+        loss_rel = abs(k["loss"] - free["loss"]) / abs(free["loss"])
+        rel = {n: lockstep.rel_l2(k["grads"][n], g) for n, g in c["grads"].items()}
+        over = lockstep.over_bound(k["grads"], c["grads"], bound)
+        missed = lockstep.planted_faults(k["grads"], c["grads"], bound)
+        mvm_ok = all(r["gate"] for r in fwd["mvm"])
+        worst = {kind: max((v for n, v in rel.items() if lockstep.leaf_kind(n) == kind),
+                           default=0.0) for kind in ("weight", "range")}
+        del card, ctrl, c
+        t5 = time.perf_counter()
+        # one step untaped, profiled: its wall (host clock to a synchronize),
+        # device kernels and idle share
+        prof = profiled(torch, lambda: family_step(torch, loss_fn, params, batch, stage, None),
+                        top=6, host_events=False)
+        split_s = {"card": t2 - t1, "control": t3 - t2, "free": t4 - t3, "gates": t5 - t4,
+                   "profiled": time.perf_counter() - t5}
+        st = {"loss": {"card": k["loss"], "control_free": free["loss"]}, "loss_rel": loss_rel,
+              "ms": prof["profile_wall_ms"], "taped_ms": k["s"] * 1e3, "counts": counts,
+              "want": want,
+              "peak_gib": peak, "forward": {"draws": fwd["draws"], "other": fwd["other"],
+                                            "mvm_worst_steps": max(
+                                                (r["max_steps"] for r in fwd["mvm"]), default=0.0),
+                                            "mvm_worst_flip_share": max(
+                                                (r["frac_half_step"] for r in fwd["mvm"]),
+                                                default=0.0), "mvm_ok": mvm_ok},
+              "worst": worst, "over": over, "faults_missed": missed, "profile": prof,
+              "seconds": split_s}
+        out["stages"][stage] = st
+        del k
+        log(f"train families: {name} ({depth} layers, full width, bf16, {tokens} tokens) "
+            f"stage {stage}: loss card {st['loss']['card']:.7f}, the plain versions' free "
+            f"forward {free['loss']:.7f} (rel {loss_rel:.2e}); taped {st['taped_ms']:.2f} ms, "
+            f"peak {peak:.2f} GiB; launches {counts} (want {want}); draws {fwd['draws']}; B1 vs the "
+            f"plain form on the card at the same values: worst "
+            f"{st['forward']['mvm_worst_steps']:.3f} steps, flip share "
+            f"{st['forward']['mvm_worst_flip_share']:.2e}, within the model: {mvm_ok}; "
+            f"{fwd['other']}; gradients rel L2 to the control, worst {worst} (bound {bound}); "
+            f"over {over or 'none'}; planted faults not caught {missed}; one step untaped, "
+            f"profiled: {prof['profile_launches']} device kernels, busy "
+            f"{prof['profile_device_ms']} ms of {prof['profile_wall_ms']} ms, idle share "
+            f"{prof['profile_idle_share']}; top kernels {prof.get('top_kernels')}; seconds "
+            f"{ {k_: round(v, 2) for k_, v in split_s.items()} }")
+        checks = [
+            (counts == want, f"launches and recomputes {counts}, want {want}"),
+            (fwd["draws"]["masks_bitwise"] and fwd["draws"]["noise_bitwise"]
+             and fwd["draws"]["masks"] == 2 * nb and fwd["draws"]["noise_calls"] == nb
+             and fwd["draws"]["noise_drawn"] == nb, f"draws and masks bitwise: {fwd['draws']}"),
+            (len(fwd["mvm"]) == nb and mvm_ok,
+             "each B1 output within the ADC tolerance model of the plain form's"),
+            (loss_rel <= TRAIN_STEP_LOSS_RTOL, f"loss card vs control {loss_rel:.2e}"),
+            (not over, f"gradient leaves over their bound: {over}"),
+            (not missed["zeroed"] and not missed["doubled"],
+             f"the gradient gate misses a zeroed or doubled leaf: {missed}")]
+        failed += [f"{name} stage {stage}: {what}" for ok_, what in checks if not ok_]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["failed"] = failed
+    out["b1_launches"] = sum(s["counts"]["b1"] for s in out["stages"].values())
+    out["b1_prefill_launches"] = sum(s["counts"]["designs"]["prefill"]
+                                     for s in out["stages"].values())
+    out["b3_launches"] = sum(s["counts"]["b3"] for s in out["stages"].values())
+    out["seconds"] = time.perf_counter() - t0
+    check(not failed, f"train families: {failed}")
+    return out
+
+
+def b3_train_window(torch, gen) -> dict:
+    """B3's windowed training form (``ops.flash_attention_ste``) at
+    recurrentgemma-9b's heads, B3_TRAIN_WINDOW, bf16, causal: the forward
+    held to phase 8's bound with phase 17's ``fa_flip_rows`` allowance
+    (``fa_compare``); ``dq``, ``dk``, ``dv`` against autograd of the plain
+    version on the card from the same operands and output gradient. Their
+    bound: twice the plain bf16 backward's own distance (rel L2) from the
+    same backward in fp32 on the same bf16 values -- the rounding of the
+    plain backward itself. One B3 launch and one recompute; check launches,
+    not the main path's."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_plain, flash_attention_ref
+    from repro_torch.training.lockstep import rel_l2
+
+    rows, s, window = B3_TRAIN_WINDOW
+    c = {**FA_HEADS, **RG_HEADS}
+    chunks = dict(q_chunk=c["q_chunk"], kv_chunk=c["kv_chunk"])
+    q, k, v = (torch.randn((rows, s, n, c["d"]), generator=gen, device=DEV).to(torch.bfloat16)
+               .requires_grad_() for n in (c["h"], c["kv"], c["kv"]))
+    g = torch.randn((rows, s, c["h"], c["d"]), generator=gen, device=DEV).to(torch.bfloat16)
+    launches0, rec0 = fa.flash_attention.launches, ops.attention_backward_calls
+    o_k = ops.flash_attention_ste(q, k, v, causal=True, window=window, **chunks)
+    got = torch.autograd.grad(o_k, (q, k, v), g)
+    torch.cuda.synchronize()
+    launched = (fa.flash_attention.launches - launches0, ops.attention_backward_calls - rec0)
+    fa.flash_attention.launches = launches0  # checks, not main-path launches
+    qkv = [t.detach() for t in (q, k, v)]
+    with torch.no_grad():
+        o_p = flash_attention_ref(*qkv, True, window=window, **chunks)
+    fwd = fa_compare(torch, *qkv, o_k.detach(), o_p, True, window, c, torch.bfloat16, rows, s)
+    want, own = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        leaves = [t.to(dtype).requires_grad_() for t in qkv]
+        o = flash_attention_plain(*leaves, True, window=window, **chunks)
+        want[dtype] = torch.autograd.grad(o, leaves, g.to(dtype))
+        del o, leaves
+    grads = {}
+    for i, n in enumerate(("dq", "dk", "dv")):
+        own[n] = rel_l2(want[torch.bfloat16][i], want[torch.float32][i])
+        grads[n] = {"rel_l2": rel_l2(got[i], want[torch.bfloat16][i]),
+                    "bitwise": bool(torch.equal(got[i], want[torch.bfloat16][i])),
+                    "plain_bf16_vs_fp32": own[n], "bound": 2 * own[n],
+                    "finite": bool(got[i].isfinite().all().item())}
+        grads[n]["ok"] = grads[n]["finite"] and grads[n]["rel_l2"] <= grads[n]["bound"]
+    out = {"shape": (rows, s, c["h"], c["kv"], c["d"]), "window": window, "forward": fwd,
+           "grads": grads, "launches": launched[0], "recomputes": launched[1]}
+    log(f"train families: B3's training form at {out['shape']}, window {window}, bf16: forward "
+        f"vs plain {({k_: fwd[k_] for k_ in ('max_ulps', 'over_bound', 'differing', 'ok')})}; "
+        f"gradients vs autograd of the plain version on the card {grads}; {launched[0]} B3 "
+        f"launch and {launched[1]} recompute")
+    check(fwd["ok"], f"train families: B3's windowed training-form forward out of phase 8's "
+                     f"bound: {fwd}")
+    check(all(r["ok"] for r in grads.values()),
+          f"train families: B3's windowed training-form gradients past their bound: {grads}")
+    check(launched == (1, 1), f"train families: B3's training form launched {launched}")
+    return out
+
+
+def phase_train_families(torch, gen, accuracy: dict, b1_launched: set, fa_launched: set,
+                         flash: dict) -> dict:
+    """Phase 20 (see the module docstring)."""
+    t0 = time.perf_counter()
+    b1_before, fa_before = set(b1_launched), set(fa_launched)
+    res = {"archs": {}, "control": "the same step through the plain versions on the card, "
+                                   "locked to the card's forward values"}
+    for name, depth in TRAIN_FAMILIES:
+        res["archs"][name] = train_family(torch, name, depth)
+    t1 = time.perf_counter()
+    res["b3_window"] = b3_train_window(torch, gen)
+    res["b3_window"]["seconds"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    keys = sorted(b1_launched - b1_before - set(map(tuple, accuracy["checked"])))
+    res["b1_checked_after"] = check_launched_b1(torch, gen, keys, accuracy)
+    res["b3_new_shapes"] = sorted(fa_launched - fa_before)
+    checked_fa = {(r["rows"], r["S"], r["dtype"]) for r in flash["cases"]}
+    res["b3_checked_after"] = check_launched_fa(
+        torch, gen, sorted(set(res["b3_new_shapes"]) - checked_fa), flash)
+    res["checks_s"] = time.perf_counter() - t1
+    for key in ("b1_launches", "b1_prefill_launches", "b3_launches"):
+        res[key] = sum(a[key] for a in res["archs"].values())
+    res["seconds"] = time.perf_counter() - t0
+    log(f"train families: phase 20 took {res['seconds']:.1f} s of its "
+        f"{TRAIN_FAMILIES_BUDGET_S} s budget "
+        f"({ {n: round(a['seconds'], 1) for n, a in res['archs'].items()} }, B3 window "
+        f"{res['b3_window']['seconds']:.1f}, the new keys' checks {res['checks_s']:.1f}); new B1 keys "
+        f"{keys or 'none'}, new B3 shapes {res['b3_new_shapes'] or 'none'}")
+    check(res["seconds"] <= TRAIN_FAMILIES_BUDGET_S,
+          f"train families: phase 20 within its {TRAIN_FAMILIES_BUDGET_S} s budget")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6278,11 +7001,14 @@ def main(argv=None) -> int:
     lap("17 archs")
     with nccl_mesh() as nccl:
         mesh = phase_mesh(torch, gen, args.seed, nccl, chip4, tokens4, trace4, accuracy,
-                          b1_launched, {ast.literal_eval(k) for k in archs["bank_cases"]})
+                          b1_launched, {ast.literal_eval(k) for k in archs["bank_cases"]},
+                          cnn["mesh_reference"])
         lap("18 mesh")
         train_mesh = phase_train_mesh(torch, gen, args.seed, nccl, lm["train_steps"], accuracy,
                                       b1_launched, fa_launched, flash)
         lap("19 sharded training")
+    train_families = phase_train_families(torch, gen, accuracy, b1_launched, fa_launched, flash)
+    lap("20 training the families")
     log(f"seconds per phase: { {k: round(v, 1) for k, v in phase_s.items()} }")
     checked = {(r["rows"], r["S"], r["dtype"]) for r in flash["cases"]}
     unchecked = sorted(fa_launched - checked)
@@ -6311,7 +7037,8 @@ def main(argv=None) -> int:
             "replaces": "src/repro/kernels/analog_mvm.py:41",
             "launches": serve["design_launches"][design]
             + fleet["launches"]["b1_designs"][design]
-            + mesh["tinyllama"]["counts"]["designs"][design],
+            + mesh["tinyllama"]["counts"]["designs"][design]
+            + sum(f["sharded"]["counts"]["designs"][design] for f in mesh["families"].values()),
             "max_abs_err": accuracy["by_design"][design]["max_abs"],
             "ms": total("ms"),
             "plain_ms": total("plain_ms"),
@@ -6360,7 +7087,8 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:34",
         "launches": paged_serve["flash_attention_launches"] + fleet["launches"]["b3"]
-        + archs["b3_launches"] + mesh["tinyllama"]["counts"]["b3"],
+        + archs["b3_launches"] + mesh["tinyllama"]["counts"]["b3"]
+        + sum(f["sharded"]["counts"]["b3"] for f in mesh["families"].values()),
         "max_abs_err": max(r["max_abs"] for r in flash["cases"]),
         "ms": FA_LAUNCHES_PER_PREFILL * fa_t["ms"],
         "plain_ms": FA_LAUNCHES_PER_PREFILL * fa_t["plain_ms"],
@@ -6370,7 +7098,7 @@ def main(argv=None) -> int:
         "per": "one tinyllama-1.1b bucketed prefill call at bucket 256, 1 row, bf16, "
                "causal: 22 launches (library: scaled_dot_product_attention, is_causal, "
                "enable_gqa); launches from the paged serving run, the fleet phase and "
-               "phase 17; max_abs_err over every checked shape, both dtypes, causal and "
+               "phases 17 and 18; max_abs_err over every checked shape, both dtypes, causal and "
                "full, with and without the window; window_256: one launch at "
                "recurrentgemma-9b's (1, 4096, 16/1, 256), window 2048 (library: "
                "scaled_dot_product_attention with the sliding-window boolean mask)",
@@ -6378,7 +7106,7 @@ def main(argv=None) -> int:
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
         "max_err_bf16_ulps": flash["worst_bf16_ulps"],
         "pass": True,
-    }, cnn_entry(cnn), train_entry(train, lm["launches"]["b1_fp32"]), *lm_entries(lm, train_mesh),
+    }, cnn_entry(cnn), train_entry(train, lm["launches"]["b1_fp32"]), *lm_entries(lm, train_mesh, train_families),
         bank_entry(archs, mesh)] + [{
         "name": f"decode_rows.{name}",
         "route": "cuda",
@@ -6418,7 +7146,7 @@ def main(argv=None) -> int:
            "step_timing": step_timing, "flash_attention": flash, "paged_serve": paged_serve,
            "bridge": bridge, "rows": rows, "drift_lifecycle": lifecycle, "resample": resample,
            "fleet": fleet, "cnn": cnn, "train": train, "lm_train": lm, "archs": archs,
-           "mesh": mesh, "train_mesh": train_mesh,
+           "mesh": mesh, "train_mesh": train_mesh, "train_families": train_families,
            **kernels,
            "phase_s": phase_s,
            "seconds": time.perf_counter() - t_start}

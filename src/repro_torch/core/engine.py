@@ -1027,13 +1027,13 @@ def compile_program(
     experts): the conductances, Q factors and read buffers of its slice,
     drawn at the slice's own counters, with the weight scale and the GDC
     scalar from the whole member (an f32 MAX and an integer SUM of
-    ``det_sum``'s limbs over the ``model`` axis, both exact). The gathered
-    chip (:meth:`CiMProgram.gather`) is bitwise the unsharded one.
+    ``det_sum``'s limbs over the ``model`` axis, both exact). A layer with
+    a ``transforms`` entry changes shape, so it is programmed whole on
+    every rank, as the reference programs it host-side. The gathered chip
+    (:meth:`CiMProgram.gather`) is bitwise the unsharded one, its mapping
+    too.
     """
     dev = resolve_device(device)
-    if shardings is not None and transforms:
-        raise NotImplementedError("sharded programming maps LM layers; crossbar transforms "
-                                  "(the CNNs) program one unsharded chip")
     mesh = axis = split_of = table = None
     if shardings is not None:
         mesh, axis, split_of, table = _splitter(shardings, cfg)
@@ -1111,7 +1111,7 @@ def compile_program(
         bits = resolve_b_adc(overrides, path, cfg.b_adc)
         stack = tuple(w.shape[:-2])
         buf = node["w_clip_buf"]
-        split = split_of(path, "w", w.shape) if split_of else None
+        split = split_of(path, "w", w.shape) if split_of and path not in transforms else None
         w_eff, gdc, st = program_weight(
             prng.fold_in(key, counter[0]), w if split is None else split.take(w),
             buf[..., 0], buf[..., 1], t, cfg.pcm, split, axis,

@@ -56,7 +56,7 @@ run prints the reference CLI's tokens.
 
 Sharded serving: ``--mesh-model N`` programs (or loads) the chip TP-sharded
 over N ranks and serves it over that mesh (``launch.mesh.
-make_serving_mesh``; the dense and MoE families). Start one process a
+make_serving_mesh``; every family the engine serves). Start one process a
 device: ``torchrun --nproc-per-node N -m repro_torch.launch.serve
 --mesh-model N ...``; every rank runs the CLI and rank 0 prints. Its tokens
 are the unsharded run's.
@@ -415,10 +415,6 @@ def join_mesh(ap: argparse.ArgumentParser, args):
     if dist.get_world_size() < n:
         ap.error(f"--mesh-model {n}: the process group has {dist.get_world_size()} "
                  f"ranks; start {n} with torchrun --nproc-per-node {n}")
-    cfg = configs.get_smoke(args.arch)
-    if cfg.family in steps.UNSHARDED_FAMILIES:
-        ap.error(f"--mesh-model: sharded serving covers the dense and MoE families; "
-                 f"the {cfg.family} family ({args.arch}) is served on one device")
     return mesh_lib.make_serving_mesh(n), dev
 
 

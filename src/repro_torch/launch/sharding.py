@@ -536,9 +536,11 @@ def train_view(params: Any, shardings: Any) -> Any:
     """The tree a tensor-parallel rank's training forward runs on, from its
     leaves gathered over the FSDP axes: each analog layer and expert bank
     split over ``model`` carries its :class:`Split` under ``"tp"`` (the
-    layer's bias its columns), and the vocab-sharded embedding table is
-    gathered over ``model`` (``collectives.gather``: its gradient keeps the
-    rank's rows)."""
+    layer's bias its columns), and every other leaf split over ``model`` --
+    one the forward consumes whole: the vocab-sharded embedding table, the
+    causal conv's channel-sharded ``conv_w`` and ``conv_b`` -- is gathered
+    over ``model`` (``collectives.gather``: its gradient keeps the rank's
+    slice), so the forward is the unsharded one."""
     from repro_torch import collectives
     from repro_torch.core import engine
 
@@ -549,12 +551,28 @@ def train_view(params: Any, shardings: Any) -> Any:
         split = leaf_split(node[w], by_path[f"{path}/{w}"])
         return dict(node) if split is None else {**node, "tp": split}
 
-    view = engine._walk(params, node_fn)
-    embed = getattr(view, "embed", None)
-    if isinstance(embed, dict) and "table" in embed:
-        split = leaf_split(embed["table"], by_path["embed/table"])
-        if split is not None:
-            table = collectives.gather(embed["table"], split.dim, split.bounds,
-                                       _axis(by_path["embed/table"], "model"))
-            view = view._replace(embed={**embed, "table": table})
-    return view
+    def whole(t, path: str):
+        sh = by_path[path]
+        split = leaf_split(t, sh)
+        if split is None:
+            return t
+        return collectives.gather(t, split.dim, split.bounds, _axis(sh, "model"))
+
+    def walk(tree, path: str):
+        join = lambda k: f"{path}/{k}" if path else str(k)
+        if isinstance(tree, torch.Tensor):
+            return whole(tree, path)
+        if isinstance(tree, dict):
+            if engine._is_linear_layer(tree):
+                return tree  # its split is its own (node_fn)
+            bank = engine._is_expert_bank(tree)
+            return {k: v if bank and k in engine._BANK_KEYS else walk(v, join(k))
+                    for k, v in tree.items()}
+        if hasattr(tree, "_fields"):
+            return type(tree)(*(walk(getattr(tree, f), join(f)) for f in tree._fields))
+        if isinstance(tree, (tuple, list)):
+            out = [walk(v, join(i)) for i, v in enumerate(tree)]
+            return type(tree)(out) if isinstance(tree, tuple) else out
+        return tree
+
+    return walk(engine._walk(params, node_fn), "")

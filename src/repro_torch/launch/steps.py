@@ -43,60 +43,55 @@ def program_for_serving(
     *,
     mesh: Any = None,
     model_cfg: Optional[ModelConfig] = None,
+    transforms: Optional[dict] = None,
     b_adc_overrides: Optional[dict] = None,
     t_seconds: Optional[float] = None,
     chip_id: Optional[int] = None,
 ) -> engine.CiMProgram:
     """Program phase of an analog serving deployment -> CiMProgram, on the
     device ``params`` live on. ``t_seconds`` overrides the config's age for
-    the first evaluation.
+    the first evaluation; ``transforms`` is ``engine.compile_program``'s
+    (a CNN's crossbar blocks).
 
     With ``mesh``, every rank passes the whole ``params`` and keeps its
     shard of the chip in the inference layout (TP over ``model``), bitwise
     its slice of the single-host chip (``CiMProgram.gather`` returns the
-    host chip); the mesh's ``logical_rules`` (from ``model_cfg``) are
-    installed for the forward. The SSM, hybrid, vision and audio families
-    are not sharded."""
+    host chip); a layer with a ``transforms`` entry is programmed whole on
+    every rank. The mesh's ``logical_rules`` (from ``model_cfg``) are
+    installed for the forward."""
     shardings = None
     if mesh is not None:
         shardings = use_mesh(mesh, model_cfg, params)
+    gain_s = params["gain_s"] if isinstance(params, dict) else params.gain_s
     return engine.compile_program(
-        params, analog_cfg, key, t_seconds=t_seconds, shardings=shardings,
-        b_adc_overrides=b_adc_overrides, chip_id=chip_id,
-        device=params.gain_s.device,
+        params, analog_cfg, key, t_seconds=t_seconds, transforms=transforms,
+        shardings=shardings, b_adc_overrides=b_adc_overrides, chip_id=chip_id,
+        device=gain_s.device,
     )
 
 
 def use_mesh(mesh: Any, model_cfg: Optional[ModelConfig], params: Any = None) -> Any:
-    """Refuse a family that is not sharded, install ``mesh``'s logical rules
-    (``models.common.set_logical_rules``) and return the program shardings
-    of ``params`` (None without them)."""
+    """Install ``mesh``'s logical rules (``models.common.set_logical_rules``)
+    and return the program shardings of ``params`` (None without them)."""
     from repro_torch.launch import sharding as shd
     from repro_torch.models.common import set_logical_rules
 
-    if model_cfg is not None and model_cfg.family in UNSHARDED_FAMILIES:
-        raise NotImplementedError(
-            f"sharded serving covers the dense and MoE families; the "
-            f"{model_cfg.family} family ({model_cfg.name}) is served on one device"
-        )
     set_logical_rules(shd.logical_rules(mesh, model_cfg), mesh)
     return None if params is None else shd.program_shardings(params, mesh, model_cfg)
-
-
-#: families whose chips are not sharded over a mesh
-UNSHARDED_FAMILIES = ("ssm", "hybrid", "vlm", "audio")
 
 
 def refresh_program(
     program: engine.CiMProgram, src_params: Any, key: torch.Tensor, *,
     mesh: Any = None, model_cfg: Optional[ModelConfig] = None,
+    transforms: Optional[dict] = None,
 ) -> engine.CiMProgram:
     """Rewrite a drifted chip from the stored source weights: fresh write
     noise, the drift clock reset to t_c, the same per-layer bitwidths and
     the same chip id (with ``mesh``: this rank's shard of it, as
-    :func:`program_for_serving`)."""
+    :func:`program_for_serving`); ``transforms`` as the chip was compiled
+    with."""
     return program_for_serving(
-        src_params, program.cfg, key, mesh=mesh, model_cfg=model_cfg,
+        src_params, program.cfg, key, mesh=mesh, model_cfg=model_cfg, transforms=transforms,
         b_adc_overrides=engine.plan_bit_overrides(program) or None,
         t_seconds=pcm_lib.T_C,
         chip_id=program.chip_id,
@@ -135,9 +130,10 @@ def make_train_step(
     leaf gathered over ``data`` before use and its gradient summed over
     ``data`` in rank order (``training.loop.value_and_grad``); the loss
     gathered over the rows; the optimizer's reductions on whole leaves
-    (``optim.update``). The metrics are the same on every rank. The SSM,
-    hybrid, vision and audio families, and the shard_map MoE dispatch,
-    refuse a mesh.
+    (``optim.update``). The metrics are the same on every rank. A leaf
+    the forward consumes whole (the embedding table, the causal conv's
+    ``conv_w`` and ``conv_b``) is gathered over ``model`` in
+    ``sharding.train_view``. The shard_map MoE dispatch refuses a mesh.
     """
 
     def loss_for(p, batch, noise_rng):
@@ -192,10 +188,6 @@ def _sharded_train_step(cfg, analog_cfg, opt_cfg, accum_steps, mesh, shardings, 
     from repro_torch.launch import sharding as shd
     from repro_torch.models.common import logical_rules_of
 
-    if cfg.family in UNSHARDED_FAMILIES:
-        raise NotImplementedError(
-            f"the sharded train step covers the dense and MoE families; the {cfg.family} "
-            f"family ({cfg.name}) trains on one device")
     if cfg.moe_dispatch == "shard_map" and cfg.family == "moe":
         raise NotImplementedError("the sharded train step runs the einsum MoE dispatch, the "
                                   "reference's default; shard_map dispatch is served only")

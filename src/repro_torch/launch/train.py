@@ -6,7 +6,8 @@ of the paper's CNNs at its published widths (``configs.get``), or on an LM
 -- its reduced smoke config by default, its full size with ``--full`` --
 with weights from ``*_init(PRNGKey(0))`` through the RNG bridge, over the
 synthetic tasks of ``data.pipeline`` (the KWS-style task for a CNN, the
-token stream of ``--batch`` x ``--seq`` for an LM), on ``--device``
+token stream of ``--batch`` x ``--seq`` for an LM of any family but the
+frames-fed audio decoder, which ``refusal`` names), on ``--device``
 (default ``cuda``; ``cpu`` runs the plain versions of the kernels). Each
 logged step prints one JSON line with the reference CLI's keys;
 ``--ckpt-dir`` checkpoints asynchronously and resumes from the newest
@@ -16,6 +17,7 @@ Examples:
   python -m repro_torch.launch.train --arch analognet-kws --stage1 150 --stage2 150
   python -m repro_torch.launch.train --arch tinyllama-1.1b --full --batch 4 --stage1 50 --stage2 50
   python -m repro_torch.launch.train --arch tinyllama-1.1b --device cpu --stage1 3 --stage2 2 --batch 2 --seq 16
+  python -m repro_torch.launch.train --arch mamba2-2.7b --device cpu --stage1 1 --stage2 1 --batch 2 --seq 16
 """
 
 from __future__ import annotations
@@ -67,16 +69,24 @@ def cnn_setup(arch: str, batch: int, device="cuda"):
     return params, loss_fn, iterate(pipe)
 
 
-#: these families serve on the port; their training comes later (the
-#: reference's ``lm_setup`` feeds tokens only: no images, no frames)
-UNTRAINED_FAMILIES = ("ssm", "hybrid", "vlm", "audio")
+def refusal(arch: str) -> Optional[str]:
+    """Why ``arch`` does not train through this CLI, or None. The
+    reference's ``lm_setup`` feeds the token stream only, so its CLI fails
+    on a frames-fed decoder (musicgen-large: ``KeyError: 'frames'`` in its
+    first forward); the port says so before it starts."""
+    if arch in configs.CNN_ARCHS:
+        return None
+    cfg = configs.get_smoke(arch)
+    if cfg.frontend == "audio_frames":
+        return (f"--arch {arch}: the {cfg.frontend} frontend reads a batch's 'frames', and "
+                "lm_setup feeds tokens only (the reference CLI fails the same arch with "
+                "KeyError: 'frames')")
+    return None
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    archs = [a for a in configs.ALL_ARCHS if a in configs.CNN_ARCHS
-             or configs.get(a).family not in UNTRAINED_FAMILIES]
-    ap.add_argument("--arch", required=True, choices=sorted(archs))
+    ap.add_argument("--arch", required=True, choices=sorted(configs.ALL_ARCHS))
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain versions)")
     ap.add_argument("--full", action="store_true",
@@ -96,6 +106,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[list[str]] = None) -> None:
     ap = build_parser()
     args = ap.parse_args(argv)
+    why = refusal(args.arch)
+    if why:
+        ap.error(why)
     device = resolve_device(args.device)
     if args.arch in configs.CNN_ARCHS:
         params, loss_fn, batches = cnn_setup(args.arch, args.batch, device)

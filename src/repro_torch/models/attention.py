@@ -51,7 +51,8 @@ class HeadLayout(NamedTuple):
     ``wo`` takes the output as it lies), its KV heads are too
     (``kv_local``), or -- where the ``model`` degree does not divide the KV
     heads (``logical_rules``' ``kv_heads`` None) -- the KV heads its query
-    heads read, one per query head. Unsharded: every head."""
+    heads read, one per query head. Unsharded (and in a training step
+    whose KV heads are replicated): every head."""
 
     heads: int
     kv_heads: int
@@ -61,16 +62,24 @@ class HeadLayout(NamedTuple):
 
 
 def head_layout(params: dict, cfg: ModelConfig) -> HeadLayout:
-    from repro_torch.models.common import split_axis
+    """The heads this rank runs (see :class:`HeadLayout`). In a sharded
+    training step (``row_axis``) where the KV heads are replicated, every
+    rank runs every head: with the query heads split, each rank's heads
+    would add only their part of a KV head's gradient, and the whole one
+    would be a float sum over the ranks."""
+    from repro_torch.models.common import row_axis, split_axis
 
     hd = cfg.hd
     sq, sk = params["wq"].get("tp"), params["wk"].get("tp")
     col = lambda sp: sp is not None and sp.dim == -1 and sp.aligned(hd)
+    whole = HeadLayout(cfg.n_heads, cfg.n_kv_heads, None, False, 0)
     if not (col(sq) and split_axis("heads") is not None):
-        return HeadLayout(cfg.n_heads, cfg.n_kv_heads, None, False, 0)
+        return whole
     h0, h1 = sq.start // hd, sq.stop // hd
     if col(sk) and split_axis("kv_heads") is not None:
         return HeadLayout(h1 - h0, (sk.stop - sk.start) // hd, sq, True, h0)
+    if row_axis() is not None:
+        return whole
     return HeadLayout(h1 - h0, h1 - h0, sq, False, h0)
 
 

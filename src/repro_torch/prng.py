@@ -130,6 +130,8 @@ def bits(key: Tensor, shape: Shape) -> Tensor:
 #: temporaries stay in the caches (measured 5x faster than one pass over
 #: 4 M values); a value depends only on its counter, so the bits are the same
 _CPU_SLICE = 1 << 18
+#: values of an exact ``fma`` on a card done at once (its f64 temporaries)
+_CARD_SLICE = 1 << 26
 
 
 def _sliced(n: int, device, part) -> Tensor:
@@ -179,15 +181,35 @@ def fma(a: Tensor, b: Tensor, c) -> Tensor:
     rounded to f64 and then to f32, so it is first made round-to-odd (the
     f64 sum's error is recovered exactly by TwoSum): a round-to-odd f64
     value rounds to the nearest f32 exactly as the exact sum does. Large
-    CPU operands go slice by slice, as a CPU draw does.
+    CPU operands go slice by slice, as a CPU draw does, and so do operands
+    of more than ``_CARD_SLICE`` values on a card (a 1 B-weight lm_head's
+    f64 temporaries would take tens of GB at once).
     """
-    if a.device.type != "cpu" or max(a.numel(), b.numel()) <= _CPU_SLICE:
+    if a.device.type == "cpu":
+        if max(a.numel(), b.numel()) <= _CPU_SLICE:
+            return _fma(a, b, c)
+        c = c if isinstance(c, Tensor) else torch.tensor(_f32(c), dtype=torch.float32)
+        a, b, c = torch.broadcast_tensors(a, b, c)
+        flat = [t.reshape(-1) for t in (a, b, c)]
+        return _sliced(a.numel(), a.device,
+                       lambda start, stop: _fma(*(t[start:stop] for t in flat))).reshape(a.shape)
+    if max(a.numel(), b.numel()) <= _CARD_SLICE:
         return _fma(a, b, c)
-    c = c if isinstance(c, Tensor) else torch.tensor(_f32(c), dtype=torch.float32)
+    return _fma_slices(a, b, c, _CARD_SLICE)
+
+
+def _fma_slices(a: Tensor, b: Tensor, c, size: int) -> Tensor:
+    """:func:`_fma` over slices of ``size`` values, written into one f32
+    buffer on ``a``'s device: bitwise one pass (each value is its own)."""
+    c = c if isinstance(c, Tensor) else torch.tensor(_f32(c), dtype=torch.float32,
+                                                     device=a.device)
     a, b, c = torch.broadcast_tensors(a, b, c)
     flat = [t.reshape(-1) for t in (a, b, c)]
-    return _sliced(a.numel(), a.device,
-                   lambda start, stop: _fma(*(t[start:stop] for t in flat))).reshape(a.shape)
+    out = torch.empty(a.numel(), dtype=torch.float32, device=a.device)
+    for start in range(0, a.numel(), size):
+        stop = min(start + size, a.numel())
+        out[start:stop] = _fma(*(t[start:stop] for t in flat))
+    return out.reshape(a.shape)
 
 
 def _fma(a: Tensor, b: Tensor, c) -> Tensor:

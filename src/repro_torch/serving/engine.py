@@ -50,9 +50,10 @@ each), so every decision is the same without a broadcast. The forward is
 tensor-parallel over ``model`` (``core.analog``: a rank's columns, tiles
 or experts; its caches hold its KV heads). A ``data`` axis greater than 1
 gives each data group its rows of the slot batch in the decode step, the
-step's logits all-gathered (prefill stays whole on every rank). Fused
-decode refuses a mesh, as the reference does; so do the SSM, hybrid,
-vision and audio families, which are not sharded.
+step's logits all-gathered (prefill stays whole on every rank). The
+recurrent families' SSD, conv and RG-LRU states are whole on every rank
+(each projection's output is). Fused decode refuses a mesh, as the
+reference does.
 """
 
 from __future__ import annotations

@@ -91,15 +91,17 @@ class Tape:
     from the record and passes the recorded output on (the n-th call of a
     kind takes the n-th recorded call of that kind);
     ``draw``: the indices, among the weight-noise draws, to compute here
-    (None: all)."""
+    (None: all). ``on_host=False`` keeps the recorded tensors on their
+    device (two steps on one card, held together)."""
 
     def __init__(self, lock: Optional["Tape"] = None, draw: Optional[set] = None,
-                 lock_kinds: tuple = KINDS):
+                 lock_kinds: tuple = KINDS, on_host: bool = True):
         self.calls: list = []
         self.masks: list = []
         self.lock = lock
         self.draw = draw
         self.lock_kinds = lock_kinds
+        self.keep = _host if on_host else (lambda x: x.detach().clone())
 
     def of(self, kind: str) -> list:
         return [c for c in self.calls if c["kind"] == kind]
@@ -139,8 +141,8 @@ def tape(t: Tape):
             else:
                 own = out = fn(*a, **k)
             t.calls.append({"kind": kind, "meta": meta(*a, **k) if meta else None,
-                            "ins": [_host(a[j]) for j in INPUTS[kind]],
-                            "out": None if own is None else _host(own)})
+                            "ins": [t.keep(a[j]) for j in INPUTS[kind]],
+                            "out": None if own is None else t.keep(own)})
             return out if ref is None else _lock(ref["out"], out)
         return call
 

@@ -12,7 +12,10 @@ writes against JAX and the port's unsharded results.
 The models: tinyllama-1.1b's smoke config (``dense``) and the MoE smoke of
 ``tests/test_sharded_program.py`` (``moe``: 8 experts, top-2, smoke-cut to
 4), programmed (and trained) at ``tile_rows=32`` so the smoke widths' K of
-64 and 128 span several crossbar tiles and row splits really happen.
+64 and 128 span several crossbar tiles and row splits really happen; the
+other families' smoke configs (``FAMILIES``: ``mamba2``, ``rgemma``,
+``pali``, ``musicgen``) in the ``fam`` and ``train*`` jobs; AnalogNet-KWS's
+depthwise bench config in the ``cnn`` job.
 """
 
 import contextlib
@@ -49,9 +52,16 @@ CHIP_KEY = 1
 S_MAX = 48
 
 
+#: the other families' short names (a job name splits at "-") -> arch
+FAMILIES = {"mamba2": "mamba2-2.7b", "rgemma": "recurrentgemma-9b", "pali": "paligemma-3b",
+            "musicgen": "musicgen-large"}
+
+
 def cfg_of(name: str) -> ModelConfig:
     if name == "dense":
         return get_smoke("tinyllama-1.1b")
+    if name in FAMILIES:
+        return get_smoke(FAMILIES[name])
     return ModelConfig(name="t", family="moe", n_layers=2, n_experts=8, top_k=2).smoke()
 
 
@@ -184,6 +194,142 @@ def job_serve(ctx, models):
     return out
 
 
+def fam_inputs(cfg, seed: int, b: int, s: int) -> dict:
+    """A batch of ``cfg``'s inputs as numpy: frames for the audio family,
+    else tokens (and image patches for the vision family)."""
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "audio_frames":
+        return {"frames": rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)}
+    out = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
+    if cfg.frontend == "vision_patches":
+        out["patches"] = rng.standard_normal((b, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def fam_batch(batch: dict) -> dict:
+    return {k: torch.from_numpy(v).long() if k == "tokens" else torch.from_numpy(v)
+            for k, v in batch.items()}
+
+
+def fam_requests(cfg) -> list:
+    """The served requests: 3 of two prompt lengths (one prefill shape
+    each); the vision family's 2 with their own patches."""
+    if cfg.frontend != "vision_patches":
+        return numpy_trace(2, 3, vocab=cfg.vocab, rate=400.0, prompt_lens=(9, 16),
+                           new_tokens=(3, 8))
+    batch = fam_inputs(cfg, 4, 2, 9)
+    return [tserving.Request(rid=i, prompt=batch["tokens"][i], max_new_tokens=4,
+                             features={"patches": torch.from_numpy(batch["patches"][i:i + 1])})
+            for i in range(2)]
+
+
+#: the audio family's rectangle: rows, prompt frames, greedy steps
+CODEBOOK = (2, 6, 3)
+
+
+def codes(prog, cfg, frames) -> np.ndarray:
+    """The step makers' (steps, B, C) greedy codes over ``frames``."""
+    b, s, n = CODEBOOK
+    cache = lm.init_lm_cache(cfg, b, s + n, torch.float32, device="cpu",
+                             kv_heads=lm.cache_kv_heads(prog.params, cfg))
+    logits, cache = steps.make_prefill_step(cfg, prog.cfg, device="cpu")(
+        prog.params, {"frames": frames[:, :s]}, cache, prng.PRNGKey(3))
+    out = [logits[:, -1].argmax(-1).to(torch.int32).numpy()]
+    step = steps.make_serve_step(cfg, prog.cfg, device="cpu")
+    for i in range(n):
+        got, cache = step(prog.params, {"frames": frames[:, s + i:s + i + 1]}, cache,
+                          prng.PRNGKey(4))
+        out.append(got.numpy())
+    return np.stack(out)
+
+
+def job_fam(ctx, models):
+    """The other families' sharded chips: saved (gathered), aged and
+    refreshed; the logits at M = 16 of the sharded and the unsharded chip;
+    the sharded chip's served tokens (the engine; the audio family's codes
+    through the step makers); which layers split."""
+    out = {}
+    for name in models:
+        cfg = cfg_of(name)
+        params = lm.lm_init(prng.PRNGKey(0), cfg, device="cpu")
+        prog = steps.program_for_serving(params, INFER, prng.PRNGKey(CHIP_KEY),
+                                         mesh=ctx["mesh"], model_cfg=cfg)
+        host = engine.compile_program(params, INFER, prng.PRNGKey(CHIP_KEY), device="cpu")
+        store.save_program(os.path.join(ctx["out"], f"{name}_prog"), prog)
+        store.save_program(os.path.join(ctx["out"], f"{name}_aged"),
+                           engine.age_program(prog, 30 * 86400.0))
+        fresh = steps.refresh_program(prog, params, prng.fold_in(prng.PRNGKey(43), 1),
+                                      mesh=ctx["mesh"], model_cfg=cfg)
+        store.save_program(os.path.join(ctx["out"], f"{name}_fresh"), fresh)
+        splits = []
+        engine._walk(prog.params, lambda path, node: splits.append(
+            (path, None if node.get("tp") is None else node["tp"].dim)) or node)
+        out[f"{name}_splits"] = np.array(json.dumps(splits))
+        batch = fam_inputs(cfg, 5, 2, 8)
+        for key, chip in ((f"{name}_m16", prog), (f"{name}_m16_host", host)):
+            out[key] = lm.lm_forward(chip.params, fam_batch(batch), chip.cfg, cfg)[0].numpy()
+        if cfg.n_codebooks:
+            b, s, n = CODEBOOK
+            frames = torch.from_numpy(fam_inputs(cfg, 6, b, s + n)["frames"])
+            out[f"{name}_codes"] = codes(prog, cfg, frames)
+            continue
+        reqs = fam_requests(cfg)
+        eng = tserving.ServingEngine.for_program(
+            prog, cfg, tserving.ServingConfig(n_slots=2, s_max=S_MAX), device="cpu")
+        assert eng.mesh is ctx["mesh"]
+        rep = eng.run(reqs, clock=tclock.VirtualClock())
+        out.update({f"{name}_{k}": v for k, v in tokens_of(rep, reqs).items()})
+    return out
+
+
+def job_cnn(ctx, models):
+    """AnalogNet-KWS's depthwise bench config programmed with
+    ``shardings=``, its crossbar transforms and its mapping, against the
+    same chip unsharded: params, state, mapping and logits; the gathered
+    chip saved. Then tinyllama's smoke config with a transform on its
+    lm_head: that layer whole on every rank, the rest split, gathered
+    bitwise the unsharded chip compiled with the same transform."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.bench.common import KWS_BENCH_DW
+    from repro_torch.models import analognet
+
+    mesh, cfg = ctx["mesh"], KWS_BENCH_DW
+    params = analognet.cnn_init(prng.PRNGKey(0), cfg, device="cpu")
+    kw = dict(transforms=analognet.crossbar_transforms(cfg), with_mapping=True, device="cpu")
+    sharded = engine.compile_program(params, INFER, prng.PRNGKey(1),
+                                     shardings=shd.program_shardings(params, mesh), **kw)
+    host = engine.compile_program(params, INFER, prng.PRNGKey(1), **kw)
+    got = sharded.gather()
+    store.save_program(os.path.join(ctx["out"], "cnn_prog"), sharded)
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        (2,) + cfg.input_hw + (cfg.in_channels,)), dtype=torch.float32)
+    out = {"cnn_mesh": np.array(sharded.mesh is mesh),
+           "cnn_x": x.numpy(),
+           "cnn_logits": analognet.cnn_apply(sharded.params, x, sharded.cfg, cfg).numpy(),
+           "cnn_logits_host": analognet.cnn_apply(host.params, x, host.cfg, cfg).numpy()}
+    for part in ("params", "state"):
+        a, b = (store._flatten(getattr(p, part)) for p in (got, host))
+        out[f"cnn_{part}_bitwise"] = np.array(
+            list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a))
+    out["cnn_mapping_equal"] = np.array(got.mapping == host.mapping
+                                        and sharded.mapping == host.mapping)
+    # an LM layer with a transform programs whole; the rest are sharded
+    lcfg = cfg_of("dense")
+    lp = lm.lm_init(prng.PRNGKey(0), lcfg, device="cpu")
+    tf = {"lm_head": lambda w: w * 1.0}
+    lsh = steps.program_for_serving(lp, INFER, prng.PRNGKey(CHIP_KEY), mesh=mesh,
+                                    model_cfg=lcfg, transforms=tf)
+    lhost = engine.compile_program(lp, INFER, prng.PRNGKey(CHIP_KEY), transforms=tf,
+                                   device="cpu")
+    lgot = lsh.gather()
+    out["lm_head_whole"] = np.array("tp" not in lsh.params.lm_head
+                                    and "tp" in lsh.params.blocks[0]["attn"]["wq"])
+    out["lm_transform_bitwise"] = np.array(all(
+        torch.equal(a, b) for a, b in zip(tree_lib.leaves(lgot.params) + tree_lib.leaves(
+            lgot.state), tree_lib.leaves(lhost.params) + tree_lib.leaves(lhost.state))))
+    return out
+
+
 # --------------------------------------------------------------- sharded training
 
 #: the sharded train step's cases, (model, config, accum_steps): stage 2
@@ -196,10 +342,19 @@ OPT = optim.OptimizerConfig(lr=1e-2, total_steps=50, warmup=0)
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 32, 3
 TRAIN_CASES = {"dense-analog": ("dense", TRAIN, 1), "moe-analog": ("moe", TRAIN, 1),
                "dense-digital": ("dense", DIGITAL, 1), "moe-digital": ("moe", DIGITAL, 1),
-               "dense-analog-accum2": ("dense", TRAIN, 2)}
+               "dense-analog-accum2": ("dense", TRAIN, 2),
+               "mamba2-analog": ("mamba2", TRAIN, 1), "rgemma-analog": ("rgemma", TRAIN, 1),
+               "pali-analog": ("pali", TRAIN, 1)}
+#: the other families' cases (the ``train1xf-<names>`` and
+#: ``train2xf-<names>`` jobs run them at (1, world) and (2, world / 2)),
+#: FAMILY_STEPS steps on a model axis and one on a data axis (held to the
+#: step-1 bars)
+FAMILY_CASES = ("mamba2-analog", "rgemma-analog", "pali-analog")
+FAMILY_STEPS = 2
 #: (data, model) -> the cases a mesh runs
 MESH_CASES = {(1, 1): ("dense-analog", "moe-analog", "dense-digital"),
-              (1, 2): tuple(TRAIN_CASES), (2, 1): ("dense-analog", "moe-analog"),
+              (1, 2): tuple(c for c in TRAIN_CASES if c not in FAMILY_CASES) + FAMILY_CASES,
+              (2, 1): ("dense-analog", "moe-analog", "rgemma-analog"),
               (2, 2): ("dense-analog",)}
 
 
@@ -269,9 +424,9 @@ def flat(tree, prefix: str) -> dict:
     return {f"{prefix}::{k}": v.numpy() for k, v in store._flatten(tree).items()}
 
 
-def job_train(ctx, model: int):
+def job_train(ctx, model: int, cases=None):
     """The sharded train step over a (world / model, model) mesh, each of
-    its cases TRAIN_STEPS steps: metrics a step, the gathered params and
+    its cases (default: the mesh's ``MESH_CASES``) TRAIN_STEPS steps: metrics a step, the gathered params and
     optimizer state after the first and the last, step 1's draws, the
     step-1 forward's per-token loss, FSDP gathers and the local shapes; the
     first case's step 1 run twice. On a data axis rank 0 also runs the
@@ -281,7 +436,7 @@ def job_train(ctx, model: int):
     mesh = mesh_lib.make_host_mesh(model)
     shape = tuple(mesh.mesh.shape)
     out = {"mesh": np.array(shape)}
-    for i_case, case in enumerate(MESH_CASES[shape]):
+    for case in MESH_CASES[shape] if cases is None else cases:
         name, acfg, accum = TRAIN_CASES[case]
         cfg = cfg_of(name)
         params = lm.lm_init(prng.PRNGKey(0), cfg, device="cpu")
@@ -299,13 +454,15 @@ def job_train(ctx, model: int):
         out[f"{case}_nll"] = sharded_nll(ps, p_sh, mesh, cfg, acfg, batch,
                                          prng.fold_in(step_key(0), 0)).numpy()
         step = steps.make_train_step(cfg, acfg, OPT, accum, mesh=mesh, shardings=(p_sh, o_sh))
-        for i in range(TRAIN_STEPS):
+        n_steps = TRAIN_STEPS if case not in FAMILY_CASES else (
+            FAMILY_STEPS if shape[0] == 1 else 1)
+        for i in range(n_steps):
             DRAWS.on, DRAWS.draws = i == 0, []
             new = step(ps, os_, batch, step_key(i))
             DRAWS.on = False
             if i == 0:
                 out[f"{case}_draws"] = np.array(json.dumps(DRAWS.draws))
-                if i_case == 0:  # the same step again: the same bits
+                if case == MESH_CASES[shape][0]:  # the same step again: the same bits
                     again = step(ps, os_, batch, step_key(0))
                     out[f"{case}_twice"] = np.array(all(torch.equal(a, b) for a, b in zip(
                         tree_lib.leaves(new), tree_lib.leaves(again))))
@@ -316,7 +473,7 @@ def job_train(ctx, model: int):
                 out.update({**flat(first[0], f"{case}_params1"), **flat(first[1], f"{case}_opt1")})
         out.update(flat(shd.gather_tree(ps, p_sh), f"{case}_params"))
         out.update(flat(shd.gather_tree(os_, o_sh), f"{case}_opt"))
-        if shape[0] > 1 and ctx["rank"] == 0:
+        if shape[0] > 1 and ctx["rank"] == 0 and case not in FAMILY_CASES:
             out.update({f"{case}_witness_{k}": v
                         for k, v in witness(cfg, acfg, accum, batch, *first).items()})
     return out
@@ -358,11 +515,24 @@ def job_train1x1(ctx, models):
 
 
 def job_train1xn(ctx, models):
-    return job_train(ctx, ctx["world"])
+    """The (1, world) mesh's dense and MoE cases of ``models`` (``train1xn``:
+    both; ``train1xn-dense``, ``train1xn-moe``: one, a group each)."""
+    return job_train(ctx, ctx["world"], [c for c in MESH_CASES[(1, ctx["world"])]
+                                         if c not in FAMILY_CASES
+                                         and TRAIN_CASES[c][0] in models])
+
+
+def job_train1xf(ctx, models):
+    return job_train(ctx, ctx["world"], [f"{m}-analog" for m in models])
 
 
 def job_train2xn(ctx, models):
-    return job_train(ctx, ctx["world"] // 2)
+    return job_train(ctx, ctx["world"] // 2, [c for c in MESH_CASES[(2, ctx["world"] // 2)]
+                                              if c not in FAMILY_CASES])
+
+
+def job_train2xf(ctx, models):
+    return job_train(ctx, ctx["world"] // 2, [f"{m}-analog" for m in models])
 
 
 def job_jax(ctx, models):
@@ -493,7 +663,8 @@ def job_ops(ctx, models):
 
 
 JOBS = {"chips": job_chips, "forward": job_forward, "shardmap": job_shardmap,
-        "serve": job_serve, "train1x1": job_train1x1, "train1xn": job_train1xn,
+        "serve": job_serve, "fam": job_fam, "cnn": job_cnn, "train1x1": job_train1x1,
+        "train1xn": job_train1xn, "train1xf": job_train1xf, "train2xf": job_train2xf,
         "train2xn": job_train2xn, "jax": job_jax, "hazard": job_hazard, "ops": job_ops}
 
 
@@ -508,7 +679,8 @@ def main():
            "rank": rank, "artifact": sys.argv[6] if len(sys.argv) > 6 else None}
     for job in jobs:  # "name" or "name-model": a job over one model
         name, *models = job.split("-")
-        res = JOBS[name](ctx, models or ("dense", "moe"))
+        fams = name in ("fam", "train1xf", "train2xf")
+        res = JOBS[name](ctx, models or (tuple(FAMILIES) if fams else ("dense", "moe")))
         np.savez(os.path.join(out, f"{job}.rank{rank}.npz"), **res)
     dist.barrier()
     dist.destroy_process_group()

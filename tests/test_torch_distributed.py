@@ -37,8 +37,22 @@ replicated).
   1.25 (its local capacity drops other tokens than the einsum path's
   per-group one) against the reference's ``moe_apply_shardmap`` on a
   fake-device mesh in a JAX subprocess.
+* The other families: mamba2-2.7b, recurrentgemma-9b, paligemma-3b and
+  musicgen-large at their smoke configs over 2 ranks (recurrentgemma and
+  paligemma also over 4: one KV head over 4 ``model`` ranks, replicated),
+  each a job of the groups above (``GROUPS``): the sharded chip, aged and
+  refreshed, bitwise JAX's host chip of the same params; the logits
+  bitwise the port's host chip's; the sharded chip's greedy tokens JAX's
+  host chip's -- the recurrent families through the engine, paligemma's
+  requests each with its own patches, musicgen's (B, 4) codes through the
+  step makers.
+* AnalogNet-KWS's depthwise bench config programmed with ``shardings=``,
+  its crossbar transforms and its mapping (``tests/test_sharded_program.py``'s
+  scenario) over 2 ranks: chip, mapping and logits the unsharded chip's,
+  which is JAX's; an LM's transformed layer programs whole, the rest split.
 * ``--mesh-model 2`` over 2 processes prints the reference CLI's tokens;
-  the refusals, and that no float crosses ranks in an ``all_reduce``.
+  the refusals that stay (fused decode, paged recurrent serving), and
+  that no float crosses ranks in an ``all_reduce``.
 """
 
 import contextlib
@@ -51,10 +65,13 @@ import socket
 import subprocess
 import sys
 import threading
+import time
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 from repro import clock as jclock
@@ -66,6 +83,7 @@ from repro.core.analog import AnalogConfig as JAnalogConfig
 from repro.launch import serve as jserve
 from repro.launch import steps as jsteps
 from repro.models import ModelConfig as JModelConfig
+from repro.models import analognet as janalognet
 from repro.models import lm as jlm
 from repro_torch import collectives
 from repro_torch import prng
@@ -93,10 +111,115 @@ SEP = "::"
 CLI = ["--analog", "--batch", "2", "--prompt-len", "8", "--tokens", "6"]
 
 
+#: each world's worker groups, one after another: the other families' jobs
+#: ride along the earlier groups at 2 ranks and take one more group at 4
+#: (the families with a single KV head); the first groups start beside
+#: this process's JAX work and the suite's other files, so they are the
+#: lightest
+GROUPS = {2: ("chips-dense,fam-mamba2,fam-musicgen", "chips-moe", "forward-dense,fam-pali",
+              "forward-moe", "shardmap", "serve,cnn,fam-rgemma"),
+          4: ("chips-dense", "chips-moe", "forward-dense", "forward-moe", "shardmap",
+              "serve,fam-pali", "fam-rgemma")}
+FAM_WORLDS = {"mamba2": (2,), "rgemma": (2, 4), "pali": (2, 4), "musicgen": (2,)}
+#: the worker's (``_torch_dist_worker.py``) family names, and its audio
+#: rectangle: rows, prompt frames, greedy steps
+FAMILIES = {"mamba2": "mamba2-2.7b", "rgemma": "recurrentgemma-9b", "pali": "paligemma-3b",
+            "musicgen": "musicgen-large"}
+CODEBOOK = (2, 6, 3)
+
+
+def fam_inputs(cfg, seed: int, b: int, s: int) -> dict:
+    """The worker's ``fam_inputs``: frames for the audio family, else
+    tokens (and image patches for the vision family), as numpy."""
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "audio_frames":
+        return {"frames": rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)}
+    out = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
+    if cfg.frontend == "vision_patches":
+        out["patches"] = rng.standard_normal((b, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    return out
+
+
 def _jcfg(name):
     if name == "dense":
         return j_get_smoke("tinyllama-1.1b")
+    if name in FAMILIES:
+        return j_get_smoke(FAMILIES[name])
     return JModelConfig(name="t", family="moe", n_layers=2, n_experts=8, top_k=2).smoke()
+
+
+def _to_jax(tree):
+    """The port's param tree as the reference's, leaf for leaf, each dict
+    in its own order (the program walk's)."""
+    if isinstance(tree, torch.Tensor):
+        return jnp.asarray(tree.numpy())
+    if isinstance(tree, dict):
+        return {k: _to_jax(v) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return jlm.LMParams(*(_to_jax(getattr(tree, f)) for f in tree._fields))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to_jax(v) for v in tree)
+    return tree
+
+
+def _job_of(world: int, job: str) -> str:
+    """The group string that runs ``job`` at ``world`` ranks."""
+    return next(g for g in GROUPS[world] if job in g.split(","))
+
+
+def _jax_codes(host, jcfg) -> np.ndarray:
+    """The reference's step makers' (steps, B, C) greedy codes on ``host``
+    over the worker's frames (``CODEBOOK``)."""
+    b, s, n = CODEBOOK
+    frames = jnp.asarray(fam_inputs(jcfg, 6, b, s + n)["frames"])
+    cache = jlm.init_lm_cache(jcfg, b, s + n, jnp.float32)
+    logits, cache = jsteps.make_prefill_step(jcfg, host.cfg)(
+        host.params, {"frames": frames[:, :s]}, cache, jax.random.PRNGKey(3))
+    codes = [np.asarray(logits[:, -1].argmax(-1)).astype(np.int32)]
+    step = jax.jit(jsteps.make_serve_step(jcfg, host.cfg))
+    for i in range(n):
+        got, cache = step(host.params, {"frames": frames[:, s + i:s + i + 1]}, cache,
+                          jax.random.PRNGKey(4))
+        codes.append(np.asarray(got))
+    return np.stack(codes)
+
+
+def _jax_families(ref: dict) -> None:
+    """JAX's host chips of the families (the port's params, which are the
+    reference's but mamba2's ``dt_bias``: torch's exp), aged and refreshed,
+    and their greedy tokens on the worker's requests (``fam_requests``),
+    musicgen's codes through the reference's step makers; and
+    AnalogNet-KWS's depthwise bench chip with its transforms and mapping."""
+    from benchmarks.common import KWS_BENCH_DW as J_KWS_BENCH_DW
+    from repro_torch.models import lm as tlm
+
+    for name, arch in FAMILIES.items():
+        jcfg = _jcfg(name)
+        jp = _to_jax(tlm.lm_init(prng.PRNGKey(0), t_get_smoke(arch), device="cpu"))
+        host = jengine.compile_program(jp, JINFER, jax.random.PRNGKey(1))
+        out = {"jp": jp, "prog": host, "aged": jengine.age_program(host, 30 * 86400.0),
+               "fresh": jsteps.refresh_program(host, jp,
+                                               jax.random.fold_in(jax.random.PRNGKey(43), 1))}
+        if jcfg.n_codebooks:
+            out["codes"] = _jax_codes(host, jcfg)
+        else:
+            if jcfg.frontend == "vision_patches":
+                batch = fam_inputs(jcfg, 4, 2, 9)
+                reqs = [jserving.Request(rid=i, prompt=batch["tokens"][i], max_new_tokens=4,
+                                         features={"patches": jnp.asarray(
+                                             batch["patches"][i:i + 1])}) for i in range(2)]
+            else:
+                reqs = [_jreq(r) for r in numpy_trace(2, 3, vocab=jcfg.vocab, rate=400.0,
+                                                      prompt_lens=(9, 16), new_tokens=(3, 8))]
+            rep = jserving.ServingEngine.for_program(
+                host, jcfg, jserving.ServingConfig(n_slots=2, s_max=48),
+            ).run(reqs, clock=jclock.VirtualClock())
+            out["tokens"] = {r.rid: rep.tokens_of(r.rid) for r in reqs}
+        ref[name] = out
+    jp = janalognet.cnn_init(jax.random.PRNGKey(0), J_KWS_BENCH_DW)
+    ref["cnn"] = jengine.compile_program(
+        jp, JINFER, jax.random.PRNGKey(1),
+        transforms=janalognet.crossbar_transforms(J_KWS_BENCH_DW), with_mapping=True)
 
 
 def _env():
@@ -105,7 +228,19 @@ def _env():
 
 
 def _group(world: int, out: str, jobs: str, artifact: str = "") -> str:
-    """Run ``world`` worker ranks of ``jobs``; '' or the failure's output."""
+    """Run ``world`` worker ranks of ``jobs``; '' or the failure's output.
+    With ``TORCH_DIST_GROUP_LOG`` set to a file, each group's wall seconds
+    are appended to it (how far a group stays inside its timeout)."""
+    t0 = time.perf_counter()
+    err = _run_group(world, out, jobs, artifact)
+    log = os.environ.get("TORCH_DIST_GROUP_LOG")
+    if log:
+        with open(log, "a") as f:
+            f.write(f"{world} {jobs} {time.perf_counter() - t0:.1f} {'failed' if err else 'ok'}\n")
+    return err
+
+
+def _run_group(world: int, out: str, jobs: str, artifact: str) -> str:
     os.makedirs(out, exist_ok=True)
     store = os.path.join(out, f"store_{jobs.replace(',', '_')}")
     procs = [subprocess.Popen(
@@ -211,9 +346,9 @@ def runs(tmp_path_factory):
 
     def ranks(world):
         out = os.path.join(root, f"w{world}")
-        for jobs in ("chips-dense", "chips-moe", "forward-dense", "forward-moe", "shardmap",
-                     "serve"):
-            errors[(world, jobs)] = _group(world, out, jobs, artifact if jobs == "serve" else "")
+        for jobs in GROUPS[world]:
+            errors[(world, jobs)] = _group(world, out, jobs,
+                                           artifact if "serve" in jobs.split(",") else "")
 
     def cli_run():
         cli["out"], cli["err"] = _cli_ranks(root)
@@ -255,14 +390,18 @@ def runs(tmp_path_factory):
             jserve.main()
     finally:
         sys.argv = argv
+    # JAX's programming-event counter is global: the families' chips are
+    # programmed after the serving above, not beside it
+    fam = {}
+    _jax_families(fam)
     for t in threads:
         t.join()
     return dict(root=root, errors=errors, ref=ref, trace=trace, jtokens=jtokens,
-                jcli=buf.getvalue(), cli=cli, jparams=jparams)
+                jcli=buf.getvalue(), cli=cli, jparams=jparams, fam=fam)
 
 
 def _ok(runs, world, jobs):
-    err = runs["errors"][(world, jobs)]
+    err = runs["errors"][(world, _job_of(world, jobs))]
     assert not err, err
 
 
@@ -370,6 +509,63 @@ def test_shardmap_moe_meets_einsum_and_the_reference(runs, world):
     np.testing.assert_allclose(f["cf1.25_shardmap"], want, atol=1e-4)
 
 
+FAM_CASES = [(w, n) for n, ws in FAM_WORLDS.items() for w in ws]
+
+
+@pytest.mark.parametrize("world,name", FAM_CASES)
+def test_family_chip_aged_and_refreshed_are_the_host_chip(runs, world, name):
+    _ok(runs, world, f"fam-{name}")
+    out = os.path.join(runs["root"], f"w{world}")
+    want = runs["fam"][name]
+    for stage in ("prog", "aged", "fresh"):
+        loaded = jstore.load_program(os.path.join(out, f"{name}_{stage}"),
+                                     params_like=want["jp"])
+        _bitwise(want[stage].params, loaded.params)
+        _bitwise(want[stage].state, loaded.state)
+        assert loaded.t_seconds == want[stage].t_seconds
+    # the sharded chip really is split: every projection's columns or its
+    # rows at whole tiles, on every rank
+    ranks = _load(runs, world, f"fam-{name}")
+    splits = [json.loads(str(f[f"{name}_splits"])) for f in ranks]
+    assert all(s == splits[0] for s in splits)
+    assert splits[0] and all(dim in (-1, -2) for _, dim in splits[0]), splits[0]
+
+
+@pytest.mark.parametrize("world,name", FAM_CASES)
+def test_family_logits_and_tokens_are_the_host_chips(runs, world, name):
+    _ok(runs, world, f"fam-{name}")
+    ranks = _load(runs, world, f"fam-{name}")
+    for r in ranks[1:]:  # every rank holds the whole logits and the same tokens
+        for k in ranks[0]:
+            assert np.array_equal(r[k], ranks[0][k]), k
+    f, want = ranks[0], runs["fam"][name]
+    assert f[f"{name}_m16"].tobytes() == f[f"{name}_m16_host"].tobytes()
+    if "codes" in want:
+        b, _, n = CODEBOOK
+        assert f[f"{name}_codes"].shape == (n + 1, b, 4)
+        assert np.array_equal(f[f"{name}_codes"], want["codes"])
+        return
+    assert want["tokens"]
+    for rid, toks in want["tokens"].items():
+        assert np.array_equal(f[f"{name}_rid{rid}"], toks), rid
+
+
+def test_cnn_sharded_with_transforms_is_the_host_chip(runs):
+    _ok(runs, 2, "cnn")
+    ranks = _load(runs, 2, "cnn")
+    want = runs["fam"]["cnn"]
+    loaded = jstore.load_program(os.path.join(runs["root"], "w2", "cnn_prog"))
+    _bitwise(want.params, loaded.params)
+    _bitwise(want.state, loaded.state)
+    assert loaded.mapping.n_arrays == want.mapping.n_arrays
+    assert loaded.mapping.utilization == want.mapping.utilization
+    for f in ranks:
+        assert f["cnn_logits"].tobytes() == f["cnn_logits_host"].tobytes()
+        for k in ("cnn_mesh", "cnn_params_bitwise", "cnn_state_bitwise", "cnn_mapping_equal",
+                  "lm_head_whole", "lm_transform_bitwise"):
+            assert bool(f[k]), k
+
+
 def test_mesh_model_cli_prints_the_reference_clis_tokens(runs):
     outs, err = runs["cli"]["out"], runs["cli"]["err"]
     assert outs is not None and not err, err
@@ -390,19 +586,29 @@ def test_refusals_in_the_references_words(capsys):
     with pytest.raises(NotImplementedError, match="one single-device kernel; sharded "
                        "serving keeps the per-layer path"):
         tserving.ServingEngine.for_program(prog, tcfg, cfg, mesh=object(), device="cpu")
-    for arch in ("mamba2-2.7b", "recurrentgemma-9b", "paligemma-3b"):
-        with pytest.raises(NotImplementedError, match="dense and MoE families"):
-            tsteps.program_for_serving(
-                tlm.lm_init(prng.PRNGKey(0), t_get_smoke(arch), device="cpu"),
-                TAnalogConfig().infer(), prng.PRNGKey(1), mesh=object(),
-                model_cfg=t_get_smoke(arch))
+    # the shard_map MoE's training stays refused under a mesh; the other
+    # families are not refused (the step asks for its shardings next)
+    from repro_torch.models.common import ModelConfig as TModelConfig
+
+    sm = dataclasses.replace(TModelConfig(name="t", family="moe", n_layers=2, n_experts=8,
+                                          top_k=2).smoke(), moe_dispatch="shard_map")
+    with pytest.raises(NotImplementedError, match="einsum MoE dispatch"):
+        tsteps.make_train_step(sm, TAnalogConfig(), None, mesh=object(), shardings=())
+    for arch in FAMILIES.values():
+        with pytest.raises(ValueError, match="takes shardings="):
+            tsteps.make_train_step(t_get_smoke(arch), TAnalogConfig(), None, mesh=object())
     # the CLI: fused decode with a mesh (the reference CLI's words), and a
-    # mesh without the processes it needs
+    # mesh without the processes it needs; paged recurrent serving
     for mod in (tserve, jserve):
         with pytest.raises(SystemExit):
             mod.validate_args(mod.build_parser(), mod.build_parser().parse_args(
                 ["--analog", "--fused-decode", "--mesh-model", "2"]))
         assert "sharded serving keeps the per-layer path" in capsys.readouterr().err
+        with pytest.raises(SystemExit):
+            mod.validate_args(mod.build_parser(), mod.build_parser().parse_args(
+                ["--arch", "mamba2-2.7b", "--request-trace", "2", "--kv-page-size", "8",
+                 "--mesh-model", "2"]))
+        assert "position-free recurrent state" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         tserve.main(["--device", "cpu", *CLI, "--mesh-model", "2"])
     assert "torchrun --nproc-per-node 2" in capsys.readouterr().err

@@ -170,3 +170,17 @@ def test_cpu_slices_bitwise_with_a_partial_last_slice():
     whole = prng._fma(*torch.broadcast_tensors(a, b, c))
     assert torch.equal(prng.fma(a, b, c), whole)
     assert torch.equal(prng.fma(a, b, 0.1), prng._fma(a.expand(shape), b, 0.1))
+
+
+def test_card_fma_slices_bitwise_one_pass():
+    """A card's ``fma`` of more than ``_CARD_SLICE`` values runs in slices
+    (``_fma_slices``, here on the CPU at a slice of 1,000): a broadcast
+    operand, a scalar addend and a partial last slice, bitwise one pass."""
+    g = torch.Generator().manual_seed(2)
+    a = torch.rand((3, 1, 2_345), generator=g)
+    b = prng.normal(prng.PRNGKey(6), (3, 4, 2_345))
+    c = torch.rand((4, 1), generator=g)
+    assert torch.equal(prng._fma_slices(a, b, c, 1_000),
+                       prng._fma(*torch.broadcast_tensors(a, b, c)))
+    assert torch.equal(prng._fma_slices(a, b, 0.1, 1_000), prng._fma(a.expand(b.shape), b, 0.1))
+    assert prng._CARD_SLICE >= prng._CPU_SLICE

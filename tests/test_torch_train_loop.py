@@ -245,8 +245,15 @@ def test_cli_setup_matches_reference_across_seeds(seed):
 
 
 def test_cli_refuses_an_lm_arch(capsys):
-    """An LM arch of a family the port has not ported yet is not a choice
-    (the dense LM trains: ``tests/test_torch_lm_train_cli.py``)."""
+    """Every registered arch is a choice, as in the reference's CLI; the
+    frames-fed audio decoder, which the reference's CLI fails with
+    ``KeyError: 'frames'``, is refused before a step (the other families
+    train: ``tests/test_torch_lm_train_cli.py``,
+    ``tests/test_torch_train_families_cli.py``)."""
+    from repro_torch import configs as tconfigs
+
+    choices = next(a.choices for a in ttrain.build_parser()._actions if a.dest == "arch")
+    assert sorted(choices) == sorted(tconfigs.ALL_ARCHS)
     with pytest.raises(SystemExit):
-        ttrain.main(["--arch", "mamba2-2.7b", "--device", "cpu"])
-    assert "invalid choice: 'mamba2-2.7b'" in capsys.readouterr().err
+        ttrain.main(["--arch", "musicgen-large", "--device", "cpu"])
+    assert "KeyError: 'frames'" in capsys.readouterr().err
