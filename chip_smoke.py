@@ -313,7 +313,23 @@ end the run with a non-zero exit:
    with ``fa_flip_rows``' allowance, ``dq``, ``dk``, ``dv`` within twice
    the plain backward's own bf16 rounding of autograd of the plain
    version on the card; budget ``TRAIN_FAMILIES_BUDGET_S``;
-21. report: a JSON line ``{"kernels": [...]}`` (launches from the serving
+21. the dry run against a real step (``phase_dryrun``): over an NCCL
+   group of one, mesh (1, 1), tinyllama-1.1b at full width and
+   ``DRYRUN_DEPTH`` layers: train 1 x 512 (``digital`` and
+   ``analog_train``), prefill 1 x 4096 (``digital``), decode 8 slots
+   against a 4096 cache (``digital``) and decode at ``DRYRUN_INFER_DEPTH``
+   layers in ``pcm_infer`` (``analog_infer``). Each cell is traced by
+   ``launch.dryrun.run_cell`` on fake ``cuda`` tensors (a fake group of
+   one), then the same step runs for real on the card under the same
+   counter (``analysis.cost``). Gates: (a) the dry run's argument bytes
+   are the real inputs' exactly; (b) its FLOPs, bytes and collective
+   counts are the real step's exactly; (c) its peak is within
+   ``DRYRUN_PEAK_RTOL`` and ``DRYRUN_PEAK_SLACK`` of the growth of
+   ``torch.cuda.max_memory_allocated()`` over the real step. Reported: ms
+   a step by CUDA events, and ``t_step``, the bottleneck and the roofline
+   fraction at the card's published peaks (computed); budget
+   ``DRYRUN_BUDGET_S``;
+22. report: a JSON line ``{"kernels": [...]}`` (launches from the serving
    phases, the fleet, the CNNs, the training runs and phases 17-20)
    and, last, the device line ``{"ok": true, "device": {...}}``.
 
@@ -6888,6 +6904,124 @@ def phase_train_families(torch, gen, accuracy: dict, b1_launched: set, fa_launch
     return res
 
 
+#: phase 21: tinyllama-1.1b's layers in the digital and training cells and
+#: in the pcm_infer cell (every MVM programs its layer), its budget, and
+#: gate (c)'s bound on |dry-run peak - measured growth|: a share of the
+#: growth plus a slack, set before the phase first ran (PERF.md §6): the
+#: trace models the caching allocator's 512-byte rounding but not an
+#: allocator block's unsplit tail (up to 1 MiB a large block) nor memory
+#: an op takes inside its kernel (a reduction's or a sort's scratch)
+DRYRUN_DEPTH = 4
+DRYRUN_INFER_DEPTH = 2
+DRYRUN_BUDGET_S = 45
+DRYRUN_PEAK_RTOL = 0.10
+DRYRUN_PEAK_SLACK = 64 << 20
+#: (name, kind, seq, rows, mode, depth) of phase 21's cells
+DRYRUN_CELLS = (
+    ("train_512", "train", 512, 1, "digital", DRYRUN_DEPTH),
+    ("train_512_analog", "train", 512, 1, "analog_train", DRYRUN_DEPTH),
+    ("prefill_4096", "prefill", 4096, 1, "digital", DRYRUN_DEPTH),
+    ("decode_4096x8", "decode", 4096, 8, "digital", DRYRUN_DEPTH),
+    ("decode_4096x8_pcm_infer", "decode", 4096, 8, "analog_infer", DRYRUN_INFER_DEPTH),
+)
+
+
+def dryrun_real(torch, cfg, cell, mode: str, mesh, seed: int) -> dict:
+    """The cell's step for real on the card over ``mesh``: its counts under
+    ``analysis.cost``, the growth of the allocator's peak over the step,
+    and ms a step by CUDA events (three more calls, the first counted one
+    aside)."""
+    from repro_torch.analysis import cost
+    from repro_torch.launch import dryrun
+
+    c = dryrun.prepare(cfg, cell, mesh, mode, device=DEV, seed=seed)
+    gc.collect()  # the set-up's garbage goes before the base is read
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with cost.count() as counter:
+        out = c.step(*c.args)
+    torch.cuda.synchronize()
+    growth = torch.cuda.max_memory_allocated() - base
+    log(f"dryrun: allocated {base} before, {torch.cuda.memory_allocated()} after, peak "
+        f"{torch.cuda.max_memory_allocated()}; the real run's traced peak {counter.peak_bytes}")
+    del out
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        c.step(*c.args)
+    end.record()
+    torch.cuda.synchronize()
+    res = {**counter.summary(), "argument_bytes": c.argument_bytes, "growth_bytes": growth,
+           "ms": start.elapsed_time(end) / 3}
+    del c
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_dryrun(torch, card: str, seed: int) -> dict:
+    """Phase 21 (see the module docstring)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    res = {"card": card, "cells": {}}
+    for name, kind, seq, rows, mode, depth in DRYRUN_CELLS:
+        cfg = dataclasses.replace(configs.get(LM_ARCH), n_layers=depth)
+        cell = ShapeCell(name, seq, rows, kind)
+        t1 = time.perf_counter()
+        rec = dryrun.run_cell(LM_ARCH, name, False, mode, verbose=False, override_cfg=cfg,
+                              cell=cell, mesh="1x1")
+        check(rec["status"] == "ok", f"dry run: {name} traced ({rec.get('error')})")
+        trace_s = time.perf_counter() - t1
+        with nccl_mesh() as mesh:
+            real = dryrun_real(torch, cfg, cell, mode, mesh, seed)
+        fake = {"argument_bytes": rec["memory"]["argument_bytes"], **rec["cost"],
+                "collectives": rec["collectives"]["counts"]}
+        peak = rec["memory"]["peak_bytes"] - rec["memory"]["argument_bytes"]
+        ops_diff = {k: (rec["op_counts"].get(k), real["ops"].get(k))
+                    for k in set(rec["op_counts"]) | set(real["ops"])
+                    if rec["op_counts"].get(k) != real["ops"].get(k)}
+        gates = {
+            "a_argument_bytes": fake["argument_bytes"] == real["argument_bytes"],
+            "b_flops": fake["flops"] == real["flops"],
+            "b_bytes": fake["bytes"] == real["bytes"],
+            "b_collectives": fake["collectives"] == {
+                k: v["calls"] for k, v in real["collectives"].items()},
+            "c_peak": abs(peak - real["growth_bytes"])
+            <= DRYRUN_PEAK_RTOL * real["growth_bytes"] + DRYRUN_PEAK_SLACK,
+        }
+        roof = rec["roofline"]
+        res["cells"][name] = {
+            "kind": kind, "seq": seq, "rows": rows, "mode": mode, "layers": depth,
+            "gates": gates, "fake": fake, "real": {k: real[k] for k in (
+                "argument_bytes", "flops", "bytes", "wire_bytes", "collectives", "growth_bytes",
+                "peak_bytes", "ms")},
+            "dry_peak_bytes": peak, "ops_diff": ops_diff,
+            "t_step_s": roof["t_step_s"], "bottleneck": roof["bottleneck"],
+            "roofline_fraction": roof["roofline_fraction"],
+            "measured_fraction_of_t_step": roof["t_step_s"] * 1e3 / real["ms"],
+            "trace_s": trace_s, "seconds": time.perf_counter() - t1,
+        }
+        log(f"dryrun: {name} ({mode}, {depth} layers): {real['ms']:.3f} ms a step measured "
+            f"({card}); computed t_step {roof['t_step_s'] * 1e3:.3f} ms, "
+            f"{roof['bottleneck']}-bound, roofline fraction {roof['roofline_fraction']:.4f}; "
+            f"flops {fake['flops']} / {real['flops']}, bytes {fake['bytes']} / {real['bytes']}, "
+            f"args {fake['argument_bytes']} / {real['argument_bytes']}, peak {peak} vs growth "
+            f"{real['growth_bytes']}; gates {gates}; trace {trace_s:.1f} s; "
+            f"ops differing {ops_diff or 'none'}")
+        for gate, ok in gates.items():
+            check(ok, f"dry run: {name} gate {gate}")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"dryrun: phase 21 took {res['seconds']:.1f} s of its {DRYRUN_BUDGET_S} s budget")
+    check(res["seconds"] <= DRYRUN_BUDGET_S, f"dry run: phase 21 within {DRYRUN_BUDGET_S} s")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7009,6 +7143,8 @@ def main(argv=None) -> int:
         lap("19 sharded training")
     train_families = phase_train_families(torch, gen, accuracy, b1_launched, fa_launched, flash)
     lap("20 training the families")
+    dry = phase_dryrun(torch, card, args.seed)
+    lap("21 dry run")
     log(f"seconds per phase: { {k: round(v, 1) for k, v in phase_s.items()} }")
     checked = {(r["rows"], r["S"], r["dtype"]) for r in flash["cases"]}
     unchecked = sorted(fa_launched - checked)
@@ -7147,7 +7283,7 @@ def main(argv=None) -> int:
            "bridge": bridge, "rows": rows, "drift_lifecycle": lifecycle, "resample": resample,
            "fleet": fleet, "cnn": cnn, "train": train, "lm_train": lm, "archs": archs,
            "mesh": mesh, "train_mesh": train_mesh, "train_families": train_families,
-           **kernels,
+           "dryrun": dry, **kernels,
            "phase_s": phase_s,
            "seconds": time.perf_counter() - t_start}
     args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -4,7 +4,9 @@
 a CNNConfig for the paper's own TinyML models -- and ``get_smoke(arch_id)``
 an LM's reduced same-family config of the CPU tests. The port registers
 the reference's ten LMs (SSM, hybrid, dense, audio, MoE and vision), in
-its order, and the two AnalogNets.
+its order, and the two AnalogNets. The dry run's shape cells
+(``train_4k``, ``prefill_32k``, ``decode_32k``, ``long_500k``) live in
+``shapes``.
 """
 
 from __future__ import annotations
@@ -33,6 +35,10 @@ CNN_ARCHS = {
 }
 
 ALL_ARCHS = {**LM_ARCHS, **CNN_ARCHS}
+
+# Archs with sub-quadratic sequence mixing: the only ones that run the
+# long_500k cell (the reference's rule; the 8 full-attention archs skip it).
+SUBQUADRATIC = ("mamba2-2.7b", "recurrentgemma-9b")
 
 
 def get(arch_id: str):

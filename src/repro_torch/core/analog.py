@@ -160,14 +160,16 @@ def analog_matmul(
     the ranks' partials are gathered over the axis and summed in tile order
     (:func:`engine.tile_sum`). No float crosses the ranks in a reduction.
 
-    In training (``digital``, ``analog_train``) ``split`` is a rank's shard
-    of a sharded training step's layer (:func:`_train_matmul`,
-    :func:`_digital_columns`); ``pcm_infer`` runs no shard.
+    In ``pcm_infer`` ``split`` is a rank's shard of the layer's weights:
+    its program, drift and read draws are its slice of the whole layer's
+    (the counters of ``engine.slice_counters``), its weight scale and GDC
+    numerator and denominator the whole layer's (an f32 MAX and integer
+    ``det_sum`` limbs over the axis), and the MVM runs as on a programmed
+    shard. In training (``digital``, ``analog_train``) ``split`` is a
+    rank's shard of a sharded training step's layer (:func:`_train_matmul`,
+    :func:`_digital_columns`).
     """
     cfg = ctx.cfg
-    if split is not None and cfg.mode == PCM_INFER:
-        raise ValueError(f"a sharded layer runs on a programmed chip or in training, not in "
-                         f"mode {cfg.mode!r}")
     if cfg.mode == DIGITAL:
         if split is not None:
             return _digital_columns(x, w, split)
@@ -192,7 +194,12 @@ def analog_matmul(
             raise ValueError("pcm_infer requires a key in the AnalogCtx")
         engine_lib.record_program_event()  # per-call reprogramming
         w_c = torch.minimum(torch.maximum(w, w_min), w_max)
-        w_exec, scale = pcm_lib.simulate_weights(w_key, w_c.float(), cfg.t_seconds, cfg.pcm)
+        if split is None:
+            w_exec, scale = pcm_lib.simulate_weights(w_key, w_c.float(), cfg.t_seconds, cfg.pcm)
+        else:
+            w_exec, scale = pcm_lib.simulate_weights(
+                w_key, w_c.float(), cfg.t_seconds, cfg.pcm,
+                *engine_lib.slice_counters(tuple(w.shape), split), model_axis(split))
     x_q = quant_lib.dac_quantize(x, r_adc, ctx.gain_s, w_max, plan.spec)
     x_q = x_q.to(out_dtype)
     # a no-op when the weights were pre-cast to the activation dtype
@@ -426,8 +433,8 @@ def linear_apply(params: dict, x: Tensor, ctx: AnalogCtx, x_split=None) -> Tenso
     output): a row-parallel layer whose rows are those columns takes it as
     it lies, every other layer gathers it first."""
     split = params.get("tp")
-    programmed = ctx.cfg.mode == PCM_PROGRAMMED
-    if programmed and split is not None and split.dim == -2 and x_split is not None \
+    chip = ctx.cfg.mode in (PCM_PROGRAMMED, PCM_INFER)  # a chip's shard, not training's
+    if chip and split is not None and split.dim == -2 and x_split is not None \
             and x_split.bounds == split.bounds:
         return _rows_parallel(params, x, ctx, split)
     x = gather_columns(x, x_split)
@@ -435,7 +442,7 @@ def linear_apply(params: dict, x: Tensor, ctx: AnalogCtx, x_split=None) -> Tenso
         return _linear(params, x, ctx)
     if split.dim == -1:
         return gather_columns(_linear(params, x, ctx), split)
-    if not programmed:  # training: the row shard takes the whole input
+    if not chip:  # training: the row shard takes the whole input
         return _linear(params, x, ctx)
     return _rows_parallel(params, split.take(x, -1), ctx, split)
 

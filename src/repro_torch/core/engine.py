@@ -43,6 +43,7 @@ from repro_torch.core import pcm as pcm_lib
 from repro_torch.core import quant as quant_lib
 from repro_torch.core.quant import QuantSpec
 from repro_torch.device import resolve_device
+from repro_torch.kernels import build
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.ref import n_tiles, tile_mvm
 
@@ -151,8 +152,12 @@ def bits_of(buf: Optional[Tensor]) -> Optional[int]:
 
 
 def execute_digital(x: Tensor, w: Tensor) -> Tensor:
-    """Digital baseline MVM (mode == "digital")."""
-    return torch.matmul(x, w.to(x.dtype))
+    """Digital baseline MVM (mode == "digital"): x's rows folded into one
+    (M, K) product, as ``torch.matmul`` folds a contiguous x -- whatever
+    strides x's size-1 dims carry (a fake tensor's may differ from a real
+    one's there, and ``matmul`` would then batch the product)."""
+    return torch.matmul(x.reshape(-1, x.shape[-1]), w.to(x.dtype)).reshape(
+        *x.shape[:-1], w.shape[-1])
 
 
 def tile_matmul_quant(
@@ -271,13 +276,16 @@ def execute_mvm(
             x_q, w_eff, r_adc=r_adc, out_scale=out_scale, bits=plan.spec.b_adc,
             tile_rows=plan.tile_rows, per_tile_adc=plan.per_tile_adc, keep=keep,
         )
-    if x_q.device.type == "cuda":
+    if build.on_card(x_q):
         return kernel_ops.analog_mvm(
             x_q, w_eff, r_adc=r_adc, out_scale=out_scale,
             bits=plan.spec.b_adc, tile_rows=plan.tile_rows,
             per_tile_adc=plan.per_tile_adc,
         )
-    return execute_mvm_plain(x_q, w_eff, r_adc, plan, out_scale=out_scale)
+    # the plain version is the same unit of work as the kernel's call
+    return kernel_ops.b1_unit(lambda: execute_mvm_plain(x_q, w_eff, r_adc, plan,
+                                                        out_scale=out_scale),
+                              (), (x_q, w_eff, r_adc, out_scale))
 
 
 def execute_mvm_plain(

@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from repro_torch import prng
@@ -123,8 +124,9 @@ def sample_drift_nu(key: Tensor, shape, cfg: PCMConfig = PCMConfig(),
 
 
 def _recip(c: float) -> float:
-    """The f32 reciprocal of the f32 constant ``c``."""
-    return float(1.0 / torch.tensor(c, dtype=torch.float32))
+    """The f32 reciprocal of the f32 constant ``c`` (IEEE f32 division, on
+    the host)."""
+    return float(np.float32(1.0) / np.float32(c))
 
 
 def _age(t_seconds, device) -> Tensor:
@@ -138,11 +140,13 @@ def drift_factor(nu: Tensor, t_seconds) -> Tensor:
     return prng.powf(t * _recip(T_C), -nu)
 
 
-def drift(key: Tensor, g_prog: Tensor, t_seconds, cfg: PCMConfig = PCMConfig()) -> Tensor:
-    """Conductance drift G_D = G_P (t/t_c)^-nu with per-device nu."""
+def drift(key: Tensor, g_prog: Tensor, t_seconds, cfg: PCMConfig = PCMConfig(),
+          offset: int = 0, stride=None) -> Tensor:
+    """Conductance drift G_D = G_P (t/t_c)^-nu with per-device nu
+    (``offset``, ``stride``: as :func:`program`'s)."""
     if not cfg.drift:
         return g_prog
-    nu = sample_drift_nu(key, g_prog.shape, cfg)
+    nu = sample_drift_nu(key, g_prog.shape, cfg, offset, stride)
     return g_prog * drift_factor(nu, t_seconds)
 
 
@@ -167,18 +171,27 @@ def read_noise_sigma(g_drifted: Tensor, g_target: Tensor, t_seconds) -> Tensor:
 
 
 def read(key: Tensor, g_drifted: Tensor, g_target: Tensor, t_seconds,
-         cfg: PCMConfig = PCMConfig()) -> Tensor:
-    """Sample effective conductances at MVM time (adds 1/f read noise)."""
+         cfg: PCMConfig = PCMConfig(), offset: int = 0, stride=None) -> Tensor:
+    """Sample effective conductances at MVM time (adds 1/f read noise;
+    ``offset``, ``stride``: as :func:`program`'s)."""
     if not cfg.read_noise:
         return g_drifted
     sigma = read_noise_sigma(g_drifted, g_target, t_seconds)
-    g = prng.fma(sigma, prng.normal(key, g_drifted.shape), g_drifted)
+    g = prng.fma(sigma, prng.normal(key, g_drifted.shape, offset, stride), g_drifted)
     return g.clamp(min=0.0)
 
 
-def gdc_scale(g_target: Tensor, g_now: Tensor) -> Tensor:
-    """Global drift compensation factor: sum(G_T)/sum(G_now) (one scalar)."""
-    return det_sum(g_target) / (det_sum(g_now) + prng._f32(1e-12))
+def gdc_scale(g_target: Tensor, g_now: Tensor, axis=None) -> Tensor:
+    """Global drift compensation factor: sum(G_T)/sum(G_now) (one scalar).
+    ``axis`` (a ``collectives.Axis``): the tensors are a rank's block of the
+    layer's, and the sums are the layer's (:func:`det_limbs` summed over
+    the axis as integers)."""
+    if axis is None:
+        return det_sum(g_target) / (det_sum(g_now) + prng._f32(1e-12))
+    from repro_torch import collectives
+
+    total = lambda g: det_total(collectives.all_reduce_sum_int(det_limbs(g), axis))
+    return total(g_target) / (total(g_now) + prng._f32(1e-12))
 
 
 DET_SUM_SCALE = float(1 << 20)  # fixed-point grid for deterministic sums
@@ -212,21 +225,37 @@ def det_total(limbs: Tensor) -> Tensor:
     return total / DET_SUM_SCALE
 
 
-def simulate_weights(key: Tensor, w: Tensor, t_seconds, cfg: PCMConfig = PCMConfig()):
+def simulate_weights(key: Tensor, w: Tensor, t_seconds, cfg: PCMConfig = PCMConfig(),
+                     offset: int = 0, stride=None, axis=None):
     """Full device chain: W -> (program -> drift -> read) -> (w_eff, gdc).
 
     ``gdc`` is the layer's global-drift-compensation scalar, applied to the
     MVM output digitally.
+
+    ``offset``, ``stride``, ``axis``: ``w`` is a rank's block of a layer
+    sharded over ``axis`` (a ``collectives.Axis``) whose draws' counters
+    start at ``offset`` with rows ``stride`` apart (``prng.normal``): every
+    draw is the rank's slice of the whole layer's, the weight scale the
+    layer's (an f32 MAX over the axis) and ``gdc`` the layer's (integer
+    limb sums over the axis), so the block is bitwise the whole chain's
+    slice.
     """
     t = _age(t_seconds, w.device)
-    g_pos_t, g_neg_t, w_scale = weights_to_conductances(w)
+    if axis is None:
+        g_pos_t, g_neg_t, w_scale = weights_to_conductances(w)
+    else:
+        from repro_torch import collectives
+
+        w_scale = collectives.all_reduce_max(w.abs().max(), axis) + 1e-12
+        g_pos_t, g_neg_t = split_conductances(w, w_scale)
     k_pp, k_pn, k_dp, k_dn, k_rp, k_rn = prng.split(key, 6)
-    g_pos = drift(k_dp, program(k_pp, g_pos_t, cfg), t, cfg)
-    g_neg = drift(k_dn, program(k_pn, g_neg_t, cfg), t, cfg)
+    at = (offset, stride)
+    g_pos = drift(k_dp, program(k_pp, g_pos_t, cfg, *at), t, cfg, *at)
+    g_neg = drift(k_dn, program(k_pn, g_neg_t, cfg, *at), t, cfg, *at)
     if cfg.gdc:
-        scale = gdc_scale(g_pos_t + g_neg_t, g_pos + g_neg)
+        scale = gdc_scale(g_pos_t + g_neg_t, g_pos + g_neg, axis)
     else:
         scale = torch.ones((), dtype=torch.float32, device=w.device)
-    g_pos = read(k_rp, g_pos, g_pos_t, t, cfg)
-    g_neg = read(k_rn, g_neg, g_neg_t, t, cfg)
+    g_pos = read(k_rp, g_pos, g_pos_t, t, cfg, *at)
+    g_neg = read(k_rn, g_neg, g_neg_t, t, cfg, *at)
     return ((g_pos - g_neg) * w_scale).to(w.dtype), scale

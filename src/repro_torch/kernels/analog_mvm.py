@@ -38,7 +38,9 @@ device, dtype, shape and contiguity, allocates the output, launches on the
 current stream, raises on a launch error, and adds one to
 ``analog_mvm.launches`` per launch (and nowhere else), so a run can show
 that its path went through the kernel; ``analog_mvm.design_launches``
-counts the same launches by design.
+counts the same launches by design. On fake tensors (a dry run,
+``kernels.build.is_fake``) both forms allocate the output and the
+workspace a launch would, and launch and count nothing.
 """
 
 from __future__ import annotations
@@ -374,7 +376,7 @@ def _check_keep(keep: Tensor, x: Tensor, w: Tensor, tile_rows: int, per_tile_adc
 
 
 def _check_operands(x: Tensor, w: Tensor, b_adc: int, tile_rows: int) -> None:
-    if x.device.type != "cuda" or w.device != x.device:
+    if not build.on_card(x) or w.device != x.device:
         raise ValueError(
             f"analog_mvm kernel needs x and w on one CUDA device, got "
             f"{x.device} and {w.device}"
@@ -431,7 +433,9 @@ def _launch(design: str, x: Tensor, w: Tensor, *, r_adc: Scalar, r_dac: Optional
 def _run(design, x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc,
          keep=None, lib=None) -> Tensor:
     """Launch ``design`` (operands and design already checked); the one
-    place that counts launches."""
+    place that counts launches. Fake operands: :func:`_fake_launch`."""
+    if build.is_fake(x):
+        return _fake_launch(design, x, w, (r_dac, r_adc, out_scale), tile_rows, per_tile_adc)
     if design == "gemv":
         y = _launch_gemv(x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc, keep,
                          lib)
@@ -442,6 +446,28 @@ def _run(design, x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc,
     build.bump(analog_mvm, "launches")
     build.bump(analog_mvm, "design_launches", design)
     return y
+
+
+def _f32_scalars(scalars: tuple) -> list:
+    """The f32 copies ``_scalar`` makes of non-f32 scalar tensors."""
+    return [v.float() for v in scalars if isinstance(v, Tensor) and v.dtype != torch.float32]
+
+
+def _fake_launch(design, x, w, scalars, tile_rows, per_tile_adc, experts: int = 0) -> Tensor:
+    """A launch's allocations on fake operands -- its f32 scalar copies,
+    the tensor-core designs' workspace (``workspace_words``, per expert
+    ``bank_workspace_words``) and the output -- with nothing launched or
+    counted. ``experts``: the bank form's E (0: a 2-D call)."""
+    m, k = x.shape[-2:]
+    n = w.shape[-1]
+    held = _f32_scalars(scalars)
+    if design in ("decode", "prefill"):
+        plan = (prefill_plan if design == "prefill" else split_plan)(m, k, n, tile_rows,
+                                                                      per_tile_adc)
+        words = bank_workspace_words(plan)[0] * experts if experts else workspace_words(plan)[0]
+        held.append(torch.empty(words, dtype=torch.float32, device=x.device))
+    del held  # freed after the launch was enqueued
+    return torch.empty(((experts,) if experts else ()) + (m, n), dtype=x.dtype, device=x.device)
 
 
 def _launch_gemv(x, w, r_adc, r_dac, out_scale, b_adc, tile_rows, per_tile_adc,
@@ -605,6 +631,8 @@ def analog_mvm_bank(
             raise ValueError(f"analog_mvm_bank kernel: out_scale has {out_scale.numel()} "
                              f"values for {e} experts")
         out_scale = out_scale.float().reshape(-1).expand(e).contiguous()
+    if build.is_fake(x):
+        return _fake_launch(design, x, w, (r_adc,), tile_rows, per_tile_adc, e)
     if design == "tiled":
         y = _launch_tiled_bank(x, w, r_adc, out_scale, b_adc, tile_rows, per_tile_adc, keep)
     else:

@@ -15,10 +15,23 @@ Fleet workers launch from several threads (one CUDA stream each): every
 first load of a library and every launch count goes through :data:`LOCK`
 (:func:`load`, :func:`bump`), so each library is built and loaded once and
 no count is lost.
+
+**Fake tensors.** A dry run (``launch.dryrun``) traces a step on
+``torch._subclasses.fake_tensor.FakeTensor`` operands, which hold a shape,
+a dtype and a device but no data. Every launch point has a branch that
+fires only on one (:func:`is_fake`): it allocates the output and the
+workspace the launch would, launches nothing and counts no launch. A real
+tensor never takes it. :func:`on_card` is the route choice the port makes
+where a card runs other code than the CPU (a kernel, B2's row code): a
+CUDA tensor, or a fake tensor inside :func:`card_trace` -- a CPU-only
+build of torch makes fake ``cuda`` tensors, but its autograd engine
+aborts on one (it has no CUDA device guard), so a host without a card
+traces a step on fake CPU tensors that stand for the card's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -26,6 +39,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -129,3 +144,29 @@ def bump(owner, name: str, key=None) -> None:
             setattr(owner, name, getattr(owner, name) + 1)
         else:
             getattr(owner, name)[key] += 1
+
+
+_CARD_TRACE = {"on": False}
+
+
+def is_fake(t) -> bool:
+    """``t`` is a fake tensor (shape, dtype and device, no data)."""
+    return isinstance(t, FakeTensor)
+
+
+def on_card(t) -> bool:
+    """``t`` takes the card's route: a CUDA tensor, or a fake tensor under
+    :func:`card_trace`."""
+    return t.device.type == "cuda" or (_CARD_TRACE["on"] and is_fake(t))
+
+
+@contextlib.contextmanager
+def card_trace(on: bool = True):
+    """Fake tensors on any device follow the card's route for the block's
+    duration (see the module docstring)."""
+    before = _CARD_TRACE["on"]
+    _CARD_TRACE["on"] = bool(on)
+    try:
+        yield
+    finally:
+        _CARD_TRACE["on"] = before

@@ -15,8 +15,10 @@ Each wrapper runs its plain version on a CPU tensor -- today's PyTorch ops
 its kernel on a CUDA tensor: it checks device, dtype, shape and
 contiguity, allocates the output, launches on the current stream, raises
 on a launch error, and adds one to ``launches[name]`` per launch and
-nowhere else. Prefill keeps its PyTorch ops: B2 has no prefill
-counterpart.
+nowhere else; on fake tensors (a dry run) it allocates its outputs and
+launches and counts nothing. Each call is one unit of ``analysis.cost``'s
+count (``rows.<name>``; attention's FLOPs 4 D per query head and cache
+row). Prefill keeps its PyTorch ops: B2 has no prefill counterpart.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.analysis import cost
 from repro_torch.kernels import build
 
 Tensor = torch.Tensor
@@ -174,10 +177,8 @@ def heads_per_pass(n_heads: int, n_kv: int, hd: int, n_slots: int, s_max: int,
     return attn_heads(most, n_slots, n_heads, grid)
 
 
-def norm(x: Tensor, scale: Optional[Tensor], eps: float) -> Tensor:
-    """RMSNorm of each row of ``x`` (..., D) times ``scale`` (D,) (None: 1),
-    rounded to x's dtype."""
-    if x.device.type == "cpu":
+def _norm(x: Tensor, scale: Optional[Tensor], eps: float) -> Tensor:
+    if not build.on_card(x):
         return norm_plain(x, scale, eps)
     d = x.shape[-1]
     if scale is None:
@@ -188,15 +189,17 @@ def norm(x: Tensor, scale: Optional[Tensor], eps: float) -> Tensor:
     if scale.shape != (d,) or scale.device != x.device:
         raise ValueError(f"decode_rows norm: scale {tuple(scale.shape)} for width {d}")
     out = torch.empty_like(x)
+    if build.is_fake(x):
+        return out
     _launch("norm", _ptr(x), _ptr(scale), _ptr(out), x.numel() // d, d, float(eps), dt)
     return out
 
 
-def rope(q: Tensor, k: Tensor, pos: Tensor, theta: float):
-    """q (B, 1, H, HD) and k (B, 1, KV, HD) rotated at position ``pos[b]``
-    (B,) of each slot -> (q, k), new tensors."""
-    if q.device.type == "cpu":
+def _rope(q: Tensor, k: Tensor, pos: Tensor, theta: float):
+    if not build.on_card(q):
         return rope_plain(q, k, pos, theta)
+    if build.is_fake(q):  # a dry run: the rotated copies, nothing launched or cached
+        return q.contiguous().clone(), k.contiguous().clone()
     freqs = _freqs(q.shape[-1], theta, q.device)
     b, s, h, hd = q.shape
     if s != 1 or k.shape[:2] != (b, 1) or k.shape[-1] != hd or pos.shape != (b,):
@@ -211,11 +214,8 @@ def rope(q: Tensor, k: Tensor, pos: Tensor, theta: float):
     return q, k
 
 
-def attention(q: Tensor, k: Tensor, v: Tensor, lengths: Tensor) -> Tensor:
-    """Decode attention of q (B, 1, H, HD) against a cache k, v (B, S, KV,
-    HD) whose new rows are written: each slot attends its positions <
-    min(lengths[b], S). -> (B, 1, H, HD)."""
-    if q.device.type == "cpu":
+def _attention(q: Tensor, k: Tensor, v: Tensor, lengths: Tensor) -> Tensor:
+    if not build.on_card(q):
         return attention_plain(q, k, v, lengths)
     b, s, h, hd = q.shape
     s_max, kv = k.shape[1], k.shape[2]
@@ -227,6 +227,8 @@ def attention(q: Tensor, k: Tensor, v: Tensor, lengths: Tensor) -> Tensor:
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     dt = _check("attn", q, k, v)
     lens = torch.broadcast_to(lengths.to(device=q.device, dtype=torch.int32), (b,)).contiguous()
+    if build.is_fake(q):
+        return torch.empty_like(q)
     hp = heads_per_pass(h, kv, hd, b, s_max, sm_count(q.device))
     vec_elems = 16 // q.element_size()
     vec = int(hd % vec_elems == 0 and k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
@@ -236,14 +238,43 @@ def attention(q: Tensor, k: Tensor, v: Tensor, lengths: Tensor) -> Tensor:
     return out
 
 
-def gate(u: Tensor, g: Tensor) -> Tensor:
-    """silu(u) * g, elementwise, rounded to the dtype after each op."""
-    if u.device.type == "cpu":
+def _gate(u: Tensor, g: Tensor) -> Tensor:
+    if not build.on_card(u):
         return gate_plain(u, g)
     if u.shape != g.shape:
         raise ValueError(f"decode_rows gate: {tuple(u.shape)} vs {tuple(g.shape)}")
     u, g = u.contiguous(), g.contiguous()
     dt = _check("gate", u, g)
     out = torch.empty_like(u)
+    if build.is_fake(u):
+        return out
     _launch("gate", _ptr(u), _ptr(g), _ptr(out), u.numel(), dt)
     return out
+
+
+def norm(x: Tensor, scale: Optional[Tensor], eps: float) -> Tensor:
+    """RMSNorm of each row of ``x`` (..., D) times ``scale`` (D,) (None: 1),
+    rounded to x's dtype."""
+    return cost.unit("rows.norm", 0, (x, scale), _norm, x, scale, eps)
+
+
+def rope(q: Tensor, k: Tensor, pos: Tensor, theta: float):
+    """q (B, 1, H, HD) and k (B, 1, KV, HD) rotated at position ``pos[b]``
+    (B,) of each slot -> (q, k), new tensors."""
+    return cost.unit("rows.rope", 0, (q, k, pos), _rope, q, k, pos, theta)
+
+
+def attention(q: Tensor, k: Tensor, v: Tensor, lengths: Tensor) -> Tensor:
+    """Decode attention of q (B, 1, H, HD) against a cache k, v (B, S, KV,
+    HD) whose new rows are written: each slot attends its positions <
+    min(lengths[b], S). -> (B, 1, H, HD)."""
+    if not cost.counting():
+        return _attention(q, k, v, lengths)
+    b, _, h, hd = q.shape
+    return cost.unit("rows.attn", 4 * hd * b * h * k.shape[1], (q, k, v, lengths), _attention,
+                     q, k, v, lengths)
+
+
+def gate(u: Tensor, g: Tensor) -> Tensor:
+    """silu(u) * g, elementwise, rounded to the dtype after each op."""
+    return cost.unit("rows.gate", 0, (u, g), _gate, u, g)

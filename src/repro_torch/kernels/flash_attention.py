@@ -11,7 +11,8 @@ kernel on a CUDA tensor -- a failed build or launch raises, nothing falls
 back. On the card it checks device, dtype, shape and contiguity, allocates
 the output, launches on the current stream, raises on a launch error, and
 adds one to ``flash_attention.launches`` per launch (and nowhere else), so a
-run can show that its path went through the kernel. ``window`` is local
+run can show that its path went through the kernel (on fake tensors it
+allocates the output and launches and counts nothing). ``window`` is local
 attention's (the hybrid family's): on the card a block starts its key walk
 at the first key tile live for its first row (:func:`_launch` with
 ``skip=False`` walks every key from 0, as the plain version does -- a
@@ -26,6 +27,7 @@ import torch
 
 from typing import Optional
 
+from repro_torch.analysis import cost
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_ref
 
@@ -76,19 +78,38 @@ def flash_attention(
     ``kv_chunk`` boundaries, so both round p at the same points. ``window``
     (None: none) masks keys at ``q_pos - k_pos >= window``.
     """
-    if q.device.type == "cpu":
+    if not cost.counting():
+        return _route(q, k, v, causal, q_chunk, kv_chunk, window)
+    b, sq, h, d = q.shape
+    flops = 4 * d * b * h * live_pairs(sq, causal, window)
+    return cost.unit("B3", flops, (q, k, v), _route, q, k, v, causal, q_chunk, kv_chunk, window)
+
+
+def _route(q, k, v, causal, q_chunk, kv_chunk, window) -> Tensor:
+    if not build.on_card(q):
         return flash_attention_ref(q, k, v, causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
                                    window=window)
     o = _launch(q, k, v, causal=causal, kv_chunk=kv_chunk, window=window, skip=True)
-    build.bump(flash_attention, "launches")
+    if not build.is_fake(q):
+        build.bump(flash_attention, "launches")
     return o
+
+
+def live_pairs(s: int, causal: bool, window: Optional[int]) -> int:
+    """The (query, key) pairs of one head of an S-row sequence that the
+    causal mask and the local ``window`` leave live (the work a launch
+    needs; it skips the masked tiles)."""
+    if not causal:
+        return s * s
+    w = s if window is None else min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
 
 
 def _launch(q: Tensor, k: Tensor, v: Tensor, *, causal: bool, kv_chunk: int,
             window: Optional[int], skip: bool) -> Tensor:
     """One launch on the card, uncounted. ``skip=False`` walks every key
     tile from 0 (the checks' path; see the module docstring)."""
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+    if not build.on_card(q) or k.device != q.device or v.device != q.device:
         raise ValueError(
             f"flash_attention kernel needs q, k and v on one CUDA device, got "
             f"{q.device}, {k.device} and {v.device}"
@@ -118,6 +139,8 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, *, causal: bool, kv_chunk: int,
         )
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel needs contiguous q, k and v")
+    if build.is_fake(q):  # a dry run: the output, nothing launched
+        return torch.empty_like(q)
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
         # the tensor-core kernel moves rows in 16-byte copies
         raise ValueError("flash_attention bf16 kernel needs 16-byte aligned q, k and v")

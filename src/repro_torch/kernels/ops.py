@@ -40,6 +40,11 @@ backward, so an input's gradient (x's, a range's) is whole and the same
 on every rank and no partial gradient is summed across ranks. B3's
 training form needs no such step: the rank runs it on its heads, and each
 head's VJP is its own.
+
+The dispatchers take the card's route where ``kernels.build.on_card``
+says so (a CUDA tensor, or a fake one in a dry run's card trace), and
+each call is one unit of ``analysis.cost``'s count: B1's 2 M K N FLOPs,
+whichever route computes them.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch import collectives
+from repro_torch.analysis import cost
 
 from repro_torch.kernels import analog_mvm as kernel
 from repro_torch.kernels import build
@@ -69,6 +75,17 @@ backward_calls = 0
 attention_backward_calls = 0
 
 
+def b1_unit(fn: Callable[..., Tensor], args: tuple, reads: tuple) -> Tensor:
+    """``fn(*args)``, one B1 call reading ``reads``, ``x`` (..., K) and ``w``
+    (..., K, N) first, as a unit of ``analysis.cost``'s count: 2 M K N
+    FLOPs (M K the elements of ``x``; a bank's E included), ``reads``
+    read. With no count running, ``fn(*args)`` alone."""
+    if not cost.counting():
+        return fn(*args)
+    x, w = reads[:2]
+    return cost.unit("B1", 2 * x.numel() * w.shape[-1], reads, fn, *args)
+
+
 def analog_mvm(
     x: Tensor,
     w: Tensor,
@@ -85,9 +102,14 @@ def analog_mvm(
     has one more (Eq. 3). ``r_dac=None``: x is already DAC-quantized.
     ``keep``: the training form's (M, T, N) quant-noise mask, M the rows of
     x flattened (``ref.tile_mvm``)."""
+    return b1_unit(_analog_mvm, (x, w, r_adc, r_dac, out_scale, bits, tile_rows, per_tile_adc,
+                                 keep), (x, w, r_adc, r_dac, out_scale, keep))
+
+
+def _analog_mvm(x, w, r_adc, r_dac, out_scale, bits, tile_rows, per_tile_adc, keep):
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if x.device.type == "cuda":
+    if build.on_card(x):
         y = kernel.analog_mvm(
             x2.contiguous(), w.contiguous(), r_adc=r_adc, r_dac=r_dac,
             out_scale=out_scale, b_adc=bits, tile_rows=tile_rows,
@@ -121,9 +143,14 @@ def analog_mvm_bank(
     training form's (E, M, T, N) mask -> (E, ..., N). A CUDA tensor
     launches B1's bank form (``kernel.analog_mvm_bank``, one launch for
     every expert), a CPU tensor runs ``ref.analog_mvm_bank_ref``."""
+    return b1_unit(_analog_mvm_bank, (x, w, r_adc, out_scale, bits, tile_rows, per_tile_adc,
+                                      keep), (x, w, r_adc, out_scale, keep))
+
+
+def _analog_mvm_bank(x, w, r_adc, out_scale, bits, tile_rows, per_tile_adc, keep):
     e, lead = x.shape[0], x.shape[1:-1]
     x3 = x.reshape(e, -1, x.shape[-1])
-    if x.device.type == "cuda":
+    if build.on_card(x):
         y = kernel.analog_mvm_bank(
             x3.contiguous(), w.contiguous(), r_adc=r_adc, out_scale=out_scale, b_adc=bits,
             tile_rows=tile_rows, per_tile_adc=per_tile_adc,

@@ -56,7 +56,7 @@ def layout_of(mesh) -> MeshLayout:
         return mesh
     names = getattr(mesh, "mesh_dim_names", None)
     if names is not None:  # a DeviceMesh
-        return MeshLayout(tuple(names), tuple(int(s) for s in mesh.mesh.shape))
+        return MeshLayout(tuple(names), tuple(int(s) for s in mesh.shape))
     names = tuple(mesh.axis_names)
     return MeshLayout(names, tuple(int(mesh.shape[a]) for a in names))
 

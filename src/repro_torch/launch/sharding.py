@@ -274,12 +274,14 @@ def cache_shardings(cache: Any, mesh, global_batch: int) -> Any:
         lambda x: NamedSharding(mesh, cache_pspec(tuple(x.shape), mesh, global_batch)), cache)
 
 
-def logical_rules(mesh, cfg=None, layout: str = "2d", training: bool = False) -> dict:
+def logical_rules(mesh, cfg=None, layout: str = "2d", training: bool = False,
+                  rows: bool = False) -> dict:
     """Logical activation dims -> mesh axes (None: replicated). With
     ``cfg``, a heads or kv-heads count the ``model`` degree does not divide
     is replicated (padding a tiny kv-head dim would cost more than it
-    saves). ``training``: also ``rows`` -- a training step's batch rows,
-    over ``data`` (``models.common.row_axis``)."""
+    saves). ``training`` (or ``rows``, a sharded serving step's): also
+    ``rows`` -- the step's batch rows, a data-parallel rank's of one
+    global batch, over ``data`` (``models.common.row_axis``)."""
     lay = layout_of(mesh)
     if layout == "dp":
         axes = tuple(lay.axis_names)
@@ -304,7 +306,7 @@ def logical_rules(mesh, cfg=None, layout: str = "2d", training: bool = False) ->
             rules["kv_heads"] = None
         if cfg.n_heads and cfg.n_heads % model_n != 0:
             rules["heads"] = None
-    if training:
+    if training or rows:
         rules["rows"] = b
     return rules
 
@@ -544,12 +546,7 @@ def train_view(params: Any, shardings: Any) -> Any:
     from repro_torch import collectives
     from repro_torch.core import engine
 
-    by_path = {tree_lib.path_name(p): sh for p, sh in tree_lib.flatten_with_path(shardings)}
-
-    def node_fn(path: str, node: dict) -> dict:
-        w = "w" if "w" in node else "w1"
-        split = leaf_split(node[w], by_path[f"{path}/{w}"])
-        return dict(node) if split is None else {**node, "tp": split}
+    by_path = _by_path(shardings)
 
     def whole(t, path: str):
         sh = by_path[path]
@@ -575,4 +572,36 @@ def train_view(params: Any, shardings: Any) -> Any:
             return type(tree)(out) if isinstance(tree, tuple) else out
         return tree
 
-    return walk(engine._walk(params, node_fn), "")
+    return walk(layer_splits(params, shardings), "")
+
+
+def _by_path(shardings: Any) -> dict:
+    return {tree_lib.path_name(p): sh for p, sh in tree_lib.flatten_with_path(shardings)}
+
+
+def layer_splits(params: Any, shardings: Any) -> Any:
+    """``params`` with each analog layer and expert bank split over
+    ``model`` carrying its :class:`Split` under ``"tp"`` (the first half of
+    :func:`train_view`; no tensor is touched)."""
+    from repro_torch.core import engine
+
+    by_path = _by_path(shardings)
+
+    def node_fn(path: str, node: dict) -> dict:
+        w = "w" if "w" in node else "w1"
+        split = leaf_split(node[w], by_path[f"{path}/{w}"])
+        return dict(node) if split is None else {**node, "tp": split}
+
+    return engine._walk(params, node_fn)
+
+
+def serve_view(params: Any, shardings: Any) -> Any:
+    """The tree a sharded serving step's forward runs on, from a rank's
+    slices (``param_shardings``' layout, ``inference`` or not): each leaf
+    gathered over the FSDP axes, then :func:`train_view` (each layer's
+    split, every other leaf split over ``model`` gathered whole)."""
+    shs = tree_lib.leaves(shardings)
+    fsdp = fsdp_axes(shs[0].mesh)
+    if fsdp:
+        params = tree_lib.tree_map(lambda t, sh: gather_leaf(t, sh, fsdp), params, shardings)
+    return train_view(params, shardings)

@@ -144,7 +144,7 @@ def make_train_step(
                                    loss_for)
 
     def train_step(params, opt_state, batch, rng):
-        step_rng = prng.fold_in(rng, int(opt_state.step))
+        step_rng = prng.fold_in(rng, opt_state.step)
         noise_rng = step_rng if analog_cfg.needs_rng else None
 
         if accum_steps <= 1:
@@ -213,7 +213,7 @@ def _sharded_train_step(cfg, analog_cfg, opt_cfg, accum_steps, mesh, shardings, 
         return rows
 
     def train_step(params, opt_state, batch, rng):
-        step_rng = prng.fold_in(rng, int(opt_state.step))
+        step_rng = prng.fold_in(rng, opt_state.step)
         noise_rng = step_rng if analog_cfg.needs_rng else None
         with logical_rules_of(rules, mesh):
             if accum_steps <= 1:
@@ -270,7 +270,8 @@ def _batch_on(params, batch: dict, dev: torch.device) -> dict:
     return out
 
 
-def make_prefill_step(cfg: ModelConfig, analog_cfg: AnalogConfig, *, device="cuda"):
+def make_prefill_step(cfg: ModelConfig, analog_cfg: AnalogConfig, *, device="cuda",
+                      mesh: Any = None, shardings: Any = None):
     """(params, batch, cache, rng) -> (next-position logits, cache), the
     reference's prefill step on ``device``.
 
@@ -282,7 +283,23 @@ def make_prefill_step(cfg: ModelConfig, analog_cfg: AnalogConfig, *, device="cud
     ``analog_cfg.needs_rng``. The analog weights run from a copy cast to
     ``cfg.dtype`` once per params object (shared with a serve step handed
     the same object), not at every MVM.
+
+    **Sharded** (``mesh``, a (data, model) ``DeviceMesh``; ``shardings``,
+    ``launch.sharding.param_shardings(..., analog_cfg=analog_cfg)`` of the
+    params, ``inference`` or not): the step the reference jits with its
+    param, batch and cache shardings, from the engine's sharded forward.
+    ``params`` holds the rank's slices (``sharding.shard_tree``), ``batch``
+    is the global batch, of which the rank takes its rows where the data
+    axes divide them (``batch_shardings``), and ``cache`` is the rank's:
+    its rows, and the KV heads its attention runs (:func:`sharded_cache`).
+    Each step gathers every leaf over the FSDP axes and the leaves the
+    forward takes whole (``sharding.serve_view``); the tensor-parallel
+    forward runs the rank's columns, tiles, heads and experts, every draw
+    its slice of the unsharded step's, no float summed by a collective. It
+    returns the rank's rows of what the unsharded step returns.
     """
+    if mesh is not None:
+        return _sharded_serving_step(cfg, analog_cfg, device, mesh, shardings, prefill=True)
     dev = resolve_device(device)
     held: list = []
 
@@ -295,15 +312,19 @@ def make_prefill_step(cfg: ModelConfig, analog_cfg: AnalogConfig, *, device="cud
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig, analog_cfg: AnalogConfig, *, device="cuda"):
+def make_serve_step(cfg: ModelConfig, analog_cfg: AnalogConfig, *, device="cuda",
+                    mesh: Any = None, shardings: Any = None):
     """One greedy decode step on ``device``: (params, batch, cache, rng) ->
     (next tokens, cache), the reference's serve step.
 
     ``batch`` holds the previous step's ``tokens`` (B, 1), or the audio
     family's next ``frames`` (B, 1, d). The argmax runs over the last axis:
     (B,) int32 tokens, or (B, C) codes for a codebook head. The weights
-    are cast once per params object, as in :func:`make_prefill_step`.
+    are cast once per params object, as in :func:`make_prefill_step`;
+    ``mesh`` and ``shardings`` as there (the rank's rows' tokens).
     """
+    if mesh is not None:
+        return _sharded_serving_step(cfg, analog_cfg, device, mesh, shardings, prefill=False)
     dev = resolve_device(device)
     held: list = []
 
@@ -315,3 +336,63 @@ def make_serve_step(cfg: ModelConfig, analog_cfg: AnalogConfig, *, device="cuda"
         return logits[:, -1].argmax(dim=-1).to(torch.int32), cache
 
     return serve_step
+
+
+def _batch_rows(mesh: Any, batch: dict) -> Optional[Any]:
+    """This rank's :class:`~repro_torch.launch.sharding.Split` of the
+    batch rows over ``data`` (``batch_shardings``' rule), or None where
+    every rank runs the whole batch."""
+    from repro_torch import collectives
+    from repro_torch.launch import sharding as shd
+
+    b = next(iter(batch.values())).shape[0]
+    data = collectives.axis_of(mesh, "data")
+    if data is None or data.size == 1 or shd.batch_axis(mesh, b) is None:
+        return None
+    return shd.Split(0, shd.even_bounds(b, data.size), data.rank)
+
+
+def sharded_cache(cfg: ModelConfig, params: Any, shardings: Any, mesh: Any, batch: int,
+                  s_max: int, *, stacked: bool = True, device="cuda") -> tuple:
+    """A rank's cache for a sharded serving step over the global ``batch``
+    rows: its rows of them (where the data axes divide them) and the KV
+    heads its attention runs (``attention.head_layout``: its own where the
+    ``model`` degree divides them, else every one)."""
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models.common import logical_rules_of
+
+    with logical_rules_of(shd.logical_rules(mesh, cfg), mesh):
+        kv = lm_lib.cache_kv_heads(shd.layer_splits(params, shardings), cfg)
+    rows = _batch_rows(mesh, {"b": torch.empty((batch,), device="meta")})
+    b = batch if rows is None else rows.stop - rows.start
+    return lm_lib.init_lm_cache(cfg, b, s_max, cfg.dtype, stacked=stacked, device=device,
+                                kv_heads=kv)
+
+
+def _sharded_serving_step(cfg, analog_cfg, device, mesh, shardings, prefill: bool):
+    """:func:`make_prefill_step` / :func:`make_serve_step` under ``mesh``."""
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models.common import logical_rules_of
+
+    if shardings is None:
+        raise ValueError("a sharded serving step takes shardings=param_shardings(params, "
+                         "mesh, cfg, inference=..., analog_cfg=analog_cfg)")
+    dev = resolve_device(device)
+    held: list = []
+
+    def step(params, batch, cache, rng):
+        noise_rng = rng if analog_cfg.needs_rng else None
+        rows = _batch_rows(mesh, batch)
+        if rows is not None:
+            batch = {k: rows.take(torch.as_tensor(v), 0) for k, v in batch.items()}
+        rules = shd.logical_rules(mesh, cfg, rows=rows is not None)
+        with torch.no_grad(), logical_rules_of(rules, mesh):
+            view = shd.serve_view(_cast_once(held, params, cfg.dtype), shardings)
+            logits, cache = lm_lib.lm_forward(view, _batch_on(params, batch, dev), analog_cfg,
+                                              cfg, rng=noise_rng, cache=cache,
+                                              last_token_only=prefill)
+        if prefill:
+            return logits, cache
+        return logits[:, -1].argmax(dim=-1).to(torch.int32), cache
+
+    return step

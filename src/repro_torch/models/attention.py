@@ -27,7 +27,7 @@ import torch
 from repro_torch import prng
 from repro_torch.core.analog import (AnalogCtx, gather_columns, linear_apply, linear_init,
                                      linear_local)
-from repro_torch.kernels import decode_rows
+from repro_torch.kernels import build, decode_rows
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ref import NEG_INF, flash_attention_ref
@@ -66,7 +66,8 @@ def head_layout(params: dict, cfg: ModelConfig) -> HeadLayout:
     training step (``row_axis``) where the KV heads are replicated, every
     rank runs every head: with the query heads split, each rank's heads
     would add only their part of a KV head's gradient, and the whole one
-    would be a float sum over the ranks."""
+    would be a float sum over the ranks. A sharded serving step (its rows
+    split, no gradient) keeps the rank's heads."""
     from repro_torch.models.common import row_axis, split_axis
 
     hd = cfg.hd
@@ -78,7 +79,7 @@ def head_layout(params: dict, cfg: ModelConfig) -> HeadLayout:
     h0, h1 = sq.start // hd, sq.stop // hd
     if col(sk) and split_axis("kv_heads") is not None:
         return HeadLayout(h1 - h0, (sk.stop - sk.start) // hd, sq, True, h0)
-    if row_axis() is not None:
+    if row_axis() is not None and torch.is_grad_enabled():
         return whole
     return HeadLayout(h1 - h0, h1 - h0, sq, False, h0)
 
@@ -288,7 +289,7 @@ def attn_apply(
     # one token per slot against a cache on a card: RoPE and attention run
     # the fused decode kernel's row code (kernels.decode_rows), so the
     # per-layer step's K rows and outputs are B2's bit for bit
-    row_kernels = cache is not None and s == 1 and x.device.type == "cuda"
+    row_kernels = cache is not None and s == 1 and build.on_card(x)
     if row_kernels:
         q, k = decode_rows.rope(q, k, positions[:, 0].expand(b), cfg.rope_theta)
     else:

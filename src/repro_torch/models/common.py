@@ -48,6 +48,11 @@ def logical_rules() -> dict[str, Any]:
     return dict(_LOGICAL_RULES)
 
 
+def current_mesh() -> Any:
+    """The mesh the installed rules name (None: none)."""
+    return _MESH["mesh"]
+
+
 @contextlib.contextmanager
 def logical_rules_of(rules: dict[str, Any], mesh: Any):
     """:func:`set_logical_rules` for the block's duration; the rules before

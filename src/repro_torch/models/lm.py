@@ -49,7 +49,7 @@ from repro_torch import collectives, prng
 from repro_torch.core.analog import (AnalogConfig, AnalogCtx, MvmFn, linear_apply, linear_init,
                                      linear_local)
 from repro_torch.device import resolve_device
-from repro_torch.kernels import decode_rows
+from repro_torch.kernels import build, decode_rows
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import griffin as griffin_lib
 from repro_torch.models import moe as moe_lib
@@ -95,7 +95,7 @@ def _rows(x: Tensor, cache) -> bool:
     """One token per slot against a cache on a card: the decode step, whose
     norms, RoPE, attention and gate run B2's row code
     (``kernels.decode_rows``)."""
-    return cache is not None and x.shape[1] == 1 and x.device.type == "cuda"
+    return cache is not None and x.shape[1] == 1 and build.on_card(x)
 
 
 def _norm(params: dict, x: Tensor, eps: float, rows: bool) -> Tensor:

@@ -200,19 +200,41 @@ def capacity(cfg: ModelConfig, tokens: int) -> tuple[int, int, int]:
 
 
 def moe_apply(params: dict, x: Tensor, ctx: AnalogCtx, cfg: ModelConfig) -> Tensor:
-    """x: (B, S, M) -> (B, S, M)."""
+    """x: (B, S, M) -> (B, S, M).
+
+    On a data-parallel rank's rows (``row_axis``) the routing groups are
+    the rank's groups of the whole batch's; where the whole batch's groups
+    do not split over the ranks, every rank gathers the rows, runs the
+    whole batch's layer and keeps its rows (``collectives.gather`` and
+    ``own_slice``). Backward, a rank's rows' gradient goes back through
+    the whole batch's layer in zeros: a token's input gradient comes from
+    its own output's alone (routing and capacity take no gradient, and
+    every other op acts on one token), and the weights get the rank's
+    rows' part, which ``training.loop.value_and_grad`` sums over ``data``
+    as it sums every layer's."""
+    rows = row_axis()
+    b, s = x.shape[:2]
+    if rows is None or capacity(cfg, b * s * rows.size)[0] % rows.size == 0:
+        return _moe_apply(params, x, ctx, cfg, rows)
+    from repro_torch import collectives
+    from repro_torch.models.common import current_mesh, logical_rules, logical_rules_of
+
+    bounds = tuple(i * b for i in range(rows.size + 1))
+    whole = collectives.gather(x, 0, bounds, rows)
+    rules = {k: v for k, v in logical_rules().items() if k != "rows"}
+    with logical_rules_of(rules, current_mesh()):  # the whole batch's draws
+        y = _moe_apply(params, whole, ctx, cfg, None)
+    return collectives.own_slice(y, 0, bounds, rows)
+
+
+def _moe_apply(params: dict, x: Tensor, ctx: AnalogCtx, cfg: ModelConfig, rows) -> Tensor:
     b, s, m = x.shape
     e, k = cfg.n_experts, cfg.top_k
     dtype = x.dtype
-    rows = row_axis()
     if rows is None:
         g, sg, cap = capacity(cfg, b * s)
     else:  # a data-parallel rank's rows: its groups of the whole batch's
         g, sg, cap = capacity(cfg, b * s * rows.size)
-        if g % rows.size:
-            raise NotImplementedError(
-                f"the global batch's {g} routing groups do not split over {rows.size} "
-                "data-parallel ranks")
         g //= rows.size
     xt = x.reshape(g, sg, m)
 

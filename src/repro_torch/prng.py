@@ -31,11 +31,17 @@ read-noise coefficient.
 
 from __future__ import annotations
 
+import functools
 import math
+import struct
 import sys
 from typing import Optional, Sequence, Union
 
+import numpy as np
 import torch
+
+from repro_torch.analysis import cost
+from repro_torch.kernels import build
 
 Tensor = torch.Tensor
 Shape = Union[int, Sequence[int]]
@@ -52,9 +58,35 @@ def _u32(x) -> Tensor:
     return x & _M32
 
 
+def _emulated(name: str, operands: tuple, dtype: torch.dtype, n_out: int, fn):
+    """``fn()``, an operation torch ops emulate bit for bit (a hash, an exact
+    FMA, ``powf``). On fake operands outside a counted run (a dry run's
+    set-up: ``lm_init`` on fake tensors) it makes the ``n_out`` results'
+    tensors and emulates nothing; inside ``analysis.cost.count`` it runs
+    the emulation's ops, as a real run does, so the counts and the traced
+    memory are the real run's -- once for each ``name`` and signature of
+    the operands, then replayed (``cost.memoized``: the ops follow from
+    the shapes, and a PCM chain's emulations repeat them)."""
+    ts = [t for t in operands if isinstance(t, Tensor)]
+    if not any(build.is_fake(t) for t in ts):
+        return fn()
+    if cost.counting():
+        return cost.memoized((name, build.on_card(ts[0]), *(
+            (tuple(t.shape), t.stride(), t.dtype, t.device.type) if isinstance(t, Tensor)
+            else type(t) for t in operands)), fn)
+    shape = torch.broadcast_shapes(*(t.shape for t in ts))
+    outs = tuple(torch.empty(shape, dtype=dtype, device=ts[0].device) for _ in range(n_out))
+    return outs if n_out > 1 else outs[0]
+
+
 def threefry2x32(k1: Tensor, k2: Tensor, x1: Tensor, x2: Tensor):
     """The Threefry-2x32 hash (20 rounds) of count pairs (x1, x2) under the
     key (k1, k2); all int64 tensors of uint32 values, broadcast together."""
+    return _emulated("threefry", (k1, k2, x1, x2), torch.int64, 2,
+                     lambda: _threefry2x32(k1, k2, x1, x2))
+
+
+def _threefry2x32(k1: Tensor, k2: Tensor, x1: Tensor, x2: Tensor):
     ks = [k1, k2, k1 ^ k2 ^ 0x1BD11BDA]
     x = [_u32(x1 + ks[0]), _u32(x2 + ks[1])]
     for i in range(5):
@@ -97,11 +129,16 @@ def split(key: Tensor, num: Shape = 2) -> Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
-def fold_in(key: Tensor, data: int) -> Tensor:
-    """``jax.random.fold_in``: a new key from ``key`` and a uint32 datum."""
+def fold_in(key: Tensor, data) -> Tensor:
+    """``jax.random.fold_in``: a new key from ``key`` and a uint32 datum
+    (an int, or an integer tensor of one value: a step's own counter,
+    folded in without a read to the host)."""
     k1, k2 = _check_key(key)
-    d = int(data) & _M32
-    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(k1), torch.full_like(k2, d))
+    if isinstance(data, Tensor):
+        d = torch.zeros_like(k2) + (data.reshape(()).to(k2.device, torch.int64) & _M32)
+    else:
+        d = torch.full_like(k2, int(data) & _M32)
+    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(k1), d)
     return torch.stack([b1, b2])
 
 
@@ -134,10 +171,11 @@ _CPU_SLICE = 1 << 18
 _CARD_SLICE = 1 << 26
 
 
-def _sliced(n: int, device, part) -> Tensor:
+def _sliced(n: int, card: bool, part) -> Tensor:
     """``part(start, stop)`` (a 1-D result) over [0, n): one call on a card
-    or for ``n <= _CPU_SLICE``, else on the CPU slice by slice."""
-    if torch.device(device).type != "cpu" or n <= _CPU_SLICE:
+    (``card``: ``kernels.build.on_card``) or for ``n <= _CPU_SLICE``, else
+    on the CPU slice by slice."""
+    if card or n <= _CPU_SLICE:
         return part(0, n)
     first = part(0, _CPU_SLICE)
     out = torch.empty(n, dtype=first.dtype)
@@ -163,9 +201,13 @@ def _draw(key: Tensor, shape: tuple, values, offset: int = 0,
     ``offset`` to ``offset + prod(shape)`` (:func:`_sliced`); with
     ``stride``, row ``r`` of the draw takes its counters from ``offset + r *
     stride`` on (a column block of a wider draw: a rank's columns of a
-    sharded chip)."""
+    sharded chip). A fake key outside a counted run (a dry run's set-up)
+    runs no threefry (:func:`_emulated`)."""
+    n = math.prod(shape)
+    if build.is_fake(key) and not cost.counting():  # a dry run's set-up: no threefry
+        return values(torch.empty(n, dtype=torch.int64, device=key.device)).reshape(shape)
     row = _row(shape, stride)
-    return _sliced(math.prod(shape), key.device, lambda start, stop: values(
+    return _sliced(n, build.on_card(key), lambda start, stop: values(
         _flat_bits(key, start, stop, row, offset))).reshape(shape)
 
 
@@ -183,15 +225,20 @@ def fma(a: Tensor, b: Tensor, c) -> Tensor:
     value rounds to the nearest f32 exactly as the exact sum does. Large
     CPU operands go slice by slice, as a CPU draw does, and so do operands
     of more than ``_CARD_SLICE`` values on a card (a 1 B-weight lm_head's
-    f64 temporaries would take tens of GB at once).
+    f64 temporaries would take tens of GB at once). See :func:`_emulated`
+    for fake operands.
     """
-    if a.device.type == "cpu":
+    return _emulated("fma", (a, b, c), torch.float32, 1, lambda: _fma_routed(a, b, c))
+
+
+def _fma_routed(a: Tensor, b: Tensor, c) -> Tensor:
+    if not build.on_card(a):
         if max(a.numel(), b.numel()) <= _CPU_SLICE:
             return _fma(a, b, c)
         c = c if isinstance(c, Tensor) else torch.tensor(_f32(c), dtype=torch.float32)
         a, b, c = torch.broadcast_tensors(a, b, c)
         flat = [t.reshape(-1) for t in (a, b, c)]
-        return _sliced(a.numel(), a.device,
+        return _sliced(a.numel(), False,
                        lambda start, stop: _fma(*(t[start:stop] for t in flat))).reshape(a.shape)
     if max(a.numel(), b.numel()) <= _CARD_SLICE:
         return _fma(a, b, c)
@@ -230,8 +277,9 @@ def _fma(a: Tensor, b: Tensor, c) -> Tensor:
 
 
 def _f32(x: float) -> float:
-    """The f32 value nearest ``x`` (a Python float), as XLA folds a literal."""
-    return float(torch.tensor(x, dtype=torch.float32))
+    """The f32 value nearest ``x`` (a Python float), as XLA folds a literal
+    (on the host: no tensor op, so a counted run dispatches none)."""
+    return float(np.float32(x))
 
 
 def sqrt(x: Tensor) -> Tensor:
@@ -380,8 +428,6 @@ def _normal_kernel(key: Tensor, shape: tuple, scaled: bool, offset: int = 0,
     global _FN
     import ctypes
 
-    from repro_torch.kernels import build
-
     with build.LOCK:
         if _FN is None:
             lib = build.load("prng")
@@ -414,10 +460,10 @@ def normal_erf_inv(key: Tensor, shape: Shape = (), offset: int = 0,
     """``erf_inv(u)`` of :func:`normal`'s draw, before the ``* SQRT2``: where
     the reference multiplies a normal by a constant, its compiler folds the
     two constants into one factor."""
-    if key.device.type == "cuda":
-        return _normal_kernel(key, _shape(shape), scaled=False, offset=offset, stride=stride)
-    return _draw(key, _shape(shape), lambda b: erf_inv(_uniform_of(b, _NORMAL_LO, 1.0)),
-                 offset, stride)
+    return _draw_unit(key, _shape(shape), lambda: _normal_kernel(
+        key, _shape(shape), scaled=False, offset=offset, stride=stride) if build.on_card(key)
+        else _draw(key, _shape(shape), lambda b: erf_inv(_uniform_of(b, _NORMAL_LO, 1.0)),
+                   offset, stride))
 
 
 def normal(key: Tensor, shape: Shape = (), offset: int = 0,
@@ -432,9 +478,19 @@ def normal(key: Tensor, shape: Shape = (), offset: int = 0,
     starts at counter ``offset + r * stride`` -- columns ``c0:c1`` of rows
     ``r0:r1`` are ``normal(key, (r1 - r0, c1 - c0), offset=r0 * C + c0,
     stride=C)``."""
-    if key.device.type == "cuda":
-        return _normal_kernel(key, _shape(shape), scaled=True, offset=offset, stride=stride)
-    return normal_erf_inv(key, shape, offset, stride) * SQRT2
+    return _draw_unit(key, _shape(shape), lambda: _normal_kernel(
+        key, _shape(shape), scaled=True, offset=offset, stride=stride) if build.on_card(key)
+        else normal_erf_inv(key, shape, offset, stride) * SQRT2)
+
+
+def _draw_unit(key: Tensor, shape: tuple, fn) -> Tensor:
+    """A normal draw as one unit of ``analysis.cost``'s count (no FLOPs;
+    the key read, the draw written), whichever route makes it. A fake key
+    (a dry run) gets the draw's output on either route: no threefry, no
+    launch."""
+    if build.is_fake(key):
+        fn = lambda: torch.empty(shape, dtype=torch.float32, device=key.device)  # noqa: E731
+    return cost.unit("prng.normal", 0, (key,), fn)
 
 
 def exponential(key: Tensor, shape: Shape = ()) -> Tensor:
@@ -510,42 +566,56 @@ _EXP2F_POLY = ("0x1.c6af84b912394p-5", "0x1.ebfce50fac4f3p-3",
 _EXP2F_SHIFT = float.fromhex("0x1.8p+52") / _EXP2F_N
 
 
-def _exp2f_tab() -> list[int]:
+@functools.lru_cache(maxsize=None)
+def _exp2f_tab() -> tuple:
     from decimal import Decimal, getcontext
 
     getcontext().prec = 50
     out = []
     for i in range(_EXP2F_N):
         v = float(Decimal(2) ** (Decimal(i) / _EXP2F_N))
-        u = torch.tensor(v, dtype=torch.float64).view(torch.int64).item()
+        u = struct.unpack("<q", struct.pack("<d", v))[0]  # the f64's bits
         out.append(u - ((i << 52) // _EXP2F_N))
-    return out
+    return tuple(out)
 
 
 _TABLES: dict = {}
 
 
-def _powf_tables(device) -> tuple[Tensor, Tensor, Tensor]:
-    dev = torch.device(device)
-    if dev not in _TABLES:
+def _powf_tables(like: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    """The tables on ``like``'s device, kept per device; a fake ``like``'s
+    (a dry run's trace) are made anew and never kept, so no real call meets
+    a fake table and no trace a real one."""
+    dev, fake = like.device, build.is_fake(like)
+    if fake or dev not in _TABLES:
         f = lambda s: float.fromhex(s)
-        _TABLES[dev] = (
+        tables = (
             torch.tensor([f(a) for a, _ in _POWF_LOG2], dtype=torch.float64, device=dev),
             torch.tensor([f(b) for _, b in _POWF_LOG2], dtype=torch.float64, device=dev),
             torch.tensor(_exp2f_tab(), dtype=torch.int64, device=dev),
         )
+        if fake:
+            return tables
+        _TABLES[dev] = tables
     return _TABLES[dev]
 
 
 def powf(x: Tensor, y: Tensor) -> Tensor:
+    """glibc's ``powf`` (:func:`_powf`, :func:`_emulated`)."""
+    return _emulated("powf", (x, y), torch.float32, 1, lambda: _powf(x, y))
+
+
+def _powf(x: Tensor, y: Tensor) -> Tensor:
     """glibc's ``powf(x, y)`` for finite ``x > 0`` (normal) and finite ``y``,
     broadcast together: log2(x) in double from a 16-entry table and a
     degree-5 polynomial, times y, then exp2 from a 32-entry table and a
-    degree-3 polynomial, rounded once to f32. ``y == 0`` gives 1."""
+    degree-3 polynomial, rounded once to f32. ``y == 0`` gives 1; a lane
+    outside the domain (or with |y log2 x| >= 126) gives NaN."""
     x, y = torch.broadcast_tensors(x.float(), y.float())
-    if bool(((x <= 0) | ~torch.isfinite(x) | (x < _MIN_NORMAL)).any()):
-        raise ValueError("powf here takes finite normal x > 0")
-    invc_t, logc_t, exp_t = _powf_tables(x.device)
+    # outside its domain a lane gives NaN (a check on the host would read
+    # the device every call)
+    bad = (x <= 0) | ~torch.isfinite(x) | (x < _MIN_NORMAL)
+    invc_t, logc_t, exp_t = _powf_tables(x)
     ix = x.contiguous().view(torch.int32).to(torch.int64)
     tmp = ix - 0x3F330000
     i = (tmp >> 19) % 16
@@ -564,8 +634,7 @@ def powf(x: Tensor, y: Tensor) -> Tensor:
     q = p * r2 + q
     logx = yy * r4 + q
     ylogx = y.double() * logx
-    if bool((ylogx.abs() >= 126.0).any()):
-        raise ValueError("powf here takes |y log2 x| < 126 (no over/underflow)")
+    bad = bad | (ylogx.abs() >= 126.0)
     kd = ylogx + _EXP2F_SHIFT
     ki = kd.view(torch.int64)
     kd = kd - _EXP2F_SHIFT
@@ -578,4 +647,5 @@ def powf(x: Tensor, y: Tensor) -> Tensor:
     yv = c[2] * rr + 1.0
     yv = zz * rr2 + yv
     out = (yv * s).float()
-    return torch.where(y == 0, torch.ones_like(out), out)
+    out = torch.where(y == 0, torch.ones_like(out), out)
+    return torch.where(bad, torch.full_like(out, math.nan), out)

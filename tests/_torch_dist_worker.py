@@ -355,7 +355,8 @@ FAMILY_STEPS = 2
 MESH_CASES = {(1, 1): ("dense-analog", "moe-analog", "dense-digital"),
               (1, 2): tuple(c for c in TRAIN_CASES if c not in FAMILY_CASES) + FAMILY_CASES,
               (2, 1): ("dense-analog", "moe-analog", "rgemma-analog"),
-              (2, 2): ("dense-analog",)}
+              (2, 2): ("dense-analog",),
+              (4, 1): ("moe-analog",)}
 
 
 def train_batch(vocab: int) -> dict:
@@ -531,6 +532,12 @@ def job_train2xn(ctx, models):
                                               if c not in FAMILY_CASES])
 
 
+def job_train4x1(ctx, models):
+    """The (world, 1) mesh's cases: the MoE's 2 routing groups do not split
+    over 4 data ranks (``moe.moe_apply``'s gathered rows)."""
+    return job_train(ctx, 1)
+
+
 def job_train2xf(ctx, models):
     return job_train(ctx, ctx["world"] // 2, [f"{m}-analog" for m in models])
 
@@ -662,10 +669,89 @@ def job_ops(ctx, models):
     return out
 
 
-JOBS = {"chips": job_chips, "forward": job_forward, "shardmap": job_shardmap,
-        "serve": job_serve, "fam": job_fam, "cnn": job_cnn, "train1x1": job_train1x1,
-        "train1xn": job_train1xn, "train1xf": job_train1xf, "train2xf": job_train2xf,
-        "train2xn": job_train2xn, "jax": job_jax, "hazard": job_hazard, "ops": job_ops}
+#: the pcm_infer job's rectangle: rows, prompt tokens, greedy steps
+INFER_RECT = (2, 8, 3)
+
+
+def infer_tokens(cfg) -> np.ndarray:
+    """The pcm_infer job's prompts (also the test's, for JAX)."""
+    b, s, _ = INFER_RECT
+    return np.random.default_rng(21).integers(0, cfg.vocab, size=(b, s)).astype(np.int32)
+
+
+def job_pcminfer(ctx, models):
+    """Per-call PCM inference (``pcm_infer``) on a rank's shards over a
+    (world / 2, 2) mesh: the forward's logits on the shards (``serve_view``)
+    and on the whole params (the unsharded forward, at one thread as the
+    group runs), and the greedy tokens of the sharded step makers
+    (``make_prefill_step``/``make_serve_step(mesh=)``), the ranks' rows
+    gathered."""
+    from repro_torch import collectives
+    from repro_torch.models.common import logical_rules_of
+
+    mesh = mesh_lib.make_host_mesh(2)
+    data = collectives.axis_of(mesh, "data")
+    out = {}
+    b, s, n = INFER_RECT
+    for name in models:
+        cfg = cfg_of(name)
+        params = lm.lm_init(prng.PRNGKey(0), cfg, device="cpu")
+        p_sh = shd.param_shardings(params, mesh, cfg, inference=True, analog_cfg=INFER)
+        local = shd.shard_tree(params, p_sh)
+        toks = torch.as_tensor(infer_tokens(cfg)).long()
+        with torch.no_grad(), logical_rules_of(shd.logical_rules(mesh, cfg), mesh):
+            view = shd.serve_view(local, p_sh)
+            out[f"{name}_logits"] = lm.lm_forward(view, {"tokens": toks}, INFER, cfg,
+                                                  rng=prng.PRNGKey(7))[0].numpy()
+        out[f"{name}_host"] = lm.lm_forward(params, {"tokens": toks}, INFER, cfg,
+                                            rng=prng.PRNGKey(7))[0].numpy()
+        prefill = steps.make_prefill_step(cfg, INFER, device="cpu", mesh=mesh, shardings=p_sh)
+        serve = steps.make_serve_step(cfg, INFER, device="cpu", mesh=mesh, shardings=p_sh)
+        cache = steps.sharded_cache(cfg, local, p_sh, mesh, b, s + n, device="cpu")
+        logits, cache = prefill(local, {"tokens": toks}, cache, prng.PRNGKey(3))
+        got = [logits[:, -1].argmax(-1).to(torch.int32)]
+        cache = lm.unstack_cache(cache)
+        for i in range(n - 1):
+            nxt, cache = serve(local, {"tokens": got[-1][:, None]}, cache,
+                               prng.fold_in(prng.PRNGKey(4), i))
+            got.append(nxt)
+        rows = torch.stack(got, dim=1)
+        out[f"{name}_tokens"] = collectives.all_gather_dim(
+            rows, 0, shd.even_bounds(b, data.size), data).numpy() if rows.shape[0] < b \
+            else rows.numpy()
+    return out
+
+
+#: the cost job's cell: (kind, seq, global batch) and its modes
+COST_CELL = ("train", 16, 4)
+COST_MODES = ("digital", "analog_train")
+
+
+def job_cost(ctx, models):
+    """A real sharded train step of the dense smoke config over the (1,
+    world) mesh under ``analysis.cost.count``: its counts (the test holds
+    them against the fake trace's over a fake group of the same layout)."""
+    from repro_torch.analysis import cost
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch import dryrun
+
+    mesh = mesh_lib.make_host_mesh(ctx["world"])
+    kind, seq, batch = COST_CELL
+    out = {}
+    for mode in COST_MODES:
+        c = dryrun.prepare(cfg_of("dense"), ShapeCell(kind, seq, batch, kind), mesh, mode,
+                           device="cpu")
+        with cost.count() as counter:
+            c.step(*c.args)
+        out[mode] = np.array(json.dumps({**counter.summary(), "argument_bytes": c.argument_bytes}))
+    return out
+
+
+JOBS = {"cost": job_cost, "pcminfer": job_pcminfer, "chips": job_chips, "forward": job_forward,
+        "shardmap": job_shardmap, "serve": job_serve, "fam": job_fam, "cnn": job_cnn,
+        "train1x1": job_train1x1, "train1xn": job_train1xn, "train1xf": job_train1xf,
+        "train2xf": job_train2xf, "train2xn": job_train2xn, "train4x1": job_train4x1,
+        "jax": job_jax, "hazard": job_hazard, "ops": job_ops}
 
 
 def main():

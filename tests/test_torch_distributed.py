@@ -50,6 +50,10 @@ replicated).
   its crossbar transforms and its mapping (``tests/test_sharded_program.py``'s
   scenario) over 2 ranks: chip, mapping and logits the unsharded chip's,
   which is JAX's; an LM's transformed layer programs whole, the rest split.
+* Per-call PCM inference (``pcm_infer``) on a rank's shards at (1, 2)
+  and (2, 2), the dense and MoE smoke configs (the ``pcminfer`` group,
+  ~15 s alone): the forward bitwise the unsharded one, and the sharded
+  step makers' greedy tokens JAX's host ``pcm_infer`` tokens.
 * ``--mesh-model 2`` over 2 processes prints the reference CLI's tokens;
   the refusals that stay (fused decode, paged recurrent serving), and
   that no float crosses ranks in an ``all_reduce``.
@@ -117,15 +121,17 @@ CLI = ["--analog", "--batch", "2", "--prompt-len", "8", "--tokens", "6"]
 #: this process's JAX work and the suite's other files, so they are the
 #: lightest
 GROUPS = {2: ("chips-dense,fam-mamba2,fam-musicgen", "chips-moe", "forward-dense,fam-pali",
-              "forward-moe", "shardmap", "serve,cnn,fam-rgemma"),
+              "forward-moe", "shardmap", "serve,cnn,fam-rgemma", "pcminfer"),
           4: ("chips-dense", "chips-moe", "forward-dense", "forward-moe", "shardmap",
-              "serve,fam-pali", "fam-rgemma")}
+              "serve,fam-pali", "fam-rgemma", "pcminfer")}
 FAM_WORLDS = {"mamba2": (2,), "rgemma": (2, 4), "pali": (2, 4), "musicgen": (2,)}
 #: the worker's (``_torch_dist_worker.py``) family names, and its audio
 #: rectangle: rows, prompt frames, greedy steps
 FAMILIES = {"mamba2": "mamba2-2.7b", "rgemma": "recurrentgemma-9b", "pali": "paligemma-3b",
             "musicgen": "musicgen-large"}
 CODEBOOK = (2, 6, 3)
+#: the worker's ``pcminfer`` rectangle (rows, prompt tokens, greedy steps)
+INFER_RECT = (2, 8, 3)
 
 
 def fam_inputs(cfg, seed: int, b: int, s: int) -> dict:
@@ -220,6 +226,27 @@ def _jax_families(ref: dict) -> None:
     ref["cnn"] = jengine.compile_program(
         jp, JINFER, jax.random.PRNGKey(1),
         transforms=janalognet.crossbar_transforms(J_KWS_BENCH_DW), with_mapping=True)
+
+
+def _jax_infer_tokens(jparams) -> dict:
+    """JAX's host ``pcm_infer`` greedy tokens through the reference's step
+    makers, eagerly, on the worker's ``pcminfer`` prompts and keys."""
+    b, s, n = INFER_RECT
+    out = {}
+    for name in ("dense", "moe"):
+        jcfg = _jcfg(name)
+        toks = np.random.default_rng(21).integers(0, jcfg.vocab, size=(b, s)).astype(np.int32)
+        cache = jlm.init_lm_cache(jcfg, b, s + n, jnp.float32)
+        logits, cache = jsteps.make_prefill_step(jcfg, JINFER)(
+            jparams[name], {"tokens": jnp.asarray(toks)}, cache, jax.random.PRNGKey(3))
+        got = [np.asarray(logits[:, -1].argmax(-1)).astype(np.int32)]
+        step = jsteps.make_serve_step(jcfg, JINFER)
+        for i in range(n - 1):
+            nxt, cache = step(jparams[name], {"tokens": jnp.asarray(got[-1])[:, None]}, cache,
+                              jax.random.fold_in(jax.random.PRNGKey(4), i))
+            got.append(np.asarray(nxt))
+        out[name] = np.stack(got, axis=1)
+    return out
 
 
 def _env():
@@ -394,10 +421,11 @@ def runs(tmp_path_factory):
     # programmed after the serving above, not beside it
     fam = {}
     _jax_families(fam)
+    infer = _jax_infer_tokens(jparams)
     for t in threads:
         t.join()
     return dict(root=root, errors=errors, ref=ref, trace=trace, jtokens=jtokens,
-                jcli=buf.getvalue(), cli=cli, jparams=jparams, fam=fam)
+                jcli=buf.getvalue(), cli=cli, jparams=jparams, fam=fam, infer=infer)
 
 
 def _ok(runs, world, jobs):
@@ -430,6 +458,28 @@ def test_sharded_chip_aged_and_refreshed_are_the_host_chip(runs, world, name):
         _bitwise(want.params, loaded.params)
         _bitwise(want.state, loaded.state)
         assert loaded.t_seconds == want.t_seconds and loaded.age_history == want.age_history
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", ["dense", "moe"])
+def test_sharded_pcm_infer_forward_is_the_unsharded_one(runs, world, name):
+    """Per-call PCM inference on a rank's shards at (1, 2) and (2, 2): every
+    draw its slice of the whole layer's, the weight scale and the GDC the
+    layer's, the row-parallel partials summed in tile order -- the logits
+    bitwise the unsharded forward's on every rank."""
+    _ok(runs, world, "pcminfer")
+    for r in _load(runs, world, "pcminfer"):
+        assert r[f"{name}_logits"].tobytes() == r[f"{name}_host"].tobytes()
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", ["dense", "moe"])
+def test_sharded_pcm_infer_steps_give_jax_tokens(runs, world, name):
+    """The sharded prefill and serve steps (``mesh=``; at (2, 2) each data
+    rank its row, gathered) give JAX's host ``pcm_infer`` greedy tokens."""
+    _ok(runs, world, "pcminfer")
+    for r in _load(runs, world, "pcminfer"):
+        assert np.array_equal(r[f"{name}_tokens"], runs["infer"][name])
 
 
 @pytest.mark.parametrize("world", [2, 4])

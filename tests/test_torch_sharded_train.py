@@ -5,7 +5,7 @@ The ranks run in processes of their own (``tests/_torch_dist_worker.py``):
 1 rank at mesh (1, 1); 2 ranks at (1, 2), and at (2, 1) with the
 operator checks; 2 ranks for the other families at (1, 2) and (2, 1); 4
 ranks at (2, 2), then the reference's scenario and one column-parallel MVM
-at (1, 4). Each group has the 60 s timeout of
+at (1, 4); 4 ranks at (4, 1) for the MoE. Each group has the 60 s timeout of
 ``test_torch_distributed.py`` on its process group and its processes;
 ``CHAINS`` runs them, the chains side by side. Meanwhile this process
 runs the port's unsharded steps and JAX's unsharded jitted step. Each
@@ -30,8 +30,10 @@ which mesh runs which.
   rank's slice of the unsharded step's draw with the same key, the ranks'
   slices covering it; every FSDP gather exact; the step-1 loss and the
   per-token loss of the step-1 forward bitwise; a step run twice bitwise.
-* The data axis, (2, 1) and (2, 2) (at (2, 1) recurrentgemma too, one
-  step, held to the step-1 bars). A weight gradient's contraction over
+* The data axis, (2, 1), (2, 2) and (4, 1) (at (2, 1) recurrentgemma
+  too, one step, held to the step-1 bars; at (4, 1) the MoE, whose 2
+  routing groups do not split over 4 ranks: every rank routes the
+  gathered batch and keeps its rows' gradient, ``moe.moe_apply``). A weight gradient's contraction over
   the batch is cut into one partial a rank, summed in rank order
   (``collectives.sum_in_rank_order``), not in the unsharded order, so the
   gradients differ by rounding. After step 1 the grad norm is within
@@ -113,7 +115,7 @@ FAMILY_CASES = ("mamba2-analog", "rgemma-analog", "pali-analog")
 FAMILY_STEPS = 2
 MESH_CASES = {(1, 1): ("dense-analog", "moe-analog", "dense-digital"), (1, 2): tuple(CASES),
               (2, 1): ("dense-analog", "moe-analog", "rgemma-analog"),
-              (2, 2): ("dense-analog",)}
+              (2, 2): ("dense-analog",), (4, 1): ("moe-analog",)}
 OPT = toptim.OptimizerConfig(lr=1e-2, total_steps=50, warmup=0)
 B, S, STEPS = 8, 32, 3
 #: the data axis after step 1: grad norm and each param and optimizer-state
@@ -127,14 +129,15 @@ WITNESS_GAP = 1e-3
 #: meshes -> (ranks, worker jobs)
 MESHES = {(1, 1): (1, ("train1x1",)),
           (1, 2): (2, ("train1xn-dense", "train1xn-moe", "train1xf-mamba2-rgemma-pali")),
-          (2, 1): (2, ("train2xn", "train2xf-rgemma")), (2, 2): (4, ("train2xn",))}
+          (2, 1): (2, ("train2xn", "train2xf-rgemma")), (2, 2): (4, ("train2xn",)),
+          (4, 1): (4, ("train4x1",))}
 #: chains of (world, worker jobs) groups: a chain's groups run one after
 #: another (each a process group of its own, with its own timeout), the
 #: chains side by side. The (1, 2) mesh's dense and MoE cases are two
 #: groups of one chain: as one group they took 56-60 s of its 60 under a
 #: whole tier-1 run. The other families' cases are a 2-rank group after
 #: ``train2xn,ops`` (a fifth chain timed the 2-rank groups out there).
-CHAINS = (((1, "train1x1"),), ((2, "train1xn-dense"), (2, "train1xn-moe")),
+CHAINS = (((1, "train1x1"), (4, "train4x1")), ((2, "train1xn-dense"), (2, "train1xn-moe")),
           ((2, "train2xn,ops"), (2, "train1xf-mamba2-rgemma-pali,train2xf-rgemma")),
           ((4, "train2xn"), (4, "jax,hazard")))
 
@@ -317,7 +320,7 @@ def test_no_data_axis_is_the_unsharded_step_bitwise(runs, mesh, case):
                 assert got.dtype == v.dtype and got.tobytes() == v.tobytes(), (part, k)
 
 
-@pytest.mark.parametrize("mesh,case", _mesh_cases([(2, 1), (2, 2)]))
+@pytest.mark.parametrize("mesh,case", _mesh_cases([(2, 1), (2, 2), (4, 1)]))
 def test_data_axis_step1_within_rounding(runs, mesh, case):
     ref, f = runs["ref"][case], _ranks(runs, mesh)[0]
     want = float(ref["metrics"][0]["grad_norm"])
@@ -327,8 +330,8 @@ def test_data_axis_step1_within_rounding(runs, mesh, case):
         assert max(worst.values()) <= STEP1_RTOL, (part, worst)
 
 
-@pytest.mark.parametrize("mesh,case", [(m, c) for m, c in _mesh_cases([(2, 1), (2, 2)])
-                                       if c in DATA_AXIS_GAP])
+@pytest.mark.parametrize("mesh,case", [
+    (m, c) for m, c in _mesh_cases([(2, 1), (2, 2), (4, 1)]) if c in DATA_AXIS_GAP])
 def test_data_axis_within_its_stated_tolerance(runs, mesh, case):
     ref, ranks = runs["ref"][case], _ranks(runs, mesh)
     f = ranks[0]
@@ -359,7 +362,7 @@ def test_data_axis_within_its_stated_tolerance(runs, mesh, case):
         assert flips == 0 if i < STEPS - 1 or CASES[case][0] == "dense" else flips > 0
 
 
-@pytest.mark.parametrize("mesh,case", _mesh_cases([(1, 1), (1, 2), (2, 1), (2, 2)]))
+@pytest.mark.parametrize("mesh,case", _mesh_cases([(1, 1), (1, 2), (2, 1), (2, 2), (4, 1)]))
 def test_each_draw_is_a_slice_of_the_unsharded_draw(runs, mesh, case):
     want = runs["ref"][case]["draws"]
     seen = {}
@@ -381,7 +384,7 @@ def test_each_draw_is_a_slice_of_the_unsharded_draw(runs, mesh, case):
         assert len(seen[key]) == numel, key
 
 
-@pytest.mark.parametrize("mesh,case", _mesh_cases([(1, 1), (1, 2), (2, 1), (2, 2)]))
+@pytest.mark.parametrize("mesh,case", _mesh_cases([(1, 1), (1, 2), (2, 1), (2, 2), (4, 1)]))
 def test_step1_loss_and_per_token_loss_bitwise_and_gathers_exact(runs, mesh, case):
     ref = runs["ref"][case]
     for f in _ranks(runs, mesh):
